@@ -21,7 +21,10 @@ exits non-zero on the first failure. Phases, one JSON line each:
 5. WordCount tumbling count and the Q7 global max, each with its parity
    check and launch count;
 6. kernel times at the main paths' shapes beside their bounds, the plain
-   versions' times and one PyTorch call as a yardstick;
+   versions' times, the device time of each CUDA kernel of a dispatch
+   (torch.profiler) and one PyTorch call as a yardstick (for K1 the
+   dispatch's ingest as one atomic `index_add_`, with the sort-based
+   `index_put_(accumulate=True)` of earlier runs beside it);
 7. device time by kernel for each path, from one more run of it under
    torch.profiler, and the share of its wall time the device was busy.
 
@@ -56,24 +59,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
-
-
-def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
-    """Device time of one fn() call: the median over `rounds` of the mean
-    over `reps` back-to-back runs, timed with CUDA events after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    means = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        means.append(start.elapsed_time(end) / reps)
-    return float(np.median(means))
 
 
 def bound(nbytes: float, nops: float):
@@ -220,6 +205,7 @@ def main() -> int:
         FusedWindowPipeline,
     )
     from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -309,13 +295,15 @@ def main() -> int:
              gen=st.make_device_gen(Q7["T"], Q7["B"], device=DEV, slide_ms=10_000,
                                     with_vals=True, nsb=Q7["NSB"])),
     ]
-    main_launches = {}
+    main_launches, cuda_launches = {}, {}
     for p in paths:
         drive(p, spans=1, depth=1)                      # warm-up, uncounted
         cs.reset_launch_counts()
         fired, secs = drive(p)
         launches = cs.LAUNCHES[p["kernel"]]
+        per_dispatch = cs.CUDA_LAUNCHES[p["kernel"]] / max(launches, 1)
         main_launches.setdefault(p["kernel"], launches)  # the first path of each kernel
+        cuda_launches.setdefault(p["kernel"], per_dispatch)
         t_rep = time.perf_counter()
         ref = st.replay(p["T"] * p["spans"], p["B"], window_ms=p["window"],
                         slide_ms=p["slide"], agg=p["agg"])
@@ -331,6 +319,7 @@ def main() -> int:
         emit({"phase": p["name"], "tuples_per_s": events / secs, "events": events,
               "seconds": secs, "parity": ok, "windows_checked": checked,
               "kernel": p["kernel"], "launches": launches,
+              "cuda_launches_per_dispatch": per_dispatch,
               "replay_s": time.perf_counter() - t_rep})
         if not ok or launches == 0:
             raise AssertionError(f"{p['name']}: parity failed or {p['kernel']} never launched")
@@ -345,6 +334,8 @@ def main() -> int:
     kw = dict(NSB=NSB, R=R, spws=(planner.spw,) * F, exact=True)
     k1_ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, [], idx, None, plan[:5], **kw), 10)
     k1_plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, [], idx, None, plan[:5], **kw), 2, 3)
+    k1_split = device_split_us(
+        lambda: cs.keyed_superscan(agg, count, [], idx, None, plan[:5], **kw))
     # the other stages of one YSB span: host planning (host clock) and the
     # on-card generator (CUDA events)
     plan_host_ms = []
@@ -355,13 +346,16 @@ def main() -> int:
         plan_host_ms.append((time.perf_counter() - t_plan) * 1e3)
     smin_abs = np.array([st.step_bounds(r, B)[0] for r in range(T)], np.int32)
     ysb_gen_ms = cuda_ms(lambda: paths[0]["gen"](0, smin_abs), 3)
-    # yardstick: the ingest alone as one index_put_ of the dispatch's records
+    # yardstick: the ingest alone as one atomic index_add_ of the dispatch's
+    # records (what the plain version calls per step); the sort-based
+    # index_put_ of earlier runs beside it
     ii = idx.view(T, B).long()
     smin_pos = plan[0].long()[:, None]
     cells = (((smin_pos + ii % NSB) % S) * K + ii // NSB)[ii >= 0]
     ones = torch.ones_like(cells, dtype=torch.int32)
     flat = count.view(-1)
-    k1_lib_ms = cuda_ms(lambda: flat.index_put_((cells,), ones, accumulate=True), 10)
+    k1_lib_ms = cuda_ms(lambda: flat.index_add_(0, cells, ones), 10)
+    k1_index_put_ms = cuda_ms(lambda: flat.index_put_((cells,), ones, accumulate=True), 10)
     plan_bytes = sum(p.numel() * 4 for p in plan[:5])
     k1_bound = bound(T * B * 4 + 2 * S * K * 4 + R * K * 4 + plan_bytes, T * B)
     del ii, cells, ones
@@ -377,6 +371,8 @@ def main() -> int:
                                                 gplan[:5], **gkw), 10)
     k2_plain_ms = cuda_ms(lambda: global_superscan_plain(gagg, gcount, gstates, gidx,
                                                          gvals, gplan[:5], **gkw), 2, 3)
+    k2_split = device_split_us(
+        lambda: cs.global_superscan(gagg, gcount, gstates, gidx, gvals, gplan[:5], **gkw))
     gsmin_abs = np.array([st.step_bounds(r, Q7["B"], 10_000)[0] for r in range(Q7["T"])],
                          np.int32)
     q7_gen_ms = cuda_ms(lambda: paths[2]["gen"](0, gsmin_abs), 3)
@@ -390,7 +386,9 @@ def main() -> int:
                      2 * Q7["T"] * Q7["B"])
     emit({"phase": "kernel_times", "card": card,
           "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_library_ms": k1_lib_ms,
+          "k1_index_put_ms": k1_index_put_ms, "k1_device_us": k1_split,
           "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_library_ms": k2_lib_ms,
+          "k2_device_us": k2_split,
           "ysb_span_gen_ms": ysb_gen_ms, "ysb_span_plan_host_ms": float(np.median(plan_host_ms)),
           "q7_span_gen_ms": q7_gen_ms})
 
@@ -398,13 +396,18 @@ def main() -> int:
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:103",
-         "launches": main_launches["k1_superscan"], "max_abs_err": k1_err,
+         "launches": main_launches["k1_superscan"],
+         "cuda_launches_per_dispatch": cuda_launches["k1_superscan"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": k1_lib_ms},
+         "bound_by": k1_bound[1], "library_ms": k1_lib_ms,
+         "index_put_ms": k1_index_put_ms},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",
-         "launches": main_launches["k2_global_superscan"], "max_abs_err": k2_err,
+         "launches": main_launches["k2_global_superscan"],
+         "cuda_launches_per_dispatch": cuda_launches["k2_global_superscan"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": k2_lib_ms},
     ]

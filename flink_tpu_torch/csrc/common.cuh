@@ -1,10 +1,14 @@
-// Shared pieces of the superscan kernels: field kinds, float atomics.
+// Shared pieces of the superscan kernels: field kinds, the merge of two
+// cells, step-partial identities, cp.async, the step descriptors
+// the scans walk, and the fire fold of a warp that holds a ring one lane
+// per warp lane.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Field kinds, numbered as ops/cuda_superscan.py numbers them.
+// Field kinds, numbered as ops/cuda_superscan.py numbers them. The count
+// ring merges as ADD_I32.
 enum FieldKind {
   ADD_F32 = 0,
   ADD_I32 = 1,
@@ -29,36 +33,150 @@ struct Spws {
   int w[MAX_FIRES];      // window length in slices of each fire slot
 };
 
-// Float min/max through a compare-and-swap loop: exact, and right for
-// -0.0 and the +-FLT_MAX identities (the signed-integer trick is not).
-__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
-  int* a = reinterpret_cast<int*>(addr);
-  int old = *a;
-  while (v < __int_as_float(old)) {
-    int prev = atomicCAS(a, old, __float_as_int(v));
-    if (prev == old) break;
-    old = prev;
-  }
+// The step's plan: smin [T], fire_pos/fire_valid/fire_row [T, F], purge
+// [T, S], all int32 in device memory.
+struct Plan {
+  const int* smin;
+  const int* fpos;
+  const int* fvalid;
+  const int* frow;
+  const int* purge;
+};
+
+// Merge cell b into cell a, both 32-bit patterns of a field kind. Float
+// min/max take b only when it is strictly smaller (larger): exact for -0.0
+// and the +-FLT_MAX identities, and what a CAS loop that writes only on a
+// strict compare leaves. Int32 adds wrap, as the reference's int32 sums do.
+// Branch-free: a chain of selects, which folds to the one operation when
+// the kind is known at compile time.
+__device__ __forceinline__ int merge_bits(int kind, int a, int b) {
+  const float fa = __int_as_float(a), fb = __int_as_float(b);
+  int r = max(a, b);                                        // MAX8, MAX_I32
+  r = kind == MIN_I32 ? min(a, b) : r;
+  r = kind == MIN_F32 ? (fb < fa ? b : a) : r;
+  r = kind == MAX_F32 ? (fb > fa ? b : a) : r;
+  r = kind == ADD_I32 ? (int)((unsigned int)a + (unsigned int)b) : r;
+  r = kind == ADD_F32 ? __float_as_int(fa + fb) : r;
+  return r;
 }
 
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  int* a = reinterpret_cast<int*>(addr);
-  int old = *a;
-  while (v > __int_as_float(old)) {
-    int prev = atomicCAS(a, old, __float_as_int(v));
-    if (prev == old) break;
-    old = prev;
-  }
-}
-
-// Combine two cells of a field kind, both given as 32-bit patterns.
-__device__ __forceinline__ int combine_bits(int kind, int a, int b) {
+// The identity of a step partial: merging it into any cell leaves the
+// cell's bits as they were (-0.0 for float adds: -0.0 + x is x, +0.0 too).
+__host__ __device__ __forceinline__ int partial_identity(int kind) {
   switch (kind) {
-    case ADD_F32: return __float_as_int(__int_as_float(a) + __int_as_float(b));
-    case ADD_I32: return a + b;
-    case MIN_F32: return __float_as_int(fminf(__int_as_float(a), __int_as_float(b)));
-    case MAX_F32: return __float_as_int(fmaxf(__int_as_float(a), __int_as_float(b)));
-    case MIN_I32: return min(a, b);
-    default:      return max(a, b);   // MAX8, MAX_I32
+    case ADD_F32: return (int)0x80000000u;   // -0.0f
+    case ADD_I32: return 0;
+    case MIN_F32: return 0x7f800000;         // +inf
+    case MAX_F32: return (int)0xff800000u;   // -inf
+    case MIN_I32: return 0x7fffffff;
+    default:      return (int)0x80000000u;   // MAX8, MAX_I32: INT_MIN
   }
+}
+
+// Asynchronous 4- and 16-byte copies from device memory to shared memory
+// (16: both addresses 16-byte aligned), and their commit and wait.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned int sa = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int sa = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x mod S in [0, S), as the plain version's Python modulo.
+__device__ __forceinline__ int mod_s(int x, int S) {
+  const int m = x % S;
+  return m < 0 ? m + S : m;
+}
+
+// The fire slots of a step that write: lane f (< F) holds slot f's valid
+// flag and clipped row, the other lanes 0 and -1. A slot writes unless a
+// later valid slot has the same row (the later write would win). Returns
+// the warp's mask of writing slots.
+__device__ __forceinline__ unsigned int writing_slots(int fv, int row, int F) {
+  const int lane = threadIdx.x & 31;
+  bool later = false;
+  for (int f2 = 0; f2 < F; ++f2) {
+    const int v2 = __shfl_sync(0xffffffffu, fv, f2);
+    const int r2 = __shfl_sync(0xffffffffu, row, f2);
+    later |= f2 > lane && v2 > 0 && r2 == row;
+  }
+  return __ballot_sync(0xffffffffu, fv > 0 && !later);
+}
+
+// One step's plan as a warp that walks a ring reads it: smin and the fire
+// positions reduced mod S, rows clipped to [0, R), the slots that write as
+// a mask, and the purged columns as bits (columns below 128; a walker of a
+// wider ring reads the plan's purge row itself).
+#define DESC_DEAD_WORDS 4
+struct StepDesc {
+  int sm;
+  unsigned int fires;
+  int pos[MAX_FIRES];
+  int row[MAX_FIRES];
+  unsigned int dead[DESC_DEAD_WORDS];
+};
+
+static_assert(sizeof(StepDesc) == 4 * (2 + 2 * MAX_FIRES + DESC_DEAD_WORDS),
+              "StepDesc is packed 32-bit words");
+
+// sizeof(StepDesc): ops/cuda_superscan.py sizes the scratch that holds
+// the descriptors, and checks its size against this when it loads a library.
+extern "C" int step_desc_bytes() { return (int)sizeof(StepDesc); }
+
+// Build the descriptor of step t; called by a whole warp.
+__device__ __forceinline__ void build_desc(StepDesc& d, const Plan& plan, long long t,
+                                           int S, int F, int R) {
+  const int lane = threadIdx.x & 31;
+  const bool slot = lane < F;
+  const int fv = slot ? plan.fvalid[t * F + lane] : 0;
+  const int row = slot ? min(max(plan.frow[t * F + lane], 0), R - 1) : -1;
+  const unsigned int fires = writing_slots(fv, row, F);
+  if (slot) {
+    d.pos[lane] = mod_s(plan.fpos[t * F + lane], S);
+    d.row[lane] = row;
+  }
+#pragma unroll
+  for (int j = 0; j < DESC_DEAD_WORDS; ++j) {
+    const int col = lane + 32 * j;
+    const unsigned int dead =
+        __ballot_sync(0xffffffffu, col < S && plan.purge[t * S + col] == 0);
+    if (lane == 0) d.dead[j] = dead;
+  }
+  if (lane == 0) {
+    d.sm = mod_s(plan.smin[t], S);
+    d.fires = fires;
+  }
+}
+
+// The fold of the w ring lanes from pos (in [0, S)) of a ring held one
+// lane per warp lane (v: this lane's cell; S <= 32), reduced across the
+// warp in a fixed order; every lane returns it. A lane counts as often as
+// the window covers it, as the sequential fold has it.
+__device__ __forceinline__ int warp_window_fold(int kind, int S, int pos, int w, int v) {
+  const int lane = threadIdx.x & 31;
+  int x = partial_identity(kind);
+  if (lane < S) {
+    int d = lane - pos;
+    if (d < 0) d += S;
+    for (int i = d; i < w; i += S) x = merge_bits(kind, x, v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = merge_bits(kind, x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
 }

@@ -4,13 +4,17 @@ Counterpart of `flink_tpu/ops/pallas_superscan.py`. The kernels are CUDA
 C++ for `sm_90a` in `flink_tpu_torch/csrc/`, built at first use by `nvcc`
 into shared libraries with a plain C interface under
 `build/flink_tpu_torch/` (rebuilt when a source's hash changes) and bound
-with ctypes. One C call runs a whole T-step dispatch: 2T kernel launches on
-PyTorch's current stream, with no host sync inside.
+with ctypes. A dispatch reduces the records of all its steps into step
+partials, then walks the steps once: two kernel launches on PyTorch's
+current stream (per group of steps for K1, where the partials would
+outgrow `PARTIAL_BUDGET`), with no host sync inside. The wrapper allocates
+the partials' scratch through PyTorch's caching allocator.
 
 The wrappers take the plain PyTorch version (`ops/superscan.py`) only for
 tensors that lie on the CPU. For CUDA tensors they launch the kernel or
 raise; nothing falls back. Each wrapper adds one to its entry in
-`LAUNCHES` for every dispatch it launches on the card.
+`LAUNCHES` for every dispatch it launches on the card, and the number of
+CUDA kernels that dispatch launched to its entry in `CUDA_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,10 +49,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: dispatches launched on the card, per wrapper (plain-version calls and
 #: CPU calls do not count)
 LAUNCHES: Dict[str, int] = {"k1_superscan": 0, "k2_global_superscan": 0}
+#: CUDA kernel launches of those dispatches
+CUDA_LAUNCHES: Dict[str, int] = dict(LAUNCHES)
+
+#: device memory that one keyed dispatch's step partials may take; a
+#: dispatch whose partials need more runs in groups of steps
+PARTIAL_BUDGET = 64 << 20
+#: steps in one group, at most (the CUDA grid's z limit, one z per step)
+MAX_GROUP_STEPS = 65535
+#: records one K2 ingest block folds, at most
+GLOBAL_CHUNK = 32768
 
 # limits of the C entry points (csrc/common.cuh, global_superscan.cu)
 MAX_FIELDS = 4
 MAX_FIRES = 16
+#: sizeof(StepDesc) in csrc/common.cuh (checked when a library loads)
+STEP_DESC_BYTES = 4 * (2 + 2 * MAX_FIRES + 4)
 MAX_GLOBAL_NSB = 8
 MAX_GLOBAL_S = 32
 MAX_GLOBAL_R = 128
@@ -64,6 +80,29 @@ _KIND_CODES = {
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        CUDA_LAUNCHES[name] = 0
+
+
+def partial_bytes(steps: int, K: int, NSB: int, nf: int) -> int:
+    """Bytes of K1's scratch for `steps` steps: the step partials [1 + nf,
+    steps, K, NSB] int32 (the count and each VALUE field), then one plan
+    descriptor per step."""
+    return 4 * (1 + nf) * steps * NSB * K + STEP_DESC_BYTES * steps
+
+
+def step_groups(T: int, K: int, NSB: int, nf: int) -> List[Tuple[int, int]]:
+    """Split a keyed dispatch's T steps into consecutive groups [t0, t1)
+    whose step partials fit in PARTIAL_BUDGET bytes (a group holds at least
+    one step and at most MAX_GROUP_STEPS). Each group is two kernel
+    launches."""
+    per_group = min(MAX_GROUP_STEPS,
+                    max(1, PARTIAL_BUDGET // partial_bytes(1, K, NSB, nf)))
+    return [(t0, min(T, t0 + per_group)) for t0 in range(0, T, per_group)]
+
+
+def global_blocks_per_step(B: int) -> int:
+    """K2's ingest blocks per step: runs of at most GLOBAL_CHUNK records."""
+    return max(1, -(-B // GLOBAL_CHUNK))
 
 
 # ---------------------------------------------------------------------------
@@ -128,16 +167,27 @@ _INTS = ctypes.POINTER(ctypes.c_int)
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build([name])[name]))
+    return bind(ctypes.CDLL(str(build([name])[name])), name)
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the C signature of library `name`'s entry point on `lib`,
+    after checking that the library's step descriptors have the size the
+    scratch is sized for."""
+    if lib.step_desc_bytes() != STEP_DESC_BYTES:
+        raise RuntimeError(f"{name}: sizeof(StepDesc) is {lib.step_desc_bytes()}, "
+                           f"the wrapper sizes its scratch for {STEP_DESC_BYTES}")
     common = [_PTR, _PTRS, _INTS, _INTS, _INT,            # count, fields, kinds, idents, nf
               _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # idx, vals, smin, fpos, fvalid, frow, purge
               _INTS, _INT, _PTR, _PTRS]                  # spws, F, count_out, outs
     if name == "superscan":
         fn = lib.k1_superscan
-        fn.argtypes = common + [_INT] * 7 + [_PTR]       # K S NSB R T B exact, stream
+        # K S NSB R B exact, part, t0 tg, stream
+        fn.argtypes = common + [_INT] * 6 + [_PTR, _INT, _INT, _PTR]
     else:
         fn = lib.k2_global_superscan
-        fn.argtypes = common + [_INT] * 5 + [_PTR]       # S NSB R T B, stream
+        # S NSB R T B, part, nblk, stream
+        fn.argtypes = common + [_INT] * 5 + [_PTR, _INT, _PTR]
     fn.restype = ctypes.c_int
     return lib
 
@@ -209,12 +259,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-
-
 def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
-            idents, out_shape, outs_fill, spws, geometry):
-    """Validate, allocate the fire rows, and run one dispatch on the card.
-    `geometry(T, B)` gives the entry's trailing int arguments."""
+            idents, out_shape, outs_fill, spws, scratch, calls):
+    """Validate, allocate the fire rows and the step partials' scratch, and
+    run one dispatch on the card. `scratch` is the scratch's int32 element
+    count; `calls(part)` lists the trailing arguments of each C call (each
+    call is two CUDA launches)."""
     dev = count.device
     S = count.shape[0]
     smin, fpos, fvalid, frow, purge = plan
@@ -241,20 +291,24 @@ def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
     lib = _library("superscan" if entry == "k1_superscan" else "global_superscan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
-            count.data_ptr(),
-            (ctypes.c_void_p * max(n, 1))(*[s.data_ptr() for s in states]),
-            (ctypes.c_int * max(n, 1))(*kinds),
-            (ctypes.c_int * max(n, 1))(*idents), n,
-            idx.data_ptr(), vals.data_ptr() if vf else None,
-            smin.data_ptr(), fpos.data_ptr(), fvalid.data_ptr(),
-            frow.data_ptr(), purge.data_ptr(),
-            (ctypes.c_int * max(F, 1))(*spws), F, count_out.data_ptr(),
-            (ctypes.c_void_p * max(n, 1))(*[o.data_ptr() for o in outs]),
-            *geometry(T, B), stream)
+        # freed after the calls are enqueued: the caching allocator reuses
+        # it only for work that follows on the same stream
+        part = torch.empty(scratch, dtype=torch.int32, device=dev)
+        head = (count.data_ptr(),
+                (ctypes.c_void_p * max(n, 1))(*[s.data_ptr() for s in states]),
+                (ctypes.c_int * max(n, 1))(*kinds),
+                (ctypes.c_int * max(n, 1))(*idents), n,
+                idx.data_ptr(), vals.data_ptr() if vf else None,
+                smin.data_ptr(), fpos.data_ptr(), fvalid.data_ptr(),
+                frow.data_ptr(), purge.data_ptr(),
+                (ctypes.c_int * max(F, 1))(*spws), F, count_out.data_ptr(),
+                (ctypes.c_void_p * max(n, 1))(*[o.data_ptr() for o in outs]))
         LAUNCHES[entry] += 1
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
+        for tail in calls(part.data_ptr()):
+            rc = getattr(lib, entry)(*head, *tail, stream)
+            if rc != 0:
+                raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
+            CUDA_LAUNCHES[entry] += 2
     return count_out, outs
 
 
@@ -281,12 +335,18 @@ def keyed_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
             f"R={R} F={F}: float32/int32 add, max8, min and max fields only, "
             "at most 4 fields and 16 fire slots")
     vf = value_fields(agg)
+    T = plan[1].shape[0]
+    B = idx.numel() // max(T, 1)
+    groups = step_groups(T, K, NSB, len(vf))
+    longest = max((t1 - t0 for t0, t1 in groups), default=0)
     return _launch(
         "k1_superscan", agg, count, states, idx, vals, plan,
         kinds=[_kind_code(f) for f in vf],
         idents=[_bits(f.identity, f.dtype) for f in vf], out_shape=(R, K),
         outs_fill=[0] * len(vf), spws=spws,
-        geometry=lambda T, B: (K, S, NSB, R, T, B, int(exact)))
+        scratch=partial_bytes(longest, K, NSB, len(vf)) // 4,
+        calls=lambda part: [(K, S, NSB, R, B, int(exact), part, t0, t1 - t0)
+                            for t0, t1 in groups])
 
 
 def global_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
@@ -312,9 +372,13 @@ def global_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
             "add/min/max fields only")
     vf = value_fields(agg)
     idents = [scan_identity(np.dtype(f.dtype), f.scatter) for f in vf]
+    T = plan[1].shape[0]
+    B = idx.numel() // max(T, 1)
+    nblk = global_blocks_per_step(B)
     return _launch(
         "k2_global_superscan", agg, count, states, idx, vals, plan,
         kinds=[_kind_code(f, f.scatter) for f in vf],
         idents=[_bits(i, f.dtype) for i, f in zip(idents, vf)],
         out_shape=(R,), outs_fill=idents, spws=spws,
-        geometry=lambda T, B: (S, NSB, R, T, B))
+        scratch=T * nblk * (1 + len(vf)) * NSB + T * STEP_DESC_BYTES // 4,
+        calls=lambda part: [(S, NSB, R, T, B, part, nblk)] if T else [])

@@ -175,3 +175,43 @@ def test_supports_gate_is_rederived_for_hopper():
     assert cs.supports(tagg.min_agg(), 8192, 64, 32, 4, 4)
     assert not cs.supports(tagg.sum_agg(np.float64), 8192, 64, 32, 4, 4)
     assert not cs.supports(tagg.count_agg(), 8192, 64, 32, 4, 17)
+
+
+@pytest.mark.parametrize("T_,K_,NSB_,nf", [
+    (48, 8192, 4, 0),        # YSB
+    (48, 1 << 20, 4, 0),     # three steps' partials fit the budget
+    (48, 1 << 20, 4, 4),
+    (7, 1 << 20, 16, 3),     # one step alone outgrows the budget
+    (1, 1000, 3, 2),
+    (0, 8192, 4, 0),
+    (96, 1, 2, 1),
+    (70_000, 1, 1, 0),       # the grid's step limit, not the budget, splits
+])
+def test_step_groups_cover_the_dispatch_within_the_budget(T_, K_, NSB_, nf):
+    groups = cs.step_groups(T_, K_, NSB_, nf)
+    steps = [t for t0, t1 in groups for t in range(t0, t1)]
+    assert steps == list(range(T_))                      # exactly, in order
+    assert all(t1 > t0 for t0, t1 in groups)
+    one_step = cs.partial_bytes(1, K_, NSB_, nf)
+    for t0, t1 in groups:
+        size = cs.partial_bytes(t1 - t0, K_, NSB_, nf)
+        assert size <= cs.PARTIAL_BUDGET or t1 - t0 == 1
+    assert all(t1 - t0 <= cs.MAX_GROUP_STEPS for t0, t1 in groups)
+    if one_step <= cs.PARTIAL_BUDGET and T_:
+        # as few groups as the budget and the grid allow
+        per = min(cs.MAX_GROUP_STEPS, cs.PARTIAL_BUDGET // one_step)
+        assert len(groups) == -(-T_ // per)
+
+
+def test_ysb_dispatch_takes_one_group():
+    assert cs.step_groups(48, 8192, 4, 0) == [(0, 48)]
+    # 6.3 MB of partials and 48 plan descriptors
+    assert cs.partial_bytes(48, 8192, 4, 0) == 48 * 4 * 8192 * 4 + 48 * cs.STEP_DESC_BYTES
+    assert len(cs.step_groups(48, 1 << 20, 4, 0)) == 16       # 3 steps a group
+
+
+def test_global_blocks_cover_each_step():
+    for B_ in (0, 1, 32767, 32768, 32769, 1 << 18):
+        n = cs.global_blocks_per_step(B_)
+        assert n >= 1 and n * cs.GLOBAL_CHUNK >= B_ and (n - 1) * cs.GLOBAL_CHUNK < max(B_, 1)
+    assert cs.global_blocks_per_step(1 << 18) == 8                  # Q7
