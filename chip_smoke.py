@@ -26,7 +26,24 @@ exits non-zero on the first failure. Phases, one JSON line each:
    dispatch's ingest as one atomic `index_add_`, with the sort-based
    `index_put_(accumulate=True)` of earlier runs beside it);
 7. device time by kernel for each path, from one more run of it under
-   torch.profiler, and the share of its wall time the device was busy.
+   torch.profiler, and the share of its wall time the device was busy;
+8. api_ysb, this slice's main path: YSB written as a DataStream job
+   (`bench.py::api_path_microbench`'s program: a traceable filter keeping
+   one record in three, a traceable key, 10 s windows sliding by 1 s,
+   `count`, 8192 keys, batch 65536, 32 steps a superbatch) run through the
+   port's API, planner, runners and operator on both routes — the fused
+   device chain (torch prologue + K1) and the host chain (host key
+   dictionary + K1). Parity in row mode at 2^21 records, three ways (both
+   routes and the numpy oracle over the same columns), plus a tumbling sum
+   whose traceable value_fn feeds K1's add field; then tuples/s at 2^24
+   records (fused) and 2^22 (host chain) with columnar output, the K1
+   dispatches of each run, one run of each route under torch.profiler
+   and one under cProfile (host time by function), and K1 against its
+   plain version at this path's shapes (the job's first full fused
+   dispatch, count and the prologue-fed sum: T=32, B=65536, K=8192,
+   R=256) with its times. The kernels line reports K1 at these shapes
+   (and at phase 6's under "ysb_generator"); each entry names its shape.
+   A bound counts as output the fire rows the dispatch writes, not all R.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -47,6 +64,11 @@ SCALAR_OPS_PER_S = 67e12         # H100 SXM float32/int32 outside the tensor cor
 YSB = dict(K=8192, S=32, NSB=4, F=4, R=64, T=48, B=1 << 20, spans=8, depth=3)
 WORDCOUNT = dict(T=24, B=1 << 20, spans=2, depth=2)
 Q7 = dict(S=8, NSB=2, F=4, R=16, T=96, B=1 << 18, spans=5, depth=3)
+# the DataStream job (bench.py::api_path_microbench's program): the
+# default batch 65536 and 32 steps a superbatch, so the ring is [32, 8192]
+API = dict(keys=8192, window=10_000, slide=1_000, sum_window=2_000, batch=65536,
+           fused_events=1 << 24, chain_events=1 << 22, parity_events=1 << 21,
+           warmup_events=1 << 19, runs=2)
 
 
 def emit(obj):
@@ -165,14 +187,15 @@ def drive(p, spans=None, depth=None):
                       depth or p["depth"], p["slide"], row_of)
 
 
-def profile_path(p) -> dict:
-    """Device time by kernel for one run of path p under torch.profiler, and
-    the share of the run's wall time the device was busy."""
+def profile_run(name: str, run) -> dict:
+    """Device time by kernel for one run() (which returns its wall seconds)
+    under torch.profiler, the share of the run's wall time the device was
+    busy, and K1's share of that busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _fired, secs = drive(p)
+        secs = run()
     # kernel rows only: an operator's row repeats its kernels' device time
     rows = []
     for e in prof.key_averages():
@@ -185,9 +208,234 @@ def profile_path(p) -> dict:
             rows.append((us, e.key[:70], e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    return {"phase": "profile", "path": p["name"], "wall_s": secs,
+    k1_us = sum(us for us, n, _c in rows if "k1_" in n)
+    return {"phase": "profile", "path": name, "wall_s": secs,
             "device_busy_us": busy_us, "device_busy_share": busy_us / 1e6 / secs,
+            "k1_device_us": k1_us, "k1_share_of_busy": k1_us / max(busy_us, 1e-9),
             "top": [{"name": n, "device_us": us, "calls": c} for us, n, c in rows[:10]]}
+
+
+def profile_path(p) -> dict:
+    return profile_run(p["name"], lambda: drive(p)[1])
+
+
+def host_profile(name: str, run, top: int = 12) -> dict:
+    """Host time by function for one run() under cProfile (a separate run:
+    the host-bound paths' wall is Python and numpy): each function's own
+    time, largest first."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    secs = run()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, f"{fn[2]} ({fn[0].split('/')[-1]}:{fn[1]})", nc)
+                   for fn, (_cc, nc, tt, _ct, _callers) in stats.items()), reverse=True)
+    return {"phase": "host_profile", "path": name, "wall_s": secs,
+            "top": [{"name": n, "own_s": tt, "calls": c} for tt, n, c in rows[:top]]}
+
+
+# ---------------------------------------------------------------------------
+# the api_ysb phase: YSB written as a DataStream job, through the port's
+# API, planner, runners and operator, on both routes
+# ---------------------------------------------------------------------------
+
+def _t_filter(col):
+    return col[:, 1] < 0.5                 # event_type 0: one record in three
+
+
+def _t_key(col):
+    return col[:, 0].to(torch.int32)
+
+
+def _t_value(col):
+    return col[:, 2]
+
+
+def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=DEV):
+    """(env, sink) of the YSB DataStream program over n records: a
+    traceable filter and key (one UDF object for both routes), a 10 s
+    window sliding by 1 s and `count` — or, with sum_job, a tumbling sum
+    whose traceable value_fn feeds K1's add field. The sink keeps each
+    batch's records with their timestamps (a window's max timestamp)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.sink import Sink, SinkWriter
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    class Writer(SinkWriter):
+        def __init__(self, batches):
+            self.batches = batches
+
+        def write_batch(self, values, timestamps=None):
+            self.batches.append((values, timestamps))
+
+    class RowsSink(Sink):
+        def __init__(self):
+            self.batches = []
+
+        def create_writer(self):
+            return Writer(self.batches)
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, API["keys"], payload=sum_job))
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.CHAIN_FUSION, fused)
+    cfg.set(ExecutionOptions.BATCH_SIZE, API["batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, API["keys"])
+    cfg.set(ExecutionOptions.COLUMNAR_OUTPUT, columnar)
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    keyed = (env.from_source(DataGeneratorSource(gen, n),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+             .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True))
+    sink = RowsSink()
+    if sum_job:
+        win = keyed.window(TumblingEventTimeWindows.of(API["sum_window"]))
+        win.aggregate("sum", value_fn=_t_value, value_traceable=True).sink_to(sink)
+    else:
+        win = keyed.window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
+        win.aggregate("count").sink_to(sink)
+    return env, sink
+
+
+def api_k1_inputs(sum_job: bool, dev=DEV):
+    """K1's inputs of the job's first full dispatch on the fused route (32
+    steps of 65536 records of a 2^24-record stream), made by the pipeline's
+    own staging and prologue: (pipe, agg, idx, vals, plan)."""
+    from flink_tpu_torch.api.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.runtime.fused_window_pipeline import (
+        FusedWindowPipeline,
+        TracedPrologue,
+    )
+    from flink_tpu_torch.testing import stream as st
+
+    n, B, T = API["fused_events"], API["batch"], 32
+    if sum_job:
+        window = TumblingEventTimeWindows.of(API["sum_window"])
+        prologue = TracedPrologue((("filter", _t_filter),), _t_key, _t_value)
+    else:
+        window = SlidingEventTimeWindows.of(API["window"], API["slide"])
+        prologue = TracedPrologue((("filter", _t_filter),), _t_key)
+    agg = resolve("sum" if sum_job else "count")
+    # the operator's geometry (FusedWindowOperator's defaults, chunk 4096)
+    pipe = FusedWindowPipeline(window, agg, key_capacity=API["keys"], nsb=4,
+                               fires_per_step=4, out_rows=256, chunk=4096,
+                               prologue=prologue, device=dev)
+    steps, wms = [], []
+    for t in range(T):
+        col, ts = st.api_columns(np.arange(t * B, (t + 1) * B, dtype=np.int64), n,
+                                 API["keys"], payload=sum_job)
+        steps.append((col, ts))
+        wms.append(int(ts.max()) - 1)
+    raw, srel, ts, plan = pipe.stage_superbatch_raw(steps, wms)
+    idx, vals, _bounds = pipe._run_prologue(raw, srel, ts)
+    return pipe, agg, idx, vals, plan
+
+
+def api_run(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=DEV):
+    """One execute() with the launch counts at 0 just before it: (sink,
+    seconds, K1 dispatches it made)."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    env, sink = api_job(n, fused, columnar=columnar, sum_job=sum_job, dev=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.execute()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return sink, secs, cs.LAUNCHES["k1_superscan"]
+
+
+def api_fired(sink, window_ms: int, slide_ms: int) -> dict:
+    """Row-mode sink records as {window index: row over the keys}."""
+    fired = {}
+    for values, ts in sink.batches:
+        for (k, v), t in zip(values, ts):
+            j = (int(t) + 1 - window_ms) // slide_ms
+            row = fired.get(j)
+            if row is None:
+                row = fired[j] = np.zeros(API["keys"])
+            row[k] = v
+    return fired
+
+
+def api_parity(n: int, *, sum_job: bool, dev=DEV) -> dict:
+    """The job in row mode on both routes and the numpy oracle over the same
+    columns: window-by-window equality, three ways."""
+    from flink_tpu_torch.testing import stream as st
+
+    window_ms = API["sum_window"] if sum_job else API["window"]
+    slide_ms = API["sum_window"] if sum_job else API["slide"]
+    ref = st.api_replay(n, API["batch"], window_ms=window_ms, slide_ms=slide_ms,
+                        agg="sum" if sum_job else "count", num_keys=API["keys"])
+    out = {"events": n, "job": "tumbling_sum" if sum_job else "sliding_count"}
+    ok = True
+    for route, fused in (("fused", True), ("chain", False)):
+        sink, secs, launches = api_run(n, fused, columnar=False, sum_job=sum_job, dev=dev)
+        fired = api_fired(sink, window_ms, slide_ms)
+        route_ok, checked = st.parity(ref.fired, fired, require_all=True)
+        route_ok = route_ok and set(fired) <= set(ref.fired)
+        out[route] = {"parity": route_ok, "windows_checked": checked,
+                      "k1_dispatches": launches, "seconds": secs}
+        ok = ok and route_ok
+    out["parity"] = ok
+    return out
+
+
+def _dispatched(result: dict) -> bool:
+    """Every route of a parity or timed result made K1 dispatches."""
+    return all(result[route]["k1_dispatches"] > 0 for route in ("fused", "chain"))
+
+
+def api_ysb_phase(dev=DEV, sizes=API) -> dict:
+    """Parity at sizes["parity_events"] (sliding count and tumbling sum),
+    then the timed columnar runs: sizes["fused_events"] records through the
+    fused device chain and sizes["chain_events"] through the host chain,
+    best of sizes["runs"] each after a warm-up."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    env, _sink = api_job(sizes["warmup_events"], True, columnar=True, dev=dev)
+    runners, _feeds = build_runners(plan(env._sinks), env.config, dev)
+    fused_selected = any(type(r).__name__ == "DeviceChainRunner" for r in runners)
+
+    count_parity = api_parity(sizes["parity_events"], sum_job=False, dev=dev)
+    sum_parity = api_parity(sizes["parity_events"], sum_job=True, dev=dev)
+    timed = {}
+    for route, fused, n in (("fused", True, sizes["fused_events"]),
+                            ("chain", False, sizes["chain_events"])):
+        api_run(sizes["warmup_events"], fused, columnar=True, dev=dev)
+        runs = [api_run(n, fused, columnar=True, dev=dev) for _ in range(sizes["runs"])]
+        secs = min(r[1] for r in runs)
+        timed[route] = {"events": n, "tuples_per_s": n / secs, "seconds": secs,
+                        "all_seconds": [r[1] for r in runs],
+                        "k1_dispatches": runs[0][2],
+                        "windows_emitted": sum(len(v) for v, _t in runs[0][0].batches)}
+    parity = count_parity["parity"] and sum_parity["parity"]
+    dispatched = all(_dispatched(r) for r in (count_parity, sum_parity, timed))
+    return {"phase": "api_ysb", "ok": fused_selected and parity and dispatched,
+            "k1_dispatched_on_every_route": dispatched, "fused_selected": fused_selected,
+            "fused_tuples_per_s": timed["fused"]["tuples_per_s"],
+            "chain_tuples_per_s": timed["chain"]["tuples_per_s"],
+            "timed": timed, "parity": parity,
+            "windows_checked": count_parity["fused"]["windows_checked"],
+            "sliding_count": count_parity, "tumbling_sum": sum_parity}
 
 
 def main() -> int:
@@ -295,7 +543,7 @@ def main() -> int:
              gen=st.make_device_gen(Q7["T"], Q7["B"], device=DEV, slide_ms=10_000,
                                     with_vals=True, nsb=Q7["NSB"])),
     ]
-    main_launches, cuda_launches = {}, {}
+    main_launches, cuda_launches, path_launches = {}, {}, {}
     for p in paths:
         drive(p, spans=1, depth=1)                      # warm-up, uncounted
         cs.reset_launch_counts()
@@ -304,6 +552,7 @@ def main() -> int:
         per_dispatch = cs.CUDA_LAUNCHES[p["kernel"]] / max(launches, 1)
         main_launches.setdefault(p["kernel"], launches)  # the first path of each kernel
         cuda_launches.setdefault(p["kernel"], per_dispatch)
+        path_launches.setdefault(p["kernel"], {})[p["name"]] = launches
         t_rep = time.perf_counter()
         ref = st.replay(p["T"] * p["spans"], p["B"], window_ms=p["window"],
                         slide_ms=p["slide"], agg=p["agg"])
@@ -357,7 +606,10 @@ def main() -> int:
     k1_lib_ms = cuda_ms(lambda: flat.index_add_(0, cells, ones), 10)
     k1_index_put_ms = cuda_ms(lambda: flat.index_put_((cells,), ones, accumulate=True), 10)
     plan_bytes = sum(p.numel() * 4 for p in plan[:5])
-    k1_bound = bound(T * B * 4 + 2 * S * K * 4 + R * K * 4 + plan_bytes, T * B)
+    # outputs: the fire rows this dispatch writes (the wrapper's zero fill of
+    # the other rows of [R, K] is work the function does not need)
+    k1_fires = len(plan[5])
+    k1_bound = bound(T * B * 4 + 2 * S * K * 4 + k1_fires * K * 4 + plan_bytes, T * B)
     del ii, cells, ones
 
     gagg = max_agg()
@@ -382,8 +634,8 @@ def main() -> int:
     gring = gstates[0]
     k2_lib_ms = cuda_ms(lambda: gring.scatter_reduce_(0, gcols, gv, "amax"), 10)
     gplan_bytes = sum(p.numel() * 4 for p in gplan[:5])
-    k2_bound = bound(Q7["T"] * Q7["B"] * 8 + 4 * Q7["S"] * 4 + 2 * Q7["R"] * 4 + gplan_bytes,
-                     2 * Q7["T"] * Q7["B"])
+    k2_bound = bound(Q7["T"] * Q7["B"] * 8 + 4 * Q7["S"] * 4 + 2 * len(gplan[5]) * 4
+                     + gplan_bytes, 2 * Q7["T"] * Q7["B"])
     emit({"phase": "kernel_times", "card": card,
           "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_library_ms": k1_lib_ms,
           "k1_index_put_ms": k1_index_put_ms, "k1_device_us": k1_split,
@@ -392,20 +644,78 @@ def main() -> int:
           "ysb_span_gen_ms": ysb_gen_ms, "ysb_span_plan_host_ms": float(np.median(plan_host_ms)),
           "q7_span_gen_ms": q7_gen_ms})
 
+    # ---- 8. the DataStream job (this slice's main path), both routes ----
+    api = api_ysb_phase()
+    emit(api)
+    if not api["ok"]:
+        raise AssertionError("api_ysb: parity failed, the fused runner was not "
+                             "selected, or a route made no K1 dispatch")
+    for route in ("fused", "chain"):
+        path_launches["k1_superscan"][f"api_ysb_{route}"] = api["timed"][route]["k1_dispatches"]
+
+    # K1 at the main path's shapes: the job's first full fused dispatch
+    # (T=32, B=65536, K=8192, R=256), inputs made by the pipeline's staging
+    # and prologue; count and the prologue-fed sum
+    api_k1 = {}
+    for name, sum_job in (("count", False), ("sum", True)):
+        pipe, agg, idx, vals, plan = api_k1_inputs(sum_job)
+        S_, K_, T_ = pipe.S, pipe.K, int(plan[0].shape[0])
+        kw = dict(NSB=pipe.NSB, R=pipe.R, spws=(pipe.spw,) * pipe.F, exact=True)
+        err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
+                             [(idx, vals, plan)], (S_, K_), False, **kw)
+        count, states = _fresh_rings(agg, (S_, K_), DEV, False)
+        ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw), 10)
+        plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, states, idx, vals,
+                                                         plan[:5], **kw), 2, 3)
+        # yardstick: the dispatch's ingest as one index_add_
+        ii = idx.view(T_, -1).long()
+        live = ii >= 0
+        cells = (((plan[0].long()[:, None] + ii % pipe.NSB) % S_) * K_ + ii // pipe.NSB)[live]
+        target = (states[0] if states else count).view(-1)
+        src = (vals.view(T_, -1)[live] if vals is not None
+               else torch.ones_like(cells, dtype=torch.int32))
+        lib_ms = cuda_ms(lambda: target.index_add_(0, cells, src), 10)
+        rings = 1 + len(states)
+        # outputs: the rows the dispatch fires, one per fire (not all R)
+        nbytes = (idx.numel() * 4 + (vals.numel() * 4 if vals is not None else 0)
+                  + 2 * rings * S_ * K_ * 4 + rings * len(plan[5]) * K_ * 4
+                  + sum(p.numel() * 4 for p in plan[:5]))
+        b_ms, b_by = bound(nbytes, int(live.sum()) * rings)
+        api_k1[name] = {"shape": f"api_ysb {name}: the DataStream job's first full fused "
+                                 f"dispatch, T={T_} B={idx.numel() // T_} K={K_} S={S_} "
+                                 f"R={pipe.R}",
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                        "fires": len(plan[5]), "device_us": device_split_us(
+                            lambda: cs.keyed_superscan(agg, count, states, idx, vals,
+                                                       plan[:5], **kw))}
+        del idx, vals, cells, src
+    emit({"phase": "k1_api_shapes", "card": card, **api_k1})
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:103",
-         "launches": main_launches["k1_superscan"],
+         "shape": api_k1["count"]["shape"],
+         "launches": api["timed"]["fused"]["k1_dispatches"],
+         "launches_by_path": path_launches["k1_superscan"],
          "cuda_launches_per_dispatch": cuda_launches["k1_superscan"],
-         "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": k1_lib_ms,
-         "index_put_ms": k1_index_put_ms},
+         "max_abs_err": max([k1_err] + [r["max_abs_err"] for r in api_k1.values()]),
+         "ms": api_k1["count"]["ms"], "plain_ms": api_k1["count"]["plain_ms"],
+         "bound_ms": api_k1["count"]["bound_ms"], "bound_by": api_k1["count"]["bound_by"],
+         "library_ms": api_k1["count"]["library_ms"],
+         "api_sum": api_k1["sum"],
+         "ysb_generator": {"shape": f"YSB generator: T={T} B={B} K={K} S={S} R={R}",
+                           "fires": k1_fires, "ms": k1_ms, "plain_ms": k1_plain_ms,
+                           "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+                           "library_ms": k1_lib_ms,
+                           "index_put_ms": k1_index_put_ms}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",
+         "shape": f"Q7: T={Q7['T']} B={Q7['B']} S={Q7['S']} R={Q7['R']}",
          "launches": main_launches["k2_global_superscan"],
+         "launches_by_path": path_launches["k2_global_superscan"],
          "cuda_launches_per_dispatch": cuda_launches["k2_global_superscan"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
@@ -414,6 +724,13 @@ def main() -> int:
     # ---- 7. where the time goes: each path once more under the profiler ----
     for p in paths:
         emit(profile_path(p))
+    emit(profile_run("api_ysb_fused", lambda: api_run(API["fused_events"], True,
+                                                      columnar=True)[1]))
+    emit(profile_run("api_ysb_chain", lambda: api_run(API["chain_events"], False,
+                                                      columnar=True)[1]))
+    for route, fused in (("fused", True), ("chain", False)):
+        emit(host_profile(f"api_ysb_{route}", lambda f=fused: api_run(
+            API["chain_events"], f, columnar=True)[1]))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,15 @@ The package mirrors `flink_tpu`'s layout and names so each module's
 counterpart is easy to find, and imports neither jax nor anything of
 `flink_tpu` (it keeps its own copies of the jax-free parts it needs).
 
-What this slice carries:
+What the port carries:
 
+- `api.datastream.StreamExecutionEnvironment`: the DataStream entry path
+  (`from_source().filter().key_by().window().aggregate()`), planned by
+  `graph.transformation`/`graph.fusion` and run by `runtime.executor`'s
+  runners over `runtime.fused_window_operator.FusedWindowOperator`. A
+  `traceable=True` chain (torch column UDFs) runs as a prologue on the
+  device inside each fused dispatch; otherwise the host chain and the host
+  key dictionary (`state.columnar.KeyDictionary`) feed the same operator.
 - `runtime.fused_window_pipeline.FusedWindowPipeline`: keyed event-time
   window aggregation, T steps per dispatch over a device-resident slice
   ring; on CUDA the dispatch runs on the hand-written Hopper kernel K1

@@ -8,6 +8,12 @@ dispatch — on CUDA as kernel K1 (keyed) or K2 (global), on the CPU as their
 plain PyTorch versions — and the fired rows come back in one copy per
 dispatch.
 
+With a `TracedPrologue` (whole-graph fusion, graph/fusion.py) a dispatch
+takes the RAW source columns of its T steps instead of key ids: the
+chain's map/filter/map_ts UDFs and the key/value extraction run as torch
+code on the device over the flattened `[T*B, ...]` staging buffer, and
+build the `idx`/`vals` that K1 (or its plain version) ingests.
+
 Semantics preserved (parity-tested against the JAX package):
 - slice-decomposed window assignment (TimeWindow.getWindowStartWithOffset),
 - EventTimeTrigger firing: window j fires when wm >= end(j)-1, in j order,
@@ -25,7 +31,7 @@ JAX pipeline's keys, shapes and dtypes in both directions.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,14 +40,32 @@ from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.core.time import MIN_WATERMARK, TimeWindow
 from flink_tpu_torch.ops import cuda_superscan as cs
 from flink_tpu_torch.ops.aggregators import VALUE, resolve, scan_identity, torch_dtype
-from flink_tpu_torch.utils.device import resolve_device, to_device
-
-#: where unported options of the JAX pipeline are queued
-_DEFERRED = "not ported yet: ROADMAP.md Queue A, deferred item {}"
+from flink_tpu_torch.utils import deferred
+from flink_tpu_torch.utils.arrays import canonical_column, canonical_dtype
+from flink_tpu_torch.utils.device import resolve_device, staging_buffer, upload
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -((-a) // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class TracedPrologue:
+    """The traced pre-stage of a fused device chain: chain transforms
+    applied to the raw value column on the device, then key/value
+    extraction. Every callable is a pure function of torch tensor columns
+    (row-local: map and filter see each row alone); `key_fn` must return
+    non-negative int keys below the pipeline's key capacity (checked over
+    every surviving record and raised at resolve — an out-of-range key
+    never aliases another key's row and is never dropped)."""
+
+    transforms: Tuple[Tuple[str, Any], ...]   # ('map'|'filter'|'map_ts', fn)
+    key_fn: Any
+    value_fn: Optional[Any] = None            # None: the column IS the value
+
+    @property
+    def needs_ts(self) -> bool:
+        return any(kind == "map_ts" for kind, _fn in self.transforms)
 
 
 @dataclasses.dataclass
@@ -65,25 +89,43 @@ class DeferredEmissions:
 
     On CUDA the fire rows are copied with non_blocking=True into pinned
     host memory as soon as the dispatch is enqueued; a CUDA event recorded
-    after the copies orders them, and `resolve` waits on that event only."""
+    after the copies orders them, and `resolve` waits on that event only.
+    A traced-chain dispatch also carries the [max, min] of the keys its
+    surviving records produced; resolve raises if they leave [0, K)."""
 
-    def __init__(self, pipe: "FusedWindowPipeline", fires, count_out, outs):
+    def __init__(self, pipe: "FusedWindowPipeline", fires, count_out, outs,
+                 key_bounds=None, key_capacity: Optional[int] = None):
         self._pipe = pipe
         self._fires = fires
         self._event = None
+        self._key_capacity = key_capacity
         if count_out.is_cuda:
             self._count_out = _host_copy(count_out)
             self._outs = {k: _host_copy(v) for k, v in outs.items()}
+            self._key_bounds = None if key_bounds is None else _host_copy(key_bounds)
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(count_out.device))
         else:
             self._count_out = count_out
             self._outs = outs
+            self._key_bounds = key_bounds
 
     def resolve(self):
         if self._event is not None:
             self._event.synchronize()
             self._event = None
+        if self._key_bounds is not None:
+            hi, lo = (int(v) for v in self._key_bounds.tolist())
+            if hi >= self._key_capacity or lo < 0:
+                raise ValueError(
+                    f"traced key selector produced keys in [{lo}, {hi}] "
+                    f"outside [0, {self._key_capacity}): the fused device "
+                    "chain uses dense integer keys and cannot grow capacity "
+                    "mid-dispatch. Raise 'execution.state.key-capacity' "
+                    "above the largest key the selector can emit (and keep "
+                    "keys non-negative), or drop traceable=True on key_by "
+                    "to use the host key dictionary."
+                )
         count_np = self._count_out.numpy()
         outs_np = {k: v.numpy() for k, v in self._outs.items()}
         return [
@@ -204,7 +246,8 @@ class FusedWindowPipeline:
     `device="cpu"` for the plain PyTorch path. `chunk` is the staging
     granule: `stage_superbatch` pads the batch width up to a multiple of it
     (with dropped records) so dispatch shapes stay stable; the kernels take
-    any width."""
+    any width. With `prologue` the pipeline takes raw source columns
+    (`process_superbatch_raw`)."""
 
     def __init__(
         self,
@@ -219,11 +262,9 @@ class FusedWindowPipeline:
         chunk: int = 8192,
         exact_sums: bool = True,
         plan_only: bool = False,      # host planner/cursors only, no device state
-        prologue=None,
+        prologue: Optional[TracedPrologue] = None,
         device=None,
     ):
-        if prologue is not None:
-            raise NotImplementedError(_DEFERRED.format("D1 (traced-chain prologue)"))
         agg = resolve(aggregate)
         if agg is None:
             raise ValueError(f"aggregate {aggregate!r} has no device form")
@@ -243,6 +284,10 @@ class FusedWindowPipeline:
         self.R = out_rows
         self.chunk = chunk
         self.exact_sums = exact_sums
+        self.prologue = prologue
+        # traced chain: the raw column layout, fixed by the first data
+        self._raw_shape: Optional[tuple] = None
+        self._raw_dtype = None
 
         self.g = assigner.slice_ms
         self.sl = assigner.slide_slices
@@ -307,8 +352,7 @@ class FusedWindowPipeline:
         self.K = new_k
 
     def attach_device_stats(self, tracker, phase_counters: bool = True) -> None:
-        raise NotImplementedError(
-            _DEFERRED.format("D4 (compile tracker and phase counters)"))
+        raise deferred.not_ported("attach_device_stats", deferred.D4)
 
     # ------------------------------------------------------------------
     # window geometry (identical formulas to the JAX pipeline)
@@ -369,7 +413,9 @@ class FusedWindowPipeline:
 
     def _to_device_plan(self, arrays, fires) -> tuple:
         """One host->device copy for the whole plan, split into views."""
-        flat = to_device(np.concatenate([a.reshape(-1) for a in arrays]), self.device)
+        flat_h, flat_t = staging_buffer((sum(a.size for a in arrays),), np.int32, self.device)
+        np.concatenate([a.reshape(-1) for a in arrays], out=flat_h)
+        flat = upload(flat_t, self.device)
         out, off = [], 0
         for a in arrays:
             out.append(flat[off:off + a.size].view(a.shape))
@@ -405,6 +451,11 @@ class FusedWindowPipeline:
         T = int(plan[0].shape[0])
         if watermarks is not None and T != len(watermarks):
             raise ValueError(f"{len(watermarks)} watermarks for {T} steps")
+        d = self._dispatch(idx_d, vals_d, plan)
+        return d if defer else d.resolve()
+
+    def _dispatch(self, idx_d, vals_d, plan, key_bounds=None) -> DeferredEmissions:
+        """Run one staged dispatch and start its readback."""
         fires = plan[5]
         names = [f.name for f in self._value_fields]
         # K1 for CUDA state, its plain version for CPU state; what K1
@@ -422,8 +473,8 @@ class FusedWindowPipeline:
         if used < self.R:
             count_out = count_out[:used]
             outs = {k: v[:used] for k, v in outs.items()}
-        deferred = DeferredEmissions(self, fires, count_out, outs)
-        return deferred if defer else deferred.resolve()
+        return DeferredEmissions(self, fires, count_out, outs, key_bounds=key_bounds,
+                                 key_capacity=self.K)
 
     def stage_superbatch(self, batches, watermarks):
         """Host planning + device staging for one dispatch (separable so
@@ -432,8 +483,12 @@ class FusedWindowPipeline:
         B = max(max((len(b[2]) for b in batches), default=0), 1)
         B = -(-B // self.chunk) * self.chunk
 
-        idx_h = np.full((T, B), -1, dtype=np.int32)
-        vals_h = np.zeros((T, B), dtype=np.float32) if self._needs_vals else None
+        idx_h, idx_t = staging_buffer((T, B), np.int32, self.device)
+        idx_h.fill(-1)
+        vals_h = vals_t = None
+        if self._needs_vals:
+            vals_h, vals_t = staging_buffer((T, B), np.float32, self.device)
+            vals_h.fill(0.0)
         arrays = self._plan_arrays(T)
         smin_pos, fire_pos, fire_valid, fire_row, purge_mask = arrays
         fires: List[_PlannedFire] = []
@@ -464,8 +519,8 @@ class FusedWindowPipeline:
                         purge_mask, fires)
         cur.commit()
 
-        idx_d = to_device(idx_h.reshape(-1), self.device)
-        vals_d = to_device(vals_h.reshape(-1), self.device) if self._needs_vals else None
+        idx_d = upload(idx_t.view(-1), self.device)
+        vals_d = upload(vals_t.view(-1), self.device) if self._needs_vals else None
         return idx_d, vals_d, self._to_device_plan(arrays, fires)
 
     def plan_superbatch(self, slice_bounds, watermarks):
@@ -505,6 +560,174 @@ class FusedWindowPipeline:
                         purge_mask, fires)
         cur.commit()
         return self._to_device_plan(arrays, fires), smin_abs
+
+    # ------------------------------------------------------------------
+    # traced-chain path (whole-graph fusion): raw source columns go to the
+    # device; filter, projection and key/value extraction run there
+    # ------------------------------------------------------------------
+    def stage_superbatch_raw(self, steps, watermarks):
+        """Host planning + device staging for one traced-chain dispatch.
+
+        steps: [(raw_column [n, ...], timestamps int64 [n][, slice_ids])] —
+        raw source values before any chain transform (slice_ids optional:
+        the normalizer's precomputed `_slice_of(ts)`). Fires and purges are
+        planned from the timestamps alone (the chain never changes them, and
+        a filter only removes records, so the slice bounds stay valid;
+        windows planned over filtered-out slices fire empty rows, which
+        emission drops). Late records are staged as srel -1 (and counted),
+        so the prologue never sees them as live.
+
+        Returns (raw [T*B, ...], srel [T*B] int32, ts [T*B] int32 | None,
+        plan) on the pipeline's device."""
+        raw_h, srel_h, ts_h, arrays, fires = self._stage_raw_host(steps, watermarks)
+        raw_d, srel_d = upload(raw_h, self.device), upload(srel_h, self.device)
+        ts_d = upload(ts_h, self.device) if ts_h is not None else None
+        return raw_d, srel_d, ts_d, self._to_device_plan(arrays, fires)
+
+    def _stage_raw_host(self, steps, watermarks):
+        """The host half of stage_superbatch_raw: plan, and fill the staging
+        buffers (tensors over pinned memory when the device is CUDA).
+        Returns (raw_h, srel_h, ts_h | None, plan arrays, fires)."""
+        if self.prologue is None:
+            raise RuntimeError("stage_superbatch_raw requires a prologue")
+        T = len(steps)
+        if T != len(watermarks):
+            raise ValueError(f"{len(watermarks)} watermarks for {T} steps")
+        B = max(max((len(step[1]) for step in steps), default=0), 1)
+        # width quantized to power-of-two multiples of the chunk: ragged and
+        # watermark-only tails land on few shapes; pad rows are srel -1
+        B = self.chunk * (1 << max(0, -(-B // self.chunk) - 1).bit_length())
+
+        for raw, ts, *_rest in steps:
+            if not len(ts):
+                continue
+            arr = np.asarray(raw)
+            if self._raw_shape is None:
+                if arr.dtype == object:
+                    raise TypeError(
+                        "the fused device chain needs numeric record "
+                        "columns; this source yields Python objects — use a "
+                        "columnar source (numeric ndarray batches) or drop "
+                        "traceable=True to stay on the host chain"
+                    )
+                self._raw_shape, self._raw_dtype = arr.shape[1:], arr.dtype
+            elif arr.shape[1:] != self._raw_shape or arr.dtype != self._raw_dtype:
+                raise ValueError(
+                    f"record column geometry changed mid-stream: "
+                    f"{arr.dtype}{list(arr.shape[1:])} after "
+                    f"{self._raw_dtype}{list(self._raw_shape)} — the fused "
+                    "chain is shaped on a fixed column layout"
+                )
+        raw_shape, raw_dtype = self._raw_shape, self._raw_dtype
+        if raw_shape is None:
+            # all-empty superbatch before any data: a placeholder column for
+            # this dispatch only (pinning it would turn the first real batch
+            # into a geometry change)
+            raw_shape, raw_dtype = (), np.dtype(np.float32)
+
+        # uninitialized staging, in the canonical dtypes (float64→float32,
+        # int64→int32) the JAX package stages: every prologue consumer masks
+        # pad rows (srel -1) before they matter, and vals are zeroed there
+        raw_h, raw_t = staging_buffer((T * B,) + raw_shape, canonical_dtype(raw_dtype),
+                                      self.device)
+        srel_h, srel_t = staging_buffer((T * B,), np.int32, self.device)
+        srel_h.fill(-1)
+        ts_h = ts_t = None
+        if self.prologue.needs_ts:
+            ts_h, ts_t = staging_buffer((T * B,), canonical_dtype(np.int64), self.device)
+        arrays = self._plan_arrays(T)
+        smin_pos, fire_pos, fire_valid, fire_row, purge_mask = arrays
+        fires: List[_PlannedFire] = []
+
+        cur = self._cursor()
+        for t, step in enumerate(steps):
+            raw, ts = step[0], step[1]
+            pre_s_abs = step[2] if len(step) > 2 else None
+            n = len(ts)
+            if n:
+                lo = t * B
+                ts_arr = np.asarray(ts, dtype=np.int64)
+                s_abs = pre_s_abs if pre_s_abs is not None else self._slice_of(ts_arr)
+                keep = np.ones(n, dtype=bool)
+                if cur.wm > MIN_WATERMARK:
+                    keep = s_abs >= self._min_live_slice(cur.wm)
+                    self.num_late_records_dropped += int(n - keep.sum())
+                if keep.any():
+                    live = s_abs[keep]
+                    smin = int(live.min())
+                    cur.observe(smin, int(live.max()))
+                    srel_h[lo:lo + n] = np.where(keep, s_abs - smin, -1)
+                    smin_pos[t] = smin % self.S
+                # checked canonical cast: a column that does not survive the
+                # narrowing raises (the host chain casts through the same
+                # helper, so both routes compute on identical inputs)
+                raw_h[lo:lo + n] = canonical_column(raw, "fused chain record column")
+                if ts_h is not None:
+                    info = np.iinfo(ts_h.dtype)
+                    if int(ts_arr.max()) > info.max or int(ts_arr.min()) < info.min:
+                        raise TypeError(
+                            "traceable map_with_timestamp under the fused "
+                            "chain stages timestamps in the canonical "
+                            f"{ts_h.dtype} and these event timestamps do not "
+                            "fit — they would silently wrap inside the UDF. "
+                            "Rebase event time near zero, or drop "
+                            "traceable=True to run the host chain."
+                        )
+                    ts_h[lo:lo + n] = ts_arr
+            cur.advance(t, watermarks[t], fire_pos, fire_valid, fire_row,
+                        purge_mask, fires)
+        cur.commit()
+        return raw_t, srel_t, ts_t, arrays, fires
+
+    def process_superbatch_raw(self, steps, watermarks, *,
+                               staged: Optional[tuple] = None,
+                               defer: bool = False):
+        """Run T traced-chain steps in one dispatch (the prologue-bearing
+        sibling of process_superbatch; same defer contract). The prologue
+        runs once over the flattened staging buffer on the device, then K1
+        (its plain version for CPU state) ingests, fires and purges."""
+        if staged is None and all(len(step[1]) == 0 for step in steps):
+            # watermark-only dispatch: with zero rows the prologue is
+            # irrelevant (and the record geometry may still be unknown, as
+            # right after a restore), so fire/purge through the plain path
+            empty = [(np.empty(0, np.int32), None, np.empty(0, np.int64)) for _ in steps]
+            return self.process_superbatch(empty, watermarks, defer=defer)
+        self._require_state()
+        if staged is None:
+            staged = self.stage_superbatch_raw(steps, watermarks)
+        raw_d, srel_d, ts_d, plan = staged
+        idx, vals, key_bounds = self._run_prologue(raw_d, srel_d, ts_d)
+        d = self._dispatch(idx, vals, plan, key_bounds=key_bounds)
+        return d if defer else d.resolve()
+
+    def _run_prologue(self, raw, srel, ts):
+        """The user's chain over all staged rows, then key/value extraction:
+        (idx [T*B] int32 = key*NSB + srel for live rows else -1, vals [T*B]
+        float32 zeroed off the live rows | None, key_bounds [max, min] of
+        the keys of every record that survived the filters)."""
+        pro = self.prologue
+        col = raw
+        mask = srel >= 0
+        for kind, fn in pro.transforms:
+            if kind == "map":
+                col = fn(col)
+            elif kind == "map_ts":
+                col = fn(col, ts)
+            else:  # filter
+                mask = mask & torch.as_tensor(fn(col)).to(torch.bool)
+        keys = torch.as_tensor(pro.key_fn(col)).to(torch.int32)
+        live = mask & (keys >= 0) & (keys < self.K)
+        idx = torch.where(live, keys * self.NSB + srel, -1).to(torch.int32)
+        vals = None
+        if self._needs_vals:
+            vcol = pro.value_fn(col) if pro.value_fn is not None else col
+            # dead and pad rows hold uninitialized staging bytes (maybe NaN):
+            # zero them so K1 and its plain version see identical inputs
+            vals = torch.where(live, torch.as_tensor(vcol).to(torch.float32), 0.0)
+        # key range over every SURVIVING record, out-of-range keys included
+        key_bounds = torch.stack([torch.where(mask, keys, -1).max(),
+                                  torch.where(mask, keys, 0).min()])
+        return idx, vals, key_bounds
 
     # ------------------------------------------------------------------
     def snapshot(self) -> dict:
@@ -590,8 +813,7 @@ class FusedGlobalWindowPipeline:
         return getattr(self._planner, name)
 
     def attach_device_stats(self, tracker, phase_counters: bool = True) -> None:
-        raise NotImplementedError(
-            _DEFERRED.format("D4 (compile tracker and phase counters)"))
+        raise deferred.not_ported("attach_device_stats", deferred.D4)
 
     def plan_superbatch(self, slice_bounds, watermarks):
         return self._planner.plan_superbatch(slice_bounds, watermarks)

@@ -176,6 +176,50 @@ def replay(steps: int, B: int, *, seed: int = SEED, window_ms: int = WINDOW_MS,
     return ref
 
 
+# ---------------------------------------------------------------------------
+# the DataStream-API form of YSB (bench.py::api_path_microbench's program)
+# ---------------------------------------------------------------------------
+
+API_T0_MS = 10_000            # event time of record 0
+API_SPAN_EVENT_MS = 64_000    # event time the whole stream spans, any size
+
+
+def api_columns(idx: np.ndarray, n: int, num_keys: int = NUM_KEYS,
+                payload: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """The record columns of records `idx` of an n-record stream, as
+    `api_path_microbench` makes them: (campaign, event_type[, payload])
+    float32 and int64 timestamps in order. The job's filter keeps
+    event_type 0 (one record in three); the payload is a small integer."""
+    camp = (idx * 2654435761) % num_keys
+    cols = [camp, idx % 3] + ([(idx * 7) % 11] if payload else [])
+    ts = API_T0_MS + idx * API_SPAN_EVENT_MS // n
+    return np.stack(cols, axis=1).astype(np.float32), ts.astype(np.int64)
+
+
+def api_replay(n: int, batch: int, *, window_ms: int = WINDOW_MS,
+               slide_ms: int = SLIDE_MS, agg: str = "count",
+               num_keys: int = NUM_KEYS) -> NumpyWindower:
+    """The oracle over the filtered (key, ts[, payload]) of the same columns,
+    fed batch by batch with the job's watermarks (bounded out-of-orderness
+    0: the largest timestamp so far minus 1). It starts at a watermark just
+    before the first record and ends at one just past the last window that
+    holds a record (its fire loop walks every slide up to the watermark)."""
+    ref = NumpyWindower(window_ms, slide_ms, agg, num_keys)
+    none = np.empty(0, np.int64)
+    ref.step(none, none, API_T0_MS - 1, vals=np.empty(0))
+    wm = API_T0_MS - 1
+    for lo in range(0, n, batch):
+        col, ts = api_columns(np.arange(lo, min(lo + batch, n), dtype=np.int64), n,
+                              num_keys, payload=agg != "count")
+        keep = col[:, 1] == 0
+        wm = max(wm, int(ts.max()) - 1)
+        ref.step(col[keep, 0].astype(np.int64), ts[keep], wm,
+                 vals=col[keep, 2] if agg != "count" else None)
+    last_window = int(ts.max()) // slide_ms
+    ref.step(none, none, last_window * slide_ms + window_ms - 1, vals=np.empty(0))
+    return ref
+
+
 def parity(cpu_fired, dev_fired, require_all: bool = True):
     """Window-by-window equality; with require_all=False (partial runs) only
     the windows the device actually fired are compared. Returns (ok,

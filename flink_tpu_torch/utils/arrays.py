@@ -1,8 +1,33 @@
-"""Array helpers."""
+"""Array helpers (counterpart of `flink_tpu/utils/arrays.py`)."""
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+
+
+def obj_array(items: Sequence) -> np.ndarray:
+    """1-D object ndarray of arbitrary Python values. (np.asarray(...,
+    dtype=object) would build a 2-D array from a list of equal-length
+    tuples — records must stay scalar elements.)"""
+    arr = np.empty(len(items), dtype=object)
+    if len(items):
+        arr[:] = list(items)
+    return arr
+
+
+def as_device_column(arr):
+    """Normalize a numeric column for device staging without copying when
+    avoidable: a contiguous numeric ndarray (read-only views included)
+    passes through untouched, and only a non-contiguous view pays one
+    compaction copy. Object arrays are returned unchanged (record-mode
+    data; columnarized downstream)."""
+    if not isinstance(arr, np.ndarray) or arr.dtype == object:
+        return arr
+    if arr.flags.c_contiguous:
+        return arr
+    return np.ascontiguousarray(arr)
 
 # 64-bit numeric dtypes narrow to their 32-bit form, as the JAX package's
 # canonical (x64-off) dtypes do; every other dtype is already canonical
@@ -12,6 +37,12 @@ _CANONICAL = {
     np.dtype(np.float64): np.dtype(np.float32),
     np.dtype(np.complex128): np.dtype(np.complex64),
 }
+
+
+def canonical_dtype(dtype) -> np.dtype:
+    """The canonical 32-bit form of a dtype (int64→int32, float64→float32)."""
+    dt = np.dtype(dtype)
+    return _CANONICAL.get(dt, dt)
 
 
 def canonical_column(arr, where: str = "column"):

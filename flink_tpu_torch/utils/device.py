@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,12 +21,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def to_device(arr, device: torch.device) -> torch.Tensor:
-    """Host numpy array -> tensor on `device` without blocking the host on
-    queued device work: CUDA copies go through pinned memory with
-    non_blocking=True, so a dispatch can be staged while the previous one
-    still runs."""
-    t = torch.from_numpy(arr)
+def staging_buffer(shape, dtype, device: torch.device):
+    """An uninitialized host buffer to stage inputs of `device` in, as
+    (numpy view, tensor): pinned when `device` is CUDA, so `upload` copies
+    it without blocking the host on queued device work (a dispatch can be
+    staged while the previous one still runs) and without a second host
+    copy."""
+    t = torch.empty(tuple(shape), dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                    pin_memory=device.type == "cuda")
+    return t.numpy(), t
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A tensor from `staging_buffer` on `device` (non-blocking on CUDA; the
+    caching host allocator holds the pinned buffer until the copy has run)."""
     if device.type != "cuda":
         return t
-    return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, non_blocking=True)

@@ -216,9 +216,10 @@ def test_global_pipeline_matches_jax_pallas(agg):
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfp.FusedWindowPipeline(WINDOWS["sliding"](tasg), "count",
-                                prologue=object(), device="cpu", **_geometry())
+    gpipe = tfp.FusedGlobalWindowPipeline(WINDOWS["sliding"](tasg), "max", device="cpu",
+                                          num_slices=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, deferred item D4"):
+        gpipe.attach_device_stats(None)
     pipe = _port_pipe("sliding", "count")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, deferred item D4"):
         pipe.attach_device_stats(None)

@@ -34,6 +34,31 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
                    for t in range(6)]
         out = pipe.process_superbatch(batches, [t * 400 + 250 for t in range(6)])
         assert len(out) > 0 and sum(int(c.sum()) for _w, c, _f in out) > 0
+
+        # a DataStream job through the port's API, planner, runners and
+        # operator: the traced chain runs as the device prologue
+        import torch
+        from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+        from flink_tpu_torch.config import Configuration, ExecutionOptions
+        from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+        from flink_tpu_torch.core.watermarks import WatermarkStrategy
+
+        def gen(idx):
+            col = np.stack([idx % 32, idx % 3], axis=1).astype(np.float32)
+            return Batch(col, (1000 + idx * 7).astype(np.int64))
+
+        cfg = Configuration()
+        cfg.set(ExecutionOptions.BATCH_SIZE, 256)
+        cfg.set(ExecutionOptions.KEY_CAPACITY, 32)
+        env = StreamExecutionEnvironment(cfg, device="cpu")
+        sink = (env.from_source(DataGeneratorSource(gen, 3000),
+                                WatermarkStrategy.for_bounded_out_of_orderness(0))
+                .filter(lambda c: c[:, 1] < 0.5, traceable=True)
+                .key_by(lambda c: c[:, 0].to(torch.int32), traceable=True)
+                .window(SlidingEventTimeWindows.of(2000, 500)).aggregate("count")
+                .collect())
+        env.execute()
+        assert sum(v for _k, v in sink.results) == 4 * 1000
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
