@@ -44,6 +44,23 @@ exits non-zero on the first failure. Phases, one JSON line each:
    R=256) with its times. The kernels line reports K1 at these shapes
    (and at phase 6's under "ysb_generator"); each entry names its shape.
    A bound counts as output the fire rows the dispatch writes, not all R.
+9. session_sum: `bench.py::secondary_sessions` on the port's session
+   operator (kernels K3 and K4): gap 2000 ms, 64 gap-slices, 2^14 keys in
+   four rotating blocks, 2^20 records a step made on the card, 16 steps a
+   superspan merging after steps 7 and 15, a final watermark 2^60. One
+   superspan (2^24 records) is held against `numpy_sessionize` over the
+   host replay and against the per-step route; 4 superspans (2^26
+   records) are timed after a warm run; the operator's exact fallbacks
+   (host merges, superspan replays) must stay 0;
+10. api_sessions: a session DataStream job (`key_by(traceable key)
+   .window(EventTimeSessionWindows.with_gap(2000)).aggregate("sum")`) over
+   2^22 records of the same stream made on the host, batch 65536, held
+   against `numpy_sessionize`;
+11. K3 and K4 against their plain versions at these shapes (bit-equal),
+   with times, bounds and, for K3, the PyTorch scatter calls its plain
+   version makes as the yardstick. The profiles of phase 7 include
+   session_sum (by kernel: generator, K3, K4, copies) and the host profile
+   of api_sessions.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -69,6 +86,12 @@ Q7 = dict(S=8, NSB=2, F=4, R=16, T=96, B=1 << 18, spans=5, depth=3)
 API = dict(keys=8192, window=10_000, slide=1_000, sum_window=2_000, batch=65536,
            fused_events=1 << 24, chain_events=1 << 22, parity_events=1 << 21,
            warmup_events=1 << 19, runs=2)
+# bench.py::secondary_sessions: gap 2000 ms, 64 gap-slices, 2^14 keys in four
+# rotating blocks, 2^20 records a step, 16 steps a superspan merging after
+# steps 7 and 15; parity over one superspan, 4 timed
+SESSIONS = dict(gap=2000, S=64, K=1 << 14, B=1 << 20, T=16, merge_every=8, spans=4)
+# the session DataStream job: 2^22 records at batch 65536, one batch a step
+API_SESSIONS = dict(events=1 << 22, batch=65536, runs=2)
 
 
 def emit(obj):
@@ -187,10 +210,11 @@ def drive(p, spans=None, depth=None):
                       depth or p["depth"], p["slide"], row_of)
 
 
-def profile_run(name: str, run) -> dict:
+def profile_run(name: str, run, groups=(("k1", "k1_"),)) -> dict:
     """Device time by kernel for one run() (which returns its wall seconds)
     under torch.profiler, the share of the run's wall time the device was
-    busy, and K1's share of that busy time."""
+    busy, and each group's (label, kernel-name substring) device time and
+    share of that busy time (by default K1's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,11 +232,18 @@ def profile_run(name: str, run) -> dict:
             rows.append((us, e.key[:70], e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    k1_us = sum(us for us, n, _c in rows if "k1_" in n)
-    return {"phase": "profile", "path": name, "wall_s": secs,
-            "device_busy_us": busy_us, "device_busy_share": busy_us / 1e6 / secs,
-            "k1_device_us": k1_us, "k1_share_of_busy": k1_us / max(busy_us, 1e-9),
-            "top": [{"name": n, "device_us": us, "calls": c} for us, n, c in rows[:10]]}
+    out = {"phase": "profile", "path": name, "wall_s": secs,
+           "device_busy_us": busy_us, "device_busy_share": busy_us / 1e6 / secs}
+    rest = busy_us
+    for label, sub in groups:
+        us = sum(us for us, n, _c in rows if sub in n)
+        out[f"{label}_device_us"] = us
+        out[f"{label}_share_of_busy"] = us / max(busy_us, 1e-9)
+        rest -= us
+    # everything else: the on-card generator and torch's own kernels
+    out["rest_device_us"] = rest
+    out["top"] = [{"name": n, "device_us": us, "calls": c} for us, n, c in rows[:10]]
+    return out
 
 
 def profile_path(p) -> dict:
@@ -254,22 +285,10 @@ def _t_value(col):
     return col[:, 2]
 
 
-def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=DEV):
-    """(env, sink) of the YSB DataStream program over n records: a
-    traceable filter and key (one UDF object for both routes), a 10 s
-    window sliding by 1 s and `count` — or, with sum_job, a tumbling sum
-    whose traceable value_fn feeds K1's add field. The sink keeps each
-    batch's records with their timestamps (a window's max timestamp)."""
-    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
-    from flink_tpu_torch.api.windowing.assigners import (
-        SlidingEventTimeWindows,
-        TumblingEventTimeWindows,
-    )
-    from flink_tpu_torch.config import Configuration, ExecutionOptions
+def rows_sink():
+    """A sink that keeps each batch it is given, with its timestamps (a
+    window's max timestamp): `.batches`."""
     from flink_tpu_torch.connectors.sink import Sink, SinkWriter
-    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
-    from flink_tpu_torch.core.watermarks import WatermarkStrategy
-    from flink_tpu_torch.testing import stream as st
 
     class Writer(SinkWriter):
         def __init__(self, batches):
@@ -285,6 +304,25 @@ def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=D
         def create_writer(self):
             return Writer(self.batches)
 
+    return RowsSink()
+
+
+def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=DEV):
+    """(env, sink) of the YSB DataStream program over n records: a
+    traceable filter and key (one UDF object for both routes), a 10 s
+    window sliding by 1 s and `count` — or, with sum_job, a tumbling sum
+    whose traceable value_fn feeds K1's add field. The sink keeps each
+    batch's records with their timestamps (a window's max timestamp)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
     def gen(idx):
         return Batch(*st.api_columns(idx, n, API["keys"], payload=sum_job))
 
@@ -297,7 +335,7 @@ def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=D
     keyed = (env.from_source(DataGeneratorSource(gen, n),
                              WatermarkStrategy.for_bounded_out_of_orderness(0))
              .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True))
-    sink = RowsSink()
+    sink = rows_sink()
     if sum_job:
         win = keyed.window(TumblingEventTimeWindows.of(API["sum_window"]))
         win.aggregate("sum", value_fn=_t_value, value_traceable=True).sink_to(sink)
@@ -436,6 +474,346 @@ def api_ysb_phase(dev=DEV, sizes=API) -> dict:
             "timed": timed, "parity": parity,
             "windows_checked": count_parity["fused"]["windows_checked"],
             "sliding_count": count_parity, "tumbling_sum": sum_parity}
+
+
+# ---------------------------------------------------------------------------
+# the session phases: bench.py::secondary_sessions' stream through the
+# session operator (kernels K3 and K4), and a session DataStream job
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def session_op(dev, sizes, defer=True):
+    from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows
+    from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator
+
+    return TpuSessionWindowOperator(EventTimeSessionWindows.with_gap(sizes["gap"]), "sum",
+                                    key_capacity=sizes["K"], num_slices=sizes["S"],
+                                    defer_emissions=defer, device=dev)
+
+
+def session_plan(lo: int, sizes):
+    """Step bounds and merge watermarks of the superspan at step lo: a merge
+    every merge_every steps at (t+1)*655 - 1000."""
+    from flink_tpu_torch.testing import stream as st
+
+    T = sizes["T"]
+    bounds = [st.session_step_bounds(lo + r, sizes["B"], sizes["gap"]) for r in range(T)]
+    wms = [st.watermark_after(lo + r) if (r + 1) % sizes["merge_every"] == 0 else None
+           for r in range(T)]
+    return bounds, wms
+
+
+def run_sessions(gen, dev, sizes, spans: int, per_step: bool = False):
+    """`spans` superspans of the session stream (made on `dev` by gen) through
+    a fresh operator, fused (process_superspan_staged, deferred) or per step
+    (process_batch_staged + process_watermark, the replay route), then the
+    final watermark 2^60 and the drain: ({(key, start, end): sum}, seconds,
+    operator)."""
+    op = session_op(dev, sizes, defer=not per_step)
+    T = sizes["T"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    for lo in range(0, spans * T, T):
+        staged = gen(lo)
+        bounds, wms = session_plan(lo, sizes)
+        if per_step:
+            for t in range(T):
+                op.process_batch_staged(*(x[t] for x in staged), *bounds[t])
+                if wms[t] is not None:
+                    op.process_watermark(wms[t])
+        else:
+            op.process_superspan_staged(*staged, bounds, wms)
+    op.process_watermark(1 << 60)
+    out = op.drain_output()          # the operator's rows, as the bench takes them
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    return {(int(k), w.start, w.end): float(r) for k, w, r, _t in out}, secs, op
+
+
+def sessions_match(got: dict, expect: dict) -> bool:
+    """The same (key, start, end) set, sums within the bench's 1e-3 relative
+    tolerance."""
+    return (len(got) > 0 and got.keys() == expect.keys()
+            and all(abs(got[k] - expect[k]) <= 1e-3 * max(1.0, abs(expect[k])) for k in got))
+
+
+def session_sum_phase(dev=DEV, sizes=None) -> dict:
+    """bench.py::secondary_sessions on the port: parity of one superspan (the
+    bench's T steps) against numpy_sessionize over the replayed records and
+    against the per-step route, then a warm run and the timed run of
+    sizes["spans"] superspans with the launch counts at 0 just before it."""
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.testing import stream as st
+
+    sizes = sizes or SESSIONS
+    T, B = sizes["T"], sizes["B"]
+    gen = st.make_session_gen(T, B, device=dev, gap_ms=sizes["gap"], num_slices=sizes["S"])
+    cuda_session.reset_launch_counts()
+    got, _secs, op = run_sessions(gen, dev, sizes, 1)
+    parity_launches = dict(cuda_session.LAUNCHES)
+    t_rep = time.perf_counter()
+    recs = [np.concatenate(a) for a in zip(*(st.host_session_step(t, B) for t in range(T)))]
+    expect = st.numpy_sessionize(*recs, sizes["gap"])
+    replay_s = time.perf_counter() - t_rep
+    per_step, _s, step_op = run_sessions(gen, dev, sizes, 1, per_step=True)
+    parity = sessions_match(got, expect)
+    route_parity = per_step == got
+
+    run_sessions(gen, dev, sizes, sizes["spans"])                      # warm
+    cuda_session.reset_launch_counts()
+    out, secs, op_t = run_sessions(gen, dev, sizes, sizes["spans"])
+    launches = dict(cuda_session.LAUNCHES)
+    events = sizes["spans"] * T * B
+    replays = op.superspan_replays + op_t.superspan_replays + step_op.superspan_replays
+    ok = parity and route_parity and replays == 0 and all(v > 0 for v in launches.values())
+    return {"phase": "session_sum", "ok": ok, "parity": parity,
+            "exact": got == expect, "route_parity": route_parity,
+            "sessions_checked": len(expect), "tuples_per_s": events / secs, "events": events,
+            "seconds": secs, "sessions_emitted": len(out), "dispatches": sizes["spans"],
+            "k3_launches": launches["k3_session_ingest"],
+            "k4_launches": launches["k4_session_merge"],
+            "k3_per_dispatch": launches["k3_session_ingest"] / sizes["spans"],
+            # two merges a superspan, plus the final watermark's merge
+            "k4_per_dispatch": (launches["k4_session_merge"] - 1) / sizes["spans"],
+            "parity_run_launches": parity_launches, "superspan_replays": replays,
+            "replay_s": replay_s}
+
+
+def session_api_job(n: int, sizes, dev=DEV):
+    """(env, sink) of the session DataStream job over n records of the
+    session stream at sizes["batch"] records a step (one source batch a
+    step): columns (user, value) made on the host, watermarks bounded by
+    the stream's 500 ms jitter (below the 2000 ms gap, so the session
+    operator runs and no record is late), a traceable int32 key and
+    `sum` of a traceable value_fn."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    batch = sizes["batch"]
+
+    def gen(idx):
+        keys, ts, vals = st.session_records(idx, batch)
+        return Batch(np.stack([keys, vals], axis=1).astype(np.float32), ts)
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, batch)
+    cfg.set(ExecutionOptions.KEY_CAPACITY, SESSIONS["K"])
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    sink = rows_sink()
+    (env.from_source(DataGeneratorSource(gen, n),
+                     WatermarkStrategy.for_bounded_out_of_orderness(st.OOO_MS))
+     .key_by(_t_key, traceable=True)
+     .window(EventTimeSessionWindows.with_gap(st.SESSION_GAP_MS))
+     .aggregate("sum", value_fn=_t_sval, value_traceable=True).sink_to(sink))
+    return env, sink
+
+
+def _t_sval(col):
+    return col[:, 1]
+
+
+def session_api_run(n: int, sizes, dev=DEV):
+    """One execute() with the session launch counts at 0 just before it:
+    (sink, seconds, launches, the session operators the job made)."""
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.runtime import tpu_session_operator as tso
+
+    made = []
+    init = tso.TpuSessionWindowOperator.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    env, sink = session_api_job(n, sizes, dev)
+    _sync(dev)
+    cuda_session.reset_launch_counts()
+    tso.TpuSessionWindowOperator.__init__ = recording
+    try:
+        t0 = time.perf_counter()
+        env.execute()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    finally:
+        tso.TpuSessionWindowOperator.__init__ = init
+    return sink, secs, dict(cuda_session.LAUNCHES), made
+
+
+def api_sessions_phase(dev=DEV, sizes=None) -> dict:
+    """The session DataStream job: parity of its rows against
+    numpy_sessionize over the same records (as (key, end): sum, the rows'
+    timestamps being each session's end - 1), tuples/s best of
+    sizes["runs"] after a warm-up, launches, and the host profile."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import build_runners
+    from flink_tpu_torch.testing import stream as st
+
+    sizes = sizes or API_SESSIONS
+    n = sizes["events"]
+    env, _sink = session_api_job(1024, sizes, dev)
+    selected = [type(getattr(r, "op", None)).__name__
+                for r in build_runners(plan(env._sinks), env.config, dev)[0]]
+    session_api_run(sizes["batch"] * 8, sizes, dev)                   # warm
+    runs = [session_api_run(n, sizes, dev) for _ in range(sizes["runs"])]
+    sink, _secs, launches, ops = runs[0]
+    replays = sum(o.superspan_replays for r in runs for o in r[3])
+    got = {(int(k), int(t) + 1): float(v) for values, ts in sink.batches
+           for (k, v), t in zip(values, ts)}
+    keys, ts, vals = st.session_records(np.arange(n, dtype=np.int64), sizes["batch"])
+    expect = {(k, e): v for (k, _s, e), v in
+              st.numpy_sessionize(keys, ts, vals, st.SESSION_GAP_MS).items()}
+    rows = sum(len(v) for v, _t in sink.batches)
+    parity = sessions_match(got, expect) and rows == len(expect)
+    secs = min(r[1] for r in runs)
+    ok = (parity and "TpuSessionWindowOperator" in selected and len(ops) == 1
+          and replays == 0 and all(v > 0 for v in launches.values()))
+    return {"phase": "api_sessions", "ok": ok, "parity": parity, "sessions_checked": len(expect),
+            "operator_selected": "TpuSessionWindowOperator" in selected, "events": n,
+            "tuples_per_s": n / secs, "seconds": secs, "all_seconds": [r[1] for r in runs],
+            "k3_launches": launches["k3_session_ingest"],
+            "k4_launches": launches["k4_session_merge"], "superspan_replays": replays}
+
+
+def session_kernel_times(card: str, dev=DEV) -> dict:
+    """K3 and K4 against their plain versions at the session_sum shapes
+    (bit-equal required), with their times (CUDA events; K4's with the
+    ring restored before each call, less the restore alone), device time
+    from the profiler, bytes bounds from this run's data, and for K3 the
+    yardstick of the PyTorch scatter calls its plain version makes."""
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.ops import superscan as ps
+    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
+
+    z = SESSIONS
+    K, S, T, B, g = z["K"], z["S"], z["T"], z["B"], z["gap"]
+    op = session_op(dev, z)
+    vf, idents = op._vfields, op._idents
+    kid, spos, rel, vals = st.make_session_gen(T, B, device=dev)(0)
+    run = z["merge_every"]
+
+    def fresh():
+        o = session_op(dev, z)
+        return [o._cnt, o._mn, o._mx, list(o._fields)]
+
+    def flat(r):
+        return r[:3] + r[3]
+
+    def err_of(a, b, extra=()):
+        err = 0.0
+        for x, y in list(zip(flat(a), flat(b))) + list(extra):
+            err = max(err, _max_abs_err(x, y))
+            if not torch.equal(x, y):
+                raise AssertionError(f"a session kernel differs from its plain version: {err}")
+        return err
+
+    out = {"phase": "session_kernel_times", "card": card}
+    # K3: one step, and one run of `run` steps (one launch each)
+    for name, sl in (("k3_step", slice(0, 1)), ("k3_run", slice(0, run))):
+        args = (kid[sl], spos[sl], rel[sl], vals[sl])
+        a, b = fresh(), fresh()
+        cuda_session.session_ingest(*a, *args, vf)
+        ps.session_ingest_plain(*b, *args, vf)
+        _sync(dev)
+        err = err_of(a, b)
+        ring = fresh()
+        ms = cuda_ms(lambda: cuda_session.session_ingest(*ring, *args, vf), 10)
+        plain_ms = cuda_ms(lambda: ps.session_ingest_plain(*ring, *args, vf), 2, 3)
+        cell = (args[1].long() * K + args[0].long()).reshape(-1)
+        r, v = args[2].reshape(-1), args[3].reshape(-1)
+        ones = torch.ones_like(cell, dtype=torch.int32)
+        lib_ms = cuda_ms(lambda: (ring[0].view(-1).index_add_(0, cell, ones),
+                                  ring[1].view(-1).scatter_reduce_(0, cell, r, "amin"),
+                                  ring[2].view(-1).scatter_reduce_(0, cell, r, "amax"),
+                                  ring[3][0].view(-1).index_add_(0, cell, v)), 10)
+        n = cell.numel()
+        touched = int(torch.unique(cell).numel())
+        # records read once (16 B each), each touched cell of the four rings
+        # read and written once
+        b_ms, b_by = bound(n * 16 + touched * 4 * 4 * 2, n * 4)
+        out[name] = {"shape": f"{sl.stop - sl.start} step(s) of 2^20 records into "
+                              f"[{S}, {K}] (sum)",
+                     "records": n, "cells_touched": touched, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err,
+                     "device_us": device_split_us(
+                         lambda: cuda_session.session_ingest(*ring, *args, vf))}
+        del cell, ones
+    # K4 on the ring as the operator holds it at the superspan's second
+    # merge (after step T-1; the first closes no session of this stream):
+    # superspan mode over the full ring, and per-watermark mode over the
+    # resident slice span
+    base = fresh()
+    cuda_session.session_ingest(*base, kid, spos, rel, vals, vf)
+    lo = min(st.session_step_bounds(t, B)[0] for t in range(T))
+    hi = max(st.session_step_bounds(t, B)[1] for t in range(T))
+    span = hi - lo + 1
+    pos_d = torch.from_numpy((np.arange(lo, hi + 1) % S).astype(np.int32)).to(dev)
+    wm_rel = st.watermark_after(T - 1) - lo * g
+    M_ss = -(-(span + 2 + 2) // 8) * 8           # the operator's rules for M
+    M_pw = span + 1
+    none = torch.empty((1, 0), dtype=torch.int32, device=dev)
+    modes = {
+        "k4_superspan": (lambda r: cuda_session.session_superscan(
+            *r, none, none, none, none.float(), [1], [lo % S], [0], [wm_rel], g=g, M=M_ss,
+            vfields=vf, idents=idents),
+                         lambda r: ps.session_superscan_plain(
+            *r, none, none, none, none.float(), [1], [lo % S], [0], [wm_rel], g=g, M=M_ss,
+            vfields=vf, idents=idents), torch.arange(S, device=dev), M_ss),
+        "k4_per_watermark": (lambda r: cuda_session.session_merge(
+            *r, pos_d, wm_rel, g=g, M=M_pw, vfields=vf, idents=idents),
+                             lambda r: ps.session_merge_plain(
+            *r, pos_d, None, wm_rel, g=g, M=M_pw, vfields=vf, idents=idents), pos_d.long(),
+                             M_pw),
+    }
+    for name, (kern, plain, scanned, M) in modes.items():
+        a, b = fresh(), fresh()
+        for x, y, src in zip(flat(a), flat(b), flat(base)):
+            x.copy_(src)
+            y.copy_(src)
+        pa, pb = kern(a), plain(b)
+        _sync(dev)
+        err = err_of(a, b, [(pa, pb)])
+        _times, _blocks, slots, _scal = ps.unpack_sessions(pb, K, M, len(vf))
+        sessions = int(slots.sum())
+        purged = int((flat(base)[0] > 0).sum() - (b[0] > 0).sum())
+        occupied = int((flat(base)[0][scanned] > 0).sum())
+        ring = fresh()
+
+        def restore():
+            for x, src in zip(flat(ring), flat(base)):
+                x.copy_(src)
+
+        restore_ms = cuda_ms(restore, 10)
+        ms = cuda_ms(lambda: (restore(), kern(ring)), 10) - restore_ms
+        plain_ms = cuda_ms(lambda: (restore(), plain(ring)), 2, 3) - restore_ms
+        nf = len(vf)
+        cols = int(scanned.numel())
+        # what the merge must move, from this run's ring: the count ring over
+        # the scanned columns; min, max and the fields at the occupied cells
+        # there; the purged cells written back; each closed session's slot
+        # (int64 start and end, count, fields); each key's slot count
+        # (carried across a superspan's merges: read and written)
+        slot_count_bytes = K * 4 * (2 if name == "k4_superspan" else 1)
+        nbytes = (cols * K * 4 + occupied * 4 * (2 + nf) + purged * 4 * (3 + nf)
+                  + sessions * (16 + 4 * (1 + nf)) + slot_count_bytes)
+        b_ms, b_by = bound(nbytes, cols * K * 8)
+        out[name] = {"shape": f"{name.split('_', 1)[1]} merge of {cols} columns of [{S}, {K}] "
+                              f"(sum), M={M}",
+                     "sessions": sessions, "cells_occupied": occupied, "cells_purged": purged,
+                     "bound_bytes": nbytes, "ms": ms,
+                     "plain_ms": plain_ms, "restore_ms": restore_ms, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                     "device_us": device_split_us(lambda: (restore(), kern(ring)))}
+    return out
 
 
 def main() -> int:
@@ -692,6 +1070,22 @@ def main() -> int:
         del idx, vals, cells, src
     emit({"phase": "k1_api_shapes", "card": card, **api_k1})
 
+    # ---- 9/10. the session paths (this slice's), each driven with the
+    # launch counts at 0 just before it ----
+    sess = session_sum_phase()
+    emit(sess)
+    if not sess["ok"]:
+        raise AssertionError("session_sum: parity failed against numpy_sessionize or the "
+                             "per-step route, a superspan replayed, or K3/K4 never launched")
+    api_s = api_sessions_phase()
+    emit(api_s)
+    if not api_s["ok"]:
+        raise AssertionError("api_sessions: parity failed, the session operator was not "
+                             "selected, a superspan replayed, or K3/K4 never launched")
+    # ---- 11. K3 and K4 against their plain versions, with their times ----
+    skt = session_kernel_times(card)
+    emit(skt)
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -720,6 +1114,28 @@ def main() -> int:
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": k2_lib_ms},
+        {"name": "k3_session_ingest", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/session_superscan.cu",
+         "replaces": "flink_tpu/ops/superscan.py:510",
+         "shape": skt["k3_step"]["shape"], "launches": sess["k3_launches"],
+         "launches_by_path": {"session_sum": sess["k3_launches"],
+                              "api_sessions": api_s["k3_launches"]},
+         "max_abs_err": max(skt["k3_step"]["max_abs_err"], skt["k3_run"]["max_abs_err"]),
+         **{k: skt["k3_step"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+         "library": "index_add_ x2 + scatter_reduce_ x2 (count, min, max, sum)",
+         "run": skt["k3_run"]},
+        {"name": "k4_session_merge", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/session_superscan.cu",
+         "replaces": "flink_tpu/ops/superscan.py:433",
+         "shape": skt["k4_superspan"]["shape"], "launches": sess["k4_launches"],
+         "launches_by_path": {"session_sum": sess["k4_launches"],
+                              "api_sessions": api_s["k4_launches"]},
+         "max_abs_err": max(skt["k4_superspan"]["max_abs_err"],
+                            skt["k4_per_watermark"]["max_abs_err"]),
+         **{k: skt["k4_superspan"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+         "library": "no single PyTorch call", "per_watermark": skt["k4_per_watermark"]},
     ]
     # ---- 7. where the time goes: each path once more under the profiler ----
     for p in paths:
@@ -731,6 +1147,12 @@ def main() -> int:
     for route, fused in (("fused", True), ("chain", False)):
         emit(host_profile(f"api_ysb_{route}", lambda f=fused: api_run(
             API["chain_events"], f, columnar=True)[1]))
+    sgen = st.make_session_gen(SESSIONS["T"], SESSIONS["B"], device=DEV)
+    emit(profile_run("session_sum", lambda: run_sessions(sgen, DEV, SESSIONS,
+                                                         SESSIONS["spans"])[1],
+                     groups=(("k3", "k3_"), ("k4", "k4_"), ("copies", "Memcpy"))))
+    emit(host_profile("api_sessions", lambda: session_api_run(
+        API_SESSIONS["events"], API_SESSIONS)[1]))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""flink_tpu_torch: the PyTorch/CUDA port of flink_tpu's fused window path.
+"""flink_tpu_torch: the PyTorch/CUDA port of flink_tpu's window paths.
 
 The package mirrors `flink_tpu`'s layout and names so each module's
 counterpart is easy to find, and imports neither jax nor anything of
@@ -20,8 +20,14 @@ What the port carries:
 - `runtime.fused_window_pipeline.FusedGlobalWindowPipeline`: per-window
   global aggregation (the Nexmark Q7 shape) on kernel K2
   (`csrc/global_superscan.cu`).
-- `testing.stream`: the counter-hash stream generator (on the card and
-  bit-identical on the host), the numpy window oracle and the parity check.
+- `runtime.tpu_session_operator.TpuSessionWindowOperator`: event-time
+  session windows (`EventTimeSessionWindows`), per batch or as a fused
+  superspan, on kernels K3 (ingest) and K4 (gap-merge,
+  `csrc/session_superscan.cu`); the executor selects it for session
+  window steps.
+- `testing.stream`: the counter-hash stream generators (on the card and
+  bit-identical on the host), the numpy window and session oracles and
+  the parity check.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise instead of falling back.

@@ -1,10 +1,13 @@
-"""Grid window assigners with their slice decomposition.
+"""Window assigners: the grid assigners with their slice decomposition, and
+session windows.
 
-Counterpart of `TumblingEventTimeWindows` and `SlidingEventTimeWindows` in
+Counterpart of `TumblingEventTimeWindows`, `SlidingEventTimeWindows`,
+`EventTimeSessionWindows` and `ProcessingTimeSessionWindows` in
 `flink_tpu/api/windowing/assigners.py`. A grid assigner exposes the slice
 decomposition the fused planner reads: slice = gcd-granule of (size,
 slide), a window is a contiguous run of `slices_per_window` slices, and
-consecutive windows start `slide_slices` slices apart.
+consecutive windows start `slide_slices` slices apart. Session windows
+merge and have no slice decomposition.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import List, Optional
 
 from flink_tpu_torch.api.windowing.triggers import EventTimeTrigger
 from flink_tpu_torch.core.time import TimeWindow, assign_sliding, assign_tumbling
+from flink_tpu_torch.utils import deferred
 
 
 class WindowAssigner:
@@ -127,3 +131,61 @@ class SlidingEventTimeWindows(WindowAssigner):
 
     def __repr__(self) -> str:
         return f"SlidingEventTimeWindows(size={self.size}, slide={self.slide}, offset={self.offset})"
+
+
+class EventTimeSessionWindows(WindowAssigner):
+    """Each element gets [ts, ts + gap); overlapping windows merge
+    (EventTimeSessionWindows.java + MergingWindowSet). Not sliceable
+    (`slice_ms` is None): the session operator runs it, never the fused
+    grid path."""
+
+    is_merging = True
+
+    def __init__(self, gap_ms: int):
+        if gap_ms <= 0:
+            raise ValueError("Session gap must be positive")
+        self.gap = gap_ms
+
+    @staticmethod
+    def with_gap(gap_ms: int) -> "EventTimeSessionWindows":
+        return EventTimeSessionWindows(gap_ms)
+
+    def assign_windows(self, element, timestamp: int) -> List[TimeWindow]:
+        return [TimeWindow(timestamp, timestamp + self.gap)]
+
+    def get_default_trigger(self) -> EventTimeTrigger:
+        return EventTimeTrigger()
+
+    def merge_windows(self, windows: List[TimeWindow]):
+        """Returns list of (merged_window, [source_windows]) for overlapping
+        runs (MergingWindowAssigner.mergeWindows semantics)."""
+        if not windows:
+            return []
+        sorted_ws = sorted(windows, key=lambda w: (w.start, w.end))
+        merged = []
+        cur_cover = sorted_ws[0]
+        cur_members = [sorted_ws[0]]
+        for w in sorted_ws[1:]:
+            # session merge: touching windows ([a,b) and [b,c)) DO merge
+            if w.start <= cur_cover.end:
+                cur_cover = cur_cover.cover(w)
+                cur_members.append(w)
+            else:
+                merged.append((cur_cover, cur_members))
+                cur_cover, cur_members = w, [w]
+        merged.append((cur_cover, cur_members))
+        return merged
+
+    def __repr__(self) -> str:
+        return f"EventTimeSessionWindows(gap={self.gap})"
+
+
+class ProcessingTimeSessionWindows(EventTimeSessionWindows):
+    """Processing-time sessions: the JAX package runs them on its per-record
+    oracle operator, which the port does not carry (ROADMAP item 18)."""
+
+    is_event_time = False
+
+    def get_default_trigger(self):
+        raise deferred.not_ported("ProcessingTimeSessionWindows' ProcessingTimeTrigger",
+                                  deferred.ORACLE)

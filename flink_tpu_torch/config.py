@@ -82,7 +82,6 @@ _UNPORTED_PREFIXES = (
     ("state.savepoints.", deferred.CHECKPOINTS),
     ("restart-strategy", deferred.CHECKPOINTS),
     ("execution.join.", deferred.JOINS),
-    ("execution.window.device-sessions", deferred.SESSIONS),
     ("execution.group-agg.", deferred.PER_BATCH),
 )
 
@@ -164,6 +163,16 @@ class ExecutionOptions:
     SUPERBATCH_STEPS = (
         ConfigOptions.key("execution.window.superbatch-steps").int_type().default_value(32)
     ).with_description("Steps buffered per fused-window dispatch.")
+    DEVICE_SESSIONS = (
+        ConfigOptions.key("execution.window.device-sessions").bool_type().default_value(True)
+    ).with_description(
+        "Select the device session-window operator (per-slice fragments + "
+        "gap-merge scan, kernels K3/K4) for eligible event-time session "
+        "aggregates. Its late contract drops records whose standalone session "
+        "is already expired, which matches the merging oracle only while "
+        "watermark out-of-orderness stays below the session gap. Off (or "
+        "disorder >= gap), the JAX package runs the per-record oracle, which "
+        "the port does not carry: the job raises (ROADMAP item 18).")
     COLUMNAR_OUTPUT = (
         ConfigOptions.key("execution.window.columnar-output").bool_type().default_value(False)
     ).with_description(

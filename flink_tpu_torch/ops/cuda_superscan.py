@@ -41,8 +41,10 @@ from flink_tpu_torch.ops.superscan import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flink_tpu_torch"
-#: library name -> its source in csrc/ (each also includes common.cuh)
-SOURCES = {"superscan": "superscan.cu", "global_superscan": "global_superscan.cu"}
+#: library name -> its source in csrc/ (each also includes common.cuh); the
+#: session kernels K3/K4 are wrapped in ops/cuda_session.py
+SOURCES = {"superscan": "superscan.cu", "global_superscan": "global_superscan.cu",
+           "session_superscan": "session_superscan.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -177,6 +179,16 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     if lib.step_desc_bytes() != STEP_DESC_BYTES:
         raise RuntimeError(f"{name}: sizeof(StepDesc) is {lib.step_desc_bytes()}, "
                            f"the wrapper sizes its scratch for {STEP_DESC_BYTES}")
+    if name == "session_superscan":
+        rings = [_PTR, _PTR, _PTR, _PTRS, _INTS]         # cnt, mn, mx, fields, kinds
+        # idents nf, pos, p0 n r0 g, wm_rel, M, packed, bounds K S, stream
+        lib.k4_session_merge.argtypes = rings + [_INTS, _INT, _PTR] + [_INT] * 4 + [
+            ctypes.c_longlong, _INT, _PTR] + [_INT] * 3 + [_PTR]
+        # nf, kid spos rel vals, n, K S, stream
+        lib.k3_session_ingest.argtypes = rings + [_INT] + [_PTR] * 4 + [
+            ctypes.c_longlong, _INT, _INT, _PTR]
+        lib.k3_session_ingest.restype = lib.k4_session_merge.restype = ctypes.c_int
+        return lib
     common = [_PTR, _PTRS, _INTS, _INTS, _INT,            # count, fields, kinds, idents, nf
               _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # idx, vals, smin, fpos, fvalid, frow, purge
               _INTS, _INT, _PTR, _PTRS]                  # spws, F, count_out, outs

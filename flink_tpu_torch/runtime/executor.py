@@ -10,14 +10,17 @@ Runner selection follows the JAX package. A window step whose chain is
 traceable (graph/fusion.py) gets a `DeviceChainRunner`: the chain runs as
 a torch prologue on the device inside each fused dispatch. Otherwise a
 `ChainRunner` applies the chain on the host and a `WindowStepRunner`
-keys the records through the host dictionary into the fused operator.
-Both end in kernel K1 for CUDA state.
+keys the records through the host dictionary into its operator: the fused
+operator (kernel K1) for grid windows, the session operator
+(`runtime/tpu_session_operator.py`, kernels K3 and K4) for event-time
+session windows whose sources' out-of-orderness stays below the gap.
 
 Left out, raising where a job asks for them (ROADMAP.md Queue A): the
-per-batch device, global, session and oracle window operators (items 9,
-10, 18), job metrics and emission latency (item 15), checkpoints and
-savepoints of a running job (item 16), parallelism > 1 (item 17), the chaos
-hook (item 14), and the rest of the DataStream API's runners (item 19).
+per-batch device, global and oracle window operators (items 10, 18; a
+session step the JAX package hands to its oracle raises naming item 18),
+job metrics and emission latency (item 15), checkpoints and savepoints of
+a running job (item 16), parallelism > 1 (item 17), the chaos hook (item
+14), and the rest of the DataStream API's runners (item 19).
 """
 
 from __future__ import annotations
@@ -29,13 +32,15 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows
 from flink_tpu_torch.config import Configuration, ExecutionOptions, PipelineOptions
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
-from flink_tpu_torch.core.watermarks import WatermarkStrategy
+from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Step, StepGraph, Transformation
 from flink_tpu_torch.ops.aggregators import ONE, resolve
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
 from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
+from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import as_device_column, canonical_column, obj_array
 from flink_tpu_torch.utils.device import resolve_device
@@ -203,9 +208,77 @@ class ChainRunner(StepRunner):
             self.downstream.on_batch(vals, ts)
 
 
+def _max_source_out_of_orderness(step: Step) -> Optional[int]:
+    """Largest bounded-out-of-orderness delay (ms) among the source
+    watermark strategies feeding `step`, walking the step DAG back to its
+    source transformations. Returns None when any reachable source uses a
+    generator whose bound is not statically knowable (punctuated/custom)."""
+    bound = 0
+    seen = set()
+    stack = [step]
+    while stack:
+        s = stack.pop()
+        if id(s) in seen:
+            continue
+        seen.add(id(s))
+        for edge in s.inputs:
+            producer = edge[0]
+            if isinstance(producer, Step):
+                stack.append(producer)
+                continue
+            strategy = producer.config.get("watermark_strategy")
+            if strategy is None:
+                continue     # no watermarks: never advances event time
+            gen = strategy.create_generator()
+            if not isinstance(gen, BoundedOutOfOrdernessWatermarks):
+                return None
+            bound = max(bound, gen._delay)
+    return bound
+
+
+def _session_disorder_within_gap(step: Step, assigner) -> Optional[str]:
+    """Device-session routing gate: the session operator's late contract
+    (drop records whose standalone session is already expired) matches the
+    merging oracle only while watermark out-of-orderness stays BELOW the
+    session gap — with bound >= gap a record can arrive late enough that
+    the oracle would still merge it into an open session the device path
+    already expired, i.e. silent data loss. Returns None when the device
+    operator may run, else the reason (the JAX package's warning) it may
+    not. Fail-open on an unknowable bound (custom/punctuated generators),
+    as in the JAX package."""
+    bound = _max_source_out_of_orderness(step)
+    if bound is None or bound < assigner.gap:
+        return None
+    return (f"session windows: watermark out-of-orderness bound ({bound} ms) >= "
+            f"session gap ({assigner.gap} ms) — the JAX package uses its "
+            "per-record oracle operator instead of the device session "
+            "operator, whose late contract would silently drop records the "
+            "oracle merges. Shrink the out-of-orderness bound below the gap "
+            "to select the device path")
+
+
+def _session_refusal(step: Step, cfg: dict, assigner, device_agg,
+                     config: Configuration) -> Optional[str]:
+    """Why a session window step cannot take the device session operator
+    (the JAX runner's conditions; it would pick its oracle), or None."""
+    if device_agg is None:
+        return "a Python aggregate"
+    if not assigner.is_event_time:
+        return "processing-time sessions"
+    if not config.get(ExecutionOptions.DEVICE_SESSIONS):
+        return "execution.window.device-sessions is false"
+    if (cfg.get("trigger") is not None or cfg.get("evictor") is not None
+            or cfg.get("window_fn") is not None):
+        return "a custom trigger, evictor or window function"
+    if cfg.get("allowed_lateness", 0) != 0 or cfg.get("side_output_late"):
+        return "allowed lateness or a late side output"
+    return _session_disorder_within_gap(step, assigner)
+
+
 class WindowStepRunner(StepRunner):
-    """Keyed window aggregation step over the fused operator (the JAX
-    runner's fused branch; its other branches are not ported)."""
+    """Keyed window aggregation step over the fused operator or, for
+    event-time session windows, the session operator (the JAX runner's
+    fused and session branches; its other branches are not ported)."""
 
     def __init__(self, step: Step, config: Configuration, device: torch.device):
         t = step.terminal
@@ -219,6 +292,21 @@ class WindowStepRunner(StepRunner):
         self.value_vectorized = cfg.get("value_vectorized", False) and cfg.get("value_fn")
         self.value_traceable = cfg.get("value_traceable", False) and cfg.get("value_fn")
         device_agg = resolve(aggregate)
+        self.uid = t.uid
+        if isinstance(assigner, EventTimeSessionWindows):
+            reason = _session_refusal(step, cfg, assigner, device_agg, config)
+            if reason is not None:
+                raise deferred.not_ported(
+                    f"window step '{t.name}' (it needs the per-record oracle "
+                    f"operator: {reason})", deferred.ORACLE)
+            self._needs_value = any(f.source != ONE for f in device_agg.fields)
+            # per-slice fragments + gap-merge scan (runtime/
+            # tpu_session_operator.py); capacity grows with the dictionary
+            self.op = TpuSessionWindowOperator(
+                assigner, device_agg,
+                key_capacity=min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY)),
+                device=device)
+            return
         use_device = (
             device_agg is not None
             and assigner.slice_ms is not None
@@ -253,7 +341,6 @@ class WindowStepRunner(StepRunner):
             chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
             columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
             device=device)
-        self.uid = t.uid
 
     def _keys_of(self, values) -> np.ndarray:
         if self.key_traceable:
@@ -294,8 +381,11 @@ class WindowStepRunner(StepRunner):
         self.op.process_watermark(watermark)
         self._drain()
         # fused operators emit at superbatch granularity: forward only the
-        # watermark their resolved output already covers
-        watermark = min(watermark, self.op.emitted_watermark)
+        # watermark their resolved output already covers (the session
+        # operator has resolved everything its drain returned)
+        safe = getattr(self.op, "emitted_watermark", None)
+        if safe is not None:
+            watermark = min(watermark, safe)
         if watermark > MIN_WATERMARK and self.downstream:
             self.downstream.on_watermark(watermark)
 

@@ -42,7 +42,7 @@ from flink_tpu_torch.ops import cuda_superscan as cs
 from flink_tpu_torch.ops.aggregators import VALUE, resolve, scan_identity, torch_dtype
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import canonical_column, canonical_dtype
-from flink_tpu_torch.utils.device import resolve_device, staging_buffer, upload
+from flink_tpu_torch.utils.device import HostCopy, resolve_device, staging_buffer, upload
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -76,14 +76,6 @@ class _PlannedFire:
     spec: int = 0     # window spec (shared-partial pipelines; 0 otherwise)
 
 
-def _host_copy(t: torch.Tensor) -> torch.Tensor:
-    """Start a device->host copy into pinned memory; the caller orders it
-    with an event."""
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
-
-
 class DeferredEmissions:
     """Handle for fires of one dispatch; the device->host copy runs async.
 
@@ -97,25 +89,14 @@ class DeferredEmissions:
                  key_bounds=None, key_capacity: Optional[int] = None):
         self._pipe = pipe
         self._fires = fires
-        self._event = None
         self._key_capacity = key_capacity
-        if count_out.is_cuda:
-            self._count_out = _host_copy(count_out)
-            self._outs = {k: _host_copy(v) for k, v in outs.items()}
-            self._key_bounds = None if key_bounds is None else _host_copy(key_bounds)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(count_out.device))
-        else:
-            self._count_out = count_out
-            self._outs = outs
-            self._key_bounds = key_bounds
+        self._names = list(outs)
+        self._copy = HostCopy([count_out, key_bounds, *outs.values()])
 
     def resolve(self):
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
-        if self._key_bounds is not None:
-            hi, lo = (int(v) for v in self._key_bounds.tolist())
+        count_out, key_bounds, *outs = self._copy.wait()
+        if key_bounds is not None:
+            hi, lo = (int(v) for v in key_bounds.tolist())
             if hi >= self._key_capacity or lo < 0:
                 raise ValueError(
                     f"traced key selector produced keys in [{lo}, {hi}] "
@@ -126,8 +107,8 @@ class DeferredEmissions:
                     "keys non-negative), or drop traceable=True on key_by "
                     "to use the host key dictionary."
                 )
-        count_np = self._count_out.numpy()
-        outs_np = {k: v.numpy() for k, v in self._outs.items()}
+        count_np = count_out.numpy()
+        outs_np = {k: v.numpy() for k, v in zip(self._names, outs)}
         return [
             (
                 self._pipe._window_of_fire(pf),

@@ -92,6 +92,9 @@ class KeyDictionary:
             out[i] = kid
         return out, len(self._keys)
 
+    def key_at(self, kid: int):
+        return self._keys[kid]
+
     def keys_for(self, kids: np.ndarray) -> List:
         ks = self._keys
         return [ks[int(i)] for i in kids]

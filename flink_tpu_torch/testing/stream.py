@@ -1,7 +1,9 @@
-"""The YSB-shaped stream used on the card, its host replay and the oracle.
+"""The YSB-shaped and session streams used on the card, their host replays
+and the oracles.
 
 Counterparts of `bench.py::step_bounds`, `make_device_gen`,
-`NumpyWindower` and `_parity`. The record bits come from a counter-based
+`NumpyWindower` and `_parity`, and of `secondary_sessions`' stream and
+`_numpy_sessionize` (bottom of the module). The record bits come from a counter-based
 32-bit hash of (seed, t, b) — computed with torch on the device and
 bit-identically with numpy on the host, so the oracle replays exactly the
 stream the device saw (it is not the JAX package's threefry stream).
@@ -240,3 +242,85 @@ def parity(cpu_fired, dev_fired, require_all: bool = True):
         nonempty = len([j for j, c in cpu_fired.items() if c.any()])
         ok = ok and len(dev_fired) >= nonempty
     return ok, checked
+
+
+# ---------------------------------------------------------------------------
+# the session stream (bench.py::secondary_sessions' clickstream): four
+# rotating blocks of 4096 keys, so sessions close; gap 2000 ms
+# ---------------------------------------------------------------------------
+
+SESSION_GAP_MS = 2_000
+SESSION_BLOCK_KEYS = 4096     # keys per block; four blocks, 2**14 in all
+SESSION_SEED = SEED + 7
+
+
+def session_step_bounds(t: int, B: int, gap_ms: int = SESSION_GAP_MS) -> Tuple[int, int]:
+    """Inclusive (smin, smax) absolute gap-slice bounds of step t's records."""
+    return step_bounds(t, B, gap_ms)
+
+
+def session_records(idx: np.ndarray, B: int, seed: int = SESSION_SEED
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Records `idx` (int64) of the session stream at B records a step:
+    (keys int64, ts int64, vals float32), bit-identical to
+    `make_session_gen`. Step t's keys come from block (t >> 2) & 3."""
+    t, b = idx // B, idx % B
+    bits = hash_bits(step_key(seed, t), b)
+    keys = (bits & (SESSION_BLOCK_KEYS - 1)) | (((t >> 2) & 3) * SESSION_BLOCK_KEYS)
+    jitter = (bits >> 13) % (OOO_MS + 1)
+    ts = np.maximum(t * STEP_MS + ((b + 1) * STEP_MS) // B - jitter, 0)
+    return keys, ts, ((bits >> 23) & 0xFF).astype(np.float32)
+
+
+def host_session_step(t: int, B: int, seed: int = SESSION_SEED
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Step t's session records (keys, ts, vals) of B, regenerated on the
+    host."""
+    return session_records(np.arange(t * B, (t + 1) * B, dtype=np.int64), B, seed)
+
+
+def make_session_gen(T: int, B: int, *, device, seed: int = SESSION_SEED,
+                     gap_ms: int = SESSION_GAP_MS, num_slices: int = 64):
+    """On-device generator of the session stream: gen(t0) -> (kid, spos,
+    rel int32, vals float32), each [T, B] in the session operator's ring
+    coordinates (`process_superspan_staged`), for steps [t0, t0 + T). Only
+    the T step keys cross from the host."""
+    dev = torch.device(device)
+    b = torch.arange(B, dtype=torch.int64, device=dev)
+    base = ((b + 1) * STEP_MS) // B
+
+    def gen(t0: int):
+        steps = t0 + np.arange(T, dtype=np.int64)
+        aux = torch.from_numpy(np.stack([
+            np.array([step_key(seed, int(t)) for t in steps], np.int64),
+            steps * STEP_MS, ((steps >> 2) & 3) * SESSION_BLOCK_KEYS]))
+        if dev.type == "cuda":
+            aux = aux.pin_memory().to(dev, non_blocking=True)
+        kt, tms, block = aux[0][:, None], aux[1][:, None], aux[2][:, None]
+        bits = hash_bits(kt, b[None, :])                       # [T, B]
+        kid = (bits & (SESSION_BLOCK_KEYS - 1)) | block
+        ts = torch.clamp(tms + base[None, :] - (bits >> 13) % (OOO_MS + 1), min=0)
+        s_abs = ts // gap_ms
+        return (kid.to(torch.int32), (s_abs % num_slices).to(torch.int32),
+                (ts - s_abs * gap_ms).to(torch.int32),
+                ((bits >> 23) & 0xFF).to(torch.float32))
+
+    return gen
+
+
+def numpy_sessionize(keys, ts, vals, gap):
+    """Single-core batch sessionizer (`bench.py::_numpy_sessionize`): sort
+    by (key, ts), split where the key changes or the gap exceeds `gap`,
+    segment-sum the values. Returns {(key, start, end): sum}."""
+    order = np.lexsort((ts, keys))
+    k, t, v = keys[order], ts[order], vals[order]
+    brk = np.empty(len(k), dtype=bool)
+    brk[0] = True
+    brk[1:] = (k[1:] != k[:-1]) | (t[1:] - t[:-1] > gap)
+    starts = np.flatnonzero(brk)
+    sums = np.add.reduceat(v, starts)
+    ends = np.r_[starts[1:], len(k)] - 1
+    return {
+        (int(k[s]), int(t[s]), int(t[e]) + gap): float(sv)
+        for s, e, sv in zip(starts, ends, sums)
+    }

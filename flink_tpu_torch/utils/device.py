@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and host<->device copies."""
 
 from __future__ import annotations
 
@@ -38,3 +38,30 @@ def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t
     return t.to(device, non_blocking=True)
+
+
+class HostCopy:
+    """Tensors on their way to the host (None entries pass through): on
+    CUDA, pinned non_blocking copies started at construction and ordered by
+    one CUDA event recorded after them; `wait` blocks on that event only."""
+
+    def __init__(self, tensors):
+        self._host = list(tensors)
+        self._event = None
+        cuda = [t for t in self._host if t is not None and t.is_cuda]
+        if cuda:
+            self._host = [None if t is None else _pinned_copy(t) for t in self._host]
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(cuda[0].device))
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._host
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host

@@ -59,6 +59,17 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
                 .collect())
         env.execute()
         assert sum(v for _k, v in sink.results) == 4 * 1000
+
+        # a session job: the session operator's ingest and gap-merge
+        from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows
+        env = StreamExecutionEnvironment(device="cpu")
+        clicks = [("u1", 0), ("u1", 300), ("u2", 100), ("u1", 2000), ("u2", 2500)]
+        sink = (env.from_collection(clicks, timestamp_fn=lambda x: x[1],
+                                    watermark_strategy=WatermarkStrategy.for_monotonous_timestamps())
+                .key_by(lambda x: x[0]).window(EventTimeSessionWindows.with_gap(1000))
+                .count().collect())
+        env.execute()
+        assert sorted(sink.results) == [("u1", 1), ("u1", 2), ("u2", 1), ("u2", 1)]
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
