@@ -92,6 +92,14 @@ API = dict(keys=8192, window=10_000, slide=1_000, sum_window=2_000, batch=65536,
 SESSIONS = dict(gap=2000, S=64, K=1 << 14, B=1 << 20, T=16, merge_every=8, spans=4)
 # the session DataStream job: 2^22 records at batch 65536, one batch a step
 API_SESSIONS = dict(events=1 << 22, batch=65536, runs=2)
+# the per-batch operator with allowed lateness at real state size: 2^20
+# keys, 2^20 records a batch (~1 s of event time), 2 warm-up batches and 16
+# timed; its DataStream job; the count window; the continuous aggregate
+LATENESS = dict(K=1 << 20, B=1 << 20, warm=2, timed=16, lateness=2000)
+API_LATENESS = dict(keys=8192, batch=65536, events=1 << 22, lateness=2000)
+API_COUNT = dict(keys=1 << 16, hot_keys=1024, n=64, batch=65536, events=1 << 22,
+                 nonpurging_events=1 << 20)
+API_GROUP_AGG = dict(keys=1 << 16, rows=1 << 20, retract=0.1, batch=65536)
 
 
 def emit(obj):
@@ -816,6 +824,509 @@ def session_kernel_times(card: str, dev=DEV) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the per-batch phases (phases 12-16): the per-batch window operator with
+# allowed lateness and a late side output, its DataStream job, the
+# count-triggered global window and the continuous aggregate. Their device
+# programs are torch programs, not kernels: they go on their own line.
+# ---------------------------------------------------------------------------
+
+def lateness_op(dev, sizes, kernel="scatter"):
+    """TpuWindowOperator as the lateness_operator phase drives it: 10 s
+    windows sliding by 1 s, `sum`, columnar output, dense int keys below K,
+    and the operator's own ring rule (S = 64 at 2 s of lateness)."""
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
+    from flink_tpu_torch.testing import stream as st
+
+    return TpuWindowOperator(SlidingEventTimeWindows.of(st.WINDOW_MS, st.SLIDE_MS), "sum",
+                             allowed_lateness=sizes["lateness"], emit_late_to_side_output=True,
+                             columnar_output=True, dense_int_keys=True,
+                             key_capacity=sizes["K"], ingest_kernel=kernel, device=dev)
+
+
+def lateness_batches(sizes):
+    """The lateness stream's batches, made on the host (set-up): (keys,
+    values, timestamps, the watermark after the batch), the watermark
+    trailing the largest timestamp so far by LATE_WM_LAG_MS."""
+    from flink_tpu_torch.testing import stream as st
+
+    K, B = sizes["K"], sizes["B"]
+    out, top = [], None
+    for b in range(sizes["warm"] + sizes["timed"]):
+        keys, ts, vals = st.late_records(np.arange(b * B, (b + 1) * B, dtype=np.int64), B, K)
+        top = int(ts.max()) if top is None else max(top, int(ts.max()))
+        out.append((keys, vals, ts, top - st.LATE_WM_LAG_MS))
+    return out
+
+
+def run_lateness(op, batches, dev):
+    """Each batch through the operator: ingest, watermark, drain. Returns
+    ([(window start, key ids, values)] a fire or re-fire, seconds)."""
+    events = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for keys, vals, ts, wm in batches:
+        op.process_batch(keys, vals, ts)
+        op.process_watermark(wm)
+        events += [(w.start, ids, v) for _k, w, (ids, v), _t in op.drain_output()]
+    _sync(dev)
+    return events, time.perf_counter() - t0
+
+
+def lateness_matches(events, op, want, side) -> bool:
+    """Every emission equals the oracle's, in order (window, ascending key
+    ids, values), and the side output is the oracle's too-late set."""
+    from flink_tpu_torch.testing import stream as st
+
+    same = len(events) == len(want) and all(
+        ws == j * st.SLIDE_MS and np.array_equal(ids, ks)
+        and np.array_equal(np.asarray(v, np.float64), vs)
+        for (ws, ids, v), (_kind, j, ks, vs) in zip(events, want))
+    got = sorted((int(k), float(v), int(t)) for k, v, t in op.side_output.get("late-data", []))
+    expect = sorted(zip(np.concatenate([s[0] for s in side]).tolist(),
+                        np.concatenate([s[1] for s in side]).tolist(),
+                        np.concatenate([s[2] for s in side]).tolist()))
+    return same and got == expect and len(expect) > 0
+
+
+def lateness_operator_phase(dev=DEV, sizes=None) -> dict:
+    """TpuWindowOperator driven directly at 2^20 keys (a count and a sum ring
+    of [64, 2^20] on the card, 256 MiB each): 2 warm-up batches, then 16
+    timed, 2^20 records each, with the program calls at 0 just before the
+    timed batches; then the same with the sort-based ingest. Every emission
+    and the side output are held against LatenessOracle."""
+    from flink_tpu_torch.ops import segment_ops as so
+    from flink_tpu_torch.testing import stream as st
+
+    sizes = sizes or LATENESS
+    batches = lateness_batches(sizes)
+    t_or = time.perf_counter()
+    orc = st.LatenessOracle(st.WINDOW_MS, st.SLIDE_MS, sizes["lateness"], sizes["K"])
+    want, side = [], []
+    for keys, vals, ts, wm in batches:
+        events, late = orc.step(keys, ts, vals, wm)
+        want += events
+        side.append(late)
+    oracle_s = time.perf_counter() - t_or
+    out = {"phase": "lateness_operator", "keys": sizes["K"], "batch": sizes["B"],
+           "timed_batches": sizes["timed"], "oracle_s": oracle_s,
+           "windows_checked": sum(e[0] == "fire" for e in want),
+           "refires_checked": sum(e[0] == "refire" for e in want),
+           "side_output_checked": int(sum(len(s[0]) for s in side))}
+    ok = True
+    runs = {}
+    for kernel in ("scatter", "sort"):
+        op = lateness_op(dev, sizes, kernel)
+        events, _s = run_lateness(op, batches[:sizes["warm"]], dev)
+        so.reset_call_counts()
+        timed, secs = run_lateness(op, batches[sizes["warm"]:], dev)
+        calls = {k: v for k, v in so.CALLS.items() if v}
+        events += timed
+        parity = lateness_matches(events, op, want, side)
+        runs[kernel] = events
+        ring_mib = {name: t.numel() * t.element_size() / 2**20
+                    for name, t in [("count", op.state.count)] + list(op.state.acc.items())}
+        out[kernel] = {"parity": parity, "tuples_per_s": sizes["timed"] * sizes["B"] / secs,
+                       "seconds": secs, "S": op.S, "ring_mib": ring_mib, "program_calls": calls,
+                       "emissions": len(events)}
+        ok = ok and parity and op.S == 64 and (calls.get("ingest", 0) or calls.get("ingest_sort", 0))
+        del op
+    same = len(runs["scatter"]) == len(runs["sort"]) and all(
+        a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+        for a, b in zip(runs["scatter"], runs["sort"]))
+    out["ingest_forms_agree"] = same
+    out["tuples_per_s"] = out["scatter"]["tuples_per_s"]
+    if torch.device(dev).type == "cuda":
+        prof = profile_run("lateness_operator", lambda: run_lateness(
+            lateness_op(dev, sizes), batches, dev)[1], groups=())
+        out["device_busy_share"] = prof["device_busy_share"]
+        out["profile"] = prof
+    out["ok"] = bool(ok and same)
+    return out
+
+
+def by_window(rows):
+    """(timestamp, key, value) rows cut into fire events (runs of one
+    window timestamp), each sorted: within a fire the operator emits in
+    key-dictionary order."""
+    out, run = [], []
+    for r in rows:
+        if run and r[0] != run[-1][0]:
+            out.append(sorted(run))
+            run = []
+        run.append(r)
+    return out + ([sorted(run)] if run else [])
+
+
+def api_lateness_job(n: int, sizes, dev=DEV):
+    """(env, sink, late sink) of the api_ysb program with
+    allowed_lateness(2000).side_output_late_data() over the lateness
+    stream's columns, for_bounded_out_of_orderness(500), and a
+    get_side_output(LATE_DATA_TAG) sink."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.functions import LATE_DATA_TAG
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    batch, keys = sizes["batch"], sizes["keys"]
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, batch)
+    cfg.set(ExecutionOptions.KEY_CAPACITY, keys)
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    counted = (env.from_source(
+        DataGeneratorSource(lambda idx: Batch(*st.late_columns(idx, batch, keys)), n),
+        WatermarkStrategy.for_bounded_out_of_orderness(st.LATE_WM_LAG_MS))
+        .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+        .window(SlidingEventTimeWindows.of(st.WINDOW_MS, st.SLIDE_MS))
+        .allowed_lateness(sizes["lateness"]).side_output_late_data().count())
+    sink, late = rows_sink(), rows_sink()
+    counted.sink_to(sink)
+    counted.get_side_output(LATE_DATA_TAG).sink_to(late)
+    return env, sink, late
+
+
+def api_lateness_oracle(n: int, sizes):
+    """The oracle over the job's filtered records, batch by batch with the
+    source's watermarks: (rows (window max timestamp, key, count) in
+    emission order, too-late (key, ts) sorted)."""
+    from flink_tpu_torch.testing import stream as st
+
+    batch, keys = sizes["batch"], sizes["keys"]
+    orc = st.LatenessOracle(st.WINDOW_MS, st.SLIDE_MS, sizes["lateness"], keys, agg="count")
+    rows, side, wm = [], [], None
+
+    def add(events):
+        rows.extend((j * st.SLIDE_MS + st.WINDOW_MS - 1, int(k), int(v))
+                    for _kind, j, ks, vs in events for k, v in zip(ks, vs))
+
+    for lo in range(0, n, batch):
+        col, ts = st.late_columns(np.arange(lo, min(lo + batch, n), dtype=np.int64), batch, keys)
+        top = int(ts.max()) - st.LATE_WM_LAG_MS - 1
+        wm = top if wm is None else max(wm, top)
+        keep = col[:, 1] == 0
+        events, late = orc.step(col[keep, 0].astype(np.int64), ts[keep], col[keep, 2], wm)
+        add(events)
+        side += zip(late[0].tolist(), late[2].tolist())
+    add(orc.advance(2**62))
+    return rows, sorted(side)
+
+
+def timed_execute(env, dev) -> float:
+    """Seconds of one env.execute(), the device drained on both sides."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    env.execute()
+    _sync(dev)
+    return time.perf_counter() - t0
+
+
+def api_lateness_run(sizes, dev=DEV) -> float:
+    """One execute() of the job at sizes["events"] records: seconds."""
+    return timed_execute(api_lateness_job(sizes["events"], sizes, dev)[0], dev)
+
+
+def api_lateness_phase(dev=DEV, sizes=None) -> dict:
+    """The job at sizes["events"] records in row mode: TpuWindowOperator
+    selected, every fire (re-fires included) and the side output equal the
+    oracle's; tuples/s of the checked run after a warm-up run."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import segment_ops as so
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    sizes = sizes or API_LATENESS
+    n = sizes["events"]
+    env, _s, _l = api_lateness_job(1024, sizes, dev)
+    selected = [type(getattr(r, "op", r)).__name__
+                for r in build_runners(plan(env._sinks), env.config, dev)[0]]
+    env, _s, _l = api_lateness_job(sizes["batch"] * 16, sizes, dev)
+    env.execute()                                                      # warm
+    env, sink, late = api_lateness_job(n, sizes, dev)
+    so.reset_call_counts()
+    secs = timed_execute(env, dev)
+    calls = {k: v for k, v in so.CALLS.items() if v}
+    got = [(int(t), int(k), int(v)) for values, ts in sink.batches
+           for (k, v), t in zip(values, ts)]
+    got_late = sorted((int(k), int(t)) for values, ts in late.batches
+                      for (k, _v), t in zip(values, ts))
+    t_or = time.perf_counter()
+    want, want_late = api_lateness_oracle(n, sizes)
+    oracle_s = time.perf_counter() - t_or
+    parity = by_window(got) == by_window(want) and len(got) > 0
+    side_parity = got_late == want_late and len(want_late) > 0
+    refires = len(want) - len({(t, k) for t, k, _v in want})
+    ok = parity and side_parity and "TpuWindowOperator" in selected and calls.get("ingest", 0) > 0
+    return {"phase": "api_lateness", "ok": ok, "parity": parity, "side_output_parity": side_parity,
+            "operator_selected": "TpuWindowOperator" in selected, "runners": selected,
+            "events": n, "tuples_per_s": n / secs, "seconds": secs, "rows_checked": len(want),
+            "refired_rows": refires, "side_output_checked": len(want_late),
+            "program_calls": calls, "oracle_s": oracle_s}
+
+
+def count_columns(idx: np.ndarray, sizes):
+    """(key, value) float32 columns and in-order timestamps of records idx:
+    30% of records on `hot_keys` keys, the rest over all keys; values are
+    integers below 8."""
+    from flink_tpu_torch.testing import stream as st
+
+    bits = st.hash_bits(st.step_key(st.SEED + 13, 0), idx)
+    hot = (bits >> 20) % 10 < 3
+    keys = np.where(hot, bits % sizes["hot_keys"], (bits >> 4) % sizes["keys"])
+    return np.stack([keys, (bits >> 24) & 7], axis=1).astype(np.float32), idx.astype(np.int64)
+
+
+def _t_col1(col):
+    return col[:, 1]
+
+
+def api_count_job(n: int, purging: bool, sizes, dev=DEV):
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import GlobalWindows
+    from flink_tpu_torch.api.windowing.triggers import CountTrigger, PurgingTrigger
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, sizes["batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, sizes["keys"])
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    trigger = CountTrigger.of(sizes["n"])
+    sink = rows_sink()
+    (env.from_source(DataGeneratorSource(lambda idx: Batch(*count_columns(idx, sizes)), n),
+                     WatermarkStrategy.for_monotonous_timestamps())
+     .key_by(_t_key, traceable=True).window(GlobalWindows.create())
+     .trigger(PurgingTrigger.of(trigger) if purging else trigger)
+     .aggregate("sum", value_fn=_t_col1, value_traceable=True).sink_to(sink))
+    return env, sink
+
+
+def count_model(n: int, purging: bool, sizes):
+    """Numpy model of the per-batch coalesced count rule: after each
+    batch's ingest a key fires once if its count reached N (purging: then
+    resets) or crossed a new multiple of N (non-purging). Returns each
+    firing batch's sorted (key, sum) rows."""
+    keys_n, n_fire = sizes["keys"], sizes["n"]
+    acc = np.zeros(keys_n)
+    cnt = np.zeros(keys_n, np.int64)
+    fired = np.zeros(keys_n, np.int64)
+    out = []
+    for lo in range(0, n, sizes["batch"]):
+        col, _ts = count_columns(np.arange(lo, min(lo + sizes["batch"], n), dtype=np.int64), sizes)
+        k = col[:, 0].astype(np.int64)
+        acc += np.bincount(k, weights=col[:, 1], minlength=keys_n)
+        cnt += np.bincount(k, minlength=keys_n)
+        fire = cnt >= n_fire if purging else cnt // n_fire > fired // n_fire
+        hit = np.flatnonzero(fire)
+        if hit.size:
+            out.append(sorted(zip(hit.tolist(), acc[hit].tolist())))
+        if purging:
+            acc[fire], cnt[fire] = 0.0, 0
+        else:
+            fired[fire] = cnt[fire]
+    return out
+
+
+def api_count_window_phase(dev=DEV, sizes=None) -> dict:
+    """GlobalWindows with PurgingTrigger.of(CountTrigger.of(64)) at
+    sizes["events"] records, then a non-purging CountTrigger at
+    sizes["nonpurging_events"]: TpuGlobalWindowOperator selected, its step
+    called once a batch, every firing batch equal to the model's."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime import tpu_global_window_operator as gw
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    sizes = sizes or API_COUNT
+    env, _sink = api_count_job(1024, True, sizes, dev)
+    selected = [type(getattr(r, "op", r)).__name__
+                for r in build_runners(plan(env._sinks), env.config, dev)[0]]
+    out = {"phase": "api_count_window", "operator_selected": "TpuGlobalWindowOperator" in selected,
+           "count_n": sizes["n"], "keys": sizes["keys"]}
+    ok = out["operator_selected"]
+    for name, purging, n in (("purging", True, sizes["events"]),
+                             ("nonpurging", False, sizes["nonpurging_events"])):
+        env, sink = api_count_job(n, purging, sizes, dev)
+        gw.CALLS["global_count_step"] = 0
+        secs = timed_execute(env, dev)
+        steps = gw.CALLS["global_count_step"]
+        got = [sorted((int(k), float(v)) for k, v in values) for values, _ts in sink.batches]
+        want = count_model(n, purging, sizes)
+        parity = got == want and len(want) > 0
+        out[name] = {"parity": parity, "events": n, "tuples_per_s": n / secs, "seconds": secs,
+                     "fires": sum(len(w) for w in want), "firing_batches": len(want),
+                     "steps": steps}
+        ok = ok and parity and steps == -(-n // sizes["batch"])
+    out["ok"] = ok
+    return out
+
+
+def api_group_agg_run(rows, device: bool, sizes, dev=DEV):
+    """continuous_aggregate of COUNT(*), SUM(v) and AVG(v) by key over
+    `rows`, mini-batch on: (changelog, seconds, runner kinds)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, sizes["batch"])
+    cfg.set(ExecutionOptions.DEVICE_GROUP_AGG, device)
+    cfg.set(ExecutionOptions.MINI_BATCH_GROUP_AGG, True)
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    sink = (env.from_collection(rows).key_by(lambda r: r["k"])
+            .continuous_aggregate([("COUNT", None), ("SUM", "v"), ("AVG", "v")], ["k"],
+                                  ["c", "s", "a"]).collect())
+    runners = build_runners(plan(env._sinks), env.config, dev)[0]
+    kinds = [(type(r).__name__, getattr(r, "device", None)) for r in runners]
+    return sink.results, timed_execute(env, dev), kinds
+
+
+def api_group_agg_phase(dev=DEV, sizes=None) -> dict:
+    """The continuous aggregate with execution.group-agg.device=true over
+    sizes["rows"] changelog rows (10% retractions, made on the host):
+    GroupAggRunner on its device path, one step a batch, the changelog equal
+    to the host path's on the same rows (kinds, keys, COUNT and SUM exact,
+    AVG to rtol 1e-6)."""
+    from flink_tpu_torch.runtime import group_agg_operator as ga
+    from flink_tpu_torch.table.changelog import ROW_KIND_FIELD
+    from flink_tpu_torch.testing import stream as st
+
+    sizes = sizes or API_GROUP_AGG
+    rows = st.changelog_rows(sizes["rows"], sizes["keys"], sizes["retract"])
+    api_group_agg_run(rows[:sizes["batch"]], True, sizes, dev)          # warm
+    ga.CALLS["group_agg_step"] = 0
+    got, secs, kinds = api_group_agg_run(rows, True, sizes, dev)
+    steps = ga.CALLS["group_agg_step"]
+    host, host_s, _k = api_group_agg_run(rows, False, sizes, dev)
+    parity = len(got) == len(host) > 0 and all(
+        (a[ROW_KIND_FIELD], a["k"], a["c"], a["s"]) == (b[ROW_KIND_FIELD], b["k"], b["c"], b["s"])
+        and abs(a["a"] - b["a"]) <= 1e-6 * abs(b["a"]) for a, b in zip(got, host))
+    device_path = ("GroupAggRunner", True) in kinds
+    ok = parity and device_path and steps == -(-len(rows) // sizes["batch"])
+    return {"phase": "api_group_agg", "ok": ok, "parity": parity, "device_path": device_path,
+            "rows": len(rows), "changelog_rows": len(got), "tuples_per_s": len(rows) / secs,
+            "seconds": secs, "host_path_seconds": host_s, "steps": steps}
+
+
+def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
+    """Each torch program of the per-batch operators at lateness_operator's
+    shapes (the global count step at api_count_window's, the group-agg step
+    at api_group_agg's): ms a call (CUDA events), device us a call by kernel
+    (profiler), CUDA launches a call and a batch, and a bytes bound from
+    this run's data."""
+    from flink_tpu_torch.ops import segment_ops as so
+    from flink_tpu_torch.ops.aggregators import sum_agg
+    from flink_tpu_torch.ops.sorted_ingest import sorted_ingest
+    from flink_tpu_torch.runtime import group_agg_operator as ga
+    from flink_tpu_torch.runtime import tpu_global_window_operator as gw
+    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.testing.timing import cuda_ms, device_profile
+
+    z = LATENESS
+    K, B = z["K"], z["B"]
+    op = lateness_op(dev, z)
+    S, spw = op.S, op.spw
+    agg = sum_agg()
+    acc, cnt = so.init_state_arrays(agg, K, S, torch.device(dev))
+    keys, ts, vals = st.late_records(np.arange(B, 2 * B, dtype=np.int64), B, K)
+    lanes = so.stage_lanes(keys.astype(np.int32), ((ts // st.SLIDE_MS) % S).astype(np.int32),
+                           vals, K, S, torch.device(dev))
+    so.ingest(agg, acc, cnt, lanes)
+    cells = int(torch.unique(lanes.cells(K)).numel())
+    rings = 2                                             # count and sum, 4 B each
+    # the window ending at the batch's newest slice; the purge takes the
+    # row before it
+    last = int(((ts // st.SLIDE_MS) % S).max())
+    window = [(last - spw + 1 + i) % S for i in range(spw)]
+    stale = (last - spw) % S
+    programs = {
+        # lanes read once (kid, spos, value); each touched cell of both rings
+        # read and written once
+        "ingest_scatter": ("flink_tpu/ops/segment_ops.py:60",
+                           lambda: so.ingest(agg, acc, cnt, lanes),
+                           B * 12 + cells * rings * 4 * 2, B * rings, "ingest"),
+        "ingest_sort": ("flink_tpu/ops/sorted_ingest.py:54",
+                        lambda: sorted_ingest(agg, acc, cnt, lanes),
+                        B * 12 + cells * rings * 4 * 2, B * rings, "ingest_sort"),
+        # the window's rows of both rings read; result, count and mask written
+        "fire": ("flink_tpu/ops/segment_ops.py:97",
+                 lambda: so.fire(agg, acc, cnt, window),
+                 spw * K * rings * 4 + K * (4 + 4 + 1), spw * K * rings, "fire"),
+        "fire_masked": ("flink_tpu/ops/segment_ops.py:97",
+                        lambda: so.fire(agg, acc, cnt, window, lanes),
+                        spw * K * rings * 4 + K * (4 + 4 + 1) + B * 8, spw * K * rings + B,
+                        "fire_masked"),
+        # one row of both rings written
+        "purge": ("flink_tpu/ops/segment_ops.py:132",
+                  lambda: so.purge(agg, acc, cnt, [stale]), K * rings * 4, 0, "purge"),
+    }
+    # the global count step at api_count_window's shapes: one batch's lanes
+    zc = API_COUNT
+    col, _t = count_columns(np.arange(zc["batch"], dtype=np.int64), zc)
+    gk = torch.from_numpy(col[:, 0].astype(np.int32)).to(dev)
+    gv = torch.from_numpy(col[:, 1]).to(dev)
+    gacc = {"sum": torch.zeros(zc["keys"], device=dev)}
+    gcnt = torch.zeros(zc["keys"], dtype=torch.int32, device=dev)
+    gfired = torch.zeros(zc["keys"], dtype=torch.int32, device=dev)
+    gkeys = int(torch.unique(gk).numel())
+    programs["global_count_step"] = (
+        "flink_tpu/runtime/tpu_global_window_operator.py:35",
+        lambda: gw.step(agg, gacc, gcnt, gfired, gk, gv, zc["n"], True),
+        # lanes read; touched keys' acc and count read and written; the
+        # extract and the mask over K written, acc and count over K rewritten
+        zc["batch"] * 8 + gkeys * 2 * 4 * 2 + zc["keys"] * (4 + 1 + 2 * 4), zc["batch"] * 2,
+        "global_count_step")
+    # the group-agg step at api_group_agg's shapes: a batch of 65536 rows
+    # over 2^16 keys, three linear columns
+    zg = API_GROUP_AGG
+    rng = np.random.default_rng(0)
+    L, b, cap = 3, zg["batch"], 2 * zg["keys"]
+    slots = torch.from_numpy(rng.integers(0, zg["keys"], b).astype(np.int32)).to(dev)
+    signs = torch.from_numpy(np.where(rng.random(b) < zg["retract"], -1, 1).astype(np.int32)).to(dev)
+    gvals = torch.from_numpy(rng.integers(0, 100, (L, b)).astype(np.float32)).to(dev)
+    nn = torch.ones((L, b), dtype=torch.int32, device=dev)
+    uniq = torch.unique(slots).long()
+    u = int(uniq.numel())
+    gcols = (torch.zeros(cap, dtype=torch.int32, device=dev),
+             torch.zeros((L, cap), device=dev), torch.zeros((L, cap), dtype=torch.int32, device=dev))
+    programs["group_agg_step"] = (
+        "flink_tpu/runtime/group_agg_operator.py:100",
+        lambda: ga.device_step(*gcols, slots, signs, gvals, nn, uniq),
+        # rows read (slot, sign, L values, L non-null counts); the distinct
+        # keys' columns read before and after, and read and written by the
+        # scatter
+        b * (8 + 8 * L) + u * (4 + 8 * L) * 4, b * (1 + 2 * L), "group_agg_step")
+    out = {"phase": "per_batch_programs", "card": card,
+           "shape": f"K={K} S={S} B={B} spw={spw} (sum); global step K={zc['keys']} "
+                    f"B={zc['batch']}; group-agg cap={cap} B={b} L={L}",
+           "cells_touched": cells}
+    for name, (replaces, fn, nbytes, nops, calls_key) in programs.items():
+        b_ms, b_by = bound(nbytes, nops)
+        split, per_call = device_profile(fn)
+        out[name] = {"replaces": replaces, "ms": cuda_ms(fn, 5), "device_us": sum(split.values()),
+                     "device_us_by_kernel": split, "launches_per_call": per_call,
+                     "calls_per_batch": calls_per_batch.get(calls_key, 1.0),
+                     "launches_per_batch": per_call * calls_per_batch.get(calls_key, 1.0),
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes}
+    # the host side of a fire: nonzero of the mask (a sync) and the copy of
+    # the fired keys and values, the operator's _emit_window on a full ring
+    op.state.acc, op.state.count = acc, cnt
+    reps = []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        op._emit_window(window[0] // op.sl, touch_mask=False)
+        _sync(dev)
+        reps.append((time.perf_counter() - t0) * 1e3)
+        emitted = op.drain_output()
+    out["emit_window_host_ms"] = float(np.median(reps))
+    out["emit_window_keys"] = int(len(emitted[0][2][0])) if emitted else 0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -1086,6 +1597,33 @@ def main() -> int:
     skt = session_kernel_times(card)
     emit(skt)
 
+    # ---- 12-15. the per-batch paths, each with its program calls at 0
+    # just before it ----
+    late_op = lateness_operator_phase()
+    emit(late_op)
+    if not late_op["ok"]:
+        raise AssertionError("lateness_operator: an emission or the side output differs from "
+                             "the oracle, the ingest forms disagree, or the ring is not 64 slices")
+    api_late = api_lateness_phase()
+    emit(api_late)
+    if not api_late["ok"]:
+        raise AssertionError("api_lateness: parity failed or TpuWindowOperator was not selected")
+    api_count = api_count_window_phase()
+    emit(api_count)
+    if not api_count["ok"]:
+        raise AssertionError("api_count_window: parity failed, TpuGlobalWindowOperator was not "
+                             "selected, or its step did not run once a batch")
+    api_ga = api_group_agg_phase()
+    emit(api_ga)
+    if not api_ga["ok"]:
+        raise AssertionError("api_group_agg: the device changelog differs from the host path's "
+                             "or the device path did not run")
+    # ---- 16. the per-batch torch programs at these shapes ----
+    timed = LATENESS["timed"]
+    per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
+    per_batch["ingest_sort"] = late_op["sort"]["program_calls"].get("ingest_sort", 0) / timed
+    emit(per_batch_programs(card, per_batch))
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -1153,6 +1691,13 @@ def main() -> int:
                      groups=(("k3", "k3_"), ("k4", "k4_"), ("copies", "Memcpy"))))
     emit(host_profile("api_sessions", lambda: session_api_run(
         API_SESSIONS["events"], API_SESSIONS)[1]))
+    # the per-batch paths (lateness_operator's device profile is in its line)
+    late_batches = lateness_batches(LATENESS)
+    emit(host_profile("lateness_operator", lambda: run_lateness(
+        lateness_op(DEV, LATENESS), late_batches, DEV)[1]))
+    del late_batches
+    emit(profile_run("api_lateness", lambda: api_lateness_run(API_LATENESS), groups=()))
+    emit(host_profile("api_lateness", lambda: api_lateness_run(API_LATENESS)))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

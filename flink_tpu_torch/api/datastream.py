@@ -12,6 +12,11 @@ device under chain fusion and on a CPU tensor view on the host route;
 `vectorized=True` a function of numpy columns, run on the host; neither, a
 function of one record.
 
+Windows take allowed lateness and a late side output
+(`side_output_late_data()`, read with `get_side_output(LATE_DATA_TAG)`),
+and GlobalWindows a count trigger (the per-batch and global device
+operators); `KeyedStream.continuous_aggregate` emits a retract changelog.
+
 `StreamExecutionEnvironment(device=None)` runs on CUDA and raises at
 execute() without a GPU; pass device="cpu" for the plain PyTorch path. The
 device is threaded into every operator the job builds. Surfaces the port
@@ -22,13 +27,14 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Sequence, Union
 
-from flink_tpu_torch.api.functions import AggregateFunction, as_key_selector
+from flink_tpu_torch.api.functions import AggregateFunction, OutputTag, as_key_selector
 from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.config import Configuration, PipelineOptions
 from flink_tpu_torch.connectors.sink import CollectSink, Sink
 from flink_tpu_torch.connectors.source import CollectionSource, Source
 from flink_tpu_torch.core.watermarks import WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Transformation, plan
+from flink_tpu_torch.runtime.tpu_global_window_operator import supported_trigger
 from flink_tpu_torch.utils import deferred
 
 
@@ -157,11 +163,22 @@ class DataStream:
         self.sink_to(sink, name="collect")
         return sink
 
+    def get_side_output(self, tag) -> "DataStream":
+        """The stream of this operator's side output for `tag`
+        (SingleOutputStreamOperator.getSideOutput): a window aggregate's
+        late data with side_output_late_data() and LATE_DATA_TAG. Side
+        outputs of process() operators are not ported (ROADMAP item 19)."""
+        if self.transform.kind != "window_aggregate":
+            raise deferred.not_ported(
+                f"DataStream.get_side_output of a {self.transform.kind!r} stream", deferred.API)
+        if not isinstance(tag, OutputTag):
+            tag = OutputTag(str(tag))
+        return self._derive("side_output", f"side:{tag.tag_id}", {"tag": tag})
+
     # -- not ported yet ----------------------------------------------------
     flat_map = _not_ported("DataStream", "flat_map", deferred.API)
     map_batch = _not_ported("DataStream", "map_batch", deferred.API)
     async_map = _not_ported("DataStream", "async_map", deferred.API)
-    get_side_output = _not_ported("DataStream", "get_side_output", deferred.API)
     union = _not_ported("DataStream", "union", deferred.API)
     connect = _not_ported("DataStream", "connect", deferred.API)
     join = _not_ported("DataStream", "join", deferred.JOINS)
@@ -192,10 +209,44 @@ class KeyedStream(DataStream):
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
 
+    def _scalar_key_selector(self) -> Callable:
+        """Per-record view of the key selector (a vectorized selector is
+        called on a one-record column)."""
+        sel = self.key_selector
+        if self.transform.config.get("vectorized"):
+            import numpy as np
+
+            return lambda v: sel(np.asarray(v)[None, ...])[0]
+        return sel
+
+    def continuous_aggregate(self, specs, key_fields, out_names,
+                             mini_batch: Optional[bool] = None,
+                             generate_update_before: bool = True,
+                             device: Optional[bool] = None,
+                             name: str = "group_agg") -> DataStream:
+        """Continuous (non-windowed) group aggregation emitting a retract
+        changelog (GroupAggFunction.java:33). `specs` is a list of (func,
+        col) with func in COUNT/SUM/AVG/MIN/MAX (col None for COUNT(*));
+        `key_fields` name the key parts and `out_names` the aggregate
+        outputs of the emitted rows. Input rows may carry changelog kinds
+        (table/changelog.py). `mini_batch=True` emits one transition per
+        distinct key per batch, False the exact per-record sequence;
+        `device=True` keeps the linear accumulators on the device with one
+        scatter-add step per batch. None takes the configuration's
+        execution.group-agg.* options."""
+        t = Transformation("group_agg", name, [self.transform], {
+            "key_selector": self._scalar_key_selector(),
+            "specs": list(specs),
+            "key_fields": list(key_fields),
+            "out_names": list(out_names),
+            "mini_batch": mini_batch,
+            "generate_update_before": generate_update_before,
+            "device": device,
+        })
+        return DataStream(self.env, t)
+
     reduce = _not_ported("KeyedStream", "reduce", deferred.API)
     process = _not_ported("KeyedStream", "process", deferred.API)
-    continuous_aggregate = _not_ported("KeyedStream", "continuous_aggregate",
-                                       deferred.PER_BATCH)
 
 
 class WindowedStream:
@@ -204,6 +255,28 @@ class WindowedStream:
     def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
         self._keyed = keyed
         self._assigner = assigner
+        self._trigger = None
+        self._allowed_lateness = 0
+        self._side_output_late = False
+
+    def trigger(self, trigger) -> "WindowedStream":
+        """A CountTrigger or PurgingTrigger(CountTrigger) (GlobalWindows on
+        the device global-window operator); other triggers need the
+        per-record oracle operator (ROADMAP item 18)."""
+        if supported_trigger(trigger) is None:
+            raise deferred.not_ported(f"WindowedStream.trigger({trigger!r})", deferred.ORACLE)
+        self._trigger = trigger
+        return self
+
+    def allowed_lateness(self, lateness_ms: int) -> "WindowedStream":
+        self._allowed_lateness = lateness_ms
+        return self
+
+    def side_output_late_data(self) -> "WindowedStream":
+        """Too-late records go to the LATE_DATA_TAG side output instead of
+        being dropped."""
+        self._side_output_late = True
+        return self
 
     def _agg_transform(self, aggregate, value_fn, name, value_vectorized: bool = False,
                        value_traceable: bool = False) -> DataStream:
@@ -215,10 +288,10 @@ class WindowedStream:
             "value_vectorized": value_vectorized or value_traceable,
             "value_traceable": value_traceable,
             "window_fn": None,
-            "trigger": None,
+            "trigger": self._trigger,
             "evictor": None,
-            "allowed_lateness": 0,
-            "side_output_late": False,
+            "allowed_lateness": self._allowed_lateness,
+            "side_output_late": self._side_output_late,
             "key_selector": self._keyed.key_selector,
             "key_vectorized": keyed_cfg.get("vectorized", False),
             "key_traceable": keyed_cfg.get("traceable", False),
@@ -249,10 +322,6 @@ class WindowedStream:
     def min(self, value_fn: Optional[Callable] = None) -> DataStream:
         return self.aggregate("min", value_fn, name="window_min")
 
-    trigger = _not_ported("WindowedStream", "trigger", deferred.ORACLE)
     evictor = _not_ported("WindowedStream", "evictor", deferred.ORACLE)
-    allowed_lateness = _not_ported("WindowedStream", "allowed_lateness", deferred.PER_BATCH)
-    side_output_late_data = _not_ported("WindowedStream", "side_output_late_data",
-                                        deferred.PER_BATCH)
     reduce = _not_ported("WindowedStream", "reduce", deferred.ORACLE)
     process = _not_ported("WindowedStream", "process", deferred.ORACLE)

@@ -2,7 +2,7 @@
 
 Counterpart of `flink_tpu/api/functions.py` (whose definitions live in
 `flink_tpu/core/functions.py`): the interfaces a DataStream job on the
-port's path takes. A `traceable=True` UDF on the port is a function of a
+port's path takes, and the side-output tags. A `traceable=True` UDF on the port is a function of a
 torch tensor column; a `vectorized=True` one takes a numpy column; a plain
 one takes one record.
 """
@@ -54,3 +54,22 @@ def as_key_selector(fn) -> Callable[[Any], Any]:
     if isinstance(fn, KeySelector):
         return fn.get_key
     return fn
+
+
+class OutputTag:
+    """Side-output tag (OutputTag.java). Late data uses LATE_DATA_TAG."""
+
+    def __init__(self, tag_id: str):
+        self.tag_id = tag_id
+
+    def __hash__(self):
+        return hash(self.tag_id)
+
+    def __eq__(self, other):
+        return isinstance(other, OutputTag) and other.tag_id == self.tag_id
+
+    def __repr__(self):
+        return f"OutputTag({self.tag_id!r})"
+
+
+LATE_DATA_TAG = OutputTag("late-data")

@@ -1,23 +1,37 @@
-"""Window assigners: the grid assigners with their slice decomposition, and
-session windows.
+"""Window assigners: the grid assigners with their slice decomposition,
+session windows and the global window.
 
 Counterpart of `TumblingEventTimeWindows`, `SlidingEventTimeWindows`,
-`EventTimeSessionWindows` and `ProcessingTimeSessionWindows` in
-`flink_tpu/api/windowing/assigners.py`. A grid assigner exposes the slice
+`EventTimeSessionWindows`, `ProcessingTimeSessionWindows`, `GlobalWindow`
+(:44) and `GlobalWindows` (:252) in `flink_tpu/api/windowing/assigners.py`. A grid assigner exposes the slice
 decomposition the fused planner reads: slice = gcd-granule of (size,
 slide), a window is a contiguous run of `slices_per_window` slices, and
 consecutive windows start `slide_slices` slices apart. Session windows
-merge and have no slice decomposition.
+merge and have no slice decomposition. GlobalWindows puts every element
+into one window that fires only by a count trigger (the device
+global-window operator).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional
 
 from flink_tpu_torch.api.windowing.triggers import EventTimeTrigger
-from flink_tpu_torch.core.time import TimeWindow, assign_sliding, assign_tumbling
+from flink_tpu_torch.core.time import MAX_WATERMARK, TimeWindow, assign_sliding, assign_tumbling
 from flink_tpu_torch.utils import deferred
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalWindow:
+    """The singleton namespace of GlobalWindows (GlobalWindow.java)."""
+
+    def max_timestamp(self) -> int:
+        return MAX_WATERMARK
+
+    def __repr__(self) -> str:
+        return "GlobalWindow"
 
 
 class WindowAssigner:
@@ -189,3 +203,26 @@ class ProcessingTimeSessionWindows(EventTimeSessionWindows):
     def get_default_trigger(self):
         raise deferred.not_ported("ProcessingTimeSessionWindows' ProcessingTimeTrigger",
                                   deferred.ORACLE)
+
+
+class GlobalWindows(WindowAssigner):
+    """All elements into one global window; it fires only by a custom
+    trigger (GlobalWindows.java). With CountTrigger or
+    PurgingTrigger(CountTrigger) the device global-window operator runs it;
+    its default NeverTrigger and any other trigger need the per-record
+    oracle operator, which the port does not carry (ROADMAP item 18)."""
+
+    _WINDOW = GlobalWindow()
+
+    def assign_windows(self, element, timestamp: int) -> List[GlobalWindow]:
+        return [self._WINDOW]
+
+    @staticmethod
+    def create() -> "GlobalWindows":
+        return GlobalWindows()
+
+    def get_default_trigger(self):
+        raise deferred.not_ported("GlobalWindows' NeverTrigger", deferred.ORACLE)
+
+    def __repr__(self) -> str:
+        return "GlobalWindows()"

@@ -82,7 +82,6 @@ _UNPORTED_PREFIXES = (
     ("state.savepoints.", deferred.CHECKPOINTS),
     ("restart-strategy", deferred.CHECKPOINTS),
     ("execution.join.", deferred.JOINS),
-    ("execution.group-agg.", deferred.PER_BATCH),
 )
 
 
@@ -151,8 +150,9 @@ class ExecutionOptions:
         ConfigOptions.key("execution.window.fused").bool_type().default_value(True)
     ).with_description(
         "Run eligible event-time window aggregates on the fused superscan "
-        "operator (one dispatch per superbatch). The per-step device operator "
-        "it falls back to when off is not ported (ROADMAP item 10).")
+        "operator (one dispatch per superbatch). Off, they run on the per-batch "
+        "device operator (TpuWindowOperator), as do windows with allowed "
+        "lateness or a late side output.")
     CHAIN_FUSION = (
         ConfigOptions.key("execution.chain.device-fusion").bool_type().default_value(True)
     ).with_description(
@@ -178,3 +178,18 @@ class ExecutionOptions:
     ).with_description(
         "Emit window fires as packed (window, key-ids, values) rows instead of "
         "one (key, value) row per key.")
+    MINI_BATCH_GROUP_AGG = (
+        ConfigOptions.key("execution.group-agg.mini-batch").bool_type().default_value(True)
+    ).with_description(
+        "Continuous (non-windowed) aggregates emit one changelog transition "
+        "per distinct key per step batch (the reference's "
+        "table.exec.mini-batch optimization) instead of per input record. "
+        "Set to false for the exact per-record emission sequence.")
+    DEVICE_GROUP_AGG = (
+        ConfigOptions.key("execution.group-agg.device").bool_type().default_value(False)
+    ).with_description(
+        "Keep continuous-aggregation accumulators in device memory with one "
+        "scatter-add step per batch (COUNT/SUM/AVG only; MIN/MAX need the "
+        "host retractable multiset). COUNT columns are int32 on the device "
+        "and wrap past 2**31 - 1 where the host path's integers would not; "
+        "SUM/AVG accumulate in float32 where the host path uses float64.")

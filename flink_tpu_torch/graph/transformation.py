@@ -4,8 +4,9 @@ Counterpart of `flink_tpu/graph/transformation.py`: API calls record
 `Transformation` nodes; `plan` groups chainable record-local
 transformations into steps (the analogue of operator chains) and cuts
 chains at keyBy. The port plans the kinds its API records — source,
-map/map_ts/filter, key_by, window_aggregate and sink — with the JAX
-planner's rules; any other kind raises.
+map/map_ts/filter, key_by, window_aggregate, group_agg, sink and
+side_output (a tagged view of the producing step's side channel) — with
+the JAX planner's rules; any other kind raises.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _ids = itertools.count(1)
 CHAINABLE = {"map", "map_ts", "filter"}
 
 # single-input stateful/boundary terminals
-TERMINALS = {"window_aggregate", "sink"}
+TERMINALS = {"window_aggregate", "group_agg", "sink"}
 
 
 @dataclasses.dataclass
@@ -133,8 +134,12 @@ def plan(sink_transforms) -> StepGraph:
 
     sources: List[Transformation] = []
     steps: List[Step] = []
+    # producer[node.id]: the source or step whose output carries the node's
+    # records; keyed[node.id]: the key_by config of keyed views;
+    # side_tag[node.id]: the producing step's side-output channel
     producer: Dict[int, Any] = {}
     keyed: Dict[int, Dict[str, Any]] = {}
+    side_tag: Dict[int, str] = {}
 
     def new_step(**kw) -> Step:
         s = Step(**kw)
@@ -142,10 +147,11 @@ def plan(sink_transforms) -> StepGraph:
         return s
 
     def input_of(inp: Transformation):
-        """(producer, partitioning, key_selector) of one edge."""
+        """(producer, tag, partitioning, key_selector) of one edge."""
+        tag = side_tag.get(inp.id)
         if inp.id in keyed:
-            return producer[inp.id], "key_group", keyed[inp.id]["key_selector"]
-        return producer[inp.id], "forward", None
+            return producer[inp.id], tag, "key_group", keyed[inp.id]["key_selector"]
+        return producer[inp.id], tag, "forward", None
 
     for t in order:
         if t.kind == "source":
@@ -153,7 +159,13 @@ def plan(sink_transforms) -> StepGraph:
             producer[t.id] = t
         elif t.kind == "key_by":
             producer[t.id] = producer[t.inputs[0].id]
+            if t.inputs[0].id in side_tag:
+                side_tag[t.id] = side_tag[t.inputs[0].id]
             keyed[t.id] = t.config  # re-keying: the newest selector wins
+        elif t.kind == "side_output":
+            # a tagged view of the producing step's side channel
+            producer[t.id] = producer[t.inputs[0].id]
+            side_tag[t.id] = t.config["tag"].tag_id
         elif t.kind in CHAINABLE:
             inp = t.inputs[0]
             ent = producer[inp.id]
@@ -162,19 +174,20 @@ def plan(sink_transforms) -> StepGraph:
                 and ent.terminal is None
                 and consumers.get(inp.id, 0) == 1
                 and inp.id not in keyed
+                and inp.id not in side_tag
                 and ent.chain
                 and ent.chain[-1].id == inp.id
             ):
                 ent.chain.append(t)          # fuse into the open chain
                 producer[t.id] = ent
             else:
-                ent2, part, ks = input_of(inp)
+                ent2, tag, part, ks = input_of(inp)
                 producer[t.id] = new_step(chain=[t], terminal=None, partitioning=part,
-                                          key_selector=ks, inputs=[(ent2, 0, None)])
+                                          key_selector=ks, inputs=[(ent2, 0, tag)])
         elif t.kind in TERMINALS:
-            ent, part, ks = input_of(t.inputs[0])
+            ent, tag, part, ks = input_of(t.inputs[0])
             producer[t.id] = new_step(chain=[], terminal=t, partitioning=part,
-                                      key_selector=ks, inputs=[(ent, 0, None)])
+                                      key_selector=ks, inputs=[(ent, 0, tag)])
         else:
             raise deferred.not_ported(f"transformation kind {t.kind!r}", deferred.API)
 

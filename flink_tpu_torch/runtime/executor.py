@@ -1,26 +1,35 @@
 """Local pipeline executor: the host-driven stepped dataflow loop.
 
 Counterpart of the subset of `flink_tpu/runtime/executor.py` that a keyed
-event-time window job runs. The source reader yields a columnar batch; the
-batch flows through push-based StepRunners (a stateless chain, a keyed
-window step backed by the fused operator, then sinks), and the source's
-watermark advances between steps.
+event-time window job or a continuous aggregate runs. The source reader
+yields a columnar batch; the batch flows through push-based StepRunners (a
+stateless chain, a keyed window step or a continuous aggregate, then
+sinks), and the source's watermark advances between steps.
 
 Runner selection follows the JAX package. A window step whose chain is
 traceable (graph/fusion.py) gets a `DeviceChainRunner`: the chain runs as
 a torch prologue on the device inside each fused dispatch. Otherwise a
 `ChainRunner` applies the chain on the host and a `WindowStepRunner`
-keys the records through the host dictionary into its operator: the fused
-operator (kernel K1) for grid windows, the session operator
-(`runtime/tpu_session_operator.py`, kernels K3 and K4) for event-time
-session windows whose sources' out-of-orderness stays below the gap.
+keys the records through the host dictionary into its operator:
+- GlobalWindows with a CountTrigger or PurgingTrigger(CountTrigger): the
+  device global-window operator (`runtime/tpu_global_window_operator.py`);
+- event-time session windows whose sources' out-of-orderness stays below
+  the gap: the session operator (`runtime/tpu_session_operator.py`,
+  kernels K3 and K4);
+- grid windows: the fused operator (kernel K1), or, with allowed lateness,
+  a late side output or `execution.window.fused` off, the per-batch
+  operator (`runtime/tpu_window_operator.py`), whose late side output
+  reaches the consumers of `get_side_output(LATE_DATA_TAG)`.
+A `group_agg` step (`KeyedStream.continuous_aggregate`) gets a
+`GroupAggRunner` (`runtime/group_agg_operator.py`).
 
 Left out, raising where a job asks for them (ROADMAP.md Queue A): the
-per-batch device, global and oracle window operators (items 10, 18; a
-session step the JAX package hands to its oracle raises naming item 18),
-job metrics and emission latency (item 15), checkpoints and savepoints of
-a running job (item 16), parallelism > 1 (item 17), the chaos hook (item
-14), and the rest of the DataStream API's runners (item 19).
+per-record oracle window operator (item 18: Python aggregates, other
+triggers, evictors, window functions, processing time, and the session
+steps the JAX package hands to it), job metrics and emission latency
+(item 15), checkpoints and savepoints of a running job (item 16),
+parallelism > 1 (item 17), the chaos hook (item 14), and the rest of the
+DataStream API's runners (item 19).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows
+from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows, GlobalWindows
 from flink_tpu_torch.config import Configuration, ExecutionOptions, PipelineOptions
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
@@ -40,7 +49,12 @@ from flink_tpu_torch.graph.transformation import Step, StepGraph, Transformation
 from flink_tpu_torch.ops.aggregators import ONE, resolve
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
 from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
+from flink_tpu_torch.runtime.tpu_global_window_operator import (
+    TpuGlobalWindowOperator,
+    supported_trigger,
+)
 from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator
+from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import as_device_column, canonical_column, obj_array
 from flink_tpu_torch.utils.device import resolve_device
@@ -88,6 +102,16 @@ class _FanOut:
 
 class StepRunner:
     downstream: Optional[_FanOut] = None
+    sides: Optional[Dict[str, _FanOut]] = None   # side-output channels by tag
+
+    def side_channel(self, tag_id: str) -> _FanOut:
+        if self.sides is None:
+            self.sides = {}
+        return self.sides.setdefault(tag_id, _FanOut())
+
+    def emit_side(self, tag_id: str, values, timestamps) -> None:
+        if self.sides and tag_id in self.sides:
+            self.sides[tag_id].on_batch(values, timestamps)
 
     # -- input-gate protocol (single-input steps on the port) --------------
     def on_batch_n(self, ordinal: int, values: np.ndarray, timestamps: np.ndarray) -> None:
@@ -106,10 +130,14 @@ class StepRunner:
     def on_watermark(self, watermark: int) -> None:
         if self.downstream:
             self.downstream.on_watermark(watermark)
+        for f in (self.sides or {}).values():
+            f.on_watermark(watermark)
 
     def on_end(self) -> None:
         if self.downstream:
             self.downstream.on_end()
+        for f in (self.sides or {}).values():
+            f.on_end()
 
 
 def _fused_chunk(batch_size: int) -> int:
@@ -276,9 +304,9 @@ def _session_refusal(step: Step, cfg: dict, assigner, device_agg,
 
 
 class WindowStepRunner(StepRunner):
-    """Keyed window aggregation step over the fused operator or, for
-    event-time session windows, the session operator (the JAX runner's
-    fused and session branches; its other branches are not ported)."""
+    """Keyed window aggregation step over the device operator the JAX
+    runner selects: global count windows, sessions, the fused operator or
+    the per-batch operator (its oracle branch is not ported)."""
 
     def __init__(self, step: Step, config: Configuration, device: torch.device):
         t = step.terminal
@@ -293,13 +321,23 @@ class WindowStepRunner(StepRunner):
         self.value_traceable = cfg.get("value_traceable", False) and cfg.get("value_fn")
         device_agg = resolve(aggregate)
         self.uid = t.uid
+        self._needs_value = device_agg is not None and any(
+            f.source != ONE for f in device_agg.fields)
+        count_spec = supported_trigger(cfg.get("trigger"))
+        if (isinstance(assigner, GlobalWindows) and device_agg is not None
+                and count_spec is not None and cfg.get("evictor") is None
+                and cfg.get("window_fn") is None):
+            n, purging = count_spec
+            self.op = TpuGlobalWindowOperator(
+                device_agg, count_n=n, purging=purging,
+                key_capacity=config.get(ExecutionOptions.KEY_CAPACITY), device=device)
+            return
         if isinstance(assigner, EventTimeSessionWindows):
             reason = _session_refusal(step, cfg, assigner, device_agg, config)
             if reason is not None:
                 raise deferred.not_ported(
                     f"window step '{t.name}' (it needs the per-record oracle "
                     f"operator: {reason})", deferred.ORACLE)
-            self._needs_value = any(f.source != ONE for f in device_agg.fields)
             # per-slice fragments + gap-merge scan (runtime/
             # tpu_session_operator.py); capacity grows with the dictionary
             self.op = TpuSessionWindowOperator(
@@ -327,11 +365,16 @@ class WindowStepRunner(StepRunner):
             and all(f.scatter in ("add", "min", "max") for f in device_agg.fields)
         )
         if not use_fused:
-            raise deferred.not_ported(
-                f"window step '{t.name}' (it needs the per-batch device operator: "
-                "allowed lateness, late side output, or execution.window.fused off)",
-                deferred.PER_BATCH)
-        self._needs_value = any(f.source != ONE for f in device_agg.fields)
+            # allowed lateness, a late side output or the fused path off:
+            # one ingest and the due fires per batch
+            self.op = TpuWindowOperator(
+                assigner, device_agg,
+                allowed_lateness=cfg.get("allowed_lateness", 0),
+                key_capacity=config.get(ExecutionOptions.KEY_CAPACITY),
+                emit_late_to_side_output=bool(cfg.get("side_output_late")),
+                columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
+                device=device)
+            return
         # start small and grow by doubling with the key dictionary: the
         # superscan's cost scales with the key capacity
         capacity = min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY))
@@ -386,14 +429,22 @@ class WindowStepRunner(StepRunner):
         safe = getattr(self.op, "emitted_watermark", None)
         if safe is not None:
             watermark = min(watermark, safe)
-        if watermark > MIN_WATERMARK and self.downstream:
-            self.downstream.on_watermark(watermark)
+        if watermark > MIN_WATERMARK:
+            super().on_watermark(watermark)
 
     def on_end(self) -> None:
         self._drain()
         super().on_end()
 
     def _drain(self) -> None:
+        # side outputs (late data) to the tagged consumers; rows without a
+        # consumer are dropped, not accumulated
+        op_sides = getattr(self.op, "side_output", None)
+        for tag_id, rows in list((op_sides or {}).items()):
+            if rows:
+                self.emit_side(tag_id, obj_array([(k, v) for (k, v, _t) in rows]),
+                               np.asarray([t for (_k, _v, t) in rows], dtype=np.int64))
+            op_sides[tag_id] = []
         out = self.op.drain_output()
         if out and self.downstream:
             # row mode: (key, value); columnar mode (k is None): the packed
@@ -468,6 +519,10 @@ def _make_runner(step: Step, config: Configuration, device: torch.device) -> Ste
         return WindowStepRunner(step, config, device)
     if kind == "sink":
         return SinkRunner(step)
+    if kind == "group_agg":
+        from flink_tpu_torch.runtime.group_agg_operator import GroupAggRunner
+
+        return GroupAggRunner(step, config, device)
     raise deferred.not_ported(f"runner for {kind!r}", deferred.API)
 
 
@@ -506,9 +561,13 @@ def build_runners(graph: StepGraph, config: Configuration, device=None):
             continue
         r = runner_of[id(step)]
         step_inputs = plans[id(step)].inputs if id(step) in plans else step.inputs
-        for entity, ordinal, _tag in step_inputs:
+        for entity, ordinal, tag in step_inputs:
             if isinstance(entity, Transformation):       # a source feeds this
+                if tag is not None:
+                    raise ValueError("sources have no side-output channels")
                 feeds.setdefault(entity.id, []).append((r, ordinal))
+            elif tag is not None:
+                runner_of[id(entity)].side_channel(tag).add(r, ordinal)
             else:
                 up = runner_of[id(entity)]
                 if up.downstream is None:

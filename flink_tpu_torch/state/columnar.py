@@ -1,19 +1,32 @@
-"""The host key dictionary of the fused window path.
+"""Columnar device state: the host key dictionary and the per-(key, slice)
+accumulator rings of the per-batch window operator.
 
-Counterpart of `flink_tpu/state/columnar.py::KeyDictionary` (the rest of
-that module is ROADMAP item 11). Raw keys map to dense row ids, handed out
-in order of first appearance. Batches of integer keys take a vectorized
-numpy path (np.unique, then a merge into a sorted key array) where the JAX
-package calls its native C++ table; other keys take a Python dict. Both
-give the ids the JAX dictionary gives, so snapshots cross between the
-packages.
+Counterpart of `flink_tpu/state/columnar.py`. `KeyDictionary`: raw keys
+map to dense row ids, handed out in order of first appearance. Batches of
+integer keys take a vectorized numpy path (np.unique, then a merge into a
+sorted key array) where the JAX package calls its native C++ table; other
+keys take a Python dict. Both give the ids the JAX dictionary gives, so
+snapshots cross between the packages.
+
+`ColumnarWindowState`: the accumulator fields and the count as rings on
+the device, slice-major `[S, K]` (a fire reads `spw` contiguous rows, a
+purge rewrites whole rows), the key dictionary, and the host-tracked ring
+frontiers. Snapshots hold the JAX package's `[K, S]` numpy arrays, so a
+snapshot taken in either package restores in the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from flink_tpu_torch.ops import segment_ops
+from flink_tpu_torch.ops.aggregators import DeviceAggregator
+from flink_tpu_torch.ops.sorted_ingest import sorted_ingest
+from flink_tpu_torch.utils.device import resolve_device
 
 
 def _int_column(keys: np.ndarray) -> bool:
@@ -117,3 +130,123 @@ class KeyDictionary:
         else:
             d._leave_int_mode()
         return d
+
+
+@dataclasses.dataclass
+class RingFrontiers:
+    """Host-tracked slice-ring accounting (all in absolute slice indices)."""
+
+    purged_to: Optional[int] = None     # slices < purged_to are recycled
+    min_used: Optional[int] = None      # smallest slice ever written
+    max_used: Optional[int] = None      # largest slice ever written
+
+
+class ColumnarWindowState:
+    """Device rings + key dictionary + ring accounting for one shard."""
+
+    PURGE_CHUNK = 8
+
+    def __init__(
+        self,
+        agg: DeviceAggregator,
+        *,
+        key_capacity: int = 1 << 12,
+        num_slices: int = 64,
+        dense_int_keys: bool = False,
+        ingest_kernel: str = "scatter",
+        device=None,
+    ):
+        if ingest_kernel not in ("scatter", "sort"):
+            raise ValueError(f"ingest_kernel {ingest_kernel!r}: 'scatter' or 'sort'")
+        self.agg = agg
+        self.K = key_capacity
+        self.S = num_slices
+        self.device = resolve_device(device)
+        self.keydict = KeyDictionary(dense_int_keys)
+        self.frontiers = RingFrontiers()
+        self.acc, self.count = segment_ops.init_state_arrays(agg, self.K, self.S, self.device)
+        self._ingest = sorted_ingest if ingest_kernel == "sort" else segment_ops.ingest
+        # the lanes of the most recent ingest: the masked re-fire's touch
+        self.last_touch: Optional[segment_ops.Lanes] = None
+
+    # ------------------------------------------------------------------
+    def ensure_key_capacity(self, required: int) -> None:
+        if required <= self.K:
+            return
+        new_k = self.K
+        while new_k < required:
+            new_k *= 2
+        self.acc, self.count = segment_ops.grow_keys(self.acc, self.count, self.agg, new_k)
+        self.K = new_k
+
+    def ring_pos(self, slices: np.ndarray) -> np.ndarray:
+        return (slices % self.S).astype(np.int32)
+
+    def ingest(self, kid: np.ndarray, slices_abs: np.ndarray, vals: np.ndarray) -> None:
+        """Scatter a prepared batch into the rings.
+        kid == INVALID_INDEX lanes are dropped."""
+        f = self.frontiers
+        valid = kid != segment_ops.INVALID_INDEX
+        live = slices_abs[valid]
+        if live.size:
+            lo, hi = int(live.min()), int(live.max())
+            f.min_used = lo if f.min_used is None else min(f.min_used, lo)
+            f.max_used = hi if f.max_used is None else max(f.max_used, hi)
+        spos = np.where(valid, slices_abs % self.S, segment_ops.INVALID_INDEX).astype(np.int32)
+        lanes = segment_ops.stage_lanes(kid, spos, vals, self.K, self.S, self.device)
+        self._ingest(self.agg, self.acc, self.count, lanes)
+        self.last_touch = lanes
+
+    def fire(self, slice_range: range, *, touch_mask: bool = False):
+        """Combine the window's slices: (result, counts, mask) on the device."""
+        positions = [s % self.S for s in slice_range]
+        return segment_ops.fire(self.agg, self.acc, self.count, positions,
+                                self.last_touch if touch_mask else None)
+
+    def purge_slices(self, slices_abs: List[int]) -> None:
+        """Reset the rows of expired absolute slices (chunked)."""
+        for i in range(0, len(slices_abs), self.PURGE_CHUNK):
+            chunk = slices_abs[i : i + self.PURGE_CHUNK]
+            segment_ops.purge(self.agg, self.acc, self.count, [s % self.S for s in chunk])
+
+    def reset_all(self) -> None:
+        self.acc, self.count = segment_ops.init_state_arrays(self.agg, self.K, self.S,
+                                                             self.device)
+        self.last_touch = None
+
+    def state_bytes(self) -> int:
+        """Device bytes of the resident rings and the last batch's lanes
+        (the key dictionary's host memory not included)."""
+        n = sum(a.numel() * a.element_size() for a in self.acc.values())
+        n += self.count.numel() * self.count.element_size()
+        if self.last_touch is not None:
+            n += sum(t.numel() * t.element_size() for t in self.last_touch)
+        return n
+
+    # ------------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """The JAX package's form: [K, S] numpy arrays."""
+        def host(t):
+            return t.t().contiguous().cpu().numpy()
+
+        return {
+            "acc": {k: host(v) for k, v in self.acc.items()},
+            "count": host(self.count),
+            "keydict": self.keydict.snapshot(),
+            "frontiers": dataclasses.asdict(self.frontiers),
+            "K": self.K,
+            "S": self.S,
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Restore a snapshot of either package's state."""
+        def ring(a):
+            return torch.from_numpy(np.ascontiguousarray(np.asarray(a).T)).to(self.device)
+
+        self.K = snap["K"]
+        self.S = snap["S"]
+        self.acc = {k: ring(v) for k, v in snap["acc"].items()}
+        self.count = ring(snap["count"])
+        self.keydict = KeyDictionary.restore(snap["keydict"])
+        self.frontiers = RingFrontiers(**snap["frontiers"])
+        self.last_touch = None

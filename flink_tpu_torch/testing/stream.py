@@ -324,3 +324,181 @@ def numpy_sessionize(keys, ts, vals, gap):
         (int(k[s]), int(t[s]), int(t[e]) + gap): float(sv)
         for s, e, sv in zip(starts, ends, sums)
     }
+
+
+# ---------------------------------------------------------------------------
+# the lateness stream: in-order records of ~span_ms of event time a batch,
+# a share delayed 1-2 s behind the watermark (re-fires under allowed
+# lateness) and a smaller share 15 s behind (past cleanup: late data)
+# ---------------------------------------------------------------------------
+
+LATE_SEED = SEED + 11
+LATE_T0_MS = 100_000          # event time of batch 0
+LATE_WM_LAG_MS = 500          # the watermark trails the largest timestamp by this
+LATE_PER_10K = 100            # 1% of records 1-2 s behind the watermark
+TOO_LATE_PER_10K = 10         # 0.1% of records 15 s behind their batch
+TOO_LATE_MS = 15_000
+
+
+def late_records(idx: np.ndarray, B: int, num_keys: int, *, span_ms: int = 1_000,
+                 seed: int = LATE_SEED) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Records `idx` (int64) of the lateness stream at B records a batch:
+    (keys int64 below num_keys, a power of two; ts int64; vals float32
+    integers in [0, 8)). Batch t's on-time records span [T0 + t*span,
+    T0 + (t+1)*span) in order. A delayed record sits 1-2 s behind the
+    watermark that follows batch t-1 (T0 + t*span - 1 - LATE_WM_LAG_MS),
+    a too-late one TOO_LATE_MS behind its on-time stamp."""
+    t, b = idx // B, idx % B
+    bits = hash_bits(step_key(seed, t), b)
+    aux = hash_bits(step_key(seed + 1, t), b)
+    keys = bits & (num_keys - 1)
+    on_time = LATE_T0_MS + t * span_ms + ((b + 1) * span_ms) // B - 1
+    r = aux % 10_000
+    delayed = LATE_T0_MS + t * span_ms - LATE_WM_LAG_MS - 1000 - (aux >> 14) % 1000
+    ts = np.where(r < LATE_PER_10K, delayed,
+                  np.where(r < LATE_PER_10K + TOO_LATE_PER_10K, on_time - TOO_LATE_MS, on_time))
+    return keys, ts, ((aux >> 24) & 0x7).astype(np.float32)
+
+
+def late_columns(idx: np.ndarray, B: int, num_keys: int = NUM_KEYS
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The lateness stream as the api_ysb program's columns: (campaign,
+    event_type, payload) float32 and the timestamps; the program's filter
+    keeps event_type 0 (one record in three)."""
+    keys, ts, vals = late_records(idx, B, num_keys)
+    return np.stack([keys, idx % 3, vals], axis=1).astype(np.float32), ts
+
+
+class LatenessOracle:
+    """Numpy model of the window operator's event-time rules with allowed
+    lateness, batch by batch, written from Flink's rules (WindowOperator
+    with EventTimeTrigger) and not from the port's slice arithmetic:
+
+    - a record is too late when the newest window holding it is past its
+      cleanup time (end - 1 + lateness <= watermark): it goes to the side
+      output and nowhere else;
+    - a record that is not too late re-fires each window holding it that
+      has already fired (end - 1 <= watermark) and is not cleaned up, for
+      the keys the batch touched in it, with the window's full aggregate
+      after the whole batch (one re-fire a window a batch);
+    - a watermark fires, in order, every window that becomes due (end - 1
+      <= watermark) and holds data, for every key with data in it.
+
+    Windows are [j*slide, j*slide + size) (offset 0); `agg` is "sum" or
+    "count". `step` returns the batch's emissions (kind, j, keys, values),
+    re-fires first, each with ascending keys, and its side output."""
+
+    def __init__(self, size_ms: int, slide_ms: int, lateness_ms: int, num_keys: int,
+                 agg: str = "sum"):
+        import math
+
+        self.size, self.slide, self.lateness = size_ms, slide_ms, lateness_ms
+        self.g = math.gcd(size_ms, slide_ms)
+        self.K, self.agg = num_keys, agg
+        self.cnt: Dict[int, np.ndarray] = {}      # slice -> records a key
+        self.sum: Dict[int, np.ndarray] = {}
+        self.wm = None
+        self.fired_hi = None                      # newest window index fired
+        self.oldest = None                        # oldest window holding data
+        self.newest = None                        # newest window holding data
+
+    def _window(self, j: int, keys=None):
+        cnt = np.zeros(self.K, np.int64)
+        sm = np.zeros(self.K, np.float64)
+        for s in range(j * self.slide // self.g, (j * self.slide + self.size) // self.g):
+            if s in self.cnt:
+                cnt += self.cnt[s]
+                sm += self.sum[s]
+        if keys is None:
+            keys = np.flatnonzero(cnt)
+        return keys, (cnt[keys] if self.agg == "count" else sm[keys])
+
+    def _cleanup(self, j):
+        return j * self.slide + self.size - 1 + self.lateness
+
+    def step(self, keys: np.ndarray, ts: np.ndarray, vals: np.ndarray, watermark: int):
+        keys, ts = np.asarray(keys, np.int64), np.asarray(ts, np.int64)
+        vals = np.asarray(vals, np.float64)
+        events = []
+        late = np.zeros(len(ts), bool)
+        if self.wm is not None:
+            late = self._cleanup(ts // self.slide) <= self.wm
+        side = (keys[late], vals[late], ts[late])
+        k, t, v = keys[~late], ts[~late], vals[~late]
+        s = t // self.g
+        order = np.argsort(s, kind="stable")
+        k, t, v, s = k[order], t[order], v[order], s[order]
+        cuts = np.flatnonzero(np.diff(s)) + 1
+        for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(s)]):
+            if lo == hi:
+                continue
+            sl = int(s[lo])
+            if sl not in self.cnt:
+                self.cnt[sl] = np.zeros(self.K, np.int64)
+                self.sum[sl] = np.zeros(self.K, np.float64)
+            self.cnt[sl] += np.bincount(k[lo:hi], minlength=self.K)
+            self.sum[sl] += np.bincount(k[lo:hi], weights=v[lo:hi], minlength=self.K)
+        if len(t):
+            first = (int(t.min()) - self.size) // self.slide + 1
+            self.oldest = first if self.oldest is None else min(self.oldest, first)
+            last = int(t.max()) // self.slide
+            self.newest = last if self.newest is None else max(self.newest, last)
+        if self.wm is not None and len(t):
+            j_lo = (int(t.min()) - self.size) // self.slide + 1
+            j_hi = int(t.max()) // self.slide
+            for j in range(j_lo, j_hi + 1):
+                start = j * self.slide
+                if start + self.size - 1 > self.wm or self._cleanup(j) <= self.wm:
+                    continue
+                inside = (t >= start) & (t < start + self.size)
+                if inside.any():
+                    events.append(("refire", j) + self._window(j, np.unique(k[inside])))
+        events += self.advance(watermark)
+        return events, side
+
+    def advance(self, watermark: int):
+        """The fires of a watermark, then the cleanup of dead slices."""
+        events = []
+        if self.wm is not None and watermark <= self.wm:
+            return events
+        j_due = (watermark + 1 - self.size) // self.slide
+        if self.oldest is not None:
+            lo = self.oldest if self.fired_hi is None else max(self.oldest, self.fired_hi + 1)
+            for j in range(lo, min(j_due, self.newest) + 1):
+                keys, vals = self._window(j)
+                if len(keys):
+                    events.append(("fire", j, keys, vals))
+        self.fired_hi = j_due if self.fired_hi is None else max(self.fired_hi, j_due)
+        self.wm = watermark
+        for sl in [sl for sl in self.cnt if self._cleanup(sl * self.g // self.slide) <= watermark]:
+            del self.cnt[sl], self.sum[sl]
+        return events
+
+
+# ---------------------------------------------------------------------------
+# a keyed changelog for the continuous aggregate: inserts, and retractions
+# (-D) of rows inserted earlier and still live
+# ---------------------------------------------------------------------------
+
+def changelog_rows(n: int, num_keys: int, retract_frac: float = 0.1, seed: int = SEED):
+    """n rows {"k": int, "v": float} (v an integer below 100), a share
+    `retract_frac` of them -D retractions of a uniformly chosen live row."""
+    from flink_tpu_torch.table.changelog import DELETE, ROW_KIND_FIELD
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, num_keys, n).tolist()
+    vals = rng.integers(0, 100, n).astype(np.float64).tolist()
+    retract = (rng.random(n) < retract_frac).tolist()
+    pick = rng.random(n).tolist()
+    live, rows = [], []
+    for i in range(n):
+        if retract[i] and live:
+            j = int(pick[i] * len(live))
+            live[j], live[-1] = live[-1], live[j]
+            row = dict(live.pop())
+            row[ROW_KIND_FIELD] = DELETE
+        else:
+            row = {"k": keys[i], "v": vals[i]}
+            live.append(row)
+        rows.append(row)
+    return rows

@@ -11,7 +11,6 @@ D2 = "deferred item D2 (streamed readback groups and latency mode)"
 D3 = "deferred item D3 (shared partials)"
 D4 = "deferred item D4 (compile tracker and phase counters)"
 D6 = "deferred item D6 (the tiered-state row surface)"
-PER_BATCH = "item 10 (per-batch operators)"
 STATE_PLANE = "item 11 (state and device planes)"
 JOINS = "item 12 (joins)"
 MESH = "item 13 (multi-GPU)"

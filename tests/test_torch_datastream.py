@@ -185,6 +185,11 @@ def test_execute_without_a_gpu_raises(monkeypatch):
         env.execute()
 
 
+def _execute(stream):
+    stream.collect()
+    stream.env.execute()
+
+
 def _deferred_calls():
     env = tds.StreamExecutionEnvironment(device="cpu")
     ds = env.from_collection([1, 2, 3], timestamp_fn=lambda x: x)
@@ -202,7 +207,10 @@ def _deferred_calls():
         "keyed_process": (lambda: keyed.process(None), "item 19"),
         "trigger": (lambda: win.trigger(None), "item 18"),
         "window_reduce": (lambda: win.reduce(lambda a, b: a), "item 18"),
-        "allowed_lateness": (lambda: win.allowed_lateness(5), "item 10"),
+        # allowed lateness runs on the per-batch operator; on session
+        # windows it still needs the per-record oracle
+        "allowed_lateness": (lambda: _execute(keyed.window(
+            tasg.EventTimeSessionWindows.with_gap(5)).allowed_lateness(5).sum()), "item 18"),
         "execute_async": (lambda: env.execute_async(), "item 14"),
         "idleness": (lambda: WatermarkStrategy.for_monotonous_timestamps().with_idleness(5),
                      "item 17"),
@@ -242,11 +250,15 @@ def test_unported_job_shapes_raise_at_execute(what):
     elif what == "oracle_aggregate":
         agg, item = AggregateFunction(), "item 18"
     elif what == "fused_windows_off":
+        # the per-batch operator takes grid windows with the fused path
+        # off; a global window without a count trigger still needs the oracle
         cfg.set(ExecutionOptions.FUSED_WINDOWS, False)
-        item = "item 10"
+        item = "item 18"
     env = tds.StreamExecutionEnvironment(cfg, device="cpu")
+    assigner = (tasg.GlobalWindows.create() if what == "fused_windows_off"
+                else SLIDING(tasg))
     (env.from_source(_source(PORT, 64), WatermarkStrategy.for_monotonous_timestamps())
-     .key_by(S_KEY).window(SLIDING(tasg)).aggregate(agg).collect())
+     .key_by(S_KEY).window(assigner).aggregate(agg).collect())
     if what == "checkpoint_capture":
         runtime = JobRuntime(plan(env._sinks), cfg, "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 16"):

@@ -70,6 +70,31 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
                 .count().collect())
         env.execute()
         assert sorted(sink.results) == [("u1", 1), ("u1", 2), ("u2", 1), ("u2", 1)]
+
+        # the per-batch window operator with lateness and a late side output
+        from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
+        op = TpuWindowOperator(SlidingEventTimeWindows.of(2000, 1000), "sum",
+                               allowed_lateness=1000, emit_late_to_side_output=True,
+                               device="cpu")
+        op.process_batch(np.array(["a", "b", "a"], dtype=object),
+                         np.array([1, 2, 3], np.float32), np.array([100, 900, 1500]))
+        op.process_watermark(1999)
+        op.process_batch(np.array(["a", "c"], dtype=object), np.array([4, 5], np.float32),
+                         np.array([1200, -5000]))
+        out = [(k, w.start, r) for k, w, r, _t in op.drain_output()]
+        assert out == [("a", -1000, 1.0), ("b", -1000, 2.0), ("a", 0, 4.0), ("b", 0, 2.0),
+                       ("a", 0, 8.0)], out
+        assert op.side_output["late-data"] == [("c", 5.0, -5000)]
+
+        # a continuous aggregate on the device path (the port's own columns)
+        from flink_tpu_torch.table.changelog import DELETE, with_kind
+        env = StreamExecutionEnvironment(device="cpu")
+        rows = [{"k": "a", "v": 1.0}, {"k": "a", "v": 3.0}, with_kind({"k": "a", "v": 1.0}, DELETE)]
+        sink = (env.from_collection(rows).key_by(lambda r: r["k"])
+                .continuous_aggregate([("COUNT", None), ("SUM", "v")], ["k"], ["c", "s"],
+                                      mini_batch=False, device=True).collect())
+        env.execute()
+        assert [(r["c"], r["s"]) for r in sink.results][-1] == (1, 3.0), sink.results
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -101,6 +126,8 @@ def test_sources_import_neither_jax_nor_flink_tpu():
 
 def test_pipelines_raise_instead_of_falling_back_to_cpu(monkeypatch):
     from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.runtime.tpu_global_window_operator import TpuGlobalWindowOperator
+    from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
     from flink_tpu_torch.runtime.fused_window_pipeline import (
         FusedGlobalWindowPipeline,
         FusedWindowPipeline,
@@ -112,3 +139,7 @@ def test_pipelines_raise_instead_of_falling_back_to_cpu(monkeypatch):
                             key_capacity=64)
     with pytest.raises(RuntimeError, match="CUDA"):
         FusedGlobalWindowPipeline(SlidingEventTimeWindows.of(2000, 500), "max")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TpuWindowOperator(SlidingEventTimeWindows.of(2000, 500), "count")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TpuGlobalWindowOperator("sum", count_n=4, purging=True)
