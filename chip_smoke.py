@@ -61,6 +61,19 @@ exits non-zero on the first failure. Phases, one JSON line each:
    version makes as the yardstick. The profiles of phase 7 include
    session_sum (by kernel: generator, K3, K4, copies) and the host profile
    of api_sessions.
+12-16. the per-batch paths: lateness_operator, api_lateness,
+   api_count_window, api_group_agg, and the per-batch torch programs;
+17. api_sql: `bench.py::sql_path_microbench`'s statement and columnar
+   table (8192 keys, HOP 10 s / 1 s, batch 8192) through the port's parser,
+   planner and TableEnvironment: the fused runner selected, three-way
+   parity at 2^17 records (SQL fused, SQL interpreted, the DataStream
+   program) against the numpy oracle, tuples/s fused at 2^21 and
+   interpreted at 2^17 with their K1 dispatches; a TUMBLE SUM ... HAVING
+   over 2^20 typed dict rows (host columnarizer, K1's add field) against
+   numpy; the SESSION fallback statement on K3/K4 against
+   numpy_sessionize; a continuous COUNT/SUM/AVG GROUP BY over 2^18
+   changelog rows on the device accumulators against the host path; and
+   K1 against its plain version at the SQL job's first full dispatch.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -100,6 +113,17 @@ API_LATENESS = dict(keys=8192, batch=65536, events=1 << 22, lateness=2000)
 API_COUNT = dict(keys=1 << 16, hot_keys=1024, n=64, batch=65536, events=1 << 22,
                  nonpurging_events=1 << 20)
 API_GROUP_AGG = dict(keys=1 << 16, rows=1 << 20, retract=0.1, batch=65536)
+# the SQL front door at bench.py::sql_path_microbench's geometry: 8192 keys,
+# HOP 10 s / 1 s, batch 8192, 2^21 records over 64 s of event time; parity
+# and the interpreted route at 2^17; a typed row-mode table of 2^20 dict
+# rows; the continuous GROUP BY over 2^18 changelog rows
+API_SQL = dict(keys=8192, window=10_000, slide=1_000, batch=8192, events=1 << 21,
+               parity_events=1 << 17, interp_events=1 << 17, warmup_events=1 << 16,
+               rows=1 << 20, rows_batch=65536, tumble=2_000, having=10,
+               group_rows=1 << 18, group_keys=1 << 16, session_rows=512, runs=2)
+SQL_YSB = ("SELECT campaign, COUNT(*) AS views, WINDOW_END AS wend FROM ysb "
+           "WHERE event_type < 0.5 GROUP BY campaign, "
+           "HOP(rowtime, INTERVAL '1000' MILLISECOND, INTERVAL '10000' MILLISECOND)")
 
 
 def emit(obj):
@@ -133,7 +157,7 @@ def _fresh_rings(agg, shape, dev, global_scope):
     count = torch.zeros(shape, dtype=torch.int32, device=dev)
     states = []
     for f in value_fields(agg):
-        ident = scan_identity(np.dtype(f.dtype), f.scatter) if global_scope else f.identity
+        ident = scan_identity(np.dtype(f.dtype), f.scatter) if global_scope else f.device_identity
         states.append(torch.full(shape, ident, dtype=torch_dtype(f.dtype), device=dev))
     return count, states
 
@@ -353,22 +377,39 @@ def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=D
     return env, sink
 
 
+def k1_dispatch_inputs(window, agg, prologue, n: int, B: int, payload: bool, dev=DEV):
+    """K1's inputs of a job's first full dispatch on the fused route (32
+    steps of B records of the n-record api stream), made by the pipeline's
+    own staging and prologue at the operator's geometry
+    (FusedWindowOperator's defaults, chunk 4096): (pipe, idx, vals, plan)."""
+    from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+    from flink_tpu_torch.testing import stream as st
+
+    T = 32
+    pipe = FusedWindowPipeline(window, agg, key_capacity=API["keys"], nsb=4,
+                               fires_per_step=4, out_rows=256, chunk=4096,
+                               prologue=prologue, device=dev)
+    steps, wms = [], []
+    for t in range(T):
+        col, ts = st.api_columns(np.arange(t * B, (t + 1) * B, dtype=np.int64), n,
+                                 API["keys"], payload=payload)
+        steps.append((col, ts))
+        wms.append(int(ts.max()) - 1)
+    raw, srel, ts, plan = pipe.stage_superbatch_raw(steps, wms)
+    idx, vals, _bounds = pipe._run_prologue(raw, srel, ts)
+    return pipe, idx, vals, plan
+
+
 def api_k1_inputs(sum_job: bool, dev=DEV):
-    """K1's inputs of the job's first full dispatch on the fused route (32
-    steps of 65536 records of a 2^24-record stream), made by the pipeline's
-    own staging and prologue: (pipe, agg, idx, vals, plan)."""
+    """K1's inputs of the api_ysb job's first full dispatch (32 steps of
+    65536 records of a 2^24-record stream): (pipe, agg, idx, vals, plan)."""
     from flink_tpu_torch.api.windowing.assigners import (
         SlidingEventTimeWindows,
         TumblingEventTimeWindows,
     )
     from flink_tpu_torch.ops.aggregators import resolve
-    from flink_tpu_torch.runtime.fused_window_pipeline import (
-        FusedWindowPipeline,
-        TracedPrologue,
-    )
-    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
 
-    n, B, T = API["fused_events"], API["batch"], 32
     if sum_job:
         window = TumblingEventTimeWindows.of(API["sum_window"])
         prologue = TracedPrologue((("filter", _t_filter),), _t_key, _t_value)
@@ -376,18 +417,8 @@ def api_k1_inputs(sum_job: bool, dev=DEV):
         window = SlidingEventTimeWindows.of(API["window"], API["slide"])
         prologue = TracedPrologue((("filter", _t_filter),), _t_key)
     agg = resolve("sum" if sum_job else "count")
-    # the operator's geometry (FusedWindowOperator's defaults, chunk 4096)
-    pipe = FusedWindowPipeline(window, agg, key_capacity=API["keys"], nsb=4,
-                               fires_per_step=4, out_rows=256, chunk=4096,
-                               prologue=prologue, device=dev)
-    steps, wms = [], []
-    for t in range(T):
-        col, ts = st.api_columns(np.arange(t * B, (t + 1) * B, dtype=np.int64), n,
-                                 API["keys"], payload=sum_job)
-        steps.append((col, ts))
-        wms.append(int(ts.max()) - 1)
-    raw, srel, ts, plan = pipe.stage_superbatch_raw(steps, wms)
-    idx, vals, _bounds = pipe._run_prologue(raw, srel, ts)
+    pipe, idx, vals, plan = k1_dispatch_inputs(window, agg, prologue, API["fused_events"],
+                                               API["batch"], sum_job, dev)
     return pipe, agg, idx, vals, plan
 
 
@@ -482,6 +513,44 @@ def api_ysb_phase(dev=DEV, sizes=API) -> dict:
             "timed": timed, "parity": parity,
             "windows_checked": count_parity["fused"]["windows_checked"],
             "sliding_count": count_parity, "tumbling_sum": sum_parity}
+
+
+def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan) -> dict:
+    """K1 against its plain version on one dispatch's inputs (bit-equal),
+    with its time (CUDA events), the plain version's, one index_add_ of the
+    dispatch's ingest as the library yardstick, its bound and its device
+    time by kernel."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.ops.superscan import keyed_superscan_plain
+    from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
+
+    S_, K_, T_ = pipe.S, pipe.K, int(plan[0].shape[0])
+    kw = dict(NSB=pipe.NSB, R=pipe.R, spws=(pipe.spw,) * pipe.F, exact=True)
+    err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
+                         [(idx, vals, plan)], (S_, K_), False, **kw)
+    count, states = _fresh_rings(agg, (S_, K_), DEV, False)
+    ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw), 10)
+    plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, states, idx, vals,
+                                                     plan[:5], **kw), 2, 3)
+    # yardstick: the dispatch's ingest as one index_add_
+    ii = idx.view(T_, -1).long()
+    live = ii >= 0
+    cells = (((plan[0].long()[:, None] + ii % pipe.NSB) % S_) * K_ + ii // pipe.NSB)[live]
+    target = (states[0] if states else count).view(-1)
+    src = (vals.view(T_, -1)[live] if vals is not None
+           else torch.ones_like(cells, dtype=torch.int32))
+    lib_ms = cuda_ms(lambda: target.index_add_(0, cells, src), 10)
+    rings = 1 + len(states)
+    # outputs: the rows the dispatch fires, one per fire (not all R)
+    nbytes = (idx.numel() * 4 + (vals.numel() * 4 if vals is not None else 0)
+              + 2 * rings * S_ * K_ * 4 + rings * len(plan[5]) * K_ * 4
+              + sum(p.numel() * 4 for p in plan[:5]))
+    b_ms, b_by = bound(nbytes, int(live.sum()) * rings)
+    return {"shape": f"{label}, T={T_} B={idx.numel() // T_} K={K_} S={S_} R={pipe.R}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "fires": len(plan[5]), "device_us": device_split_us(
+                lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw))}
 
 
 # ---------------------------------------------------------------------------
@@ -1211,6 +1280,313 @@ def api_group_agg_phase(dev=DEV, sizes=None) -> dict:
             "seconds": secs, "host_path_seconds": host_s, "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# the api_sql phase: bench.py::sql_path_microbench through the port's
+# parser, planner and TableEnvironment
+# ---------------------------------------------------------------------------
+
+def sql_ysb_job(n: int, fused: bool, sz, dev=DEV):
+    """(env, tenv, sink) of the SQL YSB statement over the columnar `ysb`
+    table of n records (`bench.py::sql_path_microbench`'s source, which is
+    the api stream's columns), `table.device-fusion` = fused."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration, ExecutionOptions, TableOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+    from flink_tpu_torch.testing import stream as st
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, sz["keys"]))
+
+    cfg = Configuration()
+    cfg.set(TableOptions.DEVICE_FUSION, fused)
+    cfg.set(ExecutionOptions.BATCH_SIZE, sz["batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, sz["keys"])
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    tenv = TableEnvironment(env)
+    stream = env.from_source(DataGeneratorSource(gen, n),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+    tenv.register_table("ysb", stream,
+                        TableSchema(["campaign", "event_type", "rowtime"], rowtime="rowtime",
+                                    field_types=["int", "float", "int"]), columnar=True)
+    sink = tenv.sql_query(SQL_YSB).collect()
+    return env, tenv, sink
+
+
+def sql_ds_job(n: int, sz, dev=DEV):
+    """(env, sink) of the same program written against the DataStream API,
+    with the statement's output rows (`sql_path_microbench`'s build_ds)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, sz["keys"]))
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, sz["batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, sz["keys"])
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    sink = (env.from_source(DataGeneratorSource(gen, n),
+                            WatermarkStrategy.for_bounded_out_of_orderness(0))
+            .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+            .window(SlidingEventTimeWindows.of(sz["window"], sz["slide"]))
+            .aggregate("count")
+            .map_with_timestamp(lambda rec, ts: {"campaign": rec[0], "views": rec[1],
+                                                 "wend": ts + 1}, name="sql_shape_output")
+            .collect())
+    return env, sink
+
+
+def sql_counted(env, dev=DEV):
+    """One execute() with K1's launch count at 0 just before it: (seconds,
+    K1 dispatches)."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    _sync(dev)
+    cs.reset_launch_counts()
+    secs = timed_execute(env, dev)
+    return secs, cs.LAUNCHES["k1_superscan"]
+
+
+def sql_fired(rows, sz) -> dict:
+    """SQL output rows {campaign, views, wend} as {window index: row over
+    the keys}."""
+    fired = {}
+    for r in rows:
+        j = (int(r["wend"]) - sz["window"]) // sz["slide"]
+        row = fired.get(j)
+        if row is None:
+            row = fired[j] = np.zeros(sz["keys"])
+        row[int(r["campaign"])] = r["views"]
+    return fired
+
+
+def sql_rows_table(sz, dev=DEV):
+    """(env, tenv, rows, sink) of the TUMBLE SUM ... HAVING statement over a
+    typed row-mode table of sz["rows"] dict rows {k, v, rowtime}: the
+    host columnarizer, then the traced key/value extraction and K1's add
+    field."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+
+    n, rng = sz["rows"], np.random.default_rng(17)
+    keys = rng.integers(0, sz["keys"], n).tolist()
+    vals = rng.integers(0, 8, n).astype(np.float64).tolist()
+    times = (10_000 + np.arange(n, dtype=np.int64) * 64_000 // n).tolist()
+    rows = [{"k": k, "v": v, "rowtime": t} for k, v, t in zip(keys, vals, times)]
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, sz["rows_batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, sz["keys"])
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    tenv = TableEnvironment(env)
+    tenv.from_rows("events", rows, TableSchema(["k", "v", "rowtime"], rowtime="rowtime",
+                                               field_types=["int", "float", "int"]))
+    sink = tenv.sql_query(
+        f"SELECT k, SUM(v) AS s, WINDOW_END AS we FROM events GROUP BY k, "
+        f"TUMBLE(rowtime, INTERVAL '{sz['tumble']}' MILLISECOND) "
+        f"HAVING s > {sz['having']}").collect()
+    return env, tenv, (np.asarray(keys), np.asarray(vals), np.asarray(times)), sink
+
+
+def sql_rows_oracle(keys, vals, times, sz) -> list:
+    """numpy: (k, s, we) of every (key, 2 s window) whose sum passes HAVING."""
+    w = times // sz["tumble"]
+    flat = w * sz["keys"] + keys
+    uniq, inv = np.unique(flat, return_inverse=True)
+    sums = np.bincount(inv, weights=vals)
+    keep = sums > sz["having"]
+    return sorted(zip((uniq[keep] % sz["keys"]).tolist(), sums[keep].tolist(),
+                      ((uniq[keep] // sz["keys"] + 1) * sz["tumble"]).tolist()))
+
+
+def sql_session_statement(sz, dev=DEV):
+    """bench.py::sql_path_microbench's fallback statement (SESSION, reason
+    `session-window`) on its 512-row typed table: (rows, report, K3 and K4
+    launches), the launch counts at 0 just before the run."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+
+    tenv = TableEnvironment(StreamExecutionEnvironment(device=dev))
+    tenv.from_rows("pay", [{"user": i % 5, "amount": float(i % 3), "rowtime": i * 100}
+                           for i in range(sz["session_rows"])],
+                   TableSchema(["user", "amount", "rowtime"], rowtime="rowtime",
+                               field_types=["int", "float", "int"]))
+    _sync(dev)
+    cuda_session.reset_launch_counts()
+    rows = tenv.execute_sql_to_list("SELECT user, COUNT(*) AS n FROM pay "
+                                    "GROUP BY user, SESSION(rowtime, INTERVAL '1' SECOND)")
+    _sync(dev)
+    return (rows, tenv.last_plan_report, cuda_session.LAUNCHES["k3_session_ingest"],
+            cuda_session.LAUNCHES["k4_session_merge"])
+
+
+def sql_group_agg(rows, device: bool, sz, dev=DEV):
+    """The continuous COUNT(*), SUM, AVG ... GROUP BY over a registered
+    changelog table: (changelog, seconds, report)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, API_GROUP_AGG["batch"])
+    cfg.set(ExecutionOptions.DEVICE_GROUP_AGG, device)
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    tenv = TableEnvironment(env)
+    tenv.from_rows("t", rows, TableSchema(["k", "v"]))
+    sink = tenv.sql_query("SELECT k, COUNT(*) AS c, SUM(v) AS s, AVG(v) AS a FROM t "
+                          "GROUP BY k").collect()
+    return sink.results, timed_execute(env, dev), tenv.last_plan_report
+
+
+def api_sql_phase(dev=DEV, sizes=None) -> dict:
+    """The SQL front door: the YSB statement fused (DeviceChainRunner and
+    the planner's fused report), three-way parity at sizes["parity_events"]
+    (SQL fused, SQL interpreted, the DataStream program) against the numpy
+    oracle, the fused route timed at sizes["events"] and the interpreted
+    one at sizes["interp_events"] with their K1 dispatches; a TUMBLE SUM
+    ... HAVING over a typed row-mode table held against numpy; the SESSION
+    fallback statement on K3/K4 against numpy_sessionize; the continuous
+    GROUP BY on the device accumulators against the host path's."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime import group_agg_operator as ga
+    from flink_tpu_torch.runtime.executor import build_runners
+    from flink_tpu_torch.table.changelog import ROW_KIND_FIELD
+    from flink_tpu_torch.testing import stream as st
+
+    sz = dict(API_SQL, **(sizes or {}))
+    out = {"phase": "api_sql", "statement": SQL_YSB}
+    env, tenv, _sink = sql_ysb_job(sz["warmup_events"], True, sz, dev)
+    runners = build_runners(plan(env._sinks), env.config, dev)[0]
+    report = tenv.last_plan_report
+    out["fused_selected"] = bool(
+        any(type(r).__name__ == "DeviceChainRunner" for r in runners)
+        and report is not None and report.fused)
+    out["plan"] = report.describe()
+    sql_counted(env, dev)                                   # warm
+
+    # three-way parity against the numpy oracle
+    n = sz["parity_events"]
+    ref = st.api_replay(n, sz["batch"], window_ms=sz["window"],
+                        slide_ms=sz["slide"], num_keys=sz["keys"])
+    routes = {}
+    for route in ("fused", "interpreted", "datastream"):
+        if route == "datastream":
+            env, sink = sql_ds_job(n, sz, dev)
+            rep = None
+        else:
+            env, tenv, sink = sql_ysb_job(n, route == "fused", sz, dev)
+            rep = tenv.last_plan_report
+        secs, k1 = sql_counted(env, dev)
+        fired = sql_fired(sink.results, sz)
+        ok, checked = st.parity(ref.fired, fired, require_all=True)
+        routes[route] = {"parity": ok and set(fired) <= set(ref.fired),
+                         "windows_checked": checked, "rows": len(sink.results),
+                         "k1_dispatches": k1, "seconds": secs,
+                         "path": rep.path if rep else None,
+                         "reason": rep.reason if rep else None,
+                         "key": sorted((int(r["campaign"]), int(r["wend"]), int(r["views"]))
+                                       for r in sink.results)}
+    same = routes["fused"]["key"] == routes["interpreted"]["key"] == routes["datastream"]["key"]
+    for r in routes.values():
+        del r["key"]
+    out["parity"] = same and all(r["parity"] for r in routes.values())
+    out["parity_routes"] = routes
+
+    # timed: the fused route at sizes["events"], the interpreted one at
+    # sizes["interp_events"], best of sizes["runs"]
+    timed = {}
+    for route, fused, n in (("fused", True, sz["events"]),
+                            ("interpreted", False, sz["interp_events"])):
+        runs = []
+        for _ in range(sz["runs"]):
+            env, _tenv, sink = sql_ysb_job(n, fused, sz, dev)
+            secs, k1 = sql_counted(env, dev)
+            runs.append((secs, k1, len(sink.results)))
+        best = min(r[0] for r in runs)
+        timed[route] = {"events": n, "tuples_per_s": n / best, "seconds": best,
+                        "all_seconds": [r[0] for r in runs], "k1_dispatches": runs[0][1],
+                        "rows": runs[0][2]}
+    out["timed"] = timed
+    out["fused_tuples_per_s"] = timed["fused"]["tuples_per_s"]
+    out["interpreted_tuples_per_s"] = timed["interpreted"]["tuples_per_s"]
+    dispatched = timed["fused"]["k1_dispatches"] > 0 and routes["fused"]["k1_dispatches"] > 0
+
+    # TUMBLE SUM ... HAVING over a typed row-mode table of dict rows
+    t0 = time.perf_counter()
+    env, tenv, cols, sink = sql_rows_table(sz, dev)
+    build_s = time.perf_counter() - t0
+    secs, k1 = sql_counted(env, dev)
+    got = sorted((int(r["k"]), float(r["s"]), int(r["we"])) for r in sink.results)
+    want = sql_rows_oracle(*cols, sz)
+    rep = tenv.last_plan_report
+    out["row_mode_sum"] = {"rows": sz["rows"], "emitted": len(got),
+                           "parity": got == want and len(got) > 0, "fused": rep.fused,
+                           "k1_dispatches": k1, "seconds": secs, "tuples_per_s":
+                           sz["rows"] / secs, "build_rows_s": build_s,
+                           "plan": rep.describe()}
+
+    # the SESSION fallback statement, executed on K3/K4
+    rows, rep, k3, k4 = sql_session_statement(sz, dev)
+    n_s = sz["session_rows"]
+    sess = st.numpy_sessionize(np.arange(n_s) % 5, np.arange(n_s) * 100, np.ones(n_s), 1000)
+    want = sorted((k, int(v)) for (k, _s, _e), v in sess.items())
+    out["session"] = {"parity": sorted((r["user"], r["n"]) for r in rows) == want,
+                      "path": rep.path, "reason": rep.reason,
+                      "k3_launches": k3, "k4_launches": k4, "sessions": len(rows)}
+
+    # the continuous GROUP BY, device accumulators against the host path
+    crow = st.changelog_rows(sz["group_rows"], sz["group_keys"],
+                             API_GROUP_AGG["retract"])
+    ga.CALLS["group_agg_step"] = 0
+    got, secs, rep = sql_group_agg(crow, True, sz, dev)
+    steps = ga.CALLS["group_agg_step"]
+    host, host_s, _r = sql_group_agg(crow, False, sz, dev)
+    out["continuous"] = {
+        "rows": len(crow), "changelog_rows": len(got), "steps": steps,
+        "parity": len(got) == len(host) > 0 and all(
+            (a[ROW_KIND_FIELD], a["k"], a["c"], a["s"])
+            == (b[ROW_KIND_FIELD], b["k"], b["c"], b["s"])
+            and abs(a["a"] - b["a"]) <= 1e-6 * abs(b["a"]) for a, b in zip(got, host)),
+        "path": rep.path, "reason": rep.reason, "seconds": secs,
+        "host_path_seconds": host_s, "tuples_per_s": len(crow) / secs}
+
+    out["ok"] = bool(
+        out["fused_selected"] and out["parity"] and dispatched
+        and routes["interpreted"]["reason"] == "disabled"
+        and out["row_mode_sum"]["parity"] and out["row_mode_sum"]["fused"]
+        and out["row_mode_sum"]["k1_dispatches"] > 0
+        and out["session"]["parity"] and out["session"]["reason"] == "session-window"
+        and (torch.device(dev).type != "cuda" or (k3 > 0 and k4 > 0))
+        and out["continuous"]["parity"] and steps > 0)
+    return out
+
+
+def sql_k1_inputs(dev=DEV):
+    """K1's inputs of the SQL job's first full fused dispatch (32 steps of
+    8192 records of the 2^21-record table), through the statement's own
+    lowered filter and key: (pipe, agg, idx, vals, plan)."""
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
+
+    _env, tenv, _sink = sql_ysb_job(API_SQL["batch"], True, API_SQL, dev)
+    term = tenv.last_plan_report.lowered.terminal
+    mask = term.inputs[0].inputs[0].config["fn"]
+    prologue = TracedPrologue((("filter", mask),), term.config["key_selector"])
+    agg = resolve("count")
+    pipe, idx, vals, plan = k1_dispatch_inputs(
+        SlidingEventTimeWindows.of(API_SQL["window"], API_SQL["slide"]), agg, prologue,
+        API_SQL["events"], API_SQL["batch"], False, dev)
+    return pipe, agg, idx, vals, plan
+
+
 def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
     """Each torch program of the per-batch operators at lateness_operator's
     shapes (the global count step at api_count_window's, the group-agg step
@@ -1545,40 +1921,9 @@ def main() -> int:
     # K1 at the main path's shapes: the job's first full fused dispatch
     # (T=32, B=65536, K=8192, R=256), inputs made by the pipeline's staging
     # and prologue; count and the prologue-fed sum
-    api_k1 = {}
-    for name, sum_job in (("count", False), ("sum", True)):
-        pipe, agg, idx, vals, plan = api_k1_inputs(sum_job)
-        S_, K_, T_ = pipe.S, pipe.K, int(plan[0].shape[0])
-        kw = dict(NSB=pipe.NSB, R=pipe.R, spws=(pipe.spw,) * pipe.F, exact=True)
-        err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
-                             [(idx, vals, plan)], (S_, K_), False, **kw)
-        count, states = _fresh_rings(agg, (S_, K_), DEV, False)
-        ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw), 10)
-        plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, states, idx, vals,
-                                                         plan[:5], **kw), 2, 3)
-        # yardstick: the dispatch's ingest as one index_add_
-        ii = idx.view(T_, -1).long()
-        live = ii >= 0
-        cells = (((plan[0].long()[:, None] + ii % pipe.NSB) % S_) * K_ + ii // pipe.NSB)[live]
-        target = (states[0] if states else count).view(-1)
-        src = (vals.view(T_, -1)[live] if vals is not None
-               else torch.ones_like(cells, dtype=torch.int32))
-        lib_ms = cuda_ms(lambda: target.index_add_(0, cells, src), 10)
-        rings = 1 + len(states)
-        # outputs: the rows the dispatch fires, one per fire (not all R)
-        nbytes = (idx.numel() * 4 + (vals.numel() * 4 if vals is not None else 0)
-                  + 2 * rings * S_ * K_ * 4 + rings * len(plan[5]) * K_ * 4
-                  + sum(p.numel() * 4 for p in plan[:5]))
-        b_ms, b_by = bound(nbytes, int(live.sum()) * rings)
-        api_k1[name] = {"shape": f"api_ysb {name}: the DataStream job's first full fused "
-                                 f"dispatch, T={T_} B={idx.numel() // T_} K={K_} S={S_} "
-                                 f"R={pipe.R}",
-                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-                        "fires": len(plan[5]), "device_us": device_split_us(
-                            lambda: cs.keyed_superscan(agg, count, states, idx, vals,
-                                                       plan[:5], **kw))}
-        del idx, vals, cells, src
+    api_k1 = {name: k1_at_dispatch(f"api_ysb {name}: the DataStream job's first full fused "
+                                   "dispatch", *api_k1_inputs(sum_job))
+              for name, sum_job in (("count", False), ("sum", True))}
     emit({"phase": "k1_api_shapes", "card": card, **api_k1})
 
     # ---- 9/10. the session paths (this slice's), each driven with the
@@ -1618,6 +1963,22 @@ def main() -> int:
     if not api_ga["ok"]:
         raise AssertionError("api_group_agg: the device changelog differs from the host path's "
                              "or the device path did not run")
+    # ---- 17. the SQL front door (this slice's), its K1 dispatches counted
+    # from 0 in each run; then K1 at the SQL job's first full dispatch ----
+    t_sql = time.perf_counter()
+    api_sql = api_sql_phase()
+    api_sql["phase_s"] = time.perf_counter() - t_sql
+    emit(api_sql)
+    if not api_sql["ok"]:
+        raise AssertionError("api_sql: the fused runner was not selected, three-way parity or "
+                             "the numpy oracle failed, a route made no K1 dispatch, or the "
+                             "row-mode, SESSION or continuous statement differs from its "
+                             "reference")
+    for route in ("fused", "interpreted"):
+        path_launches["k1_superscan"][f"api_sql_{route}"] = api_sql["timed"][route]["k1_dispatches"]
+    sql_k1 = k1_at_dispatch("api_sql count: the SQL job's first full fused dispatch",
+                            *sql_k1_inputs())
+    emit({"phase": "k1_sql_shape", "card": card, **sql_k1})
     # ---- 16. the per-batch torch programs at these shapes ----
     timed = LATENESS["timed"]
     per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
@@ -1637,6 +1998,7 @@ def main() -> int:
          "bound_ms": api_k1["count"]["bound_ms"], "bound_by": api_k1["count"]["bound_by"],
          "library_ms": api_k1["count"]["library_ms"],
          "api_sum": api_k1["sum"],
+         "api_sql": dict(sql_k1, launches=api_sql["timed"]["fused"]["k1_dispatches"]),
          "ysb_generator": {"shape": f"YSB generator: T={T} B={B} K={K} S={S} R={R}",
                            "fires": k1_fires, "ms": k1_ms, "plain_ms": k1_plain_ms,
                            "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
@@ -1698,6 +2060,11 @@ def main() -> int:
     del late_batches
     emit(profile_run("api_lateness", lambda: api_lateness_run(API_LATENESS), groups=()))
     emit(host_profile("api_lateness", lambda: api_lateness_run(API_LATENESS)))
+    # the SQL front door's fused route (phase 17)
+    emit(profile_run("api_sql_fused", lambda: sql_counted(
+        sql_ysb_job(API_SQL["events"], True, API_SQL)[0])[0]))
+    emit(host_profile("api_sql_fused", lambda: sql_counted(
+        sql_ysb_job(API_SQL["events"], True, API_SQL)[0])[0]))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,6 +25,11 @@ What the port carries:
   superspan, on kernels K3 (ingest) and K4 (gap-merge,
   `csrc/session_superscan.cu`); the executor selects it for session
   window steps.
+- `table.TableEnvironment` and `planner`: the SQL and Table API front
+  door. A windowed single-aggregate GROUP BY over a typed table lowers
+  onto the fused device chain (kernel K1); other statements run
+  interpreted on the operators above, with the JAX package's catalogued
+  reason in `last_plan_report`.
 - `testing.stream`: the counter-hash stream generators (on the card and
   bit-identical on the host), the numpy window and session oracles and
   the parity check.

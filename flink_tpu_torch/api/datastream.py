@@ -129,6 +129,16 @@ class DataStream:
         return self._derive("map_ts", name, {"fn": fn, "vectorized": vectorized or traceable,
                                              "traceable": traceable})
 
+    def flat_map(self, fn: Callable, name: str = "flat_map",
+                 vectorized: bool = False) -> "DataStream":
+        """1:N transform, run on the host. Per-record form: fn(record)
+        returns an iterable of records, each with its input's timestamp.
+        Vectorized form: fn(values_column) returns (out_values,
+        source_index), where source_index[i] is the input row out_values[i]
+        came from (its timestamp follows)."""
+        fn = fn.flat_map if hasattr(fn, "flat_map") else fn
+        return self._derive("flat_map", name, {"fn": fn, "vectorized": vectorized})
+
     def filter(self, fn: Callable, name: str = "filter", vectorized: bool = False,
                traceable: bool = False) -> "DataStream":
         """Predicate filter. Column form: fn(values_column) returns a
@@ -150,6 +160,12 @@ class DataStream:
                            {"key_selector": sel, "vectorized": vectorized,
                             "traceable": traceable})
         return KeyedStream(self.env, t)
+
+    def global_(self) -> "DataStream":
+        """Route everything to instance 0 (GlobalPartitioner): at the port's
+        parallelism of 1 a pass-through hint, kept so a plan states where a
+        global step (SQL's per-window top-N) must run."""
+        return self._derive("global", "global", {})
 
     # -- sinks -------------------------------------------------------------
     def sink_to(self, sink: Sink, name: str = "sink") -> "DataStreamSink":
@@ -176,7 +192,6 @@ class DataStream:
         return self._derive("side_output", f"side:{tag.tag_id}", {"tag": tag})
 
     # -- not ported yet ----------------------------------------------------
-    flat_map = _not_ported("DataStream", "flat_map", deferred.API)
     map_batch = _not_ported("DataStream", "map_batch", deferred.API)
     async_map = _not_ported("DataStream", "async_map", deferred.API)
     union = _not_ported("DataStream", "union", deferred.API)
@@ -188,7 +203,6 @@ class DataStream:
     shuffle = _not_ported("DataStream", "shuffle", deferred.API)
     broadcast = _not_ported("DataStream", "broadcast", deferred.API)
     forward = _not_ported("DataStream", "forward", deferred.API)
-    global_ = _not_ported("DataStream", "global_", deferred.API)
     slot_sharing_group = _not_ported("DataStream", "slot_sharing_group", deferred.API)
     iterate = _not_ported("DataStream", "iterate", deferred.API)
 

@@ -193,3 +193,18 @@ class ExecutionOptions:
         "host retractable multiset). COUNT columns are int32 on the device "
         "and wrap past 2**31 - 1 where the host path's integers would not; "
         "SUM/AVG accumulate in float32 where the host path uses float64.")
+
+
+class TableOptions:
+    """The Table/SQL front door (`table/`, `planner/`)."""
+
+    DEVICE_FUSION = (
+        ConfigOptions.key("table.device-fusion").bool_type().default_value(True)
+    ).with_description(
+        "Route SQL statements through the planner (`planner/`): a windowed "
+        "GROUP BY aggregate over a table with declared field_types (the GROUP "
+        "BY key a declared int) lowers onto the same fused step graph a "
+        "hand-built DataStream job takes (DeviceChainRunner, kernel K1). Other "
+        "statements take the interpreted table path with a catalogued reason "
+        "in `last_plan_report`. False interprets every statement. A perf "
+        "switch, never a semantics switch: both paths give the same rows.")

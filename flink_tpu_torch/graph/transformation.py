@@ -4,9 +4,10 @@ Counterpart of `flink_tpu/graph/transformation.py`: API calls record
 `Transformation` nodes; `plan` groups chainable record-local
 transformations into steps (the analogue of operator chains) and cuts
 chains at keyBy. The port plans the kinds its API records — source,
-map/map_ts/filter, key_by, window_aggregate, group_agg, sink and
-side_output (a tagged view of the producing step's side channel) — with
-the JAX planner's rules; any other kind raises.
+map/map_ts/filter/flat_map, key_by, global (a pass-through partition
+hint), window_aggregate, group_agg, sink and side_output (a tagged view of
+the producing step's side channel) — with the JAX planner's rules; any
+other kind raises.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from flink_tpu_torch.utils import deferred
 _ids = itertools.count(1)
 
 # record-local kinds fusable into one chain step
-CHAINABLE = {"map", "map_ts", "filter"}
+CHAINABLE = {"map", "map_ts", "filter", "flat_map"}
 
 # single-input stateful/boundary terminals
 TERMINALS = {"window_aggregate", "group_agg", "sink"}
@@ -162,6 +163,12 @@ def plan(sink_transforms) -> StepGraph:
             if t.inputs[0].id in side_tag:
                 side_tag[t.id] = side_tag[t.inputs[0].id]
             keyed[t.id] = t.config  # re-keying: the newest selector wins
+        elif t.kind == "global":
+            # a partition hint: locally a pass-through view that keeps the
+            # upstream's channel; it ends the open chain, as in the JAX planner
+            producer[t.id] = producer[t.inputs[0].id]
+            if t.inputs[0].id in side_tag:
+                side_tag[t.id] = side_tag[t.inputs[0].id]
         elif t.kind == "side_output":
             # a tagged view of the producing step's side channel
             producer[t.id] = producer[t.inputs[0].id]

@@ -5,6 +5,10 @@ Counterpart of `flink_tpu/ops/aggregators.py`. The accumulator of a
 memory, updated by a scatter-combine at ingest and folded across a window's
 slices at fire time. Fields combine by add, min or max — enough for
 sum/count/min/max/mean.
+
+A field may be declared with a 64-bit dtype (`sum_agg(np.float64)`); it
+computes in the 32-bit form all the same (`device_dtype`), as the JAX
+package's arrays do with x64 off, so both packages give the same rows.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from flink_tpu_torch.utils.arrays import canonical_dtype
 
 # scatter sources
 VALUE = "value"   # scatter the record's value column
@@ -33,6 +39,16 @@ class AccField:
     # declared value domain: non-negative ints < 2**domain_bits (the bounded
     # max the JAX package runs as nibble histograms); None = unbounded
     domain_bits: Any = None
+
+    @property
+    def device_dtype(self) -> np.dtype:
+        """The numpy dtype the field's ring holds (32-bit)."""
+        return device_dtype(self.dtype)
+
+    @property
+    def device_identity(self):
+        """The identity as the field's ring holds it."""
+        return device_value(self.identity, self.dtype)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -79,20 +95,36 @@ def combine_reduce(op: str):
 
 
 def scan_identity(dtype, scatter: str):
-    """The neutral element of a scatter kind at a dtype — what purged ring
-    cells and empty fold lanes hold so combining them is a no-op."""
+    """The neutral element of a scatter kind at a dtype, as a ring of that
+    dtype holds it — what purged ring cells and empty fold lanes hold so
+    combining them is a no-op."""
     if scatter == "add":
         return 0
     if scatter == "min":
-        return _max_of(dtype)
+        return device_value(_max_of(dtype), dtype)
     if scatter == "max":
-        return _min_of(dtype)
+        return device_value(_min_of(dtype), dtype)
     raise ValueError(scatter)
 
 
+def device_dtype(dtype) -> np.dtype:
+    """The dtype a field of `dtype` computes in: 64-bit numeric dtypes
+    narrow to 32 bits (int64→int32, float64→float32), the dtypes of the
+    JAX package's device arrays with x64 off."""
+    return canonical_dtype(dtype)
+
+
+def device_value(value, dtype):
+    """A fill value of a field declared `dtype` as its 32-bit ring holds it,
+    cast as numpy (and jnp with x64 off) casts: a float64 extreme becomes
+    ±inf, an int64 one wraps."""
+    with np.errstate(over="ignore"):
+        return np.asarray(value, np.dtype(dtype)).astype(device_dtype(dtype)).item()
+
+
 def torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a field's numpy dtype."""
-    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+    """The torch dtype a field declared `dtype` computes in (32-bit)."""
+    return torch.from_numpy(np.zeros(0, device_dtype(dtype))).dtype
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,8 @@ def _kinds(vfields) -> list:
 
 def supports(vfields) -> bool:
     """Whether K3/K4 take these value fields: at most 4, each an add, min
-    or max of float32 or int32."""
+    or max of float32 or int32 (a field declared 64-bit arrives here in
+    its 32-bit device dtype)."""
     return len(vfields) <= cs.MAX_FIELDS and all(k >= 0 for k in _kinds(vfields))
 
 

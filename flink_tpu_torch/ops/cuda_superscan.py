@@ -31,7 +31,12 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from flink_tpu_torch.ops.aggregators import scan_identity, torch_dtype
+from flink_tpu_torch.ops.aggregators import (
+    device_dtype,
+    device_value,
+    scan_identity,
+    torch_dtype,
+)
 from flink_tpu_torch.ops.superscan import (
     field_kind,
     global_superscan_plain,
@@ -209,7 +214,7 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 def _kind_code(f, kind=None) -> int:
-    return _KIND_CODES.get((kind or field_kind(f), np.dtype(f.dtype)), -1)
+    return _KIND_CODES.get((kind or field_kind(f), f.device_dtype), -1)
 
 
 def supports(agg, K: int, R: int, S: int, NSB: int, F: int) -> bool:
@@ -256,8 +261,9 @@ def from_kernel_layout(arr):
 # ---------------------------------------------------------------------------
 
 def _bits(value, dtype) -> int:
-    """A cell value as the 32-bit pattern the kernels store."""
-    return int(np.array([value], np.dtype(dtype)).view(np.int32)[0])
+    """A cell value of a field declared `dtype` as the 32-bit pattern the
+    kernels store."""
+    return int(np.array([device_value(value, dtype)], device_dtype(dtype)).view(np.int32)[0])
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -344,7 +350,8 @@ def keyed_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
     if not supports(agg, K, R, S, NSB, F):
         raise NotImplementedError(
             f"kernel K1 does not take aggregate {agg.name!r} at K={K} S={S} "
-            f"R={R} F={F}: float32/int32 add, max8, min and max fields only, "
+            f"R={R} F={F}: 32-bit add, max8, min and max fields only (64-bit ones "
+            "compute in 32 bits), "
             "at most 4 fields and 16 fire slots")
     vf = value_fields(agg)
     T = plan[1].shape[0]

@@ -204,7 +204,7 @@ def purge(agg: DeviceAggregator, acc: Dict[str, torch.Tensor], count: torch.Tens
     CALLS["purge"] += 1
     for a, b in ring_runs(positions):
         for f in agg.fields:
-            acc[f.name][a:b].fill_(f.identity)
+            acc[f.name][a:b].fill_(f.device_identity)
         count[a:b].zero_()
 
 
@@ -214,7 +214,8 @@ def purge(agg: DeviceAggregator, acc: Dict[str, torch.Tensor], count: torch.Tens
 
 def init_state_arrays(agg: DeviceAggregator, K: int, S: int, device):
     """Fresh accumulator rings and count ring, [S, K] each, on `device`."""
-    acc = {f.name: torch.full((S, K), f.identity, dtype=torch_dtype(f.dtype), device=device)
+    acc = {f.name: torch.full((S, K), f.device_identity, dtype=torch_dtype(f.dtype),
+                              device=device)
            for f in agg.fields}
     count = torch.zeros((S, K), dtype=torch.int32, device=device)
     return acc, count
@@ -228,7 +229,7 @@ def grow_keys(acc: Dict[str, torch.Tensor], count: torch.Tensor, agg: DeviceAggr
     new_acc = {}
     for f in agg.fields:
         ring = acc[f.name]
-        filler = torch.full((S, pad), f.identity, dtype=ring.dtype, device=ring.device)
+        filler = torch.full((S, pad), f.device_identity, dtype=ring.dtype, device=ring.device)
         new_acc[f.name] = torch.cat([ring, filler], dim=1)
     new_count = torch.cat([count, count.new_zeros((S, pad))], dim=1)
     return new_acc, new_count

@@ -125,7 +125,7 @@ def keyed_superscan_plain(agg, count: torch.Tensor,
             dead_t = torch.from_numpy(dead).to(dev)
             count[dead_t] = 0
             for f, st in zip(vfields, states):
-                st[dead_t] = f.identity
+                st[dead_t] = f.device_identity
     return count_out, outs
 
 

@@ -170,10 +170,10 @@ def _call_traceable(fn, *cols):
 
 
 class ChainRunner(StepRunner):
-    """Fused stateless chain: map/map_ts/filter applied per batch on the
-    host. Traceable transforms take the canonical numeric column as a CPU
-    tensor (the form the device prologue gives them); vectorized ones take
-    the numpy column; plain ones run per record."""
+    """Fused stateless chain: map/map_ts/filter/flat_map applied per batch
+    on the host. Traceable transforms take the canonical numeric column as
+    a CPU tensor (the form the device prologue gives them); vectorized ones
+    take the numpy column; plain ones run per record."""
 
     def __init__(self, transforms: List[Transformation]):
         self.transforms = transforms
@@ -230,6 +230,19 @@ class ChainRunner(StepRunner):
                                        count=len(vals))
                 vals = vals[mask]
                 ts = ts[mask]
+            elif t.kind == "flat_map":
+                if vec:
+                    out, src_idx = fn(vals)
+                    vals = self._to_column(out)
+                    ts = ts[np.asarray(src_idx, dtype=np.int64)]
+                else:
+                    new_vals, new_ts = [], []
+                    for v, x in zip(vals, ts):
+                        for out in fn(v):
+                            new_vals.append(out)
+                            new_ts.append(int(x))
+                    vals = obj_array(new_vals)
+                    ts = np.asarray(new_ts, dtype=np.int64)
             else:
                 raise deferred.not_ported(f"chain transform {t.kind!r}", deferred.API)
         if len(ts) and self.downstream:
@@ -321,6 +334,9 @@ class WindowStepRunner(StepRunner):
         self.value_traceable = cfg.get("value_traceable", False) and cfg.get("value_fn")
         device_agg = resolve(aggregate)
         self.uid = t.uid
+        # SQL-originated window steps (planner lowering, interpreted
+        # translation) are marked so a job can tell which path SQL selected
+        self.sql_origin = bool(cfg.get("sql_origin"))
         self._needs_value = device_agg is not None and any(
             f.source != ONE for f in device_agg.fields)
         count_spec = supported_trigger(cfg.get("trigger"))
@@ -480,6 +496,7 @@ class DeviceChainRunner(WindowStepRunner):
             columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
             prologue=prologue, device=device)
         self.uid = t.uid
+        self.sql_origin = bool(cfg.get("sql_origin"))
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
         if len(timestamps) == 0:

@@ -290,7 +290,7 @@ class FusedWindowPipeline:
             self._count = None
         else:
             self._state = {
-                f.name: torch.full((self.S, self.K), f.identity,
+                f.name: torch.full((self.S, self.K), f.device_identity,
                                    dtype=torch_dtype(f.dtype), device=self.device)
                 for f in self._value_fields
             }
@@ -323,7 +323,7 @@ class FusedWindowPipeline:
         self._state = {
             f.name: torch.cat(
                 [self._state[f.name],
-                 torch.full((self.S, pad), f.identity, dtype=torch_dtype(f.dtype),
+                 torch.full((self.S, pad), f.device_identity, dtype=torch_dtype(f.dtype),
                             device=self.device)], dim=1)
             for f in self._value_fields
         }
@@ -379,7 +379,7 @@ class FusedWindowPipeline:
         + value fields)."""
         n = 4 * self.S  # int32 count ring
         for f in self._value_fields:
-            n += np.dtype(f.dtype).itemsize * self.S
+            n += f.device_dtype.itemsize * self.S
         return n
 
     # ------------------------------------------------------------------

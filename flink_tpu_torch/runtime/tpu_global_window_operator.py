@@ -50,7 +50,7 @@ def step(agg: DeviceAggregator, acc: Dict[str, torch.Tensor], count: torch.Tenso
     result = agg.extract(acc).to(torch_dtype(agg.result_dtype), copy=True)
     if purge:
         for f in agg.fields:
-            acc[f.name].masked_fill_(mask, f.identity)
+            acc[f.name].masked_fill_(mask, f.device_identity)
         count.masked_fill_(mask, 0)
     else:
         fired.copy_(torch.where(mask, count, fired))
@@ -102,7 +102,7 @@ class TpuGlobalWindowOperator:
         self.num_late_records_dropped = 0
 
     def _init_arrays(self) -> None:
-        self.acc = {f.name: torch.full((self.K,), f.identity, dtype=torch_dtype(f.dtype),
+        self.acc = {f.name: torch.full((self.K,), f.device_identity, dtype=torch_dtype(f.dtype),
                                        device=self.device) for f in self.agg.fields}
         self.count = torch.zeros(self.K, dtype=torch.int32, device=self.device)
         self.fired = torch.zeros(self.K, dtype=torch.int32, device=self.device)
@@ -116,7 +116,7 @@ class TpuGlobalWindowOperator:
         pad = new_k - self.K
         for f in self.agg.fields:
             a = self.acc[f.name]
-            self.acc[f.name] = torch.cat([a, torch.full((pad,), f.identity, dtype=a.dtype,
+            self.acc[f.name] = torch.cat([a, torch.full((pad,), f.device_identity, dtype=a.dtype,
                                                         device=a.device)])
         self.count = torch.cat([self.count, self.count.new_zeros(pad)])
         self.fired = torch.cat([self.fired, self.fired.new_zeros(pad)])

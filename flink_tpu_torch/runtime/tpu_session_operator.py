@@ -36,6 +36,13 @@ column). Unlike JAX arrays the rings are updated in place, so a fused
 superspan, which may have to be undone, keeps a copy of the pre-dispatch
 rings; its exact per-step replay (the reference's own path, on K3/K4 as
 well) is counted by `superspan_replays`.
+
+A field declared 64-bit (`sum_agg(np.float64)`) computes in 32 bits on
+K3/K4, as on every other path of both packages. The JAX operator merges
+such a field on its host path instead, whose accumulator starts as an
+int64 array, so it truncates each slice cell of a float sum (a float64
+sum over 0.1 and 0.2 gives 0 there). The port does not reproduce that
+truncation: it gives the JAX package's float32 sum.
 """
 
 from __future__ import annotations
@@ -98,17 +105,18 @@ class TpuSessionWindowOperator:
         self.K = key_capacity
 
         self._vfields = tuple(
-            (f.name, np.dtype(f.dtype).name, f.scatter)
+            (f.name, f.device_dtype.name, f.scatter)
             for f in agg.fields
             if f.source == VALUE
         )
         self._idents = tuple(
-            f.identity for f in agg.fields if f.source == VALUE
+            f.device_identity for f in agg.fields if f.source == VALUE
         )
         if not cuda_session.supports(self._vfields):
             raise NotImplementedError(
                 f"session value fields {self._vfields}: the session kernels K3/K4 take at "
-                "most 4, each an add, min or max of float32 or int32")
+                "most 4, each an add, min or max of an int or float of 32 bits or, computed "
+                "in 32, of 64")
         self._init_state()
 
         self.current_watermark = MIN_WATERMARK

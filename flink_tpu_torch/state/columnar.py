@@ -2,11 +2,13 @@
 accumulator rings of the per-batch window operator.
 
 Counterpart of `flink_tpu/state/columnar.py`. `KeyDictionary`: raw keys
-map to dense row ids, handed out in order of first appearance. Batches of
-integer keys take a vectorized numpy path (np.unique, then a merge into a
-sorted key array) where the JAX package calls its native C++ table; other
-keys take a Python dict. Both give the ids the JAX dictionary gives, so
-snapshots cross between the packages.
+map to dense row ids, handed out in order of first appearance, with the
+JAX package's key identity: where the JAX package calls its native C++
+table, the port keeps the same table in numpy and a dict (an integer batch
+by its int64 value, any other batch by its fixed-width bytes form) and
+falls back to a dict over the raw keys where the JAX package does. The ids
+and the stored keys are the JAX package's, so snapshots cross between the
+packages.
 
 `ColumnarWindowState`: the accumulator fields and the count as rings on
 the device, slice-major `[S, K]` (a fire reads `spw` contiguous rows, a
@@ -29,38 +31,46 @@ from flink_tpu_torch.ops.sorted_ingest import sorted_ingest
 from flink_tpu_torch.utils.device import resolve_device
 
 
-def _int_column(keys: np.ndarray) -> bool:
-    return keys.dtype != object and (
-        keys.dtype.kind == "i" or (keys.dtype.kind == "u" and keys.dtype.itemsize < 8))
-
-
-def _all_ints(keys: List[Any]) -> bool:
-    return all(isinstance(k, (int, np.integer)) and not isinstance(k, (bool, np.bool_))
-               for k in keys)
+def _bytes_width(itemsize: int) -> int:
+    """The fixed key width of a bytes table: whole 8-byte words, at least 24."""
+    return max(((itemsize + 7) // 8) * 8, 24)
 
 
 class KeyDictionary:
     """Raw key -> dense row id. `dense_int` mode skips the dictionary for
-    pre-densified integer keys (the traced chain's device keys)."""
+    pre-densified integer keys (the traced chain's device keys).
+
+    Other batches follow `flink_tpu/state/columnar.py::_try_native`. The
+    first batch sets the table's mode: an integer column is keyed by its
+    int64 value ('i64'), anything else by `np.asarray(keys, dtype=np.bytes_)`
+    NUL-padded to a width fixed for the dictionary's life ('bytes'). So
+    `1.0` and `1` are two keys (b'1.0', b'1'), as are `True` and `1`, while
+    `"1"` and `1` are one: the reference's identity, kept for parity. A
+    batch of the other mode, or one that does not convert (tuples), takes a
+    dict over its raw elements; a key wider than the width turns the table
+    off for good. New keys are stored as `.tolist()` scalars (plain Python
+    values); the dict path stores the raw elements, as the JAX package
+    does."""
 
     def __init__(self, dense_int: bool = False):
         self.dense_int = dense_int
         self._keys: List[Any] = []
-        # integer mode: sorted keys and their ids; None once a non-integer
-        # key arrived (the dict then holds every key)
-        self._sorted: Optional[np.ndarray] = np.empty(0, np.int64)
-        self._sorted_ids = np.empty(0, np.int32)
         self._map: Dict[Any, int] = {}
+        self._mode = ""       # '', 'i64', 'bytes', 'off' (dict only)
+        self._width: Optional[int] = None
+        # the table: i64 mode keeps sorted keys and their ids, bytes mode a
+        # dict; ids count from the table's own size, as the native one does
+        self._sorted = np.empty(0, np.int64)
+        self._sorted_ids = np.empty(0, np.int32)
+        self._bytes: Dict[bytes, int] = {}
+        self._size = 0
 
     def __len__(self) -> int:
         return len(self._keys)
 
-    def _leave_int_mode(self) -> None:
-        self._map = {k: i for i, k in enumerate(self._keys)}
-        self._sorted = None
-
-    def _lookup_or_insert_ints(self, keys: np.ndarray) -> np.ndarray:
-        k64 = keys.astype(np.int64, copy=False)
+    # -- the table ----------------------------------------------------------
+    def _insert_i64(self, k64: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, positions of the batch's new keys in order)."""
         uniq, first, inverse = np.unique(k64, return_index=True, return_inverse=True)
         pos = np.searchsorted(self._sorted, uniq)
         found = pos < len(self._sorted)
@@ -71,15 +81,66 @@ class KeyDictionary:
         if new.size:
             # new keys get ids in order of their first appearance
             new = new[np.argsort(first[new], kind="stable")]
-            ids = np.arange(len(self._keys), len(self._keys) + new.size, dtype=np.int32)
-            uniq_ids[new] = ids
-            self._keys.extend(keys[first[new]].tolist())
+            uniq_ids[new] = np.arange(self._size, self._size + new.size, dtype=np.int32)
+            self._size += new.size
             order = np.sort(new)          # uniq is sorted, so is uniq[order]
             at = np.searchsorted(self._sorted, uniq[order])
             self._sorted = np.insert(self._sorted, at, uniq[order])
             self._sorted_ids = np.insert(self._sorted_ids, at, uniq_ids[order])
-        return uniq_ids[inverse.reshape(-1)]
+        return uniq_ids[inverse.reshape(-1)], first[new]
 
+    def _insert_bytes(self, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, positions of the batch's new keys in order) of a fixed-width
+        bytes column."""
+        uniq, first, inverse = np.unique(b, return_index=True, return_inverse=True)
+        ukeys = uniq.tolist()
+        uniq_ids = np.empty(len(uniq), np.int32)
+        table, new = self._bytes, []
+        for j in np.argsort(first, kind="stable").tolist():
+            kid = table.get(ukeys[j])
+            if kid is None:
+                kid = table[ukeys[j]] = self._size
+                self._size += 1
+                new.append(first[j])
+            uniq_ids[j] = kid
+        return uniq_ids[inverse.reshape(-1)], np.asarray(new, np.int64)
+
+    def _try_table(self, keys: np.ndarray):
+        """(ids, size) through the table, or None for the dict path."""
+        if self._mode == "off":
+            return None
+        if keys.dtype != object and np.issubdtype(keys.dtype, np.integer):
+            mode, conv = "i64", np.ascontiguousarray(keys, dtype=np.int64)
+        else:
+            try:
+                mode, conv = "bytes", np.asarray(keys, dtype=np.bytes_)
+            except (TypeError, UnicodeEncodeError, ValueError):
+                return None
+        if self._mode and self._mode != mode:
+            return None           # mixed key types: this batch takes the dict
+        if not self._mode:
+            self._mode = mode
+            if self._keys:        # restored: seed the table in id order
+                if mode == "i64":
+                    self._insert_i64(np.asarray(self._keys, dtype=np.int64))
+                else:
+                    seed = np.asarray(self._keys, dtype=np.bytes_)
+                    self._width = _bytes_width(seed.dtype.itemsize)
+                    self._insert_bytes(seed.astype(f"S{self._width}"))
+        if mode == "i64":
+            ids, new = self._insert_i64(conv)
+        else:
+            if self._width is None:
+                self._width = _bytes_width(conv.dtype.itemsize)
+            if conv.dtype.itemsize > self._width:
+                self._mode = "off"
+                return None
+            ids, new = self._insert_bytes(conv.astype(f"S{self._width}"))
+        if len(new):
+            self._keys.extend(keys[new].tolist())
+        return ids, self._size
+
+    # -----------------------------------------------------------------------
     def lookup_or_insert(self, keys: np.ndarray) -> Tuple[np.ndarray, int]:
         """Map a batch of raw keys to dense ids, inserting unseen keys.
         Returns (ids int32[B], required_capacity)."""
@@ -90,11 +151,12 @@ class KeyDictionary:
             if hi > len(self._keys):
                 self._keys.extend(range(len(self._keys), hi))
             return ids, len(self._keys)
-        if self._sorted is not None:
-            if _int_column(keys):
-                return self._lookup_or_insert_ints(keys), len(self._keys)
-            self._leave_int_mode()
+        table = self._try_table(keys)
+        if table is not None:
+            return table
         m = self._map
+        if not m and self._keys:  # left the table: build the dict once
+            m = self._map = {k: i for i, k in enumerate(self._keys)}
         out = np.empty(len(keys), dtype=np.int32)
         for i, k in enumerate(keys):
             kid = m.get(k)
@@ -117,18 +179,11 @@ class KeyDictionary:
 
     @staticmethod
     def restore(snap: dict) -> "KeyDictionary":
-        """Restore a snapshot of either package's dictionary."""
+        """Restore a snapshot of either package's dictionary: the keys in id
+        order; the next batch seeds the table, as in the JAX package."""
         d = KeyDictionary(snap["dense_int"])
         d._keys = list(snap["keys"])
-        if d.dense_int:
-            return d
-        if _all_ints(d._keys):
-            keys = np.asarray(d._keys, np.int64)
-            order = np.argsort(keys, kind="stable")
-            d._sorted = keys[order]
-            d._sorted_ids = order.astype(np.int32)
-        else:
-            d._leave_int_mode()
+        d._map = {} if d.dense_int else {k: i for i, k in enumerate(d._keys)}
         return d
 
 

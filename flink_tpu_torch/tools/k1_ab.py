@@ -120,7 +120,7 @@ def rings(agg, K):
     from flink_tpu_torch.ops.superscan import value_fields
 
     count = torch.zeros((S, K), dtype=torch.int32, device="cuda")
-    return count, [torch.full((S, K), f.identity, dtype=torch_dtype(f.dtype), device="cuda")
+    return count, [torch.full((S, K), f.device_identity, dtype=torch_dtype(f.dtype), device="cuda")
                    for f in value_fields(agg)]
 
 
@@ -163,7 +163,7 @@ def yardsticks(agg, K, idx, vals, plan):
     for f in value_fields(agg):
         kind = field_kind(f)
         x = v.clamp(0, 255).int() if kind == "max8" else v.to(torch_dtype(f.dtype))
-        arrays.append((x.dtype, f.identity, "max" if kind == "max8" else kind, x))
+        arrays.append((x.dtype, f.device_identity, "max" if kind == "max8" else kind, x))
     count, states = rings(agg, K)
     flat = [count.view(-1)] + [s.view(-1) for s in states]
     parts = [torch.empty(T * K * NSB, dtype=dt, device="cuda") for dt, *_ in arrays]

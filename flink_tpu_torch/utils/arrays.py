@@ -7,6 +7,20 @@ from typing import Sequence
 import numpy as np
 
 
+def jsonable(obj):
+    """Best-effort JSON coercion (int dict keys -> str, numpy scalars via
+    .item(), unknowns repr'd): the SQL gateway's result cells."""
+    if isinstance(obj, dict):
+        return {str(k): jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [jsonable(v) for v in obj]
+    if hasattr(obj, "item"):
+        return obj.item()
+    if isinstance(obj, (int, float, str, bool)) or obj is None:
+        return obj
+    return repr(obj)
+
+
 def obj_array(items: Sequence) -> np.ndarray:
     """1-D object ndarray of arbitrary Python values. (np.asarray(...,
     dtype=object) would build a 2-D array from a list of equal-length

@@ -15,6 +15,7 @@ STATE_PLANE = "item 11 (state and device planes)"
 JOINS = "item 12 (joins)"
 MESH = "item 13 (multi-GPU)"
 CHAOS = "item 14 (remaining touch points: minicluster, chaos)"
+ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
 METRICS = "item 15 (job metrics and emission latency)"
 CHECKPOINTS = "item 16 (job checkpoints and savepoints)"
 PARALLELISM = "item 17 (parallelism > 1 and key groups)"

@@ -44,6 +44,12 @@ AGGS = {
     "max": agg_mod.max_agg,
     "max_i32": lambda: agg_mod.max_agg(np.int32),
     "mean": agg_mod.mean_agg,
+    # fields declared 64-bit compute in 32 bits (ROADMAP C1)
+    "sum_f64": lambda: agg_mod.sum_agg(np.float64),
+    "min_f64": lambda: agg_mod.min_agg(np.float64),
+    "max_f64": lambda: agg_mod.max_agg(np.float64),
+    "mean_f64": lambda: agg_mod.mean_agg(np.float64),
+    "sum_i64": lambda: agg_mod.sum_agg(np.int64),
 }
 
 
@@ -69,7 +75,7 @@ def _rings(agg, shape, dev, global_scope):
     states = []
     for f in value_fields(agg):
         ident = (agg_mod.scan_identity(np.dtype(f.dtype), f.scatter)
-                 if global_scope else f.identity)
+                 if global_scope else f.device_identity)
         states.append(torch.full(shape, ident, dtype=agg_mod.torch_dtype(f.dtype),
                                  device=dev))
     return count, states
@@ -102,7 +108,8 @@ def test_k1_matches_plain(cuda, name, exact):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", ["count", "sum", "sum_i32", "min", "max", "max_i32", "mean"])
+@pytest.mark.parametrize("name", ["count", "sum", "sum_i32", "min", "max", "max_i32", "mean",
+                                  "sum_f64", "max_f64", "sum_i64"])
 def test_k2_matches_plain(cuda, name):
     got, want, launched = _both(
         cs.global_superscan, global_superscan_plain, AGGS[name](), (S,), 50,
@@ -113,7 +120,11 @@ def test_k2_matches_plain(cuda, name):
 
 
 def test_k1_refuses_what_it_cannot_run(cuda):
-    agg = agg_mod.sum_agg(np.float64)
+    # a 64-bit field runs in its 32-bit form (test_k1_matches_plain); a
+    # 16-bit one has no kernel form
+    assert all(s.itemsize == 4 for s in _rings(agg_mod.sum_agg(np.float64), (S, K), cuda,
+                                               False)[1])
+    agg = agg_mod.sum_agg(np.float16)
     count, states = _rings(agg, (S, K), cuda, False)
     plan = tuple(torch.from_numpy(a).to(cuda) for a in _plan(np.random.default_rng(0), S))
     with pytest.raises(NotImplementedError):

@@ -279,6 +279,34 @@ def test_operator_on_the_card_matches_the_cpu(cuda):
     assert len(outs[0]) > 100 and outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("name", ["sum", "min", "max", "mean"])
+def test_operator_on_the_card_runs_64bit_fields(cuda, name):
+    """ROADMAP C1: an aggregate declared np.float64 runs on K3/K4 in its
+    32-bit form, equal to the CPU's run of it."""
+    from flink_tpu_torch.ops import aggregators as agg_mod
+
+    agg = getattr(agg_mod, f"{name}_agg")(np.float64)
+    outs = []
+    for dev in (cuda, "cpu"):
+        cuda_session.reset_launch_counts()
+        op = TpuSessionWindowOperator(EventTimeSessionWindows.with_gap(1000), agg,
+                                      key_capacity=64, device=dev)
+        rng = np.random.default_rng(8)
+        t = 0
+        for _ in range(12):
+            keys = rng.integers(0, 100, 2000)
+            ts = t + rng.integers(0, 1500, 2000)
+            op.process_batch(keys, rng.integers(0, 9, 2000).astype(np.float32), ts)
+            op.process_watermark(int(ts.max()) - 600)
+            t += 700 + int(rng.integers(0, 3)) * 2500
+        op.process_watermark(1 << 60)
+        outs.append(sorted((int(k), w.start, w.end, repr(r)) for k, w, r, _t in op.drain_output()))
+        if dev == cuda:
+            assert cuda_session.LAUNCHES["k3_session_ingest"] > 0
+            assert cuda_session.LAUNCHES["k4_session_merge"] > 0
+    assert len(outs[0]) > 50 and outs[0] == outs[1]
+
+
 def test_superspan_operator_on_the_card_matches_the_cpu_and_numpy(cuda):
     T, B = 16, 1 << 16
     gen = st.make_session_gen(T, B, device=cuda)

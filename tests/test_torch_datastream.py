@@ -166,6 +166,39 @@ def test_map_and_map_with_timestamp_chain_matches_jax():
     assert out[("port", "chain")] == out[("jax", "fused")]
 
 
+@pytest.mark.parametrize("vectorized", [False, True])
+def test_flat_map_and_global_match_jax(vectorized):
+    """flat_map (per record, or vectorized with its source index carrying
+    the timestamps) behind a global() hint, feeding a keyed tumbling sum."""
+    def per_record(r):
+        return [(r[0], r[1] + i) for i in range(int(r[1]) % 3)]
+
+    def columns(vals):
+        out, idx = [], []
+        for i, r in enumerate(vals):
+            for o in per_record(r):
+                out.append(o)
+                idx.append(i)
+        arr = np.empty(len(out), dtype=object)
+        arr[:] = out
+        return arr, np.asarray(idx, np.int64)
+
+    recs = [(i % 5, float(i % 7), i * 10) for i in range(300)]
+    out = []
+    for pkg, kw in ((JAX, {}), (PORT, {"device": "cpu"})):
+        cfg = pkg["cfg"]()
+        cfg.set(pkg["opts"].BATCH_SIZE, 64)
+        env = pkg["env"](cfg, **kw)
+        ds = env.from_collection(recs, timestamp_fn=lambda r: r[2],
+                                 watermark_strategy=pkg["wm"].for_bounded_out_of_orderness(0))
+        ds = ds.global_().flat_map(columns if vectorized else per_record, vectorized=vectorized)
+        sink = (ds.key_by(lambda r: r[0]).window(pkg["asg"].TumblingEventTimeWindows.of(500))
+                .aggregate("sum", value_fn=lambda r: r[1]).collect())
+        env.execute()
+        out.append(repr(sink.results))
+    assert out[0] == out[1] and len(out[1]) > 10
+
+
 def test_fused_route_raises_on_keys_beyond_capacity():
     cfg = Configuration()
     cfg.set(ExecutionOptions.KEY_CAPACITY, NUM_KEYS // 2)
@@ -196,7 +229,7 @@ def _deferred_calls():
     keyed = ds.key_by(lambda x: x)
     win = keyed.window(SLIDING(tasg))
     return {
-        "flat_map": (lambda: ds.flat_map(lambda x: [x]), "item 19"),
+        "map_batch": (lambda: ds.map_batch(lambda xs: xs), "item 19"),
         "union": (lambda: ds.union(ds), "item 19"),
         "connect": (lambda: ds.connect(ds), "item 19"),
         "async_map": (lambda: ds.async_map(lambda x: x), "item 19"),

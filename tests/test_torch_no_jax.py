@@ -95,6 +95,26 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
                                       mini_batch=False, device=True).collect())
         env.execute()
         assert [(r["c"], r["s"]) for r in sink.results][-1] == (1, 3.0), sink.results
+
+        # a SQL statement through the port's parser, planner and
+        # TableEnvironment, fused onto the traced chain; the gateway and
+        # its bearer check import too
+        from flink_tpu_torch.config import TableOptions
+        from flink_tpu_torch.table import TableEnvironment, TableSchema
+        from flink_tpu_torch.table.gateway import SqlGateway  # noqa: F401
+        from flink_tpu_torch.security import bearer_header_equal
+        assert bearer_header_equal("Bearer t", "t")
+        env = StreamExecutionEnvironment(device="cpu")
+        tenv = TableEnvironment(env)
+        tenv.from_rows("pay", [{"user": i % 3, "amount": float(i % 4), "rowtime": i * 100}
+                               for i in range(60)],
+                       TableSchema(["user", "amount", "rowtime"], rowtime="rowtime",
+                                   field_types=["int", "float", "int"]))
+        rows = tenv.execute_sql_to_list(
+            "SELECT user, SUM(amount) AS s FROM pay WHERE amount > 0 "
+            "GROUP BY user, TUMBLE(rowtime, INTERVAL '1' SECOND)")
+        assert tenv.last_plan_report.fused and env.config.get(TableOptions.DEVICE_FUSION)
+        assert sum(r["s"] for r in rows) == sum(float(i % 4) for i in range(60)), rows
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -118,6 +138,9 @@ def _imports(path):
 def test_sources_import_neither_jax_nor_flink_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # the SQL front door is scanned too
+    for sub in ("table", "planner", "security"):
+        assert any(f.parent == PKG / sub for f in files), sub
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -255,11 +255,27 @@ def test_wide_gap_merges_stay_exact(defer):
 
 
 def test_value_fields_the_kernels_do_not_take_raise():
-    """K3/K4 take float32/int32 add/min/max fields; a float64 sum raises at
-    construction (the JAX package keeps it on its host merge)."""
-    with pytest.raises(NotImplementedError, match="float32 or int32"):
+    """K3/K4 take 32-bit add/min/max fields, and 64-bit ones in their 32-bit
+    form (ROADMAP C1); a float16 sum still raises at construction. A float64
+    min or max equals the JAX operator's; a float64 sum equals the JAX
+    operator's float32 sum (the JAX host merge truncates a float64 sum's
+    cells, a reference fault the port does not reproduce)."""
+    with pytest.raises(NotImplementedError, match="of 32 bits"):
         TpuSessionWindowOperator(EventTimeSessionWindows.with_gap(1000),
-                                 tagg.sum_agg(np.float64), device="cpu")
+                                 tagg.sum_agg(np.float16), device="cpu")
+    for vals in ([16777216.0, 1.0], [0.1, 0.2]):
+        for name, jref in (("sum", jagg.sum_agg()), ("min", jagg.min_agg(np.float64)),
+                           ("max", jagg.max_agg(np.float64))):
+            rows = []
+            for op in (JaxOp(JaxSessions.with_gap(1000), jref),
+                       TpuSessionWindowOperator(EventTimeSessionWindows.with_gap(1000),
+                                                getattr(tagg, f"{name}_agg")(np.float64),
+                                                device="cpu")):
+                op.process_batch(np.array([1, 1]), np.array(vals, np.float32),
+                                 np.array([10, 20]))
+                op.process_watermark(5000)
+                rows.append([(k, w.start, w.end, repr(r)) for k, w, r, _t in op.drain_output()])
+            assert rows[0] == rows[1] and len(rows[0]) == 1, (name, vals, rows)
 
 
 def test_staged_ingest_matches_host_path():

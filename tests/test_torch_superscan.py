@@ -58,7 +58,8 @@ def _run_port(agg, inp, exact, spws=(SPW,) * F, wrapper=False):
     idx, vals, smin, fpos, fvalid, frow, purge = inp
     vf = [f for f in agg.fields if f.source == tagg.VALUE]
     count = torch.zeros((S, K), dtype=torch.int32)
-    states = [torch.full((S, K), f.identity, dtype=tagg.torch_dtype(f.dtype)) for f in vf]
+    states = [torch.full((S, K), f.device_identity, dtype=tagg.torch_dtype(f.dtype))
+              for f in vf]
     plan = tuple(torch.from_numpy(a) for a in (smin, fpos, fvalid, frow, purge))
     fn = cs.keyed_superscan if wrapper else keyed_superscan_plain
     count_out, outs = fn(agg, count, states, torch.from_numpy(idx),
@@ -173,8 +174,30 @@ def test_supports_gate_is_rederived_for_hopper():
     assert cs.supports(tagg.sum_agg(), 1 << 20, 64, 64, 4, 4)
     assert not ps.supports(jagg.sum_agg(), 1 << 20, 64, 64, 4, 1024)
     assert cs.supports(tagg.min_agg(), 8192, 64, 32, 4, 4)
-    assert not cs.supports(tagg.sum_agg(np.float64), 8192, 64, 32, 4, 4)
     assert not cs.supports(tagg.count_agg(), 8192, 64, 32, 4, 17)
+    # a field declared 64-bit computes in 32 bits, as in the JAX package
+    # (x64 off), so K1 takes it; its dispatch equals the JAX package's
+    assert cs.supports(tagg.sum_agg(np.float64), 8192, 64, 32, 4, 4)
+    assert cs.supports_global(tagg.min_agg(np.float64), 8, 16, 2, 4)
+    inp = _inputs(seed=5)
+    _assert_same(_run_port(tagg.sum_agg(np.float64), inp, True),
+                 _run_xla(jagg.sum_agg(np.float64), inp, True))
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("sum", np.float64), ("min", np.float64), ("max", np.float64), ("mean", np.float64),
+    ("sum", np.int64),
+])
+def test_plain_matches_xla_step_on_64bit_fields(name, dtype):
+    """ROADMAP C1: a 64-bit field runs in its 32-bit form, bit for bit as
+    the JAX package's superscan step runs it with x64 off (its identity cast
+    as jnp casts it). The pallas kernel itself refuses 64-bit refs, so the
+    JAX package's XLA step is the reference here; an int64 min or max does
+    not run there at all (its identity overflows int32)."""
+    inp = _inputs(seed=6)
+    port = _run_port(getattr(tagg, f"{name}_agg")(dtype), inp, True)
+    _assert_same(port, _run_xla(getattr(jagg, f"{name}_agg")(dtype), inp, True))
+    assert all(a.itemsize == 4 for a in port[1] + port[3])
 
 
 @pytest.mark.parametrize("T_,K_,NSB_,nf", [
