@@ -74,6 +74,26 @@ exits non-zero on the first failure. Phases, one JSON line each:
    numpy_sessionize; a continuous COUNT/SUM/AVG GROUP BY over 2^18
    changelog rows on the device accumulators against the host path; and
    K1 against its plain version at the SQL job's first full dispatch.
+18. api_latency: the api_ysb fused program at 2^22 records in latency
+   mode (execution.latency.target-ms 50, readback-steps 8,
+   max-inflight-dispatches 2) beside throughput mode, and with the
+   controller pinned at each rung of its ladder (2 ... 32 steps a
+   dispatch): every run's rows equal the throughput run's in order and
+   the numpy oracle's; a full-depth dispatch is 4 K1 launches; tuples/s,
+   the time from the run's start to the first row at the sink and the mean
+   lag from a dispatch's enqueue to its rows at the sink, in both modes;
+   then K1 at the readback group's shape (8 steps of 65536 records), and
+   ROADMAP C3 on the card: the fused operator's int64 sum on C3's inputs
+   gives the JAX package's rows, and K1 with an int32 add field is
+   bit-equal to its plain version on quarter values at the sum job's
+   dispatch (`k1_int_sum`).
+19. api_oracle: the per-record oracle operator's jobs (host code, no
+   kernel launches): 10 s / 1 s windows with ContinuousEventTimeTrigger.of
+   (500) and reduce over 2^16 records and 1024 keys, 2 s tumbling windows
+   with CountEvictor.of(16) and process, each against a numpy model of its
+   semantics; SQL_MULTI (COUNT(*), SUM(x), MAX(x) over the YSB HOP) at
+   2^17 records against numpy, its plan report the JAX package's; tuples/s
+   and a cProfile of each.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -124,6 +144,24 @@ API_SQL = dict(keys=8192, window=10_000, slide=1_000, batch=8192, events=1 << 21
 SQL_YSB = ("SELECT campaign, COUNT(*) AS views, WINDOW_END AS wend FROM ysb "
            "WHERE event_type < 0.5 GROUP BY campaign, "
            "HOP(rowtime, INTERVAL '1000' MILLISECOND, INTERVAL '10000' MILLISECOND)")
+# latency mode on the api_ysb program: 2^22 records, the controller's
+# target 50 ms, readback groups of 8 steps, two dispatches in flight
+API_LATENCY = dict(events=1 << 22, warmup_events=1 << 19, target_ms=50, readback_steps=8,
+                   max_inflight=2)
+# the per-record oracle operator's jobs: 1024 keys; 10 s / 1 s windows with
+# ContinuousEventTimeTrigger.of(500) and reduce over 2^16 records spanning
+# 4 s of event time (batch 256, so a watermark advances ~16 ms, less than
+# the interval); 2 s tumbling windows with CountEvictor.of(16) and process
+# over 2^16 records spanning 16 s; SQL_MULTI over 2^17 records
+API_ORACLE = dict(keys=1024,
+                  continuous_reduce=dict(events=1 << 16, span_ms=4_000, batch=256,
+                                         window=10_000, slide=1_000, interval=500),
+                  evictor_process=dict(events=1 << 16, span_ms=16_000, batch=1024,
+                                       window=2_000, keep=16),
+                  sql_events=1 << 17, sql_batch=8192)
+SQL_MULTI = ("SELECT campaign, COUNT(*) AS views, SUM(x) AS s, MAX(x) AS m, "
+             "WINDOW_END AS wend FROM ysb WHERE event_type < 0.5 GROUP BY campaign, "
+             "HOP(rowtime, INTERVAL '1000' MILLISECOND, INTERVAL '10000' MILLISECOND)")
 
 
 def emit(obj):
@@ -515,17 +553,19 @@ def api_ysb_phase(dev=DEV, sizes=API) -> dict:
             "sliding_count": count_parity, "tumbling_sum": sum_parity}
 
 
-def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan) -> dict:
+def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None) -> dict:
     """K1 against its plain version on one dispatch's inputs (bit-equal),
     with its time (CUDA events), the plain version's, one index_add_ of the
     dispatch's ingest as the library yardstick, its bound and its device
-    time by kernel."""
+    time by kernel. R: the fire rows to allocate (a readback group's;
+    default the pipeline's)."""
     from flink_tpu_torch.ops import cuda_superscan as cs
     from flink_tpu_torch.ops.superscan import keyed_superscan_plain
     from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
 
     S_, K_, T_ = pipe.S, pipe.K, int(plan[0].shape[0])
-    kw = dict(NSB=pipe.NSB, R=pipe.R, spws=(pipe.spw,) * pipe.F, exact=True)
+    R = pipe.R if R is None else R
+    kw = dict(NSB=pipe.NSB, R=R, spws=(pipe.spw,) * pipe.F, exact=True)
     err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
                          [(idx, vals, plan)], (S_, K_), False, **kw)
     count, states = _fresh_rings(agg, (S_, K_), DEV, False)
@@ -537,6 +577,9 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan) -> dict:
     live = ii >= 0
     cells = (((plan[0].long()[:, None] + ii % pipe.NSB) % S_) * K_ + ii // pipe.NSB)[live]
     target = (states[0] if states else count).view(-1)
+    if vals is not None and not target.is_floating_point():
+        # an int add field's sum is a float32 partial before its cast
+        target = torch.zeros(target.numel(), dtype=torch.float32, device=target.device)
     src = (vals.view(T_, -1)[live] if vals is not None
            else torch.ones_like(cells, dtype=torch.int32))
     lib_ms = cuda_ms(lambda: target.index_add_(0, cells, src), 10)
@@ -546,7 +589,7 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan) -> dict:
               + 2 * rings * S_ * K_ * 4 + rings * len(plan[5]) * K_ * 4
               + sum(p.numel() * 4 for p in plan[:5]))
     b_ms, b_by = bound(nbytes, int(live.sum()) * rings)
-    return {"shape": f"{label}, T={T_} B={idx.numel() // T_} K={K_} S={S_} R={pipe.R}",
+    return {"shape": f"{label}, T={T_} B={idx.numel() // T_} K={K_} S={S_} R={R}",
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "fires": len(plan[5]), "device_us": device_split_us(
@@ -1587,6 +1630,503 @@ def sql_k1_inputs(dev=DEV):
     return pipe, agg, idx, vals, plan
 
 
+# ---------------------------------------------------------------------------
+# phase 18: latency mode (execution.latency.*) on the api_ysb program
+# ---------------------------------------------------------------------------
+
+def timing_sink():
+    """A sink that keeps each batch it is given (`.batches`: (values,
+    timestamps)) and when it came (`.arrivals`: (host seconds, rows so
+    far))."""
+    from flink_tpu_torch.connectors.sink import Sink, SinkWriter
+
+    class Writer(SinkWriter):
+        def __init__(self, sink):
+            self.sink = sink
+
+        def write_batch(self, values, timestamps=None):
+            self.sink.batches.append((values, timestamps))
+            self.sink.rows += len(values)
+            self.sink.arrivals.append((time.perf_counter(), self.sink.rows))
+
+    class TimingSink(Sink):
+        def __init__(self):
+            self.batches, self.arrivals, self.rows = [], [], 0
+
+        def create_writer(self):
+            return Writer(self)
+
+    return TimingSink()
+
+
+def latency_runtime(n: int, latency: bool, sz, dev=DEV):
+    """(runtime, fused operator, sink) of the api_ysb fused program
+    (traceable filter and key, 10 s / 1 s count, 8192 keys, batch 65536, 32
+    steps a superbatch, columnar output) over n records, with the
+    execution.latency.* options of sz when `latency`. Built through the
+    executor's JobRuntime (what env.execute() runs), so the caller reaches
+    the operator."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import JobRuntime
+    from flink_tpu_torch.testing import stream as st
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, API["keys"]))
+
+    conf = {"execution.step.batch-size": API["batch"],
+            "execution.state.key-capacity": API["keys"],
+            "execution.window.columnar-output": True,
+            "execution.window.superbatch-steps": 32}
+    if latency:
+        conf.update({"execution.latency.target-ms": sz["target_ms"],
+                     "execution.latency.readback-steps": sz["readback_steps"],
+                     "execution.latency.max-inflight-dispatches": sz["max_inflight"]})
+    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
+    sink = timing_sink()
+    (env.from_source(DataGeneratorSource(gen, n),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+     .window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
+     .aggregate("count").sink_to(sink))
+    runtime = JobRuntime(plan(env._sinks), env.config, dev)
+    op = next(r.op for r in runtime.runners if type(r).__name__ == "DeviceChainRunner")
+    return runtime, op, sink
+
+
+def latency_run(n: int, latency: bool, sz, rung=None, dev=DEV) -> dict:
+    """One run of the program; `rung`: the ladder rung to pin the
+    controller at (a constant clock leaves its rate estimate unset, so it
+    holds the rung). Each dispatch's enqueue time, K1 launches and depth
+    are recorded, and the rows each resolve appends; matched with the
+    sink's arrivals they give the time from the run's start to the first
+    row at the sink and the mean lag from a dispatch's enqueue to its last
+    row at the sink. K1's launch counts are 0 just before the run."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    runtime, op, sink = latency_runtime(n, latency, sz, dev)
+    if rung is not None:
+        op._controller._clock = lambda: 0.0
+        op._controller._rung = rung
+    dispatches, resolved = [], []       # (t, K1 launches, depth); (t_enqueue, rows so far)
+    appended = [0]
+    run_raw, resolve = op.pipe.process_superbatch_raw, op._resolve_oldest
+
+    def timed_dispatch(steps, wms, **kw):
+        before = cs.LAUNCHES["k1_superscan"]
+        t = time.perf_counter()
+        d = run_raw(steps, wms, **kw)
+        dispatches.append((t, cs.LAUNCHES["k1_superscan"] - before, len(steps)))
+        return d
+
+    def timed_resolve():
+        t_enq = dispatches[len(resolved)][0]
+        before = len(op.output)
+        resolve()
+        appended[0] += len(op.output) - before
+        resolved.append((t_enq, appended[0]))
+
+    op.pipe.process_superbatch_raw, op._resolve_oldest = timed_dispatch, timed_resolve
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    runtime.run()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    lags, prev, a = [], 0, 0
+    arrivals = sink.arrivals
+    for t_enq, upto in resolved:
+        if upto == prev:
+            continue                     # a dispatch that fired nothing
+        while arrivals[a][1] < upto:
+            a += 1
+        lags.append(arrivals[a][0] - t_enq)
+        prev = upto
+    rows = [(r[0].start, np.asarray(r[1]).tolist(), np.asarray(r[2]).tolist())
+            for values, _ts in sink.batches for r in values]
+    return {"seconds": secs, "tuples_per_s": n / secs,
+            "first_row_s": arrivals[0][0] - t0 if arrivals else None,
+            "mean_enqueue_to_sink_ms": float(np.mean(lags)) * 1e3 if lags else None,
+            "dispatches": len(dispatches), "k1_launches": cs.LAUNCHES["k1_superscan"],
+            "k1_launches_by_depth": sorted({(d, k) for _t, k, d in dispatches}),
+            "depths": sorted({d for _t, _k, d in dispatches}),
+            "gauges": op.latency_gauges(), "rows": rows}
+
+
+def api_latency_phase(dev=DEV, sizes=None) -> dict:
+    """Latency mode on the api_ysb fused program at sizes["events"]
+    records: a throughput-mode run, a latency-mode run
+    (execution.latency.target-ms, readback-steps, max-inflight-dispatches
+    from sizes), and a latency-mode run with the rung pinned at each rung
+    of the ladder. Every run's packed rows must equal the throughput run's,
+    in order, and the numpy oracle's."""
+    from flink_tpu_torch.scheduler.latency_controller import build_rung_ladder
+    from flink_tpu_torch.testing import stream as st
+
+    sz = sizes or API_LATENCY
+    n = sz["events"]
+    latency_run(sz["warmup_events"], True, sz, dev=dev)            # build, warm
+    base = latency_run(n, False, sz, dev=dev)
+    lat = latency_run(n, True, sz, dev=dev)
+    ladder = build_rung_ladder(2, 32)
+    pinned = {r: latency_run(n, True, sz, rung=i, dev=dev) for i, r in enumerate(ladder)}
+    ref = st.api_replay(n, API["batch"], window_ms=API["window"], slide_ms=API["slide"],
+                        num_keys=API["keys"])
+    fired = {}
+    for start, ids, vals in base["rows"]:
+        row = fired[start // API["slide"]] = np.zeros(API["keys"])
+        row[ids] = vals
+    parity, checked = st.parity(ref.fired, fired, require_all=True)
+    parity = parity and set(fired) <= set(ref.fired)
+    same = {"latency": lat["rows"] == base["rows"]}
+    same.update({f"rung_{r}": run["rows"] == base["rows"] for r, run in pinned.items()})
+    full = pinned[32]
+    full_launches = [k for d, k in full["k1_launches_by_depth"] if d == 32]
+    grouped_ok = full_launches == [32 // sz["readback_steps"]]
+    launched = all(run["k1_launches"] > 0 for run in (base, lat, *pinned.values()))
+
+    def summary(run):
+        return {k: run[k] for k in ("seconds", "tuples_per_s", "first_row_s",
+                                    "mean_enqueue_to_sink_ms", "dispatches", "k1_launches",
+                                    "k1_launches_by_depth", "depths", "gauges")}
+
+    return {"phase": "api_latency",
+            "ok": parity and all(same.values()) and grouped_ok and launched,
+            "events": n, "options": {k: sz[k] for k in ("target_ms", "readback_steps",
+                                                         "max_inflight")},
+            "parity": parity, "windows_checked": checked, "rows_equal_throughput": same,
+            "k1_launches_a_full_dispatch": full_launches,
+            "throughput_tuples_per_s": base["tuples_per_s"],
+            "latency_tuples_per_s": lat["tuples_per_s"],
+            "throughput": summary(base), "latency": summary(lat),
+            "pinned": {r: summary(run) for r, run in pinned.items()}}
+
+
+def k1_group_inputs(Tg: int, dev=DEV):
+    """K1's inputs of the first readback group of Tg steps of the api_ysb
+    count job's first full dispatch (B = 65536), as `_process_grouped`
+    launches it: (pipe, agg, idx, vals, plan with the group's fires, R)."""
+    pipe, agg, idx, vals, plan = api_k1_inputs(False, dev)
+    B = idx.numel() // int(plan[0].shape[0])
+    fires = [pf for pf in plan[5] if pf.step < Tg]
+    R = min(pipe.R, -(-max(len(fires), 1) // 16) * 16)
+    g_plan = tuple(p[:Tg] for p in plan[:5]) + (fires,)
+    return pipe, agg, idx[:Tg * B], None, g_plan, R
+
+
+# ---------------------------------------------------------------------------
+# C3: K1 with an int add field
+# ---------------------------------------------------------------------------
+
+C3_INPUTS = ([16777216.0, 1.0], [0.5, 0.5])
+#: what the JAX package's FusedWindowOperator emits on them (a float32 sum
+#: of the cell, cast once): tests/test_torch_64bit_fields.py holds it
+C3_JAX_ROWS = [16777216, 1]
+
+
+def k1_int_sum_phase(card: str, dev=DEV) -> dict:
+    """ROADMAP C3 on the card. The fused operator with sum_agg(np.int64)
+    on C3's inputs (one key, one tumbling window; launch counts at 0 just
+    before) must emit the JAX package's rows, as its CPU route does; then
+    K1 with an int32 add field against its plain version at the api_ysb sum
+    job's first full dispatch, the payload turned to quarter values (a cast
+    per record would lose their fractions; their float32 partial sums are
+    exact in any order), with its times."""
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.ops.aggregators import sum_agg
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+
+    def c3_rows(device):
+        rows = []
+        for vals in C3_INPUTS:
+            op = FusedWindowOperator(TumblingEventTimeWindows.of(1000), sum_agg(np.int64),
+                                     device=device)
+            op.process_batch(np.array([1, 1]), np.array(vals, np.float32), np.array([10, 20]))
+            op.process_watermark(5000)
+            op.flush_all()
+            rows += [r for _k, _w, r, _t in op.drain_output()]
+        return rows
+
+    cs.reset_launch_counts()
+    card_rows = c3_rows(dev)
+    launches = cs.LAUNCHES["k1_superscan"]
+    cpu_rows = c3_rows("cpu")
+    pipe, _agg, idx, vals, plan = api_k1_inputs(True, dev)
+    quarters = vals + torch.remainder(torch.arange(vals.numel(), device=vals.device), 4) / 4
+    entry = k1_at_dispatch("api_ysb int32 sum of quarter values: the sum job's first full "
+                           "fused dispatch", pipe, sum_agg(np.int32), idx,
+                           quarters.to(torch.float32).contiguous(), plan)
+    ok = card_rows == cpu_rows == C3_JAX_ROWS and launches == len(C3_INPUTS)
+    return {"phase": "k1_int_sum", "card": card, "ok": ok, "c3_rows": card_rows,
+            "c3_cpu_rows": cpu_rows, "c3_jax_rows": C3_JAX_ROWS, "launches": launches,
+            **entry}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the per-record oracle operator (host code: the device takes no
+# part in these jobs)
+# ---------------------------------------------------------------------------
+
+#: the JAX package's plan report of SQL_MULTI (tests/test_torch_chip_smoke.py
+#: holds it against flink_tpu's TableEnvironment)
+SQL_MULTI_REPORT = ("interpreted", "multi-aggregate",
+                    "interpreted[multi-aggregate]: 3 aggregate calls")
+
+
+def oracle_columns(n: int, keys: int, span_ms: int):
+    """n records (key, value) float32 with ordered int64 timestamps over
+    span_ms: keys by a multiplicative hash, values small integers."""
+    idx = np.arange(n, dtype=np.int64)
+    col = np.stack([(idx * 2654435761) % keys, (idx * 7) % 11], axis=1).astype(np.float32)
+    return col, 10_000 + idx * span_ms // n
+
+
+def oracle_job(job: str, sz, dev=DEV):
+    """(env, sink) of a per-record oracle job over the columns above:
+    'continuous_reduce' (10 s / 1 s windows, ContinuousEventTimeTrigger.of
+    (500), reduce summing the value) or 'evictor_process' (2 s tumbling
+    windows, CountEvictor.of(16), a ProcessWindowFunction giving
+    (key, start, elements, their value sum))."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.functions import ProcessWindowFunction
+    from flink_tpu_torch.api.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+    from flink_tpu_torch.api.windowing.evictors import CountEvictor
+    from flink_tpu_torch.api.windowing.triggers import ContinuousEventTimeTrigger
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+
+    p = sz[job]
+    col, ts = oracle_columns(p["events"], sz["keys"], p["span_ms"])
+
+    def gen(idx):
+        return Batch(col[idx], ts[idx])
+
+    class LastElements(ProcessWindowFunction):
+        def process(self, key, context, elements):
+            elements = list(elements)
+            yield (key, context.window.start, len(elements),
+                   float(sum(float(e[1]) for e in elements)))
+
+    env = StreamExecutionEnvironment(
+        Configuration({"execution.step.batch-size": p["batch"]}), device=dev)
+    keyed = (env.from_source(DataGeneratorSource(gen, p["events"]),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+             .key_by(lambda r: int(r[0])))
+    if job == "continuous_reduce":
+        out = (keyed.window(SlidingEventTimeWindows.of(p["window"], p["slide"]))
+               .trigger(ContinuousEventTimeTrigger.of(p["interval"]))
+               .reduce(lambda a, b: (a[0], float(a[1]) + float(b[1]))))
+    else:
+        out = (keyed.window(TumblingEventTimeWindows.of(p["window"]))
+               .evictor(CountEvictor.of(p["keep"])).process(LastElements()))
+    sink = rows_sink()
+    out.sink_to(sink)
+    return env, sink
+
+
+def _window_groups(keys, ts, size, slide):
+    """For each (record, window) pair of sliding windows: (record index,
+    key, window start), record-major."""
+    last = ts - ts % slide
+    per = size // slide
+    rec = np.repeat(np.arange(len(ts)), per)
+    start = np.repeat(last, per) - np.tile(np.arange(per), len(ts)) * slide
+    return rec, np.repeat(keys, per), start
+
+
+def continuous_reduce_model(sz) -> list:
+    """numpy model of 'continuous_reduce': every (key, window) with records
+    fires at each multiple of the interval from its first record's on (the
+    first at floor(t0 / interval) * interval + interval), and at its end;
+    a fire at time f sees the window's records of every batch up to the
+    first whose watermark (its largest timestamp - 1) reaches f. The end of
+    input's watermark jumps past every window at once, and the timer
+    service fires the timers due at one advance as a batch: an open window
+    then fires at its pending interval timer and at its end, and its end's
+    cleanup drops the timer the first fire registered (one advance of a
+    batch never passes two of a window's fire times: it moves less than
+    the interval). Sorted (key, window start, value sum) of every fire."""
+    p = sz["continuous_reduce"]
+    col, ts = oracle_columns(p["events"], sz["keys"], p["span_ms"])
+    keys, vals = col[:, 0].astype(np.int64), col[:, 1].astype(np.float64)
+    B = p["batch"]
+    wms = np.maximum.accumulate(ts)[np.minimum(np.arange(B, len(ts) + B, B), len(ts)) - 1] - 1
+    rec, k, start = _window_groups(keys, ts, p["window"], p["slide"])
+    order = np.lexsort((rec, start, k))
+    rec, k, start = rec[order], k[order], start[order]
+    bounds = np.flatnonzero(np.r_[True, (k[1:] != k[:-1]) | (start[1:] != start[:-1]), True])
+    out, iv = [], p["interval"]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        r = rec[lo:hi]
+        end_max = start[lo] + p["window"] - 1
+        t0 = int(ts[r[0]])
+        fires, f = [], min(t0 - t0 % iv + iv, end_max)
+        while f < end_max and f <= wms[-1]:
+            fires.append(f)
+            f = min(f + iv, end_max)
+        if f < end_max:
+            fires.append(f)                           # pending at the final jump
+        fires.append(end_max)
+        csum = np.cumsum(vals[r])
+        for f in fires:
+            b = int(np.searchsorted(wms, f))          # the first batch reaching f
+            cut = len(ts) if b >= len(wms) else (b + 1) * B
+            m = int(np.searchsorted(r, cut))
+            out.append((int(k[lo]), int(start[lo]), float(csum[m - 1])))
+    return sorted(out)
+
+
+def evictor_process_model(sz) -> list:
+    """numpy model of 'evictor_process': each (key, window) fires once at
+    its end with its last `keep` records. Sorted (key, start, n, sum)."""
+    p = sz["evictor_process"]
+    col, ts = oracle_columns(p["events"], sz["keys"], p["span_ms"])
+    keys, vals = col[:, 0].astype(np.int64), col[:, 1].astype(np.float64)
+    start = ts - ts % p["window"]
+    order = np.lexsort((np.arange(len(ts)), start, keys))
+    k, s, v = keys[order], start[order], vals[order]
+    bounds = np.flatnonzero(np.r_[True, (k[1:] != k[:-1]) | (s[1:] != s[:-1]), True])
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        kept = v[max(lo, hi - p["keep"]):hi]
+        out.append((int(k[lo]), int(s[lo]), len(kept), float(kept.sum())))
+    return sorted(out)
+
+
+def sql_multi_job(n: int, sz, dev=DEV):
+    """(env, tenv, sink) of SQL_MULTI over the `ysb` table of n records
+    with the payload column x (api_columns' payload)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+    from flink_tpu_torch.testing import stream as st
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, API["keys"], payload=True))
+
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.step.batch-size": sz["sql_batch"],
+        "execution.state.key-capacity": API["keys"]}), device=dev)
+    tenv = TableEnvironment(env)
+    stream = env.from_source(DataGeneratorSource(gen, n),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+    tenv.register_table("ysb", stream,
+                        TableSchema(["campaign", "event_type", "x", "rowtime"],
+                                    rowtime="rowtime",
+                                    field_types=["int", "float", "float", "int"]),
+                        columnar=True)
+    sink = tenv.sql_query(SQL_MULTI).collect()
+    return env, tenv, sink
+
+
+def sql_multi_model(n: int) -> dict:
+    """numpy: {aggregate: {window index: row over the keys}} of SQL_MULTI's
+    COUNT(*), SUM(x) and MAX(x)."""
+    from flink_tpu_torch.testing import stream as st
+
+    reps = {agg: st.api_replay(n, API["batch"], window_ms=API["window"],
+                               slide_ms=API["slide"], agg=agg, num_keys=API["keys"]).fired
+            for agg in ("count", "sum", "max")}
+    return reps
+
+
+def _reset_launch_counts() -> None:
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    cs.reset_launch_counts()
+    cuda_session.reset_launch_counts()
+
+
+def _oracle_untouched_device(dev) -> bool:
+    """No kernel of the port launched since the counts were last reset."""
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    _sync(dev)
+    return not any(cs.LAUNCHES.values()) and not any(cuda_session.LAUNCHES.values())
+
+
+def api_oracle_phase(dev=DEV, sizes=None) -> dict:
+    """The per-record oracle operator's jobs, each against a numpy model of
+    its semantics, with tuples/s (host clock, one env.execute()), a
+    cProfile of a second run at a quarter of the records, and a check that
+    no kernel of the port launched: the oracle is host code, the device
+    takes no part."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    sz = sizes or API_ORACLE
+    out = {"phase": "api_oracle",
+           "device": "none: the per-record oracle operator is host code, as in the JAX package"}
+    ok = True
+    models = {"continuous_reduce": continuous_reduce_model,
+              "evictor_process": evictor_process_model}
+    for job, model in models.items():
+        env, sink = oracle_job(job, sz, dev)
+        selected = [type(r.op).__name__ for r in build_runners(plan(env._sinks), env.config,
+                                                                dev)[0]
+                    if hasattr(r, "op")] == ["OracleWindowOperator"]
+        _reset_launch_counts()
+        secs = timed_execute(env, dev)
+        untouched = _oracle_untouched_device(dev)
+        got = []
+        for values, tss in sink.batches:
+            for row, t in zip(values, tss):
+                start = int(t) + 1 - sz[job]["window"]
+                if job == "continuous_reduce":
+                    # (key, reduce result): the first record's row alone, else
+                    # the (key, value sum) tuple the reduce builds
+                    got.append((int(row[0]), start, float(row[1][1])))
+                else:
+                    got.append(tuple(row))
+        parity = sorted(got) == model(sz) and len(got) > 0
+        quarter = dict(sz, **{job: dict(sz[job], events=sz[job]["events"] // 4)})
+        prof = host_profile(f"api_oracle_{job}", lambda q=quarter, j=job: timed_execute(
+            oracle_job(j, q, dev)[0], dev), top=8)
+        n = sz[job]["events"]
+        out[job] = {"events": n, "tuples_per_s": n / secs, "seconds": secs,
+                    "rows": len(got), "parity": parity, "oracle_selected": selected,
+                    "no_kernel_launched": untouched, "host_profile": prof["top"]}
+        ok = ok and parity and selected and untouched
+    # SQL_MULTI: three aggregates on the composite accumulator
+    n = sz["sql_events"]
+    env, tenv, sink = sql_multi_job(n, sz, dev)
+    _reset_launch_counts()
+    secs = timed_execute(env, dev)
+    untouched = _oracle_untouched_device(dev)
+    r = tenv.last_plan_report
+    report = (r.path, r.reason, r.describe())
+    model = sql_multi_model(n)
+    got = sorted((int(row["wend"]), int(row["campaign"]), int(row["views"]), float(row["s"]),
+                  float(row["m"])) for row in sink.results)
+    want = []
+    for j, counts in model["count"].items():
+        for key in np.flatnonzero(counts > 0):
+            want.append((j * API["slide"] + API["window"], int(key), int(counts[key]),
+                         float(model["sum"][j][key]), float(model["max"][j][key])))
+    parity = got == sorted(want) and len(got) > 0
+    prof = host_profile("api_oracle_sql_multi", lambda: timed_execute(
+        sql_multi_job(n // 4, sz, dev)[0], dev), top=8)
+    out["sql_multi"] = {"events": n, "tuples_per_s": n / secs, "seconds": secs,
+                        "rows": len(sink.results), "parity": parity, "report": report,
+                        "report_equals_jax": report == SQL_MULTI_REPORT,
+                        "no_kernel_launched": untouched, "host_profile": prof["top"]}
+    out["ok"] = ok and parity and report == SQL_MULTI_REPORT and untouched
+    return out
+
+
 def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
     """Each torch program of the per-batch operators at lateness_operator's
     shapes (the global count step at api_count_window's, the group-agg step
@@ -1979,6 +2519,36 @@ def main() -> int:
     sql_k1 = k1_at_dispatch("api_sql count: the SQL job's first full fused dispatch",
                             *sql_k1_inputs())
     emit({"phase": "k1_sql_shape", "card": card, **sql_k1})
+    # ---- 18. latency mode on the api_ysb program (its K1 launches counted
+    # from 0 in each run); K1 at the readback group's shape; C3 on the card
+    t_lat = time.perf_counter()
+    api_lat = api_latency_phase()
+    api_lat["phase_s"] = time.perf_counter() - t_lat
+    emit(api_lat)
+    if not api_lat["ok"]:
+        raise AssertionError("api_latency: a run's rows differ from the throughput run's or "
+                             "the numpy oracle's, a full-depth dispatch did not make "
+                             "32 / readback-steps K1 launches, or a run launched no K1")
+    path_launches["k1_superscan"]["api_latency"] = api_lat["latency"]["k1_launches"]
+    *group_in, group_rows = k1_group_inputs(API_LATENCY["readback_steps"])
+    grouped_k1 = k1_at_dispatch(
+        f"api_latency count: the first readback group of {API_LATENCY['readback_steps']} "
+        "steps of the job's first full dispatch", *group_in, R=group_rows)
+    emit({"phase": "k1_grouped_shape", "card": card, **grouped_k1})
+    c3 = k1_int_sum_phase(card)
+    emit(c3)
+    if not c3["ok"]:
+        raise AssertionError("k1_int_sum: the fused operator's int sum differs from the JAX "
+                             "package's rows on ROADMAP C3's inputs, or K1 did not run it")
+    # ---- 19. the per-record oracle operator (host code) ----
+    t_orc = time.perf_counter()
+    api_orc = api_oracle_phase()
+    api_orc["phase_s"] = time.perf_counter() - t_orc
+    emit(api_orc)
+    if not api_orc["ok"]:
+        raise AssertionError("api_oracle: a job differs from its numpy model, the oracle was "
+                             "not selected, a kernel launched, or the SQL plan report is "
+                             "not the JAX package's")
     # ---- 16. the per-batch torch programs at these shapes ----
     timed = LATENESS["timed"]
     per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
@@ -2004,6 +2574,23 @@ def main() -> int:
                            "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                            "library_ms": k1_lib_ms,
                            "index_put_ms": k1_index_put_ms}},
+        {"name": "k1_superscan_grouped", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": grouped_k1["shape"],
+         "launches": api_lat["latency"]["k1_launches"],
+         "launches_by_path": {"api_latency": api_lat["latency"]["k1_launches"],
+                              **{f"api_latency_rung_{r}": v["k1_launches"]
+                                 for r, v in api_lat["pinned"].items()}},
+         **{k: grouped_k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "device_us", "fires")}},
+        {"name": "k1_int_sum", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": c3["shape"], "launches": c3["launches"],
+         "c3_rows": c3["c3_rows"],
+         **{k: c3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "device_us")}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",
@@ -2065,6 +2652,11 @@ def main() -> int:
         sql_ysb_job(API_SQL["events"], True, API_SQL)[0])[0]))
     emit(host_profile("api_sql_fused", lambda: sql_counted(
         sql_ysb_job(API_SQL["events"], True, API_SQL)[0])[0]))
+    # latency mode (phase 18) and the oracle's SQL statement (phase 19)
+    emit(profile_run("api_latency", lambda: latency_run(
+        API_LATENCY["events"], True, API_LATENCY)["seconds"]))
+    emit(host_profile("api_latency", lambda: latency_run(
+        API_LATENCY["events"], True, API_LATENCY)["seconds"]))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,6 +30,14 @@ What the port carries:
   onto the fused device chain (kernel K1); other statements run
   interpreted on the operators above, with the JAX package's catalogued
   reason in `last_plan_report`.
+- `runtime.oracle_window_operator.OracleWindowOperator`: the per-record
+  window operator (host code) for custom triggers, evictors, `reduce`,
+  `process`, Python aggregates, processing time, GlobalWindows without a
+  count trigger and SQL's multi-aggregate SELECTs; the executor selects it
+  under the JAX runner's conditions.
+- `scheduler.latency_controller`: latency mode's rung controller; with
+  `execution.latency.target-ms` set the fused operator cuts dispatches at
+  its rung and reads each back in groups of steps.
 - `testing.stream`: the counter-hash stream generators (on the card and
   bit-identical on the host), the numpy window and session oracles and
   the parity check.

@@ -15,7 +15,10 @@ function of one record.
 Windows take allowed lateness and a late side output
 (`side_output_late_data()`, read with `get_side_output(LATE_DATA_TAG)`),
 and GlobalWindows a count trigger (the per-batch and global device
-operators); `KeyedStream.continuous_aggregate` emits a retract changelog.
+operators); any trigger, an evictor, `reduce`, `process`, a Python
+AggregateFunction and processing-time windows run on the per-record
+oracle operator, as in the JAX package; `KeyedStream.continuous_aggregate`
+emits a retract changelog.
 
 `StreamExecutionEnvironment(device=None)` runs on CUDA and raises at
 execute() without a GPU; pass device="cpu" for the plain PyTorch path. The
@@ -27,14 +30,18 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Sequence, Union
 
-from flink_tpu_torch.api.functions import AggregateFunction, OutputTag, as_key_selector
+from flink_tpu_torch.api.functions import (
+    AggregateFunction,
+    OutputTag,
+    ReduceAggregate,
+    as_key_selector,
+)
 from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.config import Configuration, PipelineOptions
 from flink_tpu_torch.connectors.sink import CollectSink, Sink
 from flink_tpu_torch.connectors.source import CollectionSource, Source
 from flink_tpu_torch.core.watermarks import WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Transformation, plan
-from flink_tpu_torch.runtime.tpu_global_window_operator import supported_trigger
 from flink_tpu_torch.utils import deferred
 
 
@@ -270,16 +277,21 @@ class WindowedStream:
         self._keyed = keyed
         self._assigner = assigner
         self._trigger = None
+        self._evictor = None
         self._allowed_lateness = 0
         self._side_output_late = False
 
     def trigger(self, trigger) -> "WindowedStream":
-        """A CountTrigger or PurgingTrigger(CountTrigger) (GlobalWindows on
-        the device global-window operator); other triggers need the
-        per-record oracle operator (ROADMAP item 18)."""
-        if supported_trigger(trigger) is None:
-            raise deferred.not_ported(f"WindowedStream.trigger({trigger!r})", deferred.ORACLE)
+        """A CountTrigger or PurgingTrigger(CountTrigger) on GlobalWindows
+        runs on the device global-window operator; every other trigger on
+        the per-record oracle operator."""
         self._trigger = trigger
+        return self
+
+    def evictor(self, evictor) -> "WindowedStream":
+        """An evictor buffers each window's elements (no pre-aggregation):
+        the per-record oracle operator runs the window."""
+        self._evictor = evictor
         return self
 
     def allowed_lateness(self, lateness_ms: int) -> "WindowedStream":
@@ -292,7 +304,8 @@ class WindowedStream:
         self._side_output_late = True
         return self
 
-    def _agg_transform(self, aggregate, value_fn, name, value_vectorized: bool = False,
+    def _agg_transform(self, aggregate, value_fn, window_fn, name,
+                       value_vectorized: bool = False,
                        value_traceable: bool = False) -> DataStream:
         keyed_cfg = self._keyed.transform.config
         t = Transformation("window_aggregate", name, [self._keyed.transform], {
@@ -301,9 +314,9 @@ class WindowedStream:
             "value_fn": value_fn,
             "value_vectorized": value_vectorized or value_traceable,
             "value_traceable": value_traceable,
-            "window_fn": None,
+            "window_fn": window_fn,
             "trigger": self._trigger,
-            "evictor": None,
+            "evictor": self._evictor,
             "allowed_lateness": self._allowed_lateness,
             "side_output_late": self._side_output_late,
             "key_selector": self._keyed.key_selector,
@@ -313,16 +326,29 @@ class WindowedStream:
         return DataStream(self._keyed.env, t)
 
     def aggregate(self, aggregate: Union[str, AggregateFunction, Any],
-                  value_fn: Optional[Callable] = None, name: str = "window_aggregate",
-                  value_vectorized: bool = False, value_traceable: bool = False) -> DataStream:
-        """`aggregate` is a builtin name ('sum'/'count'/'min'/'max'/'mean')
-        or a DeviceAggregator. `value_fn` extracts the numeric column; with
-        value_vectorized=True it maps the whole numpy column, and
-        value_traceable=True declares it a torch column function that runs
-        in the fused device prologue."""
-        return self._agg_transform(aggregate, value_fn, name,
+                  value_fn: Optional[Callable] = None, window_fn=None,
+                  name: str = "window_aggregate", value_vectorized: bool = False,
+                  value_traceable: bool = False) -> DataStream:
+        """`aggregate` is a builtin name ('sum'/'count'/'min'/'max'/'mean'),
+        a DeviceAggregator (device operators), or an AggregateFunction (the
+        per-record oracle operator, as is any `window_fn`, a
+        ProcessWindowFunction over the aggregate's result). `value_fn`
+        extracts the numeric column; with value_vectorized=True it maps the
+        whole numpy column, and value_traceable=True declares it a torch
+        column function that runs in the fused device prologue."""
+        return self._agg_transform(aggregate, value_fn, window_fn, name,
                                    value_vectorized=value_vectorized,
                                    value_traceable=value_traceable)
+
+    def reduce(self, fn: Callable, name: str = "window_reduce") -> DataStream:
+        """A ReduceFunction (or a two-argument callable) as the window's
+        pre-aggregator, on the per-record oracle operator."""
+        return self._agg_transform(ReduceAggregate(fn), None, None, name)
+
+    def process(self, window_fn, name: str = "window_process") -> DataStream:
+        """A buffered window with a ProcessWindowFunction (no
+        pre-aggregation), on the per-record oracle operator."""
+        return self._agg_transform(None, None, window_fn, name)
 
     def sum(self, value_fn: Optional[Callable] = None) -> DataStream:
         return self.aggregate("sum", value_fn, name="window_sum")
@@ -336,6 +362,3 @@ class WindowedStream:
     def min(self, value_fn: Optional[Callable] = None) -> DataStream:
         return self.aggregate("min", value_fn, name="window_min")
 
-    evictor = _not_ported("WindowedStream", "evictor", deferred.ORACLE)
-    reduce = _not_ported("WindowedStream", "reduce", deferred.ORACLE)
-    process = _not_ported("WindowedStream", "process", deferred.ORACLE)

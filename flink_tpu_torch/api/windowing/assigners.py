@@ -18,9 +18,12 @@ import dataclasses
 import math
 from typing import List, Optional
 
-from flink_tpu_torch.api.windowing.triggers import EventTimeTrigger
+from flink_tpu_torch.api.windowing.triggers import (
+    EventTimeTrigger,
+    NeverTrigger,
+    ProcessingTimeTrigger,
+)
 from flink_tpu_torch.core.time import MAX_WATERMARK, TimeWindow, assign_sliding, assign_tumbling
-from flink_tpu_torch.utils import deferred
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,22 +198,23 @@ class EventTimeSessionWindows(WindowAssigner):
 
 
 class ProcessingTimeSessionWindows(EventTimeSessionWindows):
-    """Processing-time sessions: the JAX package runs them on its per-record
-    oracle operator, which the port does not carry (ROADMAP item 18)."""
+    """Processing-time sessions: the per-record oracle operator runs them.
+    `with_gap` is inherited, so it builds event-time sessions, as in the
+    JAX package (a reference fault, ROADMAP Queue C); construct this class
+    directly for processing time."""
 
     is_event_time = False
 
-    def get_default_trigger(self):
-        raise deferred.not_ported("ProcessingTimeSessionWindows' ProcessingTimeTrigger",
-                                  deferred.ORACLE)
+    def get_default_trigger(self) -> ProcessingTimeTrigger:
+        return ProcessingTimeTrigger()
 
 
 class GlobalWindows(WindowAssigner):
     """All elements into one global window; it fires only by a custom
     trigger (GlobalWindows.java). With CountTrigger or
     PurgingTrigger(CountTrigger) the device global-window operator runs it;
-    its default NeverTrigger and any other trigger need the per-record
-    oracle operator, which the port does not carry (ROADMAP item 18)."""
+    its default NeverTrigger and any other trigger run on the per-record
+    oracle operator."""
 
     _WINDOW = GlobalWindow()
 
@@ -221,8 +225,28 @@ class GlobalWindows(WindowAssigner):
     def create() -> "GlobalWindows":
         return GlobalWindows()
 
-    def get_default_trigger(self):
-        raise deferred.not_ported("GlobalWindows' NeverTrigger", deferred.ORACLE)
+    def get_default_trigger(self) -> NeverTrigger:
+        return NeverTrigger()
 
     def __repr__(self) -> str:
         return "GlobalWindows()"
+
+
+class TumblingProcessingTimeWindows(TumblingEventTimeWindows):
+    """Tumbling windows over processing time (the per-record oracle
+    operator runs them)."""
+
+    is_event_time = False
+
+    def get_default_trigger(self) -> ProcessingTimeTrigger:
+        return ProcessingTimeTrigger()
+
+
+class SlidingProcessingTimeWindows(SlidingEventTimeWindows):
+    """Sliding windows over processing time (the per-record oracle operator
+    runs them)."""
+
+    is_event_time = False
+
+    def get_default_trigger(self) -> ProcessingTimeTrigger:
+        return ProcessingTimeTrigger()

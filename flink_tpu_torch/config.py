@@ -53,6 +53,10 @@ class _OptionBuilder:
     def string_type(self) -> "_TypedBuilder[str]":
         return _TypedBuilder(self._key, str)
 
+    def duration_ms_type(self) -> "_TypedBuilder[int]":
+        """Durations are plain ints in milliseconds."""
+        return _TypedBuilder(self._key, int)
+
 
 class _TypedBuilder(Generic[T]):
     def __init__(self, key: str, typ: type):
@@ -72,7 +76,6 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 _UNPORTED_PREFIXES = (
     ("parallel.", deferred.MESH),
     ("state.tier.", deferred.STATE_PLANE),
-    ("execution.latency.", deferred.D2),
     # a perf switch in the JAX package; the port forms no sharing group,
     # so sibling windows each run their own fused program
     ("execution.window.shared-partials", deferred.D3),
@@ -171,8 +174,8 @@ class ExecutionOptions:
         "aggregates. Its late contract drops records whose standalone session "
         "is already expired, which matches the merging oracle only while "
         "watermark out-of-orderness stays below the session gap. Off (or "
-        "disorder >= gap), the JAX package runs the per-record oracle, which "
-        "the port does not carry: the job raises (ROADMAP item 18).")
+        "disorder >= gap), the per-record oracle operator runs them, as in the "
+        "JAX package.")
     COLUMNAR_OUTPUT = (
         ConfigOptions.key("execution.window.columnar-output").bool_type().default_value(False)
     ).with_description(
@@ -193,6 +196,52 @@ class ExecutionOptions:
         "host retractable multiset). COUNT columns are int32 on the device "
         "and wrap past 2**31 - 1 where the host path's integers would not; "
         "SUM/AVG accumulate in float32 where the host path uses float64.")
+
+
+class LatencyOptions:
+    """Latency-mode execution (execution.latency.*): the fused window path
+    trades superbatch amortization for emission latency under an explicit
+    target. Off by default; a perf switch, never a semantics switch."""
+
+    TARGET_MS = (
+        ConfigOptions.key("execution.latency.target-ms").int_type().default_value(0)
+    ).with_description(
+        "Emission-latency target for the fused window path; 0 (default) keeps "
+        "throughput mode and its dispatches unchanged. When set, a controller "
+        "(scheduler/latency_controller.py) adapts the superbatch depth between "
+        "execution.latency.floor-steps and execution.window.superbatch-steps "
+        "from windowed arrival-rate estimates, on a pow2 rung ladder.")
+    MAX_INFLIGHT = (
+        ConfigOptions.key("execution.latency.max-inflight-dispatches")
+        .int_type().default_value(1)
+    ).with_description(
+        "Bound of the fused operator's in-flight dispatch ring: how many "
+        "enqueued dispatches may await resolution at once. Barriers "
+        "(flush_all, snapshot) drain the whole ring in dispatch order.")
+    FLOOR_STEPS = (
+        ConfigOptions.key("execution.latency.floor-steps").int_type().default_value(2)
+    ).with_description(
+        "Smallest superbatch depth the latency controller may select: the "
+        "bottom rung of the pow2 ladder.")
+    READBACK_STEPS = (
+        ConfigOptions.key("execution.latency.readback-steps").int_type().default_value(8)
+    ).with_description(
+        "Streamed fire readback: a dispatch runs as groups of this many steps "
+        "(one K1 launch each), and each group's fired rows start their "
+        "device-to-host copy as soon as the group is launched. Rows and their "
+        "order are those of the whole-span dispatch. 0 keeps span-granular "
+        "readback; a depth it does not divide runs whole.")
+    MIN_DWELL_MS = (
+        ConfigOptions.key("execution.latency.min-dwell-ms")
+        .duration_ms_type().default_value(500)
+    ).with_description(
+        "Minimum time the controller holds a rung before a non-escalation "
+        "move; a rate spike that demands the full span escalates at once.")
+    HYSTERESIS_PCT = (
+        ConfigOptions.key("execution.latency.hysteresis-pct").int_type().default_value(25)
+    ).with_description(
+        "Dead band around each rung boundary, in percent of the boundary "
+        "rate, so a rate oscillating across a boundary never flaps rungs.")
 
 
 class TableOptions:

@@ -71,3 +71,18 @@ def assign_sliding(timestamp: int, size: int, slide: int, offset: int = 0) -> Li
         windows.append(TimeWindow(start, start + size))
         start -= slide
     return windows
+
+
+def cleanup_time(window: TimeWindow, allowed_lateness: int) -> int:
+    """WindowOperator.cleanupTime: state retained until maxTimestamp +
+    allowedLateness (saturating)."""
+    ct = window.max_timestamp() + allowed_lateness
+    # Java long overflow check: wrapped sum < maxTimestamp => Long.MAX_VALUE
+    if ct > MAX_WATERMARK:
+        ct -= 1 << 64
+    return ct if ct >= window.max_timestamp() else MAX_WATERMARK
+
+
+def is_window_late(window: TimeWindow, allowed_lateness: int, current_watermark: int) -> bool:
+    """WindowOperator.isWindowLate: the drop-on-assignment condition."""
+    return cleanup_time(window, allowed_lateness) <= current_watermark

@@ -78,6 +78,16 @@ __device__ __forceinline__ unsigned int swizzle(unsigned int c) {
   return c ^ ((c >> 5) & 31u);
 }
 
+// An int add field's step partials hold float32 sums, as the JAX fused
+// ingest's do (flink_tpu/ops/pallas_superscan.py, `wacc.astype(dt)`): its
+// records land as float atomics into the partial's 32-bit word, and the
+// partial is cast to int32 once, truncating toward zero, when the scan
+// merges it into the ring. PART_I32_OF_F32 marks such a partial in the
+// scan; the ingest lands and folds it as ADD_F32 (part_kind).
+constexpr int PART_I32_OF_F32 = 7;
+
+__device__ __forceinline__ int part_kind(int kind) { return kind == ADD_I32 ? ADD_F32 : kind; }
+
 // A cell of K1's step partials. Float min/max are held as order keys: the
 // float's bits mapped so that unsigned order is float order (-0.0 just
 // below +0.0), which shared- and device-memory atomicMin/atomicMax land
@@ -105,9 +115,11 @@ __device__ __forceinline__ int part_merge(int kind, int a, int b) {
   return merge_bits(kind, a, b);
 }
 
-// A step-partial cell as the bits of its value.
+// A step-partial cell as the bits of its value (an int add field's float
+// partial as its int32, cast once).
 __device__ __forceinline__ int part_value(int kind, int p) {
   const unsigned int k = (unsigned int)p;
+  if (kind == PART_I32_OF_F32) return __float2int_rz(__int_as_float(p));
   return keyed(kind) ? (int)(k & 0x80000000u ? k ^ 0x80000000u : ~k) : p;
 }
 
@@ -218,7 +230,7 @@ k1_ingest_tiled(Fields fl, const int* __restrict__ idx, const float* __restrict_
                 int S, int NSB, int F, int R, int B, int t0, int tg, int ct, int vec,
                 int exact) {
   extern __shared__ int hist[];                // (1 + nf) arrays of ct cells, swizzled
-  __shared__ int kind[1 + MAX_FIELDS];         // of each array (the count's: ADD_I32)
+  __shared__ int kind[1 + MAX_FIELDS];         // of each array's partials (count: ADD_I32)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int C = (int)cluster.num_blocks();
@@ -228,7 +240,8 @@ k1_ingest_tiled(Fields fl, const int* __restrict__ idx, const float* __restrict_
   const int nf = FIELDS ? fl.n : 0;
   if (rank == 0 && blockIdx.y == 0 && threadIdx.x < 32)  // the step's plan, for k1_scan
     build_desc(descs[blockIdx.z], plan, (long long)t0 + blockIdx.z, S, F, R);
-  if (threadIdx.x <= nf) kind[threadIdx.x] = threadIdx.x ? fl.kind[threadIdx.x - 1] : ADD_I32;
+  if (threadIdx.x <= nf)
+    kind[threadIdx.x] = threadIdx.x ? part_kind(fl.kind[threadIdx.x - 1]) : ADD_I32;
   __syncthreads();
   for (int a = 0; a <= nf; ++a)                // whole swizzle runs
     for (int i = threadIdx.x; i < ct; i += blockDim.x) hist[a * ct + i] = part_identity(kind[a]);
@@ -281,13 +294,14 @@ __global__ void __launch_bounds__(K1_INGEST_THREADS)
 k1_ingest_atomic(Fields fl, const int* __restrict__ idx, const float* __restrict__ vals,
                  int* __restrict__ part, StepDesc* __restrict__ descs, Plan plan, int K,
                  int S, int NSB, int F, int R, int B, int t0, int tg, int vec, int exact) {
-  __shared__ int kind[1 + MAX_FIELDS];         // of each array (the count's: ADD_I32)
+  __shared__ int kind[1 + MAX_FIELDS];         // of each array's partials (count: ADD_I32)
   cg::grid_group grid = cg::this_grid();
   const long long cells = (long long)NSB * K;  // < 2^31 (ops.supports)
   const long long n = (long long)tg * cells;   // cells of one array of the group
   const int nf = FIELDS ? fl.n : 0;
   const long long me = grid.thread_rank(), all = grid.size();
-  if (threadIdx.x <= nf) kind[threadIdx.x] = threadIdx.x ? fl.kind[threadIdx.x - 1] : ADD_I32;
+  if (threadIdx.x <= nf)
+    kind[threadIdx.x] = threadIdx.x ? part_kind(fl.kind[threadIdx.x - 1]) : ADD_I32;
   __syncthreads();
   for (int a = 0; a <= nf; ++a) {
     const int id = part_identity(kind[a]);
@@ -334,11 +348,12 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
   const int kl = threadIdx.x, key = blockIdx.x * K1_SCAN_KEYS + kl;
   const bool mine = key < K;
   const long long cells = (long long)NSB * K;
-  int kind[NA], ident[NA];
+  int kind[NA], pkind[NA], ident[NA];          // ring kind, its partials' kind
   int *ring_p[NA], *out_p[NA];
 #pragma unroll
   for (int a = 0; a < NA; ++a) {
     kind[a] = a ? fl.kind[a - 1] : ADD_I32;
+    pkind[a] = a && kind[a] == ADD_I32 ? PART_I32_OF_F32 : kind[a];
     ident[a] = a ? fl.ident[a - 1] : 0;
     ring_p[a] = (a ? (int*)fl.p[a - 1] : count) + key;
     out_p[a] = (a ? (int*)outs.p[a - 1] : count_out) + key;
@@ -409,10 +424,10 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
           add[a] = *reinterpret_cast<const int4*>(pt + a * K1_SCAN_KEYS * 4);
 #pragma unroll
         for (int a = 0; a < NA; ++a) {
-          K1_CELL(a, col[0]) = merge_bits(kind[a], cur[a][0], part_value(kind[a], add[a].x));
-          K1_CELL(a, col[1]) = merge_bits(kind[a], cur[a][1], part_value(kind[a], add[a].y));
-          K1_CELL(a, col[2]) = merge_bits(kind[a], cur[a][2], part_value(kind[a], add[a].z));
-          K1_CELL(a, col[3]) = merge_bits(kind[a], cur[a][3], part_value(kind[a], add[a].w));
+          K1_CELL(a, col[0]) = merge_bits(kind[a], cur[a][0], part_value(pkind[a], add[a].x));
+          K1_CELL(a, col[1]) = merge_bits(kind[a], cur[a][1], part_value(pkind[a], add[a].y));
+          K1_CELL(a, col[2]) = merge_bits(kind[a], cur[a][2], part_value(pkind[a], add[a].z));
+          K1_CELL(a, col[3]) = merge_bits(kind[a], cur[a][3], part_value(pkind[a], add[a].w));
         }
       } else {
         const long long pa = pb ? (long long)K1_SCAN_KEYS * NSB : (long long)tg * cells;
@@ -421,7 +436,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 #pragma unroll
           for (int a = 0; a < NA; ++a)
             K1_CELL(a, col) =
-                merge_bits(kind[a], K1_CELL(a, col), part_value(kind[a], pt[a * pa + r]));
+                merge_bits(kind[a], K1_CELL(a, col), part_value(pkind[a], pt[a * pa + r]));
         }
       }
 

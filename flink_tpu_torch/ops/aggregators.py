@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from flink_tpu_torch.core.functions import AggregateFunction
 from flink_tpu_torch.utils.arrays import canonical_dtype
 
 # scatter sources
@@ -72,6 +73,47 @@ class DeviceAggregator:
             if f.name == name:
                 return f
         raise KeyError(name)
+
+    def python_equivalent(self) -> AggregateFunction:
+        """Scalar AggregateFunction with identical math, for the per-record
+        oracle operator (JAX `DeviceAggregator.python_equivalent`)."""
+        return _ColumnarAsPython(self)
+
+
+_SCATTER_NP = {
+    "add": lambda a, b: a + b,
+    "min": np.minimum,
+    "max": np.maximum,
+}
+
+
+class _ColumnarAsPython(AggregateFunction):
+    """Scalar-dict interpretation of a DeviceAggregator (oracle parity):
+    count, sum, min, max and mean as `AggregateFunction`s."""
+
+    def __init__(self, spec: DeviceAggregator):
+        self.spec = spec
+
+    def create_accumulator(self):
+        return {f.name: f.identity for f in self.spec.fields}
+
+    def add(self, value, acc):
+        out = dict(acc)
+        for f in self.spec.fields:
+            v = 1 if f.source == ONE else value
+            out[f.name] = _SCATTER_NP[f.scatter](acc[f.name], v)
+        return out
+
+    def get_result(self, acc):
+        res = self.spec.extract({k: np.asarray(v) for k, v in acc.items()})
+        arr = np.asarray(res)
+        return arr.item() if arr.ndim == 0 else arr
+
+    def merge(self, a, b):
+        return {
+            f.name: _SCATTER_NP[f.scatter](a[f.name], b[f.name])
+            for f in self.spec.fields
+        }
 
 
 def combine_binary(op: str):

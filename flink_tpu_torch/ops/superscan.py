@@ -97,8 +97,15 @@ def keyed_superscan_plain(agg, count: torch.Tensor,
             # accumulated; order statistics always see the raw value
             v_add = v if exact else v.to(torch.bfloat16).to(torch.float32)
         for kind, st in zip(kinds, flat_states):
-            if kind == "add":
-                st.index_add_(0, cell, v_add.to(st.dtype))
+            if kind == "add" and st.dtype.is_floating_point:
+                st.index_add_(0, cell, v_add)
+            elif kind == "add":
+                # an int add field sums the step's records per cell in
+                # float32 and casts each partial once, truncating toward
+                # zero, as the JAX fused ingest does (`wacc.astype(dt)`)
+                part = torch.zeros(st.numel(), dtype=torch.float32, device=dev)
+                part.index_add_(0, cell, v_add)
+                st.add_(part.to(st.dtype))
             elif kind == "max8":
                 st.scatter_reduce_(0, cell, v.to(torch.int32).clamp(0, 255),
                                    "amax", include_self=True)

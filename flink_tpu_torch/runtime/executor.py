@@ -19,42 +19,55 @@ keys the records through the host dictionary into its operator:
 - grid windows: the fused operator (kernel K1), or, with allowed lateness,
   a late side output or `execution.window.fused` off, the per-batch
   operator (`runtime/tpu_window_operator.py`), whose late side output
-  reaches the consumers of `get_side_output(LATE_DATA_TAG)`.
-A `group_agg` step (`KeyedStream.continuous_aggregate`) gets a
-`GroupAggRunner` (`runtime/group_agg_operator.py`).
+  reaches the consumers of `get_side_output(LATE_DATA_TAG)`;
+- every other window step (Python aggregates, window functions, other
+  triggers, evictors, processing time, GlobalWindows without a count
+  trigger, the session steps the device session operator refuses): the
+  per-record oracle operator (`runtime/oracle_window_operator.py`), host
+  code, as in the JAX package.
+A fused window step takes the `execution.latency.*` options
+(`_latency_kwargs`). A `group_agg` step
+(`KeyedStream.continuous_aggregate`) gets a `GroupAggRunner`
+(`runtime/group_agg_operator.py`).
 
-Left out, raising where a job asks for them (ROADMAP.md Queue A): the
-per-record oracle window operator (item 18: Python aggregates, other
-triggers, evictors, window functions, processing time, and the session
-steps the JAX package hands to it), job metrics and emission latency
-(item 15), checkpoints and savepoints of a running job (item 16),
-parallelism > 1 (item 17), the chaos hook (item 14), and the rest of the
-DataStream API's runners (item 19).
+Left out, raising where a job asks for them (ROADMAP.md Queue A): job
+metrics and emission latency (item 15), checkpoints and savepoints of a
+running job (item 16), parallelism > 1 (item 17), the chaos hook (item
+14), and the rest of the DataStream API's runners (item 19).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from flink_tpu_torch.api.functions import AggregateFunction
 from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows, GlobalWindows
-from flink_tpu_torch.config import Configuration, ExecutionOptions, PipelineOptions
+from flink_tpu_torch.config import (
+    Configuration,
+    ExecutionOptions,
+    LatencyOptions,
+    PipelineOptions,
+)
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Step, StepGraph, Transformation
 from flink_tpu_torch.ops.aggregators import ONE, resolve
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
 from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
+from flink_tpu_torch.runtime.oracle_window_operator import OracleWindowOperator
 from flink_tpu_torch.runtime.tpu_global_window_operator import (
     TpuGlobalWindowOperator,
     supported_trigger,
 )
 from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator
 from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
+from flink_tpu_torch.scheduler.latency_controller import LatencySpec
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import as_device_column, canonical_column, obj_array
 from flink_tpu_torch.utils.device import resolve_device
@@ -132,6 +145,10 @@ class StepRunner:
             self.downstream.on_watermark(watermark)
         for f in (self.sides or {}).values():
             f.on_watermark(watermark)
+
+    def on_processing_time(self, now_ms: int) -> None:
+        """Wall-clock tick of the run loop; runners with processing-time
+        timers fire them here."""
 
     def on_end(self) -> None:
         if self.downstream:
@@ -277,49 +294,57 @@ def _max_source_out_of_orderness(step: Step) -> Optional[int]:
     return bound
 
 
-def _session_disorder_within_gap(step: Step, assigner) -> Optional[str]:
+def _latency_kwargs(config: Configuration) -> dict:
+    """The latency-mode option bundle for FusedWindowOperator: empty (not
+    latency=None) when execution.latency.target-ms is off, so the default
+    configuration constructs the operator as before the mode existed. Both
+    fused construction sites (WindowStepRunner, DeviceChainRunner) take it."""
+    target = config.get(LatencyOptions.TARGET_MS)
+    if target is None or int(target) <= 0:
+        return {}
+    return {"latency": LatencySpec(
+        target_ms=int(target),
+        max_inflight=config.get(LatencyOptions.MAX_INFLIGHT),
+        floor_steps=config.get(LatencyOptions.FLOOR_STEPS),
+        readback_steps=config.get(LatencyOptions.READBACK_STEPS),
+        min_dwell_ms=config.get(LatencyOptions.MIN_DWELL_MS),
+        hysteresis_pct=config.get(LatencyOptions.HYSTERESIS_PCT),
+    )}
+
+
+def _session_disorder_within_gap(step: Step, assigner) -> bool:
     """Device-session routing gate: the session operator's late contract
     (drop records whose standalone session is already expired) matches the
     merging oracle only while watermark out-of-orderness stays BELOW the
     session gap — with bound >= gap a record can arrive late enough that
     the oracle would still merge it into an open session the device path
-    already expired, i.e. silent data loss. Returns None when the device
-    operator may run, else the reason (the JAX package's warning) it may
-    not. Fail-open on an unknowable bound (custom/punctuated generators),
-    as in the JAX package."""
+    already expired, i.e. silent data loss. Such pipelines take the oracle,
+    with the JAX package's warning. Fail-open on an unknowable bound
+    (custom/punctuated generators), as in the JAX package."""
     bound = _max_source_out_of_orderness(step)
     if bound is None or bound < assigner.gap:
-        return None
-    return (f"session windows: watermark out-of-orderness bound ({bound} ms) >= "
-            f"session gap ({assigner.gap} ms) — the JAX package uses its "
-            "per-record oracle operator instead of the device session "
-            "operator, whose late contract would silently drop records the "
-            "oracle merges. Shrink the out-of-orderness bound below the gap "
-            "to select the device path")
-
-
-def _session_refusal(step: Step, cfg: dict, assigner, device_agg,
-                     config: Configuration) -> Optional[str]:
-    """Why a session window step cannot take the device session operator
-    (the JAX runner's conditions; it would pick its oracle), or None."""
-    if device_agg is None:
-        return "a Python aggregate"
-    if not assigner.is_event_time:
-        return "processing-time sessions"
-    if not config.get(ExecutionOptions.DEVICE_SESSIONS):
-        return "execution.window.device-sessions is false"
-    if (cfg.get("trigger") is not None or cfg.get("evictor") is not None
-            or cfg.get("window_fn") is not None):
-        return "a custom trigger, evictor or window function"
-    if cfg.get("allowed_lateness", 0) != 0 or cfg.get("side_output_late"):
-        return "allowed lateness or a late side output"
-    return _session_disorder_within_gap(step, assigner)
+        return True
+    warnings.warn(
+        f"session windows: watermark out-of-orderness bound ({bound} ms) >= "
+        f"session gap ({assigner.gap} ms) — using the per-record oracle "
+        "operator instead of the device session operator, whose late "
+        "contract would silently drop records the oracle merges. Shrink the "
+        "out-of-orderness bound below the gap to re-enable the device path, "
+        "or set execution.window.device-sessions false to silence this.",
+        RuntimeWarning,
+    )
+    return False
 
 
 class WindowStepRunner(StepRunner):
-    """Keyed window aggregation step over the device operator the JAX
-    runner selects: global count windows, sessions, the fused operator or
-    the per-batch operator (its oracle branch is not ported)."""
+    """Keyed window aggregation step over the operator the JAX runner
+    selects, under its conditions: global count windows, device sessions,
+    the fused operator, the per-batch operator, else the per-record oracle
+    operator (host code; `self.device` False)."""
+
+    window_fn = None          # a ProcessWindowFunction (the oracle's)
+    device = True             # False: the per-record oracle operator runs the step
+    processing_time = False   # the step's windows are over processing time
 
     def __init__(self, step: Step, config: Configuration, device: torch.device):
         t = step.terminal
@@ -332,55 +357,65 @@ class WindowStepRunner(StepRunner):
         self.value_fn = cfg.get("value_fn") or (lambda v: v)
         self.value_vectorized = cfg.get("value_vectorized", False) and cfg.get("value_fn")
         self.value_traceable = cfg.get("value_traceable", False) and cfg.get("value_fn")
+        self.window_fn = cfg.get("window_fn")
         device_agg = resolve(aggregate)
         self.uid = t.uid
         # SQL-originated window steps (planner lowering, interpreted
         # translation) are marked so a job can tell which path SQL selected
         self.sql_origin = bool(cfg.get("sql_origin"))
-        self._needs_value = device_agg is not None and any(
+        self._needs_value = device_agg is None or any(
             f.source != ONE for f in device_agg.fields)
-        count_spec = supported_trigger(cfg.get("trigger"))
-        if (isinstance(assigner, GlobalWindows) and device_agg is not None
-                and count_spec is not None and cfg.get("evictor") is None
-                and cfg.get("window_fn") is None):
-            n, purging = count_spec
-            self.op = TpuGlobalWindowOperator(
-                device_agg, count_n=n, purging=purging,
-                key_capacity=config.get(ExecutionOptions.KEY_CAPACITY), device=device)
-            return
-        if isinstance(assigner, EventTimeSessionWindows):
-            reason = _session_refusal(step, cfg, assigner, device_agg, config)
-            if reason is not None:
-                raise deferred.not_ported(
-                    f"window step '{t.name}' (it needs the per-record oracle "
-                    f"operator: {reason})", deferred.ORACLE)
-            # per-slice fragments + gap-merge scan (runtime/
-            # tpu_session_operator.py); capacity grows with the dictionary
-            self.op = TpuSessionWindowOperator(
-                assigner, device_agg,
-                key_capacity=min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY)),
-                device=device)
-            return
+        self.processing_time = not assigner.is_event_time
         use_device = (
             device_agg is not None
             and assigner.slice_ms is not None
             and assigner.is_event_time
             and cfg.get("trigger") is None
             and cfg.get("evictor") is None
-            and cfg.get("window_fn") is None
+            and self.window_fn is None
         )
-        if not use_device:
-            raise deferred.not_ported(
-                f"window step '{t.name}' (it needs the per-record oracle operator: "
-                "a Python aggregate, window function, trigger or evictor)",
-                deferred.ORACLE)
         use_fused = (
-            cfg.get("allowed_lateness", 0) == 0
+            use_device
+            and cfg.get("allowed_lateness", 0) == 0
             and not cfg.get("side_output_late")
             and config.get(ExecutionOptions.FUSED_WINDOWS)
             and all(f.scatter in ("add", "min", "max") for f in device_agg.fields)
         )
-        if not use_fused:
+        count_spec = supported_trigger(cfg.get("trigger"))
+        if (isinstance(assigner, GlobalWindows) and device_agg is not None
+                and count_spec is not None and cfg.get("evictor") is None
+                and self.window_fn is None):
+            n, purging = count_spec
+            self.op = TpuGlobalWindowOperator(
+                device_agg, count_n=n, purging=purging,
+                key_capacity=config.get(ExecutionOptions.KEY_CAPACITY), device=device)
+        elif (isinstance(assigner, EventTimeSessionWindows)
+              and device_agg is not None
+              and assigner.is_event_time
+              and config.get(ExecutionOptions.DEVICE_SESSIONS)
+              and cfg.get("trigger") is None
+              and cfg.get("evictor") is None
+              and self.window_fn is None
+              and cfg.get("allowed_lateness", 0) == 0
+              and not cfg.get("side_output_late")
+              and _session_disorder_within_gap(step, assigner)):
+            # per-slice fragments + gap-merge scan (runtime/
+            # tpu_session_operator.py); capacity grows with the dictionary
+            self.op = TpuSessionWindowOperator(
+                assigner, device_agg,
+                key_capacity=min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY)),
+                device=device)
+        elif use_fused:
+            # start small and grow by doubling with the key dictionary: the
+            # superscan's cost scales with the key capacity
+            capacity = min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY))
+            self.op = FusedWindowOperator(
+                assigner, device_agg, key_capacity=capacity,
+                superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
+                chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
+                columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
+                device=device, **_latency_kwargs(config))
+        elif use_device:
             # allowed lateness, a late side output or the fused path off:
             # one ingest and the due fires per batch
             self.op = TpuWindowOperator(
@@ -390,16 +425,22 @@ class WindowStepRunner(StepRunner):
                 emit_late_to_side_output=bool(cfg.get("side_output_late")),
                 columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
                 device=device)
-            return
-        # start small and grow by doubling with the key dictionary: the
-        # superscan's cost scales with the key capacity
-        capacity = min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY))
-        self.op = FusedWindowOperator(
-            assigner, device_agg, key_capacity=capacity,
-            superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
-            chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
-            columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-            device=device)
+        else:
+            # the per-record oracle: the JAX runner's choice for these steps
+            # (parity, not a fallback); host code, the device takes no part
+            agg_fn = aggregate
+            if device_agg is not None and not isinstance(aggregate, AggregateFunction):
+                agg_fn = device_agg.python_equivalent()
+            self.op = OracleWindowOperator(
+                assigner, agg_fn,
+                trigger=cfg.get("trigger"),
+                allowed_lateness=cfg.get("allowed_lateness", 0),
+                max_parallelism=config.get(PipelineOptions.MAX_PARALLELISM),
+                window_function=self.window_fn,
+                evictor=cfg.get("evictor"),
+                emit_late_to_side_output=bool(cfg.get("side_output_late")),
+            )
+            self.device = False
 
     def _keys_of(self, values) -> np.ndarray:
         if self.key_traceable:
@@ -431,10 +472,47 @@ class WindowStepRunner(StepRunner):
             if getattr(values, "dtype", None) == object:
                 values = _columnarize_records(values, "key_by selector")
             values = canonical_column(values, "key_by selector input")
+        if not self.device:
+            self._process_records(values, timestamps)
+            return
         keys = self._keys_of(values)
         if keys.ndim != 1 or keys.dtype.kind not in "iuUSO":
             keys = obj_array(list(keys))
         self.op.process_batch(keys, self._values_of(values), timestamps)
+
+    def _process_records(self, values, timestamps) -> None:
+        """The oracle's per-record feed (the JAX runner's): processing-time
+        windows stamp every record with the wall clock and advance the
+        operator's processing time after the batch."""
+        if self.processing_time:
+            now = int(time.time() * 1000)
+            timestamps = np.full(len(values), now, dtype=np.int64)
+        # column selectors see a one-row column per record here
+        if self.key_traceable:
+            key_of = lambda v: _call_traceable(self.key_selector, np.asarray(v)[None, ...])[0]  # noqa: E731
+        elif self.key_vectorized:
+            key_of = lambda v: np.asarray(self.key_selector(np.asarray(v)[None, ...]))[0]  # noqa: E731
+        else:
+            key_of = self.key_selector
+        if self.value_traceable:
+            val_of = lambda v: _call_traceable(self.value_fn, canonical_column(  # noqa: E731
+                np.asarray(v)[None, ...], "value_fn input"))[0]
+        elif self.value_vectorized:
+            val_of = lambda v: np.asarray(self.value_fn(np.asarray(v)[None, ...]))[0]  # noqa: E731
+        else:
+            val_of = self.value_fn
+        for v, ts in zip(values, timestamps):
+            self.op.process_record(key_of(v), val_of(v), int(ts))
+        if self.processing_time:
+            self.op.advance_processing_time(int(time.time() * 1000))
+            self._drain()
+
+    def on_processing_time(self, now_ms: int) -> None:
+        # processing-time windows fire from the run loop's wall-clock tick,
+        # not only when their own source produces a batch
+        if self.processing_time:
+            self.op.advance_processing_time(now_ms)
+            self._drain()
 
     def on_watermark(self, watermark: int) -> None:
         self.op.process_watermark(watermark)
@@ -464,8 +542,10 @@ class WindowStepRunner(StepRunner):
         out = self.op.drain_output()
         if out and self.downstream:
             # row mode: (key, value); columnar mode (k is None): the packed
-            # (window, key ids, values) triple
-            vals = obj_array([r if k is None else (k, r) for (k, _w, r, _t) in out])
+            # (window, key ids, values) triple; a window function's output
+            # as it is
+            vals = obj_array([r if (self.window_fn is not None or k is None) else (k, r)
+                              for (k, _w, r, _t) in out])
             ts = np.asarray([t for (_k, _w, _r, t) in out], dtype=np.int64)
             self.downstream.on_batch(vals, ts)
 
@@ -494,7 +574,7 @@ class DeviceChainRunner(WindowStepRunner):
             superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
             chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
             columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-            prologue=prologue, device=device)
+            prologue=prologue, device=device, **_latency_kwargs(config))
         self.uid = t.uid
         self.sql_origin = bool(cfg.get("sql_origin"))
 
@@ -663,6 +743,7 @@ class JobRuntime:
             else:
                 d.done = True
                 d.finish()
+        last_tick = time.time() * 1000.0
         # round-robin over sources, one batch per turn
         while any(not d.done for d in self.sources):
             for d in self.sources:
@@ -692,6 +773,13 @@ class JobRuntime:
                         wm = d.generator.on_periodic_emit()
                     if wm is not None and wm > MIN_WATERMARK:
                         d.emit_watermark(wm)
+                now_ms = time.time() * 1000.0
+                if now_ms - last_tick >= 50.0:
+                    # the processing-time service's tick: drive wall-clock
+                    # timers (the JAX run loop's 50 ms period)
+                    last_tick = now_ms
+                    for r in self.runners:
+                        r.on_processing_time(int(now_ms))
         # end of input: every source's final watermark + end signal fires
         # all remaining windows downstream
         for d in self.sources:

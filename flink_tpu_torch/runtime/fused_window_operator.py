@@ -20,9 +20,16 @@ Emissions materialize when a superbatch resolves; `emitted_watermark` is
 the watermark downstream may safely observe. One dispatch stays in flight:
 dispatch i+1 is staged and enqueued before dispatch i resolves.
 
+Latency mode (`latency=LatencySpec(target_ms > 0, ...)`, the
+`execution.latency.*` options): a `SuperbatchController` picks the depth
+each dispatch cuts at from a pow2 rung ladder, the in-flight ring holds up
+to `max_inflight` dispatches, and the pipeline runs each dispatch as
+readback groups of `readback_steps` steps. The rows and their order are
+throughput mode's.
+
 Not ported (each raises, naming its ROADMAP.md item): the mesh (item 13),
-the state tier (item 11), shared partials (D3), latency mode (D2), device
-stats (D4) and queryable state (item 11).
+the state tier (item 11), shared partials (D3), device stats (D4) and
+queryable state (item 11).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK, TimeWindow
 from flink_tpu_torch.lint.contracts import inflight_ring
 from flink_tpu_torch.ops.aggregators import ONE, VALUE, resolve
 from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+from flink_tpu_torch.scheduler.latency_controller import LatencySpec, SuperbatchController
 from flink_tpu_torch.state.columnar import KeyDictionary
 from flink_tpu_torch.utils import deferred
 
@@ -299,7 +307,8 @@ def _own_row(row):
 class FusedWindowOperator:
     """Operator-boundary adapter over FusedWindowPipeline, with one
     dispatch kept in flight (resolve of dispatch i overlaps the device's
-    run of dispatch i+1). `device=None` runs on CUDA or raises."""
+    run of dispatch i+1), or up to `latency.max_inflight` in latency mode.
+    `device=None` runs on CUDA or raises."""
 
     def __init__(
         self,
@@ -319,13 +328,12 @@ class FusedWindowOperator:
         mesh=None,
         tier=None,
         assigners=None,
-        latency=None,
+        latency: Optional[LatencySpec] = None,
         device=None,
     ):
         for option, value, item in (("mesh", mesh, deferred.MESH),
                                     ("tier", tier, deferred.STATE_PLANE),
-                                    ("assigners", assigners, deferred.D3),
-                                    ("latency", latency, deferred.D2)):
+                                    ("assigners", assigners, deferred.D3)):
             if value is not None:
                 raise deferred.not_ported(f"FusedWindowOperator({option}=...)", item)
         self.agg = resolve(aggregate)
@@ -343,9 +351,29 @@ class FusedWindowOperator:
         self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
         self._steps: List[_Step] = []
         # in-flight dispatch ring: (DeferredEmissions, wm) entries resolved
-        # FIFO, one deep — dispatch N+1 enqueues, THEN N resolves
+        # FIFO. Depth 1 (the default): dispatch N+1 enqueues, THEN N
+        # resolves; latency mode deepens it so N+1 stages and launches
+        # while N's copies land
         self._inflight: Deque[tuple] = deque()
         self._max_inflight = 1
+        # latency mode (execution.latency.target-ms): the rung controller,
+        # a deeper ring and streamed readback groups. None keeps every
+        # dispatch decision throughput mode's.
+        self.latency = latency
+        self._controller: Optional[SuperbatchController] = None
+        self._ladder_geoms: set = set()   # distinct dispatch depths seen
+        if latency is not None and latency.target_ms > 0:
+            self._controller = SuperbatchController(
+                full_steps=superbatch_steps,
+                target_ms=latency.target_ms,
+                floor_steps=latency.floor_steps,
+                min_dwell_ms=latency.min_dwell_ms,
+                hysteresis_pct=latency.hysteresis_pct,
+            )
+            self._max_inflight = max(int(latency.max_inflight), 1)
+            self.pipe.donate_carry = True
+            if latency.readback_steps > 0:
+                self.pipe.readback_steps = int(latency.readback_steps)
         self.output: List[Tuple[Any, Any, Any, int]] = []
         self.emitted_watermark = MIN_WATERMARK
         self.current_watermark = MIN_WATERMARK
@@ -363,8 +391,8 @@ class FusedWindowOperator:
         ids, required = self.keydict.lookup_or_insert(np.asarray(keys))
         self.pipe.ensure_key_capacity(required)
         vals = np.asarray(values, np.float32) if self._needs_value else None
-        self._steps.extend(self.norm.push(ids.astype(np.int32), vals,
-                                          np.asarray(timestamps, np.int64)))
+        self._push_steps(self.norm.push(ids.astype(np.int32), vals,
+                                        np.asarray(timestamps, np.int64)))
         self._maybe_dispatch()
 
     def process_raw_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
@@ -372,7 +400,7 @@ class FusedWindowOperator:
         host transform — the prologue runs on the device in the dispatch."""
         if len(timestamps) == 0:
             return
-        self._steps.extend(self.norm.push(values, None, np.asarray(timestamps, np.int64)))
+        self._push_steps(self.norm.push(values, None, np.asarray(timestamps, np.int64)))
         self._maybe_dispatch()
 
     def process_watermark(self, watermark: int) -> None:
@@ -387,16 +415,33 @@ class FusedWindowOperator:
             self._steps[-1].wm = steps[0].wm
             self._steps[-1].n_fires = steps[0].n_fires
             steps = steps[1:]
-        self._steps.extend(steps)
+        self._push_steps(steps)
         if watermark >= MAX_WATERMARK - 1:
             self.flush_all()
         else:
             self._maybe_dispatch()
 
     # ------------------------------------------------------------------
+    def _push_steps(self, steps: List[_Step]) -> None:
+        """Append planner-safe steps and feed the latency controller's
+        arrival estimate (watermark-only steps count: they take dispatch
+        slots too)."""
+        self._steps.extend(steps)
+        if self._controller is not None and steps:
+            self._controller.observe(len(steps))
+
+    def _dispatch_target(self) -> int:
+        """Steps a full dispatch cuts at: the controller's rung in latency
+        mode, the fixed span otherwise."""
+        if self._controller is None:
+            return self.T
+        return self._controller.steps()
+
     def _maybe_dispatch(self) -> None:
-        while len(self._steps) >= self.T:
-            self._dispatch(self._take_group())
+        target = self._dispatch_target()
+        while len(self._steps) >= target:
+            self._dispatch(self._take_group(target=target))
+            target = self._dispatch_target()
 
     def flush_all(self) -> None:
         """Dispatch every buffered step and resolve all in-flight output.
@@ -407,16 +452,18 @@ class FusedWindowOperator:
             self._dispatch(self._take_group(tail=True))
         self._resolve_inflight()
 
-    def _take_group(self, tail: bool = False) -> List[_Step]:
+    def _take_group(self, tail: bool = False,
+                    target: Optional[int] = None) -> List[_Step]:
+        limit = self.T if target is None else target
         group: List[_Step] = []
         fires = 0
-        while self._steps and len(group) < self.T:
+        while self._steps and len(group) < limit:
             s = self._steps[0]
             if fires + s.n_fires > self.pipe.R and group:
                 break  # out_rows budget: cut the dispatch early
             fires += s.n_fires
             group.append(self._steps.pop(0))
-        target = (1 << max(len(group) - 1, 0).bit_length()) if tail else self.T
+        target = (1 << max(len(group) - 1, 0).bit_length()) if tail else limit
         # pads carry the LAST REAL step's watermark: steps still queued
         # behind an early cut have lower watermarks
         pad_wm = group[-1].wm if group else None
@@ -432,6 +479,8 @@ class FusedWindowOperator:
         else:
             d = self.pipe.process_superbatch(
                 [(s.kid, s.vals, s.ts) for s in group], wms, defer=True)
+        if self._controller is not None:
+            self._ladder_geoms.add(len(group))
         self._inflight.append((d, group[-1].wm))
         while len(self._inflight) > self._max_inflight:
             self._resolve_oldest()
@@ -496,6 +545,28 @@ class FusedWindowOperator:
     def phase_totals(self):
         raise deferred.not_ported("FusedWindowOperator.phase_totals", deferred.D4)
 
+    def latency_gauges(self):
+        """The latency-mode controller's gauges, or None when the mode is
+        off (registering them with a job's metrics waits for ROADMAP item
+        15)."""
+        if self._controller is None:
+            return None
+        return {
+            "latencyModeActive": 1,
+            "currentBatchRung": int(self._controller.current_steps()),
+            "inflightDepth": len(self._inflight),
+            "ladderRecompiles": len(self._ladder_geoms),
+        }
+
+    def _reset_dispatch_ring(self) -> None:
+        """Restore quiescence: discard unresolved in-flight handles (their
+        fires re-run from the restored state) and re-hold the controller's
+        full-span rung (samples from before describe a stream position
+        that no longer exists)."""
+        self._inflight.clear()
+        if self._controller is not None:
+            self._controller.reset()
+
     # ------------------------------------------------------------------
     def snapshot(self) -> dict:
         """The JAX operator's snapshot form: buffered steps are flushed
@@ -527,7 +598,5 @@ class FusedWindowOperator:
         self._steps = []
         self.emitted_watermark = snap["emitted_watermark"]
         self.current_watermark = snap["current_watermark"]
-        # unresolved handles are discarded: their fires re-run from the
-        # restored state
-        self._inflight.clear()
+        self._reset_dispatch_ring()
         self.output = [_own_row(r) for r in snap["output"]]

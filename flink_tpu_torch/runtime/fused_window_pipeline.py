@@ -86,12 +86,13 @@ class DeferredEmissions:
     surviving records produced; resolve raises if they leave [0, K)."""
 
     def __init__(self, pipe: "FusedWindowPipeline", fires, count_out, outs,
-                 key_bounds=None, key_capacity: Optional[int] = None):
+                 key_bounds=None, key_capacity: Optional[int] = None,
+                 copy_stream=None):
         self._pipe = pipe
         self._fires = fires
         self._key_capacity = key_capacity
         self._names = list(outs)
-        self._copy = HostCopy([count_out, key_bounds, *outs.values()])
+        self._copy = HostCopy([count_out, key_bounds, *outs.values()], stream=copy_stream)
 
     def resolve(self):
         count_out, key_bounds, *outs = self._copy.wait()
@@ -117,6 +118,24 @@ class DeferredEmissions:
             )
             for pf in self._fires
         ]
+
+
+class _StreamedEmissions:
+    """The handle of a dispatch run as readback groups (latency mode): one
+    DeferredEmissions per group of `readback_steps` steps, each of which
+    started its device->host copy right after its group's launch, so fires
+    of early groups reach the host while later groups still compute.
+    resolve() joins the groups' rows in group order: the whole-span
+    dispatch's rows, order and payloads."""
+
+    def __init__(self, parts: List[DeferredEmissions]):
+        self._parts = parts
+
+    def resolve(self):
+        out = []
+        for p in self._parts:
+            out.extend(p.resolve())
+        return out
 
 
 class _PlanCursor:
@@ -269,6 +288,16 @@ class FusedWindowPipeline:
         # traced chain: the raw column layout, fixed by the first data
         self._raw_shape: Optional[tuple] = None
         self._raw_dtype = None
+        # latency mode (scheduler/latency_controller.py), set by the
+        # operator when execution.latency.target-ms is on: readback_steps >
+        # 0 runs a T-step dispatch as T/readback_steps K1 launches whose
+        # fired rows each start their copy as soon as they are launched.
+        # donate_carry is kept for the JAX package's flag (it donates the
+        # [K, S] carry to its executable); K1 and its plain version update
+        # the rings in place, so there is no carry copy to donate here.
+        self.donate_carry = False
+        self.readback_steps = 0
+        self._copy_stream = None      # the readback groups' side stream
 
         self.g = assigner.slice_ms
         self.sl = assigner.slide_slices
@@ -432,11 +461,24 @@ class FusedWindowPipeline:
         T = int(plan[0].shape[0])
         if watermarks is not None and T != len(watermarks):
             raise ValueError(f"{len(watermarks)} watermarks for {T} steps")
-        d = self._dispatch(idx_d, vals_d, plan)
+        if self._grouped(T):
+            d = self._process_grouped(T, idx_d, vals_d, plan)
+        else:
+            d = self._dispatch(idx_d, vals_d, plan)
         return d if defer else d.resolve()
 
-    def _dispatch(self, idx_d, vals_d, plan, key_bounds=None) -> DeferredEmissions:
-        """Run one staged dispatch and start its readback."""
+    def _grouped(self, T: int) -> bool:
+        """Whether a T-step dispatch runs as readback groups: latency mode
+        splits it when readback_steps divides it (the ladder's pow2 rungs
+        do); other depths run whole."""
+        Tg = self.readback_steps
+        return 0 < Tg < T and T % Tg == 0
+
+    def _dispatch(self, idx_d, vals_d, plan, key_bounds=None, rows=None,
+                  copy_stream=None) -> DeferredEmissions:
+        """Run one staged dispatch and start its readback. `rows`: fire
+        rows to allocate (a readback group's; None: R, read back up to the
+        multiple of 16 the fires need)."""
         fires = plan[5]
         names = [f.name for f in self._value_fields]
         # K1 for CUDA state, its plain version for CPU state; what K1
@@ -444,18 +486,67 @@ class FusedWindowPipeline:
         count_out, field_outs = cs.keyed_superscan(
             self.agg, self._count, [self._state[n] for n in names],
             idx_d.reshape(-1), vals_d.reshape(-1) if self._needs_vals else None,
-            plan[:5], NSB=self.NSB, R=self.R, spws=(self.spw,) * self.F,
-            exact=self.exact_sums)
+            plan[:5], NSB=self.NSB, R=self.R if rows is None else rows,
+            spws=(self.spw,) * self.F, exact=self.exact_sums)
         outs = dict(zip(names, field_outs))
 
         # read back only the rows actually fired (padded to a multiple of 16
         # so readback shapes stay few)
         used = -(-max(len(fires), 1) // 16) * 16
-        if used < self.R:
+        if rows is None and used < self.R:
             count_out = count_out[:used]
             outs = {k: v[:used] for k, v in outs.items()}
         return DeferredEmissions(self, fires, count_out, outs, key_bounds=key_bounds,
-                                 key_capacity=self.K)
+                                 key_capacity=self.K, copy_stream=copy_stream)
+
+    def _process_grouped(self, T, idx_d, vals_d, plan, raw=None) -> _StreamedEmissions:
+        """Streamed fire readback (latency mode): one T-step dispatch as G
+        = T / readback_steps K1 launches over consecutive step groups, the
+        rings carried in place from one to the next. Fire rows keep the
+        span's global row numbers, so group g allocates the rows up to the
+        fires of groups 0..g (a multiple of 16, at most R: the rows the
+        whole-span dispatch reads back by then) and its fires index them
+        as they would the span's; resolving the groups in order gives the
+        whole-span rows byte for byte. On CUDA each group's copy runs on a
+        side stream after the group's launch, so the next group's launch
+        does not wait behind it. K1 splits a group further into step
+        groups of its own where the step partials outgrow its budget
+        (ops/cuda_superscan.step_groups); those nest inside.
+
+        raw: the traced-chain form, (raw [T*B, ...], srel [T*B], ts | None):
+        each group runs the prologue over its own rows first (so each
+        group's key bounds cover its surviving records), then K1."""
+        Tg = self.readback_steps
+        fires = plan[5]
+        if raw is None:
+            B = idx_d.numel() // T
+        else:
+            B = raw[1].numel() // T
+        stream = None
+        if self.device.type == "cuda":
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_stream
+        parts: List[DeferredEmissions] = []
+        done = 0
+        for lo in range(0, T, Tg):
+            hi = lo + Tg
+            g_fires = [pf for pf in fires if lo <= pf.step < hi]
+            done += len(g_fires)
+            rows = min(self.R, -(-max(done, 1) // 16) * 16)
+            g_plan = tuple(p[lo:hi] for p in plan[:5]) + (g_fires,)
+            key_bounds = None
+            if raw is None:
+                g_idx = idx_d.reshape(-1)[lo * B:hi * B]
+                g_vals = vals_d.reshape(-1)[lo * B:hi * B] if self._needs_vals else None
+            else:
+                raw_d, srel_d, ts_d = raw
+                g_idx, g_vals, key_bounds = self._run_prologue(
+                    raw_d[lo * B:hi * B], srel_d[lo * B:hi * B],
+                    None if ts_d is None else ts_d[lo * B:hi * B])
+            parts.append(self._dispatch(g_idx, g_vals, g_plan, key_bounds=key_bounds,
+                                        rows=rows, copy_stream=stream))
+        return _StreamedEmissions(parts)
 
     def stage_superbatch(self, batches, watermarks):
         """Host planning + device staging for one dispatch (separable so
@@ -677,9 +768,21 @@ class FusedWindowPipeline:
         if staged is None:
             staged = self.stage_superbatch_raw(steps, watermarks)
         raw_d, srel_d, ts_d, plan = staged
-        idx, vals, key_bounds = self._run_prologue(raw_d, srel_d, ts_d)
-        d = self._dispatch(idx, vals, plan, key_bounds=key_bounds)
+        T = int(plan[0].shape[0])
+        if self._grouped(T):
+            d = self._process_grouped_raw(T, raw_d, srel_d, ts_d, plan)
+        else:
+            idx, vals, key_bounds = self._run_prologue(raw_d, srel_d, ts_d)
+            d = self._dispatch(idx, vals, plan, key_bounds=key_bounds)
         return d if defer else d.resolve()
+
+    def _process_grouped_raw(self, T, raw_d, srel_d, ts_d, plan) -> _StreamedEmissions:
+        """Streamed fire readback for the traced-chain path: the
+        `_process_grouped` contract, each group's prologue run over its own
+        rows through `_run_prologue` (the groups partition the span's
+        steps, so their key bounds together cover every surviving
+        record)."""
+        return self._process_grouped(T, None, None, plan, raw=(raw_d, srel_d, ts_d))
 
     def _run_prologue(self, raw, srel, ts):
         """The user's chain over all staged rows, then key/value extraction:

@@ -26,8 +26,8 @@ Late contract: a record whose standalone session is already expired
 (ts + gap - 1 <= watermark) is dropped and counted, matching the oracle
 whenever the stream's out-of-orderness is below the session gap (the
 merging analogue of isWindowLate, WindowOperator.java:609). The executor
-refuses streams with out-of-orderness >= gap (the JAX package runs those
-on its oracle operator, which the port does not carry).
+hands streams with out-of-orderness >= gap to the per-record oracle
+operator, as the JAX package does.
 
 Every merge runs on the device: K4 keeps its times in 64-bit ms, so any
 gap and span fit, and a per-watermark merge takes M = span + 1 emission

@@ -14,14 +14,15 @@ Rows are dicts keyed by schema field names. `sql_query` parses, plans
 - every other statement takes the interpreted translation, with the
   planner's catalogued reason in `last_plan_report`: a single device
   aggregate over TUMBLE/HOP on the fused or per-batch window operator,
-  SESSION on the session operator (kernels K3/K4), a non-windowed GROUP BY
-  on the continuous aggregate (`GroupAggRunner`), a projection on a map.
+  SESSION on the session operator (kernels K3/K4), several aggregates on
+  a composite accumulator (`_MultiAgg`) over the per-record oracle window
+  operator, a non-windowed GROUP BY on the continuous aggregate
+  (`GroupAggRunner`), a projection on a map.
 
 What the port does not carry yet raises, naming its ROADMAP.md item, and
-never falls back to another route: multi-aggregate SELECTs (the per-record
-oracle operator, item 18), UNION ALL (item 19), joins (item 12) and
-ML_PREDICT (item 14). The planner still reports those statements' paths
-and reasons exactly as the JAX package does; only execution raises.
+never falls back to another route: UNION ALL (item 19), joins (item 12)
+and ML_PREDICT (item 14). The planner still reports those statements'
+paths and reasons exactly as the JAX package does; only execution raises.
 
 A TableEnvironment takes its device from its StreamExecutionEnvironment
 (CUDA unless it was made with device="cpu").
@@ -33,6 +34,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 from flink_tpu_torch.api.datastream import DataStream, StreamExecutionEnvironment
+from flink_tpu_torch.api.functions import AggregateFunction
 from flink_tpu_torch.api.windowing.assigners import (
     EventTimeSessionWindows,
     SlidingEventTimeWindows,
@@ -41,7 +43,7 @@ from flink_tpu_torch.api.windowing.assigners import (
 from flink_tpu_torch.core.watermarks import WatermarkStrategy
 # the aggregate map is single-sourced with planner/rules
 from flink_tpu_torch.table.sql import DEVICE_AGG_OF as _DEVICE_AGG
-from flink_tpu_torch.table.sql import Query, parse_query
+from flink_tpu_torch.table.sql import Query, SelectItem, parse_query
 from flink_tpu_torch.utils import deferred
 
 
@@ -81,6 +83,58 @@ class _Table:
     # straight into the dispatch. Row-mode (dict) tables interpret, or
     # fuse window-only when field_types declare numeric columns.
     columnar: bool = False
+
+
+class _MultiAgg(AggregateFunction):
+    """Composite accumulator for multi-aggregate SELECTs, run on the
+    per-record oracle window operator (JAX `table_env._MultiAgg`)."""
+
+    def __init__(self, items: List[SelectItem]):
+        self.items = items
+
+    def create_accumulator(self):
+        return [
+            {"count": 0, "sum": 0.0, "min": float("inf"), "max": float("-inf")}
+            for _ in self.items
+        ]
+
+    def add(self, row, accs):
+        out = []
+        for item, acc in zip(self.items, accs):
+            v = 1.0 if item.name == "*" else float(row[item.name])
+            out.append({
+                "count": acc["count"] + 1,
+                "sum": acc["sum"] + (0 if item.name == "*" else v),
+                "min": min(acc["min"], v),
+                "max": max(acc["max"], v),
+            })
+        return out
+
+    def get_result(self, accs):
+        vals = []
+        for item, acc in zip(self.items, accs):
+            if item.func == "COUNT":
+                vals.append(acc["count"])
+            elif item.func == "SUM":
+                vals.append(acc["sum"])
+            elif item.func == "MIN":
+                vals.append(acc["min"])
+            elif item.func == "MAX":
+                vals.append(acc["max"])
+            elif item.func == "AVG":
+                vals.append(acc["sum"] / max(acc["count"], 1))
+        return tuple(vals)
+
+    def merge(self, a, b):
+        return [
+            {
+                "count": x["count"] + y["count"],
+                "sum": x["sum"] + y["sum"],
+                "min": min(x["min"], y["min"]),
+                "max": max(x["max"], y["max"]),
+            }
+            for x, y in zip(a, b)
+        ]
 
 
 class TableEnvironment:
@@ -350,13 +404,6 @@ class TableEnvironment:
         API (both lower onto the same DataStream window machinery, like the
         reference's two APIs lowering onto one planner)."""
         aggs = [i for i in q.select if i.kind == "agg"]
-        if len(aggs) != 1 or aggs[0].func not in _DEVICE_AGG:
-            # the JAX package runs these on a composite accumulator over its
-            # per-record oracle window operator
-            raise deferred.not_ported(
-                f"a windowed SELECT of {len(aggs)} aggregate calls (its composite "
-                "accumulator runs on the per-record oracle window operator)",
-                deferred.ORACLE)
         group_cols = list(q.group_by)
         key_fn = (
             (lambda row, c=group_cols[0]: row[c])
@@ -367,16 +414,21 @@ class TableEnvironment:
         keyed = stream.key_by(key_fn, name=f"group_by[{','.join(group_cols)}]")
         windowed = keyed.window(assigner)
 
-        item = aggs[0]
-        value_fn = None if item.name == "*" else (
-            lambda row, c=item.name: float(row[c])
-        )
-        result = windowed.aggregate(
-            _DEVICE_AGG[item.func], value_fn, name=f"sql_{item.func.lower()}"
-        )
+        if len(aggs) == 1 and aggs[0].func in _DEVICE_AGG:
+            item = aggs[0]
+            value_fn = None if item.name == "*" else (
+                lambda row, c=item.name: float(row[c])
+            )
+            result = windowed.aggregate(
+                _DEVICE_AGG[item.func], value_fn, name=f"sql_{item.func.lower()}"
+            )
+            extract = None                # single device agg: result IS rec[1]
+        else:
+            result = windowed.aggregate(_MultiAgg(aggs), name="sql_multi_agg")
+            extract = tuple               # composite accumulator result
         # mark the SQL origin on the interpreted path's window terminal too
         result.transform.config["sql_origin"] = True
-        return self._windowed_output_stage(result, q, group_cols, extract=None)
+        return self._windowed_output_stage(result, q, group_cols, extract)
 
     def _windowed_output_stage(self, result: DataStream, q: Query,
                                group_cols: List[str], extract) -> DataStream:

@@ -7,7 +7,6 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-D2 = "deferred item D2 (streamed readback groups and latency mode)"
 D3 = "deferred item D3 (shared partials)"
 D4 = "deferred item D4 (compile tracker and phase counters)"
 D6 = "deferred item D6 (the tiered-state row surface)"
@@ -19,7 +18,6 @@ ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
 METRICS = "item 15 (job metrics and emission latency)"
 CHECKPOINTS = "item 16 (job checkpoints and savepoints)"
 PARALLELISM = "item 17 (parallelism > 1 and key groups)"
-ORACLE = "item 18 (the per-record oracle operator)"
 API = "item 19 (the rest of the DataStream API)"
 
 

@@ -43,16 +43,31 @@ def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 class HostCopy:
     """Tensors on their way to the host (None entries pass through): on
     CUDA, pinned non_blocking copies started at construction and ordered by
-    one CUDA event recorded after them; `wait` blocks on that event only."""
+    one CUDA event recorded after them; `wait` blocks on that event only.
 
-    def __init__(self, tensors):
+    With `stream` (a side stream) the copies run there, after an event
+    recorded on the current stream, so work enqueued next on the current
+    stream does not queue behind them; the source tensors are marked used
+    by that stream, so the caching allocator does not hand their memory to
+    later work of the current stream before the copies have read it."""
+
+    def __init__(self, tensors, stream=None):
         self._host = list(tensors)
         self._event = None
         cuda = [t for t in self._host if t is not None and t.is_cuda]
-        if cuda:
+        if not cuda:
+            return
+        current = torch.cuda.current_stream(cuda[0].device)
+        if stream is None:
+            stream = current
+        else:
+            stream.wait_stream(current)
+            for t in cuda:
+                t.record_stream(stream)
+        with torch.cuda.stream(stream):
             self._host = [None if t is None else _pinned_copy(t) for t in self._host]
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(cuda[0].device))
+            self._event.record(stream)
 
     def wait(self) -> list:
         if self._event is not None:

@@ -7,7 +7,9 @@ such fields the same 32-bit dtypes (`ops/aggregators.py::device_dtype`).
 ROADMAP C1's inputs (values 16777216.0 and 1.0, and 0.1 and 0.2, one key,
 one 1 s tumbling window) go through both packages' `TpuWindowOperator`,
 `FusedWindowOperator` (after `flush_all()`), `TpuGlobalWindowOperator`
-and the session operator, the port's on the CPU.
+and the session operator, the port's on the CPU. C3's inputs (16777216.0
+and 1.0, and 0.5 and 0.5) hold the fused operator's int sum fields, which
+both packages sum per cell in float32 before the cast.
 
 Tolerance: exact, by `repr` of every emitted value. The session operator
 is held against the JAX operator's 32-bit aggregate for a float sum or
@@ -41,6 +43,8 @@ from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperato
 from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator  # noqa: E402
 
 C1_VALUES = ([16777216.0, 1.0], [0.1, 0.2])
+#: ROADMAP C3's inputs: a per-record cast would round neither away
+C3_VALUES = ([16777216.0, 1.0], [0.5, 0.5])
 AGGS = [("sum", np.float64), ("mean", np.float64), ("min", np.float64),
         ("max", np.float64), ("sum", np.int64)]
 
@@ -70,12 +74,8 @@ def test_window_operator_computes_64bit_fields_in_32_bits(name, dtype, vals):
 
 
 @pytest.mark.parametrize("vals", C1_VALUES)
-@pytest.mark.parametrize("name,dtype", [a for a in AGGS if a[1] == np.float64])
+@pytest.mark.parametrize("name,dtype", AGGS)
 def test_fused_operator_computes_64bit_fields_in_32_bits(name, dtype, vals):
-    # an int add field is left out: the JAX fused ingest sums a step's
-    # records per cell in float32 before the cast, K1 casts each record
-    # (16777216 against 16777217 here), whatever the declared width:
-    # ROADMAP Queue C, C3
     ja, ta = _aggs(name, dtype)
     want = _drive(JaxFused(jasg.TumblingEventTimeWindows.of(1000), ja), vals)
     got = _drive(FusedWindowOperator(tasg.TumblingEventTimeWindows.of(1000), ta,
@@ -83,6 +83,22 @@ def test_fused_operator_computes_64bit_fields_in_32_bits(name, dtype, vals):
     assert got == want and len(got) == 1
     if vals == C1_VALUES[1] and name == "sum" and dtype == np.float64:
         assert want[0][3] == "0.30000001192092896"
+
+
+@pytest.mark.parametrize("vals", C3_VALUES)
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_fused_operator_sums_int_fields_per_cell_in_float32(dtype, vals):
+    # C3: the fused ingest sums a step's records per (key, slice) cell in
+    # float32 and casts that partial to int32 once, in both packages (the
+    # JAX operator's superscan on the CPU takes the matmul-histogram
+    # ingest, `_build_superscan`); a cast per record would give 16777217
+    # and 0
+    ja, ta = jagg.sum_agg(dtype), tagg.sum_agg(dtype)
+    want = _drive(JaxFused(jasg.TumblingEventTimeWindows.of(1000), ja), vals)
+    got = _drive(FusedWindowOperator(tasg.TumblingEventTimeWindows.of(1000), ta,
+                                     device="cpu"), vals)
+    assert got == want and len(got) == 1
+    assert want[0][3] == ("16777216" if vals == C3_VALUES[0] else "1")
 
 
 @pytest.mark.parametrize("vals", C1_VALUES)

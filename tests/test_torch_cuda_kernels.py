@@ -81,10 +81,13 @@ def _rings(agg, shape, dev, global_scope):
     return count, states
 
 
-def _both(kernel, plain, agg, shape, nkeys, dev, global_scope, seed, **kw):
+def _both(kernel, plain, agg, shape, nkeys, dev, global_scope, seed, quarters=False, **kw):
     rng = np.random.default_rng(seed)
     idx = torch.from_numpy(rng.integers(-2, nkeys * NSB, size=T * B).astype(np.int32))
-    vals = torch.from_numpy(rng.integers(-5, 300, size=T * B).astype(np.float32))
+    # quarters: values with a fractional part whose float32 partial sums are
+    # exact in any order (multiples of 0.25 far below 2^22)
+    vals = torch.from_numpy((rng.integers(-20, 1200, size=T * B) / 4 if quarters else
+                             rng.integers(-5, 300, size=T * B)).astype(np.float32))
     plan = [torch.from_numpy(a) for a in _plan(rng, shape[0])]
     kc, ks = _rings(agg, shape, dev, global_scope)
     pc, ps = _rings(agg, shape, dev, global_scope)
@@ -106,6 +109,32 @@ def test_k1_matches_plain(cuda, name, exact):
     assert launched["k1_superscan"] == 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("name", ["sum_i32", "sum_i64", "sum", "count"])
+def test_k1_int_add_fields_cast_each_cell_partial_once(cuda, name, exact):
+    # ROADMAP C3: an int add field sums each step's records per cell in
+    # float32 and casts that partial once; with quarter values a cast per
+    # record would lose the fractions. Count and float fields stay
+    # bit-equal to their plain versions.
+    kw = dict(NSB=NSB, R=R, spws=(3, 1, 2), exact=exact)
+    got, want, launched = _both(
+        cs.keyed_superscan, keyed_superscan_plain, AGGS[name](), (S, K), K + 3,
+        cuda, False, seed=7, quarters=True, **kw)
+    assert launched["k1_superscan"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if name.startswith("sum_i"):
+        # the same records cast one by one give other sums
+        rng = np.random.default_rng(7)
+        idx = torch.from_numpy(rng.integers(-2, (K + 3) * NSB, size=T * B).astype(np.int32))
+        vals = torch.from_numpy(rng.integers(-20, 1200, size=T * B).astype(np.float32) / 4)
+        plan = tuple(torch.from_numpy(a).to(cuda) for a in _plan(rng, S))
+        pc, ps = _rings(AGGS[name](), (S, K), cuda, False)
+        keyed_superscan_plain(AGGS[name](), pc, ps, idx.to(cuda), vals.trunc().to(cuda),
+                              plan, **kw)
+        assert not torch.equal(ps[0], got[2])
 
 
 @pytest.mark.parametrize("name", ["count", "sum", "sum_i32", "min", "max", "max_i32", "mean",
@@ -166,6 +195,63 @@ def test_pipelines_on_the_card_match_the_cpu(cuda, agg):
                     assert np.array_equal(a[live] if a.ndim else a, b[live] if b.ndim else b)
         snap_g, snap_c = gpu.snapshot(), cpu.snapshot()
         assert np.array_equal(snap_g["count"], snap_c["count"])
+
+
+def _emissions_equal(a, b):
+    assert len(a) == len(b) > 0
+    for (aw, ac, af), (bw, bc, bf) in zip(a, b):
+        assert aw == bw and np.array_equal(ac, bc)
+        live = np.asarray(bc) > 0
+        for n in bf:
+            assert np.array_equal(np.asarray(af[n])[live], np.asarray(bf[n])[live])
+
+
+@pytest.mark.parametrize("readback", [2, 4, 8, 16])
+@pytest.mark.parametrize("agg", ["count", "sum"])
+def test_grouped_k1_launches_match_the_whole_span(cuda, agg, readback):
+    """Latency mode's readback groups on the card: a T = 32 dispatch as
+    32 / readback K1 launches (each group's copy on a side stream) gives
+    the whole-span dispatch's rows, in order, and the CPU's."""
+    batches, wms = _stream(64, 500)
+    win = SlidingEventTimeWindows.of(2000, 500)
+    geo = dict(key_capacity=300, num_slices=16, nsb=4, fires_per_step=4, out_rows=64,
+               chunk=256)
+    whole, split, cpu = (FusedWindowPipeline(win, agg, device=d, **geo)
+                         for d in (cuda, cuda, "cpu"))
+    split.readback_steps = cpu.readback_steps = readback
+    for lo in (0, 32):
+        chunk = (batches[lo:lo + 32], wms[lo:lo + 32])
+        before = cs.LAUNCHES["k1_superscan"]
+        got = split.process_superbatch(*chunk, defer=True).resolve()
+        assert cs.LAUNCHES["k1_superscan"] - before == 32 // readback
+        want = whole.process_superbatch(*chunk)
+        _emissions_equal(got, want)
+        _emissions_equal(cpu.process_superbatch(*chunk), want)
+    assert np.array_equal(split.snapshot()["count"], whole.snapshot()["count"])
+
+
+def test_grouped_k1_nests_its_own_step_groups(cuda):
+    """At 2^20 keys K1 splits a 16-step readback group into step groups of
+    its own (the 64 MiB partial budget): both nest, and the rows are the
+    whole span's."""
+    K_ = 1 << 20
+    rng = np.random.default_rng(3)
+    batches = [(rng.integers(0, K_, 2000).astype(np.int32), None,
+                np.sort(rng.integers(5000 + t * 400, 5400 + t * 400, 2000)).astype(np.int64))
+               for t in range(32)]
+    wms = [5250 + t * 400 for t in range(32)]
+    geo = dict(key_capacity=K_, num_slices=16, nsb=4, fires_per_step=4, out_rows=64,
+               chunk=256)
+    win = SlidingEventTimeWindows.of(2000, 500)
+    whole = FusedWindowPipeline(win, "count", device=cuda, **geo)
+    split = FusedWindowPipeline(win, "count", device=cuda, **geo)
+    split.readback_steps = 16
+    inner = len(cs.step_groups(16, K_, 4, 0))
+    assert inner > 1
+    before = cs.CUDA_LAUNCHES["k1_superscan"]
+    got = split.process_superbatch(batches, wms)
+    assert cs.CUDA_LAUNCHES["k1_superscan"] - before == 2 * 2 * inner
+    _emissions_equal(got, whole.process_superbatch(batches, wms))
 
 
 # ---------------------------------------------------------------------------

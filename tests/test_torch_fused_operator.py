@@ -307,10 +307,16 @@ def test_operator_snapshot_crosses_packages(direction):
 
 def test_operator_unported_options_raise_naming_the_roadmap():
     for kw, item in ((dict(mesh=object()), "item 13"), (dict(tier=object()), "item 11"),
-                     (dict(assigners=[]), "deferred item D3"),
-                     (dict(latency=object()), "deferred item D2")):
+                     (dict(assigners=[]), "deferred item D3")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
             tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", **kw)
+    # latency mode (D2) is ported: the option builds the operator
+    # (tests/test_torch_latency_mode.py runs it)
+    from flink_tpu_torch.scheduler.latency_controller import LatencySpec
+
+    op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
+                                 latency=LatencySpec(target_ms=5))
+    assert op.pipe.readback_steps == 8 and op.latency_gauges()["latencyModeActive"] == 1
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu")
     for call, item in ((lambda: op.attach_device_stats(None), "D4"),
                        (op.phase_totals, "D4"), (lambda: op.drain_spec_output(0), "D3"),

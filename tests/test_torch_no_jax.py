@@ -115,6 +115,52 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
             "GROUP BY user, TUMBLE(rowtime, INTERVAL '1' SECOND)")
         assert tenv.last_plan_report.fused and env.config.get(TableOptions.DEVICE_FUSION)
         assert sum(r["s"] for r in rows) == sum(float(i % 4) for i in range(60)), rows
+        # latency mode: a fused job cut at the controller's rung and read
+        # back in groups of 2 steps
+        cfg = Configuration({"execution.step.batch-size": 256, "execution.state.key-capacity": 32,
+                             "execution.window.superbatch-steps": 8,
+                             "execution.latency.target-ms": 50,
+                             "execution.latency.readback-steps": 2,
+                             "execution.latency.max-inflight-dispatches": 2})
+        env = StreamExecutionEnvironment(cfg, device="cpu")
+        sink = (env.from_source(DataGeneratorSource(gen, 3000),
+                                WatermarkStrategy.for_bounded_out_of_orderness(0))
+                .filter(lambda c: c[:, 1] < 0.5, traceable=True)
+                .key_by(lambda c: c[:, 0].to(torch.int32), traceable=True)
+                .window(SlidingEventTimeWindows.of(2000, 500)).aggregate("count")
+                .collect())
+        env.execute()
+        assert sum(v for _k, v in sink.results) == 4 * 1000
+        from flink_tpu_torch.scheduler.latency_controller import SuperbatchController
+        assert SuperbatchController(full_steps=32, target_ms=50).steps() == 32
+
+        # the per-record oracle operator: a continuous trigger, an evictor,
+        # reduce and process, and a multi-aggregate SELECT on it
+        from flink_tpu_torch.api.functions import PassThroughWindowFunction
+        from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+        from flink_tpu_torch.api.windowing.evictors import CountEvictor
+        from flink_tpu_torch.api.windowing.triggers import ContinuousEventTimeTrigger
+        from flink_tpu_torch.core.keygroups import assign_to_key_group
+        assert assign_to_key_group("campaign-7", 128) == 73
+        recs = [("k%d" % (i % 3), i, i * 100) for i in range(40)]
+        env = StreamExecutionEnvironment(device="cpu")
+        keyed = env.from_collection(recs, timestamp_fn=lambda r: r[2],
+                                    watermark_strategy=WatermarkStrategy.for_monotonous_timestamps()
+                                    ).key_by(lambda r: r[0])
+        sums = (keyed.window(TumblingEventTimeWindows.of(1000))
+                .trigger(ContinuousEventTimeTrigger.of(300)).sum(lambda r: r[1]).collect())
+        reduced = (keyed.window(TumblingEventTimeWindows.of(1000))
+                   .reduce(lambda a, b: (a[0], a[1] + b[1], b[2])).collect())
+        evicted = (keyed.window(TumblingEventTimeWindows.of(1000)).evictor(CountEvictor.of(1))
+                   .process(PassThroughWindowFunction()).collect())
+        env.execute()
+        assert sum(r[1][1] for r in reduced.results) == sum(range(40))
+        assert len(evicted.results) == 12 and len(sums.results) > 12
+        rows = tenv.execute_sql_to_list(
+            "SELECT user, COUNT(*) AS n, SUM(amount) AS s FROM pay "
+            "GROUP BY user, TUMBLE(rowtime, INTERVAL '1' SECOND)")
+        assert tenv.last_plan_report.reason == "multi-aggregate"
+        assert sum(r["n"] for r in rows) == 60, rows
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -138,9 +184,14 @@ def _imports(path):
 def test_sources_import_neither_jax_nor_flink_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    # the SQL front door is scanned too
-    for sub in ("table", "planner", "security"):
+    # the SQL front door, the latency controller and the oracle's state are
+    # scanned too
+    for sub in ("table", "planner", "security", "scheduler", "state", "core"):
         assert any(f.parent == PKG / sub for f in files), sub
+    for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
+                 "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
+                 "scheduler/latency_controller.py"):
+        assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

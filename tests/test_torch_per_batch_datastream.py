@@ -15,8 +15,9 @@ Four job shapes through both packages' `env.execute()` (the port's with
 - `continuous_aggregate` with `execution.group-agg.device` on and off.
 
 Each asserts the operator the runner selected. The methods and options
-these operators brought in no longer raise; the ones still deferred raise
-naming their ROADMAP item.
+these operators brought in no longer raise; the surfaces the per-record
+oracle operator brought in run in both packages to the same rows; the
+ones still deferred raise naming their ROADMAP item.
 
 Tolerance: exact (integer-valued payloads; AVG to rtol 1e-6).
 """
@@ -30,6 +31,7 @@ jnp = pytest.importorskip("jax.numpy")
 from flink_tpu.api import functions as jfn  # noqa: E402
 from flink_tpu.api.datastream import StreamExecutionEnvironment as JaxEnv  # noqa: E402
 from flink_tpu.api.windowing import assigners as jasg  # noqa: E402
+from flink_tpu.api.windowing import evictors as jev  # noqa: E402
 from flink_tpu.api.windowing import triggers as jtrg  # noqa: E402
 from flink_tpu.config import Configuration as JaxConfiguration  # noqa: E402
 from flink_tpu.config import ExecutionOptions as JaxExecutionOptions  # noqa: E402
@@ -39,6 +41,7 @@ from flink_tpu.core.watermarks import WatermarkStrategy as JaxWatermarkStrategy 
 from flink_tpu_torch.api import datastream as tds  # noqa: E402
 from flink_tpu_torch.api import functions as tfn  # noqa: E402
 from flink_tpu_torch.api.windowing import assigners as tasg  # noqa: E402
+from flink_tpu_torch.api.windowing import evictors as tev  # noqa: E402
 from flink_tpu_torch.api.windowing import triggers as ttrg  # noqa: E402
 from flink_tpu_torch.config import Configuration, ExecutionOptions  # noqa: E402
 from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource  # noqa: E402
@@ -54,11 +57,12 @@ BATCH = 1024
 EVENTS = 1 << 15
 
 JAX = dict(env=JaxEnv, cfg=JaxConfiguration, opts=JaxExecutionOptions, batch=JaxBatch,
-           source=JaxGeneratorSource, wm=JaxWatermarkStrategy, asg=jasg, trg=jtrg, fn=jfn,
+           source=JaxGeneratorSource, wm=JaxWatermarkStrategy, asg=jasg, trg=jtrg, fn=jfn, ev=jev,
            filter=lambda col: col[:, 1] < 0.5, key=lambda col: col[:, 0].astype(jnp.int32))
 PORT = dict(env=tds.StreamExecutionEnvironment, cfg=Configuration, opts=ExecutionOptions,
             batch=Batch, source=DataGeneratorSource, wm=WatermarkStrategy, asg=tasg, trg=ttrg,
-            fn=tfn, filter=lambda col: col[:, 1] < 0.5, key=lambda col: col[:, 0].to(torch.int32))
+            fn=tfn, ev=tev, filter=lambda col: col[:, 1] < 0.5,
+            key=lambda col: col[:, 0].to(torch.int32))
 
 
 def _env(pkg, **opts):
@@ -284,38 +288,63 @@ def test_undeferred_surfaces_no_longer_raise():
                    "execution.group-agg.mini-batch": False})
 
 
-def _still_deferred():
+def _count_function(fn):
+    """A Python AggregateFunction counting records, on package `fn`'s base
+    class (each package's oracle tells a Python aggregate by its own)."""
+    class Count(fn.AggregateFunction):
+        def create_accumulator(self):
+            return 0
+
+        def add(self, value, acc):
+            return acc + 1
+
+        def get_result(self, acc):
+            return acc
+
+        def merge(self, a, b):
+            return a + b
+
+    return Count()
+
+
+def _still_deferred(pkg=None):
+    """Surfaces by name: (job or call, the ROADMAP item it raises naming;
+    None for the ones the per-record oracle operator brought in, which run
+    in both packages instead)."""
+    pkg = pkg or PORT
+
     def job(make, **opts):
         def run():
-            env = tds.StreamExecutionEnvironment(Configuration(opts), device="cpu")
-            keyed = env.from_collection([1, 2, 3], timestamp_fn=lambda x: x).key_by(lambda x: x)
-            make(keyed).collect()
+            env = (pkg["env"](pkg["cfg"](opts), device="cpu") if pkg is PORT
+                   else pkg["env"].get_execution_environment(pkg["cfg"](opts)))
+            keyed = env.from_collection([1, 2, 3, 12, 25], timestamp_fn=lambda x: x).key_by(
+                lambda x: x % 2)
+            sink = make(keyed).collect()
             env.execute()
+            return sorted(repr(r) for r in sink.results)
         return run
 
-    def window(env_keyed):
-        return env_keyed.window(tasg.TumblingEventTimeWindows.of(10))
+    def window(keyed):
+        return keyed.window(pkg["asg"].TumblingEventTimeWindows.of(10))
 
     return {
         # the constructor: with_gap() is EventTimeSessionWindows' factory
         # and makes event-time sessions in both packages (ROADMAP Queue C)
         "processing_time_sessions": (job(lambda k: k.window(
-            tasg.ProcessingTimeSessionWindows(5)).sum()), "item 18"),
-        "event_time_trigger": (lambda: window(tds.StreamExecutionEnvironment(device="cpu")
-                                              .from_collection([1]).key_by(lambda x: x))
-                               .trigger(ttrg.EventTimeTrigger()), "item 18"),
-        "evictor": (lambda: window(tds.StreamExecutionEnvironment(device="cpu")
-                                   .from_collection([1]).key_by(lambda x: x)).evictor(None),
-                    "item 18"),
-        "window_function": (lambda: window(tds.StreamExecutionEnvironment(device="cpu")
-                                           .from_collection([1]).key_by(lambda x: x))
-                            .process(None), "item 18"),
-        "python_aggregate": (job(lambda k: window(k).aggregate(tfn.AggregateFunction())),
-                             "item 18"),
+            pkg["asg"].ProcessingTimeSessionWindows(5)).sum()), None),
+        "event_time_trigger": (job(lambda k: window(k).trigger(
+            pkg["trg"].EventTimeTrigger()).sum()), None),
+        "evictor": (job(lambda k: window(k).evictor(pkg["ev"].CountEvictor.of(1)).process(
+            pkg["fn"].PassThroughWindowFunction())), None),
+        "window_function": (job(lambda k: window(k).process(
+            pkg["fn"].PassThroughWindowFunction())), None),
+        "python_aggregate": (job(lambda k: window(k).aggregate(_count_function(pkg["fn"]))),
+                             None),
         "global_window_without_count_trigger": (job(lambda k: k.window(
-            tasg.GlobalWindows.create()).sum()), "item 18"),
+            pkg["asg"].GlobalWindows.create()).sum()), None),
         "global_window_with_fused_off": (job(lambda k: k.window(
-            tasg.GlobalWindows.create()).sum(), **{"execution.window.fused": False}), "item 18"),
+            pkg["asg"].GlobalWindows.create()).sum(), **{"execution.window.fused": False}),
+            None),
         "side_output_of_a_source": (lambda: tds.StreamExecutionEnvironment(device="cpu")
                                     .from_collection([1]).get_side_output(tfn.LATE_DATA_TAG),
                                     "item 19"),
@@ -326,5 +355,10 @@ def _still_deferred():
 @pytest.mark.parametrize("name", sorted(_still_deferred()))
 def test_still_deferred_surfaces_raise(name):
     call, item = _still_deferred()[name]
+    if item is None:
+        # brought in by the per-record oracle operator: the job runs, and
+        # its rows are the JAX package's
+        assert call() == _still_deferred(JAX)[name][0]()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
         call()

@@ -8,9 +8,9 @@ job with a traceable int32 key over the session stream of
 `testing/stream.py::session_records` (four rotating key blocks, 500 ms
 jitter), also held against `numpy_sessionize`. Then the routing gates: the
 session operator is selected while the sources' out-of-orderness is below
-the gap; where the JAX package would pick its per-record oracle (disorder
->= gap, `execution.window.device-sessions` false, processing-time
-sessions) the port raises naming ROADMAP item 18.
+the gap; where the JAX package picks its per-record oracle (disorder >= gap,
+`execution.window.device-sessions` false, processing-time sessions) the
+port picks its own oracle operator and gives the same rows.
 
 Tolerance: exact. Sorted (key, value) rows; payloads are small integers.
 """
@@ -114,20 +114,36 @@ def test_columnar_traceable_key_job_matches_jax(aggregate):
 @pytest.mark.parametrize("what", ["device_sessions_off", "disorder_at_gap",
                                   "processing_time"])
 def test_jobs_the_jax_package_gives_its_oracle_raise_naming_item_18(what):
-    cfg = Configuration()
-    kw = {}
-    if what == "device_sessions_off":
-        cfg.set(ExecutionOptions.DEVICE_SESSIONS, False)
-        match = "device-sessions is false"
-    elif what == "disorder_at_gap":
-        kw = dict(bound=2000, gap=2000)
-        match = "out-of-orderness bound"
-    else:
-        kw = dict(assigner=tasg.ProcessingTimeSessionWindows(1000))
-        match = "processing-time"
-    env, _sink = _clicks_job(PORT, cfg, **kw)
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md Queue A, item 18"):
-        env.execute()
+    # item 18 is ported: where the JAX package picks its per-record oracle,
+    # the port picks its own, and the rows are the JAX package's
+    rows, ops = {}, None
+    for name, pkg in (("jax", JAX), ("port", PORT)):
+        cfg = pkg["cfg"]()
+        kw = {}
+        if what == "device_sessions_off":
+            cfg.set(pkg["opts"].DEVICE_SESSIONS, False)
+        elif what == "disorder_at_gap":
+            kw = dict(bound=2000, gap=2000)
+        else:
+            kw = dict(assigner=pkg["asg"].ProcessingTimeSessionWindows(1000))
+        env, sink = _clicks_job(pkg, cfg, **kw)
+        if pkg is PORT:
+            ops = [type(r.op).__name__ for r in build_runners(plan(env._sinks), env.config,
+                                                              "cpu")[0]
+                   if isinstance(r, WindowStepRunner)]
+        if what == "disorder_at_gap":
+            with pytest.warns(RuntimeWarning, match="out-of-orderness bound"):
+                env.execute()
+        else:
+            env.execute()
+        rows[name] = sorted(sink.results)
+    assert ops == ["OracleWindowOperator"]
+    if what == "processing_time":
+        # processing-time sessions fire on the wall clock, which neither
+        # package's end of input advances: both emit what their ticks fired
+        assert all(k in ("u1", "u2") for k, _c in rows["port"])
+        return
+    assert rows["port"] == rows["jax"] and rows["port"]
 
 
 def test_disorder_below_gap_selects_the_session_operator():

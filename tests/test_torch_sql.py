@@ -6,7 +6,8 @@ that the port runs go through `flink_tpu.table.TableEnvironment` and the
 port's `TableEnvironment(StreamExecutionEnvironment(device="cpu"))` on the
 same rows (made with numpy from a seed): TUMBLE COUNT, WHERE + SUM,
 WINDOW_START/WINDOW_END, HAVING, per-window ORDER BY/LIMIT, HOP, SESSION
-(the session operator), projections, continuous GROUP BY with
+(the session operator), multi-aggregate SELECTs (a composite accumulator
+on the per-record oracle operator), projections, continuous GROUP BY with
 retractions (host and device accumulators), the global continuous
 aggregate, cascaded aggregation over a registered changelog table and a
 GROUP BY column left out of the SELECT. Compared: every emitted row by
@@ -139,6 +140,36 @@ def test_sql_session_query_on_visits():
     out, report = _both(VISITS_T, "SELECT user, COUNT(*) AS n FROM visits "
                                   "GROUP BY user, SESSION(rowtime, INTERVAL '1' SECOND)")
     assert sorted((r["user"], r["n"]) for r in out) == [("u1", 1), ("u1", 2), ("u2", 1)]
+
+
+_MULTI = {
+    "tumble_count_sum_max": "SELECT campaign, COUNT(*) AS n, SUM(price) AS s, MAX(price) AS m "
+                            "FROM clicks GROUP BY campaign, TUMBLE(rowtime, INTERVAL '1' SECOND)",
+    "hop_min_avg": "SELECT campaign, MIN(price) AS lo, AVG(price) AS a FROM clicks "
+                   "GROUP BY campaign, HOP(rowtime, INTERVAL '1' SECOND, INTERVAL '3' SECOND)",
+    "session_bounds": "SELECT campaign, COUNT(*) AS n, SUM(price) AS s, WINDOW_START AS ws, "
+                      "WINDOW_END AS we FROM clicks "
+                      "GROUP BY campaign, SESSION(rowtime, INTERVAL '150' MILLISECOND)",
+    "having": "SELECT campaign, COUNT(*) AS n, AVG(price) AS a FROM clicks "
+              "GROUP BY campaign, TUMBLE(rowtime, INTERVAL '2' SECOND) HAVING n > 6",
+    "order_limit": "SELECT campaign, SUM(price) AS s, MAX(price) AS m FROM clicks "
+                   "GROUP BY campaign, TUMBLE(rowtime, INTERVAL '2' SECOND) "
+                   "ORDER BY s DESC LIMIT 2",
+    "single_non_device_agg_pair": "SELECT campaign, MAX(price) AS m, MIN(price) AS lo "
+                                  "FROM clicks GROUP BY campaign, "
+                                  "TUMBLE(rowtime, INTERVAL '1' SECOND)",
+}
+
+
+@pytest.mark.parametrize("batch", [None, 8])
+@pytest.mark.parametrize("name", sorted(_MULTI))
+def test_sql_multi_aggregate_select(name, batch):
+    """Several aggregates in one windowed SELECT: a composite accumulator
+    on the per-record oracle operator in both packages, with the JAX plan
+    report (interpreted, multi-aggregate)."""
+    out, report = _both(CLICKS_T, _MULTI[name], batch=batch)
+    assert out and report[0] == "interpreted"
+    assert report[1] == ("session-window" if name == "session_bounds" else "multi-aggregate")
 
 
 def test_sql_projection_only():
