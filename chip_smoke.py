@@ -94,6 +94,20 @@ exits non-zero on the first failure. Phases, one JSON line each:
    semantics; SQL_MULTI (COUNT(*), SUM(x), MAX(x) over the YSB HOP) at
    2^17 records against numpy, its plan report the JAX package's; tuples/s
    and a cProfile of each.
+20. api_correlated: shared correlated windows (graph/window_sharing.py).
+   `bench.py::correlated_windows_microbench`'s program (a traceable filter
+   and key, 1 min / 5 min / 1 h tumbling counts, 8192 keys, batch 65536):
+   in row mode at 2^19 records the shared program (one SharedWindowRunner
+   and two siblings), the same job with execution.window.shared-partials
+   false and a numpy model, window by window; shared and independent
+   interleaved at 2^22 records, columnar, best of 3, with their K1
+   launches. A five-member group on a 1 min granule (1, 5, 15, 60 min
+   tumbling, 10 min sliding by 1: F = 20, mixed per-slot window lengths)
+   at 2^20 keys and 2^22 records, shared and independent equal array for
+   array. Leg 1's program in latency mode at 2^21 records, its rows equal
+   throughput mode's in order. Then K1 against its plain version at the
+   wide group's first shared dispatch and at an unstaged ring (a 24 h
+   window sliding by 1 min beside 1 min: spw 1440, S = 2048), with times.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -553,25 +567,26 @@ def api_ysb_phase(dev=DEV, sizes=API) -> dict:
             "sliding_count": count_parity, "tumbling_sum": sum_parity}
 
 
-def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None) -> dict:
+def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2, 3)) -> dict:
     """K1 against its plain version on one dispatch's inputs (bit-equal),
     with its time (CUDA events), the plain version's, one index_add_ of the
     dispatch's ingest as the library yardstick, its bound and its device
     time by kernel. R: the fire rows to allocate (a readback group's;
-    default the pipeline's)."""
+    default the pipeline's); plain_reps: cuda_ms's (reps, rounds) for the
+    plain version."""
     from flink_tpu_torch.ops import cuda_superscan as cs
     from flink_tpu_torch.ops.superscan import keyed_superscan_plain
     from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
 
     S_, K_, T_ = pipe.S, pipe.K, int(plan[0].shape[0])
     R = pipe.R if R is None else R
-    kw = dict(NSB=pipe.NSB, R=R, spws=(pipe.spw,) * pipe.F, exact=True)
+    kw = dict(NSB=pipe.NSB, R=R, spws=pipe.slot_spws(), exact=True)
     err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
                          [(idx, vals, plan)], (S_, K_), False, **kw)
     count, states = _fresh_rings(agg, (S_, K_), DEV, False)
     ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw), 10)
     plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, states, idx, vals,
-                                                     plan[:5], **kw), 2, 3)
+                                                     plan[:5], **kw), *plain_reps)
     # yardstick: the dispatch's ingest as one index_add_
     ii = idx.view(T_, -1).long()
     live = ii >= 0
@@ -589,7 +604,7 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None) -> dict:
               + 2 * rings * S_ * K_ * 4 + rings * len(plan[5]) * K_ * 4
               + sum(p.numel() * 4 for p in plan[:5]))
     b_ms, b_by = bound(nbytes, int(live.sum()) * rings)
-    return {"shape": f"{label}, T={T_} B={idx.numel() // T_} K={K_} S={S_} R={R}",
+    return {"shape": f"{label}, T={T_} B={idx.numel() // T_} K={K_} S={S_} R={R} F={pipe.F}",
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "fires": len(plan[5]), "device_us": device_split_us(
@@ -2127,6 +2142,258 @@ def api_oracle_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: shared correlated windows (graph/window_sharing.py) — sibling
+# window() steps over one keyed stream as one shared-partial K1 program
+# ---------------------------------------------------------------------------
+
+API_CORRELATED = dict(keys=8192, batch=65536, parity_events=1 << 19, timed_events=1 << 22,
+                      warmup_events=1 << 17, runs=3, wide_keys=1 << 20, wide_events=1 << 22,
+                      latency_events=1 << 21, target_ms=50, readback_steps=8)
+#: 2 h of event time: two 1 h windows
+CORRELATED_SPAN_MS = 2 * 3_600_000
+#: leg 1, bench.py::correlated_windows_microbench's members: 1 min, 5 min,
+#: 1 h tumbling counts
+DASHBOARD = (("tumbling", 60_000), ("tumbling", 300_000), ("tumbling", 3_600_000))
+#: leg 2: five members on a 1 min granule (1, 5, 15, 60 min tumbling, 10
+#: min sliding by 1): 20 fire slots with mixed window lengths
+DASHBOARD_WIDE = (("tumbling", 60_000), ("tumbling", 300_000), ("tumbling", 900_000),
+                  ("tumbling", 3_600_000), ("sliding", 600_000, 60_000))
+#: K1's unstaged-ring check: a 24 h window sliding by 1 min (1440 slices,
+#: S = 2048) beside a 1 min one
+UNSTAGED = (("tumbling", 60_000), ("sliding", 86_400_000, 60_000))
+
+
+def _member(m):
+    from flink_tpu_torch.api.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+
+    if m[0] == "tumbling":
+        return TumblingEventTimeWindows.of(m[1])
+    return SlidingEventTimeWindows.of(m[1], m[2])
+
+
+def correlated_columns(idx: np.ndarray, n: int, keys: int):
+    """correlated_windows_microbench's stream: (campaign, event_type)
+    columns over 2 h of event time."""
+    camp = (idx * 2654435761) % keys
+    col = np.stack([camp, idx % 3], axis=1).astype(np.float32)
+    return col, (10_000 + idx * CORRELATED_SPAN_MS // n).astype(np.int64)
+
+
+def correlated_run(n: int, shared: bool, *, columnar: bool, members=DASHBOARD, keys=None,
+                   latency: bool = False, sz=API_CORRELATED, dev=DEV) -> dict:
+    """One run of the program (a traceable filter keeping event_type 0, a
+    traceable key, a `count` window per member, batch 65536) through the
+    executor's JobRuntime, what env.execute() runs, with
+    execution.window.shared-partials `shared`; K1's launch counts at 0 just
+    before it. Returns the sinks, seconds, K1 launches and runner kinds."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    keys = keys or sz["keys"]
+    conf = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": keys,
+            "execution.window.columnar-output": columnar,
+            "execution.window.shared-partials": shared}
+    if latency:
+        conf.update({"execution.latency.target-ms": sz["target_ms"],
+                     "execution.latency.readback-steps": sz["readback_steps"]})
+    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
+    keyed = (env.from_source(DataGeneratorSource(
+        lambda idx: Batch(*correlated_columns(idx, n, keys)), n),
+        WatermarkStrategy.for_bounded_out_of_orderness(0))
+        .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True))
+    sinks = []
+    for m in members:
+        sinks.append(rows_sink())
+        keyed.window(_member(m)).aggregate("count").sink_to(sinks[-1])
+    runtime = JobRuntime(plan(env._sinks), env.config, dev)
+    kinds = sorted(type(r).__name__ for r in runtime.runners)
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    runtime.run()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    return {"sinks": sinks, "seconds": secs, "tuples_per_s": n / secs,
+            "k1_launches": cs.LAUNCHES["k1_superscan"], "kinds": kinds}
+
+
+def _shared_selected(kinds, members: int) -> bool:
+    return (kinds.count("SharedWindowRunner") == 1
+            and kinds.count("SharedWindowSiblingRunner") == members - 1
+            and "DeviceChainRunner" not in kinds)
+
+
+def correlated_rows(sink) -> dict:
+    """Row-mode sink records as {(window max timestamp, key): count}."""
+    return {(int(t), int(k)): int(v) for values, ts in sink.batches
+            for (k, v), t in zip(values, ts)}
+
+
+def correlated_fires(sink) -> list:
+    """Columnar sink records in order: (start, end, key ids, counts) a fire."""
+    return [(int(r[0].start), int(r[0].end), np.asarray(r[1]), np.asarray(r[2]))
+            for values, _ts in sink.batches for r in values]
+
+
+def _fires_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x[:2] == y[:2] and np.array_equal(x[2], y[2]) and np.array_equal(x[3], y[3])
+        for x, y in zip(a, b))
+
+
+def correlated_model(n: int, keys: int, m) -> dict:
+    """numpy: {(window max timestamp, key): count} of one member over the
+    records the filter keeps."""
+    idx = np.arange(n, dtype=np.int64)[::3]            # event_type 0
+    camp = (idx * 2654435761) % keys
+    ts = 10_000 + idx * CORRELATED_SPAN_MS // n
+    size, slide = (m[1], m[1]) if m[0] == "tumbling" else (m[1], m[2])
+    out = {}
+    for back in range(size // slide):                  # the windows a record is in
+        j = ts // slide - back
+        cells, counts = np.unique(j * keys + camp, return_counts=True)
+        for c, v in zip(cells.tolist(), counts.tolist()):
+            key = (int(c // keys) * slide + size - 1, int(c % keys))
+            out[key] = out.get(key, 0) + v
+    return out
+
+
+def correlated_k1_inputs(members, keys: int, n: int, batch=API_CORRELATED["batch"], dev=DEV):
+    """K1's inputs of a shared program's first full dispatch (32 steps of
+    65536 records of the n-record stream), made by the shared pipeline's
+    own staging and prologue at the operator's geometry: (pipe, agg, idx,
+    vals, plan)."""
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.runtime.fused_window_pipeline import (
+        SharedWindowPipeline,
+        TracedPrologue,
+    )
+
+    B, T = batch, 32
+    agg = resolve("count")
+    pipe = SharedWindowPipeline([_member(m) for m in members], agg, key_capacity=keys,
+                                nsb=4, fires_per_step=4, out_rows=256, chunk=4096,
+                                prologue=TracedPrologue((("filter", _t_filter),), _t_key),
+                                device=dev)
+    steps, wms = [], []
+    for t in range(T):
+        col, ts = correlated_columns(np.arange(t * B, (t + 1) * B, dtype=np.int64), n, keys)
+        steps.append((col, ts))
+        wms.append(int(ts.max()) - 1)
+    raw, srel, ts, plan = pipe.stage_superbatch_raw(steps, wms)
+    idx, vals, _bounds = pipe._run_prologue(raw, srel, ts)
+    return pipe, agg, idx, vals, plan
+
+
+def api_correlated_phase(dev=DEV, sizes=None) -> dict:
+    """Shared correlated windows on the port, three legs.
+
+    1. correlated_windows_microbench's program (1 min / 5 min / 1 h
+       tumbling counts, 8192 keys): in row mode at parity_events, the shared
+       program, the same job with shared partials off and a numpy model,
+       window by window; one SharedWindowRunner and two siblings built; then
+       shared and independent interleaved in columnar mode at timed_events,
+       best of `runs`.
+    2. five members on a 1 min granule (F = 20, mixed spws) at 2^20 keys,
+       wide_events records, columnar: shared and independent equal array for
+       array, each member's counts summing to its windows' records.
+    3. leg 1's program in latency mode (target-ms, readback-steps) at
+       latency_events, columnar: its rows equal throughput mode's, in order,
+       and a full dispatch is 32 / readback-steps K1 launches."""
+    sz = sizes or API_CORRELATED
+    out = {"phase": "api_correlated"}
+
+    # ---- leg 1 ----
+    n = sz["parity_events"]
+    correlated_run(sz["warmup_events"], True, columnar=True, sz=sz, dev=dev)      # build, warm
+    correlated_run(sz["warmup_events"], False, columnar=True, sz=sz, dev=dev)
+    shared = correlated_run(n, True, columnar=False, sz=sz, dev=dev)
+    indep = correlated_run(n, False, columnar=False, sz=sz, dev=dev)
+    per_member, parity = [], True
+    for i, m in enumerate(DASHBOARD):
+        got, other = correlated_rows(shared["sinks"][i]), correlated_rows(indep["sinks"][i])
+        model = correlated_model(n, sz["keys"], m)
+        ok = got == other == model and len(got) > 0
+        parity = parity and ok
+        per_member.append({"member": m, "parity": ok, "rows": len(got),
+                           "windows_checked": len({t for t, _k in model})})
+    selected = (_shared_selected(shared["kinds"], len(DASHBOARD))
+                and indep["kinds"].count("DeviceChainRunner") == len(DASHBOARD))
+    timed = {"shared": [], "independent": []}
+    for _ in range(sz["runs"]):
+        for name, on in (("shared", True), ("independent", False)):
+            r = correlated_run(sz["timed_events"], on, columnar=True, sz=sz, dev=dev)
+            timed[name].append({k: r[k] for k in ("seconds", "tuples_per_s", "k1_launches")})
+    best = {name: max(runs, key=lambda r: r["tuples_per_s"]) for name, runs in timed.items()}
+    out["leg1"] = {
+        "events": n, "parity": parity, "members": per_member,
+        "parity_k1_launches": {"shared": shared["k1_launches"],
+                               "independent": indep["k1_launches"]},
+        "shared_kinds": shared["kinds"], "independent_kinds": indep["kinds"],
+        "timed_events": sz["timed_events"],
+        "shared_tuples_per_s": best["shared"]["tuples_per_s"],
+        "independent_tuples_per_s": best["independent"]["tuples_per_s"],
+        "shared_over_independent": (best["shared"]["tuples_per_s"]
+                                    / best["independent"]["tuples_per_s"]),
+        "k1_launches": {name: best[name]["k1_launches"] for name in best},
+        "timed": timed}
+    out["shared_selected"] = selected
+    del shared, indep
+
+    # ---- leg 2: a wide group at 2^20 keys ----
+    wide = {}
+    for name, on in (("shared", True), ("independent", False)):
+        r = correlated_run(sz["wide_events"], on, columnar=True, members=DASHBOARD_WIDE,
+                           keys=sz["wide_keys"], sz=sz, dev=dev)
+        wide[name] = {"fires": [correlated_fires(s) for s in r["sinks"]],
+                      **{k: r[k] for k in ("seconds", "tuples_per_s", "k1_launches", "kinds")}}
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    kept = len(range(0, sz["wide_events"], 3))
+    equal, totals_ok = True, True
+    for i, m in enumerate(DASHBOARD_WIDE):
+        a, b = wide["shared"]["fires"][i], wide["independent"]["fires"][i]
+        equal = equal and len(a) > 0 and _fires_equal(a, b)
+        per_record = 1 if m[0] == "tumbling" else m[1] // m[2]
+        totals_ok = totals_ok and sum(int(f[3].sum()) for f in a) == kept * per_record
+    wide_selected = (_shared_selected(wide["shared"]["kinds"], len(DASHBOARD_WIDE))
+                     and wide["independent"]["kinds"].count("DeviceChainRunner")
+                     == len(DASHBOARD_WIDE))
+    out["leg2"] = {"events": sz["wide_events"], "keys": sz["wide_keys"],
+                   "members": [list(m) for m in DASHBOARD_WIDE], "equal": equal,
+                   "totals_ok": totals_ok, "selected": wide_selected,
+                   "fires": [len(f) for f in wide["shared"]["fires"]],
+                   **{name: {k: v[k] for k in ("seconds", "tuples_per_s", "k1_launches")}
+                      for name, v in wide.items()}}
+    del wide
+
+    # ---- leg 3: latency mode ----
+    n3 = sz["latency_events"]
+    base = correlated_run(n3, True, columnar=True, sz=sz, dev=dev)
+    lat = correlated_run(n3, True, columnar=True, latency=True, sz=sz, dev=dev)
+    same = all(_fires_equal(correlated_fires(a), correlated_fires(b))
+               for a, b in zip(base["sinks"], lat["sinks"]))
+    out["leg3"] = {"events": n3, "rows_equal_throughput": same,
+                   "throughput": {k: base[k] for k in ("seconds", "tuples_per_s", "k1_launches")},
+                   "latency": {k: lat[k] for k in ("seconds", "tuples_per_s", "k1_launches")},
+                   "selected": _shared_selected(lat["kinds"], len(DASHBOARD))}
+    launched = all(x > 0 for x in (out["leg1"]["k1_launches"]["shared"],
+                                   out["leg2"]["shared"]["k1_launches"],
+                                   lat["k1_launches"]))
+    out["ok"] = bool(parity and selected and equal and totals_ok and wide_selected and same
+                     and out["leg3"]["selected"] and launched)
+    return out
+
+
 def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
     """Each torch program of the per-batch operators at lateness_operator's
     shapes (the global count step at api_count_window's, the group-agg step
@@ -2549,6 +2816,38 @@ def main() -> int:
         raise AssertionError("api_oracle: a job differs from its numpy model, the oracle was "
                              "not selected, a kernel launched, or the SQL plan report is "
                              "not the JAX package's")
+    # ---- 20. shared correlated windows, every run with its K1 launches
+    # counted from 0; then K1 at the wide group's shared dispatch (F = 20,
+    # mixed spws) and at an unstaged ring (spw 1440, S = 2048) ----
+    t_cor = time.perf_counter()
+    corr = api_correlated_phase()
+    corr["phase_s"] = time.perf_counter() - t_cor
+    emit(corr)
+    if not corr["ok"]:
+        raise AssertionError("api_correlated: a leg's parity failed (shared, independent and "
+                             "the numpy model; the wide group's arrays; latency mode's rows), "
+                             "the shared runner was not selected, or a run launched no K1")
+    for name, runs in (("api_correlated_shared", corr["leg1"]["k1_launches"]["shared"]),
+                       ("api_correlated_independent",
+                        corr["leg1"]["k1_launches"]["independent"]),
+                       ("api_correlated_wide_shared", corr["leg2"]["shared"]["k1_launches"]),
+                       ("api_correlated_wide_independent",
+                        corr["leg2"]["independent"]["k1_launches"]),
+                       ("api_correlated_latency", corr["leg3"]["latency"]["k1_launches"])):
+        path_launches["k1_superscan"][name] = runs
+    t_k1s = time.perf_counter()
+    shared_k1 = k1_at_dispatch(
+        "api_correlated wide group: the five-member shared program's first full dispatch "
+        "(spws 1/5/15/60/10)", *correlated_k1_inputs(
+            DASHBOARD_WIDE, API_CORRELATED["wide_keys"], API_CORRELATED["wide_events"]))
+    unstaged_k1 = k1_at_dispatch(
+        "api_correlated unstaged ring: 1 min tumbling beside 24 h sliding by 1 min "
+        "(spws 1/1440)", *correlated_k1_inputs(
+            UNSTAGED, API_CORRELATED["keys"], API_CORRELATED["timed_events"]),
+        plain_reps=(1, 1))
+    emit({"phase": "k1_shared_shapes", "card": card, "wide": shared_k1,
+          "unstaged": unstaged_k1, "phase_s": time.perf_counter() - t_k1s})
+    torch.cuda.empty_cache()
     # ---- 16. the per-batch torch programs at these shapes ----
     timed = LATENESS["timed"]
     per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
@@ -2584,6 +2883,17 @@ def main() -> int:
                                  for r, v in api_lat["pinned"].items()}},
          **{k: grouped_k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms", "device_us", "fires")}},
+        {"name": "k1_superscan_shared", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": shared_k1["shape"],
+         "launches": corr["leg2"]["shared"]["k1_launches"],
+         "launches_by_path": {k: v for k, v in path_launches["k1_superscan"].items()
+                              if k.startswith("api_correlated")},
+         "max_abs_err": max(shared_k1["max_abs_err"], unstaged_k1["max_abs_err"]),
+         **{k: shared_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "device_us", "fires")},
+         "unstaged": unstaged_k1},
         {"name": "k1_int_sum", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:103",
@@ -2657,6 +2967,20 @@ def main() -> int:
         API_LATENCY["events"], True, API_LATENCY)["seconds"]))
     emit(host_profile("api_latency", lambda: latency_run(
         API_LATENCY["events"], True, API_LATENCY)["seconds"]))
+    # shared correlated windows (phase 20): leg 1's shared run
+    emit(profile_run("api_correlated_shared", lambda: correlated_run(
+        API_CORRELATED["timed_events"], True, columnar=True)["seconds"]))
+    emit(host_profile("api_correlated_shared", lambda: correlated_run(
+        API_CORRELATED["timed_events"], True, columnar=True)["seconds"]))
+    # and the wide group at 2^20 keys, shared and independent
+    for name, on in (("shared", True), ("independent", False)):
+        wide_run = (lambda on=on: correlated_run(
+            API_CORRELATED["wide_events"], on, columnar=True, members=DASHBOARD_WIDE,
+            keys=API_CORRELATED["wide_keys"])["seconds"])
+        if on:
+            emit(profile_run(f"api_correlated_wide_{name}", wide_run))
+        emit(host_profile(f"api_correlated_wide_{name}", wide_run))
+        torch.cuda.empty_cache()
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -68,6 +68,32 @@ class WindowAssigner:
     def offset_ms(self) -> int:
         return 0
 
+    def slices_on(self, granule_ms: int):
+        """The exact decomposition of this assigner's windows onto a slice
+        granule: (slices_per_window, slide_slices) such that window j
+        covers the slice run [j*slide_slices, j*slide_slices +
+        slices_per_window) on the `granule_ms` grid. The shared-partials
+        contract (graph/window_sharing.py): a group of correlated windows
+        keeps one ring at the gcd granule and every member folds its
+        windows from it, so the decomposition must be exact, including a
+        slide that does not divide the size and the size == slide
+        collapse (where the only valid granule is gcd(size, slide)).
+
+        Raises ValueError when the granule does not divide both size and
+        slide, or when the assigner is not sliceable."""
+        if self.slice_ms is None:
+            raise ValueError(f"{self!r} is not sliceable")
+        size = self.slices_per_window * self.slice_ms
+        slide = self.slide_slices * self.slice_ms
+        if granule_ms <= 0 or size % granule_ms or slide % granule_ms:
+            raise ValueError(
+                f"granule {granule_ms}ms does not divide size={size}ms / "
+                f"slide={slide}ms exactly — a window edge would fall inside "
+                f"a slice; use a divisor of gcd(size, slide) = "
+                f"{math.gcd(size, slide)}ms"
+            )
+        return size // granule_ms, slide // granule_ms
+
 
 class TumblingEventTimeWindows(WindowAssigner):
     def __init__(self, size_ms: int, offset_ms: int = 0):

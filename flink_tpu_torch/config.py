@@ -76,9 +76,6 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 _UNPORTED_PREFIXES = (
     ("parallel.", deferred.MESH),
     ("state.tier.", deferred.STATE_PLANE),
-    # a perf switch in the JAX package; the port forms no sharing group,
-    # so sibling windows each run their own fused program
-    ("execution.window.shared-partials", deferred.D3),
     ("observability.", deferred.METRICS),
     ("execution.checkpointing.", deferred.CHECKPOINTS),
     ("state.checkpoints.", deferred.CHECKPOINTS),
@@ -176,6 +173,17 @@ class ExecutionOptions:
         "watermark out-of-orderness stays below the session gap. Off (or "
         "disorder >= gap), the per-record oracle operator runs them, as in the "
         "JAX package.")
+    SHARED_PARTIALS = (
+        ConfigOptions.key("execution.window.shared-partials").bool_type().default_value(True)
+    ).with_description(
+        "Run correlated window aggregates (sibling window() steps over the "
+        "same keyed stream with the same aggregate, e.g. 1m/5m/1h dashboards) "
+        "as ONE shared-partial device program: slices are ingested once at "
+        "the gcd granule and every member window folds its result from the "
+        "shared ring at fire time (graph/window_sharing.py). Needs "
+        "execution.chain.device-fusion and execution.window.fused. A perf "
+        "switch, never a semantics switch: off, each member runs its own "
+        "fused program with the same rows.")
     COLUMNAR_OUTPUT = (
         ConfigOptions.key("execution.window.columnar-output").bool_type().default_value(False)
     ).with_description(

@@ -20,7 +20,11 @@ enum FieldKind {
 };
 
 #define MAX_FIELDS 4
-#define MAX_FIRES 16
+// Fire slots a step, at most: a shared-partial group of 16 member windows
+// at 4 fires a step each (K2 takes fewer: global_superscan.cu). A step's
+// writing slots are a mask of FIRE_WORDS words.
+#define MAX_FIRES 64
+#define FIRE_WORDS (MAX_FIRES / 32)
 
 struct Fields {
   void* p[MAX_FIELDS];   // one [S, K] (keyed) or [S] (global) ring per field
@@ -103,52 +107,59 @@ __device__ __forceinline__ int mod_s(int x, int S) {
   return m < 0 ? m + S : m;
 }
 
-// The fire slots of a step that write: lane f (< F) holds slot f's valid
-// flag and clipped row, the other lanes 0 and -1. A slot writes unless a
-// later valid slot has the same row (the later write would win). Returns
-// the warp's mask of writing slots.
-__device__ __forceinline__ unsigned int writing_slots(int fv, int row, int F) {
-  const int lane = threadIdx.x & 31;
-  bool later = false;
-  for (int f2 = 0; f2 < F; ++f2) {
-    const int v2 = __shfl_sync(0xffffffffu, fv, f2);
-    const int r2 = __shfl_sync(0xffffffffu, row, f2);
-    later |= f2 > lane && v2 > 0 && r2 == row;
-  }
-  return __ballot_sync(0xffffffffu, fv > 0 && !later);
-}
-
 // One step's plan as a warp that walks a ring reads it: smin and the fire
-// positions reduced mod S, rows clipped to [0, R), the slots that write as
-// a mask, and the purged columns as bits (columns below 128; a walker of a
-// wider ring reads the plan's purge row itself).
+// positions reduced mod S, rows clipped to [0, R) (both below 2^16: the
+// wrappers' limits), the slots that write as a mask (bit l of word c: slot
+// 32 * c + l), and the purged columns as bits (columns below 128; a walker
+// of a wider ring reads the plan's purge row itself).
 #define DESC_DEAD_WORDS 4
 struct StepDesc {
   int sm;
-  unsigned int fires;
-  int pos[MAX_FIRES];
-  int row[MAX_FIRES];
+  unsigned int fires[FIRE_WORDS];
+  unsigned short pos[MAX_FIRES];
+  unsigned short row[MAX_FIRES];
   unsigned int dead[DESC_DEAD_WORDS];
 };
 
-static_assert(sizeof(StepDesc) == 4 * (2 + 2 * MAX_FIRES + DESC_DEAD_WORDS),
+static_assert(sizeof(StepDesc) == 4 * (1 + FIRE_WORDS + MAX_FIRES + DESC_DEAD_WORDS),
               "StepDesc is packed 32-bit words");
 
 // sizeof(StepDesc): ops/cuda_superscan.py sizes the scratch that holds
 // the descriptors, and checks its size against this when it loads a library.
 extern "C" int step_desc_bytes() { return (int)sizeof(StepDesc); }
 
-// Build the descriptor of step t; called by a whole warp.
+// Build the descriptor of step t; called by a whole warp, lane l holding
+// slots l, 32 + l, ... A slot writes unless a later valid slot has the same
+// row (the later write would win).
 __device__ __forceinline__ void build_desc(StepDesc& d, const Plan& plan, long long t,
                                            int S, int F, int R) {
   const int lane = threadIdx.x & 31;
-  const bool slot = lane < F;
-  const int fv = slot ? plan.fvalid[t * F + lane] : 0;
-  const int row = slot ? min(max(plan.frow[t * F + lane], 0), R - 1) : -1;
-  const unsigned int fires = writing_slots(fv, row, F);
-  if (slot) {
-    d.pos[lane] = mod_s(plan.fpos[t * F + lane], S);
-    d.row[lane] = row;
+  int fv[FIRE_WORDS], row[FIRE_WORDS];
+#pragma unroll
+  for (int c = 0; c < FIRE_WORDS; ++c) {
+    const int f = 32 * c + lane;
+    const bool slot = f < F;
+    fv[c] = slot ? plan.fvalid[t * F + f] : 0;
+    row[c] = slot ? min(max(plan.frow[t * F + f], 0), R - 1) : -1;
+    if (slot) {
+      d.pos[f] = (unsigned short)mod_s(plan.fpos[t * F + f], S);
+      d.row[f] = (unsigned short)row[c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < FIRE_WORDS; ++c) {
+    bool later = false;
+#pragma unroll
+    for (int c2 = c; c2 < FIRE_WORDS; ++c2) {
+      if (32 * c2 >= F) continue;              // the same for the whole warp
+      for (int l2 = 0; l2 < 32; ++l2) {
+        const int v2 = __shfl_sync(0xffffffffu, fv[c2], l2);
+        const int r2 = __shfl_sync(0xffffffffu, row[c2], l2);
+        later |= (c2 > c || l2 > lane) && v2 > 0 && r2 == row[c];
+      }
+    }
+    const unsigned int fires = __ballot_sync(0xffffffffu, fv[c] > 0 && !later);
+    if (lane == 0) d.fires[c] = fires;
   }
 #pragma unroll
   for (int j = 0; j < DESC_DEAD_WORDS; ++j) {
@@ -157,10 +168,7 @@ __device__ __forceinline__ void build_desc(StepDesc& d, const Plan& plan, long l
         __ballot_sync(0xffffffffu, col < S && plan.purge[t * S + col] == 0);
     if (lane == 0) d.dead[j] = dead;
   }
-  if (lane == 0) {
-    d.sm = mod_s(plan.smin[t], S);
-    d.fires = fires;
-  }
+  if (lane == 0) d.sm = mod_s(plan.smin[t], S);
 }
 
 // The fold of the w ring lanes from pos (in [0, S)) of a ring held one

@@ -38,6 +38,7 @@
 #define MAX_NSB 8
 #define MAX_S 32
 #define MAX_R 128
+#define K2_MAX_FIRES 16               // fire slots a step (one lane each)
 #define K2_THREADS 256
 #define K2_WARPS (K2_THREADS / 32)
 #define K2_UNROLL 8                   // records in flight per thread
@@ -224,7 +225,7 @@ k2_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 #pragma unroll
           for (int a = 0; a <= MAX_FIELDS; ++a)
             if (a < na) reg[a] = merge_bits(kind[a], reg[a], addv[b][tl][a][lane]);
-        for (unsigned int fires = d.fires; fires; fires &= fires - 1) {
+        for (unsigned int fires = d.fires[0]; fires; fires &= fires - 1) {
           const int f = __ffs(fires) - 1;      // fire: fold across the warp
           const int w = __shfl_sync(0xffffffffu, w_lane, f);
 #pragma unroll
@@ -267,7 +268,7 @@ extern "C" int k2_global_superscan(
     const int* fpos, const int* fvalid, const int* frow, const int* purge,
     const int* spws, int F, int* count_out, void* const* outs, int S,
     int NSB, int R, int T, int B, int* part, int nblk, void* stream) {
-  if (nf > MAX_FIELDS || F > MAX_FIRES || NSB < 1 || NSB > MAX_NSB || S > MAX_S ||
+  if (nf > MAX_FIELDS || F > K2_MAX_FIRES || NSB < 1 || NSB > MAX_NSB || S > MAX_S ||
       R > MAX_R || nblk < 1 || (long long)T * nblk >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;

@@ -358,7 +358,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
     ring_p[a] = (a ? (int*)fl.p[a - 1] : count) + key;
     out_p[a] = (a ? (int*)outs.p[a - 1] : count_out) + key;
   }
-  if (kl < MAX_FIRES) w_s[kl] = spws.w[kl];
+  for (int f = kl; f < MAX_FIRES; f += K1_SCAN_KEYS) w_s[f] = spws.w[f];
   int* ps = sm + (STAGED ? NA * S * K1_SCAN_KEYS : 0);
   // ring cell (a, col) of the thread's key; neighbouring keys sit in
   // neighbouring banks, and a step's columns are the same for every key
@@ -440,22 +440,25 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
         }
       }
 
-      // fire: slot f folds the w columns from its position into its row
-      for (unsigned int fires = d.fires; fires; fires &= fires - 1) {
-        const int f = __ffs(fires) - 1;
-        const int pos = d.pos[f], w = w_s[f];
-        const long long row = (long long)d.row[f] * K;
+      // fire: slot f folds its own w columns (a shared group's members
+      // differ) from its position into its row
 #pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          int acc = K1_CELL(a, pos);
+      for (int c = 0; c < FIRE_WORDS; ++c)
+        for (unsigned int fires = d.fires[c]; fires; fires &= fires - 1) {
+          const int f = 32 * c + __ffs(fires) - 1;
+          const int pos = d.pos[f], w = w_s[f];
+          const long long row = (long long)d.row[f] * K;
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+            int acc = K1_CELL(a, pos);
 #pragma unroll 4
-          for (int j = 1, col = pos; j < w; ++j) {
-            col = col + 1 == S ? 0 : col + 1;
-            acc = merge_bits(kind[a], acc, K1_CELL(a, col));
+            for (int j = 1, col = pos; j < w; ++j) {
+              col = col + 1 == S ? 0 : col + 1;
+              acc = merge_bits(kind[a], acc, K1_CELL(a, col));
+            }
+            out_p[a][row] = acc;
           }
-          out_p[a][row] = acc;
         }
-      }
 
       // purge: dead columns back to the identity
 #pragma unroll
@@ -500,7 +503,7 @@ extern "C" int k1_superscan(
     int NSB, int R, int B, int exact, int* part, int t0, int tg,
     void* stream) {
   if (nf > MAX_FIELDS || F > MAX_FIRES || tg < 1 || tg > 65535 || K < 1 || NSB < 1 ||
-      (long long)NSB * K >= (1LL << 31))
+      S > 65536 || R > 65536 || (long long)NSB * K >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   Fields fl = {}, ol = {};
   fl.n = ol.n = nf;

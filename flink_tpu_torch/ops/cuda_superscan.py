@@ -69,9 +69,15 @@ GLOBAL_CHUNK = 32768
 
 # limits of the C entry points (csrc/common.cuh, global_superscan.cu)
 MAX_FIELDS = 4
-MAX_FIRES = 16
-#: sizeof(StepDesc) in csrc/common.cuh (checked when a library loads)
-STEP_DESC_BYTES = 4 * (2 + 2 * MAX_FIRES + 4)
+#: K1's fire slots a step: a shared-partial group of 16 member windows at
+#: 4 fires a step
+MAX_FIRES = 64
+#: a step descriptor's fire positions and rows are 16-bit
+MAX_RING = MAX_ROWS = 1 << 16
+#: sizeof(StepDesc) in csrc/common.cuh (checked when a library loads): smin,
+#: the writing-slot mask, 16-bit positions and rows, purged-column bits
+STEP_DESC_BYTES = 4 * (1 + MAX_FIRES // 32 + MAX_FIRES + 4)
+MAX_GLOBAL_FIRES = 16
 MAX_GLOBAL_NSB = 8
 MAX_GLOBAL_S = 32
 MAX_GLOBAL_R = 128
@@ -220,11 +226,12 @@ def _kind_code(f, kind=None) -> int:
 def supports(agg, K: int, R: int, S: int, NSB: int, F: int) -> bool:
     """Whether kernel K1 takes this aggregate/geometry: at most 4 VALUE
     fields, each an add, bounded max8 or unbounded min/max of float32 or
-    int32; at most 16 fire slots; ring and out cell indices within int32
-    row arithmetic."""
+    int32; at most 64 fire slots; at most 2^16 ring columns and fire rows;
+    ring and out cell indices within int32 row arithmetic."""
     vf = value_fields(agg)
     return (len(vf) <= MAX_FIELDS and F <= MAX_FIRES
             and all(_kind_code(f) >= 0 for f in vf)
+            and S <= MAX_RING and R <= MAX_ROWS
             and S * K < 2 ** 31 and R * K < 2 ** 31 and NSB * K < 2 ** 31)
 
 
@@ -235,7 +242,7 @@ def supports_global(agg, S: int, R: int, NSB: int, F: int) -> bool:
     bounded max folds as a plain int32 max on the global path, as on TPU."""
     vf = value_fields(agg)
     return (S <= MAX_GLOBAL_S and R <= MAX_GLOBAL_R and NSB <= MAX_GLOBAL_NSB
-            and F <= MAX_FIRES and len(vf) <= MAX_FIELDS
+            and F <= MAX_GLOBAL_FIRES and len(vf) <= MAX_FIELDS
             and all(_kind_code(f, f.scatter) >= 0 for f in vf))
 
 
@@ -352,7 +359,7 @@ def keyed_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
             f"kernel K1 does not take aggregate {agg.name!r} at K={K} S={S} "
             f"R={R} F={F}: 32-bit add, max8, min and max fields only (64-bit ones "
             "compute in 32 bits), "
-            "at most 4 fields and 16 fire slots")
+            "at most 4 fields, 64 fire slots, 2^16 ring columns and fire rows")
     vf = value_fields(agg)
     T = plan[1].shape[0]
     B = idx.numel() // max(T, 1)

@@ -8,7 +8,10 @@ sinks), and the source's watermark advances between steps.
 
 Runner selection follows the JAX package. A window step whose chain is
 traceable (graph/fusion.py) gets a `DeviceChainRunner`: the chain runs as
-a torch prologue on the device inside each fused dispatch. Otherwise a
+a torch prologue on the device inside each fused dispatch. Correlated
+sibling windows over one keyed stream (graph/window_sharing.py) share one
+`SharedWindowRunner` instead, its members' edges fed through
+`SharedWindowSiblingRunner`s. Otherwise a
 `ChainRunner` applies the chain on the host and a `WindowStepRunner`
 keys the records through the host dictionary into its operator:
 - GlobalWindows with a CountTrigger or PurgingTrigger(CountTrigger): the
@@ -336,6 +339,16 @@ def _session_disorder_within_gap(step: Step, assigner) -> bool:
     return False
 
 
+def _push_rows(fan: Optional[_FanOut], out: list, window_fn=None) -> None:
+    """Hand an operator's drained (key, window, result, ts) rows to `fan`:
+    row mode as (key, value); columnar mode (key None) as the packed
+    (window, key ids, values) triple; a window function's output as it is."""
+    if out and fan:
+        vals = obj_array([r if (window_fn is not None or k is None) else (k, r)
+                          for (k, _w, r, _t) in out])
+        fan.on_batch(vals, np.asarray([t for (_k, _w, _r, t) in out], dtype=np.int64))
+
+
 class WindowStepRunner(StepRunner):
     """Keyed window aggregation step over the operator the JAX runner
     selects, under its conditions: global count windows, device sessions,
@@ -524,7 +537,10 @@ class WindowStepRunner(StepRunner):
         if safe is not None:
             watermark = min(watermark, safe)
         if watermark > MIN_WATERMARK:
-            super().on_watermark(watermark)
+            self._forward_watermark(watermark)
+
+    def _forward_watermark(self, watermark: int) -> None:
+        StepRunner.on_watermark(self, watermark)
 
     def on_end(self) -> None:
         self._drain()
@@ -539,15 +555,7 @@ class WindowStepRunner(StepRunner):
                 self.emit_side(tag_id, obj_array([(k, v) for (k, v, _t) in rows]),
                                np.asarray([t for (_k, _v, t) in rows], dtype=np.int64))
             op_sides[tag_id] = []
-        out = self.op.drain_output()
-        if out and self.downstream:
-            # row mode: (key, value); columnar mode (k is None): the packed
-            # (window, key ids, values) triple; a window function's output
-            # as it is
-            vals = obj_array([r if (self.window_fn is not None or k is None) else (k, r)
-                              for (k, _w, r, _t) in out])
-            ts = np.asarray([t for (_k, _w, _r, t) in out], dtype=np.int64)
-            self.downstream.on_batch(vals, ts)
+        _push_rows(self.downstream, self.op.drain_output(), self.window_fn)
 
 
 class DeviceChainRunner(WindowStepRunner):
@@ -559,22 +567,29 @@ class DeviceChainRunner(WindowStepRunner):
     and drain surfaces of WindowStepRunner."""
 
     def __init__(self, step: Step, plan, config: Configuration, device: torch.device):
-        t = plan.terminal
+        self._init_fused(plan.terminal, plan.transforms, config, device)
+
+    def _init_fused(self, t, transforms, config: Configuration, device: torch.device,
+                    assigners=None) -> None:
+        """The construction of the fused device surface, shared with
+        SharedWindowRunner (which passes the group's `assigners`), so an
+        option threaded to FusedWindowOperator lands on both paths."""
         cfg = t.config
         prologue = TracedPrologue(
-            transforms=tuple((tr.kind, tr.config["fn"]) for tr in plan.transforms),
+            transforms=tuple((tr.kind, tr.config["fn"]) for tr in transforms),
             key_fn=cfg["key_selector"],
             value_fn=cfg.get("value_fn"),
         )
         # dense device keying cannot grow mid-dispatch: capacity is the
         # configured bound, and an out-of-range key raises at resolve
         self.op = FusedWindowOperator(
-            cfg["assigner"], cfg["aggregate"],
+            None if assigners is not None else cfg["assigner"], cfg["aggregate"],
             key_capacity=config.get(ExecutionOptions.KEY_CAPACITY),
             superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
             chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
             columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-            prologue=prologue, device=device, **_latency_kwargs(config))
+            prologue=prologue, device=device, **_latency_kwargs(config),
+            **({} if assigners is None else {"assigners": list(assigners)}))
         self.uid = t.uid
         self.sql_origin = bool(cfg.get("sql_origin"))
 
@@ -587,6 +602,60 @@ class DeviceChainRunner(WindowStepRunner):
         else:
             values = as_device_column(values)
         self.op.process_raw_batch(values, timestamps)
+
+
+class SharedWindowSiblingRunner(StepRunner):
+    """Placeholder runner of a non-leader member of a shared-partial window
+    group (graph/window_sharing.py): it owns the member's downstream edges,
+    into which the group's leader pushes this member's rows, watermarks
+    and end of input. Its own input edges are never wired (the leader
+    consumes the stream once; wiring them would ingest it twice)."""
+
+    def __init__(self, step: Step, spec: int):
+        self.uid = step.terminal.uid
+        self.spec = spec
+        self.sql_origin = bool(step.terminal.config.get("sql_origin"))
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        raise AssertionError("shared-window sibling received a direct batch; its input "
+                             "edges must not be wired")
+
+
+class SharedWindowRunner(DeviceChainRunner):
+    """Shared-partials runner (graph/window_sharing.py): one fused device
+    program serves N correlated window() siblings. K1 ingests gcd-granule
+    partials once, every member window folds its own slice run from the
+    shared ring (Factor Windows), and each member's rows go to its own
+    downstream edges through its sibling runner. Construction is
+    DeviceChainRunner's; only emission routing and the watermark and
+    end-of-input fan-out differ.
+
+    The JAX runner also fans latency markers out to every member; the port
+    has no latency markers until ROADMAP item 15, so there is no on_marker
+    here yet."""
+
+    def __init__(self, step: Step, shared_plan, config: Configuration, device: torch.device):
+        self.shared_plan = shared_plan
+        self._init_fused(shared_plan.terminals[0], shared_plan.transforms, config, device,
+                         assigners=shared_plan.assigners)
+        # spec index -> the runner owning that member's downstream edges
+        # (spec 0: this leader); build_runners registers the siblings
+        self.member_runners: List[StepRunner] = [self]
+
+    def _drain(self) -> None:
+        # each member's lane to its own edges, in the record shape of an
+        # unshared runner: sharing never changes what downstream receives
+        for spec, r in enumerate(self.member_runners):
+            _push_rows(r.downstream, self.op.drain_spec_output(spec))
+
+    def _forward_watermark(self, watermark: int) -> None:
+        for r in self.member_runners:
+            StepRunner.on_watermark(r, watermark)
+
+    def on_end(self) -> None:
+        self._drain()
+        for r in self.member_runners:
+            StepRunner.on_end(r)
 
 
 class SinkRunner(StepRunner):
@@ -630,34 +699,63 @@ def build_runners(graph: StepGraph, config: Configuration, device=None):
 
     Whole-graph fusion happens here: eligible window steps get a
     DeviceChainRunner that absorbs the traceable chain step feeding them.
-    The port forms no shared-partial group (ROADMAP D3; setting
-    execution.window.shared-partials raises): sibling windows each get
-    their own fused runner. `device=None` runs on CUDA or raises."""
+    With execution.window.shared-partials (the default), correlated window
+    siblings (graph/window_sharing.py) collapse into one
+    SharedWindowRunner; the other members get SharedWindowSiblingRunners
+    whose input edges are not wired, so the stream is ingested once.
+    `device=None` runs on CUDA or raises."""
     from flink_tpu_torch.graph.fusion import plan_device_chains
+    from flink_tpu_torch.graph.window_sharing import plan_shared_windows
 
     device = resolve_device(device)
     plans, absorbed = {}, set()
     if config.get(ExecutionOptions.CHAIN_FUSION) and config.get(ExecutionOptions.FUSED_WINDOWS):
         plans, absorbed = plan_device_chains(graph)
 
+    shared_of: Dict[int, tuple] = {}    # id(step) -> (plan, spec)
+    edge_silent: set = set()            # member steps with unwired inputs
+    if plans and config.get(ExecutionOptions.SHARED_PARTIALS):
+        for sw in plan_shared_windows(graph, plans):
+            for spec, member in enumerate(sw.members):
+                shared_of[id(member)] = (sw, spec)
+                plans.pop(id(member), None)
+                if spec > 0:
+                    edge_silent.add(id(member))
+            if sw.absorbed is not None:
+                absorbed.add(id(sw.absorbed))
+
     runner_of: Dict[int, StepRunner] = {}
     runners: List[StepRunner] = []
     for step in graph.steps:
         if id(step) in absorbed:
             continue
-        if id(step) in plans:
+        if id(step) in shared_of:
+            sw, spec = shared_of[id(step)]
+            r = (SharedWindowRunner(step, sw, config, device) if spec == 0
+                 else SharedWindowSiblingRunner(step, spec))
+        elif id(step) in plans:
             r = DeviceChainRunner(step, plans[id(step)], config, device)
         else:
             r = _make_runner(step, config, device)
         runner_of[id(step)] = r
         runners.append(r)
+    # leaders learn their members' runners (spec order) for the fan-out
+    for step in graph.steps:
+        ent = shared_of.get(id(step))
+        if ent is not None and ent[1] == 0:
+            runner_of[id(step)].member_runners = [runner_of[id(m)] for m in ent[0].members]
 
     feeds: Dict[int, List] = {}
     for step in graph.steps:
-        if id(step) in absorbed:
+        if id(step) in absorbed or id(step) in edge_silent:
             continue
         r = runner_of[id(step)]
-        step_inputs = plans[id(step)].inputs if id(step) in plans else step.inputs
+        if id(step) in shared_of:
+            step_inputs = shared_of[id(step)][0].inputs
+        elif id(step) in plans:
+            step_inputs = plans[id(step)].inputs
+        else:
+            step_inputs = step.inputs
         for entity, ordinal, tag in step_inputs:
             if isinstance(entity, Transformation):       # a source feeds this
                 if tag is not None:

@@ -27,9 +27,13 @@ to `max_inflight` dispatches, and the pipeline runs each dispatch as
 readback groups of `readback_steps` steps. The rows and their order are
 throughput mode's.
 
+Shared partials (`assigners=`, graph/window_sharing.py): one
+SharedWindowPipeline serves several correlated windows over one stream,
+SharedStepNormalizer budgets each member's fire slots, and each member's
+rows go to its own lane (`drain_spec_output`).
+
 Not ported (each raises, naming its ROADMAP.md item): the mesh (item 13),
-the state tier (item 11), shared partials (D3), device stats (D4) and
-queryable state (item 11).
+the state tier (item 11), device stats (D4) and queryable state (item 11).
 """
 
 from __future__ import annotations
@@ -44,7 +48,10 @@ from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK, TimeWindow
 from flink_tpu_torch.lint.contracts import inflight_ring
 from flink_tpu_torch.ops.aggregators import ONE, VALUE, resolve
-from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+from flink_tpu_torch.runtime.fused_window_pipeline import (
+    FusedWindowPipeline,
+    SharedWindowPipeline,
+)
 from flink_tpu_torch.scheduler.latency_controller import LatencySpec, SuperbatchController
 from flink_tpu_torch.state.columnar import KeyDictionary
 from flink_tpu_torch.utils import deferred
@@ -290,6 +297,76 @@ class StepNormalizer:
         self.num_future_held = sum(len(t) for _, _, t in self._future)
 
 
+class SharedStepNormalizer(StepNormalizer):
+    """StepNormalizer over a SharedWindowPipeline (shared partials): one
+    shared ingest/ring frontier, per-spec fire cursors, each member
+    window's fire-slot budget binding the staged advance on its own."""
+
+    def __init__(self, pipe, raw_payload: bool = False):
+        super().__init__(pipe, raw_payload)
+        self.fire_cursors: List[Optional[int]] = [None] * len(pipe.specs)
+
+    def _note_data(self, smin: int, smax: int) -> None:
+        p = self.p
+        self.max_seen = smax if self.max_seen is None else max(self.max_seen, smax)
+        self.min_used = smin if self.min_used is None else min(self.min_used, smin)
+        for i in range(len(p.specs)):
+            cand = p._spec_j_oldest(i, smin)
+            if self.wm > MIN_WATERMARK:
+                cand = max(cand, p._spec_j_fired_upto(i, self.wm) + 1)
+            cur = self.fire_cursors[i]
+            self.fire_cursors[i] = cand if cur is None else min(cur, cand)
+
+    def _stage_fire_step(self, target: int):
+        p = self.p
+        if self.max_seen is None:
+            return target, 0
+        step_wm = target
+        Fp = p.F_per_spec
+        for i, spec in enumerate(p.specs):
+            cur = self.fire_cursors[i]
+            if cur is None:
+                continue
+            cap = min(p._spec_j_fired_upto(i, target), self.max_seen // spec.sl)
+            if cap - cur + 1 > Fp:
+                step_wm = min(step_wm, p._spec_fire_wm(i, cur + Fp - 1))
+        # fire counts settle after the binding spec lowered step_wm (each
+        # spec's count is monotone in wm, so every spec fits its budget)
+        total = 0
+        for i, spec in enumerate(p.specs):
+            cur = self.fire_cursors[i]
+            if cur is None:
+                continue
+            cap = min(p._spec_j_fired_upto(i, step_wm), self.max_seen // spec.sl)
+            total += max(0, cap - cur + 1)
+        return step_wm, total
+
+    def _commit_wm(self, wm: int, n_fires: int) -> None:
+        if wm <= self.wm:
+            return
+        p = self.p
+        for i in range(len(p.specs)):
+            j_hi = p._spec_j_fired_upto(i, wm)
+            cur = self.fire_cursors[i]
+            if cur is not None and j_hi >= cur:
+                self.fire_cursors[i] = j_hi + 1
+        # the minimum over specs: the longest member holds every slice it
+        # still needs
+        new_min_live = p._min_live_slice(wm)
+        self.purged_to = (new_min_live if self.purged_to is None
+                          else max(self.purged_to, new_min_live))
+        self.wm = wm
+
+    def snapshot(self) -> dict:
+        snap = super().snapshot()
+        snap["fire_cursors"] = list(self.fire_cursors)
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        super().restore(snap)
+        self.fire_cursors = list(snap["fire_cursors"])
+
+
 def _own_window(w):
     """A window of either package as this package's TimeWindow (restored
     output may come from a JAX snapshot)."""
@@ -332,8 +409,7 @@ class FusedWindowOperator:
         device=None,
     ):
         for option, value, item in (("mesh", mesh, deferred.MESH),
-                                    ("tier", tier, deferred.STATE_PLANE),
-                                    ("assigners", assigners, deferred.D3)):
+                                    ("tier", tier, deferred.STATE_PLANE)):
             if value is not None:
                 raise deferred.not_ported(f"FusedWindowOperator({option}=...)", item)
         self.agg = resolve(aggregate)
@@ -342,13 +418,25 @@ class FusedWindowOperator:
         # with a TracedPrologue steps carry RAW source columns and keying
         # is dense-int on the device (no host key dictionary)
         self.prologue = prologue
-        self.pipe = FusedWindowPipeline(
-            assigner, self.agg, key_capacity=key_capacity, num_slices=num_slices,
-            nsb=nsb, fires_per_step=fires_per_step, out_rows=out_rows, chunk=chunk,
-            prologue=prologue, device=device)
+        # shared partials (graph/window_sharing.py): one output lane per
+        # member window, routed by the shared runner to its member's edges
+        self.spec_outputs: Optional[List[list]] = None
+        geometry = dict(key_capacity=key_capacity, num_slices=num_slices, nsb=nsb,
+                        fires_per_step=fires_per_step, out_rows=out_rows, chunk=chunk,
+                        prologue=prologue, device=device)
+        if assigners is not None:
+            if prologue is None:
+                raise ValueError(
+                    "shared-partial windows run the traced-chain path "
+                    "(dense device keying); a prologue is required")
+            self.spec_outputs = [[] for _ in assigners]
+            self.pipe = SharedWindowPipeline(assigners, self.agg, **geometry)
+            self.norm = SharedStepNormalizer(self.pipe, raw_payload=True)
+        else:
+            self.pipe = FusedWindowPipeline(assigner, self.agg, **geometry)
+            self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
         self.T = superbatch_steps
         self.keydict = KeyDictionary(dense_int_keys or prologue is not None)
-        self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
         self._steps: List[_Step] = []
         # in-flight dispatch ring: (DeferredEmissions, wm) entries resolved
         # FIFO. Depth 1 (the default): dispatch N+1 enqueues, THEN N
@@ -502,7 +590,13 @@ class FusedWindowOperator:
         """One fire's rows (the JAX operator's `_emit_dense_rows` and
         `_emit_keydict_rows`): under the traced prologue a row id IS the key
         the traced selector produced; otherwise row i is the key
-        dictionary's i-th key, and rows past its size are unused."""
+        dictionary's i-th key, and rows past its size are unused. A shared
+        pipeline tags each fire with its member spec: (spec, window), and
+        the rows go to that member's lane."""
+        sink = self.output
+        if self.spec_outputs is not None:
+            spec, window = window
+            sink = self.spec_outputs[spec]
         n = None if self.prologue is not None else len(self.keydict)
         counts = np.asarray(counts)[:n]
         live = np.flatnonzero(counts > 0)
@@ -517,19 +611,23 @@ class FusedWindowOperator:
         if self.columnar_output:
             # one packed row per fire: (window, dense key ids, values); map
             # ids back through .keydict when raw keys are needed
-            self.output.append((None, window, (window, live, result[live]), ts))
+            sink.append((None, window, (window, live, result[live]), ts))
             return
         keys = live.tolist() if n is None else self.keydict.keys_for(live)
         for k, i in zip(keys, live):
-            self.output.append((k, window, result[i].item(), ts))
+            sink.append((k, window, result[i].item(), ts))
 
     def drain_output(self) -> List[Tuple[Any, Any, Any, int]]:
         out = self.output
         self.output = []
         return out
 
-    def drain_spec_output(self, spec: int):
-        raise deferred.not_ported("FusedWindowOperator.drain_spec_output", deferred.D3)
+    def drain_spec_output(self, spec: int) -> List[Tuple[Any, Any, Any, int]]:
+        """Shared partials: drain one member window's output lane (the
+        shared runner routes lane i to member i's downstream edges)."""
+        out = self.spec_outputs[spec]
+        self.spec_outputs[spec] = []
+        return out
 
     def query_state_for(self, key):
         raise deferred.not_ported("FusedWindowOperator.query_state_for", deferred.STATE_PLANE)
@@ -573,7 +671,12 @@ class FusedWindowOperator:
         first so keyed state lives in one place (the rings); fires this
         triggers land in "output" and ride the snapshot."""
         self.flush_all()
+        # shared partials: undrained member lanes ride the snapshot like
+        # the plain output list
+        extra = ({} if self.spec_outputs is None
+                 else {"spec_outputs": [list(x) for x in self.spec_outputs]})
         return {
+            **extra,
             "pipe": self.pipe.snapshot(),
             "keydict": self.keydict.snapshot(),
             "normalizer": self.norm.snapshot(),
@@ -590,8 +693,6 @@ class FusedWindowOperator:
         """Restore a snapshot of either package's operator."""
         if "tier" in snap or "tier_changelog" in snap:
             raise deferred.not_ported("restoring a tiered snapshot", deferred.STATE_PLANE)
-        if "spec_outputs" in snap:
-            raise deferred.not_ported("restoring a shared-partials snapshot", deferred.D3)
         self.pipe.restore(snap["pipe"])
         self.keydict = KeyDictionary.restore(snap["keydict"])
         self.norm.restore(snap["normalizer"])
@@ -600,3 +701,5 @@ class FusedWindowOperator:
         self.current_watermark = snap["current_watermark"]
         self._reset_dispatch_ring()
         self.output = [_own_row(r) for r in snap["output"]]
+        if self.spec_outputs is not None:
+            self.spec_outputs = [[_own_row(r) for r in lane] for lane in snap["spec_outputs"]]

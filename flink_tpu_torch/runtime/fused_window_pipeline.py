@@ -1,7 +1,8 @@
 """FusedWindowPipeline: whole-stream windowed aggregation, T steps per dispatch.
 
-Counterpart of `flink_tpu/runtime/fused_window_pipeline.py` (the keyed and
-global pipelines; see ROADMAP.md for the parts still to port). Every
+Counterpart of `flink_tpu/runtime/fused_window_pipeline.py` (the keyed,
+shared-partial and global pipelines; see ROADMAP.md for the parts still to
+port). Every
 per-step control decision (ring column, fire slots, purge mask) is planned
 on the host from the watermark schedule; the device runs the whole T-step
 dispatch — on CUDA as kernel K1 (keyed) or K2 (global), on the CPU as their
@@ -31,6 +32,7 @@ JAX pipeline's keys, shapes and dtypes in both directions.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -298,6 +300,9 @@ class FusedWindowPipeline:
         self.donate_carry = False
         self.readback_steps = 0
         self._copy_stream = None      # the readback groups' side stream
+        # window length (slices) of each fire slot; None: every slot folds
+        # spw (a shared-partial pipeline sets its members' lengths)
+        self._fire_spws: Optional[Tuple[int, ...]] = None
 
         self.g = assigner.slice_ms
         self.sl = assigner.slide_slices
@@ -396,6 +401,11 @@ class FusedWindowPipeline:
     def _cursor(self) -> _PlanCursor:
         return _PlanCursor(self)
 
+    def slot_spws(self) -> Tuple[int, ...]:
+        """The window length in slices that each fire slot folds: K1's
+        `spws`."""
+        return self._fire_spws or (self.spw,) * self.F
+
     def key_loads(self) -> Optional[torch.Tensor]:
         """Device-resident per-key record counts ([K] int32) over the ring;
         None on a plan-only planner."""
@@ -487,7 +497,7 @@ class FusedWindowPipeline:
             self.agg, self._count, [self._state[n] for n in names],
             idx_d.reshape(-1), vals_d.reshape(-1) if self._needs_vals else None,
             plan[:5], NSB=self.NSB, R=self.R if rows is None else rows,
-            spws=(self.spw,) * self.F, exact=self.exact_sums)
+            spws=self.slot_spws(), exact=self.exact_sums)
         outs = dict(zip(names, field_outs))
 
         # read back only the rows actually fired (padded to a multiple of 16
@@ -846,6 +856,191 @@ class FusedWindowPipeline:
         self.min_used_slice = snap["min_used_slice"]
         self.max_seen_slice = snap["max_seen_slice"]
         self.num_late_records_dropped = snap["num_late_dropped"]
+
+
+# ---------------------------------------------------------------------------
+# shared-partial multi-window pipeline (Factor Windows, PAPERS.md): several
+# correlated window shapes over one gcd-granule ring
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _WindowSpec:
+    """One member window of a shared-partial group, in shared-granule
+    units: window j of this spec covers slices [j*sl, j*sl + spw)."""
+
+    spw: int
+    sl: int
+    size_ms: int
+    slide_ms: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _SharedGridView:
+    """The sliceable-assigner view the base pipeline is built from:
+    granule = the group's gcd, spw = the longest member (ring sizing), sl =
+    the shortest slide."""
+
+    slice_ms: int
+    slices_per_window: int
+    slide_slices: int
+    offset_ms: int
+    is_event_time: bool = True
+
+
+class _SharedPlanCursor(_PlanCursor):
+    """The multi-spec fire planner: one shared ingest/purge frontier,
+    per-spec fire cursors, fire slots partitioned F_per_spec per spec."""
+
+    def __init__(self, pipe: "SharedWindowPipeline"):
+        super().__init__(pipe)
+        self.fire_cursors = list(pipe.fire_cursors)
+
+    def _note_fire_candidate(self, smin: int) -> None:
+        p = self.p
+        for i in range(len(p.specs)):
+            cand = p._spec_j_oldest(i, smin)
+            if self.wm > MIN_WATERMARK:
+                cand = max(cand, p._spec_j_fired_upto(i, self.wm) + 1)
+            cur = self.fire_cursors[i]
+            self.fire_cursors[i] = cand if cur is None else min(cur, cand)
+
+    def _plan_fires(self, t: int, new_wm: int, fire_pos, fire_valid,
+                    fire_row, fires: list) -> None:
+        p = self.p
+        if self.max_seen is None:
+            return
+        Fp = p.F_per_spec
+        for i, spec in enumerate(p.specs):
+            cur = self.fire_cursors[i]
+            if cur is None:
+                continue
+            hi = min(p._spec_j_fired_upto(i, new_wm), self.max_seen // spec.sl)
+            slot = i * Fp
+            n = 0
+            for j in range(cur, hi + 1):
+                if n >= Fp:
+                    raise ValueError(
+                        f"window spec {i}: {hi + 1 - cur} windows fire in "
+                        f"one step > fires_per_step={Fp}")
+                if len(fires) >= p.R:
+                    raise ValueError(f"more than out_rows={p.R} fires per dispatch")
+                row = len(fires)
+                fires.append(_PlannedFire(row, j, t, spec=i))
+                fire_pos[t, slot + n] = (j * spec.sl) % p.S
+                fire_valid[t, slot + n] = 1
+                fire_row[t, slot + n] = row
+                n += 1
+            if p._spec_j_fired_upto(i, new_wm) >= cur:
+                self.fire_cursors[i] = p._spec_j_fired_upto(i, new_wm) + 1
+
+    def commit(self) -> None:
+        super().commit()
+        self.p.fire_cursors = list(self.fire_cursors)
+
+
+class SharedWindowPipeline(FusedWindowPipeline):
+    """N correlated window shapes over one shared slice ring.
+
+    Counterpart of the JAX package's `SharedWindowPipeline`. A job that
+    computes several windows over the same keyed stream (1m/5m/1h
+    dashboards) pays for one ingest: K1 lands gcd-granule partials once,
+    and every member window folds its result from the shared ring at fire
+    time, each fire slot with its member's window length (`_fire_spws`,
+    K1's per-slot `spws`).
+
+    What differs from the base pipeline is all planner-side:
+    - per-spec fire cursors (`fire_cursors`); the F fire slots are
+      partitioned F_per_spec per member;
+    - the purge frontier is the minimum over the members' live frontiers
+      (a slice purges only when the longest window is done with it);
+    - `_window_of_fire` returns `(spec_index, TimeWindow)`, which only the
+      shared-partial operator consumes, routing each row to its member.
+
+    Every member assigner must be sliceable, event-time, and share one
+    offset; the granule is the gcd of their slice granules, and each
+    member's decomposition onto it must be exact (WindowAssigner.slices_on)."""
+
+    def __init__(self, assigners, aggregate, *, key_capacity: int,
+                 num_slices: Optional[int] = None, nsb: int = 4,
+                 fires_per_step: int = 4, out_rows: int = 256,
+                 chunk: int = 4096, exact_sums: bool = True,
+                 plan_only: bool = False, prologue=None, device=None):
+        if len(assigners) < 2:
+            raise ValueError("shared partials need >= 2 window shapes")
+        offs = {a.offset_ms for a in assigners}
+        if len(offs) != 1:
+            raise ValueError(f"shared partials need one common window offset, got {offs}")
+        for a in assigners:
+            if a.slice_ms is None or not a.is_event_time:
+                raise ValueError(f"{a!r} is not a sliceable event-time assigner")
+        g = 0
+        for a in assigners:
+            g = math.gcd(g, a.slice_ms)
+        specs = []
+        for a in assigners:
+            spw, sl = a.slices_on(g)   # exact or ValueError
+            specs.append(_WindowSpec(spw, sl, spw * g, sl * g))
+        n = len(specs)
+        view = _SharedGridView(
+            slice_ms=g,
+            slices_per_window=max(s.spw for s in specs),
+            slide_slices=min(s.sl for s in specs),
+            offset_ms=assigners[0].offset_ms,
+        )
+        super().__init__(
+            view, aggregate, key_capacity=key_capacity, num_slices=num_slices,
+            nsb=nsb, fires_per_step=n * fires_per_step, out_rows=out_rows,
+            chunk=chunk, exact_sums=exact_sums, plan_only=plan_only,
+            prologue=prologue, device=device,
+        )
+        self.specs = tuple(specs)
+        self.F_per_spec = fires_per_step
+        self._fire_spws = tuple(s.spw for s in specs for _ in range(fires_per_step))
+        self.fire_cursors: List[Optional[int]] = [None] * n
+
+    # -- per-spec geometry ---------------------------------------------
+    def _spec_j_fired_upto(self, i: int, wm: int) -> int:
+        s = self.specs[i]
+        return (wm + 1 - self.offset - s.size_ms) // s.slide_ms
+
+    def _spec_j_oldest(self, i: int, smin: int) -> int:
+        s = self.specs[i]
+        return _ceil_div(smin - s.spw + 1, s.sl)
+
+    def _spec_fire_wm(self, i: int, j: int) -> int:
+        s = self.specs[i]
+        return self.offset + j * s.slide_ms + s.size_ms - 1
+
+    def _spec_window_of(self, i: int, j: int) -> TimeWindow:
+        s = self.specs[i]
+        start = self.offset + j * s.slide_ms
+        return TimeWindow(start, start + s.size_ms)
+
+    # -- shared frontier -----------------------------------------------
+    def _min_live_slice(self, wm: int) -> int:
+        return min((self._spec_j_fired_upto(i, wm) + 1) * s.sl
+                   for i, s in enumerate(self.specs))
+
+    def _wm_keeping_slice_live(self, s: int) -> int:
+        # the largest wm at which some member still holds slice s live
+        return max(self._spec_fire_wm(i, s // sp.sl) - 1
+                   for i, sp in enumerate(self.specs))
+
+    def _window_of_fire(self, pf: _PlannedFire):
+        return (pf.spec, self._spec_window_of(pf.spec, pf.j))
+
+    def _cursor(self) -> _SharedPlanCursor:
+        return _SharedPlanCursor(self)
+
+    # -- snapshot ------------------------------------------------------
+    def snapshot(self) -> dict:
+        snap = super().snapshot()
+        snap["fire_cursors"] = list(self.fire_cursors)
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        super().restore(snap)
+        self.fire_cursors = list(snap["fire_cursors"])
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,6 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-D3 = "deferred item D3 (shared partials)"
 D4 = "deferred item D4 (compile tracker and phase counters)"
 D6 = "deferred item D6 (the tiered-state row surface)"
 STATE_PLANE = "item 11 (state and device planes)"

@@ -1,5 +1,5 @@
-"""`chip_smoke.py`'s phases 18 and 19 rehearsed on the CPU at small sizes,
-and the references it carries held against the JAX package.
+"""`chip_smoke.py`'s phases 18, 19 and 20 rehearsed on the CPU at small
+sizes, and the references it carries held against the JAX package.
 
 - api_latency (phase 18): the api_ysb program in throughput mode, in
   latency mode and pinned at every rung of the ladder gives the same rows,
@@ -7,6 +7,11 @@ and the references it carries held against the JAX package.
   launch no K1).
 - api_oracle (phase 19): each oracle job against its numpy model; the SQL
   statement's plan report constant equals the JAX package's report.
+- api_correlated (phase 20): the shared program, the independent one and
+  the numpy model agree window by window; the wide group's arrays and
+  latency mode's rows equal their references; the shared runner is
+  selected; the K1 inputs of the shared dispatches carry their members'
+  per-slot window lengths.
 - C3: the rows the smoke expects of the fused operator's int sum on C3's
   inputs are the JAX operator's.
 
@@ -91,3 +96,28 @@ def test_c3_rows_are_the_jax_operators():
         op.flush_all()
         rows += [r for _k, _w, r, _t in op.drain_output()]
     assert rows == cm.C3_JAX_ROWS
+
+
+def test_api_correlated_phase_agrees_on_every_leg():
+    sz = dict(cm.API_CORRELATED, keys=256, batch=4096, parity_events=1 << 16,
+              timed_events=1 << 15, warmup_events=1 << 12, runs=1, wide_keys=1 << 12,
+              wide_events=1 << 16, latency_events=1 << 15)
+    r = cm.api_correlated_phase(dev="cpu", sizes=sz)
+    assert r["leg1"]["parity"] and r["shared_selected"]
+    assert [m["windows_checked"] for m in r["leg1"]["members"]] == [121, 25, 3]
+    assert r["leg2"]["equal"] and r["leg2"]["totals_ok"] and r["leg2"]["selected"]
+    assert r["leg3"]["rows_equal_throughput"] and r["leg3"]["selected"]
+    assert not r["ok"]          # CPU runs launch no K1
+
+
+@pytest.mark.parametrize("members,spws,S", [
+    ("DASHBOARD_WIDE", (1,) * 4 + (5,) * 4 + (15,) * 4 + (60,) * 4 + (10,) * 4, 128),
+    ("UNSTAGED", (1,) * 4 + (1440,) * 4, 2048),
+])
+def test_shared_k1_inputs_carry_mixed_spws(members, spws, S):
+    pipe, _agg, idx, _vals, plan = cm.correlated_k1_inputs(
+        getattr(cm, members), 1 << 10, 1 << 22, batch=4096, dev="cpu")
+    assert pipe.slot_spws() == spws and pipe.S == S and pipe.F == len(spws)
+    assert idx.numel() == 32 * 4096 and len(plan[5]) > 0
+    # 32 steps of 4096 of 2^22 records cover 225 s: the 1 min members fire
+    assert 0 in {pf.spec for pf in plan[5]} <= set(range(len(pipe.specs)))

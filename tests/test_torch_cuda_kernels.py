@@ -230,6 +230,43 @@ def test_grouped_k1_launches_match_the_whole_span(cuda, agg, readback):
     assert np.array_equal(split.snapshot()["count"], whole.snapshot()["count"])
 
 
+def _shared_stream(steps, batch, seed=6, keys=300):
+    """Steps of 250 ms (at most 4 slices of the shared 100 ms granule)."""
+    rng = np.random.default_rng(seed)
+    out, wms = [], []
+    for t in range(steps):
+        base = 3000 + t * 250 + np.sort(rng.integers(0, 250, batch))
+        ts = np.maximum(base - rng.integers(0, 40, batch), 0).astype(np.int64)
+        out.append((rng.integers(0, keys, batch).astype(np.int32),
+                    rng.integers(0, 9, batch).astype(np.float32), ts))
+        wms.append(int(base[-1]) - 60)
+    return out, wms
+
+
+@pytest.mark.parametrize("readback", [0, 4, 8])
+@pytest.mark.parametrize("agg", ["count", "sum"])
+def test_shared_pipeline_on_the_card_matches_the_cpu(cuda, agg, readback):
+    """A five-member shared group (F = 20, mixed spws) through K1, whole span
+    (readback 0) and as readback groups, gives the CPU's rows in order."""
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows as Tw
+    from flink_tpu_torch.runtime.fused_window_pipeline import SharedWindowPipeline
+
+    batches, wms = _shared_stream(64, 500)
+    members = [Tw.of(100), Tw.of(500), Tw.of(1500), Tw.of(6000),
+               SlidingEventTimeWindows.of(1000, 100)]
+    geo = dict(key_capacity=300, nsb=4, fires_per_step=4, out_rows=256, chunk=256)
+    gpu, cpu = (SharedWindowPipeline(members, agg, device=d, **geo) for d in (cuda, "cpu"))
+    assert gpu.F == 20 and gpu.S == 128
+    gpu.readback_steps = cpu.readback_steps = readback
+    for lo in (0, 32):
+        chunk = (batches[lo:lo + 32], wms[lo:lo + 32])
+        before = cs.LAUNCHES["k1_superscan"]
+        got = gpu.process_superbatch(*chunk, defer=True).resolve()
+        assert cs.LAUNCHES["k1_superscan"] - before == (32 // readback if readback else 1)
+        _emissions_equal(got, cpu.process_superbatch(*chunk))
+    assert np.array_equal(gpu.snapshot()["count"], cpu.snapshot()["count"])
+
+
 def test_grouped_k1_nests_its_own_step_groups(cuda):
     """At 2^20 keys K1 splits a 16-step readback group into step groups of
     its own (the 64 MiB partial budget): both nest, and the rows are the
@@ -272,6 +309,7 @@ MIXED = {
         agg_mod.AccField("hi", np.int32, int(np.iinfo(np.int32).min), "max"),
         agg_mod.AccField("s", np.float32, 0, "add")), lambda f: f["s"]),
     "count": agg_mod.count_agg(),
+    "sum": agg_mod.sum_agg(),
     "order": agg_mod.DeviceAggregator("mixed_order", (
         agg_mod.AccField("lo", np.float32, _FMAX, "min"),
         agg_mod.AccField("hi", np.int32, int(np.iinfo(np.int32).min), "max")), lambda f: f["hi"]),
@@ -325,6 +363,10 @@ def _pair(kernel, plain, agg, shape, dev, global_scope, T_, B_, nkeys, plan, **k
     return {k: (cs.CUDA_LAUNCHES[k] - before[k]) // 2 for k in before}
 
 
+SPWS_20 = (1,) * 4 + (5,) * 4 + (15,) * 4 + (60,) * 4 + (10,) * 4
+SPWS_64 = tuple(1 + (7 * f) % 120 for f in range(64))
+SPWS_1440 = (1,) * 4 + (5,) * 4 + (60,) * 4 + (1440,) * 4 + (10,) * 4
+
 K1_CASES = {
     # name: (agg, K, S, NSB, F, R, T, B, spws, exact)
     "f32_fields": ("f32", 1000, 8, 3, 4, 8, 5, 3001, (3, 3, 1, 5), True),
@@ -341,6 +383,16 @@ K1_CASES = {
     "ring_beyond_shared_memory": ("f32", 300, 600, 4, 4, 16, 3, 5000, (30, 1, 7, 600), True),
     # 40 rels of five arrays: the scan reads its partials from device memory
     "partials_beyond_shared_memory": ("i32", 300, 64, 40, 4, 16, 3, 5000, (9, 64, 2, 70), True),
+    # shared-partial groups (graph/window_sharing.py): each fire slot folds
+    # its member's window length. F = 20 is the five-member dashboard group
+    # (staged ring tiles up to S = 128 here), 64 the most K1 takes; S =
+    # 2048 with a 1440-slice member keeps the ring in device memory
+    "shared_f20_count_staged": ("count", 4096, 128, 4, 20, 64, 6, 20_000, SPWS_20, True),
+    "shared_f20_sum_staged": ("sum", 4096, 128, 4, 20, 64, 6, 20_000, SPWS_20, True),
+    "shared_f64_count_staged": ("count", 2000, 128, 4, 64, 128, 4, 9000, SPWS_64, True),
+    "shared_f64_fields": ("f32", 1000, 128, 4, 64, 128, 4, 5000, SPWS_64, True),
+    "shared_f20_count_unstaged": ("count", 1000, 2048, 4, 20, 64, 3, 5000, SPWS_1440, True),
+    "shared_f20_sum_unstaged": ("sum", 1000, 2048, 4, 20, 64, 3, 5000, SPWS_1440, True),
 }
 
 
@@ -351,6 +403,18 @@ def test_k1_adversarial_plans(cuda, case):
     launched = _pair(cs.keyed_superscan, keyed_superscan_plain, MIXED[name], (S_, K_),
                      cuda, False, T_, B_, K_ + 5, plan, NSB=NSB_, R=R_, spws=spws,
                      exact=exact)
+    assert launched["k1_superscan"] == 2
+
+
+def test_k1_later_slot_in_another_word_wins(cuda):
+    """Slots 3 and 40 (bits of different mask words) write the same row:
+    the later one's fold is what the row holds, as in the plain version."""
+    spws = SPWS_64
+    plan = _adversarial_plan(128, 4, 64, 4, 128, spws, seed=11)
+    plan[2][:, [3, 40]] = 1
+    plan[3][:, 40] = plan[3][:, 3]
+    launched = _pair(cs.keyed_superscan, keyed_superscan_plain, MIXED["sum"], (128, 700),
+                     cuda, False, 4, 3000, 705, plan, NSB=4, R=128, spws=spws, exact=True)
     assert launched["k1_superscan"] == 2
 
 

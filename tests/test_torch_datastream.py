@@ -254,9 +254,10 @@ def _deferred_calls():
                         "item 13"),
         # latency mode (test_torch_latency_mode.py)
         "latency_option": (lambda: Configuration({"execution.latency.target-ms": 5}), None),
+        # shared partials (test_torch_window_sharing.py)
         "shared_partials_option": (
             lambda: Configuration().set_string("execution.window.shared-partials", False),
-            "deferred item D3"),
+            None),
         "metrics_option": (
             lambda: Configuration().set_string("observability.emission-latency.enabled", True),
             "item 15"),

@@ -306,10 +306,16 @@ def test_operator_snapshot_crosses_packages(direction):
 
 
 def test_operator_unported_options_raise_naming_the_roadmap():
-    for kw, item in ((dict(mesh=object()), "item 13"), (dict(tier=object()), "item 11"),
-                     (dict(assigners=[]), "deferred item D3")):
+    for kw, item in ((dict(mesh=object()), "item 13"), (dict(tier=object()), "item 11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
             tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", **kw)
+    # shared partials are ported: without a prologue both packages refuse
+    # `assigners=` alike (tests/test_torch_shared_pipeline.py runs them)
+    for make in (lambda: jfo.FusedWindowOperator(_window(jasg), "count", assigners=[]),
+                 lambda: tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
+                                                 assigners=[])):
+        with pytest.raises(ValueError, match="a prologue is required"):
+            make()
     # latency mode (D2) is ported: the option builds the operator
     # (tests/test_torch_latency_mode.py runs it)
     from flink_tpu_torch.scheduler.latency_controller import LatencySpec
@@ -319,7 +325,12 @@ def test_operator_unported_options_raise_naming_the_roadmap():
     assert op.pipe.readback_steps == 8 and op.latency_gauges()["latencyModeActive"] == 1
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu")
     for call, item in ((lambda: op.attach_device_stats(None), "D4"),
-                       (op.phase_totals, "D4"), (lambda: op.drain_spec_output(0), "D3"),
+                       (op.phase_totals, "D4"),
                        (lambda: op.query_state_for(1), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # an operator without shared partials has no member lanes, in both
+    # packages
+    for unshared in (op, jfo.FusedWindowOperator(_window(jasg), "count")):
+        with pytest.raises(TypeError):
+            unshared.drain_spec_output(0)

@@ -174,7 +174,14 @@ def test_supports_gate_is_rederived_for_hopper():
     assert cs.supports(tagg.sum_agg(), 1 << 20, 64, 64, 4, 4)
     assert not ps.supports(jagg.sum_agg(), 1 << 20, 64, 64, 4, 1024)
     assert cs.supports(tagg.min_agg(), 8192, 64, 32, 4, 4)
-    assert not cs.supports(tagg.count_agg(), 8192, 64, 32, 4, 17)
+    # up to 64 fire slots (a shared-partial group of 16 members at 4 fires
+    # a step); a step descriptor's positions and rows are 16-bit
+    assert cs.supports(tagg.count_agg(), 8192, 64, 32, 4, 20)
+    assert cs.supports(tagg.count_agg(), 8192, 64, 32, 4, 64)
+    assert not cs.supports(tagg.count_agg(), 8192, 64, 32, 4, 65)
+    assert not cs.supports(tagg.count_agg(), 1000, 64, 1 << 17, 4, 4)
+    assert not cs.supports(tagg.count_agg(), 1000, 1 << 17, 32, 4, 4)
+    assert not cs.supports_global(tagg.count_agg(), 8, 16, 2, 17)
     # a field declared 64-bit computes in 32 bits, as in the JAX package
     # (x64 off), so K1 takes it; its dispatch equals the JAX package's
     assert cs.supports(tagg.sum_agg(np.float64), 8192, 64, 32, 4, 4)
