@@ -7,8 +7,9 @@ Drives `flink_tpu_torch` (never jax, never `flink_tpu`) through the entry
 points a user calls, at the geometries of the repo's YSB benchmark, and
 exits non-zero on the first failure. Phases, one JSON line each:
 
-1. device: the card (name and power limit as nvidia-smi gives them) and the
-   build of both Hopper kernels from `flink_tpu_torch/csrc/`;
+1. device: the card (name and power limit as nvidia-smi gives them), the
+   build of the Hopper kernels from `flink_tpu_torch/csrc/` and of the
+   cold tier's native spill store from `native/*.cpp` (g++);
 2. kernel K1 (keyed superscan) against its plain PyTorch version on the
    card at the YSB geometry (K=8192, S=32, NSB=4, F=4, R=64, T=48, B=2^20)
    with plans from the port's planner, for count, sum and max8: bit-equal;
@@ -108,6 +109,19 @@ exits non-zero on the first failure. Phases, one JSON line each:
    throughput mode's in order. Then K1 against its plain version at the
    wide group's first shared dispatch and at an unstaged ring (a 24 h
    window sliding by 1 min beside 1 min: spw 1440, S = 2048), with times.
+21. api_tiered: the million-key state plane (`bench.py::millikey_microbench`'s
+   program: a vectorized key_by, 10 s windows sliding by 1 s, count, batch
+   8192, state.tier.* with hot capacity 4096 and admission 2, the changelog
+   on) through the port's executor. Leg A at 2^16 records over 2^15 keys
+   (hot capacity 4096): the tiered rows equal the untiered fused job's and
+   the numpy oracle's, uniform and zipf, with evictions. Leg B at 2^18
+   records over 10^7 keys: oracle parity, resident keys <= 4096, records
+   routed cold, evictions under zipf, the cold tier native, tuples/s best of
+   3 and the tier's gauges. Leg C: the row surface (gather_key_rows,
+   clear_key_rows, write_cells, gather_cells) on [S, K] = [32, 2^20] rings,
+   2^16 rows, equal to the CPU result, each against its bytes bound. Then
+   K1 at leg B's first full dispatch (K = 4096, B = 8192, T = 32), and a
+   device and host profile of leg B's runs.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -2394,6 +2408,306 @@ def api_correlated_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the million-key state plane (bench.py::millikey_microbench's
+# program): hot/cold key tiering behind the fused operator
+# ---------------------------------------------------------------------------
+
+API_TIERED = dict(batch=8192, keys=10_000_000, hot=4096, admission=2, zipf_s=1.0,
+                  parity_keys=1 << 15, parity_events=1 << 16, events=1 << 18, runs=3,
+                  row_keys=1 << 20, row_slices=32, row_moves=1 << 16)
+
+
+def _t_identity(col):
+    return col
+
+
+def tiered_job(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int, tmp: str,
+               dev=DEV):
+    """(env, sink) of millikey_microbench's program over n records of n_keys
+    keys (uniform, or bounded zipf): a vectorized identity key_by (the host
+    key dictionary's route), 10 s windows sliding by 1 s, count, batch
+    sz["batch"]; with `tiered`, state.tier.* at hot capacity `cap` and
+    sz["admission"], and the changelog on, their directories under tmp."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.sink import CollectSink
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    conf = {"execution.step.batch-size": sz["batch"],
+            "execution.state.key-capacity": max(n_keys, 1024)}
+    if tiered:
+        conf.update({"state.tier.enabled": True, "state.tier.hot-key-capacity": cap,
+                     "state.tier.admission-min-count": sz["admission"],
+                     "state.tier.cold-dir": f"{tmp}/cold",
+                     "state.changelog.enabled": True,
+                     "state.changelog.dir": f"{tmp}/changelog"})
+    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
+
+    def gen(idx):
+        return Batch(*st.millikey_columns(idx, n, n_keys, skewed, sz["zipf_s"]))
+
+    sink = CollectSink()
+    (env.from_source(DataGeneratorSource(gen, n),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .key_by(_t_identity, vectorized=True)
+     .window(SlidingEventTimeWindows.of(st.WINDOW_MS, st.SLIDE_MS)).count().sink_to(sink))
+    return env, sink
+
+
+def tiered_run(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int,
+               expect=None, dev=DEV) -> dict:
+    """One run of the program, built through the executor's JobRuntime
+    (what env.execute() runs) so the operator is in reach, with K1's launch
+    count at 0 just before it: its sorted (key, count) rows (or, given
+    `expect`, whether they equal it and how many there were), seconds, K1
+    launches and, when tiered, the tier's payload and store kind."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.executor import JobRuntime
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tier_")
+    try:
+        env, sink = tiered_job(n, n_keys, skewed, sz, tiered=tiered, cap=cap, tmp=tmp, dev=dev)
+        runtime = JobRuntime(plan(env._sinks), env.config, dev)
+        ops = [r.op for r in runtime.runners
+               if isinstance(getattr(r, "op", None), FusedWindowOperator)]
+        _sync(dev)
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        runtime.run()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        launches = cs.LAUNCHES["k1_superscan"]
+        op = ops[0] if ops else None
+        tier = op.tier_payload() if op is not None else None
+        rows = sorted((int(k), int(c)) for k, c in sink.results)
+        del sink.results[:]
+        got = ({"rows": rows} if expect is None
+               else {"equal": len(rows) > 0 and rows == expect, "num_rows": len(rows)})
+        return {**got, "seconds": secs, "tuples_per_s": n / secs, "k1_launches": launches,
+                "fused_selected": len(ops) == 1, "tier": tier,
+                "native": None if tier is None else op.tier.cold.native,
+                "state_key_count": op.state_key_count() if op is not None else None}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tiered_row_surface(card: str, sz, dev=DEV) -> dict:
+    """Leg C: the hot tier's row surface at card width, on a count ring and
+    one float32 field ring of [S, K] = [row_slices, row_keys]. A demotion
+    wave (gather_key_rows, then clear_key_rows, of row_moves random keys)
+    and the promotion scatter back (write_cells of row_moves cells, then
+    gather_cells of the same cells), each timed as the tier calls it (CUDA
+    events, median of 5; ids up, rows down included) and as its device
+    indexing alone, beside its bytes bound; every result and the rings after
+    each call equal the same calls on CPU tensors."""
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.testing.timing import cuda_ms
+
+    S, K, m = sz["row_slices"], sz["row_keys"], sz["row_moves"]
+    window = SlidingEventTimeWindows.of(st.WINDOW_MS, st.SLIDE_MS)
+    g = torch.Generator().manual_seed(21)
+    count0 = torch.randint(0, 64, (S, K), generator=g, dtype=torch.int32)
+    sum0 = torch.randint(0, 1 << 20, (S, K), generator=g, dtype=torch.int32).float()
+    pipes = {}
+    for where in (dev, "cpu"):
+        p = FusedWindowPipeline(window, "sum", key_capacity=K, num_slices=S, device=where)
+        p._count.copy_(count0)
+        p._state["sum"].copy_(sum0)
+        pipes[where] = p
+    del count0, sum0
+    rng = np.random.default_rng(21)
+    kids = rng.choice(K, m, replace=False).astype(np.int64)
+    cell_kids = rng.choice(K, m, replace=False).astype(np.int64)
+    cell_spos = rng.integers(0, S, m).astype(np.int64)
+    counts = rng.integers(1, 1000, m).astype(np.int64)
+    vals = rng.integers(0, 1 << 20, m).astype(np.float64)
+
+    def rings_equal():
+        a, b = pipes[dev], pipes["cpu"]
+        return (torch.equal(a._count.cpu(), b._count)
+                and torch.equal(a._state["sum"].cpu(), b._state["sum"]))
+
+    equal = {}
+    gd, gc = (pipes[w].gather_key_rows(kids) for w in (dev, "cpu"))
+    equal["gather_key_rows"] = bool(gd[0].shape == (m, S) and np.array_equal(gd[0], gc[0])
+                                    and np.array_equal(gd[1]["sum"], gc[1]["sum"]))
+    for w in (dev, "cpu"):
+        pipes[w].clear_key_rows(kids)
+    equal["clear_key_rows"] = rings_equal()
+    for w in (dev, "cpu"):
+        pipes[w].write_cells(cell_kids, cell_spos, counts, {"sum": vals})
+    equal["write_cells"] = rings_equal()
+    cd, cc = (pipes[w].gather_cells(cell_kids, cell_spos) for w in (dev, "cpu"))
+    equal["gather_cells"] = bool(np.array_equal(cd[0], cc[0]) and np.array_equal(cd[0], counts)
+                                 and np.array_equal(cd[1]["sum"], cc[1]["sum"])
+                                 and np.array_equal(cd[1]["sum"], vals.astype(np.float32)))
+    del pipes["cpu"], gd, gc, cd, cc
+    pipe = pipes[dev]
+    k_d = torch.from_numpy(kids).to(dev)
+    cell_d = (torch.from_numpy(cell_spos).to(dev), torch.from_numpy(cell_kids).to(dev))
+    cnt_d = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    val_d = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    rings = (pipe._count, pipe._state["sum"])
+    row_bytes = m * S * 8                     # one int32 and one float32 cell a slice
+    calls = {
+        "gather_key_rows": (lambda: pipe.gather_key_rows(kids),
+                            lambda: [r.index_select(1, k_d) for r in rings],
+                            m * 8 + 2 * row_bytes),
+        "clear_key_rows": (lambda: pipe.clear_key_rows(kids),
+                           lambda: [r.index_fill_(1, k_d, 0) for r in rings],
+                           m * 8 + row_bytes),
+        "write_cells": (lambda: pipe.write_cells(cell_kids, cell_spos, counts, {"sum": vals}),
+                        lambda: [r.index_put_(cell_d, v) for r, v in zip(rings, (cnt_d, val_d))],
+                        m * 16 + m * 8 + m * 8),
+        "gather_cells": (lambda: pipe.gather_cells(cell_kids, cell_spos),
+                         lambda: [r[cell_d] for r in rings],
+                         m * 16 + 2 * m * 8),
+    }
+    out = {"phase": "api_tiered_row_surface", "card": card,
+           "shape": f"[S, K] = [{S}, {K}] int32 count + float32 sum, {m} rows/cells",
+           "equal_to_cpu": equal}
+    for name, (call, device_only, nbytes) in calls.items():
+        b_ms, b_by = bound(nbytes, 0)
+        out[name] = {"ms": cuda_ms(call, 1), "device_ms": cuda_ms(device_only, 1),
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    out["ok"] = all(equal.values())
+    return out
+
+
+def api_tiered_phase(dev=DEV, sizes=None) -> dict:
+    """The million-key state plane through the port's env.execute() path.
+
+    A. parity at reduced cardinality (millikey_microbench's gate):
+       parity_events records over parity_keys keys, hot capacity
+       parity_keys // 8 (at most `hot`), uniform and zipf: the tiered job's
+       rows equal, row for row, the untiered fused job's and the numpy
+       oracle's, with evictions.
+    B. full cardinality: `events` records over `keys` keys, hot capacity
+       `hot`, admission `admission`, uniform and zipf: rows equal to the
+       numpy oracle's, resident keys within the hot capacity, records routed
+       cold, evictions under zipf (a uniform key occurs once, so the
+       doorkeeper admits none), the cold tier on the native store; tuples/s
+       best of `runs`, the tier's gauges and K1's launches.
+    C. (on the card) the row surface at card width: tiered_row_surface.
+    The tiered path emits in row mode (dense ids are recycled), one Python
+    row per key and window."""
+    from flink_tpu_torch.testing import stream as st
+
+    sz = sizes or API_TIERED
+    out = {"phase": "api_tiered", "batch": sz["batch"]}
+    ok = True
+    leg_a = {}
+    for skewed, label in ((False, "uniform"), (True, "zipf")):
+        n, p_keys = sz["parity_events"], min(sz["parity_keys"], sz["keys"])
+        cap = min(sz["hot"], p_keys // 8)
+        ref = tiered_run(n, p_keys, skewed, sz, tiered=False, cap=cap, dev=dev)
+        got = tiered_run(n, p_keys, skewed, sz, tiered=True, cap=cap, dev=dev)
+        oracle = st.millikey_oracle(n, p_keys, skewed, sz["zipf_s"])
+        leg = {"events": n, "keys": p_keys, "hot_capacity": cap, "rows": len(got["rows"]),
+               "parity_vs_untiered": len(got["rows"]) > 0 and got["rows"] == ref["rows"],
+               "parity_vs_oracle": got["rows"] == oracle,
+               "evictions": got["tier"]["evictions"],
+               "promotions": got["tier"]["promotions"],
+               "resident_keys": got["tier"]["residentKeys"],
+               "k1_launches": {"tiered": got["k1_launches"], "untiered": ref["k1_launches"]},
+               "fused_selected": got["fused_selected"] and ref["fused_selected"]}
+        leg["ok"] = bool(leg["parity_vs_untiered"] and leg["parity_vs_oracle"]
+                         and leg["evictions"] > 0 and leg["fused_selected"]
+                         and got["k1_launches"] > 0 and ref["k1_launches"] > 0)
+        ok = ok and leg["ok"]
+        leg_a[label] = leg
+        del ref, got, oracle
+    out["leg_a"] = leg_a
+
+    leg_b = {}
+    for skewed, label in ((False, "uniform"), (True, "zipf")):
+        n = sz["events"]
+        oracle = st.millikey_oracle(n, sz["keys"], skewed, sz["zipf_s"])
+        # each run's rows are held against the oracle and dropped: holding
+        # millions of row tuples slows the next run's Python
+        runs = [tiered_run(n, sz["keys"], skewed, sz, tiered=True, cap=sz["hot"],
+                           expect=oracle, dev=dev) for _ in range(sz["runs"])]
+        first, best = runs[0], min(runs, key=lambda r: r["seconds"])
+        tier = first["tier"]
+        leg = {"events": n, "keys": sz["keys"], "hot_capacity": sz["hot"],
+               "admission_min_count": sz["admission"], "rows": first["num_rows"],
+               "parity": all(r["equal"] for r in runs),
+               "tuples_per_s": best["tuples_per_s"], "seconds": [r["seconds"] for r in runs],
+               "resident_keys": tier["residentKeys"],
+               "resident_bounded": tier["residentKeys"] <= sz["hot"],
+               "evictions": tier["evictions"], "promotions": tier["promotions"],
+               "vocab_size": tier["vocabSize"], "spilled_bytes": tier["spilledBytes"],
+               "cold_records": tier["coldRecords"], "demoted_rows": tier["demotedRows"],
+               "promoted_rows": tier["promotedRows"], "gauges": tier,
+               "native": first["native"], "state_key_count": first["state_key_count"],
+               "k1_launches": first["k1_launches"],
+               "fused_selected": first["fused_selected"]}
+        # every key of the uniform stream occurs once (events << keys), so
+        # the doorkeeper admits none past the first `hot`: evictions are
+        # zipf's gate, as in millikey_microbench's own test; both variants
+        # must route records cold
+        leg["ok"] = bool(leg["parity"] and leg["resident_bounded"] and leg["native"]
+                         and leg["cold_records"] > 0 and leg["fused_selected"]
+                         and leg["k1_launches"] > 0 and (not skewed or leg["evictions"] > 0))
+        ok = ok and leg["ok"]
+        leg_b[label] = leg
+        del runs, oracle, first, best
+    out["leg_b"] = leg_b
+    out["ok"] = bool(ok)
+    return out
+
+
+def tiered_k1_inputs(skewed: bool, sz=API_TIERED, dev=DEV):
+    """K1's inputs of leg B's first full dispatch (zipf or uniform keys): the
+    tiered operator at the executor's geometry (hot capacity, 32 steps,
+    chunk 4096) fed the stream's batches and watermarks as the runner feeds
+    them, up to its first 32-step dispatch, else its widest (evictions
+    flush the operator, and a flush dispatches the steps it holds). Cold
+    records ride it as kid -1. Returns (pipe, agg, idx, vals, plan)."""
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+    from flink_tpu_torch.state.tier_manager import TierConfig
+    from flink_tpu_torch.testing import stream as st
+
+    op = FusedWindowOperator(
+        SlidingEventTimeWindows.of(st.WINDOW_MS, st.SLIDE_MS), "count",
+        key_capacity=sz["hot"], superbatch_steps=32, chunk=4096,
+        tier=TierConfig(hot_key_capacity=sz["hot"], admission_min_count=sz["admission"]),
+        device=dev)
+    staged = []
+    stage = op.pipe.stage_superbatch
+
+    def keep_widest(batches, watermarks):
+        res = stage(batches, watermarks)
+        if not staged or len(batches) > int(staged[0][2][0].shape[0]):
+            staged[:] = [res]
+        return res
+
+    op.pipe.stage_superbatch = keep_widest
+    n, B = sz["events"], sz["batch"]
+    for lo in range(0, n, B):
+        if staged and int(staged[0][2][0].shape[0]) == 32:
+            break
+        keys, ts = st.millikey_columns(np.arange(lo, min(lo + B, n), dtype=np.int64), n,
+                                       sz["keys"], skewed, sz["zipf_s"])
+        op.process_batch(keys, np.zeros(len(ts), np.float32), ts)
+        op.process_watermark(int(ts.max()) - 1)
+    idx, vals, plan = staged[0]
+    return op.pipe, resolve("count"), idx, vals, plan
+
+
 def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
     """Each torch program of the per-batch operators at lateness_operator's
     shapes (the global count step at api_count_window's, the group-agg step
@@ -2531,10 +2845,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
 
-    # ---- 1. device + build ----
+    # ---- 1. device + build (the kernels, and the cold tier's native spill
+    # store from native/*.cpp) ----
+    from flink_tpu_torch.utils import native_bridge
+
     t0 = time.perf_counter()
     libs = cs.build()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spill_store = native_bridge.build()
+    native_build_s = time.perf_counter() - t0
     ptxas = []
     for path in libs.values():
         log = path.with_suffix(".log")
@@ -2543,7 +2863,9 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln]
     emit({"phase": "device", "card": card, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
+          "native_spill_store": str(spill_store.relative_to(native_bridge.BUILD_DIR.parents[2])),
+          "native_build_s": native_build_s})
 
     # ---- 2. K1 against its plain version at the YSB geometry ----
     K, S, NSB, F, R, T, B = (YSB[k] for k in ("K", "S", "NSB", "F", "R", "T", "B"))
@@ -2848,6 +3170,33 @@ def main() -> int:
     emit({"phase": "k1_shared_shapes", "card": card, "wide": shared_k1,
           "unstaged": unstaged_k1, "phase_s": time.perf_counter() - t_k1s})
     torch.cuda.empty_cache()
+    # ---- 21. the million-key state plane: legs A and B through the
+    # executor, K1's launches counted from 0 in each run; leg C, the row
+    # surface at card width; then K1 at leg B's tiered dispatch ----
+    t_tier = time.perf_counter()
+    tiered = api_tiered_phase()
+    tiered["leg_c"] = tiered_row_surface(card, API_TIERED)
+    tiered["ok"] = bool(tiered["ok"] and tiered["leg_c"]["ok"])
+    tiered["phase_s"] = time.perf_counter() - t_tier
+    emit(tiered)
+    if not tiered["ok"]:
+        raise AssertionError("api_tiered: a leg's parity failed (the untiered job, the numpy "
+                             "oracle), the hot tier outgrew its capacity, nothing was evicted "
+                             "or routed cold, the cold tier is not native, a run launched no "
+                             "K1, or the row surface differs from its CPU result")
+    for label in ("uniform", "zipf"):
+        path_launches["k1_superscan"][f"api_tiered_a_{label}"] = \
+            tiered["leg_a"][label]["k1_launches"]["tiered"]
+        path_launches["k1_superscan"][f"api_tiered_b_{label}"] = \
+            tiered["leg_b"][label]["k1_launches"]
+    tiered_k1, tiered_k1_zipf = (k1_at_dispatch(
+        f"api_tiered count: leg B's {what} ({label} keys, cold records as kid -1)",
+        *tiered_k1_inputs(skewed)) for label, skewed, what in (
+            ("uniform", False, "first full tiered dispatch"),
+            ("zipf", True, "widest tiered dispatch (each eviction flushes)")))
+    emit({"phase": "k1_tiered_shape", "card": card, "uniform": tiered_k1,
+          "zipf": tiered_k1_zipf})
+    torch.cuda.empty_cache()
     # ---- 16. the per-batch torch programs at these shapes ----
     timed = LATENESS["timed"]
     per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
@@ -2894,6 +3243,17 @@ def main() -> int:
          **{k: shared_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "device_us", "fires")},
          "unstaged": unstaged_k1},
+        {"name": "k1_superscan_tiered", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": tiered_k1["shape"],
+         "launches": tiered["leg_b"]["uniform"]["k1_launches"],
+         "max_abs_err": max(tiered_k1["max_abs_err"], tiered_k1_zipf["max_abs_err"]),
+         "launches_by_path": {k: v for k, v in path_launches["k1_superscan"].items()
+                              if k.startswith("api_tiered")},
+         **{k: tiered_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "device_us", "fires")},
+         "zipf": tiered_k1_zipf},
         {"name": "k1_int_sum", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:103",
@@ -2981,6 +3341,13 @@ def main() -> int:
             emit(profile_run(f"api_correlated_wide_{name}", wide_run))
         emit(host_profile(f"api_correlated_wide_{name}", wide_run))
         torch.cuda.empty_cache()
+    # the million-key state plane (phase 21): leg B's run, each variant
+    for label, skewed in (("uniform", False), ("zipf", True)):
+        run_b = (lambda skewed=skewed: tiered_run(
+            API_TIERED["events"], API_TIERED["keys"], skewed, API_TIERED, tiered=True,
+            cap=API_TIERED["hot"])["seconds"])
+        emit(profile_run(f"api_tiered_{label}", run_b))
+        emit(host_profile(f"api_tiered_{label}", run_b, top=16))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -75,7 +75,6 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 #: key prefixes of the JAX package's options the port does not carry yet
 _UNPORTED_PREFIXES = (
     ("parallel.", deferred.MESH),
-    ("state.tier.", deferred.STATE_PLANE),
     ("observability.", deferred.METRICS),
     ("execution.checkpointing.", deferred.CHECKPOINTS),
     ("state.checkpoints.", deferred.CHECKPOINTS),
@@ -265,3 +264,78 @@ class TableOptions:
         "statements take the interpreted table path with a catalogued reason "
         "in `last_plan_report`. False interprets every statement. A perf "
         "switch, never a semantics switch: both paths give the same rows.")
+
+
+class StateTierOptions:
+    """The million-key state plane (state/vocab.py, state/tier_manager.py):
+    a dynamic key vocabulary bounds the RESIDENT key set to a fixed number of
+    device ring rows, demotes cold keys' rows through the host/disk cold
+    tier, promotes them on re-admission, and (optionally) journals every
+    interval's delta so checkpoints are incremental."""
+
+    TIER_ENABLED = (
+        ConfigOptions.key("state.tier.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Decouple key cardinality from the device key capacity on the "
+        "host-keyed fused window path: at most state.tier.hot-key-capacity "
+        "keys stay RESIDENT as device ring rows (admission and eviction per "
+        "state.tier.eviction-policy); every other key's state lives in the "
+        "cold tier (host memtable + spilled runs) and aggregates there; window "
+        "fires merge both tiers exactly. Results are the untiered path's: "
+        "tiering is placement, never semantics. Applies to FusedWindowOperator "
+        "jobs with host key dictionaries (traced dense-keyed chains keep their "
+        "device keying) and forces row-mode emission (dense ids are recycled, "
+        "so packed columnar output would alias keys). With the fused path off, "
+        "TpuWindowOperator takes a grow-only hot/cold id split instead.")
+    HOT_KEY_CAPACITY = (
+        ConfigOptions.key("state.tier.hot-key-capacity").int_type().default_value(1 << 13)
+    ).with_description(
+        "Resident dense-id capacity of the hot tier (device ring rows) when "
+        "state.tier.enabled. Unlike execution.state.key-capacity this never "
+        "grows: the vocabulary evicts instead.")
+    EVICTION_POLICY = (
+        ConfigOptions.key("state.tier.eviction-policy").string_type().default_value("lru")
+    ).with_description(
+        "Victim selection when the hot tier is full: 'lru' (least recently "
+        "used, frequency tiebreak) or 'lfu' (least frequently used, recency "
+        "tiebreak). Keys touched by the batch being routed are pinned either "
+        "way.")
+    ADMISSION_MIN_COUNT = (
+        ConfigOptions.key("state.tier.admission-min-count").int_type().default_value(1)
+    ).with_description(
+        "Doorkeeper: while the hot tier is full, a key must be sighted this "
+        "many times before it may evict a resident (tiny-LFU admission; 1 = "
+        "always admit). Raise under heavy-tailed traffic so one-touch keys "
+        "aggregate cold instead of churning hot rows.")
+    COLD_DIR = (
+        ConfigOptions.key("state.tier.cold-dir").string_type().default_value("")
+    ).with_description(
+        "Directory for the cold tier's spilled runs. Empty = a fresh temp "
+        "directory per operator instance; set it to survive in-place restarts.")
+    CHANGELOG_ENABLED = (
+        ConfigOptions.key("state.changelog.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Incremental checkpoints for tiered operators: cold-tier mutations and "
+        "vocabulary ops journal into an append-only segment log as they "
+        "happen, and each checkpoint appends ONE entry with the "
+        "interval-touched device cells, so a checkpoint handle is "
+        "(materialized base, log offset) and its bytes scale with the "
+        "per-interval delta. Restore replays the log over the base host-side "
+        "into the canonical full snapshot. Requires state.tier.enabled.")
+    CHANGELOG_DIR = (
+        ConfigOptions.key("state.changelog.dir").string_type().default_value("")
+    ).with_description(
+        "Directory for changelog segments and materialized bases. Empty = a "
+        "fresh temp directory per operator instance.")
+    CHANGELOG_MATERIALIZE_INTERVAL = (
+        ConfigOptions.key("state.changelog.materialize-interval").int_type()
+        .default_value(8)
+    ).with_description(
+        "Checkpoints between full materializations: every Nth checkpoint "
+        "folds the log into a fresh base file and truncates segments below the "
+        "oldest retained base.")
+    CHANGELOG_RETAINED_BASES = (
+        ConfigOptions.key("state.changelog.retained-bases").int_type().default_value(4)
+    ).with_description(
+        "Materialized base files kept on disk; must cover the checkpoint "
+        "retention window (a restorable handle must find its base).")

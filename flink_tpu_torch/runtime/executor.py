@@ -29,7 +29,10 @@ keys the records through the host dictionary into its operator:
   per-record oracle operator (`runtime/oracle_window_operator.py`), host
   code, as in the JAX package.
 A fused window step takes the `execution.latency.*` options
-(`_latency_kwargs`). A `group_agg` step
+(`_latency_kwargs`), and, on the host-keyed path, the `state.tier.*` and
+`state.changelog.*` options (`_tier_for_config`): its key capacity is then
+fixed at the hot capacity, and the per-batch operator takes the grow-only
+hot/cold id split instead. A `group_agg` step
 (`KeyedStream.continuous_aggregate`) gets a `GroupAggRunner`
 (`runtime/group_agg_operator.py`).
 
@@ -56,6 +59,7 @@ from flink_tpu_torch.config import (
     ExecutionOptions,
     LatencyOptions,
     PipelineOptions,
+    StateTierOptions,
 )
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
@@ -71,6 +75,7 @@ from flink_tpu_torch.runtime.tpu_global_window_operator import (
 from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator
 from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
 from flink_tpu_torch.scheduler.latency_controller import LatencySpec
+from flink_tpu_torch.state.tier_manager import TierConfig
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import as_device_column, canonical_column, obj_array
 from flink_tpu_torch.utils.device import resolve_device
@@ -315,6 +320,25 @@ def _latency_kwargs(config: Configuration) -> dict:
     )}
 
 
+def _tier_for_config(config: Configuration) -> Optional[TierConfig]:
+    """The fused window path's TierConfig when the million-key state plane
+    applies (state.tier.enabled), else None. Tiering needs the host key
+    dictionary, so the traced-chain runner (dense device keying) never
+    receives one."""
+    if not config.get(StateTierOptions.TIER_ENABLED):
+        return None
+    return TierConfig(
+        hot_key_capacity=config.get(StateTierOptions.HOT_KEY_CAPACITY),
+        eviction_policy=config.get(StateTierOptions.EVICTION_POLICY),
+        admission_min_count=config.get(StateTierOptions.ADMISSION_MIN_COUNT),
+        cold_dir=config.get(StateTierOptions.COLD_DIR) or None,
+        changelog_enabled=config.get(StateTierOptions.CHANGELOG_ENABLED),
+        changelog_dir=config.get(StateTierOptions.CHANGELOG_DIR) or None,
+        materialize_interval=config.get(StateTierOptions.CHANGELOG_MATERIALIZE_INTERVAL),
+        retained_bases=config.get(StateTierOptions.CHANGELOG_RETAINED_BASES),
+    )
+
+
 def _session_disorder_within_gap(step: Step, assigner) -> bool:
     """Device-session routing gate: the session operator's late contract
     (drop records whose standalone session is already expired) matches the
@@ -420,24 +444,37 @@ class WindowStepRunner(StepRunner):
                 device=device)
         elif use_fused:
             # start small and grow by doubling with the key dictionary: the
-            # superscan's cost scales with the key capacity
-            capacity = min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY))
+            # superscan's cost scales with the key capacity. With the state
+            # tier (state.tier.*) the capacity is FIXED at the hot capacity
+            # instead: the vocabulary evicts, the capacity never grows
+            tier = _tier_for_config(config)
+            if tier is not None:
+                capacity = tier.hot_key_capacity
+            else:
+                capacity = min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY))
             self.op = FusedWindowOperator(
                 assigner, device_agg, key_capacity=capacity,
                 superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
                 chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
                 columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-                device=device, **_latency_kwargs(config))
+                tier=tier, device=device, **_latency_kwargs(config))
         elif use_device:
             # allowed lateness, a late side output or the fused path off:
-            # one ingest and the due fires per batch
+            # one ingest and the due fires per batch. The state tier takes
+            # the grow-only hot/cold id split here (ids past the hot
+            # capacity aggregate in the cold tier), without lateness only
+            tier = _tier_for_config(config)
+            tier_kwargs = {}
+            if tier is not None and cfg.get("allowed_lateness", 0) == 0:
+                tier_kwargs = dict(hot_key_capacity=tier.hot_key_capacity,
+                                   cold_tier_dir=tier.cold_dir)
             self.op = TpuWindowOperator(
                 assigner, device_agg,
                 allowed_lateness=cfg.get("allowed_lateness", 0),
                 key_capacity=config.get(ExecutionOptions.KEY_CAPACITY),
                 emit_late_to_side_output=bool(cfg.get("side_output_late")),
                 columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-                device=device)
+                device=device, **tier_kwargs)
         else:
             # the per-record oracle: the JAX runner's choice for these steps
             # (parity, not a fallback); host code, the device takes no part

@@ -32,8 +32,18 @@ SharedWindowPipeline serves several correlated windows over one stream,
 SharedStepNormalizer budgets each member's fire slots, and each member's
 rows go to its own lane (`drain_spec_output`).
 
-Not ported (each raises, naming its ROADMAP.md item): the mesh (item 13),
-the state tier (item 11), device stats (D4) and queryable state (item 11).
+The million-key state plane (`tier=TierConfig(...)`, the `state.tier.*`
+options; state/tier_manager.py): at most `hot_key_capacity` keys own ring
+rows, chosen by a dynamic key vocabulary; the others aggregate in the cold
+tier on the host, riding K1's steps as kid -1 so their windows still get
+planned. Evictions demote a key's live cells into the cold tier and
+promotions write them back (the pipeline's row surface), and each fire
+merges both tiers in row mode. Snapshots are full (`"tier"`) or
+incremental over a changelog (`"tier_changelog"`), in the JAX package's
+forms both ways.
+
+Not ported (each raises, naming its ROADMAP.md item): the mesh (item 13)
+and device stats (D4).
 """
 
 from __future__ import annotations
@@ -54,7 +64,9 @@ from flink_tpu_torch.runtime.fused_window_pipeline import (
 )
 from flink_tpu_torch.scheduler.latency_controller import LatencySpec, SuperbatchController
 from flink_tpu_torch.state.columnar import KeyDictionary
+from flink_tpu_torch.state.tier_manager import TieredStateManager
 from flink_tpu_torch.utils import deferred
+from flink_tpu_torch.utils.device import HostCopy
 
 
 @dataclasses.dataclass
@@ -258,6 +270,13 @@ class StepNormalizer:
         for kid, vals, ts in fut:
             self._append_data(out, kid, vals, ts)  # still-unfit rows re-buffer
 
+    def note_slices(self, smin: int, smax: int) -> None:
+        """Tier-promotion sibling of the pipeline's note_external_slices:
+        rows written into the ring outside a pushed step count as resident
+        data for the normalizer's fire capping and ring-floor math too, or
+        the two frontier mirrors diverge."""
+        self._note_data(smin, smax)
+
     def _note_data(self, smin: int, smax: int) -> None:
         self.max_seen = smax if self.max_seen is None else max(self.max_seen, smax)
         self.min_used = smin if self.min_used is None else min(self.min_used, smin)
@@ -408,13 +427,25 @@ class FusedWindowOperator:
         latency: Optional[LatencySpec] = None,
         device=None,
     ):
-        for option, value, item in (("mesh", mesh, deferred.MESH),
-                                    ("tier", tier, deferred.STATE_PLANE)):
-            if value is not None:
-                raise deferred.not_ported(f"FusedWindowOperator({option}=...)", item)
+        if mesh is not None:
+            raise deferred.not_ported("FusedWindowOperator(mesh=...)", deferred.MESH)
         self.agg = resolve(aggregate)
         if self.agg is None:
             raise ValueError(f"aggregate {aggregate!r} has no device form")
+        # the million-key state plane: a TierConfig bounds the RESIDENT key
+        # set to hot_key_capacity ring rows, fixed (the vocabulary evicts;
+        # the capacity never grows). Host-keyed path only: a traced chain
+        # keys on the device and has no vocabulary to evict from
+        if tier is not None:
+            if prologue is not None:
+                raise ValueError(
+                    "state.tier.enabled needs the host key dictionary; "
+                    "a traced device chain keys on device (dense ids)")
+            key_capacity = tier.hot_key_capacity
+            dense_int_keys = False
+            # dense ids are RECYCLED under eviction: packed columnar output
+            # would alias keys downstream
+            columnar_output = False
         # with a TracedPrologue steps carry RAW source columns and keying
         # is dense-int on the device (no host key dictionary)
         self.prologue = prologue
@@ -429,6 +460,8 @@ class FusedWindowOperator:
                 raise ValueError(
                     "shared-partial windows run the traced-chain path "
                     "(dense device keying); a prologue is required")
+            if tier is not None:
+                raise ValueError("state.tier does not apply to the shared-partial path")
             self.spec_outputs = [[] for _ in assigners]
             self.pipe = SharedWindowPipeline(assigners, self.agg, **geometry)
             self.norm = SharedStepNormalizer(self.pipe, raw_payload=True)
@@ -437,11 +470,16 @@ class FusedWindowOperator:
             self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
         self.T = superbatch_steps
         self.keydict = KeyDictionary(dense_int_keys or prologue is not None)
+        self.tier: Optional[TieredStateManager] = None
+        if tier is not None:
+            self.tier = TieredStateManager(self.agg, self.pipe.S, tier)
+            self.tier.attach_device(self.pipe.gather_key_rows, self.pipe.clear_key_rows,
+                                    self.pipe.write_cells)
         self._steps: List[_Step] = []
-        # in-flight dispatch ring: (DeferredEmissions, wm) entries resolved
-        # FIFO. Depth 1 (the default): dispatch N+1 enqueues, THEN N
-        # resolves; latency mode deepens it so N+1 stages and launches
-        # while N's copies land
+        # in-flight dispatch ring: (DeferredEmissions, wm, purged_to)
+        # entries resolved FIFO. Depth 1 (the default): dispatch N+1
+        # enqueues, THEN N resolves; latency mode deepens it so N+1 stages
+        # and launches while N's copies land
         self._inflight: Deque[tuple] = deque()
         self._max_inflight = 1
         # latency mode (execution.latency.target-ms): the rung controller,
@@ -476,11 +514,71 @@ class FusedWindowOperator:
                                "columns via process_raw_batch")
         if len(timestamps) == 0:
             return
+        if self.tier is not None:
+            self._process_batch_tiered(np.asarray(keys), values,
+                                       np.asarray(timestamps, np.int64))
+            return
         ids, required = self.keydict.lookup_or_insert(np.asarray(keys))
         self.pipe.ensure_key_capacity(required)
         vals = np.asarray(values, np.float32) if self._needs_value else None
         self._push_steps(self.norm.push(ids.astype(np.int32), vals,
                                         np.asarray(timestamps, np.int64)))
+        self._maybe_dispatch()
+
+    # ------------------------------------------------------------------
+    # tiered-state path (state/tier_manager.py)
+    # ------------------------------------------------------------------
+    def _tier_span(self):
+        """(floor, device_hi, ring_limit): the live slice span the tier may
+        move rows within. floor mirrors the normalizer's ring-floor math
+        (min ever used, clamped by the purge frontier, cold touches
+        included); ring_limit = floor + S - NSB is the hold-back bound — a
+        promotion writing past it would alias ring positions that earlier
+        data still owns."""
+        p = self.pipe
+        touched = self.tier._touched
+        cands = [x for x in (p.min_used_slice, min(touched) if touched else None)
+                 if x is not None]
+        if not cands:
+            return None, None, None
+        lo = min(cands)
+        if p.purged_to is not None:
+            lo = max(lo, p.purged_to)
+        hi = p.max_seen_slice if p.max_seen_slice is not None else lo
+        return lo, hi, lo + p.S - p.NSB
+
+    def _process_batch_tiered(self, keys: np.ndarray, values, ts: np.ndarray) -> None:
+        tier = self.tier
+        s_abs = np.asarray(self.pipe._slice_of(ts))
+        wm = self.norm.wm
+        late = (s_abs < self.norm._min_live_slice(wm)
+                if wm > MIN_WATERMARK else np.zeros(len(ts), bool))
+        # an eviction reassigns dense ids: every buffered or in-flight step
+        # (and its pending emissions, which map ids back to keys at resolve)
+        # must land BEFORE the vocabulary moves; the check over-approximates,
+        # so a flush can be spurious but never missed
+        if tier.vocab.would_evict(keys):
+            self.flush_all()
+        vals = (np.asarray(values, np.float32)
+                if self._needs_value and values is not None else None)
+        routed = tier.route(keys, s_abs, vals, np.asarray(late, bool))
+        if routed.demotions or routed.promotions:
+            lo, hi, limit = self._tier_span()
+            tier.apply_demotions(routed.demotions, lo, hi)
+            span = tier.apply_promotions(routed.promotions, lo,
+                                         None if limit is None else limit - 1, limit)
+            if span is not None:
+                # promoted rows are resident data the planner never saw as
+                # steps: both frontier mirrors must account for them, or
+                # windows covering only promoted slices never fire
+                self.pipe.note_external_slices(*span)
+                self.norm.note_slices(*span)
+        tier.journal_vocab_ops()
+        ids = routed.ids
+        live_hot = (ids >= 0) & ~np.asarray(late, bool)
+        if live_hot.any():
+            tier.note_hot_cells(ids[live_hot].astype(np.int64), s_abs[live_hot])
+        self._push_steps(self.norm.push(ids.astype(np.int32), vals, ts))
         self._maybe_dispatch()
 
     def process_raw_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
@@ -569,7 +667,10 @@ class FusedWindowOperator:
                 [(s.kid, s.vals, s.ts) for s in group], wms, defer=True)
         if self._controller is not None:
             self._ladder_geoms.add(len(group))
-        self._inflight.append((d, group[-1].wm))
+        # the purge frontier as of THIS dispatch's staging: cold-tier rows
+        # below it may go only after this dispatch's emissions have resolved
+        # (they read the cold rows of the windows that just fired)
+        self._inflight.append((d, group[-1].wm, self.pipe.purged_to))
         while len(self._inflight) > self._max_inflight:
             self._resolve_oldest()
 
@@ -580,11 +681,13 @@ class FusedWindowOperator:
             self._resolve_oldest()
 
     def _resolve_oldest(self) -> None:
-        d, wm = self._inflight.popleft()
+        d, wm, purged_to = self._inflight.popleft()
         for window, counts, fields in d.resolve():
             self._emit(window, counts, fields)
         if wm > self.emitted_watermark:
             self.emitted_watermark = wm
+        if self.tier is not None:
+            self.tier.purge_below(purged_to)
 
     def _emit(self, window, counts, fields) -> None:
         """One fire's rows (the JAX operator's `_emit_dense_rows` and
@@ -597,6 +700,9 @@ class FusedWindowOperator:
         if self.spec_outputs is not None:
             spec, window = window
             sink = self.spec_outputs[spec]
+        elif self.tier is not None:
+            self._emit_tiered(window, counts, fields)
+            return
         n = None if self.prologue is not None else len(self.keydict)
         counts = np.asarray(counts)[:n]
         live = np.flatnonzero(counts > 0)
@@ -617,6 +723,60 @@ class FusedWindowOperator:
         for k, i in zip(keys, live):
             sink.append((k, window, result[i].item(), ts))
 
+    def _emit_tiered(self, window, counts, fields) -> None:
+        """Row-mode emission merging both tiers: resident keys fire from the
+        device rows, cold keys from the cold store. A key whose data is
+        SPLIT across tiers for this window (a partial promotion left
+        far-future rows cold) combines per the field scatter ops before
+        extraction, so placement never changes a result. The combine runs
+        on Python scalars (the float32 device value with the cold f64 one)
+        and stores back into the float32 row, as the JAX package does, so
+        rows agree to the last bit."""
+        p = self.pipe
+        j = (window.start - p.offset) // p.slide_ms
+        slice_range = range(j * p.sl, j * p.sl + p.spw)
+        counts = np.asarray(counts).astype(np.int64).copy()
+        vals = {f.name: np.asarray(fields[f.name]).copy()
+                for f in self.agg.fields if f.source != ONE}
+        cold = self.tier.cold_fire(slice_range)
+        combine = {"add": lambda a, b: a + b, "min": min, "max": max}
+        extras: List[tuple] = []   # (key, count, {field: value}): cold-only keys
+        if cold is not None:
+            ckids, cfields, ccounts = cold
+            vocab = self.tier.vocab
+            for i, cid in enumerate(ckids):
+                key = vocab.key_of_cold_id(int(cid))
+                hid = None if key is None else vocab.resident_id(key)
+                if hid is not None:
+                    counts[hid] += int(ccounts[i])
+                    for f in self.agg.fields:
+                        if f.source == ONE:
+                            continue
+                        vals[f.name][hid] = combine[f.scatter](
+                            vals[f.name][hid].item(), cfields[f.name][i].item())
+                elif key is not None:
+                    extras.append((key, int(ccounts[i]),
+                                   {n: cfields[n][i] for n in cfields}))
+        ts = window.max_timestamp()
+        live = np.flatnonzero(counts > 0)
+        if live.size:
+            fdict = {f.name: (counts if f.source == ONE else vals[f.name])
+                     for f in self.agg.fields}
+            result = np.asarray(self.agg.extract(fdict))
+            vocab = self.tier.vocab
+            for i in live:
+                self.output.append((vocab.key_of_id(int(i)), window, result[i].item(), ts))
+        if extras:
+            e_counts = np.asarray([e[1] for e in extras], np.int64)
+            fdict_e = {
+                f.name: (e_counts if f.source == ONE
+                         else np.asarray([e[2][f.name] for e in extras], np.dtype(f.dtype)))
+                for f in self.agg.fields
+            }
+            result_e = np.asarray(self.agg.extract(fdict_e))
+            for i, (key, _c, _f) in enumerate(extras):
+                self.output.append((key, window, result_e[i].item(), ts))
+
     def drain_output(self) -> List[Tuple[Any, Any, Any, int]]:
         out = self.output
         self.output = []
@@ -629,8 +789,53 @@ class FusedWindowOperator:
         self.spec_outputs[spec] = []
         return out
 
-    def query_state_for(self, key):
-        raise deferred.not_ported("FusedWindowOperator.query_state_for", deferred.STATE_PLANE)
+    def query_state_for(self, key) -> Dict[int, Dict[str, Any]]:
+        """Point lookup (queryable state): {abs_slice: {field..., count}} for
+        one key, folding ring cells, buffered steps and held-back future
+        records into one consistent view."""
+        if self.prologue is not None:
+            raise RuntimeError(
+                "queryable state is unavailable on the fused chain path: "
+                "buffered steps hold raw pre-transform columns, so a "
+                "consistent per-key view would need the traced UDFs on host")
+        if self.tier is not None:
+            raise RuntimeError(
+                "queryable state is unavailable on the tiered path: a key's "
+                "cells may be split across the device ring and the cold "
+                "store mid-movement; read the window emissions instead")
+        kid = self.keydict.lookup(key)
+        if kid is None:
+            return {}
+        pipe = self.pipe
+        # the key's column of the [S, K] rings
+        count, *accs = HostCopy([pipe._count[:, kid]]
+                                + [a[:, kid] for a in pipe._state.values()]).wait()
+        count = count.numpy()
+        acc = {name: a.numpy() for name, a in zip(pipe._state, accs)}
+        slices: Dict[int, Dict[str, Any]] = {}
+        lo = pipe.purged_to if pipe.purged_to is not None else pipe.min_used_slice
+        hi = pipe.max_seen_slice
+        if lo is not None and hi is not None:
+            for s in range(lo, hi + 1):
+                pos = s % pipe.S
+                if count[pos] > 0:
+                    entry = {name: arr[pos].item() for name, arr in acc.items()}
+                    entry["count"] = int(count[pos])
+                    slices[s] = entry
+        combine = {"add": lambda a, b: a + b, "min": min, "max": max}
+        pending = [(s.kid, s.vals, s.ts) for s in self._steps] + self.norm._future
+        for kid_arr, val_arr, ts_arr in pending:
+            sel = np.flatnonzero(np.asarray(kid_arr) == kid)
+            for i in sel:
+                s = int((int(ts_arr[i]) - pipe.offset) // pipe.g)
+                entry = slices.setdefault(s, {"count": 0})
+                entry["count"] = entry.get("count", 0) + 1
+                for f in self.agg.fields:
+                    if f.source != VALUE:
+                        continue
+                    v = float(val_arr[i]) if val_arr is not None else 1.0
+                    entry[f.name] = combine[f.scatter](entry.get(f.name, f.identity), v)
+        return slices
 
     # ------------------------------------------------------------------
     @property
@@ -642,6 +847,25 @@ class FusedWindowOperator:
 
     def phase_totals(self):
         raise deferred.not_ported("FusedWindowOperator.phase_totals", deferred.D4)
+
+    def state_key_count(self) -> int:
+        """Distinct keys the operator holds state for: the vocabulary's
+        size (resident and cold) when tiered, else the key dictionary's."""
+        if self.tier is not None:
+            return self.tier.vocab.vocab_size
+        return len(self.keydict)
+
+    def tier_gauges(self):
+        """The tier gauge family (vocabSize, residentKeys, evictions,
+        promotions, spilledBytes, changelogBytes, tierHotFillRatio), or None
+        when tiering is off (registering them with a job's metrics waits for
+        ROADMAP item 15)."""
+        return None if self.tier is None else self.tier.gauges()
+
+    def tier_payload(self):
+        """The tier block of a job's device report (None when tiering is
+        off)."""
+        return None if self.tier is None else self.tier.payload()
 
     def latency_gauges(self):
         """The latency-mode controller's gauges, or None when the mode is
@@ -666,11 +890,79 @@ class FusedWindowOperator:
             self._controller.reset()
 
     # ------------------------------------------------------------------
+    def _pack_output(self):
+        """Undrained emissions ride every tiered checkpoint; scalar numeric
+        rows pack columnar (smaller pickled than a list of (key,
+        TimeWindow, value, ts) tuples). Other rows stay a list."""
+        rows = self.output
+        if rows and all(isinstance(r[1], TimeWindow) and np.isscalar(r[2]) for r in rows):
+            return {
+                "packed": True,
+                "keys": [r[0] for r in rows],
+                "starts": np.asarray([r[1].start for r in rows], np.int64),
+                "ends": np.asarray([r[1].end for r in rows], np.int64),
+                "vals": np.asarray([r[2] for r in rows]),
+                "ts": np.asarray([r[3] for r in rows], np.int64),
+            }
+        return {"packed": False, "rows": list(rows)}
+
+    @staticmethod
+    def _unpack_output(packed) -> list:
+        if not packed.get("packed"):
+            return [_own_row(r) for r in packed["rows"]]
+        return [(k, TimeWindow(int(s), int(e)), v.item(), int(t))
+                for k, s, e, v, t in zip(packed["keys"], packed["starts"], packed["ends"],
+                                         packed["vals"], packed["ts"])]
+
+    def _tier_meta(self) -> dict:
+        """The stream position and operator state that ride every tiered
+        checkpoint (full or incremental): what restore_changelog overlays
+        on the reconstructed arrays."""
+        p = self.pipe
+        return {
+            "watermark": p.watermark,
+            "fire_cursor": p.fire_cursor,
+            "purged_to": p.purged_to,
+            "min_used_slice": p.min_used_slice,
+            "max_seen_slice": p.max_seen_slice,
+            "num_late_dropped": p.num_late_records_dropped,
+            "norm": self.norm.snapshot(),
+        }
+
+    def _envelope(self) -> dict:
+        """The transient operator surface that rides the checkpoint
+        envelope, not the state changelog: resolved-but-undrained emissions
+        are output, not keyed state."""
+        return {
+            "output": self._pack_output(),
+            "emitted_watermark": self.emitted_watermark,
+            "current_watermark": self.current_watermark,
+        }
+
+    def _apply_tier_meta(self, meta: dict, envelope: dict) -> None:
+        self.norm.restore(meta["norm"])
+        self._steps = []
+        self._reset_dispatch_ring()
+        self.output = self._unpack_output(envelope["output"])
+        self.emitted_watermark = envelope["emitted_watermark"]
+        self.current_watermark = envelope["current_watermark"]
+
     def snapshot(self) -> dict:
         """The JAX operator's snapshot form: buffered steps are flushed
-        first so keyed state lives in one place (the rings); fires this
-        triggers land in "output" and ride the snapshot."""
+        first so keyed state lives in one place (the rings, and the cold
+        tier when tiered); fires this triggers land in "output" and ride
+        the snapshot. A tiered operator's snapshot is full ("tier") or,
+        with its changelog on, an incremental (base, offset) handle
+        ("tier_changelog")."""
         self.flush_all()
+        if self.tier is not None:
+            meta = self._tier_meta()
+            if self.tier.log is not None:
+                return {"tier_changelog": self.tier.checkpoint(
+                    meta, self.pipe.gather_cells, self.pipe.snapshot),
+                    **self._envelope()}
+            return {"pipe": self.pipe.snapshot(), "tier": self.tier.full_snapshot(),
+                    "meta": meta, **self._envelope()}
         # shared partials: undrained member lanes ride the snapshot like
         # the plain output list
         extra = ({} if self.spec_outputs is None
@@ -690,9 +982,34 @@ class FusedWindowOperator:
         }
 
     def restore(self, snap: dict) -> None:
-        """Restore a snapshot of either package's operator."""
-        if "tier" in snap or "tier_changelog" in snap:
-            raise deferred.not_ported("restoring a tiered snapshot", deferred.STATE_PLANE)
+        """Restore a snapshot of either package's operator. Tiered and
+        classic snapshots restore only into an operator of their kind."""
+        if "tier_changelog" in snap:
+            if self.tier is None:
+                raise RuntimeError(
+                    "this checkpoint is an incremental (changelog) tiered "
+                    "snapshot; the restoring operator has state.tier disabled")
+            out = self.tier.restore_changelog(snap["tier_changelog"])
+            self.pipe.restore(out["pipe"])
+            self._apply_tier_meta(out["meta"], snap)
+            return
+        if "tier" in snap:
+            if self.tier is None:
+                raise RuntimeError(
+                    "this checkpoint is a tiered snapshot; the restoring "
+                    "operator has state.tier disabled")
+            self.pipe.restore(snap["pipe"])
+            self.tier.restore_full(snap["tier"])
+            self._apply_tier_meta(snap["meta"], snap)
+            return
+        if self.tier is not None:
+            # a classic (grow-only key dictionary) snapshot in a tiered
+            # operator would route new keys through an EMPTY vocabulary
+            # whose recycled dense ids alias the restored rows' old keys
+            raise RuntimeError(
+                "this checkpoint is a classic (untired) snapshot; the "
+                "restoring operator has state.tier enabled — restore it "
+                "with tiering off, or take a fresh tiered checkpoint")
         self.pipe.restore(snap["pipe"])
         self.keydict = KeyDictionary.restore(snap["keydict"])
         self.norm.restore(snap["normalizer"])

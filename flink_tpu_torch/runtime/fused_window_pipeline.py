@@ -370,6 +370,76 @@ class FusedWindowPipeline:
         raise deferred.not_ported("attach_device_stats", deferred.D4)
 
     # ------------------------------------------------------------------
+    # tiered-state row surface (state/tier_manager.py): the tier manager
+    # moves whole key rows between the device rings and the cold tier
+    # through these accessors, between dispatches (demotion/promotion) and
+    # at checkpoint time (cell gathers). A JAX key row is a column of the
+    # port's [S, K] rings: each accessor indexes the rings on their device
+    # (index_select, index_fill_, index_put_) and returns numpy in the JAX
+    # pipeline's shapes and dtypes.
+    # ------------------------------------------------------------------
+    def _ids(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    def gather_key_rows(self, kids: np.ndarray):
+        """Read whole rows: (counts np[m, S], {field: np[m, S]})."""
+        self._require_state()
+        k = self._ids(kids)
+        rows = HostCopy([self._count.index_select(1, k).t()]
+                        + [a.index_select(1, k).t() for a in self._state.values()]).wait()
+        return rows[0].numpy(), {n: r.numpy() for n, r in zip(self._state, rows[1:])}
+
+    def clear_key_rows(self, kids: np.ndarray) -> None:
+        """Reset rows to identity (the demotion cut)."""
+        self._require_state()
+        k = self._ids(kids)
+        self._count.index_fill_(1, k, 0)
+        for f in self._value_fields:
+            self._state[f.name].index_fill_(1, k, f.device_identity)
+
+    def write_cells(self, kids: np.ndarray, spos: np.ndarray,
+                    counts: np.ndarray, fields) -> None:
+        """Set individual ring cells (the promotion scatter): cell (kid,
+        spos) is ring[spos, kid]. Target rows must hold identity at the
+        written positions (fresh or cleared), so the set never clobbers
+        live data. Values cast to the ring's dtype as the JAX pipeline's
+        set does (f64 rows of the cold tier round to float32, truncate to
+        int32)."""
+        self._require_state()
+        cell = (self._ids(spos), self._ids(kids))
+        self._count.index_put_(cell, torch.from_numpy(
+            np.asarray(counts).astype(np.int32)).to(self.device))
+        for f in self._value_fields:
+            a = self._state[f.name]
+            vals = np.asarray(fields[f.name]).astype(f.device_dtype)
+            a.index_put_(cell, torch.from_numpy(vals).to(self.device))
+
+    def gather_cells(self, kids: np.ndarray, spos: np.ndarray):
+        """Point-read cells: (counts np[m], {field: np[m]}), the changelog
+        delta's checkpoint-time value source."""
+        self._require_state()
+        cell = (self._ids(spos), self._ids(kids))
+        vals = HostCopy([self._count[cell]] + [a[cell] for a in self._state.values()]).wait()
+        return vals[0].numpy(), {n: v.numpy() for n, v in zip(self._state, vals[1:])}
+
+    def note_external_slices(self, smin: int, smax: int) -> None:
+        """Account for rows placed into the ring OUTSIDE a planned step
+        (tier promotion): the fire planner must treat the span as resident
+        data, or windows covering only promoted slices would never fire.
+        Mirrors _PlanCursor.observe's frontier updates; the fire-cursor
+        candidate clamps to already-fired windows so a promotion can never
+        re-fire."""
+        self.min_used_slice = (smin if self.min_used_slice is None
+                               else min(self.min_used_slice, smin))
+        self.max_seen_slice = (smax if self.max_seen_slice is None
+                               else max(self.max_seen_slice, smax))
+        cand = self._j_oldest(smin)
+        if self.watermark > MIN_WATERMARK:
+            cand = max(cand, self._j_fired_upto(self.watermark) + 1)
+        self.fire_cursor = (cand if self.fire_cursor is None
+                            else min(self.fire_cursor, cand))
+
+    # ------------------------------------------------------------------
     # window geometry (identical formulas to the JAX pipeline)
     # ------------------------------------------------------------------
     def _slice_of(self, ts: np.ndarray) -> np.ndarray:

@@ -29,9 +29,16 @@ they are ingested before it passes their windows. Each fired window reads
 its keys and values back (one host sync a window, as the reference's
 `np.asarray(mask)`); `columnar_output` emits them as one packed row.
 
-Not ported: hot/cold key tiering (`hot_key_capacity`, `cold_tier_dir`,
-ROADMAP item 11) and the emission-latency hook (`emission_tracker`, item
-15); each raises.
+Hot/cold key split (`hot_key_capacity`, `cold_tier_dir`): dense ids below
+the hot capacity live as ring columns on the device; the ids past it
+aggregate in the cold tier on the host (state/cold_tier.py, over the
+native spill store) under absolute slices, and each fire emits both. The
+split is grow-only (no vocabulary, no eviction: that is the fused
+operator's `tier=`), and, as in the JAX package, it refuses allowed
+lateness.
+
+Not ported: the emission-latency hook (`emission_tracker`, ROADMAP item
+15), which raises.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from flink_tpu_torch.core.time import MIN_WATERMARK, TimeWindow
 from flink_tpu_torch.lint.contracts import inflight_ring
 from flink_tpu_torch.ops import segment_ops
 from flink_tpu_torch.ops.aggregators import DeviceAggregator, resolve
+from flink_tpu_torch.state.cold_tier import ColdKeyTier
 from flink_tpu_torch.state.columnar import ColumnarWindowState
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import HostCopy
@@ -84,9 +92,6 @@ class TpuWindowOperator:
             raise ValueError(f"{assigner!r} is not sliceable; it needs the oracle operator")
         if not assigner.is_event_time:
             raise ValueError("TpuWindowOperator is event-time only")
-        if hot_key_capacity is not None or cold_tier_dir is not None:
-            raise deferred.not_ported("TpuWindowOperator hot/cold key tiering",
-                                      deferred.STATE_PLANE)
         self.assigner = assigner
         self.agg: DeviceAggregator = agg
         self.allowed_lateness = allowed_lateness
@@ -107,6 +112,17 @@ class TpuWindowOperator:
             need = self.spw + self.lateness_slices + 2 * self.spw + 16
             num_slices = 1 << (need - 1).bit_length()
         self.S = num_slices
+
+        # hot/cold key split (S3/S4 analogue): dense ids below
+        # hot_key_capacity live as device columns; the overflow aggregates
+        # into the native spill store (state/cold_tier.py)
+        self.hot_key_capacity = hot_key_capacity
+        self.cold_tier: Optional[ColdKeyTier] = None
+        if hot_key_capacity is not None:
+            if allowed_lateness > 0:
+                raise ValueError("hot/cold key tiering does not support allowed_lateness yet")
+            self.cold_tier = ColdKeyTier(agg, self.S, directory=cold_tier_dir)
+            key_capacity = min(key_capacity, hot_key_capacity)
 
         self.state = ColumnarWindowState(
             agg,
@@ -236,14 +252,29 @@ class TpuWindowOperator:
 
         # 3. dense key ids (grow capacity first so the scatter shape is right)
         ids, required = self.state.keydict.lookup_or_insert(keys[keep])
+        if self.cold_tier is not None and required > self.hot_key_capacity:
+            # overflow ids take the host/LSM path with ABSOLUTE slices
+            cold = ids >= self.hot_key_capacity
+            if cold.any():
+                cold_rows = np.flatnonzero(keep)[cold]
+                self.cold_tier.ingest(
+                    (ids[cold] - self.hot_key_capacity).astype(np.int64),
+                    s_abs[cold_rows], np.asarray(vals[cold_rows], dtype=np.float32))
+                ids = np.where(cold, segment_ops.INVALID_INDEX, ids)
+            required = min(required, self.hot_key_capacity)
         self.state.ensure_key_capacity(required)
         kid = np.full(len(ts), segment_ops.INVALID_INDEX, dtype=np.int32)
         kid[keep] = ids
         self.state.ingest(kid, s_abs, vals)
-
-        # 4. fire-cursor init/advance bookkeeping
         live_slices = s_abs[keep]
         live_lo, live_hi = int(live_slices.min()), int(live_slices.max())
+        if self.cold_tier is not None:
+            # cold-only slices must still advance the used-slice frontiers
+            f = self.state.frontiers
+            f.min_used = live_lo if f.min_used is None else min(f.min_used, live_lo)
+            f.max_used = live_hi if f.max_used is None else max(f.max_used, live_hi)
+
+        # 4. fire-cursor init/advance bookkeeping
         cand = self.j_oldest(live_lo)
         if wm > MIN_WATERMARK:
             cand = max(cand, self.j_fired_upto(wm) + 1)
@@ -308,6 +339,10 @@ class TpuWindowOperator:
             elif purge_to > purge_from:
                 self.state.purge_slices(list(range(purge_from, purge_to)))
         f.purged_to = new_min_live if f.purged_to is None else max(f.purged_to, new_min_live)
+        if self.cold_tier is not None:
+            # the same retention cut for spilled rows: without it the store
+            # keeps every (key, slice) cell ever written
+            self.cold_tier.purge_below_slice(new_min_live)
         self.current_watermark = watermark
 
     def _drain_future(self) -> None:
@@ -331,16 +366,33 @@ class TpuWindowOperator:
         result, _cnt, mask = self.state.fire(
             range(start_slice, start_slice + self.spw), touch_mask=touch_mask)
         idx_t = torch.nonzero(mask).squeeze(1)      # reads the mask's size back
-        if idx_t.numel() == 0:
+        cold_emit = None
+        if self.cold_tier is not None:
+            n_cold = max(0, len(self.state.keydict) - self.hot_key_capacity)
+            if n_cold:
+                c_res, c_cnt = self.cold_tier.fire(
+                    n_cold, range(start_slice, start_slice + self.spw))
+                live = np.flatnonzero(c_cnt > 0)
+                if live.size:
+                    cold_emit = (live, c_res[live])
+        if idx_t.numel() == 0 and cold_emit is None:
             return
         idx, vals = (t.numpy() for t in HostCopy([idx_t, result[idx_t]]).wait())
         ts = window.max_timestamp()
         if self.columnar_output:
+            if cold_emit is not None:
+                # cold ids follow the hot ones, offset by the hot capacity
+                idx = np.concatenate([idx, cold_emit[0] + self.hot_key_capacity])
+                vals = np.concatenate([vals, cold_emit[1]]) if len(vals) else cold_emit[1]
             self.output.append((None, window, (idx, vals), ts))
             return
         key_at = self.state.keydict.key_at
         self.output.extend((key_at(i), window, v, ts)
                            for i, v in zip(idx.tolist(), vals.tolist()))
+        if cold_emit is not None:
+            for ci, cv in zip(cold_emit[0], cold_emit[1]):
+                self.output.append((key_at(int(ci) + self.hot_key_capacity), window,
+                                    cv.item(), ts))
 
     def drain_output(self) -> List[Tuple[Any, Any, Any, int]]:
         out = self.output
@@ -382,18 +434,17 @@ class TpuWindowOperator:
             "future": [(k, float(v), int(t)) for k, v, t in self._future],
             "num_late_dropped": self.num_late_records_dropped,
             "side_output": {k: list(v) for k, v in self.side_output.items()},
-            "cold": None,
+            "cold": self.cold_tier.snapshot() if self.cold_tier is not None else None,
         }
 
     def restore(self, snap: dict) -> None:
-        if snap.get("cold") is not None:
-            raise deferred.not_ported("restoring a hot/cold-tiered TpuWindowOperator",
-                                      deferred.STATE_PLANE)
         self.state.restore(snap["columnar"])
         self.current_watermark = snap["watermark"]
         self.fire_cursor = snap["fire_cursor"]
         self._future = list(snap["future"])
         self.num_late_records_dropped = snap["num_late_dropped"]
         self.side_output = {k: list(v) for k, v in snap.get("side_output", {}).items()}
+        if snap.get("cold") is not None and self.cold_tier is not None:
+            self.cold_tier.restore(snap["cold"])
         self._pending = []
         self.output = []

@@ -167,6 +167,20 @@ class KeyDictionary:
             out[i] = kid
         return out, len(self._keys)
 
+    def lookup(self, key) -> Optional[int]:
+        """Dense id for a key, or None if never seen (read-only)."""
+        if self.dense_int:
+            k = int(key)
+            return k if 0 <= k < len(self._keys) else None
+        kid = self._map.get(key)
+        if kid is None and self._keys and not self._map:
+            # the table modes keep _map empty: scan the keys in id order
+            try:
+                kid = self._keys.index(key)
+            except ValueError:
+                kid = None
+        return kid
+
     def key_at(self, kid: int):
         return self._keys[kid]
 

@@ -19,6 +19,7 @@ Schedule (integer math, identical on host and device), step t, record b:
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, Tuple
 
@@ -220,6 +221,70 @@ def api_replay(n: int, batch: int, *, window_ms: int = WINDOW_MS,
     last_window = int(ts.max()) // slide_ms
     ref.step(none, none, last_window * slide_ms + window_ms - 1, vals=np.empty(0))
     return ref
+
+
+# ---------------------------------------------------------------------------
+# the million-key stream (bench.py::millikey_microbench's program): YSB's
+# sliding count over a key vocabulary far beyond the hot tier's capacity
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=2)
+def zipf_bounded_cdf(num_keys: int, s: float = 1.0) -> np.ndarray:
+    """Bounded zipf cdf over ranks 1..num_keys: p_k ~ 1/k^s, normalized
+    (bench.py::zipf_bounded_cdf; ~80 MB at 10^7 keys, so two are cached)."""
+    ranks = np.arange(1, int(num_keys) + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / ranks ** float(s))
+    cdf /= cdf[-1]
+    cdf.setflags(write=False)
+    return cdf
+
+
+def zipf_keys(idx: np.ndarray, num_keys: int, s: float = 1.0) -> np.ndarray:
+    """Stateless bounded-zipf key draw for element indices `idx`
+    (bench.py::zipf_keys): the uniform variate is a splitmix64-style hash of
+    the element index, so any chunking of the stream draws the same keys;
+    rank r is key r (key 0 is the hottest)."""
+    idx = np.asarray(idx)
+    z = (idx.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15))
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    u = z.astype(np.float64) / 2.0 ** 64
+    return np.searchsorted(zipf_bounded_cdf(num_keys, s), u).astype(np.int64)
+
+
+def millikey_columns(idx: np.ndarray, n: int, num_keys: int, skewed: bool,
+                     zipf_s: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """(keys int64, timestamps int64 in order) of records `idx` of an
+    n-record millikey stream: uniform keys by a multiplicative hash of the
+    index, or bounded zipf(zipf_s); the stream spans API_SPAN_EVENT_MS of
+    event time from API_T0_MS."""
+    if skewed:
+        keys = zipf_keys(idx, num_keys, zipf_s)
+    else:
+        keys = ((idx * 2654435761) % num_keys).astype(np.int64)
+    return keys, (API_T0_MS + idx * API_SPAN_EVENT_MS // n).astype(np.int64)
+
+
+def millikey_oracle(n: int, num_keys: int, skewed: bool, zipf_s: float = 1.0,
+                    window_ms: int = WINDOW_MS, slide_ms: int = SLIDE_MS) -> list:
+    """Sorted (key, count) rows of every fired window of the sliding count
+    over the n-record millikey stream (bench.py::millikey_microbench's
+    host_oracle): each record lands in window_ms // slide_ms windows, one
+    row per (key, window) holding records. A numpy fold that holds the whole
+    vocabulary."""
+    out: Dict[Tuple[int, int], int] = {}
+    spw = window_ms // slide_ms
+    for lo in range(0, n, 1 << 18):
+        idx = np.arange(lo, min(lo + (1 << 18), n), dtype=np.int64)
+        k, ts = millikey_columns(idx, n, num_keys, skewed, zipf_s)
+        s = ts // slide_ms
+        for shift in range(spw):
+            pairs, cnts = np.unique(np.stack([k, s - shift], axis=1), axis=0,
+                                    return_counts=True)
+            for (kk, jj), c in zip(pairs.tolist(), cnts.tolist()):
+                out[(kk, jj)] = out.get((kk, jj), 0) + c
+    return sorted((kk, c) for (kk, _jj), c in out.items())
 
 
 def parity(cpu_fired, dev_fired, require_all: bool = True):

@@ -8,8 +8,6 @@ from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
 D4 = "deferred item D4 (compile tracker and phase counters)"
-D6 = "deferred item D6 (the tiered-state row surface)"
-STATE_PLANE = "item 11 (state and device planes)"
 JOINS = "item 12 (joins)"
 MESH = "item 13 (multi-GPU)"
 CHAOS = "item 14 (remaining touch points: minicluster, chaos)"

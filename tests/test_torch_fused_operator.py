@@ -306,9 +306,15 @@ def test_operator_snapshot_crosses_packages(direction):
 
 
 def test_operator_unported_options_raise_naming_the_roadmap():
-    for kw, item in ((dict(mesh=object()), "item 13"), (dict(tier=object()), "item 11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
-            tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
+        tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", mesh=object())
+    # the state tier is ported (tests/test_torch_state_tiering.py runs
+    # it): the option builds a tiered operator at the hot capacity
+    from flink_tpu_torch.state.tier_manager import TierConfig
+
+    op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
+                                 tier=TierConfig(hot_key_capacity=16))
+    assert op.tier is not None and op.pipe.K == 16 and op.tier_gauges()["residentKeys"] == 0
     # shared partials are ported: without a prologue both packages refuse
     # `assigners=` alike (tests/test_torch_shared_pipeline.py runs them)
     for make in (lambda: jfo.FusedWindowOperator(_window(jasg), "count", assigners=[]),
@@ -324,11 +330,11 @@ def test_operator_unported_options_raise_naming_the_roadmap():
                                  latency=LatencySpec(target_ms=5))
     assert op.pipe.readback_steps == 8 and op.latency_gauges()["latencyModeActive"] == 1
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu")
-    for call, item in ((lambda: op.attach_device_stats(None), "D4"),
-                       (op.phase_totals, "D4"),
-                       (lambda: op.query_state_for(1), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (lambda: op.attach_device_stats(None), op.phase_totals):
+        with pytest.raises(NotImplementedError, match="D4"):
             call()
+    # queryable state is ported: a key never seen has no cells
+    assert op.query_state_for(1) == {}
     # an operator without shared partials has no member lanes, in both
     # packages
     for unshared in (op, jfo.FusedWindowOperator(_window(jasg), "count")):

@@ -161,6 +161,41 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
             "GROUP BY user, TUMBLE(rowtime, INTERVAL '1' SECOND)")
         assert tenv.last_plan_report.reason == "multi-aggregate"
         assert sum(r["n"] for r in rows) == 60, rows
+        # the million-key state plane: a tiered job (hot/cold key tiering
+        # over the native spill store, the changelog on), the row surface,
+        # queryable state, and the state plane's other modules
+        from flink_tpu_torch.connectors.sink import CollectSink
+        from flink_tpu_torch.runtime.external_resources import get_external_resource_infos
+        from flink_tpu_torch.runtime.memory import MemoryManager
+        from flink_tpu_torch.state.spillable import SpillableKeyedStateBackend  # noqa: F401
+        import tempfile
+        tmp = tempfile.mkdtemp()
+        cfg = Configuration({"execution.step.batch-size": 256,
+                             "state.tier.enabled": True, "state.tier.hot-key-capacity": 8,
+                             "state.tier.cold-dir": tmp + "/cold",
+                             "state.changelog.enabled": True,
+                             "state.changelog.dir": tmp + "/log"})
+        env = StreamExecutionEnvironment(cfg, device="cpu")
+        sink = CollectSink()
+        (env.from_source(DataGeneratorSource(
+            lambda idx: Batch(idx % 64, (1000 + idx * 7).astype(np.int64)), 3000),
+            WatermarkStrategy.for_bounded_out_of_orderness(0))
+         .key_by(lambda c: c, vectorized=True)
+         .window(SlidingEventTimeWindows.of(2000, 500)).count().sink_to(sink))
+        env.execute()
+        assert sum(v for _k, v in sink.results) == 4 * 3000
+        from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+        from flink_tpu_torch.state.tier_manager import TierConfig
+        op = FusedWindowOperator(SlidingEventTimeWindows.of(2000, 500), "sum", device="cpu",
+                                 tier=TierConfig(hot_key_capacity=4, changelog_enabled=True,
+                                                 changelog_dir=tmp + "/log2"))
+        op.process_batch(np.arange(12), np.ones(12, np.float32), np.arange(12) * 100)
+        assert "tier_changelog" in op.snapshot() and op.tier.cold.native
+        plain = FusedWindowOperator(SlidingEventTimeWindows.of(2000, 500), "sum", device="cpu")
+        plain.process_batch(np.arange(3), np.ones(3, np.float32), np.arange(3) * 100)
+        assert plain.query_state_for(1) == {0: {"sum": 1.0, "count": 1}}
+        assert MemoryManager.for_device("cpu").budget > 0
+        assert get_external_resource_infos("cuda") == []
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -190,7 +225,10 @@ def test_sources_import_neither_jax_nor_flink_tpu():
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
-                 "scheduler/latency_controller.py"):
+                 "scheduler/latency_controller.py", "state/vocab.py", "state/changelog.py",
+                 "state/cold_tier.py", "state/tier_manager.py", "state/spillable.py",
+                 "utils/native_bridge.py", "runtime/memory.py",
+                 "runtime/external_resources.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):

@@ -309,8 +309,8 @@ def _count_function(fn):
 
 def _still_deferred(pkg=None):
     """Surfaces by name: (job or call, the ROADMAP item it raises naming;
-    None for the ones the per-record oracle operator brought in, which run
-    in both packages instead)."""
+    None for the ones the per-record oracle operator and the state plane
+    brought in, which run in both packages instead)."""
     pkg = pkg or PORT
 
     def job(make, **opts):
@@ -348,7 +348,11 @@ def _still_deferred(pkg=None):
         "side_output_of_a_source": (lambda: tds.StreamExecutionEnvironment(device="cpu")
                                     .from_collection([1]).get_side_output(tfn.LATE_DATA_TAG),
                                     "item 19"),
-        "state_tier": (lambda: Configuration({"state.tier.hot-key-capacity": 8}), "item 11"),
+        # the state plane is ported: a tiered job (the fused path
+        # off: TpuWindowOperator's hot/cold id split) runs in both packages
+        "state_tier": (job(lambda k: window(k).sum(), **{
+            "state.tier.enabled": True, "state.tier.hot-key-capacity": 1,
+            "execution.window.fused": False}), None),
     }
 
 
