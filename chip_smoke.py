@@ -117,11 +117,36 @@ exits non-zero on the first failure. Phases, one JSON line each:
    the numpy oracle's, uniform and zipf, with evictions. Leg B at 2^18
    records over 10^7 keys: oracle parity, resident keys <= 4096, records
    routed cold, evictions under zipf, the cold tier native, tuples/s best of
-   3 and the tier's gauges. Leg C: the row surface (gather_key_rows,
+   2 and the tier's gauges. Leg C: the row surface (gather_key_rows,
    clear_key_rows, write_cells, gather_cells) on [S, K] = [32, 2^20] rings,
    2^16 rows, equal to the CPU result, each against its bytes bound. Then
-   K1 at leg B's first full dispatch (K = 4096, B = 8192, T = 32), and a
-   device and host profile of leg B's runs.
+   K1 at leg B's first full dispatch (K = 4096, B = 8192, T = 32), a
+   device profile of each leg B variant and a host profile of zipf's, at
+   2^17 records.
+22. api_checkpoint: job checkpoints, restart strategies and savepoints,
+   every job through env.execute_async on the port's MiniCluster (a
+   job thread each). Leg A: api_ysb's program at 2^22 records in row mode,
+   with checkpoints off and at 25 ms into a directory, restart-strategy
+   fixed-delay at 1 ms: tuples/s on and off and K1's launches each way;
+   then at 1 ms (every step) and at 25 ms, each with one host failure
+   raised by the sink writer at 60% of the event time: one restart from a
+   reported checkpoint, the rows equal the uninterrupted run's and the
+   numpy oracle's, the device memory at the restarted attempt's first
+   sink batch within 512 KiB of the first attempt's; and the same job into
+   a FileSink, whose committed part files hold exactly those rows. Leg B:
+   the program at 2^20 keys with a float32 sum (rings [32, 2^20] x 2,
+   256 MiB), columnar, checkpoints every 40 ms (at least four): oracle
+   parity; the capture and restore of those rings by part (on-card
+   transposition, copy to the host, pickle, fsync, load, copy back) against
+   bounds from one large pinned copy_ each way in the same run; then a
+   savepoint at half the input (the source held on an Event), cancel, and
+   a new job resumed from it with MiniCluster.submit(savepoint_restore_path
+   =): records_in complete, every window of the oracle once. Leg C:
+   api_tiered's zipf job (2^18 records over 10^7 keys) with a checkpoint
+   at every step, each an incremental (base, log offset) changelog handle,
+   and one host failure in the source: the oracle's rows after the restore
+   from the handle, incremental_ratio (millikey_microbench's) below 0.25.
+   Then a host profile of leg A's job at 25 ms, driven on the main thread.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -2414,7 +2439,7 @@ def api_correlated_phase(dev=DEV, sizes=None) -> dict:
 # ---------------------------------------------------------------------------
 
 API_TIERED = dict(batch=8192, keys=10_000_000, hot=4096, admission=2, zipf_s=1.0,
-                  parity_keys=1 << 15, parity_events=1 << 16, events=1 << 18, runs=3,
+                  parity_keys=1 << 15, parity_events=1 << 16, events=1 << 18, runs=2,
                   row_keys=1 << 20, row_slices=32, row_moves=1 << 16)
 
 
@@ -2423,12 +2448,13 @@ def _t_identity(col):
 
 
 def tiered_job(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int, tmp: str,
-               dev=DEV):
+               hook=None, extra=None, dev=DEV):
     """(env, sink) of millikey_microbench's program over n records of n_keys
     keys (uniform, or bounded zipf): a vectorized identity key_by (the host
     key dictionary's route), 10 s windows sliding by 1 s, count, batch
     sz["batch"]; with `tiered`, state.tier.* at hot capacity `cap` and
-    sz["admission"], and the changelog on, their directories under tmp."""
+    sz["admission"], and the changelog on, their directories under tmp.
+    `extra`: more options; hook(idx) runs before each source batch."""
     from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
     from flink_tpu_torch.config import Configuration
@@ -2445,9 +2471,12 @@ def tiered_job(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int,
                      "state.tier.cold-dir": f"{tmp}/cold",
                      "state.changelog.enabled": True,
                      "state.changelog.dir": f"{tmp}/changelog"})
+    conf.update(extra or {})
     env = StreamExecutionEnvironment(Configuration(conf), device=dev)
 
     def gen(idx):
+        if hook is not None:
+            hook(idx)
         return Batch(*st.millikey_columns(idx, n, n_keys, skewed, sz["zipf_s"]))
 
     sink = CollectSink()
@@ -2706,6 +2735,506 @@ def tiered_k1_inputs(skewed: bool, sz=API_TIERED, dev=DEV):
         op.process_watermark(int(ts.max()) - 1)
     idx, vals, plan = staged[0]
     return op.pipe, resolve("count"), idx, vals, plan
+
+
+# ---------------------------------------------------------------------------
+# phase 22: job checkpoints, restart strategies and savepoints through
+# env.execute_async on the port's MiniCluster
+# ---------------------------------------------------------------------------
+
+# leg A: api_ysb's program (filter one in three, key, 10 s / 1 s count, 8192
+# keys, batch 65536) over 2^22 records, one host failure in the sink at 60%
+# of the stream's event time, checkpoints at 1 ms (every step) and 25 ms
+# (checkpoint_microbench's interval); leg B: the same program at 2^20 keys
+# with a float32 sum (rings [32, 2^20] x 2 = 256 MiB), checkpoints every
+# 40 ms, then a savepoint at half the input, cancel, resume; leg C:
+# api_tiered's zipf job (2^18 records over 10^7 keys) with a checkpoint at
+# every step and one host failure in the source
+API_CHECKPOINT = dict(keys=8192, batch=65536, events=1 << 22, warmup_events=1 << 18,
+                      intervals=(1, 25), fail_at=0.6, mem_slack=1 << 19,
+                      big_keys=1 << 20, big_events=1 << 22, big_interval=40,
+                      min_checkpoints=4, savepoint_at=0.5, tiered_events=1 << 18)
+
+
+class FailOnceSink:
+    """A sink around `inner` whose writers raise once, on the first batch
+    whose largest timestamp reaches `fail_ts` (None: never), and log the
+    device memory allocated at each writer's first batch (one writer an
+    attempt): `.first_write_bytes`."""
+
+    def __init__(self, inner, fail_ts=None):
+        self.inner, self.fail_ts, self.failed = inner, fail_ts, False
+        self.first_write_bytes = []
+
+    def create_writer(self):
+        from flink_tpu_torch.connectors.sink import SinkWriter
+
+        sink, inner = self, self.inner.create_writer()
+
+        class Writer(SinkWriter):
+            first = True
+
+            def write_batch(self, values, timestamps=None):
+                if self.first:
+                    self.first = False
+                    sink.first_write_bytes.append(
+                        torch.cuda.memory_allocated() if torch.cuda.is_available() else 0)
+                if (sink.fail_ts is not None and not sink.failed and len(timestamps)
+                        and int(np.max(timestamps)) >= sink.fail_ts):
+                    sink.failed = True
+                    raise RuntimeError("injected host failure in the sink writer")
+                inner.write_batch(values, timestamps)
+
+            def prepare_commit(self, epoch_id="final"):
+                return inner.prepare_commit(epoch_id)
+
+            def close(self):
+                inner.close()
+
+            def __getattr__(self, name):     # a collecting writer's `store`
+                return getattr(inner, name)
+
+        return Writer()
+
+    def create_committer(self):
+        return self.inner.create_committer()
+
+
+def timed_collect_sink():
+    """A collecting sink (its writer's `store` rides each checkpoint, as
+    CollectSink's does) keeping each row with its timestamp (a window's max
+    timestamp): `.results` of (row, ts)."""
+    from flink_tpu_torch.connectors.sink import Sink, SinkWriter
+
+    class Writer(SinkWriter):
+        def __init__(self, store):
+            self.store = store
+
+        def write_batch(self, values, timestamps=None):
+            self.store.extend(zip(values, (int(t) for t in timestamps)))
+
+    class TimedCollectSink(Sink):
+        def __init__(self):
+            self.results = []
+
+        def create_writer(self):
+            return Writer(self.results)
+
+    return TimedCollectSink()
+
+
+def ckpt_job(n: int, sink, sz, *, interval: int = 0, chk_dir=None, keys=None, agg="count",
+             columnar=False, hook=None, dev=DEV):
+    """env of the api_ysb program over n records with execution.checkpointing
+    at `interval` ms (0: off) into chk_dir, restart-strategy fixed-delay with
+    a 1 ms backoff; `agg` "sum" sums the payload column into a float32
+    field beside the count ring; hook(idx) runs before each source batch
+    (gates)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    keys = keys or sz["keys"]
+    conf = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": keys,
+            "execution.window.columnar-output": columnar,
+            "restart-strategy.type": "fixed-delay", "restart-strategy.initial-backoff": 1}
+    if interval:
+        conf.update({"execution.checkpointing.interval": interval,
+                     "execution.checkpointing.dir": chk_dir})
+    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
+
+    def gen(idx):
+        if hook is not None:
+            hook(idx)
+        return Batch(*st.api_columns(idx, n, keys, payload=agg == "sum"))
+
+    win = (env.from_source(DataGeneratorSource(gen, n),
+                           WatermarkStrategy.for_bounded_out_of_orderness(0))
+           .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+           .window(SlidingEventTimeWindows.of(API["window"], API["slide"])))
+    if agg == "sum":
+        win.aggregate("sum", value_fn=_t_value, value_traceable=True).sink_to(sink)
+    else:
+        win.aggregate("count").sink_to(sink)
+    return env
+
+
+def ckpt_run(env, dev=DEV, timeout=900) -> dict:
+    """One execute_async() with K1's launch count at 0 just before it: the
+    client, seconds and K1 launches."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    client = env.execute_async()
+    client.wait(timeout)
+    _sync(dev)
+    return {"client": client, "seconds": time.perf_counter() - t0,
+            "k1_launches": cs.LAUNCHES["k1_superscan"]}
+
+
+def ckpt_stats(client) -> dict:
+    """What a run's client says of its checkpoints and restarts."""
+    g = client.checkpoint_stats.gauge_values()
+    restored = client.checkpoint_stats.payload()["latest"]["restored"]
+    return {"num_restarts": client.num_restarts, "checkpoints": g["numberOfCompletedCheckpoints"],
+            "lastCheckpointDuration_ms": g["lastCheckpointDuration"],
+            "lastCheckpointSize_bytes": g["lastCheckpointSize"],
+            "restored_checkpoint_id": None if restored is None else restored["checkpoint_id"],
+            "restore_ms": None if restored is None else restored["restore_duration_ms"]}
+
+
+def timed_fired(results, keys: int) -> dict:
+    """(row, ts) results in row mode as {window index: row over the keys}."""
+    fired = {}
+    for (k, v), t in results:
+        j = (t + 1 - API["window"]) // API["slide"]
+        row = fired.get(j)
+        if row is None:
+            row = fired[j] = np.zeros(keys)
+        row[k] = v
+    return fired
+
+
+def columnar_fired(results, keys: int):
+    """Columnar (packed) results as {window index: row over the keys}, and
+    whether any window came twice."""
+    fired, twice = {}, False
+    for (window, ids, vals), _t in results:
+        j = (window.max_timestamp() + 1 - API["window"]) // API["slide"]
+        twice = twice or j in fired
+        row = fired[j] = np.zeros(keys)
+        row[np.asarray(ids)] = np.asarray(vals)
+    return fired, twice
+
+
+def ckpt_leg_a(sz, dev, tmp: str) -> dict:
+    """Exactly-once recovery on the main path (see API_CHECKPOINT)."""
+    import collections
+    import os
+
+    from flink_tpu_torch.connectors.sink import FileSink
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["events"], sz["keys"]
+    fail_ts = st.API_T0_MS + int(st.API_SPAN_EVENT_MS * sz["fail_at"])
+    ref = st.api_replay(n, sz["batch"], agg="count", num_keys=keys)
+    ckpt_run(ckpt_job(sz["warmup_events"], timed_collect_sink(), sz, dev=dev), dev)
+    off_sink = timed_collect_sink()
+    off = ckpt_run(ckpt_job(n, off_sink, sz, dev=dev), dev)
+    rows = sorted(off_sink.results)
+    oracle_ok, checked = st.parity(ref.fired, timed_fired(off_sink.results, keys))
+    out = {"events": n, "keys": keys, "batch": sz["batch"],
+           "off": {"seconds": off["seconds"], "tuples_per_s": n / off["seconds"],
+                   "k1_launches": off["k1_launches"], "rows": len(rows),
+                   "parity_vs_oracle": oracle_ok, "windows_checked": checked}}
+    ok = oracle_ok and off["k1_launches"] > 0
+    del off_sink
+    for interval in sz["intervals"]:
+        leg = {}
+        if interval == sz["intervals"][-1]:
+            # checkpoints on, no failure: the overhead
+            sink = timed_collect_sink()
+            on = ckpt_run(ckpt_job(n, sink, sz, interval=interval,
+                                   chk_dir=f"{tmp}/on{interval}", dev=dev), dev)
+            leg = {"seconds": on["seconds"], "tuples_per_s": n / on["seconds"],
+                   "overhead_pct": 100.0 * (on["seconds"] / off["seconds"] - 1.0),
+                   "k1_launches": on["k1_launches"],
+                   "rows_equal": sorted(sink.results) == rows, **ckpt_stats(on["client"])}
+            ok = ok and leg["rows_equal"] and on["k1_launches"] > 0 and leg["checkpoints"] > 0
+            del sink
+        # one host failure in the sink at fail_at of the event time
+        fsink = FailOnceSink(timed_collect_sink(), fail_ts)
+        rec = ckpt_run(ckpt_job(n, fsink, sz, interval=interval,
+                                chk_dir=f"{tmp}/fail{interval}", dev=dev), dev)
+        client = rec["client"]
+        got = sorted(fsink.inner.results)
+        par, _c = st.parity(ref.fired, timed_fired(fsink.inner.results, keys))
+        mem = fsink.first_write_bytes
+        leg["recovery"] = {
+            "status": client.status().value, "seconds": rec["seconds"],
+            "k1_launches": rec["k1_launches"], **ckpt_stats(client),
+            "rows_equal": got == rows, "parity_vs_oracle": par,
+            "fused_selected": any(type(r).__name__ == "DeviceChainRunner"
+                                  for r in client._runtime.runners),
+            "first_write_allocated_bytes": mem,
+            "memory_bounded": len(mem) == 2 and mem[1] <= mem[0] + sz["mem_slack"]}
+        r = leg["recovery"]
+        leg["ok"] = bool(r["status"] == "FINISHED" and r["num_restarts"] == 1
+                         and r["restored_checkpoint_id"] is not None and r["rows_equal"]
+                         and r["parity_vs_oracle"] and r["fused_selected"]
+                         and r["memory_bounded"] and r["k1_launches"] > 0)
+        ok = ok and leg["ok"]
+        out[f"interval_{interval}ms"] = leg
+        del fsink, got, client, rec
+    # the same job into a FileSink: committed part files hold the rows once
+    interval = sz["intervals"][-1]
+    fdir = f"{tmp}/filesink"
+    fsink = FailOnceSink(FileSink(fdir, prefix="out"), fail_ts)
+    rec = ckpt_run(ckpt_job(n, fsink, sz, interval=interval, chk_dir=f"{tmp}/file{interval}",
+                            dev=dev), dev)
+    lines = []
+    parts = sorted(p for p in os.listdir(fdir) if not p.startswith("."))
+    for p in parts:
+        with open(os.path.join(fdir, p)) as f:
+            lines += [ln for ln in f.read().splitlines() if ln]
+    want = collections.Counter(str(row) for row, _t in rows)
+    out["file_sink"] = {"interval_ms": interval, "part_files": len(parts),
+                        "lines": len(lines), "num_restarts": rec["client"].num_restarts,
+                        "lines_equal_rows": collections.Counter(lines) == want,
+                        "k1_launches": rec["k1_launches"]}
+    ok = (ok and out["file_sink"]["lines_equal_rows"] and rec["client"].num_restarts == 1
+          and rec["k1_launches"] > 0)
+    out["ok"] = bool(ok)
+    return out
+
+
+def pinned_copy_ms(nbytes: int) -> dict:
+    """One large copy_ each way between the card and pinned host memory:
+    the bandwidths the capture and restore bounds use."""
+    from flink_tpu_torch.testing.timing import cuda_ms
+
+    d = torch.empty(nbytes // 4, dtype=torch.int32, device=DEV)
+    h = torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=True)
+    d2h = cuda_ms(lambda: h.copy_(d, non_blocking=True), 3)
+    h2d = cuda_ms(lambda: d.copy_(h, non_blocking=True), 3)
+    del d, h
+    return {"bytes": nbytes, "d2h_ms": d2h, "h2d_ms": h2d,
+            "d2h_bytes_per_s": nbytes / d2h * 1e3, "h2d_bytes_per_s": nbytes / h2d * 1e3}
+
+
+def capture_parts(pipe, store_dir: str, dev=DEV) -> dict:
+    """The capture and restore of `pipe`'s rings by part, against bounds:
+    the on-card transposition to the canonical [K, S] form (CUDA events;
+    bound: each ring read and written once over the memory rate), the copy
+    to the host (host clock, synchronised; bound: the bytes over the
+    pinned device-to-host rate one large copy_ gives in this run), pickle
+    and fsync (FsCheckpointStorage.save's own parts), the load, and the
+    restore's copy to the card (bound: the pinned host-to-device rate, plus
+    the transposition back)."""
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.testing.timing import cuda_ms
+
+    rings = [pipe._count] + [pipe._state[k] for k in sorted(pipe._state)]
+    nbytes = sum(r.numel() * r.element_size() for r in rings)
+    copy = pinned_copy_ms(nbytes) if torch.device(dev).type == "cuda" else None
+    transpose_ms = (cuda_ms(lambda: [cs.from_kernel_layout(r).contiguous() for r in rings], 3)
+                    if copy is not None else None)
+    _sync(dev)
+    t0 = time.perf_counter()
+    snap = pipe.snapshot()
+    _sync(dev)
+    snapshot_s = time.perf_counter() - t0
+    store = FsCheckpointStorage(store_dir)
+    store.save(1, {"pipe": snap})
+    parts = store.last_save_parts
+    t0 = time.perf_counter()
+    loaded = store.load(store.latest()[1])
+    load_s = time.perf_counter() - t0
+    _sync(dev)
+    t0 = time.perf_counter()
+    pipe.restore(loaded["pipe"])
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    out = {"ring_bytes": nbytes, "file_bytes": parts["bytes"],
+           "snapshot_ms": snapshot_s * 1e3, "transpose_ms": transpose_ms,
+           "pickle_ms": parts["pickle_s"] * 1e3, "fsync_ms": parts["fsync_s"] * 1e3,
+           "load_ms": load_s * 1e3, "restore_ms": restore_s * 1e3}
+    if copy is not None:
+        # transposition: read and write each ring once on the card
+        t_bytes = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        out.update(pinned_copy=copy,
+                   snapshot_bound_ms=nbytes / copy["d2h_bytes_per_s"] * 1e3 + t_bytes,
+                   restore_bound_ms=nbytes / copy["h2d_bytes_per_s"] * 1e3 + t_bytes,
+                   transpose_bound_ms=t_bytes)
+        out["leading_part"] = ("transpose" if transpose_ms > out["snapshot_ms"] / 2
+                               else "copy to host")
+    return out
+
+
+def ckpt_leg_b(sz, dev, tmp: str) -> dict:
+    """Keyed state at card size (see API_CHECKPOINT): a checkpointed run,
+    the capture and restore by part, then savepoint, cancel and resume."""
+    import threading
+
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.minicluster import MiniCluster
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys, B = sz["big_events"], sz["big_keys"], sz["batch"]
+    ref = st.api_replay(n, B, agg="sum", num_keys=keys)
+    sink = timed_collect_sink()
+    run = ckpt_run(ckpt_job(n, sink, sz, interval=sz["big_interval"], chk_dir=f"{tmp}/big",
+                            keys=keys, agg="sum", columnar=True, dev=dev), dev)
+    fired, twice = columnar_fired(sink.results, keys)
+    par, checked = st.parity(ref.fired, fired)
+    stats = ckpt_stats(run["client"])
+    op = next(r.op for r in run["client"]._runtime.runners if hasattr(r, "op"))
+    out = {"events": n, "keys": keys, "interval_ms": sz["big_interval"],
+           "ring_shape": [int(op.pipe.S), int(op.pipe.K)], "seconds": run["seconds"],
+           "k1_launches": run["k1_launches"], **stats, "parity_vs_oracle": par,
+           "windows_checked": checked, "no_window_twice": not twice}
+    out["capture"] = capture_parts(op.pipe, f"{tmp}/parts", dev)
+    del sink, fired, op, run
+    # savepoint at savepoint_at of the input, cancel, resume as a new job
+    half = (int(n * sz["savepoint_at"]) // B) * B
+    reached, go, taken = threading.Event(), threading.Event(), threading.Event()
+
+    def hook(idx):
+        if idx[0] == half:
+            reached.set()
+            go.wait(600)
+        elif idx[0] == half + 2 * B:
+            taken.wait(600)
+
+    sink1 = timed_collect_sink()
+    env1 = ckpt_job(n, sink1, sz, keys=keys, agg="sum", columnar=True, hook=hook, dev=dev)
+    client1 = env1.execute_async("leg-b-savepoint")
+    reached.wait(600)
+    sp_path = f"{tmp}/savepoint"
+    t_sp = {}
+
+    def take():
+        t0 = time.perf_counter()
+        client1.trigger_savepoint(sp_path, timeout=600)
+        t_sp["ms"] = (time.perf_counter() - t0) * 1e3
+
+    writer = threading.Thread(target=take)
+    writer.start()
+    go.set()
+    writer.join(600)
+    client1.cancel()
+    taken.set()
+    status1 = client1.wait(600)
+    sink2 = timed_collect_sink()
+    env2 = ckpt_job(n, sink2, sz, keys=keys, agg="sum", columnar=True, hook=hook, dev=dev)
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    client2 = MiniCluster.get_shared().submit(plan(env2._sinks), env2.config, "leg-b-resumed",
+                                              savepoint_restore_path=sp_path, device=dev)
+    status2 = client2.wait(900)
+    _sync(dev)
+    fired2, twice2 = columnar_fired(sink2.results, keys)
+    par2, checked2 = st.parity(ref.fired, fired2)
+    out["savepoint"] = {
+        "at_record": half, "trigger_ms": t_sp.get("ms"), "first_job": status1.value,
+        "resumed_job": status2.value, "resume_seconds": time.perf_counter() - t0,
+        "records_in": client2.records_in, "records_in_complete": client2.records_in == n,
+        "rows_before_savepoint": len(sink1.results), "parity_vs_oracle": par2,
+        "windows_checked": checked2, "no_window_twice": not twice2,
+        "k1_launches": cs.LAUNCHES["k1_superscan"],
+        "restore_ms": client2.checkpoint_stats.payload()["latest"]["restored"][
+            "restore_duration_ms"]}
+    s = out["savepoint"]
+    out["ok"] = bool(par and not twice and out["checkpoints"] >= sz["min_checkpoints"]
+                     and out["k1_launches"] > 0 and status1.value == "CANCELED"
+                     and status2.value == "FINISHED" and s["records_in_complete"]
+                     and par2 and not twice2 and s["k1_launches"] > 0)
+    return out
+
+
+def ckpt_leg_c(sz, dev, tmp: str) -> dict:
+    """Incremental checkpoints of the tiered job (api_tiered leg B's zipf
+    job through the coordinator, a checkpoint at every step, one host
+    failure in the source at fail_at): rows equal numpy's after the restore
+    from the changelog handle; incremental_ratio as millikey_microbench
+    computes it (median interval changelog bytes over the base bytes)."""
+    import statistics
+
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+    from flink_tpu_torch.testing import stream as st
+
+    tz = API_TIERED
+    n = sz["tiered_events"]
+    state = {"failed": False}
+
+    def hook(idx):
+        if not state["failed"] and idx[0] >= int(n * sz["fail_at"]):
+            state["failed"] = True
+            raise RuntimeError("injected host failure in the source")
+
+    env, sink = tiered_job(n, tz["keys"], True, tz, tiered=True, cap=tz["hot"], tmp=tmp,
+                           hook=hook, dev=dev,
+                           extra={"execution.checkpointing.interval": 1,
+                                  "execution.checkpointing.dir": f"{tmp}/chk",
+                                  "restart-strategy.type": "fixed-delay",
+                                  "restart-strategy.initial-backoff": 1})
+    run = ckpt_run(env, dev)
+    client = run["client"]
+    op = next(r.op for r in client._runtime.runners
+              if isinstance(getattr(r, "op", None), FusedWindowOperator))
+    tier = op.tier
+    med = statistics.median(tier.interval_bytes_history)
+    base = tier.last_base_bytes()
+    rows = sorted((int(k), int(c)) for k, c in sink.results)
+    oracle = st.millikey_oracle(n, tz["keys"], True, tz["zipf_s"])
+    stats = ckpt_stats(client)
+    out = {"events": n, "keys": tz["keys"], "hot_capacity": tz["hot"],
+           "seconds": run["seconds"], "k1_launches": run["k1_launches"], **stats,
+           "rows": len(rows), "parity_vs_oracle": rows == oracle,
+           "changelog_interval_bytes_p50": med, "base_bytes": base,
+           "incremental_ratio": med / max(base, 1),
+           "interval_checkpoints": len(tier.interval_bytes_history),
+           "evictions": op.tier_payload()["evictions"]}
+    out["ok"] = bool(out["parity_vs_oracle"] and out["incremental_ratio"] < 0.25
+                     and out["num_restarts"] == 1 and out["restored_checkpoint_id"] is not None
+                     and out["k1_launches"] > 0)
+    return out
+
+
+def ckpt_main_thread_run(sz=API_CHECKPOINT, interval: int = 25, dev=DEV) -> float:
+    """Leg A's job with checkpoints at `interval` ms, driven on the calling
+    thread (JobRuntime.run under a CheckpointCoordinator into a temporary
+    directory, as the MiniCluster's job thread drives it), so cProfile,
+    which sees only the thread that started it, sees the job: seconds."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.checkpoint import CheckpointCoordinator, FsCheckpointStorage
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_profile_")
+    try:
+        env = ckpt_job(sz["events"], timed_collect_sink(), sz, dev=dev)
+        runtime = JobRuntime(plan(env._sinks), env.config, dev)
+        coordinator = CheckpointCoordinator(FsCheckpointStorage(tmp), interval)
+        _sync(dev)
+        t0 = time.perf_counter()
+        runtime.run(coordinator=coordinator)
+        _sync(dev)
+        return time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def api_checkpoint_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 22: legs A, B and C (see API_CHECKPOINT), each through
+    env.execute_async on the MiniCluster."""
+    import shutil
+    import tempfile
+
+    sz = sizes or API_CHECKPOINT
+    out = {"phase": "api_checkpoint"}
+    for leg, fn in (("leg_a", ckpt_leg_a), ("leg_b", ckpt_leg_b), ("leg_c", ckpt_leg_c)):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_ckpt_{leg}_")
+        t0 = time.perf_counter()
+        try:
+            out[leg] = fn(sz, dev, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out[leg]["leg_s"] = time.perf_counter() - t0
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    out["ok"] = bool(all(out[leg]["ok"] for leg in ("leg_a", "leg_b", "leg_c")))
+    return out
 
 
 def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
@@ -3197,6 +3726,33 @@ def main() -> int:
     emit({"phase": "k1_tiered_shape", "card": card, "uniform": tiered_k1,
           "zipf": tiered_k1_zipf})
     torch.cuda.empty_cache()
+    # ---- 22. job checkpoints, restart strategies and savepoints through
+    # env.execute_async; K1's launches counted from 0 in each run ----
+    t_ckpt = time.perf_counter()
+    ckpt = api_checkpoint_phase()
+    ckpt["card"] = card
+    ckpt["phase_s"] = time.perf_counter() - t_ckpt
+    emit(ckpt)
+    if not ckpt["ok"]:
+        raise AssertionError("api_checkpoint: a leg failed a gate (rows of the recovered, "
+                             "resumed or tiered job against the uninterrupted run and the "
+                             "numpy oracle, one restart from a reported checkpoint, the "
+                             "FileSink's committed lines, device memory after the restart, "
+                             "checkpoints taken, records_in after the resume, "
+                             "incremental_ratio < 0.25) or a run launched no K1")
+    leg_a = ckpt["leg_a"]
+    k1_checkpoints = {"off": leg_a["off"]["k1_launches"]}
+    for interval in API_CHECKPOINT["intervals"]:
+        leg = leg_a[f"interval_{interval}ms"]
+        if "k1_launches" in leg:
+            k1_checkpoints[f"on_{interval}ms"] = leg["k1_launches"]
+        k1_checkpoints[f"recovery_{interval}ms"] = leg["recovery"]["k1_launches"]
+    path_launches["k1_superscan"].update(
+        {f"api_checkpoint_a_{k}": v for k, v in k1_checkpoints.items()})
+    path_launches["k1_superscan"]["api_checkpoint_b"] = ckpt["leg_b"]["k1_launches"]
+    path_launches["k1_superscan"]["api_checkpoint_b_resumed"] = \
+        ckpt["leg_b"]["savepoint"]["k1_launches"]
+    path_launches["k1_superscan"]["api_checkpoint_c"] = ckpt["leg_c"]["k1_launches"]
     # ---- 16. the per-batch torch programs at these shapes ----
     timed = LATENESS["timed"]
     per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
@@ -3210,6 +3766,7 @@ def main() -> int:
          "shape": api_k1["count"]["shape"],
          "launches": api["timed"]["fused"]["k1_dispatches"],
          "launches_by_path": path_launches["k1_superscan"],
+         "launches_under_checkpoints": k1_checkpoints,
          "cuda_launches_per_dispatch": cuda_launches["k1_superscan"],
          "max_abs_err": max([k1_err] + [r["max_abs_err"] for r in api_k1.values()]),
          "ms": api_k1["count"]["ms"], "plain_ms": api_k1["count"]["plain_ms"],
@@ -3341,13 +3898,18 @@ def main() -> int:
             emit(profile_run(f"api_correlated_wide_{name}", wide_run))
         emit(host_profile(f"api_correlated_wide_{name}", wide_run))
         torch.cuda.empty_cache()
-    # the million-key state plane (phase 21): leg B's run, each variant
+    # the million-key state plane (phase 21): leg B's run, each variant, at
+    # half its records (the profiles' share per record is the same)
     for label, skewed in (("uniform", False), ("zipf", True)):
         run_b = (lambda skewed=skewed: tiered_run(
-            API_TIERED["events"], API_TIERED["keys"], skewed, API_TIERED, tiered=True,
+            API_TIERED["events"] // 2, API_TIERED["keys"], skewed, API_TIERED, tiered=True,
             cap=API_TIERED["hot"])["seconds"])
         emit(profile_run(f"api_tiered_{label}", run_b))
-        emit(host_profile(f"api_tiered_{label}", run_b, top=16))
+        if skewed:
+            emit(host_profile(f"api_tiered_{label}", run_b, top=16))
+    # job checkpoints (phase 22): leg A's job with checkpoints at 25 ms,
+    # driven on this thread so cProfile sees it
+    emit(host_profile("api_checkpoint_25ms", ckpt_main_thread_run, top=16))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

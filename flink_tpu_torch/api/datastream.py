@@ -18,7 +18,8 @@ and GlobalWindows a count trigger (the per-batch and global device
 operators); any trigger, an evictor, `reduce`, `process`, a Python
 AggregateFunction and processing-time windows run on the per-record
 oracle operator, as in the JAX package; `KeyedStream.continuous_aggregate`
-emits a retract changelog.
+emits a retract changelog. `env.execute_async()` runs the job on the
+MiniCluster with checkpoints, restarts and savepoints (fault tolerance).
 
 `StreamExecutionEnvironment(device=None)` runs on CUDA and raises at
 execute() without a GPU; pass device="cpu" for the plain PyTorch path. The
@@ -107,7 +108,18 @@ class StreamExecutionEnvironment:
         return executor.execute(plan(self._sinks),
                                 job_name or self.config.get(PipelineOptions.NAME))
 
-    execute_async = _not_ported("StreamExecutionEnvironment", "execute_async", deferred.CHAOS)
+    def execute_async(self, job_name: Optional[str] = None):
+        """Submit to the in-process MiniCluster (runtime/minicluster.py) on
+        the environment's device, as execute() runs: returns a JobClient.
+        The job runs on its own thread with the configured checkpoints
+        (execution.checkpointing.*) and restart strategy
+        (restart-strategy.*)."""
+        from flink_tpu_torch.runtime.minicluster import MiniCluster
+
+        if len(self._sinks) != 1:
+            raise RuntimeError("exactly one sink required")
+        return MiniCluster.get_shared().submit(
+            plan(self._sinks), self.config, job_name, device=self.device)
 
 
 class DataStream:

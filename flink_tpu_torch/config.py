@@ -47,6 +47,9 @@ class _OptionBuilder:
     def int_type(self) -> "_TypedBuilder[int]":
         return _TypedBuilder(self._key, int)
 
+    def float_type(self) -> "_TypedBuilder[float]":
+        return _TypedBuilder(self._key, float)
+
     def bool_type(self) -> "_TypedBuilder[bool]":
         return _TypedBuilder(self._key, bool)
 
@@ -68,6 +71,9 @@ class _TypedBuilder(Generic[T]):
         _OPTIONS[option.key] = option
         return option
 
+    def no_default_value(self) -> ConfigOption[Optional[T]]:
+        return self.default_value(None)
+
 
 #: every option the port implements, by key
 _OPTIONS: Dict[str, ConfigOption] = {}
@@ -76,10 +82,9 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 _UNPORTED_PREFIXES = (
     ("parallel.", deferred.MESH),
     ("observability.", deferred.METRICS),
-    ("execution.checkpointing.", deferred.CHECKPOINTS),
-    ("state.checkpoints.", deferred.CHECKPOINTS),
-    ("state.savepoints.", deferred.CHECKPOINTS),
-    ("restart-strategy", deferred.CHECKPOINTS),
+    ("autoscaler.", deferred.METRICS),
+    ("chaos.", deferred.CHAOS),
+    ("security.", deferred.CHAOS),
     ("execution.join.", deferred.JOINS),
 )
 
@@ -339,3 +344,44 @@ class StateTierOptions:
     ).with_description(
         "Materialized base files kept on disk; must cover the checkpoint "
         "retention window (a restorable handle must find its base).")
+
+
+class CheckpointingOptions:
+    """Job checkpoints (checkpoint/coordinator.py), for jobs started with
+    `env.execute_async` on the MiniCluster (runtime/minicluster.py)."""
+
+    INTERVAL_MS = (
+        ConfigOptions.key("execution.checkpointing.interval").duration_ms_type()
+        .default_value(0)
+    ).with_description(
+        "Interval between job checkpoints, taken at a step boundary; 0 (default) "
+        "takes none. A fused window operator dispatches the steps it holds at "
+        "each checkpoint.")
+    DIRECTORY = ConfigOptions.key("execution.checkpointing.dir").string_type().no_default_value()
+    MODE = (ConfigOptions.key("execution.checkpointing.mode").string_type()
+            .default_value("EXACTLY_ONCE"))
+    MAX_RETAINED = (ConfigOptions.key("execution.checkpointing.max-retained").int_type()
+                    .default_value(3))
+    TOLERABLE_FAILED_CHECKPOINTS = (
+        ConfigOptions.key("execution.checkpointing.tolerable-failed-checkpoints")
+        .int_type().default_value(0)
+    ).with_description(
+        "Consecutive checkpoint failures (capture or persist) the job "
+        "tolerates before the failure restarts it. Each tolerated failure "
+        "still lands a FAILED record in the checkpoint stats; a completed "
+        "checkpoint resets the count. 0 (default) restarts on the first "
+        "failure.")
+
+
+class RestartOptions:
+    """Restart strategy of a MiniCluster job (checkpoint/restart.py)."""
+
+    STRATEGY = (ConfigOptions.key("restart-strategy.type").string_type()
+                .default_value("exponential-delay"))
+    MAX_ATTEMPTS = ConfigOptions.key("restart-strategy.max-attempts").int_type().default_value(10)
+    INITIAL_BACKOFF_MS = (ConfigOptions.key("restart-strategy.initial-backoff")
+                          .duration_ms_type().default_value(100))
+    MAX_BACKOFF_MS = (ConfigOptions.key("restart-strategy.max-backoff")
+                      .duration_ms_type().default_value(10_000))
+    BACKOFF_MULTIPLIER = (ConfigOptions.key("restart-strategy.backoff-multiplier")
+                          .float_type().default_value(2.0))

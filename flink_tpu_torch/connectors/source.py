@@ -3,7 +3,10 @@
 Counterpart of `Batch`, `Source`, `CollectionSource` and
 `DataGeneratorSource` of `flink_tpu/connectors/source.py`: an enumerator
 hands out splits, a reader polls (values, timestamps) columns sized for one
-step.
+step. A checkpoint snapshots the enumerator's pending splits and the
+reader's position in its split, so a restored job replays exactly the
+records after the cut (the exactly-once source half). `FileSource` waits
+for ROADMAP item 19.
 """
 
 from __future__ import annotations
@@ -46,6 +49,16 @@ class SplitEnumerator:
     def next_split(self) -> Optional[SourceSplit]:
         return self._pending.pop(0) if self._pending else None
 
+    def add_split_back(self, split: SourceSplit) -> None:
+        """Failover: the reader died before finishing the split."""
+        self._pending.insert(0, split)
+
+    def snapshot(self) -> List[SourceSplit]:
+        return list(self._pending)
+
+    def restore(self, splits: List[SourceSplit]) -> None:
+        self._pending = list(splits)
+
 
 class SourceReader:
     """Polls columnar batches from its assigned splits."""
@@ -56,6 +69,13 @@ class SourceReader:
     def poll_batch(self, max_records: int) -> Optional[Batch]:
         """None = currently exhausted (need another split or end)."""
         raise NotImplementedError
+
+    def snapshot_position(self) -> Dict[str, Any]:
+        """Split progress for exactly-once replay."""
+        return {}
+
+    def restore_position(self, state: Dict[str, Any]) -> None:
+        pass
 
 
 class Source:
@@ -91,6 +111,12 @@ class _CollectionReader(SourceReader):
             ts = np.full(len(chunk), MIN_TIMESTAMP, dtype=np.int64)
         return Batch(obj_array(chunk), ts)
 
+    def snapshot_position(self) -> Dict[str, Any]:
+        return {"pos": self._pos}
+
+    def restore_position(self, state: Dict[str, Any]) -> None:
+        self._pos = state["pos"]
+
 
 class CollectionSource(Source):
     def __init__(self, items: Sequence, timestamp_fn: Optional[Callable] = None):
@@ -122,10 +148,18 @@ class _GeneratorReader(SourceReader):
         self._next += n
         return self._gen(idx)
 
+    def snapshot_position(self) -> Dict[str, Any]:
+        return {"next": self._next, "end": self._end}
+
+    def restore_position(self, state: Dict[str, Any]) -> None:
+        self._next = state["next"]
+        self._end = state["end"]
+
 
 class DataGeneratorSource(Source):
     """generator_fn(index_array) -> Batch; indices are a deterministic
-    sequence, so a rerun reads the same stream."""
+    sequence, so a rerun, or a replay after a restore, reads the same
+    stream."""
 
     def __init__(self, generator_fn: Callable[[np.ndarray], Batch], count: int,
                  num_splits: int = 1):

@@ -36,10 +36,18 @@ hot/cold id split instead. A `group_agg` step
 (`KeyedStream.continuous_aggregate`) gets a `GroupAggRunner`
 (`runtime/group_agg_operator.py`).
 
+Checkpoints: every stateful runner snapshots in the JAX runner's form
+(`snapshot`/`restore`), `JobRuntime.capture` gathers them with the source
+positions at a step boundary, and `JobRuntime.run` takes the checkpoint
+coordinator, cancellation and savepoint hooks that runtime/minicluster.py
+hands it. `LocalPipelineExecutor` runs one attempt with no recovery, as in
+the JAX package.
+
 Left out, raising where a job asks for them (ROADMAP.md Queue A): job
-metrics and emission latency (item 15), checkpoints and savepoints of a
-running job (item 16), parallelism > 1 (item 17), the chaos hook (item
-14), and the rest of the DataStream API's runners (item 19).
+metrics and emission latency (item 15), parallelism > 1 (item 17), the
+chaos hook (item 14), operator coordinators (item 19's process functions:
+`coordinators` stays empty) and the rest of the DataStream API's runners
+(item 19).
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -163,6 +171,13 @@ class StepRunner:
             self.downstream.on_end()
         for f in (self.sides or {}).values():
             f.on_end()
+
+    # -- checkpointing (the JAX runners' forms) -----------------------------
+    def snapshot(self) -> dict:
+        return {}
+
+    def restore(self, snap: dict) -> None:
+        pass
 
 
 def _fused_chunk(batch_size: int) -> int:
@@ -594,6 +609,12 @@ class WindowStepRunner(StepRunner):
             op_sides[tag_id] = []
         _push_rows(self.downstream, self.op.drain_output(), self.window_fn)
 
+    def snapshot(self) -> dict:
+        return {"operator": self.op.snapshot()}
+
+    def restore(self, snap: dict) -> None:
+        self.op.restore(snap["operator"])
+
 
 class DeviceChainRunner(WindowStepRunner):
     """Whole-graph fusion runner (graph/fusion.py): the traceable
@@ -713,6 +734,18 @@ class SinkRunner(StepRunner):
         self.commit_epoch("final")
         self.writer.close()
 
+    def snapshot(self) -> dict:
+        # collect-style sinks are stateful: emissions before the cut belong
+        # to the checkpoint (a failed attempt's emissions after it are
+        # discarded and re-fired on replay)
+        store = getattr(self.writer, "store", None)
+        return {"collected": list(store)} if store is not None else {}
+
+    def restore(self, snap: dict) -> None:
+        store = getattr(self.writer, "store", None)
+        if store is not None and "collected" in snap:
+            store[:] = snap["collected"]
+
 
 def _make_runner(step: Step, config: Configuration, device: torch.device) -> StepRunner:
     if step.terminal is None:
@@ -811,9 +844,15 @@ def build_runners(graph: StepGraph, config: Configuration, device=None):
     return runners, feeds
 
 
+class JobCancelledException(Exception):
+    pass
+
+
 class JobRuntime:
     """One running attempt of a job at parallelism 1: sources, watermarks,
-    runners and the end-of-input flush."""
+    runners and the end-of-input flush, plus the checkpoint capture and
+    restore surface (capture happens between steps, so alignment is
+    free)."""
 
     class _SourceDriver:
         """One source's read state: enumerator/reader/watermark generator
@@ -851,6 +890,25 @@ class JobRuntime:
             for r, o in self.feeds:
                 r.on_end_n(o)
 
+        def snapshot(self) -> dict:
+            return {
+                "pending_splits": self.enumerator.snapshot(),
+                "current_split": self.current_split,
+                "reader_position": self.reader.snapshot_position(),
+                "done": self.done,
+                "generator": self.generator.snapshot() if self.generator else None,
+            }
+
+        def restore(self, snap: dict) -> None:
+            self.enumerator.restore(snap["pending_splits"])
+            self.current_split = snap["current_split"]
+            self.done = snap["done"]
+            if self.current_split is not None:
+                self.reader.add_split(self.current_split)
+                self.reader.restore_position(snap["reader_position"])
+            if self.generator is not None and snap.get("generator") is not None:
+                self.generator.restore(snap["generator"])
+
     def __init__(self, graph: StepGraph, config: Configuration, device=None):
         parallelism = config.get(PipelineOptions.PARALLELISM)
         if parallelism != 1:
@@ -863,27 +921,104 @@ class JobRuntime:
                         for t in graph.sources]
         self.records_in = 0
 
+    # -- checkpoint surface ------------------------------------------------
     def capture(self) -> dict:
-        raise deferred.not_ported("JobRuntime.capture", deferred.CHECKPOINTS)
+        """The job's state at this step boundary, in the JAX package's
+        form: numpy arrays and plain data (operators pull device state to
+        the host), so either package restores it."""
+        runner_snaps = {}
+        for r in self.runners:
+            snap = r.snapshot()
+            if snap:
+                runner_snaps[getattr(r, "uid", f"runner-{id(r)}")] = snap
+        return {
+            "sources": {d.uid: d.snapshot() for d in self.sources},
+            "runners": runner_snaps,
+            "coordinators": {},
+            "records_in": self.records_in,
+        }
 
     def restore(self, snap: dict) -> None:
-        raise deferred.not_ported("JobRuntime.restore", deferred.CHECKPOINTS)
+        if "sources" in snap:
+            for d in self.sources:
+                if d.uid in snap["sources"]:
+                    d.restore(snap["sources"][d.uid])
+        else:
+            # single-source snapshot of the JAX package's pre-DAG layout
+            legacy = dict(snap["source"])
+            legacy["generator"] = snap.get("generator")
+            self.sources[0].restore(legacy)
+        for r in self.runners:
+            uid = getattr(r, "uid", None)
+            if uid is not None and uid in snap["runners"]:
+                r.restore(snap["runners"][uid])
+        if snap.get("coordinators"):
+            raise deferred.not_ported("operator coordinator state in a checkpoint",
+                                      deferred.API)
+        self.records_in = snap["records_in"]
 
-    def run(self) -> None:
+    def commit_sinks(self, checkpoint_id: int) -> None:
+        for r in self.runners:
+            if isinstance(r, SinkRunner):
+                r.commit_epoch(str(checkpoint_id))
+
+    def operator_state_bytes(self) -> Dict[str, int]:
+        """Per-operator state footprint from the operators' own
+        state_bytes(): the per-operator breakdown of a completed checkpoint
+        record."""
+        out: Dict[str, int] = {}
+        for idx, r in enumerate(self.runners):
+            fn = getattr(getattr(r, "op", None), "state_bytes", None)
+            if fn is None:
+                continue
+            try:
+                out[getattr(r, "uid", f"runner-{idx}")] = int(fn())
+            except Exception:   # a torn-down operator must not fail a
+                continue        # checkpoint's bookkeeping
+        return out
+
+    # -- the loop ----------------------------------------------------------
+    def run(
+        self,
+        coordinator=None,
+        cancel_check: Optional[Callable[[], bool]] = None,
+        savepoint_request: Optional[Callable[[], Optional[str]]] = None,
+    ) -> None:
+        """Run to the end of input. At every step boundary: `cancel_check`
+        (True raises JobCancelledException), the coordinator's due
+        checkpoint, and `savepoint_request` (a path writes a savepoint
+        there). The coordinator commits this attempt's sinks on each
+        completed checkpoint while the attempt runs."""
+        if coordinator is not None:
+            coordinator.register_on_complete(self.commit_sinks)
+        try:
+            self._run_loop(coordinator, cancel_check, savepoint_request)
+        finally:
+            if coordinator is not None:
+                coordinator.unregister_on_complete(self.commit_sinks)
+
+    def _run_loop(self, coordinator, cancel_check, savepoint_request) -> None:
         batch_size = self.config.get(ExecutionOptions.BATCH_SIZE)
         for d in self.sources:
-            d.current_split = d.enumerator.next_split()
-            if d.current_split is not None:
-                d.reader.add_split(d.current_split)
-            else:
-                d.done = True
+            if d.current_split is None and not d.done:
+                d.current_split = d.enumerator.next_split()
+                if d.current_split is not None:
+                    d.reader.add_split(d.current_split)
+                else:
+                    d.done = True
+            if d.done:
+                # zero-split or restored-as-done sources still flush their
+                # watermark and end contribution
                 d.finish()
         last_tick = time.time() * 1000.0
-        # round-robin over sources, one batch per turn
+        # round-robin over sources, one batch per turn; checkpoints align at
+        # batch boundaries whichever source produced the batch
         while any(not d.done for d in self.sources):
             for d in self.sources:
                 if d.done:
                     continue
+                if cancel_check is not None and cancel_check():
+                    raise JobCancelledException()
                 batch = d.reader.poll_batch(batch_size)
                 if batch is None:
                     d.current_split = d.enumerator.next_split()
@@ -908,6 +1043,13 @@ class JobRuntime:
                         wm = d.generator.on_periodic_emit()
                     if wm is not None and wm > MIN_WATERMARK:
                         d.emit_watermark(wm)
+                # step boundary: checkpoints and savepoints align here
+                if coordinator is not None:
+                    coordinator.maybe_trigger(self.capture)
+                if savepoint_request is not None:
+                    path = savepoint_request()
+                    if path is not None:
+                        self._write_savepoint(path)
                 now_ms = time.time() * 1000.0
                 if now_ms - last_tick >= 50.0:
                     # the processing-time service's tick: drive wall-clock
@@ -919,6 +1061,13 @@ class JobRuntime:
         # all remaining windows downstream
         for d in self.sources:
             d.finish()
+
+    def _write_savepoint(self, path: str) -> None:
+        from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+        data = self.capture()
+        data["savepoint"] = True
+        FsCheckpointStorage(path).save(0, data)
 
 
 class LocalPipelineExecutor:

@@ -1,0 +1,331 @@
+"""MiniCluster: in-process job management with failure recovery.
+
+Counterpart of the core of `flink_tpu/runtime/minicluster.py`. Jobs are
+submitted asynchronously and each runs its attempts on its own
+`jobmaster-<id>` thread. On a failure the restart strategy
+(checkpoint/restart.py) decides the backoff or the job's terminal failure,
+and each retry restores the latest completed checkpoint (whole-pipeline
+restart: a linear topology has one region). Savepoints are triggered
+through the client and written through the same capture path; they are
+never discarded by the cluster.
+
+On the card the job thread builds and launches the kernels itself, and a
+failed attempt gives its device memory back before the next one starts:
+its in-flight work is waited on, and the frames of the kept error are
+cleared (the error's type, message and cause chain stay), so neither the
+error nor the coordinator keeps the dead attempt's rings alive.
+
+Left out until their items (ROADMAP.md Queue A), each raising where it is
+asked for: mesh rescale, rebalance and the device-loss degrade (item 13);
+the autoscaler, the metric history, the job doctor, traces and the metric
+registry (item 15); the `chaos.*` plan and `security=` (item 14).
+"""
+
+from __future__ import annotations
+
+import enum
+import gc
+import threading
+import time
+import uuid
+from typing import Dict, Optional
+
+from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
+from flink_tpu_torch.checkpoint.restart import restart_strategy_from_config
+from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage, MemoryCheckpointStorage
+from flink_tpu_torch.config import CheckpointingOptions, Configuration
+from flink_tpu_torch.graph.transformation import StepGraph
+from flink_tpu_torch.metrics.checkpoint_stats import (
+    CheckpointStatsTracker,
+    ExceptionHistory,
+    failing_task,
+)
+from flink_tpu_torch.runtime.executor import JobCancelledException, JobRuntime
+from flink_tpu_torch.utils import deferred
+from flink_tpu_torch.utils.device import resolve_device
+
+# the JAX package's observability.checkpoint-history.size and
+# observability.exception-history.size defaults (the options come with
+# item 15)
+_CHECKPOINT_HISTORY = 10
+_EXCEPTION_HISTORY = 16
+
+
+class JobStatus(enum.Enum):
+    CREATED = "CREATED"
+    RUNNING = "RUNNING"
+    RESTARTING = "RESTARTING"
+    FINISHED = "FINISHED"
+    FAILED = "FAILED"
+    CANCELED = "CANCELED"
+
+
+def _release_frames(exc: Optional[BaseException]) -> None:
+    """Clear the locals of every finished frame the error (and its cause
+    chain) holds: a failed attempt's frames reference its runtime, and
+    through it the operators' device rings and pinned staging buffers.
+    Reading `f_locals` after the clear drops the cleared names from the
+    dict snapshot an earlier read (failing_task's) cached on the frame."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        tb = exc.__traceback__
+        while tb is not None:
+            try:
+                tb.tb_frame.clear()
+                tb.tb_frame.f_locals
+            except RuntimeError:
+                pass        # the frame still runs (the attempt loop's own)
+            tb = tb.tb_next
+        exc = exc.__cause__ or exc.__context__
+
+
+class JobClient:
+    """Client handle of a submitted job: status, cancel, savepoint, the
+    checkpoint and exception histories, queryable state."""
+
+    def __init__(self, job_id: str, job_name: str):
+        self.job_id = job_id
+        self.job_name = job_name
+        self._status = JobStatus.CREATED
+        self._lock = threading.Lock()
+        self._done = threading.Event()
+        self._cancel = threading.Event()
+        self._savepoint_path: Optional[str] = None
+        self._savepoint_done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.records_in = 0
+        self.num_restarts = 0
+        self.num_checkpoints = 0
+        self.checkpoint_stats: Optional[CheckpointStatsTracker] = None
+        self.exceptions: Optional[ExceptionHistory] = None
+        self._runtime: Optional[JobRuntime] = None
+
+    def latency_report(self) -> dict:
+        raise deferred.not_ported("JobClient.latency_report", deferred.METRICS)
+
+    def history_report(self, metric=None, since=None) -> dict:
+        raise deferred.not_ported("JobClient.history_report", deferred.METRICS)
+
+    def doctor_report(self) -> dict:
+        raise deferred.not_ported("JobClient.doctor_report", deferred.METRICS)
+
+    # -- status -----------------------------------------------------------
+    def status(self) -> JobStatus:
+        return self._status
+
+    def _set_status(self, status: JobStatus) -> None:
+        with self._lock:
+            self._status = status
+        if status in (JobStatus.FINISHED, JobStatus.FAILED, JobStatus.CANCELED):
+            self._done.set()
+
+    def wait(self, timeout: Optional[float] = None) -> JobStatus:
+        self._done.wait(timeout)
+        if not self._done.is_set():
+            raise TimeoutError(f"job {self.job_id} still {self._status}")
+        if self._status == JobStatus.FAILED and self.error is not None:
+            raise RuntimeError(f"job {self.job_id} failed") from self.error
+        return self._status
+
+    # -- operations -------------------------------------------------------
+    def cancel(self) -> None:
+        self._cancel.set()
+
+    def trigger_savepoint(self, path: str, timeout: float = 30.0) -> str:
+        """Requests a savepoint at the next step boundary; blocks until it
+        is written."""
+        self._savepoint_done.clear()
+        self._savepoint_path = path
+        if not self._savepoint_done.wait(timeout):
+            raise TimeoutError("savepoint not taken (job finished or stalled?)")
+        return path
+
+    def _poll_savepoint_request(self) -> Optional[str]:
+        path = self._savepoint_path
+        if path is not None:
+            self._savepoint_path = None
+            return path
+        return None
+
+    def rescale_mesh(self, devices: int) -> None:
+        raise deferred.not_ported("JobClient.rescale_mesh", deferred.MESH)
+
+    # -- queryable state ----------------------------------------------------
+    def query_state(self, uid: str, key) -> dict:
+        """Point lookup into the RUNNING job's keyed state, for the
+        operators that carry `query_state_for` (the fused window operator
+        folds its rings and buffered steps): {"slices": {abs_slice: {field:
+        value, "count": n}}, "watermark": wm}."""
+        runtime = self._runtime
+        if runtime is None:
+            raise RuntimeError("job has no running attempt")
+        for r in runtime.runners:
+            if getattr(r, "uid", None) != uid:
+                continue
+            op = getattr(r, "op", None)
+            if op is not None and hasattr(op, "query_state_for"):
+                return {"slices": op.query_state_for(key),
+                        "watermark": op.current_watermark}
+            raise deferred.not_ported(
+                f"query_state on {type(op if op is not None else r).__name__}",
+                deferred.API)
+        raise KeyError(f"no queryable operator {uid!r}")
+
+
+class MiniCluster:
+    _shared: Optional["MiniCluster"] = None
+
+    def __init__(self, security=None):
+        if security is not None:
+            raise deferred.not_ported("MiniCluster(security=...)", deferred.CHAOS)
+        self.jobs: Dict[str, JobClient] = {}
+
+    @classmethod
+    def get_shared(cls) -> "MiniCluster":
+        if cls._shared is None:
+            cls._shared = MiniCluster()
+        return cls._shared
+
+    def submit(
+        self,
+        graph: StepGraph,
+        config: Configuration,
+        job_name: Optional[str] = None,
+        savepoint_restore_path: Optional[str] = None,
+        device=None,
+    ) -> JobClient:
+        """Start the job on its own thread. `device` as for env.execute():
+        CUDA unless the caller asks for the CPU; without a GPU this raises
+        here, in the caller's thread."""
+        device = resolve_device(device)
+        job_id = uuid.uuid4().hex[:16]
+        client = JobClient(job_id, job_name or f"job-{job_id}")
+        self.jobs[job_id] = client
+        thread = threading.Thread(
+            target=self._run_job,
+            args=(client, graph, config, savepoint_restore_path, device),
+            name=f"jobmaster-{job_id}",
+            daemon=True,
+        )
+        thread.start()
+        return client
+
+    # ------------------------------------------------------------------
+    def _run_job(self, client: JobClient, graph: StepGraph, config: Configuration,
+                 savepoint_restore_path: Optional[str], device) -> None:
+        """The attempt loop (the JAX `_run_job_inner`'s): coordinator,
+        restart strategy, restore, backoff and the savepoint hook. A
+        failure of any attempt is caught here and counted against the
+        strategy: this is the job's failover boundary."""
+        interval = config.get(CheckpointingOptions.INTERVAL_MS)
+        chk_dir = config.get(CheckpointingOptions.DIRECTORY)
+        storage = FsCheckpointStorage(chk_dir) if chk_dir else MemoryCheckpointStorage()
+        client.checkpoint_stats = CheckpointStatsTracker(history_size=_CHECKPOINT_HISTORY)
+        client.exceptions = ExceptionHistory(size=_EXCEPTION_HISTORY)
+        coordinator = (
+            CheckpointCoordinator(
+                storage, interval, config.get(CheckpointingOptions.MAX_RETAINED),
+                stats=client.checkpoint_stats,
+                tolerable_failures=config.get(
+                    CheckpointingOptions.TOLERABLE_FAILED_CHECKPOINTS))
+            if interval > 0 else None)
+        if coordinator is not None:
+            coordinator.register_on_complete(
+                lambda _cp, c=client, co=coordinator:
+                    setattr(c, "num_checkpoints", co.num_completed))
+        strategy = restart_strategy_from_config(config)
+        attempt = 0
+        restore_snap = None
+        restore_ms = 0.0
+        if savepoint_restore_path is not None:
+            try:
+                sp_storage = FsCheckpointStorage(savepoint_restore_path)
+                latest = sp_storage.latest()
+                if latest is None:
+                    raise FileNotFoundError(f"no savepoint at {savepoint_restore_path}")
+                t_restore = time.perf_counter()
+                restore_snap = sp_storage.load(latest[1])
+                restore_ms = (time.perf_counter() - t_restore) * 1000.0
+            except Exception as e:  # noqa: BLE001 — the job fails, not the thread
+                client.error = e
+                client._set_status(JobStatus.FAILED)
+                return
+
+        while True:
+            try:
+                self._attempt(client, graph, config, device, coordinator, restore_snap,
+                              restore_ms)
+                client._set_status(JobStatus.FINISHED)
+                return
+            except JobCancelledException:
+                client._set_status(JobStatus.CANCELED)
+                return
+            except BaseException as e:  # noqa: BLE001 — failover boundary
+                attempt += 1
+                client._runtime = None
+                client.exceptions.record_failure(
+                    repr(e), task=failing_task(e) or client.job_name,
+                    restart_number=attempt - 1, exception=e)
+                _release_frames(e)
+                client.error = e
+                del e
+                if device.type == "cuda":
+                    import torch
+
+                    # the failed attempt's in-flight dispatches finish
+                    # before its buffers go
+                    torch.cuda.synchronize(device)
+                gc.collect()     # and whatever of it sits in reference cycles
+                delay = strategy.next_delay_ms(attempt)
+                if delay is None:
+                    client._set_status(JobStatus.FAILED)
+                    return
+                client.num_restarts = attempt
+                client._set_status(JobStatus.RESTARTING)
+                client.exceptions.begin_recovery(
+                    attempt, cause=repr(client.error), events_at_failure=client.records_in)
+                time.sleep(delay / 1000.0)
+                t_restore = time.perf_counter()
+                restore_snap = coordinator.latest_snapshot() if coordinator else None
+                restore_ms = (time.perf_counter() - t_restore) * 1000.0
+
+    def _attempt(self, client: JobClient, graph: StepGraph, config: Configuration, device,
+                 coordinator, restore_snap: Optional[dict], restore_ms: float) -> None:
+        """One attempt: build the runtime, restore, run to the end. Its
+        locals (the runtime above all) die with its frame."""
+        runtime = JobRuntime(graph, config, device)
+        client._runtime = runtime  # queryable state
+        if coordinator is not None:
+            # each attempt gets its full tolerable-failed-checkpoints budget
+            coordinator.reset_failure_streak()
+            coordinator.state_bytes_fn = runtime.operator_state_bytes
+        if restore_snap is not None:
+            runtime.restore(restore_snap)
+            client.checkpoint_stats.report_restore(restore_snap.get("checkpoint_id"),
+                                                   restore_ms)
+        client._set_status(JobStatus.RUNNING)
+        client.exceptions.complete_recovery(
+            restored_checkpoint_id=(restore_snap or {}).get("checkpoint_id"),
+            restore_duration_ms=restore_ms,
+            events_replayed=(client.records_in - restore_snap.get("records_in", 0)
+                             if restore_snap is not None else client.records_in))
+
+        def cancel_check():
+            client.records_in = runtime.records_in  # progress gauge
+            return client._cancel.is_set()
+
+        def savepoint_request():
+            path = client._poll_savepoint_request()
+            if path is not None:
+                runtime._write_savepoint(path)
+                client._savepoint_done.set()
+            return None  # the runtime's capture is already written
+
+        try:
+            runtime.run(coordinator=coordinator, cancel_check=cancel_check,
+                        savepoint_request=savepoint_request)
+            client.records_in = runtime.records_in
+        finally:
+            if coordinator is not None:
+                coordinator.state_bytes_fn = None

@@ -10,10 +10,9 @@ from __future__ import annotations
 D4 = "deferred item D4 (compile tracker and phase counters)"
 JOINS = "item 12 (joins)"
 MESH = "item 13 (multi-GPU)"
-CHAOS = "item 14 (remaining touch points: minicluster, chaos)"
+CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
 METRICS = "item 15 (job metrics and emission latency)"
-CHECKPOINTS = "item 16 (job checkpoints and savepoints)"
 PARALLELISM = "item 17 (parallelism > 1 and key groups)"
 API = "item 19 (the rest of the DataStream API)"
 

@@ -196,6 +196,34 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         assert plain.query_state_for(1) == {0: {"sum": 1.0, "count": 1}}
         assert MemoryManager.for_device("cpu").budget > 0
         assert get_external_resource_infos("cuda") == []
+        # job checkpoints: execute_async on the port's MiniCluster, a host
+        # failure recovered from a file checkpoint, and a savepoint written
+        from flink_tpu_torch.checkpoint import FsCheckpointStorage
+        from flink_tpu_torch.runtime.minicluster import JobStatus
+        failed = []
+
+        def failing(idx):
+            if not failed and idx[0] >= 1536:
+                failed.append(1)
+                raise RuntimeError("injected")
+            return Batch(idx % 64, (1000 + idx * 7).astype(np.int64))
+
+        cfg = Configuration({"execution.step.batch-size": 256,
+                             "execution.checkpointing.interval": 1,
+                             "execution.checkpointing.dir": tmp + "/chk",
+                             "restart-strategy.type": "fixed-delay",
+                             "restart-strategy.initial-backoff": 1})
+        env = StreamExecutionEnvironment(cfg, device="cpu")
+        sink = CollectSink()
+        (env.from_source(DataGeneratorSource(failing, 3000),
+                         WatermarkStrategy.for_bounded_out_of_orderness(0))
+         .key_by(lambda c: c, vectorized=True)
+         .window(SlidingEventTimeWindows.of(2000, 500)).count().sink_to(sink))
+        client = env.execute_async("no-jax")
+        assert client.wait(60) == JobStatus.FINISHED and client.num_restarts == 1
+        assert sum(v for _k, v in sink.results) == 4 * 3000
+        assert FsCheckpointStorage(tmp + "/chk").latest() is not None
+        assert client.checkpoint_stats.gauge_values()["numberOfCompletedCheckpoints"] > 0
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -221,14 +249,17 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     assert len(files) > 10
     # the SQL front door, the latency controller and the oracle's state are
     # scanned too
-    for sub in ("table", "planner", "security", "scheduler", "state", "core"):
+    for sub in ("table", "planner", "security", "scheduler", "state", "core", "checkpoint",
+                "metrics"):
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
                  "scheduler/latency_controller.py", "state/vocab.py", "state/changelog.py",
                  "state/cold_tier.py", "state/tier_manager.py", "state/spillable.py",
                  "utils/native_bridge.py", "runtime/memory.py",
-                 "runtime/external_resources.py"):
+                 "runtime/external_resources.py", "checkpoint/storage.py",
+                 "checkpoint/coordinator.py", "checkpoint/restart.py",
+                 "metrics/checkpoint_stats.py", "runtime/minicluster.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
