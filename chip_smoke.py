@@ -148,6 +148,31 @@ exits non-zero on the first failure. Phases, one JSON line each:
    from the handle, incremental_ratio (millikey_microbench's) below 0.25.
    Then a host profile of leg A's job at 25 ms, driven on the main thread.
 
+23. api_join: two-input joins (`bench.py::join_microbench`'s NEXMark q3,
+   persons JOIN auctions ON seller with the auctions' category filter over
+   2 s windows sliding by 1 s, and q8, the same join over a 1 s tumble),
+   every job through the port's API with the bench's streams copied. Leg
+   A at the bench's defaults (2048 keys, batch 1024, 2^14 records a side
+   over 64 s), uniform and zipf(1.0): the factory selects the
+   DeviceJoinRunner, its rows equal the host WindowJoinRunner's (device
+   joins off) and a numpy window equi-join model's, zipf grows the bucket
+   capacity with no degrade. Leg B: q8 uniform at 2^16 keys (the key
+   capacity's default) and 2^20 records a side: K doubles 1024 -> 65536,
+   ~1.09 GB of rings on the card (NB = 65, C = 16), parity, device and
+   host tuples/s best of 2. Leg C: the bench's q8 statement fused
+   (sql_origin), with device joins off and with table.device-fusion off,
+   at parity with a model; FULL OUTER refused (join-full-outer); regular
+   INNER and LEFT OUTER joins on the StreamingJoinRunner against a model.
+   Leg D: the catalogued degrades, join-ring-overflow (16 slots, zipf) and
+   join-key-capacity (1024 lanes for 2048 keys), rows equal to the host
+   route's. Leg E: q8 at 2^16 records a side through env.execute_async
+   with 25 ms checkpoints and one host failure in the sink at 60% of the
+   event time: one restart, rows equal the uninterrupted run's and the
+   model's, device memory bounded as in phase 22. Then leg B's job under
+   torch.profiler and cProfile at half its records, and the join ring's
+   programs (ROADMAP B5, torch code) on the per-batch-programs line at leg
+   B's geometry.
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -3237,12 +3262,460 @@ def api_checkpoint_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
-def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
+# ---------------------------------------------------------------------------
+# phase 23: api_join, two-input joins (bench.py::join_microbench's NEXMark
+# q3 and q8) through the port's API, on the device join ring and the host
+# ---------------------------------------------------------------------------
+
+API_JOIN = dict(keys=2048, batch=1024, events=1 << 14, zipf_s=1.0,
+                big_keys=1 << 16, big_events=1 << 20, runs=2,
+                degrade_slots=16, degrade_keys=1024, sql_rows=4096, regular_rows=512,
+                ckpt_events=1 << 16, interval=25, fail_at=0.6, mem_slack=1 << 19)
+# scenario -> (window size ms, slide ms, the auctions' category filter)
+JOIN_SCENARIOS = {"q3": (2000, 1000, True), "q8": (1000, 1000, False)}
+SQL_Q8 = ("SELECT p.id, p.name, a.itemid FROM person AS p "
+          "JOIN auction AS a ON p.id = a.seller WINDOW TUMBLE(INTERVAL '1' SECOND)")
+SQL_FULL = ("SELECT p.id, a.itemid FROM person AS p FULL OUTER JOIN "
+            "auction AS a ON p.id = a.seller")
+SQL_REGULAR = {"inner": "SELECT p.id, p.name, a.itemid FROM person AS p "
+                        "JOIN auction AS a ON p.id = a.seller",
+               "left": "SELECT p.id, p.name, a.itemid FROM person AS p "
+                       "LEFT OUTER JOIN auction AS a ON p.id = a.seller"}
+
+
+def join_env(n: int, scenario: str, sz, *, skewed=False, keys=None, device_joins=True,
+             sink=None, conf=None, dev=DEV):
+    """(env, sink) of bench.py::join_microbench's build(): persons JOIN
+    auctions ON key (q3: the auctions' category filter, 2 s windows sliding
+    by 1 s; q8: 1 s tumbling), emitting (key, person name, auction name),
+    n records a side over `keys` keys (the key capacity too, unless `conf`
+    sets it)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    keys = keys or sz["keys"]
+    cfg = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": keys,
+           "execution.join.device-enabled": device_joins}
+    cfg.update(conf or {})
+    env = StreamExecutionEnvironment(Configuration(cfg), device=dev)
+
+    def source(side):
+        return DataGeneratorSource(
+            lambda idx: Batch(*st.join_rows(idx, n, side, keys, skewed, sz["zipf_s"])), n)
+
+    wm = WatermarkStrategy.for_bounded_out_of_orderness(0)
+    persons = env.from_source(source("p"), wm)
+    auctions = env.from_source(source("a"), wm)
+    size, slide, filtered = JOIN_SCENARIOS[scenario]
+    if filtered:
+        auctions = auctions.filter(lambda r: r[2] == 0)
+    joined = (persons.join(auctions).where(lambda r: r[0]).equal_to(lambda r: r[0])
+              .window(SlidingEventTimeWindows.of(size, slide))
+              .apply(lambda p, a: (p[0], p[1], a[1])))
+    if sink is None:
+        return env, joined.collect()
+    joined.sink_to(sink)
+    return env, sink
+
+
+def join_run(env, dev=DEV) -> dict:
+    """One run of a join job through JobRuntime (so the runner stays
+    inspectable), B5's program calls counted from 0 just before it: the
+    seconds (runtime build included, as env.execute()), the join runner,
+    the calls."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import join_ring
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    _sync(dev)
+    join_ring.reset_call_counts()
+    t0 = time.perf_counter()
+    rt = JobRuntime(plan(env._sinks), env.config, dev)
+    rt.run()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    (runner,) = [r for r in rt.runners
+                 if type(r).__name__ in ("DeviceJoinRunner", "WindowJoinRunner")]
+    return {"seconds": secs, "runner": runner, "calls": dict(join_ring.CALLS)}
+
+
+def _join_on_device(d: dict, dev) -> bool:
+    """The device route ran: the runner is the DeviceJoinRunner, its rings
+    are on `dev`, and B5's ingest and match ran."""
+    r = d["runner"]
+    return bool(type(r).__name__ == "DeviceJoinRunner" and r.pipeline is not None
+                and r.pipeline.left.idx_arr.device.type == torch.device(dev).type
+                and d["calls"]["join_ingest"] > 0 and d["calls"]["join_match"] > 0)
+
+
+def join_leg_a(sz, dev) -> dict:
+    """q3 and q8, uniform and zipf, at the bench's defaults: the device
+    route's rows against the host route's and the numpy model's."""
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["events"], sz["keys"]
+    out, ok = {}, True
+    for scenario, (size, slide, filtered) in JOIN_SCENARIOS.items():
+        for label, skewed in (("uniform", False), ("zipf", True)):
+            model = st.join_model(n, keys, skewed, size, slide, auction_filter=filtered,
+                                  zipf_s=sz["zipf_s"])
+            env, sink = join_env(n, scenario, sz, skewed=skewed, dev=dev)
+            d = join_run(env, dev)
+            envh, sinkh = join_env(n, scenario, sz, skewed=skewed, device_joins=False, dev=dev)
+            h = join_run(envh, dev)
+            rows, rows_h = st.join_row_ids(sink.results), st.join_row_ids(sinkh.results)
+            r = d["runner"]
+            leg = {"rows": len(rows), "equals_host": bool(np.array_equal(rows, rows_h)),
+                   "equals_model": bool(np.array_equal(rows, model)),
+                   "device_selected": type(r).__name__ == "DeviceJoinRunner",
+                   "host_runner": type(h["runner"]).__name__,
+                   "fallback_reason": getattr(r, "fallback_reason", "n/a"),
+                   "final_K_C": [r.geom.key_capacity, r.geom.bucket_capacity],
+                   "program_calls": d["calls"], "device_s": d["seconds"], "host_s": h["seconds"]}
+            leg["ok"] = bool(leg["equals_host"] and leg["equals_model"] and len(rows) > 0
+                             and _join_on_device(d, dev) and r.fallback_reason is None
+                             and leg["host_runner"] == "WindowJoinRunner"
+                             and (not skewed or r.geom.bucket_capacity > 16))
+            ok = ok and leg["ok"]
+            out[f"{scenario}_{label}"] = leg
+    out["ok"] = bool(ok)
+    return out
+
+
+def join_leg_b(sz, dev) -> dict:
+    """q8 uniform at the key capacity's default, 2^16 keys, 2^20 records a
+    side: parity with the host route and the model with ~1.09 GB of rings
+    on the card, tuples/s of both routes (best of `runs`)."""
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["big_events"], sz["big_keys"]
+    t0 = time.perf_counter()
+    model = st.join_model(n, keys, False, 1000, 1000)
+    model_s = time.perf_counter() - t0
+    dev_s, host_s = [], []
+    out = {"events_per_side": n, "keys": keys, "batch": sz["batch"], "model_s": model_s}
+    cuda = torch.device(dev).type == "cuda"
+    for i in range(sz["runs"]):
+        env, sink = join_env(n, "q8", sz, keys=keys, dev=dev)
+        if cuda:
+            # the rings' footprint: allocations of this run over what the
+            # process (earlier phases) already held
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        d = join_run(env, dev)
+        dev_s.append(d["seconds"])
+        if i == 0:
+            r = d["runner"]
+            g = r.geom
+            out.update(
+                geometry={"NB": g.ring_buckets, "K": g.key_capacity, "C": g.bucket_capacity},
+                state_bytes=r.state_bytes(), fallback_reason=r.fallback_reason,
+                on_device=_join_on_device(d, dev), program_calls=d["calls"],
+                matches=r.matches_emitted,
+                memory_allocated_delta=torch.cuda.memory_allocated() - before if cuda else 0,
+                peak_allocated_delta=torch.cuda.max_memory_allocated() - before if cuda else 0)
+            rows = st.join_row_ids(sink.results)
+        del env, sink, d
+        envh, sinkh = join_env(n, "q8", sz, keys=keys, device_joins=False, dev=dev)
+        h = join_run(envh, dev)
+        host_s.append(h["seconds"])
+        if i == 0:
+            rows_h = st.join_row_ids(sinkh.results)
+        del envh, sinkh, h
+    out.update(rows=len(rows), equals_host=bool(np.array_equal(rows, rows_h)),
+               equals_model=bool(np.array_equal(rows, model)),
+               device_seconds=dev_s, host_seconds=host_s,
+               device_tuples_per_s=2 * n / min(dev_s), host_tuples_per_s=2 * n / min(host_s))
+    expect_bytes = 2 * 2 * 4 * out["geometry"]["NB"] * keys * out["geometry"]["C"]
+    out["ok"] = bool(out["equals_host"] and out["equals_model"] and out["on_device"]
+                     and out["fallback_reason"] is None and out["rows"] > 0
+                     and out["geometry"]["K"] == keys and out["state_bytes"] == expect_bytes)
+    return out
+
+
+def join_sql_env(sz, rows: int, *, device_joins=True, fusion=True, dev=DEV):
+    """(env, tenv, (person keys, auction keys, timestamps)) of
+    bench.py::join_microbench's SQL block: person(id, name, ptime) and
+    auction(seller, itemid, atime) with zipf keys."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.table.table_env import TableEnvironment, TableSchema
+    from flink_tpu_torch.testing import stream as st
+
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.step.batch-size": sz["batch"], "execution.join.device-enabled": device_joins,
+        "table.device-fusion": fusion}), device=dev)
+    tenv = TableEnvironment(env)
+    idx = np.arange(rows)
+    pk = st.zipf_keys(idx, sz["keys"], sz["zipf_s"])
+    ak = st.zipf_keys(idx + rows, sz["keys"], sz["zipf_s"])
+    ts = (10_000 + idx * 64_000 // rows).astype(np.int64)
+    tenv.from_rows("person", [{"id": int(k), "name": f"p{i}", "ptime": int(t)}
+                              for i, (k, t) in enumerate(zip(pk, ts))],
+                   TableSchema(["id", "name", "ptime"], rowtime="ptime"))
+    tenv.from_rows("auction", [{"seller": int(k), "itemid": f"a{i}", "atime": int(t)}
+                               for i, (k, t) in enumerate(zip(ak, ts))],
+                   TableSchema(["seller", "itemid", "atime"], rowtime="atime"))
+    return env, tenv, (pk, ak, ts)
+
+
+def join_sql_model(pk, ak, ts, kind: str) -> list:
+    """Rows of the SQL join over the tables' columns, sorted by repr:
+    'window' the 1 s tumbling inner join, 'inner' and 'left' the regular
+    joins' materialized rows (a person with no auction at all NULL-padded)."""
+    by_key = {}
+    for j, (k, t) in enumerate(zip(ak, ts)):
+        by_key.setdefault(int(k), []).append((j, int(t)))
+    out = []
+    for i, (k, t) in enumerate(zip(pk, ts)):
+        matches = [j for j, ta in by_key.get(int(k), ())
+                   if kind != "window" or ta // 1000 == int(t) // 1000]
+        out += [{"id": int(k), "name": f"p{i}", "itemid": f"a{j}"} for j in matches]
+        if kind == "left" and not matches:
+            out.append({"id": int(k), "name": f"p{i}", "itemid": None})
+    return sorted(map(repr, out))
+
+
+def join_leg_c(sz, dev) -> dict:
+    """The SQL front door: the bench's q8 statement fused (DeviceJoinRunner,
+    sql_origin), with device joins off and with table.device-fusion off,
+    at row parity and against a Python model; FULL OUTER refused with its
+    catalogued reason; regular INNER and LEFT OUTER joins on the
+    StreamingJoinRunner, their materialized changelogs against the model."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.joins.spec import JoinUnsupported
+    from flink_tpu_torch.ops import join_ring
+    from flink_tpu_torch.runtime.executor import build_runners
+    from flink_tpu_torch.table.changelog import DELETE, ROW_KIND_FIELD, materialize
+
+    out, rows = {}, {}
+    for route, kw in (("fused", {}), ("device_joins_off", {"device_joins": False}),
+                      ("fusion_off", {"fusion": False})):
+        env, tenv, cols = join_sql_env(sz, sz["sql_rows"], dev=dev, **kw)
+        report = tenv.explain_sql(SQL_Q8)
+        sink = tenv.sql_query(SQL_Q8).collect()
+        runners = build_runners(plan(env._sinks), env.config, dev)[0]
+        join_ring.reset_call_counts()
+        t0 = time.perf_counter()
+        env.execute("sql-join")
+        _sync(dev)
+        rows[route] = sorted(map(repr, sink.results))
+        out[route] = {"fused": report.fused, "reason": report.reason,
+                      "explain": report.describe()[:200],
+                      "runners": sorted({type(r).__name__ for r in runners}),
+                      "sql_origin": any(getattr(r, "sql_origin", False) for r in runners),
+                      "program_calls": dict(join_ring.CALLS),
+                      "seconds": time.perf_counter() - t0, "rows": len(rows[route])}
+    model = join_sql_model(*cols, "window")
+    fused = out["fused"]
+    out["parity"] = bool(rows["fused"] == rows["device_joins_off"] == rows["fusion_off"] == model
+                         and len(model) > 0)
+    ok = (out["parity"] and fused["fused"] and "device=join-ring" in fused["explain"]
+          and "DeviceJoinRunner" in fused["runners"] and fused["sql_origin"]
+          and fused["program_calls"]["join_match"] > 0
+          and "WindowJoinRunner" in out["device_joins_off"]["runners"]
+          and out["fusion_off"]["reason"] == "disabled")
+    env, tenv, _cols = join_sql_env(sz, sz["sql_rows"], dev=dev)
+    full = {"reason": tenv.explain_sql(SQL_FULL).reason}
+    try:
+        tenv.sql_query(SQL_FULL)
+        full["raised"] = None
+    except JoinUnsupported as e:
+        full["raised"] = e.reason
+    out["full_outer"] = full
+    ok = ok and full["reason"] == full["raised"] == "join-full-outer"
+    for kind, sql in SQL_REGULAR.items():
+        env, tenv, cols = join_sql_env(sz, sz["regular_rows"], dev=dev)
+        log = tenv.execute_sql_to_changelog(sql)
+        kinds = sorted({type(r).__name__ for r in build_runners(
+            plan(env._sinks), env.config, dev)[0]})
+        got = sorted(map(repr, materialize(log)))
+        leg = {"changelog_rows": len(log), "materialized": len(got),
+               "retractions": sum(r.get(ROW_KIND_FIELD) == DELETE for r in log),
+               "runners": kinds, "equals_model": got == join_sql_model(*cols, kind)}
+        leg["ok"] = bool(leg["equals_model"] and "StreamingJoinRunner" in kinds and got
+                         and (kind == "inner" or leg["retractions"] > 0))
+        out[f"regular_{kind}"] = leg
+        ok = ok and leg["ok"]
+    out["ok"] = bool(ok)
+    return out
+
+
+def join_leg_d(sz, dev) -> dict:
+    """Degrade in place, mid-stream: q8 zipf with 16 slots a (key, bucket)
+    side degrades with join-ring-overflow; q8 with 1024 key lanes for 2048
+    keys with join-key-capacity. Rows equal the host route's and the
+    model's."""
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["events"], sz["keys"]
+    out, ok = {}, True
+    for name, skewed, conf, reason in (
+            ("slots", True, {"execution.join.bucket-capacity": sz["degrade_slots"]},
+             "join-ring-overflow"),
+            ("keys", False, {"execution.state.key-capacity": sz["degrade_keys"]},
+             "join-key-capacity")):
+        model = st.join_model(n, keys, skewed, 1000, 1000, zipf_s=sz["zipf_s"])
+        env, sink = join_env(n, "q8", sz, skewed=skewed, conf=conf, dev=dev)
+        d = join_run(env, dev)
+        envh, sinkh = join_env(n, "q8", sz, skewed=skewed, conf=conf, device_joins=False,
+                               dev=dev)
+        join_run(envh, dev)
+        rows = st.join_row_ids(sink.results)
+        r = d["runner"]
+        leg = {"fallback_reason": r.fallback_reason, "degraded": r._host is not None,
+               "rows": len(rows), "equals_host": bool(np.array_equal(
+                   rows, st.join_row_ids(sinkh.results))),
+               "equals_model": bool(np.array_equal(rows, model)),
+               "program_calls": d["calls"]}
+        leg["ok"] = bool(type(r).__name__ == "DeviceJoinRunner" and leg["degraded"]
+                         and r.fallback_reason == reason and leg["equals_host"]
+                         and leg["equals_model"] and len(rows) > 0)
+        out[name] = leg
+        ok = ok and leg["ok"]
+    out["ok"] = bool(ok)
+    return out
+
+
+def join_leg_e(sz, dev, tmp: str) -> dict:
+    """Exactly-once: q8 uniform (2^16 records a side) through
+    env.execute_async with checkpoints every `interval` ms and one host
+    failure in the sink at `fail_at` of the event time: one restart from a
+    reported checkpoint, rows equal to the uninterrupted run's and the
+    model's, the restarted attempt's device memory at its first sink batch
+    within `mem_slack` of the first attempt's. Uniform keys: every key is
+    seen before the first fire, so both attempts hold the same ring
+    geometry there (a zipf run restores at its grown geometry by design)."""
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["ckpt_events"], sz["keys"]
+    model = st.join_model(n, keys, False, 1000, 1000)
+    env, sink = join_env(n, "q8", sz, dev=dev)
+    ref = join_run(env, dev)
+    rows_ref = st.join_row_ids(sink.results)
+    del env, sink, ref
+    fail_ts = st.API_T0_MS + int(st.API_SPAN_EVENT_MS * sz["fail_at"])
+    fsink = FailOnceSink(timed_collect_sink(), fail_ts)
+    env, _s = join_env(n, "q8", sz, sink=fsink, dev=dev, conf={
+        "execution.checkpointing.interval": sz["interval"],
+        "execution.checkpointing.dir": f"{tmp}/chk",
+        "restart-strategy.type": "fixed-delay", "restart-strategy.initial-backoff": 1})
+    _sync(dev)
+    t0 = time.perf_counter()
+    client = env.execute_async("api_join_exactly_once")
+    client.wait(600)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    got = st.join_row_ids([row for row, _t in fsink.inner.results])
+    runner = next(r for r in client._runtime.runners if type(r).__name__ == "DeviceJoinRunner")
+    mem = fsink.first_write_bytes
+    out = {"events_per_side": n, "interval_ms": sz["interval"], "seconds": secs,
+           "status": client.status().value, **ckpt_stats(client),
+           "rows": len(got), "equals_uninterrupted": bool(np.array_equal(got, rows_ref)),
+           "equals_model": bool(np.array_equal(got, model)),
+           "device_route": runner._host is None and runner.fallback_reason is None,
+           "first_write_allocated_bytes": mem,
+           "memory_bounded": len(mem) == 2 and mem[1] <= mem[0] + sz["mem_slack"]}
+    out["ok"] = bool(out["status"] == "FINISHED" and out["num_restarts"] == 1
+                     and out["restored_checkpoint_id"] is not None
+                     and out["equals_uninterrupted"] and out["equals_model"] and len(got) > 0
+                     and out["device_route"] and out["memory_bounded"])
+    return out
+
+
+def api_join_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 23: legs A-E (see API_JOIN), each a failure of the phase."""
+    import shutil
+    import tempfile
+
+    sz = sizes or API_JOIN
+    out = {"phase": "api_join"}
+    for leg, fn in (("leg_a", join_leg_a), ("leg_b", join_leg_b), ("leg_c", join_leg_c),
+                    ("leg_d", join_leg_d), ("leg_e", join_leg_e)):
+        t0 = time.perf_counter()
+        if leg == "leg_e":
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_join_")
+            try:
+                out[leg] = fn(sz, dev, tmp)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        else:
+            out[leg] = fn(sz, dev)
+        out[leg]["leg_s"] = time.perf_counter() - t0
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    out["ok"] = bool(all(out[leg]["ok"] for leg in ("leg_a", "leg_b", "leg_c", "leg_d",
+                                                     "leg_e")))
+    return out
+
+
+def join_programs(calls_per_run: dict, dev=DEV) -> dict:
+    """B5's torch programs at leg B's geometry (NB = 65, K = 2^16, C = 16):
+    ms a call (CUDA events), device us a call by kernel (profiler), CUDA
+    launches a call and a run (leg B's first device run's calls), and a
+    bytes bound. The ingest scatters one batch (1024 records, one bucket,
+    distinct keys, as the ring stages them); the matches read one bucket
+    a side with a quarter of the keys holding a record (leg B's window)."""
+    from flink_tpu_torch.ops import join_ring as jr
+    from flink_tpu_torch.testing.timing import cuda_ms, device_profile
+
+    NB, K, C, B = 65, API_JOIN["big_keys"], 16, API_JOIN["batch"]
+    d = torch.device(dev)
+    g = torch.Generator().manual_seed(5)
+    arrs = [torch.randint(0, 1 << 20, (NB, K, C), generator=g, dtype=torch.int32).to(d)
+            for _ in range(4)]
+    lanes = [t.to(d) for t in (
+        torch.full((B,), 7, dtype=torch.int32),
+        torch.randperm(K, generator=g)[:B].to(torch.int32),
+        torch.zeros(B, dtype=torch.int32), torch.arange(B, dtype=torch.int32),
+        torch.randint(0, 1000, (B,), generator=g, dtype=torch.int32))]
+    cnt = (torch.rand((1, K), generator=g) < 0.25).to(torch.int32).to(d)
+    rbs = torch.tensor([7], dtype=torch.int32, device=d)
+    ingest = jr.build_join_ingest(NB, K, C)
+    match = jr.build_join_match(NB, K, C, 1, 1, False)
+    interval = jr.build_join_match(NB, K, C, 1, 1, True)
+    L = C
+    # per side: the bucket run of both arrays and the counts read; both
+    # lane arrays and the validity written; the pair counts written
+    match_bytes = 2 * (2 * K * L * 4 + K * 4 + 2 * K * L * 4 + K * L) + K * 4
+    programs = {
+        # five int32 lanes read; two int32 cells written per record
+        "join_ingest": ("flink_tpu/ops/join_ring.py:48",
+                        lambda: ingest(arrs[0], arrs[1], *lanes), B * 5 * 4 + B * 2 * 4,
+                        "join_ingest"),
+        "join_match": ("flink_tpu/ops/join_ring.py:70",
+                       lambda: match(arrs[0], arrs[1], cnt, rbs, arrs[2], arrs[3], cnt, rbs,
+                                     0, 0), match_bytes, "join_match"),
+        # plus the [K, L, R] mask written
+        "join_match_interval": ("flink_tpu/ops/join_ring.py:70",
+                                lambda: interval(arrs[0], arrs[1], cnt, rbs, arrs[2], arrs[3],
+                                                 cnt, rbs, -500, 500),
+                                match_bytes + K * L * L, "join_match_interval"),
+    }
+    out = {}
+    for name, (replaces, fn, nbytes, calls_key) in programs.items():
+        b_ms, b_by = bound(nbytes, 0)
+        split, per_call = device_profile(fn)
+        calls = calls_per_run.get(calls_key, 0)
+        out[name] = {"replaces": replaces, "shape": f"NB={NB} K={K} C={C} B={B} nb=1",
+                     "ms": cuda_ms(fn, 20), "device_us": sum(split.values()),
+                     "device_us_by_kernel": split, "launches_per_call": per_call,
+                     "calls_per_run": calls, "launches_per_run": per_call * calls,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+                     "library_ms": None}
+    return out
+
+
+def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV, join=None) -> dict:
     """Each torch program of the per-batch operators at lateness_operator's
     shapes (the global count step at api_count_window's, the group-agg step
     at api_group_agg's): ms a call (CUDA events), device us a call by kernel
     (profiler), CUDA launches a call and a batch, and a bytes bound from
-    this run's data."""
+    this run's data; and `join`, the join ring's programs (`join_programs`)."""
     from flink_tpu_torch.ops import segment_ops as so
     from flink_tpu_torch.ops.aggregators import sum_agg
     from flink_tpu_torch.ops.sorted_ingest import sorted_ingest
@@ -3350,6 +3823,7 @@ def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV) -> dict:
         emitted = op.drain_output()
     out["emit_window_host_ms"] = float(np.median(reps))
     out["emit_window_keys"] = int(len(emitted[0][2][0])) if emitted else 0
+    out.update(join or {})
     return out
 
 
@@ -3753,11 +4227,44 @@ def main() -> int:
     path_launches["k1_superscan"]["api_checkpoint_b_resumed"] = \
         ckpt["leg_b"]["savepoint"]["k1_launches"]
     path_launches["k1_superscan"]["api_checkpoint_c"] = ckpt["leg_c"]["k1_launches"]
-    # ---- 16. the per-batch torch programs at these shapes ----
+    torch.cuda.empty_cache()
+    # ---- 23. two-input joins: legs A-E through the port's API, B5's
+    # program calls counted from 0 in each run; then leg B's job once under
+    # torch.profiler and once under cProfile ----
+    t_join = time.perf_counter()
+    api_join = api_join_phase()
+    api_join["card"] = card
+    api_join["phase_s"] = time.perf_counter() - t_join
+    emit(api_join)
+    if not api_join["ok"]:
+        raise AssertionError("api_join: a leg failed a gate (rows of the device route against "
+                             "the host route and the numpy model, the DeviceJoinRunner "
+                             "selected with its rings on the card and B5 called, the grown "
+                             "zipf ring with no degrade, leg B's geometry and state bytes, "
+                             "the SQL routes and refusals, the catalogued degrades, one "
+                             "restart from a reported checkpoint with device memory bounded)")
+    zb = API_JOIN
+
+    def join_big_run():
+        # leg B's job at half its records (the profiles' share per record
+        # is the same; the rings reach the same geometry)
+        return join_run(join_env(zb["big_events"] // 2, "q8", zb,
+                                 keys=zb["big_keys"])[0])["seconds"]
+
+    t_prof = time.perf_counter()
+    emit(profile_run("api_join_q8_big", join_big_run,
+                     groups=(("index_kernels", "index"), ("copies_dtoh", "Memcpy DtoH"),
+                             ("copies_htod", "Memcpy HtoD"))))
+    emit(host_profile("api_join_q8_big", join_big_run, top=16))
+    emit({"phase": "api_join_profiles", "seconds": time.perf_counter() - t_prof})
+    torch.cuda.empty_cache()
+    # ---- 16. the per-batch torch programs at these shapes, and the join
+    # ring's at leg B's geometry ----
     timed = LATENESS["timed"]
     per_batch = {k: v / timed for k, v in late_op["scatter"]["program_calls"].items()}
     per_batch["ingest_sort"] = late_op["sort"]["program_calls"].get("ingest_sort", 0) / timed
-    emit(per_batch_programs(card, per_batch))
+    emit(per_batch_programs(card, per_batch,
+                            join=join_programs(api_join["leg_b"]["program_calls"])))
 
     kernels = [
         {"name": "k1_superscan", "route": "cuda",

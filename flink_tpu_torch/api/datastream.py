@@ -18,7 +18,9 @@ and GlobalWindows a count trigger (the per-batch and global device
 operators); any trigger, an evictor, `reduce`, `process`, a Python
 AggregateFunction and processing-time windows run on the per-record
 oracle operator, as in the JAX package; `KeyedStream.continuous_aggregate`
-emits a retract changelog. `env.execute_async()` runs the job on the
+emits a retract changelog. `join`/`co_group` build two-input window joins:
+eligible event-time joins on the device join ring, coGroup and the rest on
+the host join runner. `env.execute_async()` runs the job on the
 MiniCluster with checkpoints, restarts and savepoints (fault tolerance).
 
 `StreamExecutionEnvironment(device=None)` runs on CUDA and raises at
@@ -198,6 +200,19 @@ class DataStream:
         self.sink_to(sink, name="collect")
         return sink
 
+    # -- two-input topologies ----------------------------------------------
+    def join(self, other: "DataStream") -> "JoinBuilder":
+        """Keyed windowed join (JoinedStreams.java:101):
+        a.join(b).where(ks_a).equal_to(ks_b).window(assigner).apply(fn).
+        Eligible event-time joins run on the device join ring
+        (`runtime/device_join_operator.py`), others on the host runner."""
+        return JoinBuilder(self.env, self, other, cogroup=False)
+
+    def co_group(self, other: "DataStream") -> "JoinBuilder":
+        """Keyed windowed coGroup (CoGroupedStreams.java): apply(fn) receives
+        (left_elements, right_elements) once per key x window, on the host."""
+        return JoinBuilder(self.env, self, other, cogroup=True)
+
     def get_side_output(self, tag) -> "DataStream":
         """The stream of this operator's side output for `tag`
         (SingleOutputStreamOperator.getSideOutput): a window aggregate's
@@ -215,8 +230,6 @@ class DataStream:
     async_map = _not_ported("DataStream", "async_map", deferred.API)
     union = _not_ported("DataStream", "union", deferred.API)
     connect = _not_ported("DataStream", "connect", deferred.API)
-    join = _not_ported("DataStream", "join", deferred.JOINS)
-    co_group = _not_ported("DataStream", "co_group", deferred.JOINS)
     rebalance = _not_ported("DataStream", "rebalance", deferred.API)
     rescale = _not_ported("DataStream", "rescale", deferred.API)
     shuffle = _not_ported("DataStream", "shuffle", deferred.API)
@@ -224,6 +237,48 @@ class DataStream:
     forward = _not_ported("DataStream", "forward", deferred.API)
     slot_sharing_group = _not_ported("DataStream", "slot_sharing_group", deferred.API)
     iterate = _not_ported("DataStream", "iterate", deferred.API)
+
+
+class JoinBuilder:
+    """where/equalTo/window/apply builder for joins and coGroups
+    (JoinedStreams.java:101, CoGroupedStreams.java)."""
+
+    def __init__(self, env, first: DataStream, second: DataStream, cogroup: bool):
+        self.env = env
+        self.first = first
+        self.second = second
+        self.cogroup = cogroup
+        self._ks1: Optional[Callable] = None
+        self._ks2: Optional[Callable] = None
+        self._assigner: Optional[WindowAssigner] = None
+
+    def where(self, key_selector: Callable) -> "JoinBuilder":
+        self._ks1 = as_key_selector(key_selector)
+        return self
+
+    def equal_to(self, key_selector: Callable) -> "JoinBuilder":
+        self._ks2 = as_key_selector(key_selector)
+        return self
+
+    def window(self, assigner: WindowAssigner) -> "JoinBuilder":
+        self._assigner = assigner
+        return self
+
+    def apply(self, fn: Callable, name: Optional[str] = None) -> DataStream:
+        """Join: fn(left, right) per matching pair. CoGroup: fn(lefts,
+        rights) once per key x window."""
+        if self._ks1 is None or self._ks2 is None:
+            raise ValueError("join requires where(...) and equal_to(...)")
+        if self._assigner is None:
+            raise ValueError("join requires a window(...) assigner")
+        kind = "co_group" if self.cogroup else "window_join"
+        t = Transformation(
+            kind, name or kind,
+            [self.first.transform, self.second.transform],
+            {"key_selector1": self._ks1, "key_selector2": self._ks2,
+             "assigner": self._assigner, "join_fn": fn},
+        )
+        return DataStream(self.env, t)
 
 
 class DataStreamSink:

@@ -85,7 +85,6 @@ _UNPORTED_PREFIXES = (
     ("autoscaler.", deferred.METRICS),
     ("chaos.", deferred.CHAOS),
     ("security.", deferred.CHAOS),
-    ("execution.join.", deferred.JOINS),
 )
 
 
@@ -208,6 +207,32 @@ class ExecutionOptions:
         "host retractable multiset). COUNT columns are int32 on the device "
         "and wrap past 2**31 - 1 where the host path's integers would not; "
         "SUM/AVG accumulate in float32 where the host path uses float64.")
+    DEVICE_JOINS = (
+        ConfigOptions.key("execution.join.device-enabled").bool_type().default_value(True)
+    ).with_description(
+        "Select the device join operator (per-key time-bucketed rings in "
+        "HBM + segment-wise cross-match, docs/joins.md) for eligible "
+        "event-time window equi-joins. Ineligible shapes — processing "
+        "time, session windows, coGroup, outer joins — keep the host "
+        "operator with an attributed reason (joinFallbackReason); off "
+        "forces the host operator for every join. A perf switch, never a "
+        "semantics switch.")
+    JOIN_BUCKET_CAPACITY = (
+        ConfigOptions.key("execution.join.bucket-capacity").int_type().default_value(128)
+    ).with_description(
+        "Record slots per (key, time bucket, side) in the device join "
+        "ring. A (key, bucket) side that exceeds it mid-stream degrades "
+        "that operator to the host join — state carried over, "
+        "exactly-once preserved, reason recorded — for the rest of the "
+        "job. Size it to the worst per-key burst inside one bucket "
+        "granule (gcd of window size and slide).")
+    JOIN_RING_SLACK = (
+        ConfigOptions.key("execution.join.ring-slack-buckets").int_type().default_value(64)
+    ).with_description(
+        "Extra ring depth beyond one window's buckets: how many bucket "
+        "granules event time may run ahead of the purge horizon before "
+        "the ring would wrap onto a live bucket (which degrades to the "
+        "host join, never corrupts). Raise for very disordered streams.")
 
 
 class LatencyOptions:

@@ -5,9 +5,11 @@ Counterpart of `flink_tpu/graph/transformation.py`: API calls record
 transformations into steps (the analogue of operator chains) and cuts
 chains at keyBy. The port plans the kinds its API records — source,
 map/map_ts/filter/flat_map, key_by, global (a pass-through partition
-hint), window_aggregate, group_agg, sink and side_output (a tagged view of
-the producing step's side channel) — with the JAX planner's rules; any
-other kind raises.
+hint), window_aggregate, group_agg, sink, side_output (a tagged view of
+the producing step's side channel) and the two-input terminals
+window_join, co_group and regular_join (one input gate per edge, by
+ordinal) — with the JAX planner's rules; any other kind raises (union,
+co_map, co_process and broadcast_process: ROADMAP item 19).
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ CHAINABLE = {"map", "map_ts", "filter", "flat_map"}
 
 # single-input stateful/boundary terminals
 TERMINALS = {"window_aggregate", "group_agg", "sink"}
+
+# two-input terminals (the join surface of DataStream.java:111); the JAX
+# package's MULTI_TERMINALS also hold union and the co-operators
+MULTI_TERMINALS = {"window_join", "co_group", "regular_join"}
 
 
 @dataclasses.dataclass
@@ -55,7 +61,8 @@ class Step:
     record-local transformations applied in one pass, `terminal` the
     stage's stateful/boundary op if any, `partitioning` how records enter
     ('forward' or 'key_group'), `inputs` the (producer, ordinal, tag)
-    edges, a producer being an upstream Step or a source Transformation."""
+    edges, a producer being an upstream Step or a source Transformation;
+    the ordinal selects the input gate of a two-input operator."""
 
     chain: List[Transformation]
     terminal: Optional[Transformation]
@@ -195,6 +202,16 @@ def plan(sink_transforms) -> StepGraph:
             ent, tag, part, ks = input_of(t.inputs[0])
             producer[t.id] = new_step(chain=[], terminal=t, partitioning=part,
                                       key_selector=ks, inputs=[(ent, 0, tag)])
+        elif t.kind in MULTI_TERMINALS:
+            ins = []
+            part, ks = "forward", None
+            for o, inp in enumerate(t.inputs):
+                ent, tag, p, k = input_of(inp)
+                ins.append((ent, o, tag))
+                if p == "key_group":
+                    part, ks = p, (ks or k)
+            producer[t.id] = new_step(chain=[], terminal=t, partitioning=part,
+                                      key_selector=ks, inputs=ins)
         else:
             raise deferred.not_ported(f"transformation kind {t.kind!r}", deferred.API)
 

@@ -13,8 +13,8 @@ runs them on kernel K1.
 Statements outside the fused core take the interpreted TableEnvironment
 path with a catalogued reason (`FALLBACK_CATALOG`). The reasons are the
 JAX package's, statement for statement, including those of statements the
-port cannot execute yet (joins, UNION ALL, ML_PREDICT: planning reports
-them, execution raises naming their ROADMAP item).
+port cannot execute yet (UNION ALL, ML_PREDICT: planning reports them,
+execution raises naming their ROADMAP item).
 `TableEnvironment.sql_query` routes through here behind
 `table.device-fusion` (default on); `explain_sql` returns the report this
 module produces.
@@ -87,9 +87,12 @@ def plan_query(
     if sources is not None:
         if isinstance(plan, JoinLogicalPlan):
             # fused windowed join: the planner validated the shape; the
-            # two-input stream is built by the table layer, which raises
-            # until the port carries joins (ROADMAP item 12). The report
-            # stays `lowered=None` by design, as in the JAX package.
+            # two-input stream is built by the table layer (row streams are
+            # an api-layer concern), which stamps the window_join
+            # transformation sql_origin so the runtime's DeviceJoinRunner
+            # counts as the SQL-fused selection (its sqlFusedSelected gauge
+            # waits for ROADMAP item 15). The report stays `lowered=None`
+            # by design, as in the JAX package.
             for name in (q.table, q.join.table2):
                 if sources.get(name) is None:
                     return SqlPlanReport(

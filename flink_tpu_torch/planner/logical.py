@@ -379,9 +379,8 @@ def _build_join_plan(q: Query, catalog: Dict[str, TableInfo]
     """The join front door: windowed INNER equi-joins plan fused (the
     device join ring); every other join shape falls back with its OWN
     catalogued reason — single-sourced with the JAX package's runtime join
-    fallback catalog (`flink_tpu/joins/spec.py`), so the SQL explain and
-    the runner's joinFallbackReason gauge attribute the same way. The port
-    plans joins the same way; executing one raises (ROADMAP item 12)."""
+    fallback catalog (`joins/spec.py`), so the SQL explain and the
+    runner's fallback_reason attribute the same way."""
     j = q.join
     if j.join_type == "full":
         raise Unsupported("join-full-outer",

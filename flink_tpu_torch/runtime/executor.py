@@ -28,6 +28,12 @@ keys the records through the host dictionary into its operator:
   trigger, the session steps the device session operator refuses): the
   per-record oracle operator (`runtime/oracle_window_operator.py`), host
   code, as in the JAX package.
+A two-input window join (`DataStream.join`) gets a `DeviceJoinRunner`
+(`runtime/device_join_operator.py`: the bucket ring on the device) when
+it is eligible, else, with its catalogued `JoinUnsupported` reason, the
+host `WindowJoinRunner`, which also runs coGroup; a regular SQL join gets
+a `StreamingJoinRunner` (`runtime/stream_join_operator.py`). Two-input
+runners min-combine their gates' watermarks and end after both gates.
 A fused window step takes the `execution.latency.*` options
 (`_latency_kwargs`), and, on the host-keyed path, the `state.tier.*` and
 `state.changelog.*` options (`_tier_for_config`): its key capacity is then
@@ -132,6 +138,7 @@ class _FanOut:
 class StepRunner:
     downstream: Optional[_FanOut] = None
     sides: Optional[Dict[str, _FanOut]] = None   # side-output channels by tag
+    num_inputs: int = 1
 
     def side_channel(self, tag_id: str) -> _FanOut:
         if self.sides is None:
@@ -142,15 +149,35 @@ class StepRunner:
         if self.sides and tag_id in self.sides:
             self.sides[tag_id].on_batch(values, timestamps)
 
-    # -- input-gate protocol (single-input steps on the port) --------------
+    # -- input-gate protocol (the multi-input valve) ------------------------
     def on_batch_n(self, ordinal: int, values: np.ndarray, timestamps: np.ndarray) -> None:
         self.on_batch(values, timestamps)
 
     def on_watermark_n(self, ordinal: int, watermark: int) -> None:
-        self.on_watermark(watermark)
+        """Per-gate watermark: min-combine across gates before processing
+        (StatusWatermarkValve.java semantics). The gates' watermarks are
+        not part of any snapshot, as in the JAX package (ROADMAP Queue C)."""
+        if self.num_inputs <= 1:
+            self.on_watermark(watermark)
+            return
+        wms = self.__dict__.setdefault("_gate_wms", {})
+        wms[ordinal] = max(wms.get(ordinal, MIN_WATERMARK), watermark)
+        if len(wms) < self.num_inputs:
+            return
+        combined = min(wms.values())
+        if combined > self.__dict__.get("_combined_wm", MIN_WATERMARK):
+            self.__dict__["_combined_wm"] = combined
+            self.on_watermark(combined)
 
     def on_end_n(self, ordinal: int) -> None:
-        self.on_end()
+        """End of one gate: a multi-input runner ends after every gate has."""
+        if self.num_inputs <= 1:
+            self.on_end()
+            return
+        ended = self.__dict__.setdefault("_ended_gates", set())
+        ended.add(ordinal)
+        if len(ended) >= self.num_inputs:
+            self.on_end()
 
     # -- processing -------------------------------------------------------
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
@@ -716,6 +743,86 @@ class SharedWindowRunner(DeviceChainRunner):
             StepRunner.on_end(r)
 
 
+class WindowJoinRunner(StepRunner):
+    """Keyed event-time window join / coGroup, on the host: the oracle of
+    the device join (`runtime/device_join_operator.py`).
+
+    The reference implements join as coGroup over tagged inputs flowing into
+    one WindowOperator (JoinedStreams.java:101 'Join is implemented on top
+    of CoGroup', CoGroupedStreams.java WithWindow.apply): elements of both
+    sides buffer per (key, window); when the watermark passes the window
+    end, join emits one result per left x right pair, coGroup emits one
+    result per window from both element lists. Late elements (window already
+    fired) are dropped, matching WindowOperator.isWindowLate."""
+
+    num_inputs = 2
+
+    def __init__(self, step: Step, config: Configuration):
+        t = step.terminal
+        self.key_selectors = (t.config["key_selector1"], t.config["key_selector2"])
+        self.assigner = t.config["assigner"]
+        if not self.assigner.is_event_time:
+            raise ValueError("window joins support event-time assigners")
+        self.join_fn = t.config.get("join_fn")
+        self.cogroup = t.kind == "co_group"
+        # (key, window_start, window_end) -> ([left...], [right...])
+        self._buf: Dict[tuple, tuple] = {}
+        self._wm = MIN_WATERMARK
+        self.num_late_dropped = 0
+        self.uid = t.uid
+
+    def on_batch_n(self, ordinal: int, values, timestamps) -> None:
+        ks = self.key_selectors[ordinal]
+        for v, ts in zip(values, np.asarray(timestamps, dtype=np.int64)):
+            key = ks(v)
+            for w in self.assigner.assign_windows(v, int(ts)):
+                if w.end - 1 <= self._wm:
+                    self.num_late_dropped += 1
+                    continue
+                sides = self._buf.get((key, w.start, w.end))
+                if sides is None:
+                    sides = ([], [])
+                    self._buf[(key, w.start, w.end)] = sides
+                sides[ordinal].append(v)
+
+    def on_batch(self, values, timestamps) -> None:  # pragma: no cover
+        raise AssertionError("WindowJoinRunner consumes via input gates")
+
+    def on_watermark(self, watermark: int) -> None:
+        self._wm = max(self._wm, watermark)
+        out, out_ts = [], []
+        # fire in (window end, key-insertion) order, mirroring the oracle's
+        # timer ordering
+        ripe = [k for k in self._buf if k[2] - 1 <= self._wm]
+        ripe.sort(key=lambda k: k[2])
+        for k in ripe:
+            left, right = self._buf.pop(k)
+            max_ts = k[2] - 1
+            if self.cogroup:
+                out.append(self.join_fn(left, right))
+                out_ts.append(max_ts)
+            else:
+                for lv in left:
+                    for rv in right:
+                        out.append(self.join_fn(lv, rv))
+                        out_ts.append(max_ts)
+        if out and self.downstream:
+            self.downstream.on_batch(obj_array(out), np.asarray(out_ts, dtype=np.int64))
+        super().on_watermark(watermark)
+
+    def snapshot(self) -> dict:
+        return {
+            "buf": {k: (list(l), list(r)) for k, (l, r) in self._buf.items()},
+            "wm": self._wm,
+            "late": self.num_late_dropped,
+        }
+
+    def restore(self, snap: dict) -> None:
+        self._buf = {k: (list(l), list(r)) for k, (l, r) in snap["buf"].items()}
+        self._wm = snap["wm"]
+        self.num_late_dropped = snap["late"]
+
+
 class SinkRunner(StepRunner):
     def __init__(self, step: Step):
         sink = step.terminal.config["sink"]
@@ -759,6 +866,23 @@ def _make_runner(step: Step, config: Configuration, device: torch.device) -> Ste
         from flink_tpu_torch.runtime.group_agg_operator import GroupAggRunner
 
         return GroupAggRunner(step, config, device)
+    if kind in ("window_join", "co_group"):
+        # device reroute: eligible event-time window equi-joins run on the
+        # bucketed-ring pipeline; every refusal is a catalogued
+        # JoinUnsupported reason, and the host runner stays the oracle
+        if kind == "window_join":
+            from flink_tpu_torch.joins.spec import JoinUnsupported
+            from flink_tpu_torch.runtime.device_join_operator import DeviceJoinRunner
+
+            try:
+                return DeviceJoinRunner(step, config, device)
+            except JoinUnsupported:
+                pass
+        return WindowJoinRunner(step, config)
+    if kind == "regular_join":
+        from flink_tpu_torch.runtime.stream_join_operator import StreamingJoinRunner
+
+        return StreamingJoinRunner(step, config)
     raise deferred.not_ported(f"runner for {kind!r}", deferred.API)
 
 

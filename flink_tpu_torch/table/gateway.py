@@ -23,8 +23,8 @@ statement reports which execution path it selected: `executionPath` is
 "fused" when the planner lowered it onto the fused device chain (kernel
 K1; requires declared numeric column `types`), else "interpreted" with the
 catalogued `fallbackReason` attributed. A statement the port cannot run
-yet (joins, UNION ALL, multi-aggregate SELECTs, ML_PREDICT) ends in ERROR
-with the error naming its ROADMAP.md item.
+yet (UNION ALL, ML_PREDICT) ends in ERROR with the error naming its
+ROADMAP.md item.
 
 With `auth_token` set, every request must carry `Authorization: Bearer
 <token>`; a missing or wrong token is a 401 before any route logic runs.

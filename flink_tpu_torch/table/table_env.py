@@ -20,9 +20,16 @@ Rows are dicts keyed by schema field names. `sql_query` parses, plans
   (`GroupAggRunner`), a projection on a map.
 
 What the port does not carry yet raises, naming its ROADMAP.md item, and
-never falls back to another route: UNION ALL (item 19), joins (item 12)
-and ML_PREDICT (item 14). The planner still reports those statements'
-paths and reasons exactly as the JAX package does; only execution raises.
+never falls back to another route: UNION ALL (item 19) and ML_PREDICT
+(item 14). The planner still reports those statements' paths and reasons
+exactly as the JAX package does; only execution raises.
+
+Joins: a windowed INNER equi-join plans fused and runs on
+`DataStream.join` (the device join ring, `sql_origin` stamped); with
+`table.device-fusion` off it takes the same translation, interpreted. A
+regular join (no window; INNER, LEFT or RIGHT OUTER) runs on the
+`StreamingJoinRunner` with its retraction changelog. FULL OUTER is refused
+with `JoinUnsupported("join-full-outer")`.
 
 A TableEnvironment takes its device from its StreamExecutionEnvironment
 (CUDA unless it was made with device="cpu").
@@ -236,8 +243,12 @@ class TableEnvironment:
         )
         self.last_plan_report = report
         if report.fused and q.join is not None:
-            # a fused windowed join (the JAX package's DeviceJoinRunner)
-            return self._join_query(q)
+            # fused windowed join: the planner validated the shape
+            # (JoinLogicalPlan + rules.rewrite_join_window); construction
+            # happens here because row streams are an api-layer concern,
+            # and the window_join transformation is stamped sql_origin: the
+            # SQL front door selected the device join, it did not fall back
+            return self._join_query(q, sql_fused=True)
         if report.lowered is None:
             return self._translate(q)
         low = report.lowered
@@ -527,12 +538,109 @@ class TableEnvironment:
                                          vectorized=True)
         return out
 
-    def _join_query(self, q: Query) -> DataStream:
-        """SQL joins (windowed, regular and outer): not ported yet."""
+    def _join_query(self, q: Query, sql_fused: bool = False) -> DataStream:
+        """Windowed equi-join: translated onto DataStream.join (the fused
+        DeviceJoinRunner when the planner selected it — `sql_fused` —
+        else the host windowed join / coGroup path). A regular join (no
+        window) runs on the StreamingJoinRunner. Joined rows carry both
+        alias-qualified and (side-unique) plain column names; the SELECT
+        projects them."""
         j = q.join
-        kind = "windowed" if j.window is not None else "regular"
-        raise deferred.not_ported(
-            f"SQL {kind} {j.join_type.upper()} JOIN {q.table} / {j.table2}", deferred.JOINS)
+        if j.join_type == "full":
+            # typed + attributed at translate time, single-sourced with
+            # the planner catalog and the runner's own refusal — a FULL
+            # OUTER statement must never build a job that dies at runner
+            # construction with a bare error
+            from flink_tpu_torch.joins.spec import JoinUnsupported
+
+            raise JoinUnsupported(
+                "join-full-outer",
+                "FULL OUTER JOIN is not supported: neither the host "
+                "StreamingJoinRunner nor the device join ring implements "
+                "two-sided padding retraction")
+        if j.table2 not in self._tables:
+            raise KeyError(
+                f"unknown table {j.table2!r}; registered: {list(self._tables)}")
+        if q.group_by:
+            raise ValueError("join queries aggregate via a follow-up query; "
+                             "GROUP BY on a join is not supported yet")
+        if any(i.kind == "agg" for i in q.select):
+            raise ValueError("aggregates over a join are not supported yet")
+        if any(i.kind == "ml_predict" for i in q.select):
+            raise ValueError("ML_PREDICT over a join is not supported yet")
+        if j.window is not None and j.window.kind == "session":
+            raise ValueError("session windows are not supported for joins")
+
+        s1 = self._row_stream(self._tables[q.table])
+        s2 = self._row_stream(self._tables[j.table2])
+        lcol = j.left_col.split(".", 1)[1]
+        rcol = j.right_col.split(".", 1)[1]
+        cols1 = set(self._tables[q.table].schema.fields)
+        cols2 = set(self._tables[j.table2].schema.fields)
+        a1, a2 = j.alias1, j.alias2
+
+        def merge(l, r):
+            row = {f"{a1}.{k}": v for k, v in l.items()}
+            row.update({f"{a2}.{k}": v for k, v in r.items()})
+            for k, v in l.items():        # side-unique plain names
+                if k not in cols2:
+                    row[k] = v
+            for k, v in r.items():
+                if k not in cols1:
+                    row[k] = v
+            return row
+
+        if j.window is None:
+            # REGULAR streaming join (no window bound): unbounded two-sided
+            # state with retraction output (StreamingJoinOperator.java:40)
+            from flink_tpu_torch.graph.transformation import Transformation
+
+            t = Transformation(
+                "regular_join",
+                f"sql_regular_join[{j.left_col}={j.right_col}]",
+                [s1.transform, s2.transform],
+                {
+                    "key_selector1": lambda row, c=lcol: row[c],
+                    "key_selector2": lambda row, c=rcol: row[c],
+                    "merge_fn": merge,
+                    "join_type": j.join_type,
+                    # schema-shaped NULL rows so outer-join paddings carry
+                    # every field (as SQL NULL) for downstream predicates
+                    "null_rows": (dict.fromkeys(cols1), dict.fromkeys(cols2)),
+                },
+            )
+            joined = DataStream(self.env, t)
+        else:
+            assigner = self._assigner_for(j.window)
+            # SQL equi-join: NULL never matches (not even NULL = NULL).
+            # The windowed path is inner-only, so NULL-keyed rows can
+            # never contribute — filter them before the join buckets
+            # them under a shared None key
+            s1 = s1.filter(lambda row, c=lcol: row[c] is not None, name="null_key_filter_l")
+            s2 = s2.filter(lambda row, c=rcol: row[c] is not None, name="null_key_filter_r")
+            joined = (
+                s1.join(s2)
+                .where(lambda row, c=lcol: row[c])
+                .equal_to(lambda row, c=rcol: row[c])
+                .window(assigner)
+                .apply(merge, name=f"sql_join[{j.left_col}={j.right_col}]")
+            )
+            if sql_fused:
+                joined.transform.config["sql_origin"] = True
+        if q.where is not None:
+            joined = joined.filter(q.where, name=f"where[{q.where_text}]")
+        cols = [i for i in q.select if i.kind == "column"]
+        if any(i.kind in ("window_start", "window_end") for i in q.select):
+            raise ValueError("WINDOW_START/WINDOW_END are not supported on "
+                             "join projections yet")
+        from flink_tpu_torch.table.changelog import carry_kind
+
+        def project(row, _cols=cols):
+            # .get: an outer join's NULL-padded side reads as None (SQL
+            # NULL); the changelog kind rides through the projection
+            return carry_kind({i.output_name: row.get(i.name) for i in _cols}, row)
+
+        return joined.map(project, name="sql_join_output")
 
     def execute_sql_to_list(self, sql: str) -> List[dict]:
         """Convenience: run the query to completion, return rows. A

@@ -287,6 +287,63 @@ def millikey_oracle(n: int, num_keys: int, skewed: bool, zipf_s: float = 1.0,
     return sorted((kk, c) for (kk, _jj), c in out.items())
 
 
+# ---------------------------------------------------------------------------
+# the NEXMark join streams (bench.py::join_microbench's source() and
+# keys_of()): persons and auctions keyed by seller over one event-time span
+# ---------------------------------------------------------------------------
+
+def join_rows(idx: np.ndarray, n: int, side: str, num_keys: int, skewed: bool,
+              zipf_s: float = 1.0):
+    """(rows, timestamps) of records `idx` of an n-record join side: rows
+    (key, f"{side}{i}", category i % 3) as an object column, the keys and
+    timestamps of `millikey_columns` (the bench's keys_of and its 64 s
+    span from 10 s). Persons and auctions of one index share key and
+    timestamp, as in the bench."""
+    from flink_tpu_torch.utils.arrays import obj_array
+
+    keys, ts = millikey_columns(idx, n, num_keys, skewed, zipf_s)
+    rows = obj_array([(int(k), f"{side}{int(i)}", int(i % 3)) for k, i in zip(keys, idx)])
+    return rows, ts
+
+
+def join_row_ids(rows) -> np.ndarray:
+    """[n, 3] int64 (key, person index, auction index) of (key, "p<i>",
+    "a<j>") join rows, in lexicographic order: the form `join_model`
+    returns."""
+    out = np.array([(r[0], int(r[1][1:]), int(r[2][1:])) for r in rows],
+                   dtype=np.int64).reshape(-1, 3)
+    return out[np.lexsort(out.T[::-1])]
+
+
+def join_model(n: int, num_keys: int, skewed: bool, size_ms: int, slide_ms: int, *,
+               auction_filter: bool = False, zipf_s: float = 1.0) -> np.ndarray:
+    """The window equi-join of the two n-record sides (persons JOIN
+    auctions ON key, each over windows of size_ms sliding by slide_ms, the
+    auctions filtered to category 0 with `auction_filter`, q3's filter), as
+    `join_row_ids` gives a job's rows: one row per (person, auction, window)
+    sharing key and window. Independent of the operators: numpy over the
+    whole stream (the streams are in order, so no record is late)."""
+    idx = np.arange(n, dtype=np.int64)
+    keys, ts = millikey_columns(idx, n, num_keys, skewed, zipf_s)
+    a_idx = idx[idx % 3 == 0] if auction_filter else idx
+    spw = size_ms // slide_ms
+
+    def assigned(sel):
+        w = np.concatenate([ts[sel] // slide_ms - s for s in range(spw)])
+        return np.tile(keys[sel], spw) * (1 << 24) + w, np.tile(sel, spw)
+
+    pcode, pid = assigned(idx)
+    acode, aid = assigned(a_idx)
+    order = np.argsort(acode, kind="stable")
+    acode, aid = acode[order], aid[order]
+    lo = np.searchsorted(acode, pcode, "left")
+    cnt = np.searchsorted(acode, pcode, "right") - lo
+    offs = np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    out = np.stack([np.repeat(pcode >> 24, cnt), np.repeat(pid, cnt),
+                    aid[np.repeat(lo, cnt) + offs]], axis=1)
+    return out[np.lexsort(out.T[::-1])]
+
+
 def parity(cpu_fired, dev_fired, require_all: bool = True):
     """Window-by-window equality; with require_all=False (partial runs) only
     the windows the device actually fired are compared. Returns (ok,

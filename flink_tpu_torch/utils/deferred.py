@@ -8,7 +8,6 @@ from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
 D4 = "deferred item D4 (compile tracker and phase counters)"
-JOINS = "item 12 (joins)"
 MESH = "item 13 (multi-GPU)"
 CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"

@@ -70,7 +70,11 @@ BOTH = ("jax", "port")
 # the per-batch operator with lateness, device sessions, the global count
 # window, the per-record oracle; each over a record or a numeric column
 SHAPES = ("fused_count", "fused_sum", "per_batch_lateness", "session", "global_count",
-          "oracle_reduce")
+          "oracle_reduce", "join_q8", "join_q8_degraded")
+# two-source jobs: NEXMark q8's windowed equi-join on the device join ring,
+# and the same with 8 key lanes for 13 keys, which degrades to the host
+# join on the first batch (its captures are in host mode)
+JOINS = ("join_q8", "join_q8_degraded")
 N = 2400
 BATCH = 80
 KEYS = 13
@@ -95,11 +99,27 @@ def _job(pkg: str, shape: str, *, n=N, gen=None, sink=None, config=None):
     cfg.set(pk.cfg.ExecutionOptions.BATCH_SIZE, BATCH)
     if shape == "per_batch_lateness":
         cfg.set(pk.cfg.ExecutionOptions.FUSED_WINDOWS, False)
+    if shape == "join_q8_degraded":
+        cfg.set(pk.cfg.ExecutionOptions.KEY_CAPACITY, 8)
     env = pk.ds.StreamExecutionEnvironment(cfg, **pk.dev)
     base = _gen(pk, shape == "fused_count")
     source = pk.src.DataGeneratorSource(base if gen is None else gen(base), n, num_splits=3)
     ds = env.from_source(source, pk.wm.WatermarkStrategy.for_bounded_out_of_orderness(20))
     sink = sink if sink is not None else pk.sink.CollectSink()
+    if shape in JOINS:
+        def auctions(idx):
+            ts = (idx * 11 + (idx % 7) * 2).astype(np.int64)
+            recs = [(int(i * 31 % KEYS), -float(i % 3), int(t)) for i, t in zip(idx, ts)]
+            return pk.src.Batch(pk.arr.obj_array(recs), ts)
+
+        other = env.from_source(
+            pk.src.DataGeneratorSource(auctions if gen is None else gen(auctions), n,
+                                       num_splits=3),
+            pk.wm.WatermarkStrategy.for_bounded_out_of_orderness(20))
+        (ds.join(other).where(lambda r: r[0]).equal_to(lambda r: r[0])
+         .window(pk.asg.TumblingEventTimeWindows.of(300))
+         .apply(lambda p, a: (p[0], p[1], a[1], a[2])).sink_to(sink))
+        return env, sink
     if shape == "fused_count":
         out = (ds.key_by(lambda c: c, vectorized=True)
                .window(pk.asg.SlidingEventTimeWindows.of(400, 100)).count())
@@ -281,6 +301,36 @@ def test_jax_checkpoint_file_loads_through_the_class_mapping(tmp_path):
     rt.restore(loaded)
     rt.run()
     ref_env, ref_sink = _job("jax", "fused_sum")
+    ref_env.execute()
+    assert _rows(sink) == _rows(ref_sink) and len(sink.results) > 0
+
+
+@pytest.mark.parametrize("shape", JOINS)
+def test_jax_join_checkpoint_file_loads_through_the_class_mapping(tmp_path, shape):
+    """A JAX join capture in a checkpoint file (device mode, and host mode
+    after a degrade) names no flink_tpu class beyond the mapped ones; the
+    port loads it and runs on to the JAX job's rows."""
+    import pickletools
+
+    snap = _capture("jax", shape, 9)
+    runner = next(v for k, v in snap["runners"].items() if k.startswith("window_join"))
+    assert runner["mode"] == ("host" if shape == "join_q8_degraded" else "device")
+    jst.FsCheckpointStorage(str(tmp_path)).save(3, snap)
+    path = tmp_path / "chk-3" / "_metadata"
+    named = {a for op, a, _p in pickletools.genops(path.read_bytes())
+             if op.name in ("GLOBAL", "STACK_GLOBAL") and a}
+    strings = [a for op, a, _p in pickletools.genops(path.read_bytes())
+               if isinstance(a, str) and a.startswith("flink_tpu")]
+    assert named <= {" ".join(k) for k in tst._JAX_CLASSES}
+    assert set(strings) <= {m for m, _n in tst._JAX_CLASSES} | {
+        n for _m, n in tst._JAX_CLASSES}, strings
+    port_store = tst.FsCheckpointStorage(str(tmp_path))
+    loaded = port_store.load(port_store.latest()[1])
+    env, sink = _job("port", shape)
+    rt = _runtime("port", env)
+    rt.restore(loaded)
+    rt.run()
+    ref_env, ref_sink = _job("jax", shape)
     ref_env.execute()
     assert _rows(sink) == _rows(ref_sink) and len(sink.results) > 0
 
@@ -468,7 +518,7 @@ def test_cross_restore_continues_to_the_other_package_rows(shape, direction):
     rt.run()
     ref_env, ref_sink = _job(src, shape)
     ref_env.execute()
-    assert rt.records_in == N
+    assert rt.records_in == N * (2 if shape in JOINS else 1)
     assert len(sink.results) > 0 and _rows(sink) == _rows(ref_sink)
 
 
@@ -694,7 +744,7 @@ def test_every_shape_recovers_exactly_once_on_the_minicluster(tmp_path, shape):
     env, sink = _job("port", shape, gen=failing, config=cfg)
     client = env.execute_async(shape)
     assert client.wait(120) == JobStatus.FINISHED
-    assert client.num_restarts == 1 and client.records_in == N
+    assert client.num_restarts == 1 and client.records_in == N * (2 if shape in JOINS else 1)
     ref_env, ref_sink = _job("port", shape)
     ref_env.execute()
     assert len(sink.results) > 0 and _rows(sink) == _rows(ref_sink)

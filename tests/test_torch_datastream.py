@@ -236,7 +236,8 @@ def _deferred_calls():
         "get_side_output": (lambda: ds.get_side_output("late"), "item 19"),
         "broadcast": (lambda: ds.broadcast(), "item 19"),
         "iterate": (lambda: ds.iterate(), "item 19"),
-        "join": (lambda: ds.join(ds), "item 12"),
+        # two-input joins (test_torch_joins.py)
+        "join": (lambda: ds.join(ds), None),
         "keyed_process": (lambda: keyed.process(None), "item 19"),
         # brought in by the per-record oracle operator (item None: the
         # call runs; test_torch_oracle_datastream.py holds the jobs

@@ -224,6 +224,23 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         assert sum(v for _k, v in sink.results) == 4 * 3000
         assert FsCheckpointStorage(tmp + "/chk").latest() is not None
         assert client.checkpoint_stats.gauge_values()["numberOfCompletedCheckpoints"] > 0
+        # two-input joins: a window join on the device join ring and a
+        # regular SQL join on the streaming join runner
+        from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+        env = StreamExecutionEnvironment(device="cpu")
+        wm = WatermarkStrategy.for_monotonous_timestamps()
+        a = env.from_collection([("k%d" % (i % 3), i) for i in range(30)],
+                                timestamp_fn=lambda r: r[1] * 100, watermark_strategy=wm)
+        b = env.from_collection([("k%d" % (i % 2), -i) for i in range(30)],
+                                timestamp_fn=lambda r: -r[1] * 100, watermark_strategy=wm)
+        joined = (a.join(b).where(lambda r: r[0]).equal_to(lambda r: r[0])
+                  .window(TumblingEventTimeWindows.of(1000)).apply(lambda x, y: (x, y))
+                  .collect())
+        env.execute()
+        assert len(joined.results) == 100, len(joined.results)
+        rows = tenv.execute_sql_to_list(
+            "SELECT a.user, b.amount FROM pay AS a LEFT JOIN pay AS b ON a.user = b.user")
+        assert len(rows) == 1200, len(rows)
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -250,7 +267,7 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     # the SQL front door, the latency controller and the oracle's state are
     # scanned too
     for sub in ("table", "planner", "security", "scheduler", "state", "core", "checkpoint",
-                "metrics"):
+                "metrics", "joins"):
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
@@ -259,7 +276,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "utils/native_bridge.py", "runtime/memory.py",
                  "runtime/external_resources.py", "checkpoint/storage.py",
                  "checkpoint/coordinator.py", "checkpoint/restart.py",
-                 "metrics/checkpoint_stats.py", "runtime/minicluster.py"):
+                 "metrics/checkpoint_stats.py", "runtime/minicluster.py",
+                 "ops/join_ring.py", "joins/spec.py", "joins/ring.py", "joins/pipeline.py",
+                 "runtime/device_join_operator.py", "runtime/stream_join_operator.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
