@@ -173,6 +173,35 @@ exits non-zero on the first failure. Phases, one JSON line each:
    programs (ROADMAP B5, torch code) on the per-batch-programs line at leg
    B's geometry.
 
+24. api_mesh: the mesh (parallel/, parallel.mesh.*) on four shards of
+   the one card (`parallel/mesh.py::visible_devices` replaced for the
+   phase with four copies of cuda:0; the shards time-share the card, so
+   a mesh-to-card tuples/s ratio measures the mesh's overhead, not
+   scaling). Leg A: `bench.py::multichip_microbench`'s program (a
+   traceable filter keeping one record in three, a traceable key, 10 s
+   windows sliding by 1 s, count, 8192 keys, batch 8192, 64 s of event
+   time), uniform and zipf(1.0) keys, in row mode at 2^17 records: the
+   mesh job, the mesh job with local-combine, the one-card job and a
+   numpy model, window by window; the fused runner on the sharded
+   pipeline (`sharded_selected`), K1 launched once per shard (4x the
+   card's launches); tuples/s of mesh and card at 2^20, best of 2,
+   interleaved. Leg B: api_checkpoint leg B's program (2^20 keys, a
+   float32 sum, rings [32, 2^20] x 2) at 2^21 records, columnar: the
+   card, the mesh and the mesh with local-combine (its partials crossing
+   in step groups under K1's partials budget) against the oracle with
+   their peak device memory; a
+   live `JobClient.rescale_mesh(2)` at half the input through
+   execute_async, exactly-once; a savepoint at half of a 4-shard run
+   restored on one card and on a 2-shard mesh. Leg C: the sharded
+   per-batch operator at 2^20 keys against `TpuWindowOperator`, columnar;
+   NEXMark q8 at api_join leg A's defaults with the mesh on
+   (`DeviceJoinRunner.sharded`), rows equal the one-ring job's. Then K1
+   against its plain version at shard 0's exchanged lanes of leg A's
+   first full dispatch (`k1_mesh_shard`) and K1's partials entry at its
+   folded partials (`k1_partials`), bit-equal, with times and bounds; the
+   mesh's torch programs (B4, B7, B8) with times and bounds; leg A's mesh
+   run under torch.profiler (raw and local-combine) and cProfile.
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -2849,12 +2878,12 @@ def timed_collect_sink():
 
 
 def ckpt_job(n: int, sink, sz, *, interval: int = 0, chk_dir=None, keys=None, agg="count",
-             columnar=False, hook=None, dev=DEV):
+             columnar=False, hook=None, conf=None, dev=DEV):
     """env of the api_ysb program over n records with execution.checkpointing
     at `interval` ms (0: off) into chk_dir, restart-strategy fixed-delay with
     a 1 ms backoff; `agg` "sum" sums the payload column into a float32
     field beside the count ring; hook(idx) runs before each source batch
-    (gates)."""
+    (gates); `conf` adds options (the mesh's)."""
     from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
     from flink_tpu_torch.config import Configuration
@@ -2863,13 +2892,14 @@ def ckpt_job(n: int, sink, sz, *, interval: int = 0, chk_dir=None, keys=None, ag
     from flink_tpu_torch.testing import stream as st
 
     keys = keys or sz["keys"]
-    conf = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": keys,
+    opts = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": keys,
             "execution.window.columnar-output": columnar,
             "restart-strategy.type": "fixed-delay", "restart-strategy.initial-backoff": 1}
     if interval:
-        conf.update({"execution.checkpointing.interval": interval,
+        opts.update({"execution.checkpointing.interval": interval,
                      "execution.checkpointing.dir": chk_dir})
-    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
+    opts.update(conf or {})
+    env = StreamExecutionEnvironment(Configuration(opts), device=dev)
 
     def gen(idx):
         if hook is not None:
@@ -3827,6 +3857,574 @@ def per_batch_programs(card: str, calls_per_batch: dict, dev=DEV, join=None) -> 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24, api_mesh: the mesh (parallel/) on four virtual shards of the one
+# card. Four shards time-share one card, so a mesh-to-card tuples/s ratio
+# measures the mesh's overhead, not scaling.
+# ---------------------------------------------------------------------------
+
+API_MESH = dict(keys=8192, batch=8192, shards=4, zipf_s=1.0, parity_events=1 << 17,
+                timed_events=1 << 20, runs=2, big_keys=1 << 20, big_events=1 << 21,
+                op_keys=1 << 20, op_events=1 << 21, op_batch=1 << 16, op_window=10_000)
+
+
+def _shard_device(dev) -> torch.device:
+    d = torch.device(dev)
+    return torch.device("cuda", 0) if d.type == "cuda" and d.index is None else d
+
+
+def mesh_shards(n: int, dev) -> None:
+    """Let the port see n shards of `dev` (parallel/mesh.py's
+    visible_devices, which the tests replace the same way): four shards of
+    the one card, or of the CPU in a rehearsal."""
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    d = _shard_device(dev)
+    mesh_lib.visible_devices = lambda device: [d] * n
+
+
+def mesh_columns(idx: np.ndarray, n: int, sz, skewed: bool):
+    """`bench.py::multichip_microbench`'s columns: (campaign, event_type)
+    with campaigns uniform (idx * 2654435761) % K or zipf(s) through
+    zipf_keys with the hot ranks spread by a default_rng(11) permutation;
+    64 s of event time over the n records."""
+    from flink_tpu_torch.testing import stream as st
+
+    K = sz["keys"]
+    if skewed:
+        camp = np.random.default_rng(11).permutation(K)[st.zipf_keys(idx, K, sz["zipf_s"])]
+    else:
+        camp = (idx * 2654435761) % K
+    col = np.stack([camp, idx % 3], axis=1).astype(np.float32)
+    return col, (10_000 + idx * 64_000 // n).astype(np.int64)
+
+
+def mesh_job(n: int, sz, *, skewed=False, shards=0, combine=False, columnar=False, dev=DEV):
+    """(env, sink) of multichip_microbench's program: a traceable filter
+    keeping one record in three, a traceable key, 10 s windows sliding by
+    1 s, count; `shards` > 0 runs it with parallel.mesh.enabled over that
+    many shards (local-combine with `combine`)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+
+    conf = {"execution.step.batch-size": sz["batch"],
+            "execution.state.key-capacity": sz["keys"],
+            "execution.window.columnar-output": columnar,
+            "parallel.mesh.enabled": shards > 0}
+    if shards:
+        conf.update({"parallel.mesh.devices": shards, "parallel.mesh.local-combine": combine})
+    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
+    sink = rows_sink()
+    (env.from_source(DataGeneratorSource(lambda idx: Batch(*mesh_columns(idx, n, sz, skewed)),
+                                         n), WatermarkStrategy.for_bounded_out_of_orderness(0))
+        .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+        .window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
+        .aggregate("count").sink_to(sink))
+    return env, sink
+
+
+def mesh_run(env, dev=DEV) -> dict:
+    """One execute() with the launch counts at 0 just before it: seconds
+    and K1's launches (lane entry and partials entry)."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.execute()
+    _sync(dev)
+    return {"seconds": time.perf_counter() - t0, "k1": cs.LAUNCHES["k1_superscan"],
+            "k1_partials": cs.LAUNCHES["k1_partials"]}
+
+
+def mesh_model(n: int, sz, skewed: bool) -> dict:
+    """numpy: {window index: counts over the keys} of the filtered stream."""
+    col, ts = mesh_columns(np.arange(n, dtype=np.int64), n, sz, skewed)
+    keep = col[:, 1] < 0.5
+    keys, ts = col[keep, 0].astype(np.int64), ts[keep]
+    spw = API["window"] // API["slide"]
+    newest = ts // API["slide"]
+    fired = {}
+    for w in range(spw):
+        j = newest - w
+        for jj in np.unique(j):
+            row = fired.setdefault(int(jj), np.zeros(sz["keys"]))
+            np.add.at(row, keys[j == jj], 1)
+    return fired
+
+
+def _fired_equal(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(np.array_equal(a[j], b[j]) for j in a)
+
+
+def mesh_leg_a(sz, dev) -> dict:
+    """Row-mode parity at parity_events, uniform and zipf: the mesh job, the
+    mesh job with local-combine, the one-card job and the numpy model; the
+    runner selection; K1's launches; tuples/s at timed_events, best of
+    `runs`, interleaved (card, mesh, mesh, card)."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    n_sh = sz["shards"]
+    env, _sink = mesh_job(1 << 14, sz, shards=n_sh, dev=dev)
+    runners, _feeds = build_runners(plan(env._sinks), env.config, dev)
+    chain = [r for r in runners if type(r).__name__ == "DeviceChainRunner"]
+    out = {"fused_selected": bool(chain),
+           "sharded_selected": bool(chain) and chain[0].op.mesh_devices() == n_sh,
+           "pipeline": type(chain[0].op.pipe).__name__ if chain else None}
+    del env, runners, chain
+    ok = out["fused_selected"] and out["sharded_selected"]
+    n = sz["parity_events"]
+    for label, skewed in (("uniform", False), ("zipf", True)):
+        model = mesh_model(n, sz, skewed)
+        leg = {}
+        for name, shards, combine in (("mesh", n_sh, False), ("mesh_combine", n_sh, True),
+                                      ("card", 0, False)):
+            env, sink = mesh_job(n, sz, skewed=skewed, shards=shards, combine=combine, dev=dev)
+            r = mesh_run(env, dev)
+            r["equals_model"] = _fired_equal(api_fired(sink, API["window"], API["slide"]),
+                                             model)
+            leg[name] = r
+        card_k1 = leg["card"]["k1"]
+        leg["k1_per_dispatch_ratio"] = leg["mesh"]["k1"] / max(card_k1, 1)
+        leg["k1_partials_per_dispatch_ratio"] = leg["mesh_combine"]["k1_partials"] / max(card_k1, 1)
+        leg["windows"] = len(model)
+        leg["ok"] = bool(all(leg[k]["equals_model"] for k in ("mesh", "mesh_combine", "card"))
+                         and card_k1 > 0 and leg["mesh"]["k1"] == n_sh * card_k1
+                         and leg["mesh_combine"]["k1_partials"] == n_sh * card_k1
+                         and leg["mesh_combine"]["k1"] == 0)
+        ok = ok and leg["ok"]
+        out[label] = leg
+    # timed, columnar: card, mesh, mesh, card (best of runs each)
+    nt = sz["timed_events"]
+    mesh_run(mesh_job(1 << 16, sz, shards=n_sh, columnar=True, dev=dev)[0], dev)  # warm-up
+    times = {"card": [], "mesh": []}
+    order = ["card", "mesh", "mesh", "card"] * max(1, sz["runs"] // 2)
+    for name in order:
+        r = mesh_run(mesh_job(nt, sz, shards=n_sh if name == "mesh" else 0, columnar=True,
+                              dev=dev)[0], dev)
+        times[name].append(r)
+    for name, runs in times.items():
+        secs = min(r["seconds"] for r in runs)
+        out[f"{name}_tuples_per_s"] = nt / secs
+        out[f"{name}_timed"] = {"events": nt, "seconds": [r["seconds"] for r in runs],
+                                "k1_launches": runs[0]["k1"]}
+    out["mesh_over_card"] = out["mesh_tuples_per_s"] / out["card_tuples_per_s"]
+    out["note"] = ("four shards time-share one card: mesh_over_card measures the "
+                   "mesh's overhead, not scaling")
+    out["ok"] = bool(ok and times["mesh"][0]["k1"] > 0)
+    return out
+
+
+def mesh_leg_b(sz, dev, tmp: str) -> dict:
+    """api_checkpoint leg B's program at deployment size (2^20 keys, a
+    float32 sum, rings [32, 2^20] x 2), columnar: the one-card job and the
+    4-shard job, without and with the map-side combiner (its partials cross
+    in step groups), against the oracle with their device memory; a live
+    rescale_mesh(2) mid-stream through execute_async; a savepoint at half
+    of a 4-shard run restored on one card and on a 2-shard mesh."""
+    import threading
+
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.minicluster import MiniCluster
+    from flink_tpu_torch.testing import stream as st
+
+    szc = dict(API_CHECKPOINT, batch=sz.get("big_batch", API_CHECKPOINT["batch"]))
+    n, keys, B = sz["big_events"], sz["big_keys"], szc["batch"]
+    ref = st.api_replay(n, B, agg="sum", num_keys=keys)
+    cuda = torch.device(dev).type == "cuda"
+    mesh4 = {"parallel.mesh.enabled": True, "parallel.mesh.devices": sz["shards"]}
+    out, ok = {"events": n, "keys": keys, "batch": B}, True
+
+    def job(conf, hook=None):
+        sink = timed_collect_sink()
+        return ckpt_job(n, sink, szc, keys=keys, agg="sum", columnar=True, hook=hook,
+                        conf=conf, dev=dev), sink
+
+    def gate(at, hold_at=None):
+        """Blocks the source at `at` until `go`; with `hold_at`, blocks it
+        again there until `taken`, so the job cannot finish before the
+        caller has cancelled it."""
+        reached, go, taken = threading.Event(), threading.Event(), threading.Event()
+        fired = []
+
+        def hook(idx):
+            if not fired and idx[0] >= at:
+                fired.append(True)
+                reached.set()
+                go.wait(600)
+            elif hold_at is not None and idx[0] == hold_at:
+                taken.wait(600)
+        return hook, reached, go, taken
+
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    combine = dict(mesh4, **{"parallel.mesh.local-combine": True})
+    for name, conf in (("card", {}), ("mesh", mesh4), ("mesh_combine", combine)):
+        env, sink = job(conf)
+        before = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        run = ckpt_run(env, dev)
+        fired, twice = columnar_fired(sink.results, keys)
+        par, checked = st.parity(ref.fired, fired)
+        rt = run["client"]._runtime
+        # the combiner's dispatches run in step groups under K1's partials
+        # budget: one partials launch per shard a group
+        launches = cs.LAUNCHES["k1_partials"] if name == "mesh_combine" else run["k1_launches"]
+        out[name] = {"seconds": run["seconds"], "k1_launches": launches,
+                     "mesh_devices": rt.mesh_devices(), "parity_vs_oracle": par,
+                     "windows_checked": checked, "no_window_twice": not twice,
+                     "peak_allocated_delta": (torch.cuda.max_memory_allocated() - before
+                                              if cuda else 0)}
+        ok = ok and par and not twice and launches > 0
+        del env, sink, run, rt
+    out["ring_bytes"] = 2 * 32 * keys * 4
+    ok = ok and out["card"]["mesh_devices"] == 1 and all(
+        out[name]["mesh_devices"] == sz["shards"] for name in ("mesh", "mesh_combine"))
+    # a live rescale 4 -> 2 at half of the input
+    half = (n // 2 // B) * B
+    hook, reached, go, _ = gate(half)
+    env, sink = job(mesh4, hook)
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    client = env.execute_async("mesh-rescale")
+    reached.wait(600)
+    client.rescale_mesh(2)
+    go.set()
+    client.wait(900)
+    _sync(dev)
+    fired, twice = columnar_fired(sink.results, keys)
+    par, checked = st.parity(ref.fired, fired)
+    out["rescale"] = {"seconds": time.perf_counter() - t0, "status": client.status().value,
+                      "mesh_rescales": client.mesh_rescales,
+                      "num_restarts": client.num_restarts,
+                      "mesh_devices_after": client._runtime.mesh_devices(),
+                      "rescale_ms": client.last_mesh_rescale_duration_ms,
+                      "k1_launches": cs.LAUNCHES["k1_superscan"],
+                      "parity_vs_oracle": par, "no_window_twice": not twice}
+    r = out["rescale"]
+    ok = ok and (r["status"] == "FINISHED" and r["mesh_rescales"] == 1
+                 and r["num_restarts"] == 0 and r["mesh_devices_after"] == 2 and par
+                 and not twice and r["k1_launches"] > 0)
+    del env, sink, client
+    # a savepoint at half of a 4-shard run, restored on one card and on 2 shards
+    hook, reached, go, taken = gate(half, hold_at=half + 2 * B)
+    env1, sink1 = job(mesh4, hook)
+    client1 = env1.execute_async("mesh-savepoint")
+    reached.wait(600)
+    sp_path = f"{tmp}/mesh_savepoint"
+    writer = threading.Thread(target=lambda: client1.trigger_savepoint(sp_path, timeout=600))
+    writer.start()
+    while client1._savepoint_path is None and writer.is_alive():
+        time.sleep(0.001)  # the request is in before the source moves on
+    go.set()
+    writer.join(600)
+    client1.cancel()
+    taken.set()
+    out["savepoint_first_job"] = client1.wait(600).value
+    del env1, sink1, client1
+    for name, conf in (("restored_card", {}),
+                       ("restored_mesh2", {"parallel.mesh.enabled": True,
+                                           "parallel.mesh.devices": 2})):
+        env2, sink2 = job(conf)
+        _sync(dev)
+        cs.reset_launch_counts()
+        client2 = MiniCluster.get_shared().submit(plan(env2._sinks), env2.config, name,
+                                                  savepoint_restore_path=sp_path, device=dev)
+        status = client2.wait(900).value
+        _sync(dev)
+        fired, twice = columnar_fired(sink2.results, keys)
+        par, checked = st.parity(ref.fired, fired)
+        out[name] = {"status": status, "mesh_devices": client2._runtime.mesh_devices(),
+                     "records_in_complete": client2.records_in == n,
+                     "parity_vs_oracle": par, "windows_checked": checked,
+                     "no_window_twice": not twice, "k1_launches": cs.LAUNCHES["k1_superscan"]}
+        ok = ok and (status == "FINISHED" and par and not twice
+                     and out[name]["records_in_complete"] and out[name]["k1_launches"] > 0)
+        del env2, sink2, client2
+    ok = ok and out["restored_card"]["mesh_devices"] == 1 \
+        and out["restored_mesh2"]["mesh_devices"] == 2
+    out["ok"] = bool(ok and out["savepoint_first_job"] == "CANCELED")
+    return out
+
+
+def mesh_op_rows(op, keys_of) -> dict:
+    """{window start: (keys, values) sorted by key} of a columnar window
+    operator's output; keys_of(ids, shard) maps dense ids to keys."""
+    rows = {}
+    for _k, window, payload, _ts in op.drain_output():
+        if isinstance(payload[0], np.ndarray) and payload[0].dtype == bool:
+            mask, res = payload                      # the sharded operator's [n, K]
+            parts = [(keys_of(np.flatnonzero(mask[d]), d), res[d][mask[d]])
+                     for d in range(mask.shape[0])]
+            ks = np.concatenate([p[0] for p in parts])
+            vs = np.concatenate([p[1] for p in parts])
+        else:
+            ids, vs = payload
+            ks = keys_of(np.asarray(ids), None)
+        order = np.argsort(ks, kind="stable")
+        rows[int(window.start)] = (ks[order], np.asarray(vs)[order])
+    return rows
+
+
+def mesh_leg_c(sz, dev) -> dict:
+    """ShardedTpuWindowOperator on 2^20 keys against TpuWindowOperator
+    (columnar, 10 s tumbling sums), and NEXMark q8 at api_join leg A's
+    defaults with parallel.mesh.enabled: the DeviceJoinRunner's rings split
+    over the shards, rows equal to the one-ring job's."""
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+    from flink_tpu_torch.parallel.mesh import Mesh
+    from flink_tpu_torch.parallel.sharded_window import ShardedTpuWindowOperator
+    from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
+    from flink_tpu_torch.testing import stream as st
+
+    n, K, B = sz["op_events"], sz["op_keys"], sz["op_batch"]
+    window = TumblingEventTimeWindows.of(sz["op_window"])
+    mesh = Mesh([_shard_device(dev)] * sz["shards"])
+    ops = {"sharded": ShardedTpuWindowOperator(window, "sum", mesh, key_capacity=1 << 16,
+                                               num_slices=64, columnar_output=True),
+           "single": TpuWindowOperator(window, "sum", key_capacity=1 << 16, num_slices=64,
+                                       columnar_output=True, device=dev)}
+    secs = {}
+    for name, op in ops.items():
+        _sync(dev)
+        t0 = time.perf_counter()
+        for lo in range(0, n, B):
+            idx = np.arange(lo, min(n, lo + B), dtype=np.int64)
+            keys = (idx * 2654435761) % K
+            op.process_batch(keys, ((idx * 7) % 11).astype(np.float32),
+                             10_000 + idx * 64_000 // n)
+            op.process_watermark(int(10_000 + idx[-1] * 64_000 // n) - 1)
+        op.process_watermark(1 << 40)
+        _sync(dev)
+        secs[name] = time.perf_counter() - t0
+    sh, single = ops["sharded"], ops["single"]
+    shard_keys = [np.asarray(d._keys) for d in sh.state.keydicts]
+    single_keys = np.asarray(single.state.keydict._keys)
+    got = mesh_op_rows(sh, lambda ids, d: shard_keys[d][ids])
+    want = mesh_op_rows(single, lambda ids, _d: single_keys[ids])
+    equal = set(got) == set(want) and all(
+        np.array_equal(got[w][0], want[w][0]) and np.array_equal(got[w][1], want[w][1])
+        for w in want)
+    out = {"operator": {"events": n, "keys": K, "windows": len(want),
+                        "rows": int(sum(len(v[0]) for v in want.values())),
+                        "equal": bool(equal), "sharded_s": secs["sharded"],
+                        "single_s": secs["single"],
+                        "keys_per_shard": [len(d) for d in sh.state.keydicts],
+                        "ring_K_per_shard": int(sh.state.K)}}
+    del ops, sh, single, got, want
+    # q8 at leg A's defaults, uniform, on the mesh and on one ring
+    zj = API_JOIN
+    env, sink = join_env(zj["events"], "q8", zj, dev=dev,
+                         conf={"parallel.mesh.enabled": True,
+                               "parallel.mesh.devices": sz["shards"]})
+    d = join_run(env, dev)
+    envs, sinks = join_env(zj["events"], "q8", zj, dev=dev)
+    s1 = join_run(envs, dev)
+    r = d["runner"]
+    rows, rows_1 = st.join_row_ids(sink.results), st.join_row_ids(sinks.results)
+    out["q8"] = {"events_per_side": zj["events"], "rows": len(rows),
+                 "sharded": bool(getattr(r, "sharded", False)),
+                 "num_shards": getattr(r.pipeline, "num_shards", 1),
+                 "rings_on": str(r.pipeline.left.idx_arrs[0].device)
+                 if getattr(r, "sharded", False) else None,
+                 "equals_one_ring": bool(np.array_equal(rows, rows_1)),
+                 "program_calls": d["calls"], "mesh_s": d["seconds"], "one_ring_s": s1["seconds"]}
+    q = out["q8"]
+    out["ok"] = bool(equal and q["sharded"] and q["num_shards"] == sz["shards"]
+                     and q["equals_one_ring"] and q["rows"] > 0
+                     and d["calls"]["join_match"] > 0)
+    return out
+
+
+def mesh_k1_inputs(sz, combine: bool, dev=DEV):
+    """Shard 0's K1 inputs of leg A's first full mesh dispatch (32 steps of
+    `batch` records of the timed stream) after the exchange, made by the
+    sharded pipeline's own staging, prologue and routing at the operator's
+    geometry: (shim with shard 0's geometry, agg, plan, inputs), the inputs
+    (idx, vals) or, with `combine`, (count partial, field partials)."""
+    import types
+
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.parallel.mesh import Mesh
+    from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+    from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
+
+    T, B, n = 32, sz["batch"], sz["timed_events"]
+    agg = resolve("count")
+    pipe = ShardedFusedPipeline(
+        Mesh([_shard_device(dev)] * sz["shards"]),
+        SlidingEventTimeWindows.of(API["window"], API["slide"]), agg,
+        key_capacity=sz["keys"], nsb=4, fires_per_step=4, out_rows=256, chunk=4096,
+        prologue=TracedPrologue((("filter", _t_filter),), _t_key), local_combine=combine)
+    steps, wms = [], []
+    for t in range(T):
+        col, ts = mesh_columns(np.arange(t * B, (t + 1) * B, dtype=np.int64), n, sz, False)
+        steps.append((col, ts))
+        wms.append(int(ts.max()) - 1)
+    staged = pipe.stage_superbatch_raw(steps, wms)
+    plan = staged[3]
+    src_idx, src_vals, _kb = pipe.source_lanes(staged, T)
+    shim = types.SimpleNamespace(S=pipe.S, K=pipe.K_local, R=pipe.R, NSB=pipe.NSB, F=pipe.F,
+                                 slot_spws=pipe.slot_spws)
+    if combine:
+        cpart, parts = pipe.route_partials(src_idx, src_vals, 0, T)[0]
+        return shim, agg, plan, (cpart, parts)
+    idx, vals = pipe.route_lanes(src_idx, src_vals)[0]
+    return shim, agg, plan, (idx.reshape(-1), vals)
+
+
+def k1_partials_at(label: str, shim, agg, plan, cpart, parts) -> dict:
+    """K1's partials entry against its plain version on one shard's
+    dispatch (bit-equal), with its time, the plain version's, one
+    index_add_ of the count partial into its ring cells as the library
+    yardstick, its bound and its device time by kernel."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.ops.superscan import keyed_superscan_partials_plain
+    from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
+
+    S_, K_, T_ = shim.S, shim.K, int(plan[0].shape[0])
+    kw = dict(NSB=shim.NSB, R=shim.R, spws=shim.slot_spws())
+    kc, ks = _fresh_rings(agg, (S_, K_), DEV, False)
+    pc, ps = _fresh_rings(agg, (S_, K_), DEV, False)
+    ko = cs.keyed_superscan_partials(agg, kc, ks, cpart, parts, plan[:5], **kw)
+    po = keyed_superscan_partials_plain(agg, pc, ps, cpart, parts, plan[:5], **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in [(kc, pc), (ko[0], po[0])] + list(zip(ks, ps)) + list(zip(ko[1], po[1])):
+        err = max(err, _max_abs_err(a, b))
+        if not torch.equal(a, b):
+            raise AssertionError(f"k1_partials differs from its plain version: {err}")
+    ms = cuda_ms(lambda: cs.keyed_superscan_partials(agg, kc, ks, cpart, parts, plan[:5],
+                                                     **kw), 10)
+    plain_ms = cuda_ms(lambda: keyed_superscan_partials_plain(agg, pc, ps, cpart, parts,
+                                                              plan[:5], **kw), 2, 3)
+    NSB = shim.NSB
+    t = torch.arange(T_, device=cpart.device)[:, None, None]
+    k = torch.arange(K_, device=cpart.device)[None, :, None]
+    r = torch.arange(NSB, device=cpart.device)[None, None, :]
+    cells = (((plan[0].long()[t] + r) % S_) * K_ + k).reshape(-1)
+    flat, src = kc.view(-1), cpart.reshape(-1)
+    lib_ms = cuda_ms(lambda: flat.index_add_(0, cells, src), 10)
+    rings = 1 + len(ks)
+    nbytes = (rings * T_ * K_ * NSB * 4 + 2 * rings * S_ * K_ * 4
+              + rings * len(plan[5]) * K_ * 4 + sum(p.numel() * 4 for p in plan[:5]))
+    b_ms, b_by = bound(nbytes, rings * T_ * K_ * NSB)
+    return {"shape": f"{label}, T={T_} K_local={K_} NSB={NSB} S={S_} R={shim.R} F={shim.F}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "fires": len(plan[5]),
+            "device_us": device_split_us(lambda: cs.keyed_superscan_partials(
+                agg, kc, ks, cpart, parts, plan[:5], **kw))}
+
+
+def mesh_programs(card: str, dev=DEV) -> dict:
+    """The mesh's torch programs (XLA programs in the JAX package, no
+    Pallas form) at leg A's dispatch shapes, each with its time (CUDA
+    events), device time by kernel and bound: B8 the keyBy exchange of a
+    dispatch's lanes (4 source shards of [32, 2048]) and of its partials,
+    B4 one source shard's segment partials, B7 count_hist and
+    weighted_hist over the same lanes."""
+    from flink_tpu_torch.ops import matmul_hist
+    from flink_tpu_torch.ops.superscan import segment_partials
+    from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
+
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.parallel.mesh import Mesh
+    from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+
+    sz = API_MESH
+    n_sh, T, Bs = sz["shards"], 32, sz["batch"] // sz["shards"]
+    out = {"phase": "mesh_programs", "card": card}
+    for agg_name in ("count", "sum"):
+        pipe = ShardedFusedPipeline(Mesh([_shard_device(dev)] * n_sh),
+                                    SlidingEventTimeWindows.of(API["window"], API["slide"]),
+                                    agg_name, key_capacity=sz["keys"], nsb=4, fires_per_step=4,
+                                    out_rows=256, chunk=4096)
+        rng = np.random.default_rng(5)
+        src_idx = [torch.tensor(np.where(rng.random((T, Bs)) < 1 / 3,
+                                         rng.integers(0, sz["keys"] * 4, (T, Bs)), -1),
+                                dtype=torch.int32, device=dev) for _ in range(n_sh)]
+        src_vals = ([torch.tensor(rng.integers(0, 11, (T, Bs)), dtype=torch.float32,
+                                  device=dev) for _ in range(n_sh)]
+                    if agg_name == "sum" else [None] * n_sh)
+        live = int(sum(int((i >= 0).sum()) for i in src_idx))
+        nv = 0 if agg_name == "count" else 1
+        lanes = n_sh * T * Bs
+        # B8, lanes: each source reads its lanes once and writes n masked
+        # blocks; each destination receives n * B_s lanes a step
+        b = bound(lanes * 4 * (1 + nv) * (1 + n_sh) + lanes * 4 * (1 + nv) * n_sh, lanes * n_sh)
+        f = lambda: pipe.route_lanes(src_idx, src_vals)  # noqa: E731
+        out[f"b8_exchange_lanes_{agg_name}"] = {
+            "shape": f"{n_sh} sources x [T={T}, B_s={Bs}] lanes, {live} live",
+            "ms": cuda_ms(f, 10), "device_us": device_split_us(f),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        nseg = n_sh * pipe.K_local * 4
+        part_bytes = T * nseg * 4 * (1 + nv)
+        b = bound(lanes * 4 * (1 + nv) + n_sh * part_bytes * 2, live * (1 + nv) + n_sh * T * nseg)
+        f = lambda: pipe.route_partials(src_idx, src_vals, 0, T)  # noqa: E731
+        out[f"b8_exchange_partials_{agg_name}"] = {
+            "shape": f"{n_sh} sources x [T={T}] partials of {nseg} segments (B4 inside)",
+            "ms": cuda_ms(f, 10), "device_us": device_split_us(f),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        agg = resolve(agg_name)
+        i0, v0 = src_idx[0], src_vals[0]
+        b = bound(T * Bs * 4 * (1 + nv) + part_bytes, int((i0 >= 0).sum()) * (1 + nv))
+        f = lambda: segment_partials(agg, i0, v0, nseg)  # noqa: E731
+        out[f"b4_segment_partials_{agg_name}"] = {
+            "shape": f"one source: [T={T}, B_s={Bs}] lanes into T x {nseg} segments",
+            "ms": cuda_ms(f, 10), "device_us": device_split_us(f),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    flat = src_idx[0].reshape(-1)
+    fv = torch.ones(flat.numel(), dtype=torch.float32, device=dev)
+    b = bound(flat.numel() * 4 + nseg * 4, int((flat >= 0).sum()))
+    f = lambda: matmul_hist.count_hist(flat, nseg)  # noqa: E731
+    out["b7_count_hist"] = {"shape": f"{flat.numel()} ids into {nseg} segments",
+                            "ms": cuda_ms(f, 10), "device_us": device_split_us(f),
+                            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    b = bound(flat.numel() * 8 + nseg * 4, int((flat >= 0).sum()))
+    f = lambda: matmul_hist.weighted_hist(flat, fv, nseg)  # noqa: E731
+    out["b7_weighted_hist"] = {"shape": f"{flat.numel()} ids and values into {nseg} segments",
+                               "ms": cuda_ms(f, 10), "device_us": device_split_us(f),
+                               "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    return out
+
+
+def api_mesh_phase(dev=DEV, sizes=None) -> dict:
+    """Legs A, B and C over four shards of `dev` (visible_devices replaced
+    for the phase, restored after)."""
+    import tempfile
+
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    sz = dict(API_MESH, **(sizes or {}))
+    real = mesh_lib.visible_devices
+    mesh_shards(sz["shards"], dev)
+    out = {"phase": "api_mesh", "shards": sz["shards"], "shard_devices":
+           [str(d) for d in mesh_lib.visible_devices(dev)]}
+    try:
+        t0 = time.perf_counter()
+        out["leg_a"] = mesh_leg_a(sz, dev)
+        out["leg_a"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="api_mesh_") as tmp:
+            out["leg_b"] = mesh_leg_b(sz, dev, tmp)
+        out["leg_b"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["leg_c"] = mesh_leg_c(sz, dev)
+        out["leg_c"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        mesh_lib.visible_devices = real
+    out["ok"] = bool(out["leg_a"]["ok"] and out["leg_b"]["ok"] and out["leg_c"]["ok"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -4266,6 +4864,58 @@ def main() -> int:
     emit(per_batch_programs(card, per_batch,
                             join=join_programs(api_join["leg_b"]["program_calls"])))
 
+    # ---- 24. the mesh: four virtual shards of the card (legs A-C through
+    # the port's API, K1's launches counted from 0 in each run); then K1
+    # per shard at leg A's shape, lanes and partials entries ----
+    t_mesh = time.perf_counter()
+    mesh = api_mesh_phase()
+    mesh["card"] = card
+    mesh["phase_s"] = time.perf_counter() - t_mesh
+    emit(mesh)
+    if not mesh["ok"]:
+        raise AssertionError("api_mesh: a leg failed a gate (rows of the mesh job, the mesh "
+                             "job with local-combine, the one-card job and the numpy model; "
+                             "the sharded runner selected with K1 launched once per shard; "
+                             "leg B's oracle parity, live rescale and savepoint restores; "
+                             "the sharded operator's and the sharded join's rows)")
+    t_mk = time.perf_counter()
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    real_visible = mesh_lib.visible_devices
+    mesh_shards(API_MESH["shards"], DEV)
+    try:
+        shim, magg, mplan, (midx, mvals) = mesh_k1_inputs(API_MESH, False)
+        mesh_k1 = k1_at_dispatch(
+            f"api_mesh leg A: shard 0 of {API_MESH['shards']}, its exchanged lanes of the "
+            "job's first full dispatch", shim, magg, midx, mvals, mplan)
+        del midx, mvals
+        shim, magg, mplan, (cpart, parts) = mesh_k1_inputs(API_MESH, True)
+        partials_k1 = k1_partials_at(
+            f"api_mesh leg A local-combine: shard 0 of {API_MESH['shards']}, its folded "
+            "partials of the job's first full dispatch", shim, magg, mplan, cpart, parts)
+        del cpart, parts
+        lg = mesh["leg_a"]
+
+        def mesh_timed(combine):
+            return mesh_run(mesh_job(API_MESH["timed_events"], API_MESH,
+                                     shards=API_MESH["shards"], combine=combine,
+                                     columnar=True)[0])["seconds"]
+
+        emit({"phase": "k1_mesh_shapes", "card": card, "lanes": mesh_k1,
+              "partials": partials_k1})
+        emit(mesh_programs(card))
+        emit(profile_run("api_mesh_a", lambda: mesh_timed(False),
+                         groups=(("k1", "k1_"), ("exchange_where", "where"),
+                                 ("exchange_cat", "Cat"), ("copies", "Memcpy"))))
+        emit(profile_run("api_mesh_a_combine", lambda: mesh_timed(True),
+                         groups=(("k1", "k1_"), ("b4_index_add", "index"),
+                                 ("b4_fold", "reduce"), ("exchange_cat", "Cat"))))
+        emit(host_profile("api_mesh_a", lambda: mesh_timed(False), top=16))
+    finally:
+        mesh_lib.visible_devices = real_visible
+    emit({"phase": "api_mesh_kernels", "seconds": time.perf_counter() - t_mk})
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -4325,6 +4975,26 @@ def main() -> int:
          "c3_rows": c3["c3_rows"],
          **{k: c3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "device_us")}},
+        {"name": "k1_mesh_shard", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": mesh_k1["shape"], "launches": lg["mesh_timed"]["k1_launches"],
+         "launches_by_path": {f"api_mesh_a_{label}_{run}": lg[label][run]["k1"]
+                              for label in ("uniform", "zipf") for run in ("mesh", "card")},
+         "k1_per_dispatch_ratio": lg["uniform"]["k1_per_dispatch_ratio"],
+         **{k: mesh_k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_us", "fires")}},
+        {"name": "k1_partials", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": partials_k1["shape"],
+         "launches": lg["uniform"]["mesh_combine"]["k1_partials"],
+         "launches_by_path": {f"api_mesh_a_{label}_combine":
+                              lg[label]["mesh_combine"]["k1_partials"]
+                              for label in ("uniform", "zipf")},
+         "library": "one index_add_ of the count partial into its ring cells",
+         **{k: partials_k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "device_us", "fires")}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",

@@ -80,6 +80,7 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 
 #: key prefixes of the JAX package's options the port does not carry yet
 _UNPORTED_PREFIXES = (
+    ("parallel.mesh.autoscale", deferred.METRICS),
     ("parallel.", deferred.MESH),
     ("observability.", deferred.METRICS),
     ("autoscaler.", deferred.METRICS),
@@ -120,6 +121,9 @@ class Configuration:
             return _coerce(self._data[option.key], option.type)
         return option.default
 
+    def clone(self) -> "Configuration":
+        return Configuration(dict(self._data))
+
     def set(self, option: ConfigOption[T], value: T) -> "Configuration":
         return self.set_string(option.key, value)
 
@@ -137,7 +141,10 @@ class PipelineOptions:
     MAX_PARALLELISM = ConfigOptions.key("pipeline.max-parallelism").int_type().default_value(128)
     PARALLELISM = (
         ConfigOptions.key("pipeline.parallelism").int_type().default_value(1)
-    ).with_description("Subtasks per operator; the port runs 1 (more raises).")
+    ).with_description(
+        "Subtasks per operator. Read by no runner, as in the JAX package: a "
+        "job runs as one attempt, and keyed state spreads over devices "
+        "through parallel.mesh.* instead.")
 
 
 class ExecutionOptions:
@@ -294,6 +301,63 @@ class TableOptions:
         "statements take the interpreted table path with a catalogued reason "
         "in `last_plan_report`. False interprets every statement. A perf "
         "switch, never a semantics switch: both paths give the same rows.")
+
+
+class ParallelOptions:
+    """Execution over a mesh of shards in this process (flink_tpu_torch/
+    parallel/): eligible fused keyed window jobs shard their window-state
+    rings by key range over the mesh and run the keyBy exchange between
+    the shards' devices inside each dispatch — the mesh is a slot resource
+    of the process, not a cluster of tasks. The descriptions follow the
+    JAX package's; on the port a device is a GPU (or the CPU), the
+    exchange is block copies between the shards' devices, and the mesh's
+    devices come from parallel/mesh.py::visible_devices. The skew
+    rebalancer (parallel.mesh.skew-rebalance, .key-groups, .rebalance.*),
+    device-loss degrade and mesh autoscale options are not ported yet
+    (ROADMAP.md Queue A, items 13b and 15)."""
+
+    MESH_ENABLED = (
+        ConfigOptions.key("parallel.mesh.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Run eligible fused keyed window jobs over a mesh of shards, one "
+        "torch device each (a device may repeat): window-state columns "
+        "shard by contiguous key range, each shard transforms and keys its "
+        "slice of the ingest batch, and ONE exchange per dispatch of T "
+        "steps routes records to their key-range owners, as per-pair block "
+        "copies on the device (no host dataplane hop). Results are "
+        "byte-identical to the single-device fused path; snapshots stay "
+        "canonical [K, S], so checkpoints restore across any mesh size. "
+        "Under 2 usable devices (parallel/mesh.py::visible_devices) the job "
+        "stays on one device."
+    )
+    MESH_DEVICES = (
+        ConfigOptions.key("parallel.mesh.devices").int_type().default_value(0)
+    ).with_description(
+        "Devices in the job's mesh. 0 (default) uses every visible device. "
+        "Clamped to the visible device count, then rounded down to the "
+        "largest divisor of the key capacity so contiguous key ranges "
+        "divide evenly across shards."
+    )
+    MESH_LOCAL_COMBINE = (
+        ConfigOptions.key("parallel.mesh.local-combine")
+        .bool_type().default_value(False)
+    ).with_description(
+        "Map-side combiner for the mesh keyBy exchange: each shard "
+        "segment-reduces its slice of every step by (key, rel-slice) "
+        "BEFORE the exchange, so what crosses the interconnect is at "
+        "most one partial per (source shard, key, slice) instead of the "
+        "key's full tuple mass — under zipf-skewed traffic a hot key "
+        "costs n_shards partials per slice, not its record count. "
+        "Applies to decomposable builtin aggregates (count/sum/min/max, "
+        "mean as its two add-scatter fields); non-decomposable aggregates "
+        "transparently keep the route-raw exchange. A performance switch, "
+        "never a semantics switch: partial pre-reduction uses the same "
+        "scatter combiners the ring ingest applies — counts and integer/"
+        "min/max fields are bit-exact; float-ADD fields are reassociated "
+        "(partials per source shard, then a cross-shard fold), which like "
+        "any parallel pre-aggregation is bit-exact for integer-valued "
+        "payloads and may differ in final ulps otherwise."
+    )
 
 
 class StateTierOptions:

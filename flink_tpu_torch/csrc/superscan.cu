@@ -88,6 +88,12 @@ constexpr int PART_I32_OF_F32 = 7;
 
 __device__ __forceinline__ int part_kind(int kind) { return kind == ADD_I32 ? ADD_F32 : kind; }
 
+// The partials entry (k1_partials) takes partials its caller reduced: each
+// cell holds its value's own bits (a float min/max as the float), merged
+// into the ring as they are; an int add field's partial is its float32
+// sum, PART_I32_OF_F32 as in the lane entry.
+constexpr int PART_RAW = 8;
+
 // A cell of K1's step partials. Float min/max are held as order keys: the
 // float's bits mapped so that unsigned order is float order (-0.0 just
 // below +0.0), which shared- and device-memory atomicMin/atomicMax land
@@ -341,7 +347,7 @@ __global__ void __launch_bounds__(K1_SCAN_KEYS)
 k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
         const StepDesc* __restrict__ descs, int* __restrict__ count_out, Fields outs,
         const int* __restrict__ purge, Spws spws, int K, int S, int NSB, int t0,
-        int tg, int pb) {
+        int tg, int pb, int raw) {
   extern __shared__ int sm[];                  // ring tile, then staged partials
   __shared__ StepDesc desc[K1_CHUNK];
   __shared__ int w_s[MAX_FIRES];
@@ -353,7 +359,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 #pragma unroll
   for (int a = 0; a < NA; ++a) {
     kind[a] = a ? fl.kind[a - 1] : ADD_I32;
-    pkind[a] = a && kind[a] == ADD_I32 ? PART_I32_OF_F32 : kind[a];
+    pkind[a] = a && kind[a] == ADD_I32 ? PART_I32_OF_F32 : raw ? PART_RAW : kind[a];
     ident[a] = a ? fl.ident[a - 1] : 0;
     ring_p[a] = (a ? (int*)fl.p[a - 1] : count) + key;
     out_p[a] = (a ? (int*)outs.p[a - 1] : count_out) + key;
@@ -488,8 +494,36 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 
 #define K1_SCAN(NA)                                                            \
   case NA:                                                                     \
-    e = ring ? launch_scan(k1_scan<NA, true>) : launch_scan(k1_scan<NA, false>); \
+    e = ring ? launch(k1_scan<NA, true>) : launch(k1_scan<NA, false>);         \
     break;
+
+// Launch k1_scan over the group's partials (raw: k1_partials' caller-made
+// ones): one thread per key; the CTA's ring tile in shared memory where it
+// fits K1_RING_SMEM, and the partials staged in batches of up to K1_CHUNK
+// steps that fit K1_STAGE_SMEM (none: read from device memory).
+static cudaError_t launch_k1_scan(int* count, const Fields& fl, const int* part,
+                                  const StepDesc* descs, int* count_out, const Fields& ol,
+                                  const int* purge, const Spws& sw, int K, int S, int NSB,
+                                  int t0, int tg, int raw, cudaStream_t st) {
+  const int na = 1 + fl.n;
+  const size_t ring = (size_t)na * S * K1_SCAN_KEYS * 4 <= K1_RING_SMEM
+                          ? (size_t)na * S * K1_SCAN_KEYS * 4 : 0;
+  const size_t per_step = (size_t)2 * na * NSB * K1_SCAN_KEYS * 4;
+  const int pb = (int)min((size_t)K1_CHUNK, K1_STAGE_SMEM / per_step);
+  const size_t smem = ring + pb * per_step;
+  const int grid = (K + K1_SCAN_KEYS - 1) / K1_SCAN_KEYS;
+  auto launch = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K1_RING_SMEM + K1_STAGE_SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, K1_SCAN_KEYS, smem, st>>>(count, fl, part, descs, count_out, ol, purge,
+                                             sw, K, S, NSB, t0, tg, pb, raw);
+    return cudaGetLastError();
+  };
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (na) { K1_SCAN(1) K1_SCAN(2) K1_SCAN(3) K1_SCAN(4) K1_SCAN(5) }
+  return e;
+}
 
 // One group of tg steps from step t0: the ingest writes the group's
 // partials to part ([1 + nf, tg, K, NSB] int32, allocated by the caller)
@@ -570,23 +604,51 @@ extern "C" int k1_superscan(
   }
   if (e != cudaSuccess) return (int)e;
 
-  // scan: one thread per key; the CTA's ring tile in shared memory where it
-  // fits K1_RING_SMEM, and the partials staged in batches of up to K1_CHUNK
-  // steps that fit K1_STAGE_SMEM (none: read from device memory)
-  const size_t ring = (size_t)na * S * K1_SCAN_KEYS * 4 <= K1_RING_SMEM
-                          ? (size_t)na * S * K1_SCAN_KEYS * 4 : 0;
-  const size_t per_step = (size_t)2 * na * NSB * K1_SCAN_KEYS * 4;
-  const int pb = (int)min((size_t)K1_CHUNK, K1_STAGE_SMEM / per_step);
-  const size_t smem = ring + pb * per_step;
-  const int grid = (K + K1_SCAN_KEYS - 1) / K1_SCAN_KEYS;
-  auto launch_scan = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K1_RING_SMEM + K1_STAGE_SMEM);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, K1_SCAN_KEYS, smem, st>>>(count, fl, part, descs, count_out, ol, purge,
-                                             sw, K, S, NSB, t0, tg, pb);
-    return cudaGetLastError();
-  };
-  switch (na) { K1_SCAN(1) K1_SCAN(2) K1_SCAN(3) K1_SCAN(4) K1_SCAN(5) }
-  return (int)e;
+  return (int)launch_k1_scan(count, fl, part, descs, count_out, ol, purge, sw, K, S, NSB, t0, tg,
+                             0, st);
+}
+
+// The step descriptors of a group of steps from t0, one warp a step (the
+// partials entry has no ingest launch to build them).
+__global__ void __launch_bounds__(32)
+k1_descs(StepDesc* __restrict__ descs, Plan plan, int S, int F, int R, int t0) {
+  build_desc(descs[blockIdx.x], plan, (long long)t0 + blockIdx.x, S, F, R);
+}
+
+// K1's partials entry: one group of tg steps from step t0 whose step
+// partials the caller reduced ([1 + nf, tg, K, NSB] 32-bit patterns, the
+// count then each field in its value's own bits, an int add field's as its
+// float32 sum; the mesh's map-side
+// combiner folds them across shards). Builds the group's descriptors into
+// descs (tg StepDesc, allocated by the caller), then runs the same walk as
+// k1_superscan: merge each step's partials into their columns, fire, purge.
+// What bounds it: bytes, the partials read once beside a ring read and
+// written once. Returns a CUDA error code (0 = launched).
+extern "C" int k1_partials(
+    int* count, void* const* fields, const int* kinds, const int* idents, int nf,
+    const int* part, const int* smin, const int* fpos, const int* fvalid,
+    const int* frow, const int* purge, const int* spws, int F, int* count_out,
+    void* const* outs, int K, int S, int NSB, int R, int* descs, int t0, int tg,
+    void* stream) {
+  if (nf > MAX_FIELDS || F > MAX_FIRES || tg < 1 || K < 1 || NSB < 1 || S > 65536 ||
+      R > 65536 || (long long)NSB * K >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Fields fl = {}, ol = {};
+  fl.n = ol.n = nf;
+  for (int i = 0; i < nf; ++i) {
+    fl.p[i] = fields[i];
+    ol.p[i] = outs[i];
+    fl.kind[i] = ol.kind[i] = kinds[i];
+    fl.ident[i] = idents[i];
+  }
+  Spws sw = {};
+  for (int f = 0; f < F; ++f) sw.w[f] = spws[f];
+  cudaStream_t st = (cudaStream_t)stream;
+  Plan pl = {smin, fpos, fvalid, frow, purge};
+  StepDesc* d = reinterpret_cast<StepDesc*>(descs);
+  k1_descs<<<tg, 32, 0, st>>>(d, pl, S, F, R, t0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_k1_scan(count, fl, part, d, count_out, ol, purge, sw, K, S, NSB, t0, tg, 1,
+                             st);
 }

@@ -5,7 +5,7 @@ Counterpart of `flink_tpu/joins/`. Layering: `joins` sits beside
 runtime, api, table or scheduler. The runtime's `DeviceJoinRunner` drives
 these pipelines from behind the StepRunner boundary; the SQL planner
 lowers window equi-joins onto them. `ShardedJoinPipeline`
-(`joins/sharded.py`) waits for ROADMAP.md Queue A item 13 (multi-GPU).
+(`joins/sharded.py`) splits both sides' rings over a mesh's shards by key.
 """
 
 from flink_tpu_torch.joins.pipeline import FusedJoinPipeline, expand_pairs

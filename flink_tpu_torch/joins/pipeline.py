@@ -56,15 +56,36 @@ def expand_pairs(lidx, lval, ridx, rval):
     return out_l, out_r, kids
 
 
+def match_rings(g: JoinGeometry, device, left, right, rbs_l, cnt_l, rbs_r, cnt_r,
+                interval: bool, lo: int, hi: int):
+    """The match program over one (idx, ts) ring pair per side on `device`,
+    of cnt_l.shape[1] keys: the host-shipped counts and ring slots go up
+    in one pinned copy."""
+    parts = (cnt_l.ravel(), rbs_l, cnt_r.ravel(), rbs_r)
+    ends = np.cumsum([len(p) for p in parts])
+    host, staged = staging_buffer((int(ends[-1]),), np.int32, device)
+    for p, a, b in zip(parts, np.r_[0, ends[:-1]], ends):
+        host[a:b] = p
+    dev = upload(staged, device)
+    cl, rl, cr, rr = (dev[a:b] for a, b in zip(np.r_[0, ends[:-1]], ends))
+    kern = build_join_match(g.ring_buckets, int(cnt_l.shape[1]), g.bucket_capacity,
+                            len(rbs_l), len(rbs_r), interval)
+    return kern(left[0], left[1], cl.view(len(rbs_l), -1), rl,
+                right[0], right[1], cr.view(len(rbs_r), -1), rr, lo, hi)
+
+
 class FusedJoinPipeline:
     """Single-device orchestration of one device join operator's state."""
 
     def __init__(self, geom: JoinGeometry, device=None):
         self.geom = geom
         self.device = resolve_device(device)
-        self.left = BucketRing(geom, self.device)
-        self.right = BucketRing(geom, self.device)
+        self.left = self._new_ring(geom)
+        self.right = self._new_ring(geom)
         self.ts_base: Optional[int] = None
+
+    def _new_ring(self, geom: JoinGeometry) -> BucketRing:
+        return BucketRing(geom, self.device)
 
     def regrow(self, geom: JoinGeometry) -> None:
         """Swap to a larger geometry (more key lanes or record slots),
@@ -75,8 +96,8 @@ class FusedJoinPipeline:
         self.geom = geom
         # drop the old rings before the new ones allocate
         self.left = self.right = None
-        self.left = BucketRing(geom, self.device)
-        self.right = BucketRing(geom, self.device)
+        self.left = self._new_ring(geom)
+        self.right = self._new_ring(geom)
         base = self.ts_base if self.ts_base is not None else 0
         self.left.restore(snap["left"], base)
         self.right.restore(snap["right"], base)
@@ -98,21 +119,10 @@ class FusedJoinPipeline:
         return np.arange(b0, b0 + (end - start) // g.bucket_ms, dtype=np.int64)
 
     def _match(self, rbs_l, cnt_l, rbs_r, cnt_r, interval: bool, lo: int, hi: int):
-        """The match program over both runs: the host-shipped counts and
-        ring slots go up in one pinned copy."""
-        g = self.geom
-        parts = (cnt_l.ravel(), rbs_l, cnt_r.ravel(), rbs_r)
-        ends = np.cumsum([len(p) for p in parts])
-        host, staged = staging_buffer((int(ends[-1]),), np.int32, self.device)
-        for p, a, b in zip(parts, np.r_[0, ends[:-1]], ends):
-            host[a:b] = p
-        dev = upload(staged, self.device)
-        cl, rl, cr, rr = (dev[a:b] for a, b in zip(np.r_[0, ends[:-1]], ends))
-        kern = build_join_match(g.ring_buckets, g.key_capacity, g.bucket_capacity,
-                                len(rbs_l), len(rbs_r), interval)
-        return kern(self.left.idx_arr, self.left.ts_arr, cl.view(len(rbs_l), -1), rl,
-                    self.right.idx_arr, self.right.ts_arr, cr.view(len(rbs_r), -1), rr,
-                    lo, hi)
+        """The match program over both runs."""
+        return match_rings(self.geom, self.device, (self.left.idx_arr, self.left.ts_arr),
+                           (self.right.idx_arr, self.right.ts_arr),
+                           rbs_l, cnt_l, rbs_r, cnt_r, interval, lo, hi)
 
     def fire_window(self, start: int, end: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Inner window-join emission for [start, end): (left rowids,

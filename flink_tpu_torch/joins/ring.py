@@ -47,7 +47,7 @@ class BucketRing:
     def __init__(self, geom: JoinGeometry, device=None):
         self.geom = geom
         self.device = resolve_device(device)
-        self.idx_arr, self.ts_arr = self._zeros(), self._zeros()
+        self._reset_device()
         self._ingest = build_join_ingest(geom.ring_buckets, geom.key_capacity,
                                          geom.bucket_capacity)
         nb, k = geom.ring_buckets, geom.key_capacity
@@ -67,6 +67,23 @@ class BucketRing:
         g = self.geom
         return torch.zeros((g.ring_buckets, g.key_capacity, g.bucket_capacity),
                            dtype=torch.int32, device=self.device)
+
+    def _reset_device(self) -> None:
+        """Fresh (all-zero) device arrays."""
+        self.idx_arr, self.ts_arr = self._zeros(), self._zeros()
+
+    def _scatter(self, cols, n: int) -> None:
+        """Write one validated batch's lanes — the (ring bucket, key id,
+        slot, row id, relative ts) columns — into the device arrays."""
+        m = _pad_len(n)
+        host, staged = staging_buffer((5, m), np.int32, self.device)
+        for row, a in zip(host, cols):
+            # int32 lanes, as the JAX package's pad: a row id or relative
+            # timestamp past 2**31 raises OverflowError here (ROADMAP Queue C)
+            row[:n] = a
+            row[n:] = a[-1]           # idempotent re-write of the last lane
+        dev = upload(staged, self.device)
+        self.idx_arr, self.ts_arr = self._ingest(self.idx_arr, self.ts_arr, *dev)
 
     # -- ingest ------------------------------------------------------------
     def ingest(self, kids: np.ndarray, ts: np.ndarray, rows, ts_base: int) -> None:
@@ -129,16 +146,8 @@ class BucketRing:
         self.bucket_at[rb] = buckets
         for i in range(n):
             self._staged.setdefault(int(rb[i]), []).append((int(kids[i]), base + i))
-        m = _pad_len(n)
-        host, staged = staging_buffer((5, m), np.int32, self.device)
         rowids = np.arange(base, base + n, dtype=np.int64)
-        for row, a in zip(host, (rb, kids, slot, rowids, ts - ts_base)):
-            # int32 lanes, as the JAX package's pad: a row id or relative
-            # timestamp past 2**31 raises OverflowError here (ROADMAP Queue C)
-            row[:n] = a
-            row[n:] = a[-1]           # idempotent re-write of the last lane
-        dev = upload(staged, self.device)
-        self.idx_arr, self.ts_arr = self._ingest(self.idx_arr, self.ts_arr, *dev)
+        self._scatter((rb, kids, slot, rowids, ts - ts_base), n)
 
     # -- fire support ------------------------------------------------------
     def run_counts(self, buckets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -196,7 +205,7 @@ class BucketRing:
         return {"buckets": buckets}
 
     def restore(self, snap: dict, ts_base: int) -> None:
-        self.idx_arr, self.ts_arr = self._zeros(), self._zeros()
+        self._reset_device()
         self.cnt[:] = 0
         self.bucket_at[:] = -1
         self._rows, self._row_ts, self._staged = [], [], {}

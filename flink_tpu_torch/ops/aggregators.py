@@ -136,6 +136,18 @@ def combine_reduce(op: str):
     raise ValueError(op)
 
 
+def decomposable(agg: DeviceAggregator) -> bool:
+    """True when the mesh map-side combiner may pre-reduce this aggregate:
+    every field's scatter kind is one of the associative+commutative
+    combiners and the spec has not opted out. The combine path sends one
+    partial per (key, rel-slice) per source shard — merged by the SAME
+    scatter ops the ring ingest applies, so pre-reduction is exact by
+    construction. Non-decomposable aggregates route raw records instead."""
+    return bool(getattr(agg, "combinable", True)) and all(
+        f.scatter in _SCATTER_NP for f in agg.fields
+    )
+
+
 def scan_identity(dtype, scatter: str):
     """The neutral element of a scatter kind at a dtype, as a ring of that
     dtype holds it — what purged ring cells and empty fold lanes hold so

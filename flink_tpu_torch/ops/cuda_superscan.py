@@ -8,7 +8,9 @@ with ctypes. A dispatch reduces the records of all its steps into step
 partials, then walks the steps once: two kernel launches on PyTorch's
 current stream (per group of steps for K1, where the partials would
 outgrow `PARTIAL_BUDGET`), with no host sync inside. The wrapper allocates
-the partials' scratch through PyTorch's caching allocator.
+the partials' scratch through PyTorch's caching allocator. K1's partials
+entry (`keyed_superscan_partials`, the mesh's map-side combiner's receive
+side) takes the step partials from its caller and runs the walk alone.
 
 The wrappers take the plain PyTorch version (`ops/superscan.py`) only for
 tensors that lie on the CPU. For CUDA tensors they launch the kernel or
@@ -40,7 +42,9 @@ from flink_tpu_torch.ops.aggregators import (
 from flink_tpu_torch.ops.superscan import (
     field_kind,
     global_superscan_plain,
+    keyed_superscan_partials_plain,
     keyed_superscan_plain,
+    partial_dtype,
     value_fields,
 )
 
@@ -55,7 +59,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: dispatches launched on the card, per wrapper (plain-version calls and
 #: CPU calls do not count)
-LAUNCHES: Dict[str, int] = {"k1_superscan": 0, "k2_global_superscan": 0}
+LAUNCHES: Dict[str, int] = {"k1_superscan": 0, "k1_partials": 0, "k2_global_superscan": 0}
 #: CUDA kernel launches of those dispatches
 CUDA_LAUNCHES: Dict[str, int] = dict(LAUNCHES)
 
@@ -207,6 +211,11 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         fn = lib.k1_superscan
         # K S NSB R B exact, part, t0 tg, stream
         fn.argtypes = common + [_INT] * 6 + [_PTR, _INT, _INT, _PTR]
+        # count fields kinds idents nf, part, smin fpos fvalid frow purge,
+        # spws F, count_out outs, K S NSB R, descs, t0 tg, stream
+        lib.k1_partials.argtypes = [_PTR, _PTRS, _INTS, _INTS, _INT, _PTR] + [_PTR] * 5 + [
+            _INTS, _INT, _PTR, _PTRS] + [_INT] * 4 + [_PTR, _INT, _INT, _PTR]
+        lib.k1_partials.restype = ctypes.c_int
     else:
         fn = lib.k2_global_superscan
         # S NSB R T B, part, nblk, stream
@@ -408,3 +417,81 @@ def global_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
         out_shape=(R,), outs_fill=idents, spws=spws,
         scratch=T * nblk * (1 + len(vf)) * NSB + T * STEP_DESC_BYTES // 4,
         calls=lambda part: [(S, NSB, R, T, B, part, nblk)] if T else [])
+
+
+def keyed_superscan_partials(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
+                             cpart: torch.Tensor, parts: Sequence[torch.Tensor], plan, *,
+                             NSB: int, R: int, spws: Sequence[int], out=None):
+    """One keyed T-step dispatch over pre-reduced step partials: K1's
+    partials entry on CUDA tensors, the plain version
+    (`keyed_superscan_partials_plain`, same contract) on CPU tensors.
+
+    count [S, K] int32 and states (one [S, K] ring per VALUE field) are
+    updated in place; cpart [T, K, NSB] int32 and parts (one [T, K, NSB]
+    per VALUE field, in its `partial_dtype`) are the step partials; plan as
+    `keyed_superscan`. Returns (count_out [R, K] int32, outs: one [R, K]
+    per field); `out`, an earlier call's return, is written in place
+    instead (rows no fire of these steps writes keep what they hold).
+    `supports()` decides this entry as it does the lane one."""
+    if count.device.type == "cpu":
+        return keyed_superscan_partials_plain(agg, count, states, cpart, parts, plan,
+                                              NSB=NSB, R=R, spws=spws, out=out)
+    if count.device.type != "cuda":
+        raise ValueError(f"no keyed superscan for device {count.device}")
+    S, K = count.shape
+    smin, fpos, fvalid, frow, purge = plan
+    T, F = fpos.shape
+    if not supports(agg, K, R, S, NSB, F):
+        raise NotImplementedError(
+            f"kernel K1 does not take aggregate {agg.name!r} at K={K} S={S} "
+            f"R={R} F={F}: 32-bit add, max8, min and max fields only, at most 4 "
+            "fields, 64 fire slots, 2^16 ring columns and fire rows")
+    vf = value_fields(agg)
+    dev = count.device
+    _check(cpart, "cpart", torch.int32, (T, K, NSB), dev)
+    for f, p in zip(vf, parts):
+        _check(p, f"partial {f.name!r}", partial_dtype(f), (T, K, NSB), dev)
+    if len(parts) != len(vf) or len(states) != len(vf):
+        raise ValueError(f"{len(parts)} partials and {len(states)} rings for {len(vf)} fields")
+    for f, st in zip(vf, states):
+        _check(st, f"state {f.name!r}", torch_dtype(f.dtype), count.shape, dev)
+    _check(smin, "smin", torch.int32, (T,), dev)
+    for name, p in (("fire_pos", fpos), ("fire_valid", fvalid), ("fire_row", frow)):
+        _check(p, name, torch.int32, (T, F), dev)
+    _check(purge, "purge", torch.int32, (T, S), dev)
+    if len(spws) != F:
+        raise ValueError(f"spws has {len(spws)} slots, expected F={F}")
+    n = len(vf)
+    # the walk reads [1 + nf, steps, K, NSB] 32-bit patterns
+    stacked = torch.stack([cpart] + [p.view(torch.int32) for p in parts])
+    if out is None:
+        count_out = torch.zeros((R, K), dtype=torch.int32, device=dev)
+        outs = tuple(torch.zeros((R, K), dtype=torch_dtype(f.dtype), device=dev)
+                     for f in vf)
+    else:
+        count_out, outs = out
+        _check(count_out, "count_out", torch.int32, (R, K), dev)
+        for f, o in zip(vf, outs):
+            _check(o, f"out {f.name!r}", torch_dtype(f.dtype), (R, K), dev)
+    lib = _library("superscan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        LAUNCHES["k1_partials"] += 1
+        for t0 in range(0, T, MAX_GROUP_STEPS):
+            tg = min(MAX_GROUP_STEPS, T - t0)
+            part = stacked if tg == T else stacked[:, t0:t0 + tg].contiguous()
+            descs = torch.empty(tg * STEP_DESC_BYTES // 4, dtype=torch.int32, device=dev)
+            rc = lib.k1_partials(
+                count.data_ptr(),
+                (ctypes.c_void_p * max(n, 1))(*[st.data_ptr() for st in states]),
+                (ctypes.c_int * max(n, 1))(*[_kind_code(f) for f in vf]),
+                (ctypes.c_int * max(n, 1))(*[_bits(f.identity, f.dtype) for f in vf]), n,
+                part.data_ptr(), smin.data_ptr(), fpos.data_ptr(), fvalid.data_ptr(),
+                frow.data_ptr(), purge.data_ptr(), (ctypes.c_int * max(F, 1))(*spws), F,
+                count_out.data_ptr(),
+                (ctypes.c_void_p * max(n, 1))(*[o.data_ptr() for o in outs]),
+                K, S, NSB, R, descs.data_ptr(), t0, tg, stream)
+            if rc != 0:
+                raise RuntimeError(f"k1_partials failed to launch: CUDA error {rc}")
+            CUDA_LAUNCHES["k1_partials"] += 2
+    return count_out, outs

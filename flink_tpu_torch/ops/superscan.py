@@ -6,7 +6,9 @@ Counterparts of `flink_tpu/ops/superscan.py::make_superscan_step` (with
 `make_global_scan_step`/`build_global_superscan`. They are the plain
 versions of the Hopper kernels K1 and K2 (`ops/cuda_superscan.py`): the
 CPU path, and the reference the kernels are held against on the card.
-The session programs below (`session_*_plain`) are the plain versions of
+`keyed_superscan_partials_plain` is the plain version of K1's partials
+entry, and `segment_partials` (B4) builds its inputs on the mesh. The
+session programs below (`session_*_plain`) are the plain versions of
 kernels K3 and K4 (`ops/cuda_session.py`).
 
 Ring layout is slice-major, `[S, K]` (the keyed kernel's layout, so a fire
@@ -48,6 +50,15 @@ def field_kind(f) -> str:
     return f.scatter
 
 
+def partial_dtype(f) -> torch.dtype:
+    """The dtype of a VALUE field's step partial: an int add field's
+    partial holds float32 sums, cast to the ring's int once per cell when
+    it is merged, as the lane ingest casts it; every other field's partial
+    is in its ring dtype."""
+    dt = torch_dtype(f.dtype)
+    return torch.float32 if field_kind(f) == "add" and not dt.is_floating_point else dt
+
+
 def _plan_host(plan):
     return [np.asarray(p.cpu()) for p in plan]
 
@@ -72,7 +83,6 @@ def keyed_superscan_plain(agg, count: torch.Tensor,
     S, K = count.shape
     smin, fpos, fvalid, frow, purge = _plan_host(plan)
     T = smin.shape[0]
-    F = fpos.shape[1]
     vfields = value_fields(agg)
     kinds = [field_kind(f) for f in vfields]
     dev = count.device
@@ -112,28 +122,128 @@ def keyed_superscan_plain(agg, count: torch.Tensor,
             else:
                 st.scatter_reduce_(0, cell, v.to(st.dtype), "a" + kind,
                                    include_self=True)
-        for f in range(F):
-            if fvalid[t, f] <= 0:
-                continue
-            row = min(max(int(frow[t, f]), 0), R - 1)
-            cols = [(int(fpos[t, f]) + w) % S for w in range(spws[f])]
-            acc = count[cols[0]].clone()
-            for c in cols[1:]:
-                acc += count[c]
-            count_out[row] = acc
-            for kind, st, out in zip(kinds, states, outs):
-                comb = combine_binary("max" if kind == "max8" else kind)
-                acc = st[cols[0]].clone()
-                for c in cols[1:]:
-                    acc = comb(acc, st[c])
-                out[row] = acc
-        dead = np.flatnonzero(purge[t] == 0)
-        if dead.size:
-            dead_t = torch.from_numpy(dead).to(dev)
-            count[dead_t] = 0
-            for f, st in zip(vfields, states):
-                st[dead_t] = f.device_identity
+        _fire_purge_plain(t, count, states, vfields, count_out, outs,
+                          (fpos, fvalid, frow, purge), R, spws)
     return count_out, outs
+
+
+def _fire_purge_plain(t: int, count, states, vfields, count_out, outs, plan, R: int,
+                      spws) -> None:
+    """Step t's fire and purge, shared by both ingests: every valid fire
+    slot f writes row clip(fire_row, 0, R-1), the fold over spws[f] ring
+    columns from fire_pos; then purged columns reset to the identity."""
+    fpos, fvalid, frow, purge = plan
+    S = count.shape[0]
+    kinds = [field_kind(f) for f in vfields]
+    for f in range(fpos.shape[1]):
+        if fvalid[t, f] <= 0:
+            continue
+        row = min(max(int(frow[t, f]), 0), R - 1)
+        cols = [(int(fpos[t, f]) + w) % S for w in range(spws[f])]
+        acc = count[cols[0]].clone()
+        for c in cols[1:]:
+            acc += count[c]
+        count_out[row] = acc
+        for kind, st, out in zip(kinds, states, outs):
+            comb = combine_binary("max" if kind == "max8" else kind)
+            acc = st[cols[0]].clone()
+            for c in cols[1:]:
+                acc = comb(acc, st[c])
+            out[row] = acc
+    dead = np.flatnonzero(purge[t] == 0)
+    if dead.size:
+        dead_t = torch.from_numpy(dead).to(count.device)
+        count[dead_t] = 0
+        for f, st in zip(vfields, states):
+            st[dead_t] = f.device_identity
+
+
+def keyed_superscan_partials_plain(agg, count: torch.Tensor,
+                                   states: Sequence[torch.Tensor], cpart: torch.Tensor,
+                                   parts: Sequence[torch.Tensor], plan, *, NSB: int,
+                                   R: int, spws: Sequence[int], out=None
+                                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One keyed T-step dispatch over PRE-REDUCED step partials (the plain
+    version of kernel K1's partials entry; the 'partials' ingest of the
+    JAX package's `make_superscan_step`, the receive side of the mesh's
+    map-side combiner).
+
+    cpart [T, K, NSB] int32 is each step's count partial; parts holds one
+    [T, K, NSB] partial per VALUE field in its `partial_dtype` (cells no
+    record reached hold the field's scan identity). Step t combines
+    partial column r into ring column (smin[t] + r) % S — count and add
+    fields add (an int add field's float32 partial cast once, truncating
+    toward zero), min/max fields fold — then fires and purges as
+    `keyed_superscan_plain`. Rings update in place; returns (count_out
+    [R, K] int32, outs: one [R, K] per field). `out`, an earlier call's
+    return, is written in place instead: rows no fire of these steps
+    writes keep what they hold, so a dispatch may run in step groups."""
+    S, K = count.shape
+    smin, fpos, fvalid, frow, purge = _plan_host(plan)
+    T = smin.shape[0]
+    vfields = value_fields(agg)
+    kinds = [field_kind(f) for f in vfields]
+    dev = count.device
+    if out is None:
+        count_out = torch.zeros((R, K), dtype=torch.int32, device=dev)
+        outs = tuple(torch.zeros((R, K), dtype=torch_dtype(f.dtype), device=dev)
+                     for f in vfields)
+    else:
+        count_out, outs = out
+    for t in range(T):
+        for r in range(NSB):
+            col = (int(smin[t]) + r) % S
+            count[col] += cpart[t, :, r]
+            for kind, st, part in zip(kinds, states, parts):
+                st[col] = combine_binary("max" if kind == "max8" else kind)(
+                    st[col], part[t, :, r].to(st.dtype))
+        _fire_purge_plain(t, count, states, vfields, count_out, outs,
+                          (fpos, fvalid, frow, purge), R, spws)
+    return count_out, outs
+
+
+def segment_partials(agg, idx: torch.Tensor, vals, nseg: int, *, exact: bool = True):
+    """The map-side combiner's send side (B4, the JAX package's
+    `make_segment_partials`): segment-reduce record lanes into dense
+    partials over `nseg` segments per leading row.
+
+    idx [..., B] int32 holds each lane's segment (outside [0, nseg): dropped); vals
+    [..., B] float32 (None for count-only). Returns (count [..., nseg]
+    int32, one [..., nseg] partial per VALUE field in its `partial_dtype`),
+    each reduced by its field's own combiner — count and add fields add,
+    min/max fields fold, a bounded max clips its values to [0, 255] as
+    the lane ingest does — with untouched cells at the scan identity, so
+    merging a partial downstream is a no-op where no record landed. An int
+    add field sums in float32, to be cast once per cell where the partial
+    is merged into its ring. Add fields without exact sums take the lane
+    ingest's one-term bf16 form."""
+    lead = idx.shape[:-1]
+    rows = int(np.prod(lead)) if lead else 1
+    flat_idx = idx.reshape(rows, -1)
+    keep = (flat_idx >= 0) & (flat_idx < nseg)
+    base = torch.arange(rows, device=idx.device, dtype=torch.int64)[:, None] * nseg
+    cell = (base + flat_idx.long())[keep]
+    total = rows * nseg
+    cpart = torch.zeros(total, dtype=torch.int32, device=idx.device)
+    cpart.index_add_(0, cell, torch.ones_like(cell, dtype=torch.int32))
+    parts = []
+    if value_fields(agg):
+        v = vals.reshape(rows, -1)[keep]
+    for f in value_fields(agg):
+        kind, dt = field_kind(f), torch_dtype(f.dtype)
+        if kind == "add":
+            va = v if exact else v.to(torch.bfloat16).to(torch.float32)
+            p = torch.zeros(total, dtype=partial_dtype(f), device=idx.device)
+            p.index_add_(0, cell, va)
+        else:
+            ident = scan_identity(np.dtype(f.dtype), f.scatter)
+            p = torch.full((total,), ident, dtype=dt, device=idx.device)
+            src = v.to(torch.int32).clamp(0, 255) if kind == "max8" else v.to(dt)
+            p.scatter_reduce_(0, cell, src, "amax" if kind == "max8" else "a" + kind,
+                              include_self=True)
+        parts.append(p.view(*lead, nseg))
+    return cpart.view(*lead, nseg), tuple(parts)
+
 
 
 def global_superscan_plain(agg, count: torch.Tensor,

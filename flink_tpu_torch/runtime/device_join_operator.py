@@ -23,10 +23,12 @@ drop as late instead of re-emitting — exactly-once), the failed batch
 replays whole (ring ingest is all-or-nothing per batch), and the reason
 lands in `fallback_reason`.
 
+With `parallel.mesh.enabled` the rings split over the shards of the
+executor's `_mesh_for_config` mesh (joins/sharded.py), and `sharded` says
+so; under 2 usable devices they stay on one device.
+
 Left out (ROADMAP.md Queue A): the join gauges and the emission tracker
-(item 15), the sharded pipeline (item 13: `parallel.*` raises, so the
-JAX package's `_mesh_for_config` is always None here) and the chaos hook
-(item 14).
+(item 15) and the chaos hook (item 14).
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ import numpy as np
 from flink_tpu_torch.config import Configuration, ExecutionOptions
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.joins.pipeline import FusedJoinPipeline
+from flink_tpu_torch.joins.sharded import ShardedJoinPipeline
 from flink_tpu_torch.joins.spec import JoinUnsupported, plan_join_geometry
-from flink_tpu_torch.runtime.executor import StepRunner, WindowJoinRunner
+from flink_tpu_torch.runtime.executor import StepRunner, WindowJoinRunner, _mesh_for_config
 from flink_tpu_torch.utils.arrays import obj_array
 from flink_tpu_torch.utils.device import resolve_device
 
@@ -82,7 +85,8 @@ class DeviceJoinRunner(StepRunner):
             key_capacity=min(1024, self._max_keys),
             bucket_capacity=min(16, self._max_slots),
             ring_slack_buckets=config.get(ExecutionOptions.JOIN_RING_SLACK))
-        self.pipeline: Optional[FusedJoinPipeline] = FusedJoinPipeline(self.geom, self.device)
+        self.pipeline: Optional[FusedJoinPipeline] = self._new_pipeline()
+        self.sharded = isinstance(self.pipeline, ShardedJoinPipeline)
         # key -> dense key lane; per-lane inverse is never needed (pairs
         # come back as row ids whose payloads the rings own)
         self._keys: Dict[Any, int] = {}
@@ -91,6 +95,14 @@ class DeviceJoinRunner(StepRunner):
         self.matches_emitted = 0
         self.fallback_reason: Optional[str] = None
         self._host: Optional[WindowJoinRunner] = None
+
+    def _new_pipeline(self) -> FusedJoinPipeline:
+        """The rings at the current geometry: split over the job's mesh
+        (parallel.mesh.*), else on the runner's device."""
+        mesh = _mesh_for_config(self.config, self.geom.key_capacity, self.device)
+        if mesh is not None:
+            return ShardedJoinPipeline(self.geom, mesh)
+        return FusedJoinPipeline(self.geom, self.device)
 
     # -- adaptive geometry -------------------------------------------------
     @staticmethod
@@ -316,5 +328,6 @@ class DeviceJoinRunner(StepRunner):
         k_cap, c_cap = snap["geom"]
         self.geom = dataclasses.replace(self.geom, key_capacity=k_cap, bucket_capacity=c_cap)
         self.pipeline = None            # free the old rings before the new allocate
-        self.pipeline = FusedJoinPipeline(self.geom, self.device)
+        self.pipeline = self._new_pipeline()
+        self.sharded = isinstance(self.pipeline, ShardedJoinPipeline)
         self.pipeline.restore(snap["pipeline"])

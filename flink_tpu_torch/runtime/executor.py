@@ -49,11 +49,20 @@ coordinator, cancellation and savepoint hooks that runtime/minicluster.py
 hands it. `LocalPipelineExecutor` runs one attempt with no recovery, as in
 the JAX package.
 
+The mesh (`parallel.mesh.*`, `_mesh_for_config`): a fused window step
+and a device join run over a mesh of shards placed on
+`parallel/mesh.py::visible_devices`, clamped as the JAX package clamps
+it; under 2 usable devices the job stays on one device. At a step
+boundary `run` takes the client's live mesh-rescale request: it raises
+`MeshRescaleRequested` with a step-aligned capture, and the MiniCluster
+rebuilds the runtime over the new size and restores it, exactly-once.
+`pipeline.parallelism` is read by no runner, as in the JAX package.
+
 Left out, raising where a job asks for them (ROADMAP.md Queue A): job
-metrics and emission latency (item 15), parallelism > 1 (item 17), the
-chaos hook (item 14), operator coordinators (item 19's process functions:
-`coordinators` stays empty) and the rest of the DataStream API's runners
-(item 19).
+metrics and emission latency (item 15), the mesh with tiering or shared
+partials and its skew rebalancer (item 13b), the chaos hook (item 14),
+operator coordinators (item 19's process functions: `coordinators` stays
+empty) and the rest of the DataStream API's runners (item 19).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from flink_tpu_torch.config import (
     Configuration,
     ExecutionOptions,
     LatencyOptions,
+    ParallelOptions,
     PipelineOptions,
     StateTierOptions,
 )
@@ -79,6 +89,7 @@ from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Step, StepGraph, Transformation
 from flink_tpu_torch.ops.aggregators import ONE, resolve
+from flink_tpu_torch.parallel import mesh as mesh_lib
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
 from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
 from flink_tpu_torch.runtime.oracle_window_operator import OracleWindowOperator
@@ -362,6 +373,46 @@ def _latency_kwargs(config: Configuration) -> dict:
     )}
 
 
+def _mesh_for_config(config: Configuration, key_capacity: int, device):
+    """The job's mesh when parallel.mesh.enabled applies, else None.
+
+    The requested shard count (0 = every visible device) is clamped to the
+    devices `parallel/mesh.py::visible_devices` gives for the job's device,
+    then rounded DOWN to the largest divisor of the operator's key capacity
+    so the contiguous key ranges divide evenly. Under 2 usable devices the
+    job stays on one device, as the JAX package's does."""
+    if not config.get(ParallelOptions.MESH_ENABLED):
+        return None
+    devices = mesh_lib.visible_devices(device)
+    n = mesh_lib.usable_mesh_size(config.get(ParallelOptions.MESH_DEVICES), len(devices),
+                                  key_capacity)
+    if n <= 1:
+        return None
+    return mesh_lib.build_mesh(n, devices)
+
+
+def _mesh_exchange_kwargs(config: Configuration) -> dict:
+    """The exchange options threaded to FusedWindowOperator (ignored off
+    the mesh): the map-side combiner. Single-sourced so both fused
+    construction sites take the same. The skew rebalancer's routing table
+    (parallel.mesh.skew-rebalance, parallel.mesh.key-groups) is item 13b."""
+    return {"mesh_local_combine": config.get(ParallelOptions.MESH_LOCAL_COMBINE)}
+
+
+class MeshRescaleRequested(BaseException):
+    """Control-flow signal, not a failure: the run loop reached a step
+    boundary with a pending mesh-rescale request. Carries the target
+    shard count and the step-aligned state capture the rebuilt runtime
+    restores from (the snapshot is canonical [K, S], so any mesh size
+    re-shards it). BaseException so ordinary `except Exception` operator
+    guards can never swallow it."""
+
+    def __init__(self, target: int, snapshot: dict):
+        super().__init__(f"mesh rescale to {target} devices")
+        self.target = int(target)
+        self.snapshot = snapshot
+
+
 def _tier_for_config(config: Configuration) -> Optional[TierConfig]:
     """The fused window path's TierConfig when the million-key state plane
     applies (state.tier.enabled), else None. Tiering needs the host key
@@ -499,7 +550,11 @@ class WindowStepRunner(StepRunner):
                 superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
                 chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
                 columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-                tier=tier, device=device, **_latency_kwargs(config))
+                # the mesh (parallel.mesh.*): the same operator over its
+                # shards; None keeps the one-device path
+                mesh=_mesh_for_config(config, capacity, device),
+                tier=tier, device=device, **_mesh_exchange_kwargs(config),
+                **_latency_kwargs(config))
         elif use_device:
             # allowed lateness, a late side output or the fused path off:
             # one ingest and the due fires per batch. The state tier takes
@@ -667,13 +722,18 @@ class DeviceChainRunner(WindowStepRunner):
         )
         # dense device keying cannot grow mid-dispatch: capacity is the
         # configured bound, and an out-of-range key raises at resolve
+        capacity = config.get(ExecutionOptions.KEY_CAPACITY)
         self.op = FusedWindowOperator(
             None if assigners is not None else cfg["assigner"], cfg["aggregate"],
-            key_capacity=config.get(ExecutionOptions.KEY_CAPACITY),
+            key_capacity=capacity,
             superbatch_steps=config.get(ExecutionOptions.SUPERBATCH_STEPS),
             chunk=_fused_chunk(config.get(ExecutionOptions.BATCH_SIZE)),
             columnar_output=config.get(ExecutionOptions.COLUMNAR_OUTPUT),
-            prologue=prologue, device=device, **_latency_kwargs(config),
+            # the mesh (parallel.mesh.*): each shard runs the prologue on
+            # its slice of the raw columns, then the keyBy exchange and K1
+            mesh=_mesh_for_config(config, capacity, device),
+            prologue=prologue, device=device, **_mesh_exchange_kwargs(config),
+            **_latency_kwargs(config),
             **({} if assigners is None else {"assigners": list(assigners)}))
         self.uid = t.uid
         self.sql_origin = bool(cfg.get("sql_origin"))
@@ -973,7 +1033,7 @@ class JobCancelledException(Exception):
 
 
 class JobRuntime:
-    """One running attempt of a job at parallelism 1: sources, watermarks,
+    """One running attempt of a job: sources, watermarks,
     runners and the end-of-input flush, plus the checkpoint capture and
     restore surface (capture happens between steps, so alignment is
     free)."""
@@ -1034,10 +1094,9 @@ class JobRuntime:
                 self.generator.restore(snap["generator"])
 
     def __init__(self, graph: StepGraph, config: Configuration, device=None):
-        parallelism = config.get(PipelineOptions.PARALLELISM)
-        if parallelism != 1:
-            raise deferred.not_ported(f"pipeline.parallelism={parallelism}",
-                                      deferred.PARALLELISM)
+        # pipeline.parallelism is read by no runner, as in the JAX package:
+        # the job runs as one attempt whatever it is set to, and keyed
+        # state spreads over devices through parallel.mesh.* instead
         self.graph = graph
         self.config = config
         self.runners, feeds = build_runners(graph, config, device)
@@ -1102,26 +1161,45 @@ class JobRuntime:
         return out
 
     # -- the loop ----------------------------------------------------------
+    def mesh_devices(self) -> int:
+        """Shards this attempt's keyed state is spread over (the widest
+        operator; 1 = one device)."""
+        return max((int(fn()) for fn in (
+            getattr(getattr(r, "op", None), "mesh_devices", None)
+            for r in self.runners) if fn is not None), default=1)
+
+    def mesh_capacity(self) -> Optional[int]:
+        """The smallest construction-time key capacity of the operators
+        that can run on a mesh (None: no such operator); a rescale target
+        is clamped against it, as the rebuilt operators will clamp."""
+        caps = [op.mesh_capacity() for op in (getattr(r, "op", None) for r in self.runners)
+                if op is not None and hasattr(op, "mesh_capacity")]
+        return min(caps) if caps else None
+
     def run(
         self,
         coordinator=None,
         cancel_check: Optional[Callable[[], bool]] = None,
         savepoint_request: Optional[Callable[[], Optional[str]]] = None,
+        rescale_request: Optional[Callable[[], Optional[int]]] = None,
     ) -> None:
         """Run to the end of input. At every step boundary: `cancel_check`
         (True raises JobCancelledException), the coordinator's due
-        checkpoint, and `savepoint_request` (a path writes a savepoint
-        there). The coordinator commits this attempt's sinks on each
-        completed checkpoint while the attempt runs."""
+        checkpoint, `savepoint_request` (a path writes a savepoint there),
+        and `rescale_request` (a shard count other than this attempt's
+        raises MeshRescaleRequested with a step-aligned capture). The
+        coordinator commits this attempt's sinks on each completed
+        checkpoint while the attempt runs."""
         if coordinator is not None:
             coordinator.register_on_complete(self.commit_sinks)
         try:
-            self._run_loop(coordinator, cancel_check, savepoint_request)
+            self._run_loop(coordinator, cancel_check, savepoint_request, rescale_request)
         finally:
             if coordinator is not None:
                 coordinator.unregister_on_complete(self.commit_sinks)
 
-    def _run_loop(self, coordinator, cancel_check, savepoint_request) -> None:
+    def _run_loop(self, coordinator, cancel_check, savepoint_request,
+                  rescale_request=None) -> None:
         batch_size = self.config.get(ExecutionOptions.BATCH_SIZE)
         for d in self.sources:
             if d.current_split is None and not d.done:
@@ -1174,6 +1252,13 @@ class JobRuntime:
                     path = savepoint_request()
                     if path is not None:
                         self._write_savepoint(path)
+                if rescale_request is not None:
+                    target = rescale_request()
+                    if target is not None and target != self.mesh_devices():
+                        # a live mesh rescale: the job master rebuilds this
+                        # runtime over the new shard count and restores this
+                        # capture (the checkpoint path's), exactly-once
+                        raise MeshRescaleRequested(target, self.capture())
                 now_ms = time.time() * 1000.0
                 if now_ms - last_tick >= 50.0:
                     # the processing-time service's tick: drive wall-clock

@@ -42,8 +42,13 @@ merges both tiers in row mode. Snapshots are full (`"tier"`) or
 incremental over a changelog (`"tier_changelog"`), in the JAX package's
 forms both ways.
 
-Not ported (each raises, naming its ROADMAP.md item): the mesh (item 13)
-and device stats (D4).
+The mesh (`mesh=`, the `parallel.mesh.*` options; parallel/): the same
+operator over a ShardedFusedPipeline, whose dispatch runs the keyBy
+exchange and kernel K1 on every shard; snapshots stay canonical [K, S],
+so the operator checkpoints and restores across mesh sizes.
+
+Not ported (each raises, naming its ROADMAP.md item): the mesh with tiering
+or shared partials (item 13) and device stats (D4).
 """
 
 from __future__ import annotations
@@ -422,13 +427,19 @@ class FusedWindowOperator:
         columnar_output: bool = False,
         prologue=None,
         mesh=None,
+        mesh_local_combine: bool = False,
         tier=None,
         assigners=None,
         latency: Optional[LatencySpec] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise deferred.not_ported("FusedWindowOperator(mesh=...)", deferred.MESH)
+        if mesh is not None and tier is not None:
+            raise deferred.not_ported("FusedWindowOperator(mesh=..., tier=...)", deferred.MESH)
+        if mesh is not None and assigners is not None:
+            raise deferred.not_ported("FusedWindowOperator(mesh=..., assigners=...)",
+                                      deferred.MESH)
+        self.mesh = mesh
+        self._construction_key_capacity = key_capacity
         self.agg = resolve(aggregate)
         if self.agg is None:
             raise ValueError(f"aggregate {aggregate!r} has no device form")
@@ -465,6 +476,15 @@ class FusedWindowOperator:
             self.spec_outputs = [[] for _ in assigners]
             self.pipe = SharedWindowPipeline(assigners, self.agg, **geometry)
             self.norm = SharedStepNormalizer(self.pipe, raw_payload=True)
+        elif mesh is not None:
+            # the mesh (parallel.mesh.*): the same operator surface over the
+            # sharded pipeline (the parallel layer is imported where used)
+            from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+
+            del geometry["device"]
+            self.pipe = ShardedFusedPipeline(
+                mesh, assigner, self.agg, **geometry, local_combine=mesh_local_combine)
+            self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
         else:
             self.pipe = FusedWindowPipeline(assigner, self.agg, **geometry)
             self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
@@ -498,7 +518,9 @@ class FusedWindowOperator:
             )
             self._max_inflight = max(int(latency.max_inflight), 1)
             self.pipe.donate_carry = True
-            if latency.readback_steps > 0:
+            if mesh is None and latency.readback_steps > 0:
+                # the mesh keeps span-granular readback, as in the JAX
+                # package: splitting a mesh dispatch multiplies its exchanges
                 self.pipe.readback_steps = int(latency.readback_steps)
         self.output: List[Tuple[Any, Any, Any, int]] = []
         self.emitted_watermark = MIN_WATERMARK
@@ -798,6 +820,8 @@ class FusedWindowOperator:
                 "queryable state is unavailable on the fused chain path: "
                 "buffered steps hold raw pre-transform columns, so a "
                 "consistent per-key view would need the traced UDFs on host")
+        if self.mesh is not None:
+            raise deferred.not_ported("queryable state on the mesh", deferred.MESH)
         if self.tier is not None:
             raise RuntimeError(
                 "queryable state is unavailable on the tiered path: a key's "
@@ -847,6 +871,16 @@ class FusedWindowOperator:
 
     def phase_totals(self):
         raise deferred.not_ported("FusedWindowOperator.phase_totals", deferred.D4)
+
+    def mesh_devices(self) -> int:
+        """Shards this operator's state is spread over (1 = one device)."""
+        return int(getattr(self.pipe, "n", 1))
+
+    def mesh_capacity(self) -> int:
+        """The key capacity the mesh clamp used at construction: a rescale
+        target is clamped against this, not the grown pipe.K (a rebuilt
+        operator starts from this capacity again)."""
+        return int(self._construction_key_capacity)
 
     def state_key_count(self) -> int:
         """Distinct keys the operator holds state for: the vocabulary's

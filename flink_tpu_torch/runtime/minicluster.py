@@ -15,10 +15,16 @@ its in-flight work is waited on, and the frames of the kept error are
 cleared (the error's type, message and cause chain stay), so neither the
 error nor the coordinator keeps the dead attempt's rings alive.
 
+A live mesh rescale (`JobClient.rescale_mesh`) rides the same attempt
+loop: at the next step boundary the running attempt hands over a
+step-aligned capture (`MeshRescaleRequested`), and the job master
+rebuilds the runtime over the new shard count and restores the capture —
+exactly-once, with no restart counted.
+
 Left out until their items (ROADMAP.md Queue A), each raising where it is
-asked for: mesh rescale, rebalance and the device-loss degrade (item 13);
-the autoscaler, the metric history, the job doctor, traces and the metric
-registry (item 15); the `chaos.*` plan and `security=` (item 14).
+asked for: the skew rebalance and the device-loss degrade of a mesh job
+(item 13b); the autoscaler, the metric history, the job doctor, traces and
+the metric registry (item 15); the `chaos.*` plan and `security=` (item 14).
 """
 
 from __future__ import annotations
@@ -33,14 +39,19 @@ from typing import Dict, Optional
 from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
 from flink_tpu_torch.checkpoint.restart import restart_strategy_from_config
 from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage, MemoryCheckpointStorage
-from flink_tpu_torch.config import CheckpointingOptions, Configuration
+from flink_tpu_torch.config import CheckpointingOptions, Configuration, ParallelOptions
 from flink_tpu_torch.graph.transformation import StepGraph
 from flink_tpu_torch.metrics.checkpoint_stats import (
     CheckpointStatsTracker,
     ExceptionHistory,
     failing_task,
 )
-from flink_tpu_torch.runtime.executor import JobCancelledException, JobRuntime
+from flink_tpu_torch.parallel import mesh as mesh_lib
+from flink_tpu_torch.runtime.executor import (
+    JobCancelledException,
+    JobRuntime,
+    MeshRescaleRequested,
+)
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import resolve_device
 
@@ -100,6 +111,10 @@ class JobClient:
         self.checkpoint_stats: Optional[CheckpointStatsTracker] = None
         self.exceptions: Optional[ExceptionHistory] = None
         self._runtime: Optional[JobRuntime] = None
+        # live mesh rescales performed, and the last one's duration
+        self.mesh_rescales = 0
+        self.last_mesh_rescale_duration_ms = 0.0
+        self._mesh_rescale_target: Optional[int] = None
 
     def latency_report(self) -> dict:
         raise deferred.not_ported("JobClient.latency_report", deferred.METRICS)
@@ -149,7 +164,17 @@ class JobClient:
         return None
 
     def rescale_mesh(self, devices: int) -> None:
-        raise deferred.not_ported("JobClient.rescale_mesh", deferred.MESH)
+        """Request a live mesh-size rescale of a RUNNING mesh job: at the
+        next step boundary the job captures its state, rebuilds over
+        `devices` shards, and restores — exactly-once, no restart counted.
+        No-op on jobs without parallel.mesh.enabled."""
+        self._mesh_rescale_target = max(1, int(devices))
+
+    def _poll_mesh_rescale(self) -> Optional[int]:
+        t = self._mesh_rescale_target
+        if t is not None:
+            self._mesh_rescale_target = None
+        return t
 
     # -- queryable state ----------------------------------------------------
     def query_state(self, uid: str, key) -> dict:
@@ -238,6 +263,10 @@ class MiniCluster:
         attempt = 0
         restore_snap = None
         restore_ms = 0.0
+        # the next attempt's mesh size after a live rescale (None: the
+        # configured size), and the rescale in progress
+        mesh_override: Optional[int] = None
+        pending_rescale: Optional[float] = None
         if savepoint_restore_path is not None:
             try:
                 sp_storage = FsCheckpointStorage(savepoint_restore_path)
@@ -253,15 +282,33 @@ class MiniCluster:
                 return
 
         while True:
+            cfg = config
+            if mesh_override is not None:
+                cfg = config.clone().set(ParallelOptions.MESH_DEVICES, mesh_override)
             try:
-                self._attempt(client, graph, config, device, coordinator, restore_snap,
-                              restore_ms)
+                self._attempt(client, graph, cfg, device, coordinator, restore_snap,
+                              restore_ms, pending_rescale)
                 client._set_status(JobStatus.FINISHED)
                 return
             except JobCancelledException:
                 client._set_status(JobStatus.CANCELED)
                 return
+            except MeshRescaleRequested as mr:
+                # a deliberate live rescale, not a failure: rebuild over the
+                # new size and restore the step-aligned capture (no restart
+                # counted, no backoff)
+                client._runtime = None
+                mesh_override = mr.target
+                restore_snap, restore_ms = mr.snapshot, 0.0
+                pending_rescale = time.perf_counter()
+                client._set_status(JobStatus.RESTARTING)
+                client.exceptions.begin_recovery(
+                    client.num_restarts, cause=f"mesh rescale to {mr.target} device(s)",
+                    events_at_failure=client.records_in, kind="rescale")
+                del mr
+                continue
             except BaseException as e:  # noqa: BLE001 — failover boundary
+                pending_rescale = None
                 attempt += 1
                 client._runtime = None
                 client.exceptions.record_failure(
@@ -291,9 +338,11 @@ class MiniCluster:
                 restore_ms = (time.perf_counter() - t_restore) * 1000.0
 
     def _attempt(self, client: JobClient, graph: StepGraph, config: Configuration, device,
-                 coordinator, restore_snap: Optional[dict], restore_ms: float) -> None:
+                 coordinator, restore_snap: Optional[dict], restore_ms: float,
+                 rescale_t0: Optional[float] = None) -> None:
         """One attempt: build the runtime, restore, run to the end. Its
-        locals (the runtime above all) die with its frame."""
+        locals (the runtime above all) die with its frame. `rescale_t0`:
+        this attempt completes a live mesh rescale started then."""
         runtime = JobRuntime(graph, config, device)
         client._runtime = runtime  # queryable state
         if coordinator is not None:
@@ -302,8 +351,13 @@ class MiniCluster:
             coordinator.state_bytes_fn = runtime.operator_state_bytes
         if restore_snap is not None:
             runtime.restore(restore_snap)
-            client.checkpoint_stats.report_restore(restore_snap.get("checkpoint_id"),
-                                                   restore_ms)
+            if rescale_t0 is None:
+                # a rescale restores its own capture, not a stored checkpoint
+                client.checkpoint_stats.report_restore(restore_snap.get("checkpoint_id"),
+                                                       restore_ms)
+        if rescale_t0 is not None:
+            client.mesh_rescales += 1
+            client.last_mesh_rescale_duration_ms = (time.perf_counter() - rescale_t0) * 1000.0
         client._set_status(JobStatus.RUNNING)
         client.exceptions.complete_recovery(
             restored_checkpoint_id=(restore_snap or {}).get("checkpoint_id"),
@@ -322,9 +376,22 @@ class MiniCluster:
                 client._savepoint_done.set()
             return None  # the runtime's capture is already written
 
+        def rescale_request():
+            # a manual target arrives unclamped: clamp it as the rebuilt
+            # operators will, so an unreachable target (or one landing on
+            # the current size) never costs a rebuild that changes nothing
+            t = client._poll_mesh_rescale()
+            cap = runtime.mesh_capacity()
+            if t is None or cap is None:
+                return None
+            eff = mesh_lib.usable_mesh_size(t, len(mesh_lib.visible_devices(device)), cap)
+            return None if eff == runtime.mesh_devices() else eff
+
+        mesh_enabled = config.get(ParallelOptions.MESH_ENABLED)
         try:
             runtime.run(coordinator=coordinator, cancel_check=cancel_check,
-                        savepoint_request=savepoint_request)
+                        savepoint_request=savepoint_request,
+                        rescale_request=rescale_request if mesh_enabled else None)
             client.records_in = runtime.records_in
         finally:
             if coordinator is not None:

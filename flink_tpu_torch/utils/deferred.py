@@ -8,11 +8,10 @@ from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
 D4 = "deferred item D4 (compile tracker and phase counters)"
-MESH = "item 13 (multi-GPU)"
+MESH = "item 13 (multi-GPU)"           # the parts of the mesh left for 13b
 CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
 METRICS = "item 15 (job metrics and emission latency)"
-PARALLELISM = "item 17 (parallelism > 1 and key groups)"
 API = "item 19 (the rest of the DataStream API)"
 
 

@@ -14,6 +14,10 @@ sizes, and the references it carries held against the JAX package.
   per-slot window lengths.
 - C3: the rows the smoke expects of the fused operator's int sum on C3's
   inputs are the JAX operator's.
+- api_mesh (phase 24): every leg's parity on four CPU shards (the mesh,
+  local-combine, one device and the numpy model; leg B's oracle, live
+  rescale and savepoint restores; the sharded operator and join), and
+  the exchanged K1 inputs of shard 0 (`ok` stays false: no K1 launch).
 
 Tolerance: exact.
 """
@@ -121,3 +125,39 @@ def test_shared_k1_inputs_carry_mixed_spws(members, spws, S):
     assert idx.numel() == 32 * 4096 and len(plan[5]) > 0
     # 32 steps of 4096 of 2^22 records cover 225 s: the 1 min members fire
     assert 0 in {pf.spec for pf in plan[5]} <= set(range(len(pipe.specs)))
+
+
+def test_api_mesh_phase_agrees_on_every_leg():
+    out = cm.api_mesh_phase(dev="cpu", sizes=dict(
+        batch=1024, parity_events=1 << 14, timed_events=1 << 15, runs=2, big_batch=2048,
+        big_keys=1 << 12, big_events=1 << 16, op_keys=1 << 12, op_events=1 << 15,
+        op_batch=1 << 12))
+    a, b, c = out["leg_a"], out["leg_b"], out["leg_c"]
+    assert a["fused_selected"] and a["sharded_selected"]
+    for label in ("uniform", "zipf"):
+        assert all(a[label][run]["equals_model"] for run in ("mesh", "mesh_combine", "card"))
+    for run in ("card", "mesh", "mesh_combine", "rescale", "restored_card", "restored_mesh2"):
+        assert b[run]["parity_vs_oracle"] and b[run]["no_window_twice"], run
+    assert b["rescale"]["mesh_rescales"] == 1 and b["rescale"]["mesh_devices_after"] == 2
+    assert b["savepoint_first_job"] == "CANCELED"
+    assert (b["restored_card"]["mesh_devices"], b["restored_mesh2"]["mesh_devices"]) == (1, 2)
+    assert c["ok"] and c["operator"]["equal"] and c["q8"]["sharded"]
+    # the phase restores the visible devices it replaced
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    assert len(mesh_lib.visible_devices("cpu")) == 1
+
+
+@pytest.mark.parametrize("combine", [False, True], ids=["lanes", "partials"])
+def test_mesh_k1_inputs_are_shard_zeros(combine, monkeypatch):
+    monkeypatch.setitem(cm.API_MESH, "timed_events", 1 << 18)
+    shim, _agg, plan, inputs = cm.mesh_k1_inputs(cm.API_MESH, combine, dev="cpu")
+    assert shim.K == cm.API_MESH["keys"] // cm.API_MESH["shards"] and len(plan[5]) > 0
+    if combine:
+        cpart, parts = inputs
+        assert tuple(cpart.shape) == (32, shim.K, 4) and parts == [] and int(cpart.sum()) > 0
+    else:
+        idx, vals = inputs
+        live = idx[idx >= 0]
+        assert vals is None and idx.numel() == 32 * cm.API_MESH["batch"]
+        assert live.numel() > 0 and int(live.max()) < shim.K * 4

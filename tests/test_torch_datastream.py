@@ -251,10 +251,19 @@ def _deferred_calls():
         # job checkpoints and savepoints (test_torch_checkpointing.py):
         # the job runs on the port's MiniCluster
         "execute_async": (lambda: (ds.collect(), env.execute_async().wait(60)), None),
+        # parallelism and key groups (test_torch_key_groups.py runs them)
         "idleness": (lambda: WatermarkStrategy.for_monotonous_timestamps().with_idleness(5),
-                     "item 17"),
+                     None),
+        # the mesh (test_torch_multichip_runtime.py); its skew rebalancer
+        # and autoscale are still queued
         "mesh_option": (lambda: Configuration().set_string("parallel.mesh.enabled", True),
-                        "item 13"),
+                        None),
+        "mesh_rebalance_option": (
+            lambda: Configuration().set_string("parallel.mesh.skew-rebalance", True), "item 13"),
+        "mesh_key_groups_option": (
+            lambda: Configuration().set_string("parallel.mesh.key-groups", 64), "item 13"),
+        "mesh_autoscale_option": (
+            lambda: Configuration().set_string("parallel.mesh.autoscale", True), "item 15"),
         # latency mode (test_torch_latency_mode.py)
         "latency_option": (lambda: Configuration({"execution.latency.target-ms": 5}), None),
         # shared partials (test_torch_window_sharing.py)
@@ -301,8 +310,20 @@ def test_unported_job_shapes_raise_at_execute(what):
     cfg = Configuration()
     agg, item = "count", None
     if what == "parallelism":
+        # ported since (test_torch_key_groups.py): no runner reads the
+        # option, as in the JAX package, so the job's rows are those of
+        # parallelism 1
         cfg.set(PipelineOptions.PARALLELISM, 2)
-        item = "item 17"
+        rows = {}
+        for p in (2, 1):
+            cfg.set(PipelineOptions.PARALLELISM, p)
+            env = tds.StreamExecutionEnvironment(cfg, device="cpu")
+            sink = (env.from_source(_source(PORT, 64), WatermarkStrategy.for_monotonous_timestamps())
+                    .key_by(S_KEY).window(SLIDING(tasg)).aggregate(agg).collect())
+            env.execute()
+            rows[p] = sorted((int(k), int(v)) for k, v in sink.results)
+        assert len(rows[2]) > 0 and rows[2] == rows[1]
+        return
     elif what == "oracle_aggregate":
         agg = Count()
     elif what == "fused_windows_off":

@@ -306,12 +306,20 @@ def test_operator_snapshot_crosses_packages(direction):
 
 
 def test_operator_unported_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
-        tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", mesh=object())
-    # the state tier is ported (tests/test_torch_state_tiering.py runs
-    # it): the option builds a tiered operator at the hot capacity
+    # the mesh is ported (tests/test_torch_multichip_runtime.py); on the
+    # mesh, tiering and shared partials are still queued
+    from flink_tpu_torch.parallel.mesh import Mesh
     from flink_tpu_torch.state.tier_manager import TierConfig
 
+    mesh = Mesh(["cpu"] * 2)
+    assert tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
+                                   mesh=mesh).mesh_devices() == 2
+    for kw in (dict(tier=TierConfig(hot_key_capacity=16)),
+               dict(assigners=[_window(tasg)], prologue=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
+            tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", mesh=mesh, **kw)
+    # the state tier is ported (tests/test_torch_state_tiering.py runs
+    # it): the option builds a tiered operator at the hot capacity
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
                                  tier=TierConfig(hot_key_capacity=16))
     assert op.tier is not None and op.pipe.K == 16 and op.tier_gauges()["residentKeys"] == 0

@@ -241,6 +241,53 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         rows = tenv.execute_sql_to_list(
             "SELECT a.user, b.amount FROM pay AS a LEFT JOIN pay AS b ON a.user = b.user")
         assert len(rows) == 1200, len(rows)
+        # the mesh: a fused job over four CPU shards through env.execute,
+        # the sharded pipelines, the exchange, the ring collectives, the
+        # spmd step, key groups, the valve and the idleness timer
+        import flink_tpu_torch.parallel.mesh as mesh_lib
+        from flink_tpu_torch.config import ParallelOptions
+        mesh_lib.visible_devices = lambda device: [torch.device("cpu")] * 4
+        cfg = Configuration()
+        cfg.set(ExecutionOptions.BATCH_SIZE, 256)
+        cfg.set(ExecutionOptions.KEY_CAPACITY, 32)
+        cfg.set(ParallelOptions.MESH_ENABLED, True)
+        cfg.set(ParallelOptions.MESH_LOCAL_COMBINE, True)
+        env = StreamExecutionEnvironment(cfg, device="cpu")
+        env.set_parallelism(4)
+        sink = (env.from_source(DataGeneratorSource(gen, 3000),
+                                WatermarkStrategy.for_bounded_out_of_orderness(0).with_idleness(9))
+                .filter(lambda c: c[:, 1] < 0.5, traceable=True)
+                .key_by(lambda c: c[:, 0].to(torch.int32), traceable=True)
+                .window(SlidingEventTimeWindows.of(2000, 500)).aggregate("count")
+                .collect())
+        env.execute()
+        assert sum(v for _k, v in sink.results) == 4 * 1000
+        from flink_tpu_torch.core.records import hash_keys
+        from flink_tpu_torch.core.watermarks import IdlenessTimer, WatermarkValve
+        from flink_tpu_torch.joins.sharded import ShardedJoinPipeline  # noqa: F401
+        from flink_tpu_torch.ops.exchange import make_keyby_exchange
+        from flink_tpu_torch.ops.matmul_hist import count_hist
+        from flink_tpu_torch.parallel.mesh import Mesh
+        from flink_tpu_torch.parallel.ring import ring_all_reduce
+        from flink_tpu_torch.parallel.routing import KeyGroupRouting
+        from flink_tpu_torch.parallel.sharded_window import ShardedTpuWindowOperator
+        from flink_tpu_torch.parallel.spmd_step import make_spmd_step  # noqa: F401
+        from flink_tpu_torch.state.key_groups import verify_partition
+        verify_partition(128, 4)
+        mesh = Mesh(["cpu"] * 2)
+        kg, _ = make_keyby_exchange(mesh, 128)([torch.tensor([1, 100])] * 2, {})
+        assert [int((k < 128).sum()) for k in kg] == [2, 2]
+        assert ring_all_reduce([torch.ones(3)] * 2, mesh.devices)[0].tolist() == [2, 2, 2]
+        assert count_hist(torch.tensor([0, 0, 2]), 3).tolist() == [2, 0, 1]
+        assert KeyGroupRouting(64, 2, 8).G == 8 and len(hash_keys(np.arange(3))) == 3
+        valve = WatermarkValve(2)
+        valve.input_watermark(0, 5)
+        assert valve.mark_idle(1) == 5 and not IdlenessTimer(5, clock=lambda: 0.0).check_idle()
+        op = ShardedTpuWindowOperator(SlidingEventTimeWindows.of(2000, 1000), "sum", mesh)
+        op.process_batch(np.array(["a", "b"], dtype=object), np.array([1, 2], np.float32),
+                         np.array([100, 900]))
+        op.process_watermark(5000)
+        assert sorted((k, r) for k, _w, r, _t in op.drain_output())[-1] == ("b", 2.0)
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -267,7 +314,7 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     # the SQL front door, the latency controller and the oracle's state are
     # scanned too
     for sub in ("table", "planner", "security", "scheduler", "state", "core", "checkpoint",
-                "metrics", "joins"):
+                "metrics", "joins", "parallel"):
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
@@ -278,7 +325,12 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "checkpoint/coordinator.py", "checkpoint/restart.py",
                  "metrics/checkpoint_stats.py", "runtime/minicluster.py",
                  "ops/join_ring.py", "joins/spec.py", "joins/ring.py", "joins/pipeline.py",
-                 "runtime/device_join_operator.py", "runtime/stream_join_operator.py"):
+                 "runtime/device_join_operator.py", "runtime/stream_join_operator.py",
+                 "state/key_groups.py", "core/records.py", "parallel/mesh.py",
+                 "parallel/routing.py", "parallel/ring.py", "parallel/spmd_step.py",
+                 "parallel/sharded_window.py", "parallel/sharded_superscan.py",
+                 "runtime/sharded_window_operator.py", "ops/matmul_hist.py",
+                 "ops/exchange.py", "joins/sharded.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
