@@ -202,6 +202,29 @@ exits non-zero on the first failure. Phases, one JSON line each:
    mesh's torch programs (B4, B7, B8) with times and bounds; leg A's mesh
    run under torch.profiler (raw and local-combine) and cProfile.
 
+25. api_metrics: the metric planes every job runs (flink_tpu_torch/
+   metrics/: the registry, latency markers, device timing, emission
+   latency, checkpoint spans, the history and the doctor). Leg A:
+   api_ysb's fused program (columnar) at 2^22 records through
+   env.execute_async with checkpoints every 100 ms, a latency marker every
+   5 ms, emission latency and the doctor on and the history every 50 ms:
+   its rows against the same job with every plane off and the numpy model;
+   job.numRecordsIn 2^22 and each operator's numRecordsIn the records that
+   reached it; a latencyMs histogram on every operator; the emission count
+   equal to the fires the operator resolved; p99EmissionLatencyMs finite
+   and above 0; deviceTimeMsTotal above 0 and within the wall;
+   deviceDispatches equal to the sections the runner entered; the
+   checkpoint gauges and one completed checkpoint span per checkpoint;
+   the three reports with the JAX client's keys. Leg B: the job with the
+   defaults against every plane off, off/on/on/off, tuples/s and their
+   ratio; one run with the defaults under torch.profiler beside its
+   deviceTimeMsTotal; then (after the phase's line) a host profile of
+   that job on this thread. Leg C at small sizes: NEXMark q8 at api_join
+   leg A's defaults (the join gauge family, one stamp a window with
+   matches), the tiered job at api_tiered leg A's size (the tier gauges),
+   latency mode (its controller gauges), a per-batch lateness job (one
+   stamp a fired window) and a session job (one stamp a session).
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -4425,6 +4448,351 @@ def api_mesh_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: api_metrics, job metrics, latency markers, emission latency,
+# traces, history and the doctor (flink_tpu_torch/metrics/) on the fused
+# K1 job and the other runner families
+# ---------------------------------------------------------------------------
+
+API_METRICS = dict(keys=8192, batch=65536, events=1 << 22, warmup_events=1 << 18,
+                   checkpoint_ms=100, marker_ms=5, history_ms=50,
+                   lateness_events=1 << 20, session_events=1 << 20,
+                   latency_events=1 << 20, tiered_events=1 << 16, tiered_keys=1 << 15,
+                   tiered_hot=4096)
+# the options that turn every plane of the metrics off (there is no switch
+# for the history: a sampling interval past the run leaves its first tick)
+METRICS_OFF = {"observability.emission-latency.enabled": False,
+               "observability.device-timing.enabled": False,
+               "observability.latency-markers.interval-ms": -1,
+               "observability.doctor.enabled": False,
+               "observability.history.interval-ms": 3_600_000}
+# the keys of the JAX package's JobClient reports (flink_tpu/runtime/
+# minicluster.py latency_report, history_report, doctor_report)
+REPORT_KEYS = {
+    "latency_report": ["attribution", "emission", "latency_mode", "operators", "p50_ms",
+                       "p999_ms", "p99_ms", "samples", "watermarkLagMs"],
+    "history_report": ["enabled", "interval_ms", "retention_points", "sample_count",
+                       "sample_time_ms", "series"],
+    "doctor_report": ["diagnoses", "samples", "score", "verdict", "watchdog_events",
+                      "window_ms"],
+}
+
+
+class _CallCounts:
+    """Counts calls of the named methods of `cls` while active (the
+    methods are wrapped at class level and restored on exit)."""
+
+    def __init__(self, cls, names):
+        self.cls, self.names = cls, names
+        self.counts = dict.fromkeys(names, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cls, n) for n in self.names}
+        for n, f in self.saved.items():
+            def wrap(*a, _f=f, _n=n, **kw):
+                self.counts[_n] += 1
+                return _f(*a, **kw)
+            setattr(self.cls, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.cls, n, f)
+        return False
+
+
+def metrics_snapshot_of(registry) -> dict:
+    from flink_tpu_torch.metrics.registry import metrics_snapshot
+
+    return metrics_snapshot(registry.all_metrics())
+
+
+def _operator(snap: dict, uid_prefix: str) -> str:
+    return next(k.split(".")[2] for k in snap
+                if k.startswith(f"job.operator.{uid_prefix}"))
+
+
+def metrics_job(n: int, sink, sz, *, conf=None, checkpoint_ms=0, dev=DEV):
+    """env of the api_ysb fused program (columnar) over n records, leg A's
+    observability options and checkpoints every checkpoint_ms (0: off), in
+    memory; `conf` adds or overrides options."""
+    opts = {"observability.latency-markers.interval-ms": sz["marker_ms"],
+            "observability.emission-latency.enabled": True,
+            "observability.doctor.enabled": True,
+            "observability.history.interval-ms": sz["history_ms"]}
+    opts.update(conf or {})
+    return ckpt_job(n, sink, sz, interval=checkpoint_ms, columnar=True, conf=opts, dev=dev)
+
+
+def metrics_leg_a(sz, dev) -> dict:
+    """The metrics job through execute_async: its rows against the same job
+    with every plane off and the numpy model, and its metrics, spans and
+    reports against what the run did."""
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["events"], sz["keys"]
+    ckpt_run(metrics_job(sz["warmup_events"], timed_collect_sink(), sz, dev=dev), dev)
+    off_sink = timed_collect_sink()
+    off = ckpt_run(metrics_job(n, off_sink, sz, conf=METRICS_OFF, dev=dev), dev)
+    sink = timed_collect_sink()
+    # the sections the fused chain's runner times (a non-empty batch, a
+    # watermark, a drain) and the fires its operator resolves
+    with _CallCounts(FusedWindowOperator, ("process_raw_batch", "process_watermark",
+                                           "drain_output", "_emit")) as calls:
+        on = ckpt_run(metrics_job(n, sink, sz, checkpoint_ms=sz["checkpoint_ms"], dev=dev), dev)
+    client = on["client"]
+    snap = metrics_snapshot_of(client.metrics)
+    ref = st.api_replay(n, sz["batch"], agg="count", num_keys=keys)
+    fired, twice = columnar_fired(sink.results, keys)
+    off_fired, _ = columnar_fired(off_sink.results, keys)
+    parity, checked = st.parity(ref.fired, fired)
+    rows_equal_off = (sorted(fired) == sorted(off_fired)
+                      and all(np.array_equal(fired[j], off_fired[j]) for j in fired))
+    window, sink_uid = _operator(snap, "window_aggregate"), _operator(snap, "sink")
+    op = f"job.operator.{window}"
+    sections = (calls.counts["process_raw_batch"] + calls.counts["process_watermark"]
+                + calls.counts["drain_output"])
+    em = snap[f"{op}.emissionLatencyMs"]
+    latency_counts = {k.split(".")[2]: v["count"] for k, v in snap.items()
+                      if k.endswith(".latencyMs")}
+    spans = client.span_log.spans
+    completed = sum(1 for s in spans if (s.scope, s.name) == ("checkpointing", "Checkpoint")
+                    and s.attributes.get("status") == "COMPLETED")
+    reports = {name: getattr(client, name)() for name in REPORT_KEYS}
+    wall_ms = on["seconds"] * 1e3
+    checks = {
+        "rows_equal_planes_off": rows_equal_off and not twice,
+        "parity_vs_oracle": parity,
+        "job_numRecordsIn": snap["job.numRecordsIn"] == n,
+        "window_numRecordsIn": snap[f"{op}.numRecordsIn"] == n,
+        "sink_numRecordsIn": snap[f"job.operator.{sink_uid}.numRecordsIn"] == len(sink.results),
+        "latency_histograms": (set(latency_counts) == {window, sink_uid}
+                               and all(c > 0 for c in latency_counts.values())),
+        "emission_count_is_fires": em["count"] == calls.counts["_emit"] > 0,
+        "p99_finite_positive": bool(np.isfinite(snap["job.p99EmissionLatencyMs"])
+                                    and snap["job.p99EmissionLatencyMs"] > 0),
+        "device_time_within_wall": 0 < snap["job.deviceTimeMsTotal"] <= wall_ms,
+        "device_dispatches_are_sections": snap[f"{op}.deviceDispatches"] == sections > 0,
+        "checkpoint_gauges": (snap["job.numberOfCompletedCheckpoints"]
+                              == client.checkpoint_stats.gauge_values()[
+                                  "numberOfCompletedCheckpoints"]
+                              == client.num_checkpoints > 0),
+        "checkpoint_spans": completed == client.num_checkpoints,
+        "reports_have_the_jax_keys": all(sorted(reports[k]) == v
+                                         for k, v in REPORT_KEYS.items()),
+        "history_sampled": reports["history_report"]["sample_count"] > 1,
+        "k1_launched": on["k1_launches"] > 0 and off["k1_launches"] > 0,
+    }
+    return {"ok": all(checks.values()), "checks": checks, "events": n,
+            "windows_checked": checked, "seconds": on["seconds"],
+            "tuples_per_s": n / on["seconds"], "off_tuples_per_s": n / off["seconds"],
+            "k1_launches": on["k1_launches"], "off_k1_launches": off["k1_launches"],
+            "checkpoints": client.num_checkpoints, "fires": calls.counts["_emit"],
+            "sections": dict(calls.counts), "latency_counts": latency_counts,
+            "emission": {k: v for k, v in em.items() if not k.startswith("b")},
+            "p99EmissionLatencyMs": snap["job.p99EmissionLatencyMs"],
+            "deviceTimeMsTotal": snap["job.deviceTimeMsTotal"], "wall_ms": wall_ms,
+            "deviceDispatches": snap[f"{op}.deviceDispatches"],
+            "span_counts": dict(collections_counter((s.scope, s.name) for s in spans)),
+            "history_samples": reports["history_report"]["sample_count"],
+            "history_sample_ms": reports["history_report"]["sample_time_ms"],
+            "doctor_verdict": reports["doctor_report"]["verdict"],
+            "latency_report_samples": reports["latency_report"]["samples"]}
+
+
+def collections_counter(items) -> dict:
+    import collections
+
+    return {f"{a}.{b}": c for (a, b), c in collections.Counter(items).items()}
+
+
+def metrics_main_thread_run(sz, conf=None, dev=DEV) -> float:
+    """The cost job driven on the calling thread through the MiniCluster's
+    own job loop (`MiniCluster._run_job`, what execute_async's job thread
+    runs), so cProfile, which sees only its own thread, sees the planes'
+    host work: seconds."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.minicluster import JobClient, MiniCluster
+
+    env = metrics_job(sz["events"], timed_collect_sink(), sz,
+                      conf=dict(conf or {}, **{"observability.latency-markers.interval-ms": 0,
+                                               "observability.history.interval-ms": 1000}),
+                      dev=dev)
+    client = JobClient("profile", "api_metrics")
+    _sync(dev)
+    t0 = time.perf_counter()
+    MiniCluster()._run_job(client, plan(env._sinks), env.config, None, torch.device(dev))
+    _sync(dev)
+    assert client.status().value == "FINISHED", client.error
+    return time.perf_counter() - t0
+
+
+def metrics_leg_b(sz, dev) -> dict:
+    """What the planes cost: the job with the defaults (every plane on at
+    the JAX package's defaults) against every plane off, in the order off,
+    on, on, off, checkpoints off; then the deviceTimeMsTotal gauge beside
+    the profiler's device-busy time of one run with the defaults."""
+    n = sz["events"]
+    defaults = {"observability.latency-markers.interval-ms": 0,
+                "observability.history.interval-ms": 1000}
+    runs = []
+    for label in ("off", "on", "on", "off"):
+        r = ckpt_run(metrics_job(n, timed_collect_sink(), sz,
+                                 conf=METRICS_OFF if label == "off" else defaults, dev=dev), dev)
+        runs.append({"planes": label, "seconds": r["seconds"], "tuples_per_s": n / r["seconds"],
+                     "k1_launches": r["k1_launches"]})
+    mean = {lab: float(np.mean([r["tuples_per_s"] for r in runs if r["planes"] == lab]))
+            for lab in ("on", "off")}
+    box = {}
+
+    def profiled():
+        r = ckpt_run(metrics_job(n, timed_collect_sink(), sz, conf=defaults, dev=dev), dev)
+        box["gauge_ms"] = metrics_snapshot_of(r["client"].metrics)["job.deviceTimeMsTotal"]
+        box["k1"] = r["k1_launches"]
+        return r["seconds"]
+
+    prof = profile_run("api_metrics_defaults", profiled)
+    prof["deviceTimeMsTotal_ms"] = box["gauge_ms"]
+    prof["gauge_over_device_busy"] = box["gauge_ms"] / max(prof["device_busy_us"] / 1e3, 1e-9)
+    return {"ok": all(r["k1_launches"] > 0 for r in runs) and box["k1"] > 0,
+            "events": n, "runs": runs, "on_tuples_per_s": mean["on"],
+            "off_tuples_per_s": mean["off"], "on_over_off": mean["on"] / mean["off"],
+            "profile_run": prof}
+
+
+def _runtime_metrics(env, dev):
+    """Run env's job through JobRuntime (what env.execute() runs), the
+    launch counts at 0 just before it: (snapshot, runtime, seconds)."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.ops import join_ring
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    rt = JobRuntime(plan(env._sinks), env.config, dev)
+    _sync(dev)
+    cs.reset_launch_counts()
+    cuda_session.reset_launch_counts()
+    join_ring.reset_call_counts()
+    t0 = time.perf_counter()
+    rt.run()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    return metrics_snapshot_of(rt.registry), rt, secs
+
+
+def _launches() -> dict:
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.ops import join_ring
+
+    return {"k1_superscan": cs.LAUNCHES["k1_superscan"], **cuda_session.LAUNCHES,
+            **{f"b5_{k}": v for k, v in join_ring.CALLS.items()}}
+
+
+def _leaves(snap, uid):
+    p = f"job.operator.{uid}."
+    return {k[len(p):]: v for k, v in snap.items() if k.startswith(p)}
+
+
+def metrics_leg_c(sz, dev) -> dict:
+    """The other runner families at small sizes, each with its gauge
+    family and its emission count against what the run fired."""
+    import tempfile
+
+    from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
+
+    out = {}
+    # NEXMark q8 at api_join leg A's defaults: the join gauge family
+    env, jsink = join_env(API_JOIN["events"], "q8", API_JOIN, sink=rows_sink(), dev=dev)
+    snap, rt, secs = _runtime_metrics(env, dev)
+    (runner,) = [r for r in rt.runners if type(r).__name__ == "DeviceJoinRunner"]
+    g = _leaves(snap, runner.uid)
+    rows = sum(len(v) for v, _t in jsink.batches)
+    windows = len({int(t) for _v, ts in jsink.batches for t in ts})
+    out["join_q8"] = {
+        "seconds": secs, "launches": _launches(), "rows": rows, "windows_with_matches": windows,
+        "gauges": {k: g[k] for k in ("joinRingOccupancy", "joinMatchesEmitted",
+                                      "joinFallbackReason", "stateBytes", "stateKeyCount",
+                                      "numLateRecordsDropped", "currentWatermark")},
+        "emission_count": g["emissionLatencyMs"]["count"],
+        "ok": bool(g["joinMatchesEmitted"] == rows > 0 and g["joinFallbackReason"] == 0
+                   and g["stateBytes"] > 0 and g["emissionLatencyMs"]["count"] == windows
+                   and _launches()["b5_join_match"] > 0)}
+    # the tiered job at api_tiered leg A's size: the tier gauge family
+    with tempfile.TemporaryDirectory(prefix="api_metrics_tier_") as tmp:
+        env, _s = tiered_job(sz["tiered_events"], sz["tiered_keys"], False, API_TIERED,
+                             tiered=True, cap=sz["tiered_hot"], tmp=tmp, dev=dev)
+        snap, rt, secs = _runtime_metrics(env, dev)
+    uid = _operator(snap, "window_aggregate")
+    g = _leaves(snap, uid)
+    tier = {k: g[k] for k in ("vocabSize", "residentKeys", "evictions", "promotions",
+                              "spilledBytes", "changelogBytes", "tierHotFillRatio")}
+    out["tiered"] = {"seconds": secs, "launches": _launches(), "gauges": tier,
+                     "emission_count": g["emissionLatencyMs"]["count"],
+                     "ok": bool(tier["evictions"] > 0 and tier["residentKeys"] <= sz["tiered_hot"]
+                                and g["emissionLatencyMs"]["count"] > 0
+                                and _launches()["k1_superscan"] > 0)}
+    # latency mode on the api_ysb program: the controller's gauge family
+    runtime, _op, _sink = latency_runtime(sz["latency_events"], True, API_LATENCY, dev)
+    _sync(dev)
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    runtime.run()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    snap = metrics_snapshot_of(runtime.registry)
+    g = _leaves(snap, _operator(snap, "window_aggregate"))
+    lat = {k: g[k] for k in ("latencyModeActive", "currentBatchRung", "inflightDepth",
+                             "ladderRecompiles")}
+    out["latency_mode"] = {"seconds": secs, "k1_launches": cs.LAUNCHES["k1_superscan"],
+                           "gauges": lat, "emission_count": g["emissionLatencyMs"]["count"],
+                           "ok": bool(lat["latencyModeActive"] == 1
+                                      and lat["currentBatchRung"] >= 1
+                                      and g["emissionLatencyMs"]["count"] > 0
+                                      and cs.LAUNCHES["k1_superscan"] > 0)}
+    # a per-batch lateness job: one stamp a fired window
+    lsz = dict(API_LATENESS, events=sz["lateness_events"])
+    env, lsink, _late = api_lateness_job(lsz["events"], lsz, dev)
+    with _CallCounts(TpuWindowOperator, ("_emit_window",)) as fires:
+        snap, rt, secs = _runtime_metrics(env, dev)
+    g = _leaves(snap, _operator(snap, "window_aggregate"))
+    out["per_batch"] = {"seconds": secs, "fired_windows": fires.counts["_emit_window"],
+                        "emission_count": g["emissionLatencyMs"]["count"],
+                        "late_dropped": g["numLateRecordsDropped"],
+                        "ok": bool(g["emissionLatencyMs"]["count"]
+                                   == fires.counts["_emit_window"] > 0)}
+    # a session job: one stamp a merged session, each one row
+    env, ssink = session_api_job(sz["session_events"], API_SESSIONS, dev)
+    snap, rt, secs = _runtime_metrics(env, dev)
+    g = _leaves(snap, _operator(snap, "window_aggregate"))
+    sessions = sum(len(v) for v, _t in ssink.batches)
+    launches = _launches()
+    out["session"] = {"seconds": secs, "sessions": sessions, "launches": launches,
+                      "emission_count": g["emissionLatencyMs"]["count"],
+                      "ok": bool(g["emissionLatencyMs"]["count"] == sessions > 0
+                                 and launches["k3_session_ingest"] > 0
+                                 and launches["k4_session_merge"] > 0)}
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def api_metrics_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 25: legs A, B and C (see API_METRICS)."""
+    sz = dict(API_METRICS, **(sizes or {}))
+    out = {"phase": "api_metrics"}
+    for leg, fn in (("leg_a", metrics_leg_a), ("leg_b", metrics_leg_b),
+                    ("leg_c", metrics_leg_c)):
+        t0 = time.perf_counter()
+        out[leg] = fn(sz, dev)
+        out[leg]["leg_s"] = time.perf_counter() - t0
+    out["ok"] = bool(out["leg_a"]["ok"] and out["leg_b"]["ok"] and out["leg_c"]["ok"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -4916,6 +5284,33 @@ def main() -> int:
     emit({"phase": "api_mesh_kernels", "seconds": time.perf_counter() - t_mk})
     torch.cuda.empty_cache()
 
+    # ---- 25. job metrics, latency markers, emission latency, traces,
+    # history and the doctor: legs A-C through the port's API, every run
+    # with its launch counts at 0 just before it; then the host profile of
+    # the job with the defaults, on this thread ----
+    t_met = time.perf_counter()
+    met = api_metrics_phase()
+    met["card"] = card
+    met["phase_s"] = time.perf_counter() - t_met
+    emit(met)
+    if not met["ok"]:
+        raise AssertionError("api_metrics: a leg failed a gate (rows against the planes-off "
+                             "job and the numpy model, numRecordsIn, marker histograms, the "
+                             "emission count against the fires, deviceTimeMsTotal within the "
+                             "wall, deviceDispatches against the sections, checkpoint gauges "
+                             "and spans, the reports' keys, a family's gauges or emission "
+                             "count) or a run launched no K1, K3/K4 or B5")
+    emit(host_profile("api_metrics_defaults", lambda: metrics_main_thread_run(API_METRICS),
+                      top=16))
+    path_launches["k1_superscan"].update({
+        "api_metrics_a": met["leg_a"]["k1_launches"],
+        "api_metrics_a_planes_off": met["leg_a"]["off_k1_launches"],
+        **{f"api_metrics_b_{i}_{r['planes']}": r["k1_launches"]
+           for i, r in enumerate(met["leg_b"]["runs"])},
+        "api_metrics_c_tiered": met["leg_c"]["tiered"]["launches"]["k1_superscan"],
+        "api_metrics_c_latency": met["leg_c"]["latency_mode"]["k1_launches"]})
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -5010,7 +5405,9 @@ def main() -> int:
          "replaces": "flink_tpu/ops/superscan.py:510",
          "shape": skt["k3_step"]["shape"], "launches": sess["k3_launches"],
          "launches_by_path": {"session_sum": sess["k3_launches"],
-                              "api_sessions": api_s["k3_launches"]},
+                              "api_sessions": api_s["k3_launches"],
+                              "api_metrics_c_session":
+                                  met["leg_c"]["session"]["launches"]["k3_session_ingest"]},
          "max_abs_err": max(skt["k3_step"]["max_abs_err"], skt["k3_run"]["max_abs_err"]),
          **{k: skt["k3_step"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")},
@@ -5021,7 +5418,9 @@ def main() -> int:
          "replaces": "flink_tpu/ops/superscan.py:433",
          "shape": skt["k4_superspan"]["shape"], "launches": sess["k4_launches"],
          "launches_by_path": {"session_sum": sess["k4_launches"],
-                              "api_sessions": api_s["k4_launches"]},
+                              "api_sessions": api_s["k4_launches"],
+                              "api_metrics_c_session":
+                                  met["leg_c"]["session"]["launches"]["k4_session_merge"]},
          "max_abs_err": max(skt["k4_superspan"]["max_abs_err"],
                             skt["k4_per_watermark"]["max_abs_err"]),
          **{k: skt["k4_superspan"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -13,10 +13,13 @@ is quiescent, so alignment is free and a checkpoint is
 Exactly-once = replayable source positions + a state snapshot +
 transactional sinks.
 
-Left out until their items (ROADMAP.md Queue A): the checkpoint lifecycle
-spans (`traces=`, item 15: only None is accepted), and the JAX
-coordinator's refusal to tolerate a chaos `InjectedCrash` (item 14; until
-then every non-`Exception` BaseException is the one never tolerated).
+With `traces` (a TraceRegistry) every checkpoint reports the JAX
+coordinator's lifecycle spans: `checkpointing.Checkpoint` with its status,
+and its `CheckpointCapture` and `CheckpointPersist` phases.
+
+Left out until ROADMAP.md Queue A item 14: the JAX coordinator's refusal to
+tolerate a chaos `InjectedCrash` (until then every non-`Exception`
+BaseException is the one never tolerated).
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from flink_tpu_torch.checkpoint.storage import CheckpointStorage, CorruptCheckpointError
-from flink_tpu_torch.utils import deferred
 
 
 class CheckpointFailuresExhaustedError(RuntimeError):
@@ -45,8 +47,6 @@ class CheckpointCoordinator:
         stats=None,
         tolerable_failures: int = 0,
     ):
-        if traces is not None:
-            raise deferred.not_ported("CheckpointCoordinator(traces=...)", deferred.METRICS)
         self.storage = storage
         self.interval_s = interval_ms / 1000.0
         self.max_retained = max_retained
@@ -58,6 +58,7 @@ class CheckpointCoordinator:
         # capture/persist failures absorbed (FAILED stats record, job keeps
         # running) before trigger() escalates to the restart strategy
         self.tolerable_failures = tolerable_failures
+        self.traces = traces  # TraceRegistry: checkpoint lifecycle spans
         self._consecutive_failures = 0
         self._on_complete: List[Callable[[int], None]] = []
         # CheckpointStatsTracker (metrics/checkpoint_stats.py): stats flow
@@ -104,25 +105,35 @@ class CheckpointCoordinator:
         Beyond tolerance the phase error is re-raised (chained into
         CheckpointFailuresExhaustedError) for the restart strategy."""
         cid = self._next_id
+        span = self.traces.span("checkpointing", "Checkpoint") if self.traces else None
         if self.stats is not None:
             self.stats.report_pending(cid)
         # sync phase: pull device state to the host + source positions
+        cap_span = (self.traces.span("checkpointing", "CheckpointCapture")
+                    if self.traces else None)
         t_cap = self._clock()
         try:
             data = capture_fn()
-        except BaseException as e:  # noqa: BLE001 — record, tolerate/raise
-            return self._failed(cid, e)
+        except BaseException as e:  # noqa: BLE001 — record, close spans,
+            return self._failed(cid, e, span, cap_span)  # tolerate/raise
         sync_ms = (self._clock() - t_cap) * 1000.0
+        if cap_span is not None:
+            self.traces.report(cap_span.set_attribute("checkpointId", cid).end())
         data["checkpoint_id"] = cid
         # async phase: persist to checkpoint storage; a failed persist flips
-        # the record to FAILED instead of leaving it PENDING
+        # the record to FAILED (and closes the spans with the cause) instead
+        # of leaving it PENDING
+        persist_span = (self.traces.span("checkpointing", "CheckpointPersist")
+                        if self.traces else None)
         t_save = self._clock()
         try:
             self.storage.save(cid, data)
         except BaseException as e:  # noqa: BLE001
-            return self._failed(cid, e)
+            return self._failed(cid, e, span, persist_span)
         async_ms = (self._clock() - t_save) * 1000.0
         self._consecutive_failures = 0   # tolerance counts CONSECUTIVE
+        if persist_span is not None:
+            self.traces.report(persist_span.set_attribute("checkpointId", cid).end())
         self._next_id += 1
         self._last_trigger = self._clock()
         self.num_completed += 1
@@ -143,17 +154,19 @@ class CheckpointCoordinator:
         for fn in list(self._on_complete):
             fn(cid)
         self._retain()
+        if span is not None:
+            self.traces.report(span.set_attribute("checkpointId", cid)
+                               .set_attribute("status", "COMPLETED").end())
         return cid
 
-    def _failed(self, cid: int, exc: BaseException) -> None:
-        """A checkpoint phase raised: record FAILED, then either TOLERATE
+    def _failed(self, cid: int, exc: BaseException, span=None, phase_span=None) -> None:
+        """A checkpoint phase raised: record FAILED, close the spans, then either TOLERATE
         (within tolerable_failures: bump the failed id so the retry never
         reuses it, restart the interval clock, return None) or re-raise for
         the restart strategy. Non-Exception BaseExceptions
         (KeyboardInterrupt, SystemExit) are never tolerated: tolerance is
         for storage faults, not for interpreter shutdown."""
-        if self.stats is not None:
-            self.stats.report_failed(cid, repr(exc))
+        self._abort(cid, exc, span, phase_span)
         if not isinstance(exc, Exception):
             raise exc
         self._consecutive_failures += 1
@@ -167,6 +180,19 @@ class CheckpointCoordinator:
                 f"consecutive failures exceed tolerable-failed-checkpoints "
                 f"{self.tolerable_failures}") from exc
         raise exc
+
+    def _abort(self, cid: int, exc: BaseException, span, phase_span) -> None:
+        """Flip the tracker record to FAILED and close the open spans with
+        the failure attribute."""
+        if self.stats is not None:
+            self.stats.report_failed(cid, repr(exc))
+        if phase_span is not None:
+            self.traces.report(phase_span.set_attribute("checkpointId", cid)
+                               .set_attribute("status", "FAILED").end())
+        if span is not None:
+            self.traces.report(span.set_attribute("checkpointId", cid)
+                               .set_attribute("status", "FAILED")
+                               .set_attribute("failureCause", repr(exc)[:200]).end())
 
     def _retain(self) -> None:
         cps = self.storage.list_checkpoints()

@@ -80,10 +80,11 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 
 #: key prefixes of the JAX package's options the port does not carry yet
 _UNPORTED_PREFIXES = (
-    ("parallel.mesh.autoscale", deferred.METRICS),
     ("parallel.", deferred.MESH),
-    ("observability.", deferred.METRICS),
-    ("autoscaler.", deferred.METRICS),
+    ("autoscaler.", deferred.MESH),
+    ("observability.device.", deferred.D4),
+    ("observability.profiler.", deferred.D4),
+    ("observability.shipping.", deferred.CLUSTER),
     ("chaos.", deferred.CHAOS),
     ("security.", deferred.CHAOS),
 )
@@ -314,7 +315,7 @@ class ParallelOptions:
     devices come from parallel/mesh.py::visible_devices. The skew
     rebalancer (parallel.mesh.skew-rebalance, .key-groups, .rebalance.*),
     device-loss degrade and mesh autoscale options are not ported yet
-    (ROADMAP.md Queue A, items 13b and 15)."""
+    (ROADMAP.md Queue A, item 13b)."""
 
     MESH_ENABLED = (
         ConfigOptions.key("parallel.mesh.enabled").bool_type().default_value(False)
@@ -460,6 +461,174 @@ class CheckpointingOptions:
         "still lands a FAILED record in the checkpoint stats; a completed "
         "checkpoint resets the count. 0 (default) restarts on the first "
         "failure.")
+
+
+class ObservabilityOptions:
+    """The streaming observability plane (reference: LatencyMarker emission,
+    TaskIOMetricGroup busy/idle/backPressured sampling). Keys, defaults and
+    descriptions are the JAX package's. Not ported yet, raising where a job
+    sets them: observability.device.* and observability.profiler.* (ROADMAP
+    item D4: the compile tracker, phase counters, key statistics and the
+    profiler capture) and observability.shipping.interval-ms (item 14: the
+    TaskManager heartbeat of the cluster). So a port job registers no
+    job.device.* and no job.keySkew gauges, which every JAX job with the
+    default observability.device.enabled has."""
+
+    MARKER_INTERVAL_MS = (
+        ConfigOptions.key("observability.latency-markers.interval-ms")
+        .duration_ms_type().default_value(0)
+    ).with_description(
+        "Minimum wall-clock spacing between latency markers stamped at each "
+        "source (LatencyMarker analogue). 0 stamps one marker per source "
+        "batch; -1 disables marker emission entirely. Markers forwarded "
+        "from an upstream stage over the dataplane always pass through "
+        "regardless of this interval."
+    )
+    SAMPLING_INTERVAL_MS = (
+        ConfigOptions.key("observability.sampling.interval-ms")
+        .duration_ms_type().default_value(100)
+    ).with_description(
+        "Window over which busy/idle/backPressured time deltas are sampled "
+        "into the *MsPerSecond gauges (the reference's backpressure "
+        "sampling period). Lifetime ratios are maintained continuously and "
+        "are unaffected."
+    )
+    DEVICE_TIMING_ENABLED = (
+        ConfigOptions.key("observability.device-timing.enabled")
+        .bool_type().default_value(True)
+    ).with_description(
+        "Time the host-side device sections of each window step (kernel "
+        "dispatch + any blocking readback) into per-operator "
+        "deviceDispatchMs histograms and deviceTimeMsTotal gauges. Timing "
+        "is host-clock around already-synchronous sections — it never "
+        "inserts extra block_until_ready syncs into deferred pipelines."
+    )
+    CHECKPOINT_HISTORY_SIZE = (
+        ConfigOptions.key("observability.checkpoint-history.size")
+        .int_type().default_value(10)
+    ).with_description(
+        "Per-checkpoint stat records retained in the CheckpointStatsTracker "
+        "ring per job (trigger timestamp, capture/persist durations, "
+        "per-task ack latency, state sizes, status and failure cause), "
+        "served at /jobs/:id/checkpoints. Lifetime counters and the "
+        "last-checkpoint gauges are unaffected by the ring size."
+    )
+    EXCEPTION_HISTORY_SIZE = (
+        ConfigOptions.key("observability.exception-history.size")
+        .int_type().default_value(16)
+    ).with_description(
+        "Exception-history entries and recovery-timeline records retained "
+        "per job (timestamp, task/TaskManager attribution, root-cause "
+        "chain, restart number; restore duration, rewound checkpoint id, "
+        "replay depth, downtime), served at /jobs/:id/exceptions."
+    )
+    EMISSION_LATENCY_ENABLED = (
+        ConfigOptions.key("observability.emission-latency.enabled")
+        .bool_type().default_value(True)
+    ).with_description(
+        "Record per-operator emission latency — host_resolve_wall_ms minus "
+        "(window_end_event_ms + allowed lateness) — into a log-bucketed "
+        "emissionLatencyMs histogram at the instant deferred emissions "
+        "resolve, plus a watermarkLagMs gauge per windowed operator. "
+        "Stamping happens on already-host-side resolve paths (it never "
+        "forces a device sync); the fold across mesh shards merges "
+        "histogram buckets and takes MAX lag. Serves /jobs/:id/latency, "
+        "Prometheus summaries and the bench latency_frontier block."
+    )
+    EMISSION_LATENCY_OUTLIER_PCT = (
+        ConfigOptions.key("observability.emission-latency.outlier-percentile")
+        .float_type().default_value(99.0)
+    ).with_description(
+        "Fires whose emission latency lands at or above this percentile of "
+        "the operator's own histogram (once 16+ samples exist) are captured "
+        "as outliers: kept in a bounded ring and reported as latency-scope "
+        "EmissionStall spans for tail attribution against concurrent "
+        "control-plane spans (checkpoint, restart, rescale, rebalance, "
+        "recompile)."
+    )
+    EMISSION_LATENCY_OUTLIER_FLOOR_MS = (
+        ConfigOptions.key("observability.emission-latency.outlier-floor-ms")
+        .float_type().default_value(5.0)
+    ).with_description(
+        "Absolute floor under which a fire is never treated as an outlier "
+        "regardless of percentile rank — keeps a uniformly-fast operator "
+        "(sub-millisecond tail) from spamming EmissionStall spans over "
+        "noise."
+    )
+    EMISSION_LATENCY_OUTLIER_RING = (
+        ConfigOptions.key("observability.emission-latency.outlier-ring-size")
+        .int_type().default_value(64)
+    ).with_description(
+        "Outlier records retained per operator (resolve wall time + "
+        "latency) for the /jobs/:id/latency stall-attribution report. The "
+        "histogram and lifetime counters are unaffected by the ring size."
+    )
+    EMISSION_LATENCY_OUTLIER_MIN_SAMPLES = (
+        ConfigOptions.key(
+            "observability.emission-latency.outlier-min-samples")
+        .int_type().default_value(16)
+    ).with_description(
+        "Recorded fires an operator needs before any fire can be captured "
+        "as an outlier — the percentile threshold is meaningless over a "
+        "near-empty histogram. Chaos/validation runs set 1 so the first "
+        "post-restore fire is capture-eligible and its stall interval "
+        "pins the recovery span."
+    )
+    HISTORY_INTERVAL_MS = (
+        ConfigOptions.key("observability.history.interval-ms")
+        .duration_ms_type().default_value(1000)
+    ).with_description(
+        "Sampling interval of the metric history plane: every registered "
+        "job/operator metric is sampled into a bounded time-series ring "
+        "on the existing processing-time tick (MiniCluster step boundary "
+        "/ JobManager schedule tick) — counters recorded as windowed "
+        "rates, gauges as values, histograms as per-sample p50/p99 "
+        "sub-series. Served at /jobs/:id/history on both execution paths."
+    )
+    HISTORY_RETENTION_POINTS = (
+        ConfigOptions.key("observability.history.retention-points")
+        .int_type().default_value(256)
+    ).with_description(
+        "Points retained per metric series (a bounded ring — the oldest "
+        "point falls off when the ring is full). Together with the "
+        "sampling interval this bounds the lookback window: 256 points "
+        "at 1000 ms is ~4.3 minutes of trajectory per metric."
+    )
+    DOCTOR_ENABLED = (
+        ConfigOptions.key("observability.doctor.enabled")
+        .bool_type().default_value(True)
+    ).with_description(
+        "Run the job doctor and its health watchdog: /jobs/:id/doctor "
+        "serves a ranked, evidence-attributed bottleneck diagnosis joined "
+        "over the history rings and the span stream, and the watchdog "
+        "turns threshold breaches (throughput collapse vs the job's own "
+        "recent baseline, watermark stall, backpressure saturation, "
+        "emission-p99 breach) into rate-limited health.* spans."
+    )
+    DOCTOR_WINDOW_MS = (
+        ConfigOptions.key("observability.doctor.window-ms")
+        .duration_ms_type().default_value(60000)
+    ).with_description(
+        "Lookback window of one doctor diagnosis: history points and "
+        "spans older than this are ignored when scoring bottleneck "
+        "families."
+    )
+    DOCTOR_WATCHDOG_MIN_GAP_MS = (
+        ConfigOptions.key("observability.doctor.watchdog-min-gap-ms")
+        .duration_ms_type().default_value(5000)
+    ).with_description(
+        "Rate limit per health.* span family: a sustained breach emits at "
+        "most one span per gap, so a wedged job cannot flood the bounded "
+        "span ring with identical watchdog spans."
+    )
+    DOCTOR_P99_BREACH_MS = (
+        ConfigOptions.key("observability.doctor.p99-breach-ms")
+        .float_type().default_value(0.0)
+    ).with_description(
+        "Emission-latency p99 threshold for the health.P99Breach watchdog "
+        "span (0 disables the check — there is no universal latency SLO; "
+        "jobs with one declare it here)."
+    )
 
 
 class RestartOptions:

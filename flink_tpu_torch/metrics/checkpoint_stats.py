@@ -4,13 +4,14 @@ Counterpart of `flink_tpu/metrics/checkpoint_stats.py`, for the in-process
 MiniCluster: the checkpoint coordinator feeds a `CheckpointStatsTracker`
 (capture = sync phase, persist = async phase), and the MiniCluster records
 exception and recovery entries in an `ExceptionHistory` around each
-attempt; `JobClient` carries both. Plain data and plain callables, no
-import of the runtime: stats flow outward through these trackers.
+attempt; `JobClient` carries both, and `register_metrics` puts each
+tracker's standard gauges on the job's metric group. Plain data and plain
+callables, no import of the runtime: stats flow outward through these
+trackers.
 
-Left out until ROADMAP item 15 (job metrics): `register_metrics` of both
-trackers (the metric registry), and the distributed path's helpers
-(`snapshot_bytes_estimate`, `operator_bytes_from_snapshot`, the empty REST
-payloads). The standard gauges read as a dict from `gauge_values()`.
+Left out until ROADMAP item 14 (the cluster): the distributed path's
+helpers (`snapshot_bytes_estimate`, `operator_bytes_from_snapshot`, the
+empty REST payloads).
 """
 
 from __future__ import annotations
@@ -262,6 +263,23 @@ class CheckpointStatsTracker:
                 prefix + "lastCheckpointRestoreTimestamp": restore_ts,
             }
 
+    def register_metrics(self, group) -> None:
+        """Register the standard gauges on a metric group (names per the
+        reference's CheckpointStatsTracker.registerMetrics). Completed and
+        failed totals are monotone (kind "counter": the history plane
+        records checkpoint rates); the last* family are point-in-time facts
+        that fold MAX."""
+        for name, fold, kind in (
+                ("numberOfCompletedCheckpoints", "sum", "counter"),
+                ("numberOfFailedCheckpoints", "sum", "counter"),
+                ("consecutiveFailedCheckpoints", "max", None),
+                ("numberOfInProgressCheckpoints", "sum", None),
+                ("lastCheckpointDuration", "max", None),
+                ("lastCheckpointSize", "max", None),
+                ("lastCheckpointRestoreTimestamp", "max", None)):
+            group.gauge(name, lambda n=name: self.gauge_values()[n],
+                        fold=fold, kind=kind)
+
     def payload(self) -> Dict[str, Any]:
         """REST /jobs/:id/checkpoints body (CheckpointingStatistics shape:
         counts + summary + latest + bounded history, newest first)."""
@@ -420,6 +438,14 @@ class ExceptionHistory:
                 prefix + "lastCheckpointRestoreDurationMs": (
                     (last.get("restore_duration_ms") or 0) if last else 0),
             }
+
+    def register_metrics(self, group) -> None:
+        for name, fold, kind in (
+                ("numRestarts", "sum", "counter"),
+                ("lastRestartDowntimeMs", "max", None),
+                ("lastCheckpointRestoreDurationMs", "max", None)):
+            group.gauge(name, lambda n=name: self.gauge_values()[n],
+                        fold=fold, kind=kind)
 
     def payload(self) -> Dict[str, Any]:
         """REST /jobs/:id/exceptions body: root exception + bounded entry

@@ -90,8 +90,8 @@ def plan_query(
             # two-input stream is built by the table layer (row streams are
             # an api-layer concern), which stamps the window_join
             # transformation sql_origin so the runtime's DeviceJoinRunner
-            # counts as the SQL-fused selection (its sqlFusedSelected gauge
-            # waits for ROADMAP item 15). The report stays `lowered=None`
+            # counts as the SQL-fused selection (the job's sqlFusedSelected
+            # gauge). The report stays `lowered=None`
             # by design, as in the JAX package.
             for name in (q.table, q.join.table2):
                 if sources.get(name) is None:

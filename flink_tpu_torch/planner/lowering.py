@@ -31,9 +31,8 @@ where the JAX package emits `.astype("int32")`, and masks built from the
 comparison table (`table/sql.py::CMP_OPS`), `&`/`|` on bool tensors and
 the null-aware `a == a` NaN test. The columnarizer stays numpy.
 
-The window terminal carries `sql_origin: True`; the runners carry it
-(the JAX package's `job.sqlFusedSelected` gauge waits for the port's job
-metrics, ROADMAP item 15).
+The window terminal carries `sql_origin: True`; the runners carry it, and
+the job's `job.sqlFusedSelected` gauge reads it.
 """
 
 from __future__ import annotations

@@ -27,8 +27,12 @@ With `parallel.mesh.enabled` the rings split over the shards of the
 executor's `_mesh_for_config` mesh (joins/sharded.py), and `sharded` says
 so; under 2 usable devices they stay on one device.
 
-Left out (ROADMAP.md Queue A): the join gauges and the emission tracker
-(item 15) and the chaos hook (item 14).
+Observability: the JAX runner's join gauge family (joinRingOccupancy,
+joinMatchesEmitted, joinFallbackReason, stateBytes, stateKeyCount,
+numLateRecordsDropped, currentWatermark) and its emission tracker, which
+stamps each ripe window after its matches' rows reached the host.
+
+Left out (ROADMAP.md Queue A): the chaos hook (item 14).
 """
 
 from __future__ import annotations
@@ -42,8 +46,14 @@ from flink_tpu_torch.config import Configuration, ExecutionOptions
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.joins.pipeline import FusedJoinPipeline
 from flink_tpu_torch.joins.sharded import ShardedJoinPipeline
-from flink_tpu_torch.joins.spec import JoinUnsupported, plan_join_geometry
-from flink_tpu_torch.runtime.executor import StepRunner, WindowJoinRunner, _mesh_for_config
+from flink_tpu_torch.joins.spec import JoinUnsupported, fallback_code, plan_join_geometry
+from flink_tpu_torch.metrics.emission_latency import watermark_lag_ms
+from flink_tpu_torch.runtime.executor import (
+    StepRunner,
+    WindowJoinRunner,
+    _mesh_for_config,
+    make_emission_tracker,
+)
 from flink_tpu_torch.utils.arrays import obj_array
 from flink_tpu_torch.utils.device import resolve_device
 
@@ -95,6 +105,7 @@ class DeviceJoinRunner(StepRunner):
         self.matches_emitted = 0
         self.fallback_reason: Optional[str] = None
         self._host: Optional[WindowJoinRunner] = None
+        self.emission_tracker = make_emission_tracker(t.uid, config)
 
     def _new_pipeline(self) -> FusedJoinPipeline:
         """The rings at the current geometry: split over the job's mesh
@@ -254,12 +265,17 @@ class DeviceJoinRunner(StepRunner):
         out_vals: List[Any] = []
         out_ts: List[int] = []
         fn = self.join_fn
+        tracker = self.emission_tracker
         for start, end in self._ripe_windows(prev, self._wm):
             lids, rids, _kids = self.pipeline.fire_window(start, end)
             if len(lids) == 0:
                 continue
             lrows = self.pipeline.left.take_rows(lids)
             rrows = self.pipeline.right.take_rows(rids)
+            if tracker is not None:
+                # take_rows is this window's host-visibility point: stamp
+                # after it, never before
+                tracker.record_fire(end)
             max_ts = end - 1
             out_vals.extend(fn(a, b) for a, b in zip(lrows, rrows))
             out_ts.extend([max_ts] * len(lrows))
@@ -279,6 +295,30 @@ class DeviceJoinRunner(StepRunner):
             self._host.on_end()
         else:
             super().on_end()
+
+    # -- metrics -----------------------------------------------------------
+    def register_metrics(self, group) -> None:
+        super().register_metrics(group)
+
+        def _wm():
+            return self._host._wm if self._host is not None else self._wm
+
+        group.gauge("currentWatermark", _wm, fold="min")
+        if self.emission_tracker is not None:
+            group.gauge("emissionLatencyMs", self.emission_tracker.snapshot,
+                        fold="emission", kind="histogram")
+            group.gauge("watermarkLagMs", lambda: watermark_lag_ms(_wm()), fold="max")
+        group.gauge("numLateRecordsDropped",
+                    lambda: (self._sync_late(), self.num_late_dropped)[1],
+                    fold="sum", kind="counter")
+        group.gauge("joinRingOccupancy", self.occupancy, fold="sum")
+        group.gauge("joinMatchesEmitted", lambda: self.matches_emitted,
+                    fold="sum", kind="counter")
+        # a catalogued reason code, not a count: "did any shard degrade"
+        group.gauge("joinFallbackReason", lambda: fallback_code(self.fallback_reason),
+                    fold="max")
+        group.gauge("stateBytes", self.state_bytes, fold="sum")
+        group.gauge("stateKeyCount", lambda: len(self._keys), fold="sum")
 
     # -- introspection -----------------------------------------------------
     def occupancy(self) -> int:

@@ -58,11 +58,24 @@ boundary `run` takes the client's live mesh-rescale request: it raises
 rebuilds the runtime over the new size and restores it, exactly-once.
 `pipeline.parallelism` is read by no runner, as in the JAX package.
 
-Left out, raising where a job asks for them (ROADMAP.md Queue A): job
-metrics and emission latency (item 15), the mesh with tiering or shared
-partials and its skew rebalancer (item 13b), the chaos hook (item 14),
-operator coordinators (item 19's process functions: `coordinators` stays
-empty) and the rest of the DataStream API's runners (item 19).
+Observability (`observability.*`, the JAX package's defaults): every
+runner registers its operator metrics on the job's registry
+(`register_runner_metrics`: numRecordsIn, the latencyMs histogram of the
+latency markers, and each family's gauges), device runners time their
+dispatch and readback sections on the host clock (`DeviceTimer`, no
+synchronize of its own), windowed runners stamp each fire's emission
+latency where its rows become host-visible (`make_emission_tracker`), and
+`JobRuntime` registers the job group and stamps a latency marker at each
+source batch. Unlike the JAX runners, whose window, chain and sink
+runners register numRecordsIn and never count it (ROADMAP.md Queue C),
+every runner counts the records handed to it.
+
+Left out, raising where a job asks for them (ROADMAP.md Queue A): the
+device and key statistics and the profiler (D4: so no job.device.* and no
+job.keySkew gauges), the mesh with tiering or shared partials and its skew
+rebalancer (item 13b), the chaos hook (item 14), operator coordinators
+(item 19's process functions: `coordinators` stays empty) and the rest of
+the DataStream API's runners (item 19).
 """
 
 from __future__ import annotations
@@ -81,6 +94,7 @@ from flink_tpu_torch.config import (
     Configuration,
     ExecutionOptions,
     LatencyOptions,
+    ObservabilityOptions,
     ParallelOptions,
     PipelineOptions,
     StateTierOptions,
@@ -88,6 +102,13 @@ from flink_tpu_torch.config import (
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Step, StepGraph, Transformation
+from flink_tpu_torch.metrics.emission_latency import (
+    EmissionLatencyTracker,
+    merge_snapshots as _merge_emission_snapshots,
+    watermark_lag_ms,
+)
+from flink_tpu_torch.metrics.registry import Gauge, MetricRegistry
+from flink_tpu_torch.metrics.task_io import DeviceTimer, TaskIOMetrics
 from flink_tpu_torch.ops.aggregators import ONE, resolve
 from flink_tpu_torch.parallel import mesh as mesh_lib
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
@@ -120,7 +141,8 @@ class JobExecutionResult:
 
 class _FanOut:
     """Downstream edge set of one runner: routes to every consumer's input
-    gate (ordinal)."""
+    gate (ordinal), counting the records into each consumer's
+    numRecordsIn."""
 
     __slots__ = ("edges",)
 
@@ -134,22 +156,38 @@ class _FanOut:
         self.edges.append((runner, ordinal))
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
-        for r, o in self.edges:
-            r.on_batch_n(o, values, timestamps)
+        _deliver(self.edges, values, timestamps)
 
     def on_watermark(self, watermark: int) -> None:
         for r, o in self.edges:
             r.on_watermark_n(o, watermark)
+
+    def on_marker(self, wall_ms: float) -> None:
+        for r, _o in self.edges:
+            r.on_marker(wall_ms)
 
     def on_end(self) -> None:
         for r, o in self.edges:
             r.on_end_n(o)
 
 
+def _deliver(edges, values, timestamps) -> None:
+    """Hand one batch to every (runner, gate) edge, counting it into each
+    runner's numRecordsIn once its metrics are registered."""
+    n = len(timestamps)
+    for r, o in edges:
+        counter = r.records_in_counter
+        if counter is not None:
+            counter.inc(n)
+        r.on_batch_n(o, values, timestamps)
+
+
 class StepRunner:
     downstream: Optional[_FanOut] = None
     sides: Optional[Dict[str, _FanOut]] = None   # side-output channels by tag
     num_inputs: int = 1
+    records_in_counter = None   # numRecordsIn, once register_metrics ran
+    _marker_hist = None         # latencyMs, once register_metrics ran
 
     def side_channel(self, tag_id: str) -> _FanOut:
         if self.sides is None:
@@ -159,6 +197,12 @@ class StepRunner:
     def emit_side(self, tag_id: str, values, timestamps) -> None:
         if self.sides and tag_id in self.sides:
             self.sides[tag_id].on_batch(values, timestamps)
+
+    def register_metrics(self, group) -> None:
+        # operator-scope IO metrics: the records handed to this runner, and
+        # the source-to-here transit of each latency marker as it passes
+        self.records_in_counter = group.counter("numRecordsIn")
+        self._marker_hist = group.histogram("latencyMs")
 
     # -- input-gate protocol (the multi-input valve) ------------------------
     def on_batch_n(self, ordinal: int, values: np.ndarray, timestamps: np.ndarray) -> None:
@@ -200,6 +244,19 @@ class StepRunner:
         for f in (self.sides or {}).values():
             f.on_watermark(watermark)
 
+    def on_marker(self, wall_ms: float) -> None:
+        """Latency marker: a wall-clock stamp from the source that flows
+        straight through every runner (windows forward it at once), each
+        recording (now - stamp) into its latencyMs histogram before
+        forwarding."""
+        h = self._marker_hist
+        if h is not None:
+            h.update(time.time() * 1000.0 - wall_ms)
+        if self.downstream:
+            self.downstream.on_marker(wall_ms)
+        for f in (self.sides or {}).values():
+            f.on_marker(wall_ms)
+
     def on_processing_time(self, now_ms: int) -> None:
         """Wall-clock tick of the run loop; runners with processing-time
         timers fire them here."""
@@ -216,6 +273,21 @@ class StepRunner:
 
     def restore(self, snap: dict) -> None:
         pass
+
+
+def make_emission_tracker(uid: str, config: Configuration):
+    """Per-operator emission-latency tracker, or None when the plane is off
+    (observability.emission-latency.enabled). One policy for every windowed
+    runner family (fused, per-batch, session, global, join), so a job's
+    latency report sees one key shape."""
+    if not config.get(ObservabilityOptions.EMISSION_LATENCY_ENABLED):
+        return None
+    return EmissionLatencyTracker(
+        uid,
+        outlier_pct=config.get(ObservabilityOptions.EMISSION_LATENCY_OUTLIER_PCT),
+        outlier_floor_ms=config.get(ObservabilityOptions.EMISSION_LATENCY_OUTLIER_FLOOR_MS),
+        ring_size=config.get(ObservabilityOptions.EMISSION_LATENCY_OUTLIER_RING),
+        min_samples=config.get(ObservabilityOptions.EMISSION_LATENCY_OUTLIER_MIN_SAMPLES))
 
 
 def _fused_chunk(batch_size: int) -> int:
@@ -475,6 +547,8 @@ class WindowStepRunner(StepRunner):
     window_fn = None          # a ProcessWindowFunction (the oracle's)
     device = True             # False: the per-record oracle operator runs the step
     processing_time = False   # the step's windows are over processing time
+    # the fused operator's drain is its readback section
+    _drain_resolves_device = False
 
     def __init__(self, step: Step, config: Configuration, device: torch.device):
         t = step.terminal
@@ -536,6 +610,9 @@ class WindowStepRunner(StepRunner):
                 key_capacity=min(1 << 10, config.get(ExecutionOptions.KEY_CAPACITY)),
                 device=device)
         elif use_fused:
+            # the fused operator's drain is its readback section (deferred
+            # superbatch resolution); elsewhere drain is a host list swap
+            self._drain_resolves_device = True
             # start small and grow by doubling with the key dictionary: the
             # superscan's cost scales with the key capacity. With the state
             # tier (state.tier.*) the capacity is FIXED at the hot capacity
@@ -588,6 +665,36 @@ class WindowStepRunner(StepRunner):
                 emit_late_to_side_output=bool(cfg.get("side_output_late")),
             )
             self.device = False
+        self._init_planes(config)
+
+    def _init_planes(self, config: Configuration) -> None:
+        """Device timing (observability.device-timing.enabled): the host
+        clock around the dispatch and readback sections, never a
+        synchronize of its own. Emission latency
+        (observability.emission-latency.*): device operators stamp at their
+        own resolve sites (where a fired window's rows become
+        host-visible); the per-record oracle has no tracker surface, so the
+        runner stamps its drained rows instead: drain is the oracle's
+        visibility point."""
+        self.device_timer = (
+            DeviceTimer()
+            if self.device and config.get(ObservabilityOptions.DEVICE_TIMING_ENABLED)
+            else None)
+        self.emission_tracker = make_emission_tracker(self.uid, config)
+        self._emission_lateness = getattr(self.op, "allowed_lateness", 0)
+        self._emission_at_drain = False
+        if self.emission_tracker is not None:
+            if hasattr(type(self.op), "emission_tracker"):
+                self.op.emission_tracker = self.emission_tracker
+            else:
+                self._emission_at_drain = True
+
+    def _section(self, fn, *args):
+        """fn(*args), inside a device-timer section when timing is on."""
+        if self.device_timer is None:
+            return fn(*args)
+        with self.device_timer.section():
+            return fn(*args)
 
     def _keys_of(self, values) -> np.ndarray:
         if self.key_traceable:
@@ -625,7 +732,7 @@ class WindowStepRunner(StepRunner):
         keys = self._keys_of(values)
         if keys.ndim != 1 or keys.dtype.kind not in "iuUSO":
             keys = obj_array(list(keys))
-        self.op.process_batch(keys, self._values_of(values), timestamps)
+        self._section(self.op.process_batch, keys, self._values_of(values), timestamps)
 
     def _process_records(self, values, timestamps) -> None:
         """The oracle's per-record feed (the JAX runner's): processing-time
@@ -662,7 +769,7 @@ class WindowStepRunner(StepRunner):
             self._drain()
 
     def on_watermark(self, watermark: int) -> None:
-        self.op.process_watermark(watermark)
+        self._section(self.op.process_watermark, watermark)
         self._drain()
         # fused operators emit at superbatch granularity: forward only the
         # watermark their resolved output already covers (the session
@@ -689,7 +796,64 @@ class WindowStepRunner(StepRunner):
                 self.emit_side(tag_id, obj_array([(k, v) for (k, v, _t) in rows]),
                                np.asarray([t for (_k, _v, t) in rows], dtype=np.int64))
             op_sides[tag_id] = []
-        _push_rows(self.downstream, self.op.drain_output(), self.window_fn)
+        if self._drain_resolves_device:
+            # the fused operator's readback section, as the JAX runner times it
+            out = self._section(self.op.drain_output)
+        else:
+            out = self.op.drain_output()
+        if out and self._emission_at_drain:
+            tr, lateness = self.emission_tracker, self._emission_lateness
+            for _k, w, _r, t in out:
+                tr.record_fire(getattr(w, "end", int(t) + 1), lateness_ms=lateness)
+        _push_rows(self.downstream, out, self.window_fn)
+
+    def register_metrics(self, group) -> None:
+        super().register_metrics(group)
+        group.gauge("numLateRecordsDropped", lambda: self.op.num_late_records_dropped,
+                    fold="sum", kind="counter")
+
+        def _wm():
+            return getattr(self.op, "current_watermark",
+                           getattr(getattr(self.op, "timer_service", None),
+                                   "current_watermark", 0))
+
+        # the job's combined watermark is what every subtask reached: MIN
+        group.gauge("currentWatermark", _wm, fold="min")
+        if self.emission_tracker is not None:
+            # the flat log-bucket snapshot (folds bucket-wise across shards)
+            # and the wall-clock lag behind the watermark (worst shard)
+            group.gauge("emissionLatencyMs", self.emission_tracker.snapshot,
+                        fold="emission", kind="histogram")
+            group.gauge("watermarkLagMs", lambda: watermark_lag_ms(_wm()), fold="max")
+        if self.device_timer is not None:
+            self.device_timer._hist = group.histogram("deviceDispatchMs")
+            self.device_timer.register(group)
+        state_bytes = getattr(self.op, "state_bytes", None)
+        if state_bytes is not None:
+            group.gauge("stateBytes", state_bytes, fold="sum")
+        key_count = getattr(self.op, "state_key_count", None)
+        if key_count is not None:
+            group.gauge("stateKeyCount", key_count, fold="sum")
+        # the compile tracker, roofline, phase counters and key statistics
+        # of the JAX runner's device plane are ROADMAP item D4
+        # the state tier's gauges: counts and sizes SUM across shards, the
+        # hot fill ratio MEANs; eviction and promotion totals are monotone
+        tier_gauges = getattr(self.op, "tier_gauges", None)
+        if callable(tier_gauges) and tier_gauges() is not None:
+            for key, kind in (("vocabSize", None), ("residentKeys", None),
+                              ("evictions", "counter"), ("promotions", "counter"),
+                              ("spilledBytes", "counter"), ("changelogBytes", "counter")):
+                group.gauge(key, lambda k=key: self.op.tier_gauges().get(k),
+                            fold="sum", kind=kind)
+            group.gauge("tierHotFillRatio",
+                        lambda: self.op.tier_gauges().get("tierHotFillRatio"), fold="mean")
+        # latency mode's controller gauges, only when the mode is on (MAX
+        # across shards: the deepest rung is the job's latency view)
+        latency_gauges = getattr(self.op, "latency_gauges", None)
+        if callable(latency_gauges) and latency_gauges() is not None:
+            for key in ("latencyModeActive", "currentBatchRung", "inflightDepth",
+                        "ladderRecompiles"):
+                group.gauge(key, lambda k=key: self.op.latency_gauges().get(k), fold="max")
 
     def snapshot(self) -> dict:
         return {"operator": self.op.snapshot()}
@@ -737,6 +901,9 @@ class DeviceChainRunner(WindowStepRunner):
             **({} if assigners is None else {"assigners": list(assigners)}))
         self.uid = t.uid
         self.sql_origin = bool(cfg.get("sql_origin"))
+        # the drain resolves deferred dispatches' rows: the readback section
+        self._drain_resolves_device = True
+        self._init_planes(config)
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
         if len(timestamps) == 0:
@@ -746,7 +913,7 @@ class DeviceChainRunner(WindowStepRunner):
             values = _columnarize_records(values, "fused device chain")
         else:
             values = as_device_column(values)
-        self.op.process_raw_batch(values, timestamps)
+        self._section(self.op.process_raw_batch, values, timestamps)
 
 
 class SharedWindowSiblingRunner(StepRunner):
@@ -773,11 +940,8 @@ class SharedWindowRunner(DeviceChainRunner):
     shared ring (Factor Windows), and each member's rows go to its own
     downstream edges through its sibling runner. Construction is
     DeviceChainRunner's; only emission routing and the watermark and
-    end-of-input fan-out differ.
-
-    The JAX runner also fans latency markers out to every member; the port
-    has no latency markers until ROADMAP item 15, so there is no on_marker
-    here yet."""
+    end-of-input fan-out differ; latency markers fan out to every member,
+    as watermarks do."""
 
     def __init__(self, step: Step, shared_plan, config: Configuration, device: torch.device):
         self.shared_plan = shared_plan
@@ -790,12 +954,26 @@ class SharedWindowRunner(DeviceChainRunner):
     def _drain(self) -> None:
         # each member's lane to its own edges, in the record shape of an
         # unshared runner: sharing never changes what downstream receives
-        for spec, r in enumerate(self.member_runners):
-            _push_rows(r.downstream, self.op.drain_spec_output(spec))
+        drained = self._section(lambda: [self.op.drain_spec_output(spec)
+                                         for spec in range(len(self.member_runners))])
+        for r, out in zip(self.member_runners, drained):
+            _push_rows(r.downstream, out)
 
     def _forward_watermark(self, watermark: int) -> None:
         for r in self.member_runners:
             StepRunner.on_watermark(r, watermark)
+
+    def on_marker(self, wall_ms: float) -> None:
+        # every member's downstream sees the marker: sharing must not blind
+        # the sibling sinks' latency histograms
+        h = self._marker_hist
+        if h is not None:
+            h.update(time.time() * 1000.0 - wall_ms)
+        for r in self.member_runners:
+            if r.downstream:
+                r.downstream.on_marker(wall_ms)
+            for f in (r.sides or {}).values():
+                f.on_marker(wall_ms)
 
     def on_end(self) -> None:
         self._drain()
@@ -884,11 +1062,24 @@ class WindowJoinRunner(StepRunner):
 
 
 class SinkRunner(StepRunner):
+    _latency_hist = None
+
     def __init__(self, step: Step):
         sink = step.terminal.config["sink"]
         self.writer = sink.create_writer()
         self.committer = sink.create_committer()
         self.uid = step.terminal.uid
+
+    def register_metrics(self, group) -> None:
+        super().register_metrics(group)
+        # per-marker pipeline latency at the sink: source wall clock to
+        # sink arrival (the reference's LatencyMarker histogram)
+        self._latency_hist = group.histogram("pipelineLatencyMs")
+
+    def on_marker(self, wall_ms: float) -> None:
+        if self._latency_hist is not None:
+            self._latency_hist.update(time.time() * 1000.0 - wall_ms)
+        super().on_marker(wall_ms)
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
         self.writer.write_batch(values, timestamps)
@@ -1028,6 +1219,11 @@ def build_runners(graph: StepGraph, config: Configuration, device=None):
     return runners, feeds
 
 
+def register_runner_metrics(runners: List[StepRunner], registry: MetricRegistry) -> None:
+    for i, r in enumerate(runners):
+        r.register_metrics(registry.group("job", "operator", getattr(r, "uid", f"chain-{i}")))
+
+
 class JobCancelledException(Exception):
     pass
 
@@ -1055,14 +1251,18 @@ class JobRuntime:
             self.done = False
             self.finished_signalled = False
             self.feeds = feeds              # [(runner, ordinal)]
+            self.last_marker_wall = 0.0     # marker-interval throttle state
 
         def emit_batch(self, values, ts) -> None:
-            for r, o in self.feeds:
-                r.on_batch_n(o, values, ts)
+            _deliver(self.feeds, values, ts)
 
         def emit_watermark(self, wm: int) -> None:
             for r, o in self.feeds:
                 r.on_watermark_n(o, wm)
+
+        def emit_marker(self, wall_ms: float) -> None:
+            for r, _o in self.feeds:
+                r.on_marker(wall_ms)
 
         def finish(self) -> None:
             """End of this source: flush its watermark and close its gates
@@ -1093,16 +1293,70 @@ class JobRuntime:
             if self.generator is not None and snap.get("generator") is not None:
                 self.generator.restore(snap["generator"])
 
-    def __init__(self, graph: StepGraph, config: Configuration, device=None):
+    def __init__(self, graph: StepGraph, config: Configuration, device=None,
+                 registry: Optional[MetricRegistry] = None, traces=None):
         # pipeline.parallelism is read by no runner, as in the JAX package:
         # the job runs as one attempt whatever it is set to, and keyed
         # state spreads over devices through parallel.mesh.* instead
         self.graph = graph
         self.config = config
+        self.traces = traces    # optional TraceRegistry (emission-stall spans)
         self.runners, feeds = build_runners(graph, config, device)
         self.sources = [JobRuntime._SourceDriver(t, feeds.get(t.id, []))
                         for t in graph.sources]
         self.records_in = 0
+        # observability: job-scope throughput, busy/idle/backpressure
+        # ratios, step latency and device time
+        self.registry = registry or MetricRegistry()
+        registered_before = set(self.registry.all_metrics())
+        register_runner_metrics(self.runners, self.registry)
+        job_group = self.registry.group("job")
+        self.records_meter = job_group.meter("numRecordsInPerSecond")
+        self.step_latency = job_group.histogram("stepLatencyMs")
+        self.io = TaskIOMetrics()   # no exchange senders: nothing backpressures
+        self.io.register(job_group)
+        job_group.gauge("numRecordsIn", lambda: self.records_in, fold="sum", kind="counter")
+        # the shards this attempt's keyed state spans (1: one device); MAX,
+        # since each shard reports its own mesh's size
+        job_group.gauge("meshDevices", self.mesh_devices, fold="max")
+        # SQL jobs only: 1 when every SQL window step selected the fused
+        # runner (a device join counts), 0 when any fell back
+        sql_runners = tuple(r for r in self.runners if getattr(r, "sql_origin", False))
+        if sql_runners:
+            from flink_tpu_torch.runtime.device_join_operator import DeviceJoinRunner
+
+            job_group.gauge("sqlFusedSelected", lambda rs=sql_runners: int(all(
+                isinstance(r, (DeviceChainRunner, DeviceJoinRunner)) for r in rs)),
+                fold="min")
+        job_group.gauge("deviceTimeMsTotal", lambda: sum(
+            r.device_timer.total_s * 1000.0 for r in self.runners
+            if getattr(r, "device_timer", None) is not None),
+            fold="sum", kind="counter")
+        # the JAX job group's device plane (job.device.*, job.keySkew) is
+        # ROADMAP item D4: a port job registers neither
+        # emission latency: the job's p99 over every operator (MAX across
+        # shards), and the outlier EmissionStall spans into the trace plane
+        em_trackers = tuple(r.emission_tracker for r in self.runners
+                            if getattr(r, "emission_tracker", None) is not None)
+        if em_trackers:
+            job_group.gauge("p99EmissionLatencyMs", lambda ts=em_trackers: (
+                _merge_emission_snapshots([t.snapshot() for t in ts]).get("p99", 0.0)),
+                fold="max")
+            if traces is not None:
+                from flink_tpu_torch.metrics.traces import Span
+
+                for t in em_trackers:
+                    if t.span_sink is None:
+                        t.span_sink = (lambda scope, name, s0, s1, a, _tr=traces:
+                                       _tr.report(Span(scope, name, s0, s1, a)))
+        self._marker_interval = config.get(ObservabilityOptions.MARKER_INTERVAL_MS)
+        self._sampling_interval = config.get(ObservabilityOptions.SAMPLING_INTERVAL_MS)
+        # the gauges this attempt registered: their closures hold its
+        # runners, so a registry that outlives the attempt (the
+        # MiniCluster's, across restarts) drops them when the attempt ends
+        # (counters, meters and histograms hold no runner and carry on)
+        self.gauge_keys = [k for k, m in self.registry.all_metrics().items()
+                           if k not in registered_before and isinstance(m, Gauge)]
 
     # -- checkpoint surface ------------------------------------------------
     def capture(self) -> dict:
@@ -1219,23 +1473,41 @@ class JobRuntime:
             for d in self.sources:
                 if d.done:
                     continue
+                loop_t0 = time.perf_counter()
                 if cancel_check is not None and cancel_check():
                     raise JobCancelledException()
                 batch = d.reader.poll_batch(batch_size)
                 if batch is None:
                     d.current_split = d.enumerator.next_split()
+                    busy_dt = 0.0
                     if d.current_split is None:
                         d.done = True
+                        busy_t0 = time.perf_counter()
                         d.finish()
+                        busy_dt = time.perf_counter() - busy_t0
                     else:
                         d.reader.add_split(d.current_split)
+                    self.io.record_step(busy_dt, time.perf_counter() - loop_t0)
                     continue
                 values, ts = batch.values, batch.timestamps
                 if d.assigner is not None:
                     ts = np.asarray([d.assigner(v, int(x)) for v, x in zip(values, ts)],
                                     dtype=np.int64)
                 self.records_in += len(batch)
+                self.records_meter.mark(len(batch))
+                busy_t0 = time.perf_counter()
+                # the latency marker is stamped before the synchronous push,
+                # so a sink's (now - stamp) is this batch's real transit;
+                # observability.latency-markers.interval-ms spaces them (0:
+                # one a batch, -1: none)
+                t_mark = None
+                if self._marker_interval >= 0:
+                    now_wall = time.time() * 1000.0
+                    if now_wall - d.last_marker_wall >= self._marker_interval:
+                        d.last_marker_wall = t_mark = now_wall
                 d.emit_batch(values, ts)
+                if t_mark is not None:
+                    d.emit_marker(t_mark)
                 if d.generator is not None:
                     wm = (d.generator.on_batch_np(ts)
                           if hasattr(d.generator, "on_batch_np") else None)
@@ -1245,6 +1517,8 @@ class JobRuntime:
                         wm = d.generator.on_periodic_emit()
                     if wm is not None and wm > MIN_WATERMARK:
                         d.emit_watermark(wm)
+                step_dt = time.perf_counter() - busy_t0
+                self.step_latency.update(step_dt * 1000)
                 # step boundary: checkpoints and savepoints align here
                 if coordinator is not None:
                     coordinator.maybe_trigger(self.capture)
@@ -1261,11 +1535,14 @@ class JobRuntime:
                         raise MeshRescaleRequested(target, self.capture())
                 now_ms = time.time() * 1000.0
                 if now_ms - last_tick >= 50.0:
-                    # the processing-time service's tick: drive wall-clock
-                    # timers (the JAX run loop's 50 ms period)
+                    # the processing-time service's tick (the JAX run loop's
+                    # 50 ms period): drive wall-clock timers
                     last_tick = now_ms
                     for r in self.runners:
                         r.on_processing_time(int(now_ms))
+                    # and the busy/idle sampling window
+                    self.io.maybe_sample(self._sampling_interval)
+                self.io.record_step(step_dt, time.perf_counter() - loop_t0)
         # end of input: every source's final watermark + end signal fires
         # all remaining windows downstream
         for d in self.sources:

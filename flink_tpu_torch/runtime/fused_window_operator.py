@@ -702,10 +702,19 @@ class FusedWindowOperator:
         while self._inflight:
             self._resolve_oldest()
 
+    # emission-latency plane: set by the runner; each fire is stamped where
+    # its readback group has been waited on (never at enqueue or dispatch)
+    emission_tracker = None
+
     def _resolve_oldest(self) -> None:
         d, wm, purged_to = self._inflight.popleft()
-        for window, counts, fields in d.resolve():
-            self._emit(window, counts, fields)
+        tracker = self.emission_tracker
+        for fires in d.resolve_groups():
+            for window, counts, fields in fires:
+                if tracker is not None:
+                    w = window[1] if type(window) is tuple else window
+                    tracker.record_fire(w.end)
+                self._emit(window, counts, fields)
         if wm > self.emitted_watermark:
             self.emitted_watermark = wm
         if self.tier is not None:
@@ -882,6 +891,13 @@ class FusedWindowOperator:
         operator starts from this capacity again)."""
         return int(self._construction_key_capacity)
 
+    def state_bytes(self) -> int:
+        """Device bytes of the slice rings (0 until the pipeline's first
+        dispatch materializes them)."""
+        state = getattr(self.pipe, "_state", None) or {}
+        n = sum(int(getattr(a, "nbytes", 0)) for a in state.values())
+        return n + int(getattr(getattr(self.pipe, "_count", None), "nbytes", 0) or 0)
+
     def state_key_count(self) -> int:
         """Distinct keys the operator holds state for: the vocabulary's
         size (resident and cold) when tiered, else the key dictionary's."""
@@ -892,8 +908,8 @@ class FusedWindowOperator:
     def tier_gauges(self):
         """The tier gauge family (vocabSize, residentKeys, evictions,
         promotions, spilledBytes, changelogBytes, tierHotFillRatio), or None
-        when tiering is off (registering them with a job's metrics waits for
-        ROADMAP item 15)."""
+        when tiering is off; the runner registers them on the operator's
+        metric group."""
         return None if self.tier is None else self.tier.gauges()
 
     def tier_payload(self):
@@ -903,8 +919,7 @@ class FusedWindowOperator:
 
     def latency_gauges(self):
         """The latency-mode controller's gauges, or None when the mode is
-        off (registering them with a job's metrics waits for ROADMAP item
-        15)."""
+        off; the runner registers them on the operator's metric group."""
         if self._controller is None:
             return None
         return {

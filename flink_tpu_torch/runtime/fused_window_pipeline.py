@@ -121,6 +121,10 @@ class DeferredEmissions:
             for pf in self._fires
         ]
 
+    def resolve_groups(self):
+        """The fires as readback groups, each after its own wait: one."""
+        yield self.resolve()
+
 
 class _StreamedEmissions:
     """The handle of a dispatch run as readback groups (latency mode): one
@@ -135,9 +139,16 @@ class _StreamedEmissions:
 
     def resolve(self):
         out = []
-        for p in self._parts:
-            out.extend(p.resolve())
+        for fires in self.resolve_groups():
+            out.extend(fires)
         return out
+
+    def resolve_groups(self):
+        """Each readback group's fires as soon as its copy has been waited
+        on, in group order: a caller stamping emission latency stamps each
+        group when it reaches the host, not when the last one does."""
+        for p in self._parts:
+            yield p.resolve()
 
 
 class _PlanCursor:

@@ -21,10 +21,19 @@ step-aligned capture (`MeshRescaleRequested`), and the job master
 rebuilds the runtime over the new shard count and restores the capture —
 exactly-once, with no restart counted.
 
+Observability, as the JAX MiniCluster wires it: each job has a metric
+registry (`client.metrics`, shared by its attempts), a trace registry with
+the job's trace id (`client.traces`), an OTLP/JSON export
+(`client.otel`), a bounded span log (`client.span_log`), a metric history
+sampled at the step boundary (`client.history`) and the health watchdog
+(`client.watchdog`, observability.doctor.enabled). The checkpoint and
+exception trackers register their gauges on the job group, checkpoints and
+restarts report spans, and the client serves `latency_report`,
+`history_report` and `doctor_report` in the JAX package's shapes.
+
 Left out until their items (ROADMAP.md Queue A), each raising where it is
-asked for: the skew rebalance and the device-loss degrade of a mesh job
-(item 13b); the autoscaler, the metric history, the job doctor, traces and
-the metric registry (item 15); the `chaos.*` plan and `security=` (item 14).
+asked for: the skew rebalance, the device-loss degrade and the autoscaler
+of a mesh job (item 13b); the `chaos.*` plan and `security=` (item 14).
 """
 
 from __future__ import annotations
@@ -39,12 +48,28 @@ from typing import Dict, Optional
 from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
 from flink_tpu_torch.checkpoint.restart import restart_strategy_from_config
 from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage, MemoryCheckpointStorage
-from flink_tpu_torch.config import CheckpointingOptions, Configuration, ParallelOptions
+from flink_tpu_torch.config import (
+    CheckpointingOptions,
+    Configuration,
+    ObservabilityOptions,
+    ParallelOptions,
+)
 from flink_tpu_torch.graph.transformation import StepGraph
 from flink_tpu_torch.metrics.checkpoint_stats import (
     CheckpointStatsTracker,
     ExceptionHistory,
     failing_task,
+)
+from flink_tpu_torch.metrics.doctor import HealthWatchdog, diagnose
+from flink_tpu_torch.metrics.emission_latency import build_latency_report
+from flink_tpu_torch.metrics.history import MetricHistory
+from flink_tpu_torch.metrics.otel import OtlpJsonTraceReporter
+from flink_tpu_torch.metrics.registry import MetricRegistry, metrics_snapshot
+from flink_tpu_torch.metrics.traces import (
+    InMemoryTraceReporter,
+    Span,
+    TraceRegistry,
+    job_trace_id,
 )
 from flink_tpu_torch.parallel import mesh as mesh_lib
 from flink_tpu_torch.runtime.executor import (
@@ -54,12 +79,6 @@ from flink_tpu_torch.runtime.executor import (
 )
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import resolve_device
-
-# the JAX package's observability.checkpoint-history.size and
-# observability.exception-history.size defaults (the options come with
-# item 15)
-_CHECKPOINT_HISTORY = 10
-_EXCEPTION_HISTORY = 16
 
 
 class JobStatus(enum.Enum):
@@ -115,15 +134,58 @@ class JobClient:
         self.mesh_rescales = 0
         self.last_mesh_rescale_duration_ms = 0.0
         self._mesh_rescale_target: Optional[int] = None
+        # observability planes, wired when the job thread starts
+        self.metrics: Optional[MetricRegistry] = None
+        self.traces: Optional[TraceRegistry] = None
+        self.span_log: Optional[InMemoryTraceReporter] = None
+        self.history: Optional[MetricHistory] = None
+        self.watchdog: Optional[HealthWatchdog] = None
+        self.doctor_window_ms = 60000.0
+        self._attempt_gauges: list = []
+
+    def _drop_attempt_gauges(self) -> None:
+        """Drop the ended attempt's gauges from the job's registry: their
+        closures hold its operators (and so their device state), and the
+        next attempt registers its own under the same names. (The JAX
+        MiniCluster keeps the first attempt's, which then read a dead
+        runtime: ROADMAP Queue C.)"""
+        if self.metrics is not None:
+            self.metrics.unregister(self._attempt_gauges)
+        self._attempt_gauges = []
+
+    def _spans(self) -> list:
+        log = self.span_log
+        return [sp.to_dict() for sp in log.spans] if log is not None else []
 
     def latency_report(self) -> dict:
-        raise deferred.not_ported("JobClient.latency_report", deferred.METRICS)
+        """Emission latency and stall attribution (the /jobs/:id/latency
+        shape): per-operator log-bucket histograms and watermark lag from
+        the live registry, outlier EmissionStall spans attributed against
+        the job's checkpoint and restart spans."""
+        snap = metrics_snapshot(self.metrics.all_metrics()) if self.metrics else {}
+        return build_latency_report(snap, self._spans())
 
-    def history_report(self, metric=None, since=None) -> dict:
-        raise deferred.not_ported("JobClient.history_report", deferred.METRICS)
+    def history_report(self, metric: Optional[str] = None,
+                       since: Optional[float] = None) -> dict:
+        """The metric history rings (the /jobs/:id/history?metric=&since=
+        shape): counters as windowed rates, gauges as values, histograms as
+        per-sample p50/p99 sub-series."""
+        if self.history is None:
+            return {"enabled": False, "series": {}, "sample_count": 0}
+        payload = self.history.payload(
+            metric=metric or None,
+            since_ms=float(since) if since not in (None, "") else None)
+        payload["enabled"] = True
+        return payload
 
     def doctor_report(self) -> dict:
-        raise deferred.not_ported("JobClient.doctor_report", deferred.METRICS)
+        """Ranked bottleneck diagnosis (the /jobs/:id/doctor shape): the job
+        doctor over the history rings and this job's span log."""
+        if self.history is None:
+            return {"verdict": "unknown", "score": 0.0, "diagnoses": [],
+                    "window_ms": self.doctor_window_ms, "samples": 0,
+                    "watchdog_events": 0}
+        return diagnose(self.history, self._spans(), window_ms=self.doctor_window_ms)
 
     # -- status -----------------------------------------------------------
     def status(self) -> JobStatus:
@@ -243,15 +305,14 @@ class MiniCluster:
         restart strategy, restore, backoff and the savepoint hook. A
         failure of any attempt is caught here and counted against the
         strategy: this is the job's failover boundary."""
+        self._wire_observability(client, config)
         interval = config.get(CheckpointingOptions.INTERVAL_MS)
         chk_dir = config.get(CheckpointingOptions.DIRECTORY)
         storage = FsCheckpointStorage(chk_dir) if chk_dir else MemoryCheckpointStorage()
-        client.checkpoint_stats = CheckpointStatsTracker(history_size=_CHECKPOINT_HISTORY)
-        client.exceptions = ExceptionHistory(size=_EXCEPTION_HISTORY)
         coordinator = (
             CheckpointCoordinator(
                 storage, interval, config.get(CheckpointingOptions.MAX_RETAINED),
-                stats=client.checkpoint_stats,
+                traces=client.traces, stats=client.checkpoint_stats,
                 tolerable_failures=config.get(
                     CheckpointingOptions.TOLERABLE_FAILED_CHECKPOINTS))
             if interval > 0 else None)
@@ -263,6 +324,19 @@ class MiniCluster:
         attempt = 0
         restore_snap = None
         restore_ms = 0.0
+        # the open recovery span: from the failure until the rebuilt attempt
+        # runs, so a post-restore emission stall can be attributed to it
+        restart_span = None
+
+        def running(restored: bool) -> None:
+            # the rebuilt attempt runs: failure -> RUNNING is the downtime
+            # the recovery timeline records
+            nonlocal restart_span
+            if restart_span is not None:
+                client.traces.report(restart_span.set_attribute(
+                    "restoredCheckpoint", restored).end())
+                restart_span = None
+
         # the next attempt's mesh size after a live rescale (None: the
         # configured size), and the rescale in progress
         mesh_override: Optional[int] = None
@@ -287,7 +361,7 @@ class MiniCluster:
                 cfg = config.clone().set(ParallelOptions.MESH_DEVICES, mesh_override)
             try:
                 self._attempt(client, graph, cfg, device, coordinator, restore_snap,
-                              restore_ms, pending_rescale)
+                              restore_ms, pending_rescale, running)
                 client._set_status(JobStatus.FINISHED)
                 return
             except JobCancelledException:
@@ -298,6 +372,7 @@ class MiniCluster:
                 # new size and restore the step-aligned capture (no restart
                 # counted, no backoff)
                 client._runtime = None
+                client._drop_attempt_gauges()
                 mesh_override = mr.target
                 restore_snap, restore_ms = mr.snapshot, 0.0
                 pending_rescale = time.perf_counter()
@@ -311,6 +386,7 @@ class MiniCluster:
                 pending_rescale = None
                 attempt += 1
                 client._runtime = None
+                client._drop_attempt_gauges()
                 client.exceptions.record_failure(
                     repr(e), task=failing_task(e) or client.job_name,
                     restart_number=attempt - 1, exception=e)
@@ -332,18 +408,68 @@ class MiniCluster:
                 client._set_status(JobStatus.RESTARTING)
                 client.exceptions.begin_recovery(
                     attempt, cause=repr(client.error), events_at_failure=client.records_in)
+                if restart_span is not None:
+                    # the previous recovery never reached RUNNING: close its
+                    # span so the trace stays bounded
+                    client.traces.report(restart_span.set_attribute(
+                        "reachedRunning", False).end())
+                restart_span = (client.traces.span("recovery", "JobRestart")
+                                .set_attribute("attempt", attempt)
+                                .set_attribute("delayMs", delay)
+                                .set_attribute("cause", repr(client.error)[:200]))
                 time.sleep(delay / 1000.0)
                 t_restore = time.perf_counter()
                 restore_snap = coordinator.latest_snapshot() if coordinator else None
                 restore_ms = (time.perf_counter() - t_restore) * 1000.0
 
+    @staticmethod
+    def _wire_observability(client: JobClient, config: Configuration) -> None:
+        """The job's metric and trace planes (the JAX `_run_job_inner`'s):
+        a registry its attempts share, a trace registry carrying the job's
+        trace id with an OTLP/JSON export and a bounded span log, the
+        checkpoint and exception trackers' gauges on the job group, the
+        metric history and the health watchdog."""
+        client.metrics = MetricRegistry()
+        client.trace_id = job_trace_id(client.job_id)
+        client.traces = TraceRegistry(trace_id=client.trace_id)
+        client.otel = OtlpJsonTraceReporter(service_name="flink-tpu-torch")
+        client.traces.add_reporter(client.otel)
+        # the raw span log for the latency report's stall attribution and
+        # the doctor (bounded: a long-running job must not grow it)
+        client.span_log = InMemoryTraceReporter(max_spans=512)
+        client.traces.add_reporter(client.span_log)
+        client.history = MetricHistory(
+            interval_ms=config.get(ObservabilityOptions.HISTORY_INTERVAL_MS),
+            retention_points=config.get(ObservabilityOptions.HISTORY_RETENTION_POINTS))
+        client.doctor_window_ms = float(config.get(ObservabilityOptions.DOCTOR_WINDOW_MS))
+        client.watchdog = None
+        if config.get(ObservabilityOptions.DOCTOR_ENABLED):
+            def _health_sink(scope, name, start_ms, end_ms, attrs, _c=client):
+                _c.traces.report(Span(scope, name, start_ms, end_ms,
+                                      dict(attrs, jobId=_c.job_id)))
+
+            client.watchdog = HealthWatchdog(
+                _health_sink,
+                min_gap_ms=float(config.get(ObservabilityOptions.DOCTOR_WATCHDOG_MIN_GAP_MS)),
+                p99_breach_ms=config.get(ObservabilityOptions.DOCTOR_P99_BREACH_MS))
+        job_group = client.metrics.group("job")
+        client.checkpoint_stats = CheckpointStatsTracker(
+            history_size=config.get(ObservabilityOptions.CHECKPOINT_HISTORY_SIZE))
+        client.checkpoint_stats.register_metrics(job_group)
+        client.exceptions = ExceptionHistory(
+            size=config.get(ObservabilityOptions.EXCEPTION_HISTORY_SIZE))
+        client.exceptions.register_metrics(job_group)
+
     def _attempt(self, client: JobClient, graph: StepGraph, config: Configuration, device,
                  coordinator, restore_snap: Optional[dict], restore_ms: float,
-                 rescale_t0: Optional[float] = None) -> None:
+                 rescale_t0: Optional[float] = None, running=None) -> None:
         """One attempt: build the runtime, restore, run to the end. Its
         locals (the runtime above all) die with its frame. `rescale_t0`:
-        this attempt completes a live mesh rescale started then."""
-        runtime = JobRuntime(graph, config, device)
+        this attempt completes a live mesh rescale started then;
+        `running(restored)`: called once the attempt runs."""
+        runtime = JobRuntime(graph, config, device, registry=client.metrics,
+                             traces=client.traces)
+        client._attempt_gauges = runtime.gauge_keys
         client._runtime = runtime  # queryable state
         if coordinator is not None:
             # each attempt gets its full tolerable-failed-checkpoints budget
@@ -364,9 +490,17 @@ class MiniCluster:
             restore_duration_ms=restore_ms,
             events_replayed=(client.records_in - restore_snap.get("records_in", 0)
                              if restore_snap is not None else client.records_in))
+        if running is not None:
+            running(restore_snap is not None)
 
         def cancel_check():
             client.records_in = runtime.records_in  # progress gauge
+            # the history's tick: the cheap due() gate every step, the
+            # registry snapshot only when an interval is due
+            if client.history.due():
+                client.history.sample(metrics_snapshot(client.metrics.all_metrics()))
+                if client.watchdog is not None:
+                    client.watchdog.observe(client.history)
             return client._cancel.is_set()
 
         def savepoint_request():

@@ -130,6 +130,8 @@ class ShardedTpuWindowOperator(TpuWindowOperator):
                 self._emit_window(j, touch_mask=True)
 
     # -- sharded emission -----------------------------------------------
+    # (stamps no emission latency, as the JAX sharded operator stamps none:
+    # a mesh per-batch job's emissionLatencyMs stays empty, ROADMAP Queue C)
     def _emit_window(self, j: int, *, touch_mask: bool) -> None:
         window = self.window_of(j)
         start_slice = j * self.sl

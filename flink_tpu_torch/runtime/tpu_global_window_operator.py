@@ -72,7 +72,8 @@ class TpuGlobalWindowOperator:
     """Duck-types the window-operator runner interface."""
 
     _WINDOW = GlobalWindow()
-    # the emission-latency plane (ROADMAP item 15): stays None on the port
+    # emission-latency plane: set by the runner; count-triggered fires have
+    # no event-time close, so the tracker counts them as `sentinel`
     emission_tracker = None
 
     def __init__(
@@ -155,6 +156,8 @@ class TpuGlobalWindowOperator:
         if idx_t.numel() == 0:
             return
         idx, res = (t.numpy() for t in HostCopy([idx_t, result[idx_t]]).wait())
+        if self.emission_tracker is not None:
+            self.emission_tracker.record_fire(MAX_WATERMARK, count=len(idx))
         key_at = self.keydict.key_at
         self.output.extend((key_at(i), self._WINDOW, v, MAX_WATERMARK)
                            for i, v in zip(idx.tolist(), res.tolist()))

@@ -71,7 +71,8 @@ def _i64(x: int) -> int:
 class TpuSessionWindowOperator:
     """One shard's keyed session-window aggregation on one device."""
 
-    # emission-latency plane (ROADMAP item 15): stays None on the port
+    # emission-latency plane: set by the runner; each merged session is
+    # stamped once its merge's packed emissions have reached the host
     emission_tracker = None
 
     def __init__(
@@ -549,6 +550,10 @@ class TpuSessionWindowOperator:
             kids = kk[order].tolist()
             keys = kids if self._dense else [self.keydict.key_at(k) for k in kids]
             ends = (end_ts[order] + g).tolist()
+            tracker = self.emission_tracker
+            if tracker is not None:
+                for e in ends:
+                    tracker.record_fire(e)
             self.output.extend(zip(keys, map(TimeWindow, start_ts[order].tolist(), ends),
                                    results[order].tolist(), [e - 1 for e in ends]))
         if not last:

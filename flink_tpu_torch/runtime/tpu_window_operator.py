@@ -37,8 +37,8 @@ split is grow-only (no vocabulary, no eviction: that is the fused
 operator's `tier=`), and, as in the JAX package, it refuses allowed
 lateness.
 
-Not ported: the emission-latency hook (`emission_tracker`, ROADMAP item
-15), which raises.
+The emission-latency hook (`emission_tracker`, set by the runner) stamps
+each fired window once its readback has been waited on.
 """
 
 from __future__ import annotations
@@ -56,7 +56,6 @@ from flink_tpu_torch.ops import segment_ops
 from flink_tpu_torch.ops.aggregators import DeviceAggregator, resolve
 from flink_tpu_torch.state.cold_tier import ColdKeyTier
 from flink_tpu_torch.state.columnar import ColumnarWindowState
-from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import HostCopy
 
 
@@ -141,14 +140,9 @@ class TpuWindowOperator:
         self.side_output: Dict[str, List] = {}
         self.num_late_records_dropped = 0
 
-    # the emission-latency plane is ROADMAP item 15: reads None, setting raises
-    @property
-    def emission_tracker(self):
-        return None
-
-    @emission_tracker.setter
-    def emission_tracker(self, tracker) -> None:
-        raise deferred.not_ported("TpuWindowOperator.emission_tracker", deferred.METRICS)
+    # emission-latency plane: set by the runner; _emit_window stamps each
+    # fire where its rows have reached the host
+    emission_tracker = None
 
     # ------------------------------------------------------------------
     # window/slice math
@@ -376,8 +370,10 @@ class TpuWindowOperator:
                 if live.size:
                     cold_emit = (live, c_res[live])
         if idx_t.numel() == 0 and cold_emit is None:
+            self._stamp(window)
             return
         idx, vals = (t.numpy() for t in HostCopy([idx_t, result[idx_t]]).wait())
+        self._stamp(window)
         ts = window.max_timestamp()
         if self.columnar_output:
             if cold_emit is not None:
@@ -393,6 +389,12 @@ class TpuWindowOperator:
             for ci, cv in zip(cold_emit[0], cold_emit[1]):
                 self.output.append((key_at(int(ci) + self.hot_key_capacity), window,
                                     cv.item(), ts))
+
+    def _stamp(self, window) -> None:
+        """One fired window's emission latency, after its readback (the
+        mask's size read back above, or the rows' copy waited on)."""
+        if self.emission_tracker is not None:
+            self.emission_tracker.record_fire(window.end, lateness_ms=self.allowed_lateness)
 
     def drain_output(self) -> List[Tuple[Any, Any, Any, int]]:
         out = self.output

@@ -7,11 +7,13 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-D4 = "deferred item D4 (compile tracker and phase counters)"
-MESH = "item 13 (multi-GPU)"           # the parts of the mesh left for 13b
+D4 = ("deferred item D4 (compile tracker, phase counters, device and key "
+      "statistics, the profiler)")
+MESH = ("item 13b (the rest of the multi-GPU mesh: sharing and tiering on the "
+        "mesh, the skew rebalancer, the autoscaler)")
 CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
+CLUSTER = "item 14 (remaining planes: the cluster's TaskManager heartbeat and REST)"
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
-METRICS = "item 15 (job metrics and emission latency)"
 API = "item 19 (the rest of the DataStream API)"
 
 

@@ -18,6 +18,12 @@ sizes, and the references it carries held against the JAX package.
   local-combine, one device and the numpy model; leg B's oracle, live
   rescale and savepoint restores; the sharded operator and join), and
   the exchanged K1 inputs of shard 0 (`ok` stays false: no K1 launch).
+- api_metrics (phase 25): leg A's checks but K1's launch (the rows, the
+  numpy model, numRecordsIn, marker histograms, the emission count
+  against the fires, device sections, checkpoint gauges and spans, the
+  reports' keys, the JAX package's), with the coordinator's and the
+  history's `due` held true so their counts do not hang on the wall clock;
+  leg B's four runs; every leg C family's gauges and emission counts.
 
 Tolerance: exact.
 """
@@ -161,3 +167,34 @@ def test_mesh_k1_inputs_are_shard_zeros(combine, monkeypatch):
         live = idx[idx >= 0]
         assert vals is None and idx.numel() == 32 * cm.API_MESH["batch"]
         assert live.numel() > 0 and int(live.max()) < shim.K * 4
+
+
+def test_api_metrics_phase_holds_every_check_but_the_launches(monkeypatch):
+    import flink_tpu.runtime.minicluster as jmc
+    from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
+    from flink_tpu_torch.metrics.history import MetricHistory
+
+    monkeypatch.setattr(CheckpointCoordinator, "due", lambda self: True)
+    monkeypatch.setattr(MetricHistory, "due", lambda self, now_ms=None: True)
+    monkeypatch.setitem(cm.API, "batch", 4096)
+    monkeypatch.setattr(cm, "API_LATENESS", dict(cm.API_LATENESS, batch=4096, keys=512))
+    r = cm.api_metrics_phase(dev="cpu", sizes=dict(
+        batch=4096, events=1 << 16, warmup_events=1 << 12, lateness_events=1 << 16,
+        session_events=1 << 17, latency_events=1 << 16))
+    a = r["leg_a"]
+    assert {k for k, v in a["checks"].items() if not v} == {"k1_launched"}, a["checks"]
+    assert a["checkpoints"] == a["sections"]["process_raw_batch"] == (1 << 16) // 4096
+    assert a["span_counts"]["checkpointing.Checkpoint"] == a["checkpoints"]
+    assert len(r["leg_b"]["runs"]) == 4 and r["leg_b"]["on_over_off"] > 0
+    c = r["leg_c"]
+    assert c["join_q8"]["ok"] and c["per_batch"]["ok"]
+    assert c["tiered"]["gauges"]["evictions"] > 0
+    assert c["latency_mode"]["gauges"]["latencyModeActive"] == 1
+    assert c["session"]["emission_count"] == c["session"]["sessions"] > 0
+    # the reports' keys the smoke holds the port to are the JAX client's
+    client = jmc.JobClient("j", "n")
+    for name, keys in cm.REPORT_KEYS.items():
+        got = sorted(getattr(client, name)())
+        assert set(got) <= set(keys)
+    assert cm.REPORT_KEYS["latency_report"] == sorted(client.latency_report())
+    assert cm.REPORT_KEYS["doctor_report"] == sorted(client.doctor_report())

@@ -255,7 +255,7 @@ def _deferred_calls():
         "idleness": (lambda: WatermarkStrategy.for_monotonous_timestamps().with_idleness(5),
                      None),
         # the mesh (test_torch_multichip_runtime.py); its skew rebalancer
-        # and autoscale are still queued
+        # and autoscale are still queued (item 13b)
         "mesh_option": (lambda: Configuration().set_string("parallel.mesh.enabled", True),
                         None),
         "mesh_rebalance_option": (
@@ -263,16 +263,17 @@ def _deferred_calls():
         "mesh_key_groups_option": (
             lambda: Configuration().set_string("parallel.mesh.key-groups", 64), "item 13"),
         "mesh_autoscale_option": (
-            lambda: Configuration().set_string("parallel.mesh.autoscale", True), "item 15"),
+            lambda: Configuration().set_string("parallel.mesh.autoscale", True), "item 13b"),
         # latency mode (test_torch_latency_mode.py)
         "latency_option": (lambda: Configuration({"execution.latency.target-ms": 5}), None),
         # shared partials (test_torch_window_sharing.py)
         "shared_partials_option": (
             lambda: Configuration().set_string("execution.window.shared-partials", False),
             None),
+        # job metrics and emission latency (test_torch_observability.py)
         "metrics_option": (
             lambda: Configuration().set_string("observability.emission-latency.enabled", True),
-            "item 15"),
+            None),
         "checkpoint_option": (
             lambda: Configuration().set_string("execution.checkpointing.interval", 10),
             None),

@@ -288,6 +288,30 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
                          np.array([100, 900]))
         op.process_watermark(5000)
         assert sorted((k, r) for k, _w, r, _t in op.drain_output())[-1] == ("b", 2.0)
+
+        # the metric planes: a fused job through execute_async with markers,
+        # checkpoints, emission latency, the history and the doctor
+        from flink_tpu_torch.metrics import (doctor, emission_latency, history, otel,  # noqa
+                                             registry, task_io, traces)
+        cfg = Configuration({"execution.step.batch-size": 256,
+                             "execution.state.key-capacity": 32,
+                             "execution.checkpointing.interval": 1,
+                             "observability.latency-markers.interval-ms": 0,
+                             "observability.history.interval-ms": 1})
+        env = StreamExecutionEnvironment(cfg, device="cpu")
+        sink = (env.from_source(DataGeneratorSource(gen, 3000),
+                                WatermarkStrategy.for_bounded_out_of_orderness(0))
+                .key_by(lambda c: c[:, 0].to(torch.int32), traceable=True)
+                .window(SlidingEventTimeWindows.of(2000, 500)).aggregate("count")
+                .collect())
+        client = env.execute_async()
+        client.wait(60)
+        snap = registry.metrics_snapshot(client.metrics.all_metrics())
+        assert snap["job.numRecordsIn"] == 3000 and snap["job.p99EmissionLatencyMs"] > 0
+        assert "prometheus" not in registry.prometheus_text(client.metrics.all_metrics())
+        assert sorted(client.latency_report())[0] == "attribution"
+        assert client.history_report()["enabled"] and client.doctor_report()["samples"] >= 1
+        assert otel.spans_to_otlp([], "x")["resourceSpans"]
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -330,7 +354,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "parallel/routing.py", "parallel/ring.py", "parallel/spmd_step.py",
                  "parallel/sharded_window.py", "parallel/sharded_superscan.py",
                  "runtime/sharded_window_operator.py", "ops/matmul_hist.py",
-                 "ops/exchange.py", "joins/sharded.py"):
+                 "ops/exchange.py", "joins/sharded.py", "metrics/registry.py",
+                 "metrics/task_io.py", "metrics/traces.py", "metrics/otel.py",
+                 "metrics/emission_latency.py", "metrics/history.py", "metrics/doctor.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):

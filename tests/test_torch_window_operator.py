@@ -396,7 +396,19 @@ def test_unported_options_raise_naming_their_item():
     # tests/test_torch_state_tiering.py runs it against the JAX operator)
     op = make_op("port", tumbling("port", 1000), hot_key_capacity=4)
     assert op.cold_tier is not None and op.state.K <= 4
-    op = make_op("port", tumbling("port", 1000))
-    assert op.emission_tracker is None
-    with pytest.raises(NotImplementedError, match="item 15"):
-        op.emission_tracker = object()
+    # the emission tracker is ported: it stamps each fired window, as the
+    # JAX operator's does, on the same injected clock
+    stamped = {}
+    for pkg in ("jax", "port"):
+        from importlib import import_module
+
+        el = import_module(("flink_tpu" if pkg == "jax" else "flink_tpu_torch")
+                           + ".metrics.emission_latency")
+        op = make_op(pkg, tumbling(pkg, 1000), allowed_lateness=500)
+        assert op.emission_tracker is None
+        op.emission_tracker = el.EmissionLatencyTracker("w", clock=lambda: 5.0)
+        op.process_batch(np.array(["a", "b", "a"], dtype=object), np.ones(3, np.float32),
+                         np.array([100, 1200, 2500]))
+        op.process_watermark(3999)
+        stamped[pkg] = op.emission_tracker.snapshot()
+    assert stamped["port"] == stamped["jax"] and stamped["port"]["count"] == 3
