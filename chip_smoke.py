@@ -225,6 +225,34 @@ exits non-zero on the first failure. Phases, one JSON line each:
    latency mode (its controller gauges), a per-batch lateness job (one
    stamp a fired window) and a session job (one stamp a session).
 
+26. api_device: the device plane every fused job runs (flink_tpu_torch/
+   metrics/device_stats.py, key_stats.py, K1's and K2's phase counters).
+   Leg A: `bench.py::device_plane_microbench`'s program (a traceable
+   filter keeping one record in three, a traceable key over 8192 keys,
+   10 s windows sliding by 1 s, count, batch 8192, 8 steps a dispatch,
+   columnar) at 2^22 records through env.execute_async with the defaults
+   and the card's roofline figures (3350 GB/s, 67 TFLOP/s): its rows
+   against the plane-off job and the numpy model; phaseIngestRecords the
+   filter's survivors, phaseFireSteps and phasePurgeSteps the planner's
+   fire slots and purge steps; compiles with the JAX signature keys and
+   one device.XlaCompile span each; keySkew in [1, 1.5] on the uniform
+   keys; hbmUtilizationPct in (0, 100], printed beside the same bytes
+   over the profiler's device time of a run; device_snapshot() with the
+   JAX payload's keys; then the first job after a cold build of K1's
+   library (into a temporary directory): compileTimeMsTotal holds the
+   nvcc build. Leg B: bench.py's ring-doubling sequence on a
+   FusedWindowOperator: a ring-doubling recompile cause. Leg C: leg A's
+   job with the plane on and off (off, on, on, off), tuples/s and their
+   median ratio, and a host profile of an on run. Leg D: api_mesh leg A's
+   job on four shards with the plane on: keySkewPerDevice per shard, the
+   shards' ingest count summed equal to the one-card job's, K1 once per
+   shard. Leg E: a small fused job with observability.profiler.*: one
+   capture, its trace naming K1's kernels. Every K1 and K2 check of the
+   earlier phases runs with a phase-counter buffer and holds the three
+   counts against the plain version's too; the kernels line gives each
+   K1/K2 time with the counters on (`ms`, a job's default) and off
+   (`ms_phases_off`), in one call.
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -233,6 +261,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -337,18 +366,40 @@ def _max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max().item())
 
 
+def _phase():
+    """A zeroed int32[3] phase-counter buffer, as the pipelines allocate
+    one a dispatch."""
+    return torch.zeros(3, dtype=torch.int32, device=DEV)
+
+
+def on_off_ms(call, reps: int = 10) -> dict:
+    """CUDA-event ms of call(phase) with the phase counters on (a fresh
+    zeroed buffer a call, as the pipelines pass it) and off (None), in the
+    order off, on, on, off; each side the mean of its two timings."""
+    from flink_tpu_torch.testing.timing import cuda_ms
+
+    t = {"on": [], "off": []}
+    for side in ("off", "on", "on", "off"):
+        t[side].append(cuda_ms(lambda: call(_phase() if side == "on" else None), reps))
+    return {"ms": float(np.mean(t["on"])), "ms_phases_off": float(np.mean(t["off"])),
+            "on_over_off": float(np.mean(t["on"]) / max(np.mean(t["off"]), 1e-12))}
+
+
 def compare_kernel(kernel, plain, agg, spans, shape, global_scope, **kw):
     """Run kernel and plain version over the same chained dispatches from
-    the same initial rings; return the largest absolute difference of any
-    ring or fire row (requires bit equality)."""
+    the same initial rings, each dispatch with its own phase-counter
+    buffer; return the largest absolute difference of any ring, fire row
+    or phase count (requires bit equality)."""
     kc, ks = _fresh_rings(agg, shape, DEV, global_scope)
     pc, pst = _fresh_rings(agg, shape, DEV, global_scope)
     err = 0.0
     for idx, vals, plan in spans:
-        kout = kernel(agg, kc, ks, idx, vals, plan[:5], **kw)
-        pout = plain(agg, pc, pst, idx, vals, plan[:5], **kw)
+        kph, pph = _phase(), _phase()
+        kout = kernel(agg, kc, ks, idx, vals, plan[:5], phase=kph, **kw)
+        pout = plain(agg, pc, pst, idx, vals, plan[:5], phase=pph, **kw)
         torch.cuda.synchronize()
-        pairs = [(kc, pc), (kout[0], pout[0])] + list(zip(ks, pst)) + list(zip(kout[1], pout[1]))
+        pairs = ([(kc, pc), (kout[0], pout[0]), (kph, pph)] + list(zip(ks, pst))
+                 + list(zip(kout[1], pout[1])))
         for a, b in pairs:
             err = max(err, _max_abs_err(a, b))
             if not torch.equal(a, b):
@@ -700,9 +751,12 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2
     err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
                          [(idx, vals, plan)], (S_, K_), False, **kw)
     count, states = _fresh_rings(agg, (S_, K_), DEV, False)
-    ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw), 10)
+    # K1 as the main path launches it (phase counters on), and off
+    timed = on_off_ms(lambda ph: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5],
+                                                    phase=ph, **kw))
     plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, states, idx, vals,
-                                                     plan[:5], **kw), *plain_reps)
+                                                     plan[:5], phase=_phase(), **kw),
+                       *plain_reps)
     # yardstick: the dispatch's ingest as one index_add_
     ii = idx.view(T_, -1).long()
     live = ii >= 0
@@ -714,17 +768,18 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2
     src = (vals.view(T_, -1)[live] if vals is not None
            else torch.ones_like(cells, dtype=torch.int32))
     lib_ms = cuda_ms(lambda: target.index_add_(0, cells, src), 10)
-    rings = 1 + len(states)
-    # outputs: the rows the dispatch fires, one per fire (not all R)
-    nbytes = (idx.numel() * 4 + (vals.numel() * 4 if vals is not None else 0)
-              + 2 * rings * S_ * K_ * 4 + rings * len(plan[5]) * K_ * 4
-              + sum(p.numel() * 4 for p in plan[:5]))
-    b_ms, b_by = bound(nbytes, int(live.sum()) * rings)
+    # outputs: the rows the dispatch fires, one per fire (not all R); the
+    # package's own count (cs.k1_cost), which the device plane's roofline
+    # reads too
+    cost = cs.k1_cost(T=T_, B=idx.numel() // T_, K=K_, S=S_, F=pipe.F, nf=len(states),
+                      fires=len(plan[5]), records=int(live.sum()))
+    b_ms, b_by = bound(cost["bytes_accessed"], cost["flops"])
     return {"shape": f"{label}, T={T_} B={idx.numel() // T_} K={K_} S={S_} R={R} F={pipe.F}",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            **timed, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "fires": len(plan[5]), "device_us": device_split_us(
-                lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5], **kw))}
+                lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5],
+                                           phase=_phase(), **kw))}
 
 
 # ---------------------------------------------------------------------------
@@ -4316,18 +4371,21 @@ def k1_partials_at(label: str, shim, agg, plan, cpart, parts) -> dict:
     kw = dict(NSB=shim.NSB, R=shim.R, spws=shim.slot_spws())
     kc, ks = _fresh_rings(agg, (S_, K_), DEV, False)
     pc, ps = _fresh_rings(agg, (S_, K_), DEV, False)
-    ko = cs.keyed_superscan_partials(agg, kc, ks, cpart, parts, plan[:5], **kw)
-    po = keyed_superscan_partials_plain(agg, pc, ps, cpart, parts, plan[:5], **kw)
+    kph, pph = _phase(), _phase()
+    ko = cs.keyed_superscan_partials(agg, kc, ks, cpart, parts, plan[:5], phase=kph, **kw)
+    po = keyed_superscan_partials_plain(agg, pc, ps, cpart, parts, plan[:5], phase=pph, **kw)
     torch.cuda.synchronize()
     err = 0.0
-    for a, b in [(kc, pc), (ko[0], po[0])] + list(zip(ks, ps)) + list(zip(ko[1], po[1])):
+    for a, b in ([(kc, pc), (ko[0], po[0]), (kph, pph)] + list(zip(ks, ps))
+                 + list(zip(ko[1], po[1]))):
         err = max(err, _max_abs_err(a, b))
         if not torch.equal(a, b):
             raise AssertionError(f"k1_partials differs from its plain version: {err}")
-    ms = cuda_ms(lambda: cs.keyed_superscan_partials(agg, kc, ks, cpart, parts, plan[:5],
-                                                     **kw), 10)
+    timed = on_off_ms(lambda ph: cs.keyed_superscan_partials(agg, kc, ks, cpart, parts,
+                                                             plan[:5], phase=ph, **kw))
     plain_ms = cuda_ms(lambda: keyed_superscan_partials_plain(agg, pc, ps, cpart, parts,
-                                                              plan[:5], **kw), 2, 3)
+                                                              plan[:5], phase=_phase(), **kw),
+                       2, 3)
     NSB = shim.NSB
     t = torch.arange(T_, device=cpart.device)[:, None, None]
     k = torch.arange(K_, device=cpart.device)[None, :, None]
@@ -4335,15 +4393,15 @@ def k1_partials_at(label: str, shim, agg, plan, cpart, parts) -> dict:
     cells = (((plan[0].long()[t] + r) % S_) * K_ + k).reshape(-1)
     flat, src = kc.view(-1), cpart.reshape(-1)
     lib_ms = cuda_ms(lambda: flat.index_add_(0, cells, src), 10)
-    rings = 1 + len(ks)
-    nbytes = (rings * T_ * K_ * NSB * 4 + 2 * rings * S_ * K_ * 4
-              + rings * len(plan[5]) * K_ * 4 + sum(p.numel() * 4 for p in plan[:5]))
-    b_ms, b_by = bound(nbytes, rings * T_ * K_ * NSB)
+    cost = cs.k1_partials_cost(T=T_, K=K_, S=S_, NSB=NSB, F=shim.F, nf=len(ks),
+                               fires=len(plan[5]))
+    b_ms, b_by = bound(cost["bytes_accessed"], cost["flops"])
     return {"shape": f"{label}, T={T_} K_local={K_} NSB={NSB} S={S_} R={shim.R} F={shim.F}",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            **timed, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": err, "fires": len(plan[5]),
+            "phase_counts": kph.tolist(),
             "device_us": device_split_us(lambda: cs.keyed_superscan_partials(
-                agg, kc, ks, cpart, parts, plan[:5], **kw))}
+                agg, kc, ks, cpart, parts, plan[:5], phase=_phase(), **kw))}
 
 
 def mesh_programs(card: str, dev=DEV) -> dict:
@@ -4463,6 +4521,7 @@ API_METRICS = dict(keys=8192, batch=65536, events=1 << 22, warmup_events=1 << 18
 # for the history: a sampling interval past the run leaves its first tick)
 METRICS_OFF = {"observability.emission-latency.enabled": False,
                "observability.device-timing.enabled": False,
+               "observability.device.enabled": False,
                "observability.latency-markers.interval-ms": -1,
                "observability.doctor.enabled": False,
                "observability.history.interval-ms": 3_600_000}
@@ -4793,6 +4852,371 @@ def api_metrics_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the device plane (bench.py::device_plane_microbench's YSB
+# program): compile tracker, roofline, key statistics and K1's phase
+# counters over a default fused job, the ring-doubling recompile, what the
+# plane costs, the mesh, and the profiler capture
+# ---------------------------------------------------------------------------
+
+API_DEVICE = dict(keys=8192, batch=8192, superbatch_steps=8, events=1 << 22,
+                  cold_events=1 << 16, mesh_events=1 << 20, shards=4,
+                  profiler_events=1 << 16)
+# the card's figures that bound() uses, so the roofline gauge and the
+# kernel table speak one unit (the package's default is the JAX table's
+# gpu row)
+DEVICE_PEAKS = {"observability.device.hbm-gbps": HBM_BYTES_PER_S / 1e9,
+                "observability.device.peak-tflops": SCALAR_OPS_PER_S / 1e12}
+DEVICE_OFF = {"observability.device.enabled": False}
+# the JAX package's /jobs/:id/device payload (flink_tpu/runtime/executor.py
+# device_snapshot, flink_tpu/metrics/device_stats.py, key_stats.py)
+DEVICE_PAYLOAD_KEYS = {
+    "payload": ["compile", "enabled", "operators", "profiler"],
+    "compile": ["compileTimeMsTotal", "events", "numCompiles", "numRecompiles", "programs",
+                "recompileStorm"],
+    "operator": ["compile", "deviceDispatches", "deviceTimeMsTotal", "flopsUtilizationPct",
+                 "hbmUtilizationPct", "keys", "phases"],
+    "keys": ["activeKeys", "hotKeys", "keyGroupLoad", "keyGroupStateBytes", "keySkew",
+             "maxKeyLoad", "meshLoadSkew", "numKeyGroups", "perDevice",
+             "totalRecordsResident"],
+    "phases": ["fireSteps", "ingestRecords", "purgeSteps"],
+    "profiler": ["captures", "enabled", "last_capture_dir"],
+}
+# the keys of a fused dispatch's signature (the JAX pipeline's _signature)
+SIGNATURE_KEYS = {"K", "S", "NSB", "F", "R", "dtype", "T", "B"}
+
+
+class _PlannedPhases:
+    """Sums, over every plan a FusedWindowPipeline builds while active, the
+    fire slots the planner set (fire_valid) and the steps it planned to
+    purge (a 0 in the purge row): what K1's phase counters must count."""
+
+    def __enter__(self):
+        from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+
+        self.cls = FusedWindowPipeline
+        self.saved = FusedWindowPipeline._to_device_plan
+        self.fires = self.purges = 0
+
+        def wrap(pipe, arrays, fires, _f=self.saved):
+            self.fires += int(arrays[2].sum())
+            self.purges += int((arrays[4] == 0).any(axis=1).sum())
+            return _f(pipe, arrays, fires)
+
+        FusedWindowPipeline._to_device_plan = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._to_device_plan = self.saved
+        return False
+
+
+def device_job(n: int, sink, sz, *, conf=None, dev=DEV):
+    """env of device_plane_microbench's program over n records: a traceable
+    filter keeping one record in three, a traceable key over sz["keys"]
+    keys, 10 s windows sliding by 1 s, count; batch sz["batch"],
+    sz["superbatch_steps"] steps a dispatch, columnar output, the device
+    plane at its defaults with the card's roofline figures. The UDFs are
+    new objects every call (as the JAX bench makes them): the chained
+    program's cache key holds them, so each job's first dispatch of a
+    geometry is its own compile."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    opts = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": sz["keys"],
+            "execution.window.columnar-output": True,
+            "execution.window.superbatch-steps": sz["superbatch_steps"], **DEVICE_PEAKS}
+    opts.update(conf or {})
+    env = StreamExecutionEnvironment(Configuration(opts), device=dev)
+    keys = sz["keys"]
+    (env.from_source(DataGeneratorSource(lambda idx: Batch(*st.api_columns(idx, n, keys)), n),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+        .filter(lambda col: col[:, 1] < 0.5, traceable=True)
+        .key_by(lambda col: col[:, 0].to(torch.int32), traceable=True)
+        .window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
+        .aggregate("count").sink_to(sink))
+    return env
+
+
+def _window_runner(rt):
+    (r,) = [r for r in rt.runners if getattr(r, "device_stats", None) is not None]
+    return r
+
+
+def _signature_keys(sig: str) -> set:
+    return {kv.split("=", 1)[0] for kv in sig.split(",")}
+
+
+def _tree_keys(dev_snap: dict, uid: str) -> dict:
+    entry = dev_snap["operators"][uid]
+    return {"payload": sorted(dev_snap), "compile": sorted(dev_snap["compile"]),
+            "operator": sorted(entry), "keys": sorted(entry["keys"]),
+            "phases": sorted(entry["phases"]), "profiler": sorted(dev_snap["profiler"])}
+
+
+def device_leg_a(sz, dev) -> dict:
+    """The JAX scenario: the job through execute_async with the defaults;
+    its rows against the plane-off job's and the numpy model; the phase
+    counters against the filter's survivors and the planner's fire slots
+    and purge steps; compiles and their signatures and spans; key skew;
+    the roofline gauge beside the same bytes over the profiler's device
+    time; the device_snapshot() payload's keys. Then the first job after a
+    cold build of K1's library: the nvcc build inside compileTimeMsTotal."""
+    import tempfile
+
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["events"], sz["keys"]
+    sink = timed_collect_sink()
+    with _PlannedPhases() as planned:
+        on = ckpt_run(device_job(n, sink, sz, dev=dev), dev)
+    off_sink = timed_collect_sink()
+    off = ckpt_run(device_job(n, off_sink, sz, conf=DEVICE_OFF, dev=dev), dev)
+    client = on["client"]
+    rt = client._runtime
+    snap = metrics_snapshot_of(client.metrics)
+    off_snap = metrics_snapshot_of(off["client"].metrics)
+    uid = _window_runner(rt).uid
+    op = f"job.operator.{uid}"
+    dev_snap = rt.device_snapshot()
+    entry = dev_snap["operators"][uid]
+    ref = st.api_replay(n, sz["batch"], agg="count", num_keys=keys)
+    fired, twice = columnar_fired(sink.results, keys)
+    off_fired, _ = columnar_fired(off_sink.results, keys)
+    parity, checked = st.parity(ref.fired, fired)
+    events = dev_snap["compile"]["events"]
+    compile_spans = sum(1 for s in client.span_log.spans
+                        if (s.scope, s.name) == ("device", "XlaCompile"))
+    phases = {k: snap[f"{op}.{k}"] for k in ("phaseIngestRecords", "phaseFireSteps",
+                                              "phasePurgeSteps")}
+    skew, hbm = snap.get("job.keySkew"), snap[f"{op}.hbmUtilizationPct"]
+    checks = {
+        "rows_equal_plane_off": (not twice and sorted(fired) == sorted(off_fired)
+                                 and all(np.array_equal(fired[j], off_fired[j]) for j in fired)),
+        "parity_vs_model": parity,
+        "ingest_is_filter_survivors": phases["phaseIngestRecords"] == -(-n // 3),
+        "fires_are_planned_slots": phases["phaseFireSteps"] == planned.fires > 0,
+        "purges_are_planned_steps": phases["phasePurgeSteps"] == planned.purges > 0,
+        "compiled": snap["job.device.numCompiles"] >= 1,
+        "signatures_have_the_jax_keys": bool(events) and all(
+            SIGNATURE_KEYS <= _signature_keys(e["signature"]) for e in events),
+        "one_span_per_compile": compile_spans == snap["job.device.numCompiles"],
+        "key_skew_uniform": skew is not None and 1.0 <= skew <= 1.5,
+        "active_keys_within_capacity": 0 < snap[f"{op}.activeKeys"] <= keys,
+        "hbm_pct_in_range": 0.0 < hbm <= 100.0,
+        "payload_has_the_jax_keys": _tree_keys(dev_snap, uid) == DEVICE_PAYLOAD_KEYS,
+        "plane_off_registers_none": not any(k.startswith("job.device.") for k in off_snap),
+        "k1_launched": on["k1_launches"] > 0 and off["k1_launches"] > 0,
+    }
+    out = {"events": n, "windows_checked": checked, "seconds": on["seconds"],
+           "off_seconds": off["seconds"], "tuples_per_s": n / on["seconds"],
+           "off_tuples_per_s": n / off["seconds"], "k1_launches": on["k1_launches"],
+           "phases": phases, "planned": {"fires": planned.fires, "purges": planned.purges},
+           "numCompiles": snap["job.device.numCompiles"],
+           "numRecompiles": snap["job.device.numRecompiles"],
+           "compileTimeMsTotal": snap["job.device.compileTimeMsTotal"],
+           "compile_events": [{k: e.get(k) for k in ("program", "signature", "cause",
+                                                    "duration_ms", "cost")} for e in events],
+           "keySkew": skew, "activeKeys": snap[f"{op}.activeKeys"],
+           "hotKeys": entry["keys"]["hotKeys"][:3],
+           "hbmUtilizationPct": hbm, "flopsUtilizationPct": snap[f"{op}.flopsUtilizationPct"],
+           "deviceTimeMsTotal": snap["job.deviceTimeMsTotal"]}
+    # the roofline's numerator over the profiler's device time, for the same
+    # run (the gauge's denominator is DeviceTimer's host-clock time)
+    box = {}
+
+    def profiled():
+        r = ckpt_run(device_job(n, timed_collect_sink(), sz, dev=dev), dev)
+        runner = _window_runner(r["client"]._runtime)
+        box["bytes"] = runner.device_stats.bytes_accessed_total()
+        box["gauge"] = runner.device_roofline()["hbmUtilizationPct"]
+        box["timer_ms"] = runner.device_timer.total_s * 1e3
+        return r["seconds"]
+
+    prof = profile_run("api_device_on", profiled)
+    busy_s = prof["device_busy_us"] / 1e6
+    out["profile"] = {k: prof[k] for k in ("wall_s", "device_busy_us", "device_busy_share",
+                                           "k1_device_us", "top")}
+    out["roofline"] = {
+        "bytes": box["bytes"], "gauge_hbm_pct": box["gauge"], "timer_ms": box["timer_ms"],
+        "device_busy_ms": busy_s * 1e3,
+        "bytes_over_device_time_pct": box["bytes"] / max(busy_s, 1e-12) / HBM_BYTES_PER_S * 100,
+        "timer_over_device_busy": box["timer_ms"] / max(busy_s * 1e3, 1e-9)}
+    # the first job after a cold build: K1's library built anew into a
+    # temporary directory inside the job's first dispatch
+    saved_dir = cs.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="api_device_build_") as tmp:
+        cs.BUILD_DIR = Path(tmp)
+        cs._library.cache_clear()
+        try:
+            cold = ckpt_run(device_job(sz["cold_events"], timed_collect_sink(), sz, dev=dev),
+                            dev)
+        finally:
+            cs.BUILD_DIR = saved_dir
+            cs._library.cache_clear()
+        cold_snap = metrics_snapshot_of(cold["client"].metrics)
+    out["cold_build"] = {
+        "events": sz["cold_events"], "seconds": cold["seconds"],
+        "numCompiles": cold_snap["job.device.numCompiles"],
+        "compileTimeMsTotal": cold_snap["job.device.compileTimeMsTotal"],
+        "first_compile_ms": cold["client"]._runtime.device_snapshot()["compile"]["events"][0][
+            "duration_ms"]}
+    checks["cold_build_in_compile_time"] = (out["cold_build"]["compileTimeMsTotal"]
+                                            > out["compileTimeMsTotal"])
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    return out
+
+
+def device_leg_b(dev) -> dict:
+    """Recompile causes: bench.py's ring-doubling sequence on a
+    FusedWindowOperator (1 s tumbling count, key capacity 1024, 4 steps a
+    dispatch, 12 batches of 512 keys widening from 512 to 1536)."""
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+    from flink_tpu_torch.core.time import MAX_WATERMARK
+    from flink_tpu_torch.metrics.device_stats import CompileTracker
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+
+    cs.reset_launch_counts()
+    op = FusedWindowOperator(TumblingEventTimeWindows.of(1000), "count", key_capacity=1 << 10,
+                             superbatch_steps=4, chunk=256, device=dev)
+    tracker = CompileTracker()
+    op.attach_device_stats(tracker)
+    rng = np.random.default_rng(7)
+    for s in range(12):
+        hi = 512 if s < 6 else 1536
+        keys = rng.integers(0, hi, 512)
+        op.process_batch(keys, np.ones(512, np.float32), np.full(512, s * 300, np.int64))
+        op.process_watermark(s * 300)
+    op.process_watermark(MAX_WATERMARK)
+    rows = op.drain_output()
+    events = tracker.events()
+    causes = sorted({e["cause"] for e in events if e.get("recompile")})
+    tail = [e for e in events if e["cause"] == "batch-geometry"]
+    return {"causes": causes, "num_compiles": tracker.num_compiles,
+            "num_recompiles": tracker.num_recompiles, "rows": len(rows),
+            "phases": op.phase_totals(), "k1_launches": cs.LAUNCHES["k1_superscan"],
+            "events": [{k: e[k] for k in ("signature", "cause", "duration_ms")} for e in events],
+            "tail_batch_geometry": tail[-1] if tail else None,
+            "ok": "ring-doubling" in causes and op.phase_totals()["ingestRecords"] == 12 * 512
+            and cs.LAUNCHES["k1_superscan"] > 0}
+
+
+def device_leg_c(sz, dev) -> dict:
+    """What the plane costs: leg A's job with the plane on and off, in the
+    order off, on, on, off (execute_async); the median ratio; then one
+    on-run's host profile (env.execute() on this thread)."""
+    n = sz["events"]
+    runs = []
+    for label in ("off", "on", "on", "off"):
+        r = ckpt_run(device_job(n, timed_collect_sink(), sz,
+                                conf=DEVICE_OFF if label == "off" else None, dev=dev), dev)
+        runs.append({"plane": label, "seconds": r["seconds"], "tuples_per_s": n / r["seconds"],
+                     "k1_launches": r["k1_launches"]})
+    med = {lab: float(np.median([r["tuples_per_s"] for r in runs if r["plane"] == lab]))
+           for lab in ("on", "off")}
+
+    def on_main_thread():
+        env = device_job(n, timed_collect_sink(), sz, dev=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        env.execute()
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    return {"events": n, "runs": runs, "on_tuples_per_s": med["on"],
+            "off_tuples_per_s": med["off"], "on_over_off": med["on"] / med["off"],
+            "host_profile": host_profile("api_device_on", on_main_thread, top=16),
+            "ok": all(r["k1_launches"] > 0 for r in runs)}
+
+
+def device_leg_d(sz, dev) -> dict:
+    """The mesh: api_mesh leg A's job on four shards of the card with the
+    plane on, beside the one-card job: keySkewPerDevice per shard, the
+    shards' ingest count summed against the card's, K1 once per shard."""
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    n = sz["mesh_events"]
+    real_visible = mesh_lib.visible_devices
+    mesh_shards(sz["shards"], dev)
+    out = {}
+    try:
+        for name, shards in (("card", 0), ("mesh", sz["shards"])):
+            env, sink = mesh_job(n, API_MESH, shards=shards, dev=dev)
+            snap, rt, secs = _runtime_metrics(env, dev)
+            launches = _launches()["k1_superscan"]
+            uid = _window_runner(rt).uid
+            leaves = _leaves(snap, uid)
+            out[name] = {"seconds": secs, "k1": launches,
+                         "phases": {k: leaves[k] for k in ("phaseIngestRecords",
+                                                           "phaseFireSteps", "phasePurgeSteps")},
+                         "keySkew": leaves.get("keySkew"),
+                         "keySkewPerDevice": leaves.get("keySkewPerDevice"),
+                         "meshLoadSkew": leaves.get("meshLoadSkew"),
+                         "fired": api_fired(sink, API["window"], API["slide"])}
+    finally:
+        mesh_lib.visible_devices = real_visible
+    card, mesh = out["card"], out["mesh"]
+    per_dev = mesh["keySkewPerDevice"] or {}
+    checks = {
+        "rows_equal": _fired_equal(card.pop("fired"), mesh.pop("fired")),
+        "skew_per_device": len(per_dev) == sz["shards"],
+        "ingest_summed_equals_card": (mesh["phases"]["phaseIngestRecords"]
+                                      == card["phases"]["phaseIngestRecords"] == -(-n // 3)),
+        "k1_once_per_shard": card["k1"] > 0 and mesh["k1"] == sz["shards"] * card["k1"],
+    }
+    return {"events": n, **out, "checks": checks, "ok": all(checks.values())}
+
+
+def device_leg_e(sz, dev) -> dict:
+    """The profiler: one small fused job with observability.profiler.* into
+    a temporary directory; one capture, whose trace names K1's kernels."""
+    import os
+    import tempfile
+
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    with tempfile.TemporaryDirectory(prefix="api_device_profile_") as tmp:
+        env = device_job(sz["profiler_events"], timed_collect_sink(), sz,
+                         conf={"observability.profiler.enabled": True,
+                               "observability.profiler.dir": tmp}, dev=dev)
+        rt = JobRuntime(plan(env._sinks), env.config, dev)
+        rt.run()
+        _sync(dev)
+        prof = rt.device_snapshot()["profiler"]
+        files = os.listdir(tmp)
+        names = set()
+        for f in files:
+            with open(os.path.join(tmp, f)) as fh:
+                names |= {str(e.get("name", "")) for e in json.load(fh).get("traceEvents", [])}
+    k1 = sorted({nm.split("(")[0][:40] for nm in names if "k1_" in nm})
+    return {"profiler": prof, "files": len(files), "k1_kernels_in_trace": k1,
+            "ok": bool(prof["captures"] == 1 and prof["last_capture_dir"] == tmp
+                       and len(files) == 1 and k1)}
+
+
+def api_device_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 26: legs A-E (see API_DEVICE), each timed."""
+    sz = dict(API_DEVICE, **(sizes or {}))
+    out = {"phase": "api_device"}
+    for leg, fn in (("leg_a", lambda: device_leg_a(sz, dev)), ("leg_b", lambda: device_leg_b(dev)),
+                    ("leg_c", lambda: device_leg_c(sz, dev)),
+                    ("leg_d", lambda: device_leg_d(sz, dev)),
+                    ("leg_e", lambda: device_leg_e(sz, dev))):
+        t0 = time.perf_counter()
+        out[leg] = fn()
+        out[leg]["leg_s"] = time.perf_counter() - t0
+    out["ok"] = all(out[leg]["ok"] for leg in ("leg_a", "leg_b", "leg_c", "leg_d", "leg_e"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -4944,10 +5368,13 @@ def main() -> int:
     idx, _v, plan = plan_spans(planner, paths[0]["gen"], T, B, st.SLIDE_MS, 1)[0]
     count, _ = _fresh_rings(agg, (S, K), DEV, False)
     kw = dict(NSB=NSB, R=R, spws=(planner.spw,) * F, exact=True)
-    k1_ms = cuda_ms(lambda: cs.keyed_superscan(agg, count, [], idx, None, plan[:5], **kw), 10)
-    k1_plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, [], idx, None, plan[:5], **kw), 2, 3)
+    # with the phase counters on (a job's default) and off, in one call
+    k1_timed = on_off_ms(lambda ph: cs.keyed_superscan(agg, count, [], idx, None, plan[:5],
+                                                       phase=ph, **kw))
+    k1_plain_ms = cuda_ms(lambda: keyed_superscan_plain(agg, count, [], idx, None, plan[:5],
+                                                        phase=_phase(), **kw), 2, 3)
     k1_split = device_split_us(
-        lambda: cs.keyed_superscan(agg, count, [], idx, None, plan[:5], **kw))
+        lambda: cs.keyed_superscan(agg, count, [], idx, None, plan[:5], phase=_phase(), **kw))
     # the other stages of one YSB span: host planning (host clock) and the
     # on-card generator (CUDA events)
     plan_host_ms = []
@@ -4968,11 +5395,11 @@ def main() -> int:
     flat = count.view(-1)
     k1_lib_ms = cuda_ms(lambda: flat.index_add_(0, cells, ones), 10)
     k1_index_put_ms = cuda_ms(lambda: flat.index_put_((cells,), ones, accumulate=True), 10)
-    plan_bytes = sum(p.numel() * 4 for p in plan[:5])
     # outputs: the fire rows this dispatch writes (the wrapper's zero fill of
     # the other rows of [R, K] is work the function does not need)
     k1_fires = len(plan[5])
-    k1_bound = bound(T * B * 4 + 2 * S * K * 4 + k1_fires * K * 4 + plan_bytes, T * B)
+    k1_cost = cs.k1_cost(T=T, B=B, K=K, S=S, F=F, nf=0, fires=k1_fires)
+    k1_bound = bound(k1_cost["bytes_accessed"], k1_cost["flops"])
     del ii, cells, ones
 
     gagg = max_agg()
@@ -4982,12 +5409,14 @@ def main() -> int:
     gidx, gvals, gplan = plan_spans(gplan_pipe, paths[2]["gen"], Q7["T"], Q7["B"], 10_000, 1)[0]
     gcount, gstates = _fresh_rings(gagg, (Q7["S"],), DEV, True)
     gkw = dict(NSB=Q7["NSB"], R=Q7["R"], spws=(gplan_pipe.planner.spw,) * Q7["F"])
-    k2_ms = cuda_ms(lambda: cs.global_superscan(gagg, gcount, gstates, gidx, gvals,
-                                                gplan[:5], **gkw), 10)
-    k2_plain_ms = cuda_ms(lambda: global_superscan_plain(gagg, gcount, gstates, gidx,
-                                                         gvals, gplan[:5], **gkw), 2, 3)
+    k2_timed = on_off_ms(lambda ph: cs.global_superscan(gagg, gcount, gstates, gidx, gvals,
+                                                        gplan[:5], phase=ph, **gkw))
+    k2_plain_ms = cuda_ms(lambda: global_superscan_plain(gagg, gcount, gstates, gidx, gvals,
+                                                         gplan[:5], phase=_phase(), **gkw),
+                          2, 3)
     k2_split = device_split_us(
-        lambda: cs.global_superscan(gagg, gcount, gstates, gidx, gvals, gplan[:5], **gkw))
+        lambda: cs.global_superscan(gagg, gcount, gstates, gidx, gvals, gplan[:5],
+                                    phase=_phase(), **gkw))
     gsmin_abs = np.array([st.step_bounds(r, Q7["B"], 10_000)[0] for r in range(Q7["T"])],
                          np.int32)
     q7_gen_ms = cuda_ms(lambda: paths[2]["gen"](0, gsmin_abs), 3)
@@ -4996,13 +5425,16 @@ def main() -> int:
     gv = gvals.view(Q7["T"], Q7["B"])[gi >= 0]
     gring = gstates[0]
     k2_lib_ms = cuda_ms(lambda: gring.scatter_reduce_(0, gcols, gv, "amax"), 10)
-    gplan_bytes = sum(p.numel() * 4 for p in gplan[:5])
-    k2_bound = bound(Q7["T"] * Q7["B"] * 8 + 4 * Q7["S"] * 4 + 2 * len(gplan[5]) * 4
-                     + gplan_bytes, 2 * Q7["T"] * Q7["B"])
+    k2_cost = cs.k2_cost(T=Q7["T"], B=Q7["B"], S=Q7["S"], F=Q7["F"], nf=1,
+                         fires=len(gplan[5]))
+    k2_bound = bound(k2_cost["bytes_accessed"], k2_cost["flops"])
+    k1_ms, k2_ms = k1_timed["ms"], k2_timed["ms"]
     emit({"phase": "kernel_times", "card": card,
-          "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_library_ms": k1_lib_ms,
+          "k1_ms": k1_ms, "k1_ms_phases_off": k1_timed["ms_phases_off"],
+          "k1_plain_ms": k1_plain_ms, "k1_library_ms": k1_lib_ms,
           "k1_index_put_ms": k1_index_put_ms, "k1_device_us": k1_split,
-          "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_library_ms": k2_lib_ms,
+          "k2_ms": k2_ms, "k2_ms_phases_off": k2_timed["ms_phases_off"],
+          "k2_plain_ms": k2_plain_ms, "k2_library_ms": k2_lib_ms,
           "k2_device_us": k2_split,
           "ysb_span_gen_ms": ysb_gen_ms, "ysb_span_plan_host_ms": float(np.median(plan_host_ms)),
           "q7_span_gen_ms": q7_gen_ms})
@@ -5311,6 +5743,29 @@ def main() -> int:
         "api_metrics_c_latency": met["leg_c"]["latency_mode"]["k1_launches"]})
     torch.cuda.empty_cache()
 
+    # ---- 26. the device plane: legs A-E through the port's API, every run
+    # with its launch counts at 0 just before it ----
+    t_dev = time.perf_counter()
+    devp = api_device_phase()
+    devp["card"] = card
+    devp["phase_s"] = time.perf_counter() - t_dev
+    emit(devp)
+    if not devp["ok"]:
+        raise AssertionError("api_device: a leg failed a gate (rows against the plane-off job "
+                             "and the numpy model, the phase counters against the filter and "
+                             "the planner, compiles and their spans, key skew, the roofline "
+                             "range, the payload's keys, the cold build, the ring-doubling "
+                             "cause, keySkewPerDevice, the mesh's ingest count and K1 once "
+                             "per shard, the profiler capture) or a run launched no K1")
+    path_launches["k1_superscan"].update({
+        "api_device_a": devp["leg_a"]["k1_launches"],
+        "api_device_b_ring_doubling": devp["leg_b"]["k1_launches"],
+        **{f"api_device_c_{i}_{r['plane']}": r["k1_launches"]
+           for i, r in enumerate(devp["leg_c"]["runs"])},
+        "api_device_d_card": devp["leg_d"]["card"]["k1"],
+        "api_device_d_mesh": devp["leg_d"]["mesh"]["k1"]})
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -5326,8 +5781,10 @@ def main() -> int:
          "library_ms": api_k1["count"]["library_ms"],
          "api_sum": api_k1["sum"],
          "api_sql": dict(sql_k1, launches=api_sql["timed"]["fused"]["k1_dispatches"]),
+         "ms_phases_off": api_k1["count"]["ms_phases_off"],
          "ysb_generator": {"shape": f"YSB generator: T={T} B={B} K={K} S={S} R={R}",
-                           "fires": k1_fires, "ms": k1_ms, "plain_ms": k1_plain_ms,
+                           "fires": k1_fires, "ms": k1_ms,
+                           "ms_phases_off": k1_timed["ms_phases_off"], "plain_ms": k1_plain_ms,
                            "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                            "library_ms": k1_lib_ms,
                            "index_put_ms": k1_index_put_ms}},
@@ -5398,7 +5855,8 @@ def main() -> int:
          "launches_by_path": path_launches["k2_global_superscan"],
          "cuda_launches_per_dispatch": cuda_launches["k2_global_superscan"],
          "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "ms": k2_ms, "ms_phases_off": k2_timed["ms_phases_off"], "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": k2_lib_ms},
         {"name": "k3_session_ingest", "route": "cuda",
          "source": "flink_tpu_torch/csrc/session_superscan.cu",

@@ -82,8 +82,6 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 _UNPORTED_PREFIXES = (
     ("parallel.", deferred.MESH),
     ("autoscaler.", deferred.MESH),
-    ("observability.device.", deferred.D4),
-    ("observability.profiler.", deferred.D4),
     ("observability.shipping.", deferred.CLUSTER),
     ("chaos.", deferred.CHAOS),
     ("security.", deferred.CHAOS),
@@ -465,14 +463,12 @@ class CheckpointingOptions:
 
 class ObservabilityOptions:
     """The streaming observability plane (reference: LatencyMarker emission,
-    TaskIOMetricGroup busy/idle/backPressured sampling). Keys, defaults and
-    descriptions are the JAX package's. Not ported yet, raising where a job
-    sets them: observability.device.* and observability.profiler.* (ROADMAP
-    item D4: the compile tracker, phase counters, key statistics and the
-    profiler capture) and observability.shipping.interval-ms (item 14: the
-    TaskManager heartbeat of the cluster). So a port job registers no
-    job.device.* and no job.keySkew gauges, which every JAX job with the
-    default observability.device.enabled has."""
+    TaskIOMetricGroup busy/idle/backPressured sampling, profiler capture).
+    Keys and defaults are the JAX package's, and so are the descriptions
+    but where the port differs (the device plane's compiles and costs, the
+    torch profiler). Not ported yet, raising where a job sets it:
+    observability.shipping.interval-ms (item 14: the TaskManager heartbeat
+    of the cluster)."""
 
     MARKER_INTERVAL_MS = (
         ConfigOptions.key("observability.latency-markers.interval-ms")
@@ -521,6 +517,112 @@ class ObservabilityOptions:
         "per job (timestamp, task/TaskManager attribution, root-cause "
         "chain, restart number; restore duration, rewound checkpoint id, "
         "replay depth, downtime), served at /jobs/:id/exceptions."
+    )
+    PROFILER_ENABLED = (
+        ConfigOptions.key("observability.profiler.enabled")
+        .bool_type().default_value(False)
+    ).with_description(
+        "Capture a torch.profiler trace (CUDA activity on the card, CPU "
+        "activity otherwise) for the duration of each job attempt, exported "
+        "as a Chrome trace under observability.profiler.dir. Heavyweight: "
+        "for offline analysis only, never in production."
+    )
+    PROFILER_DIR = (
+        ConfigOptions.key("observability.profiler.dir")
+        .string_type().default_value("/tmp/flink-tpu-profile")
+    ).with_description(
+        "Output directory for observability.profiler.enabled trace dumps "
+        "(Chrome trace JSON, one file per captured attempt)."
+    )
+    DEVICE_STATS_ENABLED = (
+        ConfigOptions.key("observability.device.enabled")
+        .bool_type().default_value(True)
+    ).with_description(
+        "Device-plane observability for device window operators: compile/"
+        "recompile tracking with shape-signature cause attribution (ring "
+        "doubling, batch-geometry churn, dtype change; a compile is a "
+        "program geometry's first dispatch in the process), per-program "
+        "cost/roofline gauges (hbmUtilizationPct, flopsUtilizationPct: the "
+        "program's bytes and operations over the DeviceTimer's host-clock "
+        "time), per-phase ingest/fire/purge counters counted inside the "
+        "K1/K2 launches, and per-key-group load telemetry (keySkew, hot "
+        "keys). Served by JobRuntime.device_snapshot(). Per-batch host cost "
+        "is O(1); the key-stats fold runs on the device on its own sampling "
+        "interval."
+    )
+    DEVICE_RECOMPILE_HISTORY_SIZE = (
+        ConfigOptions.key("observability.device.recompile-history.size")
+        .int_type().default_value(32)
+    ).with_description(
+        "Compile events retained in the per-job recompile-event ring "
+        "(program, shape signature, cause, compile wall time). The "
+        "lifetime compile/recompile counters are unaffected by the ring "
+        "size."
+    )
+    DEVICE_RECOMPILE_STORM_THRESHOLD = (
+        ConfigOptions.key("observability.device.recompile-storm.threshold")
+        .int_type().default_value(4)
+    ).with_description(
+        "Recompiles within observability.device.recompile-storm.window-ms "
+        "that flip the recompileStorm warning gauge to 1 — a job changing "
+        "program geometry at this rate is paying first-dispatch latency on "
+        "the hot path (growing key dictionary, churning batch geometry)."
+    )
+    DEVICE_RECOMPILE_STORM_WINDOW_MS = (
+        ConfigOptions.key("observability.device.recompile-storm.window-ms")
+        .duration_ms_type().default_value(60_000)
+    ).with_description(
+        "Sliding window over which recompiles are counted for the "
+        "recompileStorm warning gauge."
+    )
+    DEVICE_COST_ANALYSIS_ENABLED = (
+        ConfigOptions.key("observability.device.cost-analysis.enabled")
+        .bool_type().default_value(True)
+    ).with_description(
+        "Capture each dispatch program's cost (bytes read and written once, "
+        "scalar operations; ops/cuda_superscan.py k1_cost/k2_cost) at its "
+        "first dispatch — the numerator of the roofline gauges. Arithmetic "
+        "on shapes; utilization gauges read 0 when disabled."
+    )
+    DEVICE_MEMORY_ANALYSIS_ENABLED = (
+        ConfigOptions.key("observability.device.memory-analysis.enabled")
+        .bool_type().default_value(False)
+    ).with_description(
+        "Additionally capture each program's own allocations per signature: "
+        "temp_bytes (K1's step partials scratch), output_bytes (the fire "
+        "rows) and argument_bytes (the rings and lanes)."
+    )
+    DEVICE_KEY_STATS_INTERVAL_MS = (
+        ConfigOptions.key("observability.device.key-stats.interval-ms")
+        .duration_ms_type().default_value(1000)
+    ).with_description(
+        "How often the per-key-group load fold runs (one device "
+        "segment-sum over the resident window state + one small host "
+        "copy). Gauges (keySkew, activeKeys, keyGroupLoad histogram, "
+        "top-K hot keys) hold the latest fold between runs."
+    )
+    DEVICE_KEY_STATS_TOP_K = (
+        ConfigOptions.key("observability.device.key-stats.top-k")
+        .int_type().default_value(8)
+    ).with_description(
+        "Hot keys reported per operator by the key-stats fold (dense key "
+        "id + resident record count, hottest first)."
+    )
+    DEVICE_HBM_GBPS = (
+        ConfigOptions.key("observability.device.hbm-gbps")
+        .float_type().default_value(0.0)
+    ).with_description(
+        "Device-memory bandwidth (GB/s) used as the denominator of the "
+        "hbmUtilizationPct roofline gauge. 0 picks a per-platform default "
+        "(gpu/cpu); set it to the card's figure for calibrated utilization."
+    )
+    DEVICE_PEAK_TFLOPS = (
+        ConfigOptions.key("observability.device.peak-tflops")
+        .float_type().default_value(0.0)
+    ).with_description(
+        "Peak compute (TFLOP/s) used as the denominator of the "
+        "flopsUtilizationPct roofline gauge. 0 picks a per-platform "
+        "default."
     )
     EMISSION_LATENCY_ENABLED = (
         ConfigOptions.key("observability.emission-latency.enabled")

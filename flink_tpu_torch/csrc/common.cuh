@@ -130,16 +130,21 @@ extern "C" int step_desc_bytes() { return (int)sizeof(StepDesc); }
 
 // Build the descriptor of step t; called by a whole warp, lane l holding
 // slots l, 32 + l, ... A slot writes unless a later valid slot has the same
-// row (the later write would win).
+// row (the later write would win). With `phase` (the dispatch's int32[3]
+// phase counters, null when they are off) the warp also adds the step's
+// fire slots (the sum of its fire_valid) to phase[1] and 1 to phase[2]
+// when its purge row holds a 0: one atomic each, once per step.
 __device__ __forceinline__ void build_desc(StepDesc& d, const Plan& plan, long long t,
-                                           int S, int F, int R) {
+                                           int S, int F, int R, int* phase) {
   const int lane = threadIdx.x & 31;
   int fv[FIRE_WORDS], row[FIRE_WORDS];
+  int nfire = 0;
 #pragma unroll
   for (int c = 0; c < FIRE_WORDS; ++c) {
     const int f = 32 * c + lane;
     const bool slot = f < F;
     fv[c] = slot ? plan.fvalid[t * F + f] : 0;
+    nfire += fv[c];
     row[c] = slot ? min(max(plan.frow[t * F + f], 0), R - 1) : -1;
     if (slot) {
       d.pos[f] = (unsigned short)mod_s(plan.fpos[t * F + f], S);
@@ -161,14 +166,38 @@ __device__ __forceinline__ void build_desc(StepDesc& d, const Plan& plan, long l
     const unsigned int fires = __ballot_sync(0xffffffffu, fv[c] > 0 && !later);
     if (lane == 0) d.fires[c] = fires;
   }
+  unsigned int any_dead = 0;
 #pragma unroll
   for (int j = 0; j < DESC_DEAD_WORDS; ++j) {
     const int col = lane + 32 * j;
     const unsigned int dead =
         __ballot_sync(0xffffffffu, col < S && plan.purge[t * S + col] == 0);
+    any_dead |= dead;
     if (lane == 0) d.dead[j] = dead;
   }
   if (lane == 0) d.sm = mod_s(plan.smin[t], S);
+  if (phase != nullptr) {                      // the same for the whole warp
+    bool purged = any_dead != 0;
+    for (int col = 32 * DESC_DEAD_WORDS + lane; col < S; col += 32)   // rings wider than 128
+      purged |= plan.purge[t * S + col] == 0;
+    purged = __any_sync(0xffffffffu, purged);
+    nfire = __reduce_add_sync(0xffffffffu, nfire);
+    if (lane == 0) {
+      if (nfire) atomicAdd(phase + 1, nfire);
+      if (purged) atomicAdd(phase + 2, 1);
+    }
+  }
+}
+
+// Add a block's count of something (each thread's `n`) to *dst with one
+// atomic: a warp sum, one shared atomic per warp, one device atomic per
+// block. Every thread of the block calls it; `acc` is a shared int that
+// was zeroed before a __syncthreads() this call follows.
+__device__ __forceinline__ void block_count_add(int* dst, int n, int* acc) {
+  n = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(acc, n);
+  __syncthreads();
+  if (threadIdx.x == 0 && *acc) atomicAdd(dst, *acc);
 }
 
 // The fold of the w ring lanes from pos (in [0, S)) of a ring held one

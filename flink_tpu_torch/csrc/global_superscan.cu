@@ -29,6 +29,11 @@
 //                  chunk's step descriptors (common.cuh) are copied in.
 //                  The ring and the out rows are written once.
 //
+// Phase counters: with a `phase` buffer (int32[3]) each ingest block adds
+// its step's records with idx >= 0 (the sum of its count lanes) into
+// phase[0], one atomic a block, and the warp that builds a step's
+// descriptor adds its fire slots and purge (common.cuh, build_desc).
+//
 // The fixed fold order makes float sums the same from run to run.
 // What bounds it: bytes. Each record's idx and value are read once; the
 // ring, the out rows and the partials are a few hundred kilobytes at most.
@@ -132,10 +137,10 @@ __global__ void __launch_bounds__(K2_THREADS)
 k2_ingest_all(Fields fl, const int* __restrict__ idx,
               const float* __restrict__ vals, int* __restrict__ part,
               StepDesc* __restrict__ descs, Plan plan, int S, int F, int R, int B,
-              int nblk, int chunk) {
+              int nblk, int chunk, int* phase) {
   __shared__ int red[K2_WARPS][MAX_NSB];
   const int t = blockIdx.x / nblk, blk = blockIdx.x - t * nblk;
-  if (blk == 0 && threadIdx.x < 32) build_desc(descs[t], plan, t, S, F, R);
+  if (blk == 0 && threadIdx.x < 32) build_desc(descs[t], plan, t, S, F, R, phase);
   const long long lo = (long long)t * B + (long long)blk * chunk;
   const int n = max(0, min(chunk, B - blk * chunk));
   const int* ip = idx + lo;
@@ -143,11 +148,18 @@ k2_ingest_all(Fields fl, const int* __restrict__ idx,
   int* out = part + (long long)blockIdx.x * (1 + fl.n) * NSB;
   if (fl.n == 0) {
     fold_run<NSB, COUNT_ONLY, true>(ip, vp, n, out, nullptr, red);
-    return;
+  } else {
+    fold_field<NSB, true>(fl.kind[0], ip, vp, n, out, out + NSB, red);
+    for (int f = 1; f < fl.n; ++f)
+      fold_field<NSB, false>(fl.kind[f], ip, vp, n, nullptr, out + (1 + f) * NSB, red);
   }
-  fold_field<NSB, true>(fl.kind[0], ip, vp, n, out, out + NSB, red);
-  for (int f = 1; f < fl.n; ++f)
-    fold_field<NSB, false>(fl.kind[f], ip, vp, n, nullptr, out + (1 + f) * NSB, red);
+  // the block's count lanes, written before block_fold's last barrier:
+  // the records it ingested
+  if (phase != nullptr && threadIdx.x == 0) {
+    int recs = 0;
+    for (int r = 0; r < NSB; ++r) recs += out[r];
+    if (recs) atomicAdd(phase, recs);
+  }
 }
 
 __global__ void __launch_bounds__(K2_SCAN_THREADS)
@@ -255,19 +267,19 @@ k2_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 #define K2_INGEST(N)                                                         \
   case N:                                                                    \
     k2_ingest_all<N><<<T * nblk, K2_THREADS, 0, st>>>(                       \
-        fl, idx, vals, part, descs, pl, S, F, R, B, nblk, chunk);            \
+        fl, idx, vals, part, descs, pl, S, F, R, B, nblk, chunk, phase);     \
     break;
 
 // One dispatch of T steps: k2_ingest_all writes part ([T, nblk, 1 + nf,
 // NSB] int32, allocated by the caller) and, after it, one StepDesc per
-// step; k2_scan walks the steps. Returns a
-// CUDA error code (0 = launched).
+// step; k2_scan walks the steps. phase: the dispatch's int32[3] phase
+// counters, added to (null: off). Returns a CUDA error code (0 = launched).
 extern "C" int k2_global_superscan(
     int* count, void* const* fields, const int* kinds, const int* idents,
     int nf, const int* idx, const float* vals, const int* smin,
     const int* fpos, const int* fvalid, const int* frow, const int* purge,
     const int* spws, int F, int* count_out, void* const* outs, int S,
-    int NSB, int R, int T, int B, int* part, int nblk, void* stream) {
+    int NSB, int R, int T, int B, int* part, int nblk, int* phase, void* stream) {
   if (nf > MAX_FIELDS || F > K2_MAX_FIRES || NSB < 1 || NSB > MAX_NSB || S > MAX_S ||
       R > MAX_R || nblk < 1 || (long long)T * nblk >= (1LL << 31))
     return (int)cudaErrorInvalidValue;

@@ -48,6 +48,14 @@
 //                  row, reset the dead columns. The ring is read and
 //                  written once.
 //
+// Phase counters (observability.device.enabled, the JAX XLA superscan's
+// int32[3] carry): with a `phase` buffer each dispatch adds [records with
+// idx >= 0, fire slots, steps that purged] into it inside the launches it
+// makes anyway. The ingest's first key tile counts its records (a block sum,
+// one atomic per CTA); the warp that builds a step's descriptor counts its
+// fire slots and purge; the partials entry counts the sum of its count
+// partials in k1_scan.
+//
 // What bounds it: bytes. Every record's idx (and value) is read once (once
 // per key tile); the
 // ring, the out rows and the partials (6.3 MB at the YSB geometry) are
@@ -234,9 +242,10 @@ __global__ void __launch_bounds__(K1_INGEST_THREADS)
 k1_ingest_tiled(Fields fl, const int* __restrict__ idx, const float* __restrict__ vals,
                 int* __restrict__ part, StepDesc* __restrict__ descs, Plan plan, int K,
                 int S, int NSB, int F, int R, int B, int t0, int tg, int ct, int vec,
-                int exact) {
+                int exact, int* phase) {
   extern __shared__ int hist[];                // (1 + nf) arrays of ct cells, swizzled
   __shared__ int kind[1 + MAX_FIELDS];         // of each array's partials (count: ADD_I32)
+  __shared__ int nrec;                         // the CTA's records with idx >= 0
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int C = (int)cluster.num_blocks();
@@ -245,9 +254,14 @@ k1_ingest_tiled(Fields fl, const int* __restrict__ idx, const float* __restrict_
   const unsigned int nct = min((long long)ct, cells - c0);   // cells in the tile
   const int nf = FIELDS ? fl.n : 0;
   if (rank == 0 && blockIdx.y == 0 && threadIdx.x < 32)  // the step's plan, for k1_scan
-    build_desc(descs[blockIdx.z], plan, (long long)t0 + blockIdx.z, S, F, R);
+    build_desc(descs[blockIdx.z], plan, (long long)t0 + blockIdx.z, S, F, R, phase);
   if (threadIdx.x <= nf)
     kind[threadIdx.x] = threadIdx.x ? part_kind(fl.kind[threadIdx.x - 1]) : ADD_I32;
+  if (threadIdx.x == 0) nrec = 0;
+  // the first key tile's CTAs read every record of the step once between
+  // them: they count the ingested ones
+  const bool counts = phase != nullptr && blockIdx.y == 0;
+  int mine = 0;
   __syncthreads();
   for (int a = 0; a <= nf; ++a)                // whole swizzle runs
     for (int i = threadIdx.x; i < ct; i += blockDim.x) hist[a * ct + i] = part_identity(kind[a]);
@@ -268,9 +282,11 @@ k1_ingest_tiled(Fields fl, const int* __restrict__ idx, const float* __restrict_
           const unsigned int c = (unsigned int)r[i] - c0;
           cell[i] = c < nct ? (int)swizzle(c) : -1;
           if (cell[i] >= 0) atomicAdd(hist + cell[i], 1);
+          if (counts) mine += r[i] >= 0;
         }
         for (int a = 1; a <= nf; ++a) land_field(kind[a], hist + a * ct, cell, v, exact);
       });
+  if (counts) block_count_add(phase, mine, &nrec);
   cluster.sync();                              // every histogram is complete
 
   // CTA `rank` folds its share of the tile's cells over the cluster's C
@@ -299,8 +315,10 @@ template <bool FIELDS>
 __global__ void __launch_bounds__(K1_INGEST_THREADS)
 k1_ingest_atomic(Fields fl, const int* __restrict__ idx, const float* __restrict__ vals,
                  int* __restrict__ part, StepDesc* __restrict__ descs, Plan plan, int K,
-                 int S, int NSB, int F, int R, int B, int t0, int tg, int vec, int exact) {
+                 int S, int NSB, int F, int R, int B, int t0, int tg, int vec, int exact,
+                 int* phase) {
   __shared__ int kind[1 + MAX_FIELDS];         // of each array's partials (count: ADD_I32)
+  __shared__ int nrec;                         // the CTA's records with idx >= 0
   cg::grid_group grid = cg::this_grid();
   const long long cells = (long long)NSB * K;  // < 2^31 (ops.supports)
   const long long n = (long long)tg * cells;   // cells of one array of the group
@@ -308,6 +326,7 @@ k1_ingest_atomic(Fields fl, const int* __restrict__ idx, const float* __restrict
   const long long me = grid.thread_rank(), all = grid.size();
   if (threadIdx.x <= nf)
     kind[threadIdx.x] = threadIdx.x ? part_kind(fl.kind[threadIdx.x - 1]) : ADD_I32;
+  if (threadIdx.x == 0) nrec = 0;
   __syncthreads();
   for (int a = 0; a <= nf; ++a) {
     const int id = part_identity(kind[a]);
@@ -315,10 +334,11 @@ k1_ingest_atomic(Fields fl, const int* __restrict__ idx, const float* __restrict
     for (long long i = me; i < n; i += all) p[i] = id;
   }
   for (long long tl = me / 32; tl < tg; tl += all / 32)   // a warp per step
-    build_desc(descs[tl], plan, t0 + tl, S, F, R);
+    build_desc(descs[tl], plan, t0 + tl, S, F, R, phase);
   grid.sync();
 
   constexpr int NB = k1_batch<FIELDS>();
+  int mine = 0;                                // records with idx >= 0 this thread read
   for (int tl = 0; tl < tg; ++tl) {
     const long long base = (long long)(t0 + tl) * B;
     int* pc = part + (long long)tl * cells;
@@ -330,10 +350,12 @@ k1_ingest_atomic(Fields fl, const int* __restrict__ idx, const float* __restrict
           for (int i = 0; i < NB; ++i) {
             cell[i] = (unsigned int)r[i] < (unsigned int)cells ? r[i] : -1;
             if (cell[i] >= 0) atomicAdd(pc + cell[i], 1);
+            if (phase != nullptr) mine += r[i] >= 0;
           }
           for (int a = 1; a <= nf; ++a) land_field(kind[a], pc + a * n, cell, v, exact);
         });
   }
+  if (phase != nullptr) block_count_add(phase, mine, &nrec);
 }
 
 // STAGED: the CTA's ring tile [NA, S, K1_SCAN_KEYS] lives in shared
@@ -347,10 +369,15 @@ __global__ void __launch_bounds__(K1_SCAN_KEYS)
 k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
         const StepDesc* __restrict__ descs, int* __restrict__ count_out, Fields outs,
         const int* __restrict__ purge, Spws spws, int K, int S, int NSB, int t0,
-        int tg, int pb, int raw) {
+        int tg, int pb, int raw, int* phase) {
   extern __shared__ int sm[];                  // ring tile, then staged partials
   __shared__ StepDesc desc[K1_CHUNK];
   __shared__ int w_s[MAX_FIRES];
+  __shared__ int nrec;                         // the CTA's sum of count partials
+  // the partials entry counts what it ingests: the sum of the count
+  // partials (phase is null for the lane entry, whose ingest counts)
+  const bool counts = phase != nullptr;
+  unsigned int psum = 0;
   const int kl = threadIdx.x, key = blockIdx.x * K1_SCAN_KEYS + kl;
   const bool mine = key < K;
   const long long cells = (long long)NSB * K;
@@ -365,6 +392,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
     out_p[a] = (a ? (int*)outs.p[a - 1] : count_out) + key;
   }
   for (int f = kl; f < MAX_FIRES; f += K1_SCAN_KEYS) w_s[f] = spws.w[f];
+  if (kl == 0) nrec = 0;                       // ordered by the chunk loop's first barrier
   int* ps = sm + (STAGED ? NA * S * K1_SCAN_KEYS : 0);
   // ring cell (a, col) of the thread's key; neighbouring keys sit in
   // neighbouring banks, and a step's columns are the same for every key
@@ -428,6 +456,9 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 #pragma unroll
         for (int a = 0; a < NA; ++a)
           add[a] = *reinterpret_cast<const int4*>(pt + a * K1_SCAN_KEYS * 4);
+        if (counts)
+          psum += (unsigned int)add[0].x + (unsigned int)add[0].y + (unsigned int)add[0].z +
+                  (unsigned int)add[0].w;
 #pragma unroll
         for (int a = 0; a < NA; ++a) {
           K1_CELL(a, col[0]) = merge_bits(kind[a], cur[a][0], part_value(pkind[a], add[a].x));
@@ -439,6 +470,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
         const long long pa = pb ? (long long)K1_SCAN_KEYS * NSB : (long long)tg * cells;
         for (int r = 0; r < NSB; ++r) {
           const int col = (d.sm + r) % S;
+          if (counts) psum += (unsigned int)pt[r];
 #pragma unroll
           for (int a = 0; a < NA; ++a)
             K1_CELL(a, col) =
@@ -489,6 +521,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
     for (int col = 0; col < S; ++col)
 #pragma unroll
       for (int a = 0; a < NA; ++a) ring_p[a][(long long)col * K] = K1_CELL(a, col);
+  if (counts) block_count_add(phase, (int)psum, &nrec);
 #undef K1_CELL
 }
 
@@ -504,7 +537,7 @@ k1_scan(int* __restrict__ count, Fields fl, const int* __restrict__ part,
 static cudaError_t launch_k1_scan(int* count, const Fields& fl, const int* part,
                                   const StepDesc* descs, int* count_out, const Fields& ol,
                                   const int* purge, const Spws& sw, int K, int S, int NSB,
-                                  int t0, int tg, int raw, cudaStream_t st) {
+                                  int t0, int tg, int raw, int* phase, cudaStream_t st) {
   const int na = 1 + fl.n;
   const size_t ring = (size_t)na * S * K1_SCAN_KEYS * 4 <= K1_RING_SMEM
                           ? (size_t)na * S * K1_SCAN_KEYS * 4 : 0;
@@ -517,7 +550,7 @@ static cudaError_t launch_k1_scan(int* count, const Fields& fl, const int* part,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K1_RING_SMEM + K1_STAGE_SMEM);
     if (err != cudaSuccess) return err;
     kernel<<<grid, K1_SCAN_KEYS, smem, st>>>(count, fl, part, descs, count_out, ol, purge,
-                                             sw, K, S, NSB, t0, tg, pb, raw);
+                                             sw, K, S, NSB, t0, tg, pb, raw, phase);
     return cudaGetLastError();
   };
   cudaError_t e = cudaErrorInvalidValue;
@@ -527,14 +560,15 @@ static cudaError_t launch_k1_scan(int* count, const Fields& fl, const int* part,
 
 // One group of tg steps from step t0: the ingest writes the group's
 // partials to part ([1 + nf, tg, K, NSB] int32, allocated by the caller)
-// and, after them, one StepDesc per step; k1_scan walks the steps.
+// and, after them, one StepDesc per step; k1_scan walks the steps. phase:
+// the dispatch's int32[3] phase counters, added to (null: off).
 // Returns a CUDA error code (0 = launched).
 extern "C" int k1_superscan(
     int* count, void* const* fields, const int* kinds, const int* idents,
     int nf, const int* idx, const float* vals, const int* smin,
     const int* fpos, const int* fvalid, const int* frow, const int* purge,
     const int* spws, int F, int* count_out, void* const* outs, int K, int S,
-    int NSB, int R, int B, int exact, int* part, int t0, int tg,
+    int NSB, int R, int B, int exact, int* part, int t0, int tg, int* phase,
     void* stream) {
   if (nf > MAX_FIELDS || F > MAX_FIRES || tg < 1 || tg > 65535 || K < 1 || NSB < 1 ||
       S > 65536 || R > 65536 || (long long)NSB * K >= (1LL << 31))
@@ -589,7 +623,7 @@ extern "C" int k1_superscan(
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     e = cudaLaunchKernelEx(&cfg, ingest, fl, idx, vals, part, descs, pl, K, S, NSB, F, R,
-                           B, t0, tg, ct, vec, exact);
+                           B, t0, tg, ct, vec, exact, phase);
   } else {
     // a cooperative grid of as many CTAs as the card holds at once
     auto ingest = nf ? k1_ingest_atomic<true> : k1_ingest_atomic<false>;
@@ -600,19 +634,19 @@ extern "C" int k1_superscan(
     attr[0].id = cudaLaunchAttributeCooperative;
     attr[0].val.cooperative = 1;
     e = cudaLaunchKernelEx(&cfg, ingest, fl, idx, vals, part, descs, pl, K, S, NSB, F, R,
-                           B, t0, tg, vec, exact);
+                           B, t0, tg, vec, exact, phase);
   }
   if (e != cudaSuccess) return (int)e;
 
   return (int)launch_k1_scan(count, fl, part, descs, count_out, ol, purge, sw, K, S, NSB, t0, tg,
-                             0, st);
+                             0, nullptr, st);
 }
 
 // The step descriptors of a group of steps from t0, one warp a step (the
 // partials entry has no ingest launch to build them).
 __global__ void __launch_bounds__(32)
-k1_descs(StepDesc* __restrict__ descs, Plan plan, int S, int F, int R, int t0) {
-  build_desc(descs[blockIdx.x], plan, (long long)t0 + blockIdx.x, S, F, R);
+k1_descs(StepDesc* __restrict__ descs, Plan plan, int S, int F, int R, int t0, int* phase) {
+  build_desc(descs[blockIdx.x], plan, (long long)t0 + blockIdx.x, S, F, R, phase);
 }
 
 // K1's partials entry: one group of tg steps from step t0 whose step
@@ -622,14 +656,15 @@ k1_descs(StepDesc* __restrict__ descs, Plan plan, int S, int F, int R, int t0) {
 // combiner folds them across shards). Builds the group's descriptors into
 // descs (tg StepDesc, allocated by the caller), then runs the same walk as
 // k1_superscan: merge each step's partials into their columns, fire, purge.
-// What bounds it: bytes, the partials read once beside a ring read and
-// written once. Returns a CUDA error code (0 = launched).
+// phase as k1_superscan's; the ingest count is the sum of the count
+// partials. What bounds it: bytes, the partials read once beside a ring
+// read and written once. Returns a CUDA error code (0 = launched).
 extern "C" int k1_partials(
     int* count, void* const* fields, const int* kinds, const int* idents, int nf,
     const int* part, const int* smin, const int* fpos, const int* fvalid,
     const int* frow, const int* purge, const int* spws, int F, int* count_out,
     void* const* outs, int K, int S, int NSB, int R, int* descs, int t0, int tg,
-    void* stream) {
+    int* phase, void* stream) {
   if (nf > MAX_FIELDS || F > MAX_FIRES || tg < 1 || K < 1 || NSB < 1 || S > 65536 ||
       R > 65536 || (long long)NSB * K >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -646,9 +681,9 @@ extern "C" int k1_partials(
   cudaStream_t st = (cudaStream_t)stream;
   Plan pl = {smin, fpos, fvalid, frow, purge};
   StepDesc* d = reinterpret_cast<StepDesc*>(descs);
-  k1_descs<<<tg, 32, 0, st>>>(d, pl, S, F, R, t0);
+  k1_descs<<<tg, 32, 0, st>>>(d, pl, S, F, R, t0, phase);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)launch_k1_scan(count, fl, part, d, count_out, ol, purge, sw, K, S, NSB, t0, tg, 1,
-                             st);
+                             phase, st);
 }

@@ -2,6 +2,7 @@
 device timing (`task_io`), spans and their OTLP export (`traces`, `otel`),
 emission latency (`emission_latency`), the metric history and the job
 doctor (`history`, `doctor`), and checkpoint and failure statistics
-(`checkpoint_stats`). Device and key statistics (`device_stats`,
-`key_stats`) come with ROADMAP item D4; the exchange and flame-graph
-helpers of the cluster (`exchange`, `flamegraph`) with item 14."""
+(`checkpoint_stats`), and the device plane: compile tracking, cost and
+roofline (`device_stats`) and key statistics (`key_stats`). The exchange
+and flame-graph helpers of the cluster (`exchange`, `flamegraph`) come
+with ROADMAP item 14."""

@@ -27,7 +27,8 @@ stall, emission stall, the recompile burst) are attenuated and marked
 This module imports neither torch nor the runtime: it consumes a
 `MetricHistory` and a list of span dicts handed to it. On the port the
 doctor is served by `JobClient.doctor_report`; its REST route is ROADMAP
-item 14, and no `device.XlaCompile` span exists before D4.
+item 14. The `device.XlaCompile` spans it reads come from the device
+plane's compile tracker (metrics/device_stats.py).
 """
 
 from __future__ import annotations

@@ -12,6 +12,15 @@ the partials' scratch through PyTorch's caching allocator. K1's partials
 entry (`keyed_superscan_partials`, the mesh's map-side combiner's receive
 side) takes the step partials from its caller and runs the walk alone.
 
+Every entry takes an optional `phase` buffer, int32[3] on the state's
+device (the device plane's phase counters, `observability.device.enabled`):
+a dispatch adds [records with idx >= 0 (the partials entry: the sum of its
+count partials), fire slots (the sum of fire_valid), steps whose purge row
+holds a 0] into it inside the launches it makes anyway, with no host sync;
+the caller zeroes it. `k1_cost`, `k1_partials_cost` and `k2_cost` count the
+bytes a dispatch must move and the operations it does, for the device
+plane's roofline and for `chip_smoke.py`'s bounds.
+
 The wrappers take the plain PyTorch version (`ops/superscan.py`) only for
 tensors that lie on the CPU. For CUDA tensors they launch the kernel or
 raise; nothing falls back. Each wrapper adds one to its entry in
@@ -123,6 +132,59 @@ def global_blocks_per_step(B: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# what a dispatch must move and compute (the device plane's cost analysis,
+# and chip_smoke.py's bounds): each input read once, each output written
+# once; the operations are one per ingested record and array
+# ---------------------------------------------------------------------------
+
+def plan_bytes(T: int, F: int, S: int) -> int:
+    """Bytes of a dispatch's plan: smin [T], fire_pos/fire_valid/fire_row
+    [T, F] and purge [T, S], int32."""
+    return 4 * T * (1 + 3 * F + S)
+
+
+def k1_cost(*, T: int, B: int, K: int, S: int, F: int, nf: int, fires: int,
+            records=None) -> Dict[str, float]:
+    """One keyed lane dispatch (K1): the records' idx (and their value
+    column, with VALUE fields) read once, each of the 1 + nf rings read and
+    written once, one [K] row per fire and array written, the plan read
+    once; one operation per ingested record and array (`records`: the
+    records with idx >= 0; None counts all T*B lanes)."""
+    arrays = 1 + nf
+    lanes = T * B
+    nbytes = (lanes * 4 * (2 if nf else 1) + 2 * arrays * S * K * 4
+              + arrays * fires * K * 4 + plan_bytes(T, F, S))
+    return {"flops": float((lanes if records is None else records) * arrays),
+            "bytes_accessed": float(nbytes)}
+
+
+def k1_partials_cost(*, T: int, K: int, S: int, NSB: int, F: int, nf: int,
+                     fires: int) -> Dict[str, float]:
+    """One keyed dispatch through K1's partials entry: the [1 + nf, T, K,
+    NSB] partials read once, the rings read and written once, the fire
+    rows written, the plan read; one operation per partial cell."""
+    arrays = 1 + nf
+    cells = T * K * NSB
+    nbytes = (arrays * cells * 4 + 2 * arrays * S * K * 4 + arrays * fires * K * 4
+              + plan_bytes(T, F, S))
+    return {"flops": float(arrays * cells), "bytes_accessed": float(nbytes)}
+
+
+def k2_cost(*, T: int, B: int, S: int, F: int, nf: int, fires: int,
+            records=None) -> Dict[str, float]:
+    """One global dispatch (K2): the records' idx (and value column) read
+    once, the [S] rings read and written once, one scalar per fire and
+    array written, the plan read; one operation per ingested record and
+    array."""
+    arrays = 1 + nf
+    lanes = T * B
+    nbytes = (lanes * 4 * (2 if nf else 1) + 2 * arrays * S * 4 + arrays * fires * 4
+              + plan_bytes(T, F, S))
+    return {"flops": float((lanes if records is None else records) * arrays),
+            "bytes_accessed": float(nbytes)}
+
+
+# ---------------------------------------------------------------------------
 # build + load
 # ---------------------------------------------------------------------------
 
@@ -209,17 +271,17 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
               _INTS, _INT, _PTR, _PTRS]                  # spws, F, count_out, outs
     if name == "superscan":
         fn = lib.k1_superscan
-        # K S NSB R B exact, part, t0 tg, stream
-        fn.argtypes = common + [_INT] * 6 + [_PTR, _INT, _INT, _PTR]
+        # K S NSB R B exact, part, t0 tg, phase, stream
+        fn.argtypes = common + [_INT] * 6 + [_PTR, _INT, _INT, _PTR, _PTR]
         # count fields kinds idents nf, part, smin fpos fvalid frow purge,
-        # spws F, count_out outs, K S NSB R, descs, t0 tg, stream
+        # spws F, count_out outs, K S NSB R, descs, t0 tg, phase, stream
         lib.k1_partials.argtypes = [_PTR, _PTRS, _INTS, _INTS, _INT, _PTR] + [_PTR] * 5 + [
-            _INTS, _INT, _PTR, _PTRS] + [_INT] * 4 + [_PTR, _INT, _INT, _PTR]
+            _INTS, _INT, _PTR, _PTRS] + [_INT] * 4 + [_PTR, _INT, _INT, _PTR, _PTR]
         lib.k1_partials.restype = ctypes.c_int
     else:
         fn = lib.k2_global_superscan
-        # S NSB R T B, part, nblk, stream
-        fn.argtypes = common + [_INT] * 5 + [_PTR, _INT, _PTR]
+        # S NSB R T B, part, nblk, phase, stream
+        fn.argtypes = common + [_INT] * 5 + [_PTR, _INT, _PTR, _PTR]
     fn.restype = ctypes.c_int
     return lib
 
@@ -293,12 +355,17 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_phase(phase, dev) -> None:
+    if phase is not None:
+        _check(phase, "phase", torch.int32, (3,), dev)
+
+
 def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
-            idents, out_shape, outs_fill, spws, scratch, calls):
+            idents, out_shape, outs_fill, spws, scratch, calls, phase):
     """Validate, allocate the fire rows and the step partials' scratch, and
     run one dispatch on the card. `scratch` is the scratch's int32 element
-    count; `calls(part)` lists the trailing arguments of each C call (each
-    call is two CUDA launches)."""
+    count; `calls(part)` lists the trailing arguments of each C call before
+    the phase buffer (each call is two CUDA launches)."""
     dev = count.device
     S = count.shape[0]
     smin, fpos, fvalid, frow, purge = plan
@@ -318,6 +385,7 @@ def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
         _check(st, f"state {f.name!r}", torch_dtype(f.dtype), count.shape, dev)
     if vf:
         _check(vals, "vals", torch.float32, (T * B,), dev)
+    _check_phase(phase, dev)
     count_out = torch.zeros(out_shape, dtype=torch.int32, device=dev)
     outs = tuple(torch.full(out_shape, fill, dtype=torch_dtype(f.dtype), device=dev)
                  for f, fill in zip(vf, outs_fill))
@@ -338,8 +406,9 @@ def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
                 (ctypes.c_int * max(F, 1))(*spws), F, count_out.data_ptr(),
                 (ctypes.c_void_p * max(n, 1))(*[o.data_ptr() for o in outs]))
         LAUNCHES[entry] += 1
+        pp = None if phase is None else phase.data_ptr()
         for tail in calls(part.data_ptr()):
-            rc = getattr(lib, entry)(*head, *tail, stream)
+            rc = getattr(lib, entry)(*head, *tail, pp, stream)
             if rc != 0:
                 raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
             CUDA_LAUNCHES[entry] += 2
@@ -348,17 +417,18 @@ def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
 
 def keyed_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
                     idx: torch.Tensor, vals, plan, *, NSB: int, R: int,
-                    spws: Sequence[int], exact: bool):
+                    spws: Sequence[int], exact: bool, phase=None):
     """One keyed T-step dispatch: kernel K1 on CUDA tensors, the plain
     version (`keyed_superscan_plain`, same contract) on CPU tensors.
 
     count [S, K] int32 and states (one [S, K] ring per VALUE field) are
     updated in place; idx [T*B] int32, vals [T*B] float32 or None; plan =
-    (smin [T], fire_pos, fire_valid, fire_row [T, F], purge [T, S]) int32.
+    (smin [T], fire_pos, fire_valid, fire_row [T, F], purge [T, S]) int32;
+    phase: the int32[3] phase counters to add to, or None.
     Returns (count_out [R, K] int32, outs: one [R, K] per field)."""
     if count.device.type == "cpu":
         return keyed_superscan_plain(agg, count, states, idx, vals, plan,
-                                     NSB=NSB, R=R, spws=spws, exact=exact)
+                                     NSB=NSB, R=R, spws=spws, exact=exact, phase=phase)
     if count.device.type != "cuda":
         raise ValueError(f"no keyed superscan for device {count.device}")
     S, K = count.shape
@@ -381,21 +451,22 @@ def keyed_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
         outs_fill=[0] * len(vf), spws=spws,
         scratch=partial_bytes(longest, K, NSB, len(vf)) // 4,
         calls=lambda part: [(K, S, NSB, R, B, int(exact), part, t0, t1 - t0)
-                            for t0, t1 in groups])
+                            for t0, t1 in groups], phase=phase)
 
 
 def global_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
                      idx: torch.Tensor, vals, plan, *, NSB: int, R: int,
-                     spws: Sequence[int]):
+                     spws: Sequence[int], phase=None):
     """One global-window T-step dispatch: kernel K2 on CUDA tensors, the
     plain version (`global_superscan_plain`, same contract) on CPU tensors.
 
     count [S] int32 and states (one [S] ring per VALUE field) are updated
-    in place. Returns (count_out [R] int32, outs: one [R] per field, at the
-    field's scan identity where no fire wrote)."""
+    in place; phase as `keyed_superscan`'s. Returns (count_out [R] int32,
+    outs: one [R] per field, at the field's scan identity where no fire
+    wrote)."""
     if count.device.type == "cpu":
         return global_superscan_plain(agg, count, states, idx, vals, plan,
-                                      NSB=NSB, R=R, spws=spws)
+                                      NSB=NSB, R=R, spws=spws, phase=phase)
     if count.device.type != "cuda":
         raise ValueError(f"no global superscan for device {count.device}")
     (S,) = count.shape
@@ -416,12 +487,12 @@ def global_superscan(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
         idents=[_bits(i, f.dtype) for i, f in zip(idents, vf)],
         out_shape=(R,), outs_fill=idents, spws=spws,
         scratch=T * nblk * (1 + len(vf)) * NSB + T * STEP_DESC_BYTES // 4,
-        calls=lambda part: [(S, NSB, R, T, B, part, nblk)] if T else [])
+        calls=lambda part: [(S, NSB, R, T, B, part, nblk)] if T else [], phase=phase)
 
 
 def keyed_superscan_partials(agg, count: torch.Tensor, states: Sequence[torch.Tensor],
                              cpart: torch.Tensor, parts: Sequence[torch.Tensor], plan, *,
-                             NSB: int, R: int, spws: Sequence[int], out=None):
+                             NSB: int, R: int, spws: Sequence[int], out=None, phase=None):
     """One keyed T-step dispatch over pre-reduced step partials: K1's
     partials entry on CUDA tensors, the plain version
     (`keyed_superscan_partials_plain`, same contract) on CPU tensors.
@@ -431,11 +502,12 @@ def keyed_superscan_partials(agg, count: torch.Tensor, states: Sequence[torch.Te
     per VALUE field, in its `partial_dtype`) are the step partials; plan as
     `keyed_superscan`. Returns (count_out [R, K] int32, outs: one [R, K]
     per field); `out`, an earlier call's return, is written in place
-    instead (rows no fire of these steps writes keep what they hold).
+    instead (rows no fire of these steps writes keep what they hold);
+    phase as `keyed_superscan`'s, its ingest count the sum of cpart.
     `supports()` decides this entry as it does the lane one."""
     if count.device.type == "cpu":
         return keyed_superscan_partials_plain(agg, count, states, cpart, parts, plan,
-                                              NSB=NSB, R=R, spws=spws, out=out)
+                                              NSB=NSB, R=R, spws=spws, out=out, phase=phase)
     if count.device.type != "cuda":
         raise ValueError(f"no keyed superscan for device {count.device}")
     S, K = count.shape
@@ -461,6 +533,7 @@ def keyed_superscan_partials(agg, count: torch.Tensor, states: Sequence[torch.Te
     _check(purge, "purge", torch.int32, (T, S), dev)
     if len(spws) != F:
         raise ValueError(f"spws has {len(spws)} slots, expected F={F}")
+    _check_phase(phase, dev)
     n = len(vf)
     # the walk reads [1 + nf, steps, K, NSB] 32-bit patterns
     stacked = torch.stack([cpart] + [p.view(torch.int32) for p in parts])
@@ -490,7 +563,8 @@ def keyed_superscan_partials(agg, count: torch.Tensor, states: Sequence[torch.Te
                 frow.data_ptr(), purge.data_ptr(), (ctypes.c_int * max(F, 1))(*spws), F,
                 count_out.data_ptr(),
                 (ctypes.c_void_p * max(n, 1))(*[o.data_ptr() for o in outs]),
-                K, S, NSB, R, descs.data_ptr(), t0, tg, stream)
+                K, S, NSB, R, descs.data_ptr(), t0, tg,
+                None if phase is None else phase.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"k1_partials failed to launch: CUDA error {rc}")
             CUDA_LAUNCHES["k1_partials"] += 2

@@ -20,6 +20,11 @@ allocated fire rows.
 Plan arrays (host-planned, all int32): smin [T] (ring column of the step's
 lowest slice), fire_pos/fire_valid/fire_row [T, F], purge [T, S] (0 =
 reset the column after the step).
+
+Each superscan takes an optional `phase` tensor, int32[3]: the device
+plane's phase counters (the JAX package's `phase_counters` carry), to
+which the dispatch adds [records ingested, fire slots executed (the sum of
+fire_valid), steps whose purge row holds a 0].
 """
 
 from __future__ import annotations
@@ -63,10 +68,21 @@ def _plan_host(plan):
     return [np.asarray(p.cpu()) for p in plan]
 
 
+def _add_phases(phase, ingested, fvalid, purge) -> None:
+    """Add a dispatch's [ingested, fire slots, purged steps] to `phase`
+    (None: counters off); `ingested` is an int32 scalar tensor, the plan
+    arrays host numpy."""
+    if phase is None:
+        return
+    phase[0] += ingested.to(torch.int32)
+    phase[1] += int(fvalid.sum(dtype=np.int64))
+    phase[2] += int((purge == 0).any(axis=1).sum())
+
+
 def keyed_superscan_plain(agg, count: torch.Tensor,
                           states: Sequence[torch.Tensor], idx: torch.Tensor,
                           vals, plan, *, NSB: int, R: int,
-                          spws: Sequence[int], exact: bool
+                          spws: Sequence[int], exact: bool, phase=None
                           ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One keyed T-step dispatch (the plain version of kernel K1).
 
@@ -124,6 +140,7 @@ def keyed_superscan_plain(agg, count: torch.Tensor,
                                    include_self=True)
         _fire_purge_plain(t, count, states, vfields, count_out, outs,
                           (fpos, fvalid, frow, purge), R, spws)
+    _add_phases(phase, (idx >= 0).sum(), fvalid, purge)
     return count_out, outs
 
 
@@ -161,7 +178,7 @@ def _fire_purge_plain(t: int, count, states, vfields, count_out, outs, plan, R: 
 def keyed_superscan_partials_plain(agg, count: torch.Tensor,
                                    states: Sequence[torch.Tensor], cpart: torch.Tensor,
                                    parts: Sequence[torch.Tensor], plan, *, NSB: int,
-                                   R: int, spws: Sequence[int], out=None
+                                   R: int, spws: Sequence[int], out=None, phase=None
                                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One keyed T-step dispatch over PRE-REDUCED step partials (the plain
     version of kernel K1's partials entry; the 'partials' ingest of the
@@ -199,6 +216,9 @@ def keyed_superscan_partials_plain(agg, count: torch.Tensor,
                     st[col], part[t, :, r].to(st.dtype))
         _fire_purge_plain(t, count, states, vfields, count_out, outs,
                           (fpos, fvalid, frow, purge), R, spws)
+    # the ingest count of pre-reduced partials: their count sum, as the
+    # JAX package's 'partials' ingest counts it (`cpart.sum()`)
+    _add_phases(phase, cpart.sum(dtype=torch.int32), fvalid, purge)
     return count_out, outs
 
 
@@ -249,7 +269,7 @@ def segment_partials(agg, idx: torch.Tensor, vals, nseg: int, *, exact: bool = T
 def global_superscan_plain(agg, count: torch.Tensor,
                            states: Sequence[torch.Tensor], idx: torch.Tensor,
                            vals, plan, *, NSB: int, R: int,
-                           spws: Sequence[int]
+                           spws: Sequence[int], phase=None
                            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One global-window T-step dispatch (the plain version of kernel K2).
 
@@ -308,6 +328,7 @@ def global_superscan_plain(agg, count: torch.Tensor,
             count[dead_t] = 0
             for st, ident in zip(states, idents):
                 st[dead_t] = ident
+    _add_phases(phase, (idx >= 0).sum(), fvalid, purge)
     return count_out, outs
 
 

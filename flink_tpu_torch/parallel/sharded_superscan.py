@@ -40,6 +40,14 @@ prologue — the user's traceable map/filter/map_ts chain and the key/value
 extraction — over its slice of the raw source columns before the
 exchange, so only keyed survivors cross.
 
+The device plane (`attach_device_stats`): a mesh dispatch is one tracked
+program ("sharded_superscan", or "sharded_chained_superscan" with a
+prologue), each shard's K1 launches add into the shard's own phase buffer,
+and the buffers ride the fire rows' readback into the planner's
+`phase_totals`, summed over the shards as the JAX package sums its
+per-shard counters (so fire and purge steps count once per shard).
+`per_device_key_loads` is the per-shard view the key statistics read.
+
 The planner is the JAX package's shape: a plan-only `FusedWindowPipeline`
 over the GLOBAL key space (one source of truth for the window math and
 the watermark/fire/purge cursors); every attribute this class does not
@@ -138,6 +146,12 @@ class ShardedFusedPipeline:
         # exchanges); donate_carry is kept for the operator's flag — the
         # rings update in place, so there is no carry to donate
         self.donate_carry = False
+        # the device plane: the tracker around each mesh dispatch, the
+        # phase counters' flag, and this pipeline's own program table (the
+        # JAX package caches a mesh's executables per pipeline)
+        self.compile_tracker = None
+        self.phase_counters = False
+        self._dispatched: Dict[tuple, None] = {}
 
     # ------------------------------------------------------------------
     # planner delegation: the normalizer and the operator read the window
@@ -149,6 +163,55 @@ class ShardedFusedPipeline:
         if name == "_planner":   # no recursion before __init__ set it
             raise AttributeError(name)
         return getattr(self._planner, name)
+
+    # ------------------------------------------------------------------
+    # the device plane (metrics/device_stats.py)
+    # ------------------------------------------------------------------
+    def attach_device_stats(self, tracker, phase_counters: bool = True) -> None:
+        """Wire a CompileTracker around the mesh dispatch and turn the
+        shards' phase counters on. Call before the first dispatch: the phase
+        flag is part of the program cache key."""
+        self.compile_tracker = tracker
+        self.phase_counters = bool(phase_counters)
+
+    @property
+    def phase_totals(self):
+        return self._planner.phase_totals
+
+    def per_device_key_loads(self) -> torch.Tensor:
+        """Per-shard local per-key record counts ([n, K_local] int32, one
+        row per shard, on the first shard's device): the input of the
+        per-device skew fold."""
+        dev = self.devices[0]
+        return torch.stack([c.sum(0, dtype=torch.int32).to(dev) for c in self._count])
+
+    def key_stats_ready(self) -> bool:
+        return self._planner.max_seen_slice is not None
+
+    def state_row_bytes(self) -> int:
+        return self._planner.state_row_bytes()
+
+    def _tracked_dispatch(self, program: str, key: tuple, run, T: int, B: int, fires: int,
+                          extra=None):
+        """Run `run()` as one tracked mesh dispatch (program, signature
+        keys and cache key as the JAX package's)."""
+        from flink_tpu_torch.runtime.fused_window_pipeline import DispatchProgram, dtype_signature
+
+        nf = len(self._value_fields)
+        K, S, n, Kl = self.K, self.S, self.n, self.K_local
+        cost = cs.k1_cost(T=T, B=n * B, K=K, S=S, F=self.F, nf=nf, fires=fires)
+        prog = DispatchProgram(
+            key, run, lambda: cost,
+            lambda: {"temp_bytes": n * cs.partial_bytes(T, Kl, self.NSB, nf),
+                     "output_bytes": n * (1 + nf) * self.R * Kl * 4,
+                     "argument_bytes": (1 + nf) * S * K * 4 + n * T * B * 4 * (2 if nf else 1)},
+            seen=self._dispatched)
+        if self.compile_tracker is None:
+            return prog()
+        sig = {"T": T, "B": B, "K": K, "S": S, "n": n,
+               "dtype": dtype_signature(self._value_fields)}
+        sig.update(extra or {})
+        return self.compile_tracker.call(program, prog, (), sig)
 
     # ------------------------------------------------------------------
     # state
@@ -359,36 +422,62 @@ class ShardedFusedPipeline:
         return out
 
     def _scan_shards(self, src_idx: Sequence[torch.Tensor], src_vals, plan, fires,
-                     key_bounds=None):
-        """Exchange the source shards' [T, B_s] lanes, run K1 on every shard,
-        and start the canonical fire rows' readback."""
-        from flink_tpu_torch.runtime.fused_window_pipeline import DeferredEmissions
+                     key_bounds=None, raw_dtype=None):
+        """Exchange the source shards' [T, B_s] lanes, run K1 on every shard
+        (one tracked dispatch), and start the canonical fire rows' readback.
+        raw_dtype: the traced chain's raw column dtype (its program name)."""
+        from flink_tpu_torch.runtime.fused_window_pipeline import (
+            DeferredEmissions,
+            _dtype_name,
+            phase_buffer,
+        )
 
         T = int(plan[0].shape[0])
+        B = src_idx[0].numel() // max(T, 1)
         names = [f.name for f in self._value_fields]
-        plans: dict = {}
-        results = []
-        if self.local_combine:
-            results = [None] * self.n
-            for t0, t1 in self.partial_groups(T):
-                routed = self.route_partials(src_idx, src_vals, t0, t1)
-                for j, (cpart, parts) in enumerate(routed):
-                    sub = tuple(p[t0:t1] for p in self._plan_on(plan, plans, self.devices[j]))
-                    results[j] = cs.keyed_superscan_partials(
+        phases = [phase_buffer(self.phase_counters, d) for d in self.devices]
+
+        def run():
+            plans: dict = {}
+            results = []
+            if self.local_combine:
+                results = [None] * self.n
+                for t0, t1 in self.partial_groups(T):
+                    routed = self.route_partials(src_idx, src_vals, t0, t1)
+                    for j, (cpart, parts) in enumerate(routed):
+                        sub = tuple(p[t0:t1] for p in self._plan_on(plan, plans,
+                                                                    self.devices[j]))
+                        results[j] = cs.keyed_superscan_partials(
+                            self.agg, self._count[j], [self._state[nm][j] for nm in names],
+                            cpart, parts, sub, NSB=self.NSB, R=self.R,
+                            spws=self._planner.slot_spws(), out=results[j], phase=phases[j])
+                    del routed
+            else:
+                for j, (idx, vals) in enumerate(self.route_lanes(src_idx, src_vals)):
+                    results.append(cs.keyed_superscan(
                         self.agg, self._count[j], [self._state[nm][j] for nm in names],
-                        cpart, parts, sub, NSB=self.NSB, R=self.R,
-                        spws=self._planner.slot_spws(), out=results[j])
-                del routed
+                        idx.reshape(-1), None if vals is None else vals.reshape(-1),
+                        self._plan_on(plan, plans, self.devices[j]), NSB=self.NSB, R=self.R,
+                        spws=self._planner.slot_spws(), exact=self.exact, phase=phases[j]))
+            return results
+
+        flags = (T, B, self.phase_counters, self.local_combine,
+                 None if self.routing is None else self.routing.G, self.donate_carry,
+                 self.K, self.S)
+        if raw_dtype is None:
+            results = self._tracked_dispatch("sharded_superscan", ("classic",) + flags, run,
+                                             T, B, len(fires))
         else:
-            for j, (idx, vals) in enumerate(self.route_lanes(src_idx, src_vals)):
-                results.append(cs.keyed_superscan(
-                    self.agg, self._count[j], [self._state[nm][j] for nm in names],
-                    idx.reshape(-1), None if vals is None else vals.reshape(-1),
-                    self._plan_on(plan, plans, self.devices[j]), NSB=self.NSB, R=self.R,
-                    spws=self._planner.slot_spws(), exact=self.exact))
+            results = self._tracked_dispatch(
+                "sharded_chained_superscan", ("raw",) + flags + (raw_dtype,), run, T, B,
+                len(fires), {"raw_dtype": _dtype_name(raw_dtype)})
         count_rows, out_rows = self._canonical_fire_rows(results, names, len(fires))
-        return DeferredEmissions(self._planner, fires, count_rows, out_rows,
-                                 key_bounds=key_bounds, key_capacity=self.K)
+        dev = self.devices[0]
+        return DeferredEmissions(
+            self._planner, fires, count_rows, out_rows, key_bounds=key_bounds,
+            key_capacity=self.K,
+            phase_counts=tuple(pc.to(dev, non_blocking=True) for pc in phases
+                               if pc is not None))
 
     def source_lanes(self, staged, T: int):
         """A staged dispatch's lanes dealt to the source shards: (idx, vals,
@@ -499,7 +588,8 @@ class ShardedFusedPipeline:
         plan = staged[3]
         T = int(plan[0].shape[0])
         src_idx, src_vals, key_bounds = self.source_lanes(staged, T)
-        d = self._scan_shards(src_idx, src_vals, plan[:5], plan[5], key_bounds=key_bounds)
+        d = self._scan_shards(src_idx, src_vals, plan[:5], plan[5], key_bounds=key_bounds,
+                              raw_dtype=staged[0][0].dtype)
         return d if defer else d.resolve()
 
     # ------------------------------------------------------------------

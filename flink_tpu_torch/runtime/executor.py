@@ -70,17 +70,28 @@ source batch. Unlike the JAX runners, whose window, chain and sink
 runners register numRecordsIn and never count it (ROADMAP.md Queue C),
 every runner counts the records handed to it.
 
+The device plane (`observability.device.*`, on by default as in JAX):
+a device window runner attaches a CompileTracker to an operator that takes
+one (the fused operator: compile counts and events, the roofline gauges,
+K1's phase counters) and a throttled KeyStatsCollector over an operator's
+per-key loads (keySkew, hot keys, the key-group histogram; per shard on
+the mesh); `JobRuntime` registers the `job.device.*` group and
+`job.keySkew`, reports each compile as a `device.XlaCompile` span, serves
+the JAX package's `/jobs/:id/device` payload from `device_snapshot()`
+(its REST route is ROADMAP item 14) and, with `observability.profiler.*`,
+captures a torch.profiler trace of each attempt.
+
 Left out, raising where a job asks for them (ROADMAP.md Queue A): the
-device and key statistics and the profiler (D4: so no job.device.* and no
-job.keySkew gauges), the mesh with tiering or shared partials and its skew
-rebalancer (item 13b), the chaos hook (item 14), operator coordinators
-(item 19's process functions: `coordinators` stays empty) and the rest of
-the DataStream API's runners (item 19).
+mesh with tiering or shared partials and its skew rebalancer (item 13b),
+the chaos hook (item 14), operator coordinators (item 19's process
+functions: `coordinators` stays empty) and the rest of the DataStream
+API's runners (item 19).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional
@@ -665,9 +676,9 @@ class WindowStepRunner(StepRunner):
                 emit_late_to_side_output=bool(cfg.get("side_output_late")),
             )
             self.device = False
-        self._init_planes(config)
+        self._init_planes(config, device)
 
-    def _init_planes(self, config: Configuration) -> None:
+    def _init_planes(self, config: Configuration, device=None) -> None:
         """Device timing (observability.device-timing.enabled): the host
         clock around the dispatch and readback sections, never a
         synchronize of its own. Emission latency
@@ -688,6 +699,73 @@ class WindowStepRunner(StepRunner):
                 self.op.emission_tracker = self.emission_tracker
             else:
                 self._emission_at_drain = True
+        self._init_device_stats(config, device)
+
+    def _init_device_stats(self, config: Configuration, device=None) -> None:
+        """The device plane (metrics/device_stats.py, metrics/key_stats.py):
+        a CompileTracker attached to an operator with the attach surface
+        (the fused operator; the others skip it) and a throttled key-stats
+        collector over an operator's device-resident per-key loads. Gated
+        like the JAX runner's; per-batch host cost is one clock compare."""
+        self.device_stats = None
+        self.key_stats = None
+        self._roofline_peaks = None
+        if not (self.device and config.get(ObservabilityOptions.DEVICE_STATS_ENABLED)):
+            return
+        from flink_tpu_torch.metrics.device_stats import CompileTracker, platform_peaks
+        from flink_tpu_torch.metrics.key_stats import KeyStatsCollector
+
+        attach = getattr(self.op, "attach_device_stats", None)
+        if attach is not None:
+            tracker = CompileTracker(
+                history_size=config.get(ObservabilityOptions.DEVICE_RECOMPILE_HISTORY_SIZE),
+                storm_threshold=config.get(
+                    ObservabilityOptions.DEVICE_RECOMPILE_STORM_THRESHOLD),
+                storm_window_ms=config.get(
+                    ObservabilityOptions.DEVICE_RECOMPILE_STORM_WINDOW_MS),
+                cost_analysis=config.get(ObservabilityOptions.DEVICE_COST_ANALYSIS_ENABLED),
+                memory_analysis=config.get(
+                    ObservabilityOptions.DEVICE_MEMORY_ANALYSIS_ENABLED))
+            attach(tracker)
+            self.device_stats = tracker
+            self._roofline_peaks = platform_peaks(
+                config.get(ObservabilityOptions.DEVICE_HBM_GBPS),
+                config.get(ObservabilityOptions.DEVICE_PEAK_TFLOPS),
+                resolve_device(device).type)
+        loads_fn = getattr(self.op, "key_loads", None)
+        if loads_fn is not None:
+            self.key_stats = KeyStatsCollector(
+                loads_fn,
+                num_key_groups=config.get(PipelineOptions.MAX_PARALLELISM),
+                top_k=config.get(ObservabilityOptions.DEVICE_KEY_STATS_TOP_K),
+                row_bytes_fn=getattr(self.op, "state_row_bytes", None),
+                ready_fn=getattr(self.op, "key_stats_ready", None),
+                interval_ms=config.get(ObservabilityOptions.DEVICE_KEY_STATS_INTERVAL_MS),
+                # mesh operators also fold per-shard loads, so the skew
+                # gauges see the worst shard too
+                mesh_loads_fn=(getattr(self.op, "per_device_key_loads", None)
+                               if getattr(self.op, "mesh_devices", lambda: 1)() > 1
+                               else None))
+
+    def _device_stats_tick(self) -> None:
+        """A due key-stats fold (one clock compare otherwise). Called
+        outside every DeviceTimer section: the fold's one copy waits for
+        the dispatch in flight."""
+        if self.key_stats is not None:
+            self.key_stats.maybe_collect()
+
+    def device_roofline(self) -> Dict[str, float]:
+        """hbmUtilizationPct / flopsUtilizationPct: the tracker's bytes and
+        operations over the DeviceTimer's time (host clock; 0.0 when either
+        side is off)."""
+        from flink_tpu_torch.metrics.device_stats import roofline_pct
+
+        tracker, timer = self.device_stats, self.device_timer
+        if tracker is None or timer is None or self._roofline_peaks is None:
+            return {"hbmUtilizationPct": 0.0, "flopsUtilizationPct": 0.0}
+        hbm, tflops = self._roofline_peaks
+        return roofline_pct(tracker.bytes_accessed_total(), tracker.flops_total(),
+                            timer.total_s, hbm, tflops)
 
     def _section(self, fn, *args):
         """fn(*args), inside a device-timer section when timing is on."""
@@ -733,6 +811,7 @@ class WindowStepRunner(StepRunner):
         if keys.ndim != 1 or keys.dtype.kind not in "iuUSO":
             keys = obj_array(list(keys))
         self._section(self.op.process_batch, keys, self._values_of(values), timestamps)
+        self._device_stats_tick()
 
     def _process_records(self, values, timestamps) -> None:
         """The oracle's per-record feed (the JAX runner's): processing-time
@@ -764,11 +843,16 @@ class WindowStepRunner(StepRunner):
     def on_processing_time(self, now_ms: int) -> None:
         # processing-time windows fire from the run loop's wall-clock tick,
         # not only when their own source produces a batch
+        self._device_stats_tick()
         if self.processing_time:
             self.op.advance_processing_time(now_ms)
             self._drain()
 
     def on_watermark(self, watermark: int) -> None:
+        if self.device and self.key_stats is not None:
+            # fold BEFORE the watermark's purge, so a due collection sees
+            # the state the advance is about to retire
+            self._device_stats_tick()
         self._section(self.op.process_watermark, watermark)
         self._drain()
         # fused operators emit at superbatch granularity: forward only the
@@ -834,8 +918,23 @@ class WindowStepRunner(StepRunner):
         key_count = getattr(self.op, "state_key_count", None)
         if key_count is not None:
             group.gauge("stateKeyCount", key_count, fold="sum")
-        # the compile tracker, roofline, phase counters and key statistics
-        # of the JAX runner's device plane are ROADMAP item D4
+        # the device plane: compile counters, roofline, phase counters and
+        # key statistics, on the operator scope
+        if self.device_stats is not None:
+            self.device_stats.register(group)
+            # each shard's own card's view: MEAN across shards
+            group.gauge("hbmUtilizationPct",
+                        lambda: self.device_roofline()["hbmUtilizationPct"], fold="mean")
+            group.gauge("flopsUtilizationPct",
+                        lambda: self.device_roofline()["flopsUtilizationPct"], fold="mean")
+            phases = getattr(self.op, "phase_totals", None)
+            if callable(phases):
+                for name, key in (("phaseIngestRecords", "ingestRecords"),
+                                  ("phaseFireSteps", "fireSteps"),
+                                  ("phasePurgeSteps", "purgeSteps")):
+                    group.gauge(name, lambda k=key: phases()[k], fold="sum", kind="counter")
+        if self.key_stats is not None:
+            self.key_stats.register(group)
         # the state tier's gauges: counts and sizes SUM across shards, the
         # hot fill ratio MEANs; eviction and promotion totals are monotone
         tier_gauges = getattr(self.op, "tier_gauges", None)
@@ -903,7 +1002,7 @@ class DeviceChainRunner(WindowStepRunner):
         self.sql_origin = bool(cfg.get("sql_origin"))
         # the drain resolves deferred dispatches' rows: the readback section
         self._drain_resolves_device = True
-        self._init_planes(config)
+        self._init_planes(config, device)
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
         if len(timestamps) == 0:
@@ -914,6 +1013,7 @@ class DeviceChainRunner(WindowStepRunner):
         else:
             values = as_device_column(values)
         self._section(self.op.process_raw_batch, values, timestamps)
+        self._device_stats_tick()
 
 
 class SharedWindowSiblingRunner(StepRunner):
@@ -1301,7 +1401,8 @@ class JobRuntime:
         self.graph = graph
         self.config = config
         self.traces = traces    # optional TraceRegistry (emission-stall spans)
-        self.runners, feeds = build_runners(graph, config, device)
+        self.device = resolve_device(device)
+        self.runners, feeds = build_runners(graph, config, self.device)
         self.sources = [JobRuntime._SourceDriver(t, feeds.get(t.id, []))
                         for t in graph.sources]
         self.records_in = 0
@@ -1332,8 +1433,39 @@ class JobRuntime:
             r.device_timer.total_s * 1000.0 for r in self.runners
             if getattr(r, "device_timer", None) is not None),
             fold="sum", kind="counter")
-        # the JAX job group's device plane (job.device.*, job.keySkew) is
-        # ROADMAP item D4: a port job registers neither
+        # the device plane: the job-level compile, roofline and skew gauges
+        # (job.device.*, job.keySkew); compile events also ride the trace
+        # registry as 'device'-scope spans when one is bound
+        tracked = [r for r in self.runners if getattr(r, "device_stats", None) is not None]
+        trackers = [r.device_stats for r in tracked]
+        collectors = [r.key_stats for r in self.runners
+                      if getattr(r, "key_stats", None) is not None]
+        if trackers:
+            dg = job_group.add_group("device")
+            dg.gauge("numCompiles", lambda: sum(t.num_compiles for t in trackers),
+                     fold="sum", kind="counter")
+            dg.gauge("numRecompiles", lambda: sum(t.num_recompiles for t in trackers),
+                     fold="sum", kind="counter")
+            dg.gauge("compileTimeMsTotal",
+                     lambda: round(sum(t.compile_ms_total for t in trackers), 3),
+                     fold="sum", kind="counter")
+            dg.gauge("recompileStorm", lambda: max(t.recompile_storm() for t in trackers),
+                     fold="max")
+            for key in ("hbmUtilizationPct", "flopsUtilizationPct"):
+                dg.gauge(key, lambda k=key: max(
+                    (r.device_roofline()[k] for r in tracked), default=0.0), fold="mean")
+        if collectors:
+            def _job_skew(cs=tuple(collectors)):
+                skews = [v for v in (c.skew() for c in cs) if v is not None]
+                return max(skews) if skews else None
+
+            job_group.gauge("keySkew", _job_skew, fold="max")
+        if traces is not None and trackers:
+            from flink_tpu_torch.metrics.device_stats import compile_event_span
+
+            for t in trackers:
+                if t.on_event is None:
+                    t.on_event = (lambda ev, _tr=traces: _tr.report(compile_event_span(ev)))
         # emission latency: the job's p99 over every operator (MAX across
         # shards), and the outlier EmissionStall spans into the trace plane
         em_trackers = tuple(r.emission_tracker for r in self.runners
@@ -1349,6 +1481,10 @@ class JobRuntime:
                     if t.span_sink is None:
                         t.span_sink = (lambda scope, name, s0, s1, a, _tr=traces:
                                        _tr.report(Span(scope, name, s0, s1, a)))
+        # the profiler capture surface (observability.profiler.*): where
+        # each attempt's trace landed, for device_snapshot()
+        self.profiler_captures = 0
+        self.last_profiler_capture_dir: Optional[str] = None
         self._marker_interval = config.get(ObservabilityOptions.MARKER_INTERVAL_MS)
         self._sampling_interval = config.get(ObservabilityOptions.SAMPLING_INTERVAL_MS)
         # the gauges this attempt registered: their closures hold its
@@ -1446,11 +1582,110 @@ class JobRuntime:
         checkpoint while the attempt runs."""
         if coordinator is not None:
             coordinator.register_on_complete(self.commit_sinks)
+        profiler = self._start_profiler()
         try:
             self._run_loop(coordinator, cancel_check, savepoint_request, rescale_request)
         finally:
             if coordinator is not None:
                 coordinator.unregister_on_complete(self.commit_sinks)
+            if profiler is not None:
+                self._stop_profiler(profiler)
+
+    # -- the device plane's payload and the profiler ---------------------
+    def _start_profiler(self):
+        """A running torch.profiler capture of this attempt
+        (observability.profiler.enabled): CUDA activity (with the host's
+        beside it: CUDA-only sessions have come back short on the H100) on
+        the card, CPU activity otherwise; None when off or when the profiler
+        does not start (warned, never failing the job, as the JAX
+        runtime's)."""
+        if not self.config.get(ObservabilityOptions.PROFILER_ENABLED):
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities)
+            prof.__enter__()
+        except Exception as e:  # noqa: BLE001 — observability never fails the job
+            warnings.warn(f"torch.profiler trace capture unavailable: {e!r}", RuntimeWarning)
+            return None
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        """Stop the capture, export its Chrome trace into
+        observability.profiler.dir and count it."""
+        import os
+
+        profile_dir = self.config.get(ObservabilityOptions.PROFILER_DIR)
+        try:
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+            # the capture is not write-only: count it and remember where it
+            # landed, for device_snapshot()
+            self.profiler_captures += 1
+            self.last_profiler_capture_dir = profile_dir
+        except Exception as e:  # noqa: BLE001 — observability never fails the job
+            logging.getLogger(__name__).debug("torch.profiler export failed: %r", e)
+
+    def device_snapshot(self) -> Dict[str, Any]:
+        """The device-plane payload (the JAX package's /jobs/:id/device
+        body; its REST route is ROADMAP item 14): the merged compile block,
+        per-operator cost/roofline/phase/key telemetry, and the profiler
+        capture surface. Plain data, JSON-safe."""
+        from flink_tpu_torch.metrics.device_stats import (
+            empty_device_payload,
+            merge_compile_payloads,
+        )
+
+        payload = empty_device_payload()
+        ops: Dict[str, Any] = {}
+        compile_payloads = []
+        for idx, r in enumerate(self.runners):
+            op = getattr(r, "op", None)
+            tracker = getattr(r, "device_stats", None)
+            ks = getattr(r, "key_stats", None)
+            timer = getattr(r, "device_timer", None)
+            tier_fn = getattr(op, "tier_payload", None)
+            tier = tier_fn() if callable(tier_fn) else None
+            routing_fn = getattr(op, "routing_payload", None)
+            routing = routing_fn() if callable(routing_fn) else None
+            if tracker is None and ks is None and tier is None and routing is None:
+                continue
+            entry: Dict[str, Any] = {}
+            if timer is not None:
+                entry["deviceTimeMsTotal"] = round(timer.total_s * 1000.0, 3)
+                entry["deviceDispatches"] = timer.dispatches
+            if tracker is not None:
+                cp = tracker.payload()
+                compile_payloads.append(cp)
+                entry["compile"] = cp
+                entry.update(r.device_roofline())
+            phases = getattr(op, "phase_totals", None)
+            if callable(phases):
+                entry["phases"] = phases()
+            if ks is not None:
+                entry["keys"] = ks.payload()
+            if tier is not None:
+                entry["tier"] = tier
+            if routing is not None:
+                entry["routing"] = routing
+            ops[getattr(r, "uid", f"runner-{idx}")] = entry
+        payload["operators"] = ops
+        payload["compile"] = merge_compile_payloads(
+            compile_payloads,
+            history_size=self.config.get(ObservabilityOptions.DEVICE_RECOMPILE_HISTORY_SIZE))
+        payload["enabled"] = bool(ops)
+        payload["profiler"] = {
+            "enabled": self.config.get(ObservabilityOptions.PROFILER_ENABLED),
+            "captures": self.profiler_captures,
+            "last_capture_dir": self.last_profiler_capture_dir,
+        }
+        return payload
 
     def _run_loop(self, coordinator, cancel_check, savepoint_request,
                   rescale_request=None) -> None:

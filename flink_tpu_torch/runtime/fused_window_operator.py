@@ -47,8 +47,13 @@ operator over a ShardedFusedPipeline, whose dispatch runs the keyBy
 exchange and kernel K1 on every shard; snapshots stay canonical [K, S],
 so the operator checkpoints and restores across mesh sizes.
 
+The device plane (`attach_device_stats`, `phase_totals`, `key_loads`,
+`per_device_key_loads`, `key_stats_ready`): the JAX operator's surface over
+the pipeline's compile tracker, K1's phase counters and the rings' per-key
+loads.
+
 Not ported (each raises, naming its ROADMAP.md item): the mesh with tiering
-or shared partials (item 13) and device stats (D4).
+or shared partials (item 13).
 """
 
 from __future__ import annotations
@@ -875,11 +880,38 @@ class FusedWindowOperator:
     def num_late_records_dropped(self) -> int:
         return self.pipe.num_late_records_dropped
 
+    # -- the device plane (metrics/device_stats.py, metrics/key_stats.py) --
     def attach_device_stats(self, tracker, phase_counters: bool = True) -> None:
-        raise deferred.not_ported("FusedWindowOperator.attach_device_stats", deferred.D4)
+        """Wire a CompileTracker around every superscan dispatch and turn
+        K1's phase counters on. Call before the first batch: the phase flag
+        is part of the program cache key."""
+        self.pipe.attach_device_stats(tracker, phase_counters=phase_counters)
 
-    def phase_totals(self):
-        raise deferred.not_ported("FusedWindowOperator.phase_totals", deferred.D4)
+    def phase_totals(self) -> Dict[str, int]:
+        """Cumulative phase counters of the resolved dispatches: records
+        ingested, fire slots executed, steps that purged."""
+        t = self.pipe.phase_totals
+        return {"ingestRecords": int(t[0]), "fireSteps": int(t[1]),
+                "purgeSteps": int(t[2])}
+
+    def key_loads(self):
+        """Device-resident per-key record counts ([K] int32) for the
+        key-statistics fold."""
+        return self.pipe.key_loads()
+
+    def per_device_key_loads(self):
+        """[n, K_local] per-shard local loads on the mesh (None on one
+        device): the per-device skew fold's input."""
+        fn = getattr(self.pipe, "per_device_key_loads", None)
+        return fn() if fn is not None else None
+
+    def key_stats_ready(self) -> bool:
+        """O(1) host probe: has a dispatch landed data in the device rings
+        yet? (Steps buffer on the host until the first dispatch.)"""
+        return self.pipe.max_seen_slice is not None
+
+    def state_row_bytes(self) -> int:
+        return self.pipe.state_row_bytes()
 
     def mesh_devices(self) -> int:
         """Shards this operator's state is spread over (1 = one device)."""

@@ -27,13 +27,20 @@ State is slice-major, `[S, K]`, on every device (the plain version shares
 the kernel's layout), so the JAX package's backend layout switches reduce
 to the `[K, S]` conversion in `snapshot`/`restore`, whose dicts match the
 JAX pipeline's keys, shapes and dtypes in both directions.
+
+The device plane (metrics/device_stats.py, `attach_device_stats`): every
+dispatch runs as a `DispatchProgram` through the attached CompileTracker,
+under the JAX package's program names and signature keys, and with the
+phase counters on each K1/K2 launch adds [records ingested, fire slots,
+purged steps] into a per-dispatch int32[3] buffer that rides the fire
+rows' readback and is folded into `phase_totals` at resolve.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,13 +49,70 @@ from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.core.time import MIN_WATERMARK, TimeWindow
 from flink_tpu_torch.ops import cuda_superscan as cs
 from flink_tpu_torch.ops.aggregators import VALUE, resolve, scan_identity, torch_dtype
-from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import canonical_column, canonical_dtype
 from flink_tpu_torch.utils.device import HostCopy, resolve_device, staging_buffer, upload
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -((-a) // b)
+
+
+#: the (program, cache key)s dispatched in this process: a key's first
+#: dispatch is its compile (the JAX package's executable caches, keyed the
+#: same way, are process-wide too). Bounded FIFO as the JAX package's
+#: chained-executable cache is.
+_DISPATCHED: Dict[tuple, None] = {}
+_DISPATCHED_MAX = 128
+
+
+class DispatchProgram:
+    """One dispatch of a program geometry, in the shape the CompileTracker
+    reads (metrics/device_stats.py): calling it runs `run()`;
+    `_cache_size()` is 1 once any dispatch of its key has returned in this
+    process (`seen`: a table of its own, for programs whose cache is per
+    pipeline), else 0; `cost_analysis()` and `memory_analysis()` are the
+    dispatch's counts from its shapes (no device work)."""
+
+    __slots__ = ("key", "_run", "_cost", "_memory", "_seen")
+
+    def __init__(self, key: tuple, run: Callable[[], Any], cost: Callable[[], dict],
+                 memory: Callable[[], dict], seen: Optional[Dict[tuple, None]] = None):
+        self.key = key
+        self._run, self._cost, self._memory = run, cost, memory
+        self._seen = _DISPATCHED if seen is None else seen
+
+    def __call__(self):
+        out = self._run()
+        seen = self._seen
+        if self.key not in seen:
+            while len(seen) >= _DISPATCHED_MAX:
+                seen.pop(next(iter(seen)))
+            seen[self.key] = None
+        return out
+
+    def _cache_size(self) -> int:
+        return int(self.key in self._seen)
+
+    def cost_analysis(self) -> dict:
+        return self._cost()
+
+    def memory_analysis(self) -> dict:
+        return self._memory()
+
+
+def _dtype_name(dtype) -> str:
+    """A column dtype as the JAX package spells it in a signature."""
+    return str(dtype).replace("torch.", "")
+
+
+def dtype_signature(value_fields) -> str:
+    """The signature's "dtype": the VALUE fields' dtypes, or "count"."""
+    return "+".join(str(np.dtype(f.dtype)) for f in value_fields) or "count"
+
+
+def phase_buffer(on: bool, device) -> Optional[torch.Tensor]:
+    """A dispatch's zeroed int32[3] phase counters on `device` (None: off)."""
+    return torch.zeros(3, dtype=torch.int32, device=device) if on else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,19 +149,30 @@ class DeferredEmissions:
     host memory as soon as the dispatch is enqueued; a CUDA event recorded
     after the copies orders them, and `resolve` waits on that event only.
     A traced-chain dispatch also carries the [max, min] of the keys its
-    surviving records produced; resolve raises if they leave [0, K)."""
+    surviving records produced; resolve raises if they leave [0, K). With
+    the phase counters, `phase_counts` (the dispatch's int32[3] buffers,
+    one per shard on the mesh, on the rows' device) rides the same copy
+    and is added into the pipeline's `phase_totals` at resolve."""
 
     def __init__(self, pipe: "FusedWindowPipeline", fires, count_out, outs,
                  key_bounds=None, key_capacity: Optional[int] = None,
-                 copy_stream=None):
+                 copy_stream=None, phase_counts=()):
         self._pipe = pipe
         self._fires = fires
         self._key_capacity = key_capacity
         self._names = list(outs)
-        self._copy = HostCopy([count_out, key_bounds, *outs.values()], stream=copy_stream)
+        self._n_phase = len(phase_counts)
+        self._phases_folded = False
+        self._copy = HostCopy([count_out, key_bounds, *phase_counts, *outs.values()],
+                              stream=copy_stream)
 
     def resolve(self):
-        count_out, key_bounds, *outs = self._copy.wait()
+        count_out, key_bounds, *rest = self._copy.wait()
+        outs = rest[self._n_phase:]
+        if not self._phases_folded:
+            self._phases_folded = True
+            for pc in rest[:self._n_phase]:
+                self._pipe.phase_totals += pc.numpy().astype(np.int64)
         if key_bounds is not None:
             hi, lo = (int(v) for v in key_bounds.tolist())
             if hi >= self._key_capacity or lo < 0:
@@ -314,6 +389,15 @@ class FusedWindowPipeline:
         # window length (slices) of each fire slot; None: every slot folds
         # spw (a shared-partial pipeline sets its members' lengths)
         self._fire_spws: Optional[Tuple[int, ...]] = None
+        # the device plane (metrics/device_stats.py): an attached
+        # CompileTracker wraps every dispatch; phase_counters has each K1
+        # launch add [ingested, fire slots, purged steps] into a
+        # per-dispatch buffer, folded into phase_totals at resolve. Both
+        # are wired by attach_device_stats before the first dispatch (the
+        # phase flag is part of the program cache key, as in JAX).
+        self.compile_tracker = None
+        self.phase_counters = False
+        self.phase_totals = np.zeros(3, np.int64)  # [ingest, fire, purge]
 
         self.g = assigner.slice_ms
         self.sl = assigner.slide_slices
@@ -377,8 +461,30 @@ class FusedWindowPipeline:
                                       device=self.device)], dim=1)
         self.K = new_k
 
+    # ------------------------------------------------------------------
+    # the device plane (metrics/device_stats.py)
+    # ------------------------------------------------------------------
     def attach_device_stats(self, tracker, phase_counters: bool = True) -> None:
-        raise deferred.not_ported("attach_device_stats", deferred.D4)
+        """Attach a CompileTracker (and opt into the phase counters). Call
+        before the first dispatch: the phase flag is part of the program
+        cache key."""
+        self.compile_tracker = tracker
+        self.phase_counters = bool(phase_counters)
+
+    def _signature(self, program_extra: Dict[str, Any]) -> Dict[str, Any]:
+        """Shape signature of the next dispatch, the JAX package's keys: the
+        tracker diffs it for recompile cause attribution (K change = ring
+        doubling, T/B change = batch-geometry churn, dtype change)."""
+        sig: Dict[str, Any] = {"K": self.K, "S": self.S, "NSB": self.NSB, "F": self.F,
+                               "R": self.R, "dtype": dtype_signature(self._value_fields)}
+        sig.update(program_extra)
+        return sig
+
+    def _tracked(self, program: str, fn, args: tuple, extra: Dict[str, Any]):
+        """Dispatch through the attached CompileTracker (or directly)."""
+        if self.compile_tracker is None:
+            return fn(*args)
+        return self.compile_tracker.call(program, fn, args, self._signature(extra))
 
     # ------------------------------------------------------------------
     # tiered-state row surface (state/tier_manager.py): the tier manager
@@ -555,7 +661,7 @@ class FusedWindowPipeline:
         if self._grouped(T):
             d = self._process_grouped(T, idx_d, vals_d, plan)
         else:
-            d = self._dispatch(idx_d, vals_d, plan)
+            d = self._dispatch(plan, lanes=(idx_d, vals_d))
         return d if defer else d.resolve()
 
     def _grouped(self, T: int) -> bool:
@@ -565,20 +671,61 @@ class FusedWindowPipeline:
         Tg = self.readback_steps
         return 0 < Tg < T and T % Tg == 0
 
-    def _dispatch(self, idx_d, vals_d, plan, key_bounds=None, rows=None,
+    def _dispatch(self, plan, *, lanes=None, raw=None, rows=None,
                   copy_stream=None) -> DeferredEmissions:
-        """Run one staged dispatch and start its readback. `rows`: fire
-        rows to allocate (a readback group's; None: R, read back up to the
-        multiple of 16 the fires need)."""
+        """Run one staged dispatch as a tracked program and start its
+        readback. `lanes`: (idx, vals) staged lanes ("fused_superscan");
+        `raw`: (raw, srel, ts) traced-chain columns, whose prologue runs
+        inside the program ("fused_chained_superscan"). `rows`: fire rows to
+        allocate (a readback group's; None: R, read back up to the multiple
+        of 16 the fires need)."""
         fires = plan[5]
         names = [f.name for f in self._value_fields]
-        # K1 for CUDA state, its plain version for CPU state; what K1
-        # refuses raises NotImplementedError there
-        count_out, field_outs = cs.keyed_superscan(
-            self.agg, self._count, [self._state[n] for n in names],
-            idx_d.reshape(-1), vals_d.reshape(-1) if self._needs_vals else None,
-            plan[:5], NSB=self.NSB, R=self.R if rows is None else rows,
-            spws=self.slot_spws(), exact=self.exact_sums)
+        T = int(plan[0].shape[0])
+        R = self.R if rows is None else rows
+        phase = phase_buffer(self.phase_counters, self.device)
+
+        def run():
+            key_bounds = None
+            if raw is None:
+                idx_d, vals_d = lanes
+            else:
+                idx_d, vals_d, key_bounds = self._run_prologue(*raw)
+            # K1 for CUDA state, its plain version for CPU state; what K1
+            # refuses raises NotImplementedError there
+            out = cs.keyed_superscan(
+                self.agg, self._count, [self._state[n] for n in names],
+                idx_d.reshape(-1), vals_d.reshape(-1) if self._needs_vals else None,
+                plan[:5], NSB=self.NSB, R=R, spws=self.slot_spws(),
+                exact=self.exact_sums, phase=phase)
+            return out, key_bounds
+
+        nf = len(self._value_fields)
+        geometry = (self.agg, self.K, self.S, self.NSB, self.F, self.R, self.spw, self.chunk,
+                    self.exact_sums)
+        flags = (self.phase_counters, self._fire_spws, self.donate_carry)
+        if raw is None:
+            B = lanes[0].numel() // max(T, 1)
+            program, extra = "fused_superscan", {"T": T, "B": B}
+            key = (program,) + geometry + (T, B) + flags
+        else:
+            B = raw[1].numel() // max(T, 1)
+            program = "fused_chained_superscan"
+            extra = {"T": T, "B": B, "raw_dtype": _dtype_name(raw[0].dtype)}
+            key = ((program, self.prologue) + geometry + (T, B) + flags
+                   + (tuple(raw[0].shape[1:]), raw[0].dtype))
+        K, S = self.K, self.S
+
+        def memory():
+            longest = max(t1 - t0 for t0, t1 in cs.step_groups(T, K, self.NSB, nf))
+            return {"temp_bytes": cs.partial_bytes(longest, K, self.NSB, nf),
+                    "output_bytes": (1 + nf) * R * K * 4,
+                    "argument_bytes": (1 + nf) * S * K * 4 + T * B * 4 * (2 if nf else 1)}
+
+        prog = DispatchProgram(
+            key, run, lambda: cs.k1_cost(T=T, B=B, K=K, S=S, F=self.F, nf=nf,
+                                         fires=len(fires)), memory)
+        (count_out, field_outs), key_bounds = self._tracked(program, prog, (), extra)
         outs = dict(zip(names, field_outs))
 
         # read back only the rows actually fired (padded to a multiple of 16
@@ -588,7 +735,8 @@ class FusedWindowPipeline:
             count_out = count_out[:used]
             outs = {k: v[:used] for k, v in outs.items()}
         return DeferredEmissions(self, fires, count_out, outs, key_bounds=key_bounds,
-                                 key_capacity=self.K, copy_stream=copy_stream)
+                                 key_capacity=self.K, copy_stream=copy_stream,
+                                 phase_counts=() if phase is None else (phase,))
 
     def _process_grouped(self, T, idx_d, vals_d, plan, raw=None) -> _StreamedEmissions:
         """Streamed fire readback (latency mode): one T-step dispatch as G
@@ -606,7 +754,8 @@ class FusedWindowPipeline:
 
         raw: the traced-chain form, (raw [T*B, ...], srel [T*B], ts | None):
         each group runs the prologue over its own rows first (so each
-        group's key bounds cover its surviving records), then K1."""
+        group's key bounds cover its surviving records), then K1. Each
+        group is one tracked dispatch with its own phase buffer."""
         Tg = self.readback_steps
         fires = plan[5]
         if raw is None:
@@ -626,17 +775,17 @@ class FusedWindowPipeline:
             done += len(g_fires)
             rows = min(self.R, -(-max(done, 1) // 16) * 16)
             g_plan = tuple(p[lo:hi] for p in plan[:5]) + (g_fires,)
-            key_bounds = None
             if raw is None:
                 g_idx = idx_d.reshape(-1)[lo * B:hi * B]
                 g_vals = vals_d.reshape(-1)[lo * B:hi * B] if self._needs_vals else None
+                parts.append(self._dispatch(g_plan, lanes=(g_idx, g_vals), rows=rows,
+                                            copy_stream=stream))
             else:
                 raw_d, srel_d, ts_d = raw
-                g_idx, g_vals, key_bounds = self._run_prologue(
-                    raw_d[lo * B:hi * B], srel_d[lo * B:hi * B],
-                    None if ts_d is None else ts_d[lo * B:hi * B])
-            parts.append(self._dispatch(g_idx, g_vals, g_plan, key_bounds=key_bounds,
-                                        rows=rows, copy_stream=stream))
+                g_raw = (raw_d[lo * B:hi * B], srel_d[lo * B:hi * B],
+                         None if ts_d is None else ts_d[lo * B:hi * B])
+                parts.append(self._dispatch(g_plan, raw=g_raw, rows=rows,
+                                            copy_stream=stream))
         return _StreamedEmissions(parts)
 
     def stage_superbatch(self, batches, watermarks):
@@ -863,8 +1012,7 @@ class FusedWindowPipeline:
         if self._grouped(T):
             d = self._process_grouped_raw(T, raw_d, srel_d, ts_d, plan)
         else:
-            idx, vals, key_bounds = self._run_prologue(raw_d, srel_d, ts_d)
-            d = self._dispatch(idx, vals, plan, key_bounds=key_bounds)
+            d = self._dispatch(plan, raw=(raw_d, srel_d, ts_d))
         return d if defer else d.resolve()
 
     def _process_grouped_raw(self, T, raw_d, srel_d, ts_d, plan) -> _StreamedEmissions:
@@ -1161,6 +1309,10 @@ class FusedGlobalWindowPipeline:
                                dtype=torch_dtype(f.dtype), device=self.device)
             for f in self._value_fields
         }
+        # the device plane: phase_totals is the planner's (DeferredEmissions
+        # folds into the pipe it is handed, the planner, as in JAX)
+        self.compile_tracker = None
+        self.phase_counters = False
 
     # planner-geometry delegation
     @property
@@ -1173,7 +1325,11 @@ class FusedGlobalWindowPipeline:
         return getattr(self._planner, name)
 
     def attach_device_stats(self, tracker, phase_counters: bool = True) -> None:
-        raise deferred.not_ported("attach_device_stats", deferred.D4)
+        """Attach a CompileTracker around every dispatch and turn K2's
+        phase counters on. Call before the first dispatch: the phase flag
+        is part of the program cache key."""
+        self.compile_tracker = tracker
+        self.phase_counters = bool(phase_counters)
 
     def plan_superbatch(self, slice_bounds, watermarks):
         return self._planner.plan_superbatch(slice_bounds, watermarks)
@@ -1187,15 +1343,37 @@ class FusedGlobalWindowPipeline:
             staged = self._planner.stage_superbatch(batches, watermarks)
         idx_d, vals_d, plan = staged
         names = [f.name for f in self._value_fields]
-        # K2 for CUDA state (what it refuses raises), the plain version for CPU
-        count_out, field_outs = cs.global_superscan(
-            self.agg, self._count, [self._state[n] for n in names],
-            idx_d.reshape(-1), vals_d.reshape(-1) if self._needs_vals else None,
-            plan[:5], NSB=self.NSB, R=self.R,
-            spws=(self._planner.spw,) * self.F)
-        deferred = DeferredEmissions(self._planner, plan[5], count_out,
-                                     dict(zip(names, field_outs)))
-        return deferred if defer else deferred.resolve()
+        T = int(plan[0].shape[0])
+        B = idx_d.numel() // max(T, 1)
+        nf = len(names)
+        phase = phase_buffer(self.phase_counters, self.device)
+
+        def run():
+            # K2 for CUDA state (what it refuses raises), the plain version for CPU
+            return cs.global_superscan(
+                self.agg, self._count, [self._state[n] for n in names],
+                idx_d.reshape(-1), vals_d.reshape(-1) if self._needs_vals else None,
+                plan[:5], NSB=self.NSB, R=self.R,
+                spws=(self._planner.spw,) * self.F, phase=phase)
+
+        S, R = self.S, self.R
+        prog = DispatchProgram(
+            ("global_superscan", self.agg, S, self.NSB, self.F, R, self._planner.spw, T, B,
+             self.phase_counters),
+            run, lambda: cs.k2_cost(T=T, B=B, S=S, F=self.F, nf=nf, fires=len(plan[5])),
+            lambda: {"temp_bytes": 4 * (T * cs.global_blocks_per_step(B) * (1 + nf) * self.NSB)
+                     + T * cs.STEP_DESC_BYTES,
+                     "output_bytes": (1 + nf) * R * 4,
+                     "argument_bytes": (1 + nf) * S * 4 + T * B * 4 * (2 if nf else 1)})
+        if self.compile_tracker is None:
+            count_out, field_outs = prog()
+        else:
+            count_out, field_outs = self.compile_tracker.call(
+                "global_superscan", prog, (), {"T": T, "B": B, "S": S, "scope": "global"})
+        handle = DeferredEmissions(self._planner, plan[5], count_out,
+                                   dict(zip(names, field_outs)),
+                                   phase_counts=() if phase is None else (phase,))
+        return handle if defer else handle.resolve()
 
     def snapshot(self) -> dict:
         return {

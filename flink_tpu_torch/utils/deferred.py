@@ -7,8 +7,6 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-D4 = ("deferred item D4 (compile tracker, phase counters, device and key "
-      "statistics, the profiler)")
 MESH = ("item 13b (the rest of the multi-GPU mesh: sharing and tiering on the "
         "mesh, the skew rebalancer, the autoscaler)")
 CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"

@@ -24,6 +24,12 @@ sizes, and the references it carries held against the JAX package.
   reports' keys, the JAX package's), with the coordinator's and the
   history's `due` held true so their counts do not hang on the wall clock;
   leg B's four runs; every leg C family's gauges and emission counts.
+- api_device (phase 26): every check but those that need the card (the
+  rows against the plane-off job and the numpy model, the phase counters
+  against the filter and the planner, compiles, spans, key skew, the
+  payload's keys; the ring-doubling cause; the mesh's per-shard skew and
+  summed ingest count; one profiler capture), and the payload keys the
+  smoke holds the port to against the JAX package's device_snapshot().
 
 Tolerance: exact.
 """
@@ -198,3 +204,36 @@ def test_api_metrics_phase_holds_every_check_but_the_launches(monkeypatch):
         assert set(got) <= set(keys)
     assert cm.REPORT_KEYS["latency_report"] == sorted(client.latency_report())
     assert cm.REPORT_KEYS["doctor_report"] == sorted(client.doctor_report())
+
+
+def test_api_device_phase_holds_every_check_but_the_card_ones():
+    """Phase 26 rehearsed small on the CPU: every check holds but those that
+    need the card (K1 launches, the nvcc build inside the cold job's
+    compile time, K1's kernel names in the profiler's trace, and the
+    roofline gauge, which rounds to 0 over the CPU's host time)."""
+    r = cm.api_device_phase(dev="cpu", sizes=dict(events=1 << 17, cold_events=1 << 14,
+                                                  mesh_events=1 << 19, profiler_events=1 << 13))
+    a, b, c, d, e = (r[k] for k in ("leg_a", "leg_b", "leg_c", "leg_d", "leg_e"))
+    assert {k for k, v in a["checks"].items() if not v} <= {
+        "k1_launched", "cold_build_in_compile_time", "hbm_pct_in_range"}, a["checks"]
+    assert a["phases"]["phaseFireSteps"] == a["planned"]["fires"] > 0
+    assert "ring-doubling" in b["causes"] and b["phases"]["ingestRecords"] == 12 * 512
+    assert len(c["runs"]) == 4 and c["on_over_off"] > 0
+    assert {k for k, v in d["checks"].items() if not v} == {"k1_once_per_shard"}, d["checks"]
+    assert e["profiler"]["captures"] == 1 and e["files"] == 1
+
+
+def test_device_payload_keys_are_the_jax_packages():
+    """The payload keys phase 26 holds the port to are those of the JAX
+    package's device_snapshot() for the same kind of job."""
+    from test_torch_checkpointing import _job, _runtime
+
+    env, _sink = _job("jax", "fused_count")
+    rt = _runtime("jax", env)
+    rt.run()
+    snap = rt.device_snapshot()
+    (uid,) = [u for u, entry in snap["operators"].items() if "compile" in entry]
+    assert cm._tree_keys(snap, uid) == cm.DEVICE_PAYLOAD_KEYS
+    sig = snap["compile"]["events"][0]["signature"] if snap["compile"]["events"] else None
+    if sig is not None:
+        assert cm.SIGNATURE_KEYS <= cm._signature_keys(sig)

@@ -337,10 +337,14 @@ def test_operator_unported_options_raise_naming_the_roadmap():
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
                                  latency=LatencySpec(target_ms=5))
     assert op.pipe.readback_steps == 8 and op.latency_gauges()["latencyModeActive"] == 1
+    # the device plane (D4) is ported: the operator takes a tracker and
+    # reports its phase counters (tests/test_torch_device_stats.py runs it)
+    from flink_tpu_torch.metrics.device_stats import CompileTracker
+
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu")
-    for call in (lambda: op.attach_device_stats(None), op.phase_totals):
-        with pytest.raises(NotImplementedError, match="D4"):
-            call()
+    op.attach_device_stats(CompileTracker())
+    assert op.phase_totals() == {"ingestRecords": 0, "fireSteps": 0, "purgeSteps": 0}
+    assert op.key_stats_ready() is False
     # queryable state is ported: a key never seen has no cells
     assert op.query_state_for(1) == {}
     # an operator without shared partials has no member lanes, in both

@@ -12,6 +12,8 @@ integer below 2**24 whatever the add order. Rows are compared for keys
 whose window count is above 0 (rows of absent keys are meaningless).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -216,10 +218,19 @@ def test_global_pipeline_matches_jax_pallas(agg):
 
 
 def test_unported_options_raise_naming_the_roadmap():
+    """The option this test held to its ROADMAP item, the device plane's
+    `attach_device_stats` (item D4), is ported: both pipelines take a
+    tracker and turn their phase counters on, and nothing of either
+    pipeline raises a `not_ported` error any more (the device plane's
+    twins are tests/test_torch_device_stats.py)."""
+    from flink_tpu_torch.metrics.device_stats import CompileTracker
+
     gpipe = tfp.FusedGlobalWindowPipeline(WINDOWS["sliding"](tasg), "max", device="cpu",
                                           num_slices=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, deferred item D4"):
-        gpipe.attach_device_stats(None)
     pipe = _port_pipe("sliding", "count")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, deferred item D4"):
-        pipe.attach_device_stats(None)
+    for p in (gpipe, pipe):
+        tracker = CompileTracker()
+        p.attach_device_stats(tracker)
+        assert p.compile_tracker is tracker and p.phase_counters is True
+        assert p.phase_totals.tolist() == [0, 0, 0]
+    assert "not_ported" not in Path(tfp.__file__).read_text()

@@ -8,13 +8,18 @@ each package's `env.execute_async()` on its MiniCluster, with a latency
 marker every batch, a checkpoint at every step (the coordinators' `due`
 held true, so the count does not hang on the wall clock), emission latency
 on and the doctor on. Equal across the packages: the rows; the sets of
-metric names, apart from the device plane of ROADMAP item D4 (listed
-below); every counter-kind value and every histogram's count, apart from
-the wall-clock ones (`deviceTimeMsTotal`) and the operator-scope
-numRecordsIn the JAX window and sink runners never count (ROADMAP Queue C:
-the port counts them, and the test holds them to the records that reached
-each runner); the multiset of (scope, name) of the trace spans, apart
-from D4's `device.XlaCompile`; and the keys of the three reports.
+metric names, the device plane's included (`job.device.*`, `job.keySkew`
+and the operator gauges of the compile tracker, roofline, phase counters
+and key statistics: the port registers the JAX set); every counter-kind
+value and every histogram's count, apart from the wall-clock ones
+(`deviceTimeMsTotal`, `compileTimeMsTotal`), the compile counts (a
+compile is a program geometry's first dispatch in the process, in both
+packages, so they depend on what ran before in the worker) and the
+operator-scope numRecordsIn the JAX window and sink runners never count
+(ROADMAP Queue C: the port counts them, and the test holds them to the
+records that reached each runner); the multiset of (scope, name) of the
+trace spans, apart from the `device.XlaCompile` spans (one per compile);
+and the keys of the three reports.
 
 Then every runner family (fused, per-batch with lateness, session, global
 count, oracle, device join, degraded join, latency mode, tiered, shared
@@ -67,22 +72,19 @@ PK = {
 }
 N, KEYS, BATCH = 1 << 14, 256, 1024
 
-# ROADMAP item D4: the JAX package's device plane (compile tracker,
-# roofline, phase counters, key statistics), which a port job lacks
-D4_JOB = {"job.device.numCompiles", "job.device.numRecompiles",
-          "job.device.compileTimeMsTotal", "job.device.recompileStorm",
-          "job.device.hbmUtilizationPct", "job.device.flopsUtilizationPct", "job.keySkew"}
-D4_OPERATOR = {"numCompiles", "numRecompiles", "compileTimeMsTotal", "recompileStorm",
-               "hbmUtilizationPct", "flopsUtilizationPct", "phaseIngestRecords",
-               "phaseFireSteps", "phasePurgeSteps", "keySkew", "activeKeys", "hotKeyLoad",
-               "keyGroupLoad", "keyGroupStateBytes"}
+# the device plane (ROADMAP item D4, ported): the job gauges and the
+# operator gauges of a default fused job, in both packages
+DEVICE_JOB = {"job.device.numCompiles", "job.device.numRecompiles",
+              "job.device.compileTimeMsTotal", "job.device.recompileStorm",
+              "job.device.hbmUtilizationPct", "job.device.flopsUtilizationPct", "job.keySkew"}
+DEVICE_OPERATOR = {"numCompiles", "numRecompiles", "compileTimeMsTotal", "recompileStorm",
+                   "hbmUtilizationPct", "flopsUtilizationPct", "phaseIngestRecords",
+                   "phaseFireSteps", "phasePurgeSteps", "keySkew", "activeKeys",
+                   "hotKeyLoad", "keyGroupLoad", "keyGroupStateBytes"}
 # counter-kind values that read the wall clock
-WALL = {"deviceTimeMsTotal"}
-
-
-def _d4(name: str) -> bool:
-    return name in D4_JOB or (name.startswith("job.operator.")
-                              and name.rsplit(".", 1)[-1] in D4_OPERATOR)
+WALL = {"deviceTimeMsTotal", "compileTimeMsTotal"}
+# counter-kind values that depend on what the process dispatched before
+PROCESS = {"numCompiles", "numRecompiles"}
 
 
 def _names(snap):
@@ -90,18 +92,18 @@ def _names(snap):
 
 
 def _compare(jax_snap, port_snap, reached=None):
-    """Names equal apart from D4's; counter-kind values and histogram
-    counts equal, apart from the wall-clock ones and the operator-scope
+    """Names equal (the port registers the JAX set, the device plane's
+    included); counter-kind values and histogram counts equal, apart from
+    the wall-clock ones, the compile counts and the operator-scope
     numRecordsIn (0 in the JAX package unless it counts; the port's equal
     `reached[uid]` where given)."""
-    jax_only = _names(jax_snap) - _names(port_snap)
-    assert all(_d4(k) for k in jax_only), sorted(k for k in jax_only if not _d4(k))
-    assert _names(port_snap) <= _names(jax_snap), sorted(_names(port_snap) - _names(jax_snap))
+    assert _names(port_snap) == _names(jax_snap), sorted(
+        _names(port_snap) ^ _names(jax_snap))
     kinds = jax_snap.get("__kinds__", {})
     checked = 0
     for k in sorted(_names(port_snap)):
         leaf = k.rsplit(".", 1)[-1]
-        if leaf in WALL:
+        if leaf in WALL or leaf in PROCESS:
             continue
         a, b = jax_snap[k], port_snap[k]
         if k.startswith("job.operator.") and leaf == "numRecordsIn" and a != b:
@@ -145,7 +147,11 @@ def _api_job(pkg: str, extra=None):
             "observability.doctor.enabled": True,
             # one history sample (the first tick): no watchdog span can
             # depend on the wall clock
-            "observability.history.interval-ms": 600_000}
+            "observability.history.interval-ms": 600_000,
+            # one key-statistics fold (the first tick with resident state):
+            # no gauge can depend on the wall clock (a later fold after the
+            # final purge reads no skew, which the snapshot leaves out)
+            "observability.device.key-stats.interval-ms": 600_000}
     conf.update(extra or {})
     env = pk.ds.StreamExecutionEnvironment(pk.cfg.Configuration(conf), **pk.kw)
     sink = (env.from_source(pk.src.DataGeneratorSource(gen, N),
@@ -182,6 +188,11 @@ def test_fused_job_metrics_spans_and_reports_match_jax(every_step_checkpoints):
     assert np.isfinite(ps["job.p99EmissionLatencyMs"]) and ps["job.p99EmissionLatencyMs"] > 0
     assert ps["job.deviceTimeMsTotal"] > 0
     assert ps[f"job.operator.{window}.deviceDispatches"] > 0
+    # the device plane of a default fused job: the JAX names, and the phase
+    # counters equal (compared above) and the records that passed the filter
+    assert DEVICE_JOB <= set(ps)
+    assert {f"job.operator.{window}.{leaf}" for leaf in DEVICE_OPERATOR} <= set(ps)
+    assert ps[f"job.operator.{window}.phaseIngestRecords"] == -(-N // 3)
     spans = {pkg: collections.Counter((s.scope, s.name) for s in c.span_log.spans
                                       if (s.scope, s.name) != ("device", "XlaCompile"))
              for pkg, c in (("jax", jc), ("port", pc))}
@@ -193,8 +204,12 @@ def test_fused_job_metrics_spans_and_reports_match_jax(every_step_checkpoints):
         assert sorted(p) == sorted(j), report
     assert pc.latency_report()["samples"] == jc.latency_report()["samples"]
     assert pc.doctor_report()["verdict"] == jc.doctor_report()["verdict"] == "healthy"
+    # one device.XlaCompile span per compile event, and the OTLP payload
+    # carries every span
+    compiles = sum(1 for s in pc.span_log.spans if (s.scope, s.name) == ("device", "XlaCompile"))
+    assert compiles == ps["job.device.numCompiles"]
     payload = pc.otel.payload()["resourceSpans"][0]["scopeSpans"][0]["spans"]
-    assert len(payload) == sum(spans["port"].values())
+    assert len(payload) == sum(spans["port"].values()) + compiles
 
 
 def test_planes_off_change_what_the_job_reports_like_jax(every_step_checkpoints):
@@ -217,7 +232,9 @@ def test_planes_off_change_what_the_job_reports_like_jax(every_step_checkpoints)
 def _runtime_snap(pkg, shape, conf=None):
     from test_torch_checkpointing import PK as CK, _job, _rows, _runtime
 
-    cfg = CK[pkg].cfg.Configuration(dict(conf or {}))
+    # one key-statistics fold, as in _api_job
+    cfg = CK[pkg].cfg.Configuration(dict({"observability.device.key-stats.interval-ms": 600_000},
+                                         **(conf or {})))
     env, sink = _job(pkg, shape, config=cfg)
     rt = _runtime(pkg, env)
     rt.run()
@@ -400,20 +417,29 @@ def test_every_ported_observability_key_is_the_jax_option():
               if isinstance(o, tcfg.ConfigOption)}
     jax = {o.key: o for o in vars(jcfg.ObservabilityOptions).values()
            if isinstance(o, jcfg.ConfigOption)}
-    unported = {k for k in jax if k.startswith(("observability.device.",
-                                                "observability.profiler.",
-                                                "observability.shipping."))}
+    unported = {k for k in jax if k.startswith("observability.shipping.")}
     assert set(ported) == set(jax) - unported
     for key, opt in ported.items():
         assert (opt.default, opt.type) == (jax[key].default, jax[key].type), key
         tcfg.Configuration({key: opt.default})
 
 
+@pytest.mark.parametrize("key,value", [
+    ("observability.device.enabled", False),
+    ("observability.device.key-stats.top-k", 3),
+    ("observability.profiler.enabled", True),
+    ("observability.profiler.dir", "profiles"),
+])
+def test_device_plane_keys_are_accepted_and_read(key, value):
+    """The device plane's keys (ROADMAP item D4, ported), which raised
+    before: accepted, and read back as set."""
+    conf = tcfg.Configuration({key: value})
+    opt = next(o for o in vars(tcfg.ObservabilityOptions).values()
+               if isinstance(o, tcfg.ConfigOption) and o.key == key)
+    assert conf.get(opt) == value
+
+
 @pytest.mark.parametrize("key,item", [
-    ("observability.device.enabled", "deferred item D4"),
-    ("observability.device.key-stats.top-k", "deferred item D4"),
-    ("observability.profiler.enabled", "deferred item D4"),
-    ("observability.profiler.dir", "deferred item D4"),
     ("observability.shipping.interval-ms", "item 14"),
     ("autoscaler.enabled", "item 13b"),
     ("autoscaler.policy", "item 13b"),
