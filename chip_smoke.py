@@ -253,6 +253,28 @@ exits non-zero on the first failure. Phases, one JSON line each:
    K1/K2 time with the counters on (`ms`, a job's default) and off
    (`ms_phases_off`), in one call.
 
+27. api_mesh_features: the main path's features on four shards of the
+   card (visible_devices replaced, as in phase 24). Leg A:
+   `bench.py::correlated_windows_microbench`'s program (1 min / 5 min /
+   1 h tumbling counts, 8192 keys, batch 65536, 2 h of event time): in
+   row mode at 2^19 records the shared mesh job, the independent mesh
+   job, the shared one-card job and the numpy model window by window;
+   columnar at 2^22, interleaved, best of 2, their tuples/s and K1's
+   launches (four a shared mesh dispatch); phase 20's five-member group
+   (F = 20) at 2^20 keys and 2^22 records on the mesh, array for array
+   against the one-card run. Leg B: `millikey_microbench`'s program: its
+   sharded_parity (2^15 records over 2^15 keys, hot capacity 4096,
+   admission 1, checkpoints every 1 ms) against the untiered mesh job and
+   the numpy oracle; 2^18 records over 10^7 zipf keys, hot capacity 4096
+   over the shards (oracle parity, residency, cold routing, the gauges);
+   the sharded row surface on [32, 2^20] rings with 2^16 rows against
+   the CPU, each call against its bytes bound. Leg C: 64 keys'
+   query_state_for on the 4-shard operator against the one-card one at
+   three points of the input; a savepoint at half of leg A's shared mesh
+   run restored on one card and on 2 shards. Then K1 against its plain
+   version at shard 0's first full shared dispatch of leg A's wide group
+   (`k1_mesh_shared`).
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -2354,20 +2376,18 @@ def correlated_columns(idx: np.ndarray, n: int, keys: int):
     return col, (10_000 + idx * CORRELATED_SPAN_MS // n).astype(np.int64)
 
 
-def correlated_run(n: int, shared: bool, *, columnar: bool, members=DASHBOARD, keys=None,
-                   latency: bool = False, sz=API_CORRELATED, dev=DEV) -> dict:
-    """One run of the program (a traceable filter keeping event_type 0, a
-    traceable key, a `count` window per member, batch 65536) through the
-    executor's JobRuntime, what env.execute() runs, with
-    execution.window.shared-partials `shared`; K1's launch counts at 0 just
-    before it. Returns the sinks, seconds, K1 launches and runner kinds."""
+def correlated_env(n: int, shared: bool, *, columnar: bool, members=DASHBOARD, keys=None,
+                   latency: bool = False, mesh: int = 0, hook=None, make_sink=rows_sink,
+                   sz=API_CORRELATED, dev=DEV):
+    """(env, sinks) of the program: a traceable filter keeping event_type
+    0, a traceable key, a `count` window per member, batch 65536, with
+    execution.window.shared-partials `shared`; `mesh` > 0 runs it with
+    parallel.mesh.enabled over that many shards. hook(idx) runs before
+    each source batch; make_sink() makes each member's sink."""
     from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.config import Configuration
     from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
     from flink_tpu_torch.core.watermarks import WatermarkStrategy
-    from flink_tpu_torch.graph.transformation import plan
-    from flink_tpu_torch.ops import cuda_superscan as cs
-    from flink_tpu_torch.runtime.executor import JobRuntime
 
     keys = keys or sz["keys"]
     conf = {"execution.step.batch-size": sz["batch"], "execution.state.key-capacity": keys,
@@ -2376,15 +2396,37 @@ def correlated_run(n: int, shared: bool, *, columnar: bool, members=DASHBOARD, k
     if latency:
         conf.update({"execution.latency.target-ms": sz["target_ms"],
                      "execution.latency.readback-steps": sz["readback_steps"]})
+    if mesh:
+        conf.update({"parallel.mesh.enabled": True, "parallel.mesh.devices": mesh})
     env = StreamExecutionEnvironment(Configuration(conf), device=dev)
-    keyed = (env.from_source(DataGeneratorSource(
-        lambda idx: Batch(*correlated_columns(idx, n, keys)), n),
-        WatermarkStrategy.for_bounded_out_of_orderness(0))
-        .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True))
+
+    def gen(idx):
+        if hook is not None:
+            hook(idx)
+        return Batch(*correlated_columns(idx, n, keys))
+
+    keyed = (env.from_source(DataGeneratorSource(gen, n),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+             .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True))
     sinks = []
     for m in members:
-        sinks.append(rows_sink())
+        sinks.append(make_sink())
         keyed.window(_member(m)).aggregate("count").sink_to(sinks[-1])
+    return env, sinks
+
+
+def correlated_run(n: int, shared: bool, *, columnar: bool, members=DASHBOARD, keys=None,
+                   latency: bool = False, mesh: int = 0, sz=API_CORRELATED, dev=DEV) -> dict:
+    """One run of correlated_env's program through the executor's
+    JobRuntime, what env.execute() runs; K1's launch counts at 0 just
+    before it. Returns the sinks, seconds, K1 launches (lanes entry and
+    partials entry), runner kinds and the fused runners' mesh sizes."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    env, sinks = correlated_env(n, shared, columnar=columnar, members=members, keys=keys,
+                                latency=latency, mesh=mesh, sz=sz, dev=dev)
     runtime = JobRuntime(plan(env._sinks), env.config, dev)
     kinds = sorted(type(r).__name__ for r in runtime.runners)
     _sync(dev)
@@ -2394,7 +2436,10 @@ def correlated_run(n: int, shared: bool, *, columnar: bool, members=DASHBOARD, k
     _sync(dev)
     secs = time.perf_counter() - t0
     return {"sinks": sinks, "seconds": secs, "tuples_per_s": n / secs,
-            "k1_launches": cs.LAUNCHES["k1_superscan"], "kinds": kinds}
+            "k1_launches": cs.LAUNCHES["k1_superscan"],
+            "k1_partials": cs.LAUNCHES["k1_partials"], "kinds": kinds,
+            "mesh_devices": sorted({r.op.mesh_devices() for r in runtime.runners
+                                    if hasattr(getattr(r, "op", None), "mesh_devices")})}
 
 
 def _shared_selected(kinds, members: int) -> bool:
@@ -2620,7 +2665,7 @@ def tiered_job(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int,
 
 
 def tiered_run(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int,
-               expect=None, dev=DEV) -> dict:
+               expect=None, extra=None, dev=DEV) -> dict:
     """One run of the program, built through the executor's JobRuntime
     (what env.execute() runs) so the operator is in reach, with K1's launch
     count at 0 just before it: its sorted (key, count) rows (or, given
@@ -2636,7 +2681,8 @@ def tiered_run(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int,
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tier_")
     try:
-        env, sink = tiered_job(n, n_keys, skewed, sz, tiered=tiered, cap=cap, tmp=tmp, dev=dev)
+        env, sink = tiered_job(n, n_keys, skewed, sz, tiered=tiered, cap=cap, tmp=tmp,
+                               extra=extra, dev=dev)
         runtime = JobRuntime(plan(env._sinks), env.config, dev)
         ops = [r.op for r in runtime.runners
                if isinstance(getattr(r, "op", None), FusedWindowOperator)]
@@ -2656,7 +2702,8 @@ def tiered_run(n: int, n_keys: int, skewed: bool, sz, *, tiered: bool, cap: int,
         return {**got, "seconds": secs, "tuples_per_s": n / secs, "k1_launches": launches,
                 "fused_selected": len(ops) == 1, "tier": tier,
                 "native": None if tier is None else op.tier.cold.native,
-                "state_key_count": op.state_key_count() if op is not None else None}
+                "state_key_count": op.state_key_count() if op is not None else None,
+                "mesh_devices": op.mesh_devices() if op is not None else None}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5217,6 +5264,501 @@ def api_device_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27, api_mesh_features: the main path's features on four virtual
+# shards of the one card (visible_devices replaced, as in phase 24):
+# shared correlated windows (leg A), the tiered state plane (leg B) and
+# queryable state and savepoints (leg C) on the mesh, each held against
+# the one-card job and a numpy model; then K1 at shard 0's first full
+# shared dispatch of leg A's wide group
+# ---------------------------------------------------------------------------
+
+API_MESH_FEATURES = dict(
+    shards=4, keys=8192, batch=65536, parity_events=1 << 19, timed_events=1 << 22, runs=2,
+    warmup_events=1 << 17, wide_keys=1 << 20, wide_events=1 << 22,
+    tier_batch=8192, tier_parity_events=1 << 15, tier_parity_keys=1 << 15, tier_hot=4096,
+    tier_parity_admission=1, tier_events=1 << 18, tier_keys=10_000_000, tier_admission=2,
+    zipf_s=1.0, row_keys=1 << 20, row_slices=32, row_moves=1 << 16,
+    query_keys=64, query_events=1 << 18, query_batch=8192, savepoint_at=0.5)
+
+
+def _member_fires_equal(a: list, b: list) -> bool:
+    """Columnar runs, sink by sink: fires equal array for array, none empty."""
+    return len(a) == len(b) and all(len(x) > 0 and _fires_equal(x, y) for x, y in zip(a, b))
+
+
+def features_leg_a(sz, dev) -> dict:
+    """Sharing on the mesh (correlated_windows_microbench's program).
+
+    Row mode at parity_events: the shared mesh job, the independent mesh
+    job (shared-partials off), the shared one-card job and the numpy
+    model, window by window. Columnar at timed_events, interleaved, best of
+    `runs`: shared and independent on the mesh, shared on the card, with
+    K1's launches (n_shards a shared mesh dispatch). Then phase 20's
+    five-member group (F = 20) at wide_keys, wide_events records, on the
+    mesh and on the card, equal array for array."""
+    n_sh = sz["shards"]
+    n = sz["parity_events"]
+    for mesh in (n_sh, 0):     # builds, warms
+        correlated_run(sz["warmup_events"], True, columnar=True, mesh=mesh, sz=sz, dev=dev)
+    runs = {name: correlated_run(n, shared, columnar=False, mesh=mesh, sz=sz, dev=dev)
+            for name, shared, mesh in (("mesh_shared", True, n_sh),
+                                       ("mesh_independent", False, n_sh),
+                                       ("card_shared", True, 0))}
+    members, parity = [], True
+    for i, m in enumerate(DASHBOARD):
+        got = {name: correlated_rows(r["sinks"][i]) for name, r in runs.items()}
+        model = correlated_model(n, sz["keys"], m)
+        ok = len(model) > 0 and all(g == model for g in got.values())
+        parity = parity and ok
+        members.append({"member": list(m), "parity": ok, "rows": len(model),
+                        "windows_checked": len({t for t, _k in model})})
+    selected = (_shared_selected(runs["mesh_shared"]["kinds"], len(DASHBOARD))
+                and runs["mesh_shared"]["mesh_devices"] == [n_sh]
+                and runs["mesh_independent"]["kinds"].count("DeviceChainRunner")
+                == len(DASHBOARD)
+                and runs["mesh_independent"]["mesh_devices"] == [n_sh]
+                and runs["card_shared"]["mesh_devices"] == [1])
+    out = {"events": n, "parity": parity, "members": members, "shared_selected": selected,
+           "parity_k1_launches": {k: r["k1_launches"] for k, r in runs.items()}}
+    del runs
+    nt = sz["timed_events"]
+    variants = {"card_shared": (True, 0), "mesh_shared": (True, n_sh),
+                "mesh_independent": (False, n_sh)}
+    order = list(variants) + list(reversed(list(variants)))
+    timed = {name: [] for name in variants}
+    for _ in range(max(1, sz["runs"] // 2)):
+        for name in order:
+            shared, mesh = variants[name]
+            r = correlated_run(nt, shared, columnar=True, mesh=mesh, sz=sz, dev=dev)
+            timed[name].append({k: r[k] for k in ("seconds", "tuples_per_s", "k1_launches")})
+    for name, rs in timed.items():
+        out[f"{name}_tuples_per_s"] = max(r["tuples_per_s"] for r in rs)
+    out["timed_events"] = nt
+    out["timed"] = timed
+    out["k1_launches"] = {name: rs[0]["k1_launches"] for name, rs in timed.items()}
+    card_k1 = out["k1_launches"]["card_shared"]
+    out["k1_per_shared_dispatch_ratio"] = out["k1_launches"]["mesh_shared"] / max(card_k1, 1)
+    out["shared_over_independent_on_mesh"] = (out["mesh_shared_tuples_per_s"]
+                                              / out["mesh_independent_tuples_per_s"])
+    out["mesh_over_card_shared"] = (out["mesh_shared_tuples_per_s"]
+                                    / out["card_shared_tuples_per_s"])
+    # the wide group at full width
+    wide = {}
+    for name, mesh in (("mesh", n_sh), ("card", 0)):
+        r = correlated_run(sz["wide_events"], True, columnar=True, members=DASHBOARD_WIDE,
+                           keys=sz["wide_keys"], mesh=mesh, sz=sz, dev=dev)
+        wide[name] = {"fires": [correlated_fires(x) for x in r["sinks"]],
+                      **{k: r[k] for k in ("seconds", "tuples_per_s", "k1_launches",
+                                           "kinds", "mesh_devices")}}
+        del r
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    kept = len(range(0, sz["wide_events"], 3))
+    totals_ok = all(sum(int(f[3].sum()) for f in fires)
+                    == kept * (1 if m[0] == "tumbling" else m[1] // m[2])
+                    for m, fires in zip(DASHBOARD_WIDE, wide["mesh"]["fires"]))
+    out["wide"] = {
+        "events": sz["wide_events"], "keys": sz["wide_keys"],
+        "count_ring_bytes": sz["wide_keys"] * 128 * 4,
+        "equal": _member_fires_equal(wide["mesh"]["fires"], wide["card"]["fires"]),
+        "totals_ok": totals_ok,
+        "selected": (_shared_selected(wide["mesh"]["kinds"], len(DASHBOARD_WIDE))
+                     and wide["mesh"]["mesh_devices"] == [n_sh]),
+        "fires": [len(f) for f in wide["mesh"]["fires"]],
+        **{name: {k: v[k] for k in ("seconds", "tuples_per_s", "k1_launches")}
+           for name, v in wide.items()}}
+    out["wide"]["k1_per_shared_dispatch_ratio"] = (out["wide"]["mesh"]["k1_launches"]
+                                                   / max(out["wide"]["card"]["k1_launches"], 1))
+    del wide
+    out["ok"] = bool(
+        parity and selected and card_k1 > 0
+        and out["k1_launches"]["mesh_shared"] == n_sh * card_k1
+        and out["k1_launches"]["mesh_independent"] > 0
+        and out["wide"]["equal"] and out["wide"]["totals_ok"] and out["wide"]["selected"]
+        and out["wide"]["mesh"]["k1_launches"] == n_sh * out["wide"]["card"]["k1_launches"] > 0)
+    return out
+
+
+def sharded_row_surface(card: str, sz, dev=DEV) -> dict:
+    """The sharded row surface at card width: a count ring and one float32
+    field ring of [S, K] = [row_slices, row_keys] over n shards, the calls a
+    demotion wave and a promotion make (as tiered_row_surface), each equal
+    to the one-device pipeline's on the CPU, timed as the tier calls it
+    (CUDA events, ids up and rows down included) and as the shards' device
+    indexing alone, beside its bytes bound."""
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.parallel.mesh import Mesh
+    from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+    from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.testing.timing import cuda_ms
+
+    S, K, m, n_sh = sz["row_slices"], sz["row_keys"], sz["row_moves"], sz["shards"]
+    window = SlidingEventTimeWindows.of(st.WINDOW_MS, st.SLIDE_MS)
+    g = torch.Generator().manual_seed(27)
+    count0 = torch.randint(0, 64, (K, S), generator=g, dtype=torch.int32).numpy()
+    sum0 = torch.randint(0, 1 << 20, (K, S), generator=g, dtype=torch.int32).float().numpy()
+    mesh = ShardedFusedPipeline(Mesh([_shard_device(dev)] * n_sh), window, "sum",
+                                key_capacity=K, num_slices=S)
+    mesh._put_canonical(count0, {"sum": sum0})
+    ref = FusedWindowPipeline(window, "sum", key_capacity=K, num_slices=S, device="cpu")
+    ref._count.copy_(torch.from_numpy(count0.T))
+    ref._state["sum"].copy_(torch.from_numpy(sum0.T))
+    del count0, sum0
+    rng = np.random.default_rng(27)
+    kids = rng.choice(K, m, replace=False).astype(np.int64)
+    cell_kids = rng.choice(K, m, replace=False).astype(np.int64)
+    cell_spos = rng.integers(0, S, m).astype(np.int64)
+    counts = rng.integers(1, 1000, m).astype(np.int64)
+    vals = rng.integers(0, 1 << 20, m).astype(np.float64)
+
+    def rings_equal():
+        snap = mesh.snapshot()
+        return (np.array_equal(snap["count"], ref._count.numpy().T)
+                and np.array_equal(snap["state"]["sum"], ref._state["sum"].numpy().T))
+
+    equal = {}
+    a, b = mesh.gather_key_rows(kids), ref.gather_key_rows(kids)
+    equal["gather_key_rows"] = bool(a[0].shape == (m, S) and np.array_equal(a[0], b[0])
+                                    and np.array_equal(a[1]["sum"], b[1]["sum"]))
+    for p in (mesh, ref):
+        p.clear_key_rows(kids)
+    equal["clear_key_rows"] = rings_equal()
+    for p in (mesh, ref):
+        p.write_cells(cell_kids, cell_spos, counts, {"sum": vals})
+    equal["write_cells"] = rings_equal()
+    a, b = mesh.gather_cells(cell_kids, cell_spos), ref.gather_cells(cell_kids, cell_spos)
+    equal["gather_cells"] = bool(np.array_equal(a[0], b[0]) and np.array_equal(a[0], counts)
+                                 and np.array_equal(a[1]["sum"], b[1]["sum"]))
+    del ref, a, b
+    out = {"shape": f"[S, K] = [{S}, {K}] int32 count + float32 sum over {n_sh} shards "
+                    f"of [{S}, {K // n_sh}], {m} rows/cells",
+           "card": card, "equal_to_cpu": equal}
+    if torch.device(dev).type == "cuda":
+        rows = mesh._shard_rows(kids)
+        cells = [(j, torch.from_numpy(cell_spos[pos]).to(r.device), r)
+                 for j, pos, r in mesh._shard_rows(cell_kids)]
+        cnt = {j: torch.ones(len(r), dtype=torch.int32, device=r.device) for j, _s, r in cells}
+        val = {j: torch.ones(len(r), dtype=torch.float32, device=r.device)
+               for j, _s, r in cells}
+        row_bytes = m * S * 8
+        calls = {
+            "gather_key_rows": (lambda: mesh.gather_key_rows(kids),
+                                lambda: [x.index_select(1, r) for j, _p, r in rows
+                                         for x in mesh._rings(j)],
+                                m * 8 + 2 * row_bytes),
+            "clear_key_rows": (lambda: mesh.clear_key_rows(kids),
+                               lambda: [x.index_fill_(1, r, 0) for j, _p, r in rows
+                                        for x in mesh._rings(j)],
+                               m * 8 + row_bytes),
+            "write_cells": (lambda: mesh.write_cells(cell_kids, cell_spos, counts,
+                                                     {"sum": vals}),
+                            lambda: [x.index_put_((sp, r), v) for j, sp, r in cells
+                                     for x, v in zip(mesh._rings(j), (cnt[j], val[j]))],
+                            m * 16 + m * 8 + m * 8),
+            "gather_cells": (lambda: mesh.gather_cells(cell_kids, cell_spos),
+                             lambda: [x[sp, r] for j, sp, r in cells for x in mesh._rings(j)],
+                             m * 16 + 2 * m * 8),
+        }
+        for name, (call, device_only, nbytes) in calls.items():
+            b_ms, b_by = bound(nbytes, 0)
+            out[name] = {"ms": cuda_ms(call, 1), "device_ms": cuda_ms(device_only, 1),
+                         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    out["ok"] = all(equal.values())
+    return out
+
+
+def tiered_mesh_checkpointed(n: int, n_keys: int, sz, *, tiered: bool, cap: int,
+                             admission: int, mesh: int, interval_ms: int, dev=DEV) -> dict:
+    """millikey_microbench's program through execute_async with
+    checkpoints every interval_ms (uniform keys; the tier's changelog on):
+    sorted rows, K1 launches, checkpoints taken, the operator's mesh size
+    and tier payload."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tier_mesh_")
+    try:
+        extra = {"execution.checkpointing.interval": interval_ms,
+                 "execution.checkpointing.dir": f"{tmp}/chk"}
+        if mesh:
+            extra.update({"parallel.mesh.enabled": True, "parallel.mesh.devices": mesh})
+        env, sink = tiered_job(n, n_keys, False, dict(sz, admission=admission), tiered=tiered,
+                               cap=cap, tmp=tmp, extra=extra, dev=dev)
+        _sync(dev)
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        client = env.execute_async("tier-mesh")
+        status = client.wait(900).value
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        ops = [r.op for r in client._runtime.runners
+               if hasattr(getattr(r, "op", None), "tier_payload")]
+        op = ops[0] if ops else None
+        return {"rows": sorted((int(k), int(c)) for k, c in sink.results), "status": status,
+                "seconds": secs, "k1_launches": cs.LAUNCHES["k1_superscan"],
+                "checkpoints": ckpt_stats(client)["checkpoints"],
+                "mesh_devices": op.mesh_devices() if op is not None else None,
+                "tier": op.tier_payload() if op is not None else None}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def features_leg_b(sz, dev, card: str) -> dict:
+    """Tiering on the mesh (millikey_microbench's program).
+
+    sharded_parity: tier_parity_events records over tier_parity_keys keys,
+    hot capacity tier_hot, admission 1, checkpoints every 1 ms, on n
+    shards: rows equal the untiered mesh job's and the numpy oracle's, with
+    evictions. Then tier_events records over tier_keys zipf keys, hot
+    capacity tier_hot over the shards: oracle parity, resident keys within
+    the hot capacity, records routed cold, the tier's gauges. Then the
+    sharded row surface at card width (sharded_row_surface)."""
+    from flink_tpu_torch.testing import stream as st
+
+    n_sh = sz["shards"]
+    tsz = dict(API_TIERED, batch=sz["tier_batch"], zipf_s=sz["zipf_s"])
+    n, keys = sz["tier_parity_events"], sz["tier_parity_keys"]
+    kw = dict(cap=sz["tier_hot"], admission=sz["tier_parity_admission"], mesh=n_sh,
+              interval_ms=1, dev=dev)
+    got = tiered_mesh_checkpointed(n, keys, tsz, tiered=True, **kw)
+    ref = tiered_mesh_checkpointed(n, keys, tsz, tiered=False, **kw)
+    oracle = st.millikey_oracle(n, keys, False, sz["zipf_s"])
+    parity = {"events": n, "keys": keys, "hot_capacity": sz["tier_hot"],
+              "rows": len(got["rows"]),
+              "parity_vs_untiered": len(got["rows"]) > 0 and got["rows"] == ref["rows"],
+              "parity_vs_oracle": got["rows"] == oracle,
+              "evictions": got["tier"]["evictions"], "resident_keys": got["tier"]["residentKeys"],
+              "checkpoints": {"tiered": got["checkpoints"], "untiered": ref["checkpoints"]},
+              "status": [got["status"], ref["status"]],
+              "mesh_selected": got["mesh_devices"] == ref["mesh_devices"] == n_sh,
+              "k1_launches": {"tiered": got["k1_launches"], "untiered": ref["k1_launches"]},
+              "seconds": {"tiered": got["seconds"], "untiered": ref["seconds"]}}
+    parity["ok"] = bool(parity["parity_vs_untiered"] and parity["parity_vs_oracle"]
+                        and parity["evictions"] > 0 and parity["mesh_selected"]
+                        and got["checkpoints"] > 0 and got["k1_launches"] > 0
+                        and got["status"] == ref["status"] == "FINISHED")
+    del got, ref, oracle
+    n = sz["tier_events"]
+    oracle = st.millikey_oracle(n, sz["tier_keys"], True, sz["zipf_s"])
+    r = tiered_run(n, sz["tier_keys"], True, dict(tsz, admission=sz["tier_admission"]),
+                   tiered=True, cap=sz["tier_hot"], expect=oracle,
+                   extra={"parallel.mesh.enabled": True, "parallel.mesh.devices": n_sh},
+                   dev=dev)
+    del oracle
+    tier = r["tier"]
+    zipf = {"events": n, "keys": sz["tier_keys"], "hot_capacity": sz["tier_hot"],
+            "admission_min_count": sz["tier_admission"], "parity": r["equal"],
+            "rows": r["num_rows"], "tuples_per_s": r["tuples_per_s"], "seconds": r["seconds"],
+            "resident_keys": tier["residentKeys"],
+            "resident_bounded": tier["residentKeys"] <= sz["tier_hot"],
+            "cold_records": tier["coldRecords"], "evictions": tier["evictions"],
+            "gauges": tier, "native": r["native"], "mesh_devices": r["mesh_devices"],
+            "k1_launches": r["k1_launches"]}
+    zipf["ok"] = bool(zipf["parity"] and zipf["resident_bounded"] and zipf["cold_records"] > 0
+                      and zipf["evictions"] > 0 and zipf["mesh_devices"] == n_sh
+                      and zipf["k1_launches"] > 0)
+    rows = sharded_row_surface(card, sz, dev)
+    return {"sharded_parity": parity, "zipf": zipf, "row_surface": rows,
+            "ok": bool(parity["ok"] and zipf["ok"] and rows["ok"])}
+
+
+def features_leg_c(sz, dev) -> dict:
+    """Queryable state and savepoints on the mesh.
+
+    query_keys keys' query_state_for on the n-shard host-keyed fused
+    operator and on the one-card operator, fed the same batches, at three
+    points of the input (some steps buffered, some dispatched). Then a
+    savepoint at savepoint_at of leg A's shared mesh program (columnar,
+    parity_events), restored on one card and on a 2-shard mesh: each
+    member's fires equal the uninterrupted mesh run's."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.parallel.mesh import Mesh
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+    from flink_tpu_torch.runtime.minicluster import MiniCluster
+
+    n_sh, K = sz["shards"], sz["keys"]
+    window = SlidingEventTimeWindows.of(API["window"], API["slide"])
+    ops = {"mesh": FusedWindowOperator(window, "sum", key_capacity=K, chunk=4096,
+                                       mesh=Mesh([_shard_device(dev)] * n_sh)),
+           "card": FusedWindowOperator(window, "sum", key_capacity=K, chunk=4096, device=dev)}
+    n, B = sz["query_events"], sz["query_batch"]
+    probe = np.random.default_rng(27).choice(K, sz["query_keys"], replace=False)
+    points, equal, seen = [], True, 0
+    _sync(dev)
+    cs.reset_launch_counts()
+    for i, lo in enumerate(range(0, n, B)):
+        col, ts = mesh_columns(np.arange(lo, lo + B, dtype=np.int64), n, API_MESH, False)
+        keys, vals = col[:, 0].astype(np.int64), (col[:, 1] + 1).astype(np.float32)
+        for op in ops.values():
+            op.process_batch(keys, vals, ts)
+            op.process_watermark(int(ts.max()) - 1)
+            op.drain_output()
+        if i % 11 == 5:
+            views = {name: [op.query_state_for(int(k)) for k in probe]
+                     for name, op in ops.items()}
+            same = views["mesh"] == views["card"]
+            equal = equal and same
+            seen += sum(len(v) for v in views["mesh"])
+            points.append({"batch": i, "equal": same,
+                           "buffered_steps": len(ops["mesh"]._steps)})
+    query = {"keys": sz["query_keys"], "events": n, "points": points, "equal": equal,
+             "slices_seen": seen, "mesh_devices": ops["mesh"].mesh_devices(),
+             "k1_launches": cs.LAUNCHES["k1_superscan"]}
+    query["ok"] = bool(equal and seen > 0 and query["mesh_devices"] == n_sh
+                       and query["k1_launches"] > 0)
+    del ops
+    # the savepoint crossing
+    n = sz["parity_events"]
+    B = sz["batch"]
+    half = (int(n * sz["savepoint_at"]) // B) * B
+
+    def fires_of(sinks):
+        return [[(int(w.start), int(w.end), np.asarray(ids), np.asarray(v))
+                 for (w, ids, v), _t in s.results] for s in sinks]
+
+    def submit(env, name, path=None):
+        return MiniCluster.get_shared().submit(plan(env._sinks), env.config, name,
+                                               savepoint_restore_path=path, device=dev)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_features_")
+    try:
+        env, sinks = correlated_env(n, True, columnar=True, mesh=n_sh,
+                                    make_sink=timed_collect_sink, sz=sz, dev=dev)
+        client = submit(env, "shared-mesh-whole")
+        whole = fires_of(sinks) if client.wait(900).value == "FINISHED" else None
+        reached, go, taken = threading.Event(), threading.Event(), threading.Event()
+        fired = []
+
+        def hook(idx):
+            if not fired and idx[0] >= half:
+                fired.append(True)
+                reached.set()
+                go.wait(600)
+            elif idx[0] == half + 2 * B:
+                taken.wait(600)
+
+        env1, _s1 = correlated_env(n, True, columnar=True, mesh=n_sh, hook=hook,
+                                   make_sink=timed_collect_sink, sz=sz, dev=dev)
+        client1 = submit(env1, "shared-mesh-savepoint")
+        reached.wait(600)
+        sp = f"{tmp}/savepoint"
+        writer = threading.Thread(target=lambda: client1.trigger_savepoint(sp, timeout=600))
+        writer.start()
+        while client1._savepoint_path is None and writer.is_alive():
+            time.sleep(0.001)  # the request is in before the source moves on
+        go.set()
+        writer.join(600)
+        client1.cancel()
+        taken.set()
+        first = client1.wait(600).value
+        save = {"first_job": first, "at": half}
+        ok = first == "CANCELED" and whole is not None
+        for name, mesh in (("restored_card", 0), ("restored_mesh2", 2)):
+            env2, sinks2 = correlated_env(n, True, columnar=True, mesh=mesh,
+                                          make_sink=timed_collect_sink, sz=sz, dev=dev)
+            _sync(dev)
+            cs.reset_launch_counts()
+            client2 = submit(env2, name, sp)
+            status = client2.wait(900).value
+            got = fires_of(sinks2)
+            leader = [r for r in client2._runtime.runners
+                      if type(r).__name__ == "SharedWindowRunner"]
+            save[name] = {"status": status,
+                          "equal_to_uninterrupted": whole is not None
+                          and _member_fires_equal(got, whole),
+                          "mesh_devices": leader[0].op.mesh_devices() if leader else None,
+                          "k1_launches": cs.LAUNCHES["k1_superscan"]}
+            ok = ok and (status == "FINISHED" and save[name]["equal_to_uninterrupted"]
+                         and save[name]["mesh_devices"] == (mesh or 1)
+                         and save[name]["k1_launches"] > 0)
+        save["ok"] = bool(ok)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"query": query, "savepoint": save, "ok": bool(query["ok"] and save["ok"])}
+
+
+def mesh_shared_k1_inputs(sz, dev=DEV):
+    """Shard 0's K1 inputs of leg A's wide group's first full mesh dispatch
+    (32 steps of `batch` records of the wide_events stream over wide_keys
+    keys) after the exchange, made by the sharded pipeline's own staging,
+    prologue and routing at the operator's geometry: (shim with shard 0's
+    geometry and the planner's per-slot spws, agg, idx, vals, plan)."""
+    import types
+
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.parallel.mesh import Mesh
+    from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+    from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
+
+    T, B, n, keys = 32, sz["batch"], sz["wide_events"], sz["wide_keys"]
+    agg = resolve("count")
+    pipe = ShardedFusedPipeline(
+        Mesh([_shard_device(dev)] * sz["shards"]), None, agg, key_capacity=keys, nsb=4,
+        fires_per_step=4, out_rows=256, chunk=4096,
+        assigners=[_member(m) for m in DASHBOARD_WIDE],
+        prologue=TracedPrologue((("filter", _t_filter),), _t_key))
+    steps, wms = [], []
+    for t in range(T):
+        col, ts = correlated_columns(np.arange(t * B, (t + 1) * B, dtype=np.int64), n, keys)
+        steps.append((col, ts))
+        wms.append(int(ts.max()) - 1)
+    staged = pipe.stage_superbatch_raw(steps, wms)
+    plan = staged[3]
+    src_idx, src_vals, _kb = pipe.source_lanes(staged, T)
+    idx, vals = pipe.route_lanes(src_idx, src_vals)[0]
+    shim = types.SimpleNamespace(S=pipe.S, K=pipe.K_local, R=pipe.R, NSB=pipe.NSB, F=pipe.F,
+                                 slot_spws=pipe.slot_spws)
+    return shim, agg, idx.reshape(-1), vals, plan
+
+
+def api_mesh_features_phase(dev=DEV, sizes=None) -> dict:
+    """Legs A, B and C over four shards of `dev` (visible_devices replaced
+    for the phase, restored after); on the card, K1 against its plain
+    version at shard 0's first full shared dispatch of leg A's wide group
+    (`k1_mesh_shared`)."""
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    sz = dict(API_MESH_FEATURES, **(sizes or {}))
+    card = card_line() if torch.device(dev).type == "cuda" else "cpu"
+    real = mesh_lib.visible_devices
+    mesh_shards(sz["shards"], dev)
+    out = {"phase": "api_mesh_features", "shards": sz["shards"],
+           "shard_devices": [str(d) for d in mesh_lib.visible_devices(dev)]}
+    try:
+        for leg, run in (("leg_a", lambda: features_leg_a(sz, dev)),
+                         ("leg_b", lambda: features_leg_b(sz, dev, card)),
+                         ("leg_c", lambda: features_leg_c(sz, dev))):
+            t0 = time.perf_counter()
+            out[leg] = run()
+            out[leg]["phase_s"] = time.perf_counter() - t0
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+        if torch.device(dev).type == "cuda":
+            t0 = time.perf_counter()
+            shim, agg, idx, vals, plan = mesh_shared_k1_inputs(sz, dev)
+            out["k1_mesh_shared"] = k1_at_dispatch(
+                f"api_mesh_features leg A wide group: shard 0 of {sz['shards']}, its "
+                "exchanged lanes of the job's first full shared dispatch", shim, agg, idx,
+                vals, plan)
+            out["k1_mesh_shared"]["seconds"] = time.perf_counter() - t0
+            del shim, idx, vals, plan
+            torch.cuda.empty_cache()
+    finally:
+        mesh_lib.visible_devices = real
+    out["ok"] = bool(out["leg_a"]["ok"] and out["leg_b"]["ok"] and out["leg_c"]["ok"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -5766,6 +6308,39 @@ def main() -> int:
         "api_device_d_mesh": devp["leg_d"]["mesh"]["k1"]})
     torch.cuda.empty_cache()
 
+    # ---- 27. the main path's features on the mesh: shared correlated
+    # windows, the tiered state plane and queryable state and savepoints
+    # over four virtual shards of the card, every run with its launch
+    # counts at 0 just before it; then K1 at shard 0's first full shared
+    # dispatch of the wide group ----
+    t_feat = time.perf_counter()
+    feat = api_mesh_features_phase()
+    feat["card"] = card
+    feat["phase_s"] = time.perf_counter() - t_feat
+    emit(feat)
+    if not feat["ok"]:
+        raise AssertionError("api_mesh_features: a leg failed a gate (leg A: the shared and "
+                             "independent mesh jobs, the shared one-card job and the numpy "
+                             "model window by window, the shared runner on the mesh, K1 once "
+                             "per shard a shared dispatch, the wide group array for array; "
+                             "leg B: the tiered mesh job against the untiered one and the "
+                             "oracle with evictions and checkpoints, the zipf job's parity, "
+                             "residency and cold routing, the sharded row surface against "
+                             "the CPU; leg C: the point lookups, the savepoint restored on one "
+                             "card and on 2 shards)")
+    fa = feat["leg_a"]
+    path_launches["k1_superscan"].update({
+        **{f"api_mesh_features_a_{name}": rs[0]["k1_launches"]
+           for name, rs in fa["timed"].items()},
+        "api_mesh_features_a_wide_mesh": fa["wide"]["mesh"]["k1_launches"],
+        "api_mesh_features_a_wide_card": fa["wide"]["card"]["k1_launches"],
+        "api_mesh_features_b_parity":
+            feat["leg_b"]["sharded_parity"]["k1_launches"]["tiered"],
+        "api_mesh_features_b_zipf": feat["leg_b"]["zipf"]["k1_launches"],
+        "api_mesh_features_c_query": feat["leg_c"]["query"]["k1_launches"]})
+    k1_ms_shared = feat["k1_mesh_shared"]
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -5847,6 +6422,17 @@ def main() -> int:
          "library": "one index_add_ of the count partial into its ring cells",
          **{k: partials_k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms", "device_us", "fires")}},
+        {"name": "k1_mesh_shared", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_ms_shared["shape"],
+         "launches": fa["k1_launches"]["mesh_shared"],
+         "launches_by_path": {k: v for k, v in path_launches["k1_superscan"].items()
+                              if k.startswith("api_mesh_features")},
+         "k1_per_dispatch_ratio": fa["k1_per_shared_dispatch_ratio"],
+         **{k: k1_ms_shared[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms", "device_us",
+                                         "fires")}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",

@@ -2,8 +2,11 @@
 
 Counterpart of `flink_tpu/config.py`. Keys and defaults are the JAX
 package's, so a job configured for one package configures the other the
-same way. Only the options the port implements are defined here; setting
-any other key raises, naming the ROADMAP.md item that will carry it.
+same way. The options the port implements are defined here, and so are
+the JAX package's options that no module of either package reads
+(`pipeline.object-reuse`, `execution.runtime-mode`, `DeviceOptions`,
+`MetricOptions`): a job may set them and nothing changes. Setting any
+other key raises, naming the ROADMAP.md item that will carry it.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ class _OptionBuilder:
         """Durations are plain ints in milliseconds."""
         return _TypedBuilder(self._key, int)
 
+    def list_type(self) -> "_TypedBuilder[list]":
+        return _TypedBuilder(self._key, list)
+
 
 class _TypedBuilder(Generic[T]):
     def __init__(self, key: str, typ: type):
@@ -83,6 +89,8 @@ _UNPORTED_PREFIXES = (
     ("parallel.", deferred.MESH),
     ("autoscaler.", deferred.MESH),
     ("observability.shipping.", deferred.CLUSTER),
+    ("exchange.", deferred.CLUSTER),
+    ("execution.watchdog.", deferred.CLUSTER),
     ("chaos.", deferred.CHAOS),
     ("security.", deferred.CHAOS),
 )
@@ -95,6 +103,8 @@ def _coerce(value: Any, typ: type) -> Any:
         if isinstance(value, str):
             return value.strip().lower() in ("true", "1", "yes", "on")
         return bool(value)
+    if typ is list and isinstance(value, str):
+        return [v.strip() for v in value.split(";") if v.strip()]
     return typ(value)
 
 
@@ -144,9 +154,19 @@ class PipelineOptions:
         "Subtasks per operator. Read by no runner, as in the JAX package: a "
         "job runs as one attempt, and keyed state spreads over devices "
         "through parallel.mesh.* instead.")
+    # read by no module of either package
+    AUTO_WATERMARK_INTERVAL = (
+        ConfigOptions.key("pipeline.auto-watermark-interval").duration_ms_type().default_value(200)
+    )
+    OBJECT_REUSE = ConfigOptions.key("pipeline.object-reuse").bool_type().default_value(True)
 
 
 class ExecutionOptions:
+    # read by no module of either package
+    BATCH_TIMEOUT_MS = (
+        ConfigOptions.key("execution.step.batch-timeout-ms").duration_ms_type().default_value(10)
+    ).with_description("Max time to wait filling a step batch (BufferDebloater analogue).")
+    RUNTIME_MODE = ConfigOptions.key("execution.runtime-mode").string_type().default_value("STREAMING")
     BATCH_SIZE = (
         ConfigOptions.key("execution.step.batch-size").int_type().default_value(65536)
     ).with_description("Records per source poll and per superscan step.")
@@ -300,6 +320,25 @@ class TableOptions:
         "statements take the interpreted table path with a catalogued reason "
         "in `last_plan_report`. False interprets every statement. A perf "
         "switch, never a semantics switch: both paths give the same rows.")
+
+
+class DeviceOptions:
+    """Read by no module of either package."""
+
+    MESH_AXIS_NAME = ConfigOptions.key("device.mesh.axis-name").string_type().default_value("shards")
+    NUM_SHARDS = (
+        ConfigOptions.key("device.mesh.num-shards").int_type().default_value(0)
+    ).with_description("0 = use all visible devices.")
+    DONATE_STATE = ConfigOptions.key("device.donate-state").bool_type().default_value(True)
+
+
+class MetricOptions:
+    """Read by no module of either package (the port's metrics are the
+    observability.* options)."""
+
+    LATENCY_INTERVAL_MS = (
+        ConfigOptions.key("metrics.latency.interval").duration_ms_type().default_value(0))
+    REPORTERS = ConfigOptions.key("metrics.reporters").list_type().default_value([])
 
 
 class ParallelOptions:

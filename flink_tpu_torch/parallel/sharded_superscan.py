@@ -51,12 +51,20 @@ per-shard counters (so fire and purge steps count once per shard).
 The planner is the JAX package's shape: a plan-only `FusedWindowPipeline`
 over the GLOBAL key space (one source of truth for the window math and
 the watermark/fire/purge cursors); every attribute this class does not
-define forwards there. Snapshots are canonical [K, S] numpy arrays,
-interchangeable with single-device and JAX snapshots at any mesh size,
-which makes an n -> m rescale a restore.
+define forwards there. With `assigners` (shared partials) the planner is
+a plan-only `SharedWindowPipeline`: F is its total fire slots, each
+shard's K1 folds every slot with its member's window length
+(`slot_spws`), and the fires resolve to `(spec, window)` through the
+planner, so correlated windows share one ingest on the mesh as on one
+device. Snapshots are canonical [K, S] numpy arrays (plus the members'
+`fire_cursors` when shared), interchangeable with single-device and JAX
+snapshots at any mesh size, which makes an n -> m rescale a restore.
 
-Left out (ROADMAP.md Queue A item 13b, raising): shared partials
-(`assigners=`) and the tiered-state row surface on the mesh.
+The tiered-state row surface (`gather_key_rows`, `clear_key_rows`,
+`write_cells`, `gather_cells`) reads and writes the canonical [K, S] view
+in place: a global key id maps to its shard and local row (through the
+routing table when there is one), and each shard's part of a call is one
+`index_select`/`index_fill_`/`index_put_` on its own device.
 """
 
 from __future__ import annotations
@@ -71,7 +79,6 @@ from flink_tpu_torch.ops.aggregators import VALUE, decomposable, torch_dtype
 from flink_tpu_torch.ops.exchange import all_to_all
 from flink_tpu_torch.ops.superscan import segment_partials
 from flink_tpu_torch.parallel.routing import KeyGroupRouting
-from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import HostCopy, staging_buffer, upload
 
 
@@ -106,27 +113,33 @@ class ShardedFusedPipeline:
     ):
         # the runtime's planner is imported here, not at module level: the
         # parallel layer sits below the runtime
-        from flink_tpu_torch.runtime.fused_window_pipeline import FusedWindowPipeline
+        from flink_tpu_torch.runtime.fused_window_pipeline import (
+            FusedWindowPipeline,
+            SharedWindowPipeline,
+        )
 
-        if assigners is not None:
-            raise deferred.not_ported("ShardedFusedPipeline(assigners=...)", deferred.MESH)
         self.mesh = mesh
         self.axis = axis
         self.n = mesh.shape[axis]
         self.devices: List[torch.device] = list(mesh.devices)
         if key_capacity % self.n != 0:
             raise ValueError(f"key_capacity {key_capacity} must divide over {self.n} shards")
-        self._planner = FusedWindowPipeline(
-            assigner, aggregate, key_capacity=key_capacity, num_slices=num_slices, nsb=nsb,
-            fires_per_step=fires_per_step, out_rows=out_rows, chunk=chunk,
-            exact_sums=exact_sums, plan_only=True, prologue=prologue, device=self.devices[0])
+        geometry = dict(key_capacity=key_capacity, num_slices=num_slices, nsb=nsb,
+                        fires_per_step=fires_per_step, out_rows=out_rows, chunk=chunk,
+                        exact_sums=exact_sums, plan_only=True, prologue=prologue,
+                        device=self.devices[0])
+        # shared partials: the multi-spec planner, whose per-slot window
+        # lengths every shard's K1 takes, as on one device
+        self._planner = (SharedWindowPipeline(assigners, aggregate, **geometry)
+                         if assigners is not None
+                         else FusedWindowPipeline(assigner, aggregate, **geometry))
         self.agg = self._planner.agg
         self.prologue = prologue
         self.K = key_capacity
         self.K_local = key_capacity // self.n
         self.S = self._planner.S
         self.NSB = nsb
-        self.F = self._planner.F
+        self.F = self._planner.F     # total fire slots (members x fires_per_step when shared)
         self.R = out_rows
         self.chunk = chunk
         self.exact = exact_sums
@@ -326,11 +339,80 @@ class ShardedFusedPipeline:
             return None
         return self.routing.group_loads(self.key_loads().cpu().numpy())
 
-    # the tiered-state row surface on the mesh is ROADMAP item 13b
-    def gather_key_rows(self, *_args):
-        raise deferred.not_ported("the tiered row surface on the mesh", deferred.MESH)
+    # ------------------------------------------------------------------
+    # the tiered-state row surface (state/tier_manager.py): the contract of
+    # the one-device pipeline's, over the canonical [K, S] view. These
+    # shadow the planner delegation (the plan-only planner has no rings);
+    # note_external_slices needs no shadow, since the planner's cursors
+    # are this pipeline's
+    # ------------------------------------------------------------------
+    def _shard_rows(self, kids) -> List[tuple]:
+        """Global key ids -> per shard j holding any: (j, positions in
+        `kids` as int64 numpy, local rows as an int64 tensor on shard j's
+        device). Rows are the device layout's: a routing table's `perm`
+        gives the device-layout row of each canonical key."""
+        k = np.asarray(kids, np.int64).reshape(-1)
+        rows = k if self.routing is None else np.asarray(self.routing.perm, np.int64)[k]
+        dst = rows // self.K_local
+        out = []
+        for j, dev in enumerate(self.devices):
+            pos = np.flatnonzero(dst == j)
+            if pos.size:
+                out.append((j, pos, torch.from_numpy(rows[pos] - j * self.K_local).to(dev)))
+        return out
 
-    clear_key_rows = write_cells = gather_cells = gather_key_rows
+    def _rings(self, j: int) -> list:
+        return [self._count[j]] + [self._state[f.name][j] for f in self._value_fields]
+
+    def _assemble(self, parts, shape: tuple):
+        """Each shard's gathered pieces, copied to the host, -> (count,
+        {field}) numpy arrays of `shape` in the caller's key order."""
+        host = HostCopy([t for _j, _pos, ts in parts for t in ts]).wait()
+        dts = [np.dtype(np.int32)] + [f.device_dtype for f in self._value_fields]
+        out = [np.empty(shape, dt) for dt in dts]
+        it = iter(host)
+        for _j, pos, ts in parts:
+            for a in out:
+                a[pos] = next(it).numpy()
+        return out[0], {f.name: a for f, a in zip(self._value_fields, out[1:])}
+
+    def gather_key_rows(self, kids: np.ndarray):
+        """Read whole rows: (counts np[m, S], {field: np[m, S]})."""
+        parts = [(j, pos, [r.index_select(1, rows).t() for r in self._rings(j)])
+                 for j, pos, rows in self._shard_rows(kids)]
+        return self._assemble(parts, (np.asarray(kids).size, self.S))
+
+    def clear_key_rows(self, kids: np.ndarray) -> None:
+        """Reset rows to identity (the demotion cut)."""
+        for j, _pos, rows in self._shard_rows(kids):
+            self._count[j].index_fill_(1, rows, 0)
+            for f in self._value_fields:
+                self._state[f.name][j].index_fill_(1, rows, f.device_identity)
+
+    def write_cells(self, kids: np.ndarray, spos: np.ndarray, counts: np.ndarray,
+                    fields) -> None:
+        """Set ring cells (the promotion scatter), cast to the rings' dtypes
+        as the one-device pipeline casts them."""
+        spos = np.asarray(spos, np.int64).reshape(-1)
+        counts = np.asarray(counts).astype(np.int32).reshape(-1)
+        vals = {f.name: np.asarray(fields[f.name]).astype(f.device_dtype).reshape(-1)
+                for f in self._value_fields}
+        for j, pos, rows in self._shard_rows(kids):
+            dev = self.devices[j]
+            cell = (torch.from_numpy(spos[pos]).to(dev), rows)
+            self._count[j].index_put_(cell, torch.from_numpy(counts[pos]).to(dev))
+            for f in self._value_fields:
+                self._state[f.name][j].index_put_(
+                    cell, torch.from_numpy(vals[f.name][pos]).to(dev))
+
+    def gather_cells(self, kids: np.ndarray, spos: np.ndarray):
+        """Point-read cells: (counts np[m], {field: np[m]})."""
+        spos = np.asarray(spos, np.int64).reshape(-1)
+        parts = []
+        for j, pos, rows in self._shard_rows(kids):
+            srow = torch.from_numpy(spos[pos]).to(self.devices[j])
+            parts.append((j, pos, [r[srow, rows] for r in self._rings(j)]))
+        return self._assemble(parts, (spos.size,))
 
     # ------------------------------------------------------------------
     # the dispatch
@@ -608,6 +690,10 @@ class ShardedFusedPipeline:
             "min_used_slice": p.min_used_slice,
             "max_seen_slice": p.max_seen_slice,
             "num_late_dropped": p.num_late_records_dropped,
+            # shared partials: the members' fire cursors are part of the
+            # canonical form (the one-device shared pipeline writes them too)
+            **({} if getattr(p, "fire_cursors", None) is None
+               else {"fire_cursors": list(p.fire_cursors)}),
         }
 
     def restore(self, snap: dict) -> None:
@@ -636,3 +722,5 @@ class ShardedFusedPipeline:
         p.min_used_slice = snap["min_used_slice"]
         p.max_seen_slice = snap["max_seen_slice"]
         p.num_late_records_dropped = snap["num_late_dropped"]
+        if getattr(p, "fire_cursors", None) is not None:
+            p.fire_cursors = list(snap["fire_cursors"])

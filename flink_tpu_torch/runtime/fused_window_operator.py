@@ -45,15 +45,15 @@ forms both ways.
 The mesh (`mesh=`, the `parallel.mesh.*` options; parallel/): the same
 operator over a ShardedFusedPipeline, whose dispatch runs the keyBy
 exchange and kernel K1 on every shard; snapshots stay canonical [K, S],
-so the operator checkpoints and restores across mesh sizes.
+so the operator checkpoints and restores across mesh sizes. Shared
+partials and the state tier run on the mesh too: the sharded pipeline
+takes the members' `assigners` (its planner is the shared one), and the
+tier manager moves rows through its sharded row surface.
 
 The device plane (`attach_device_stats`, `phase_totals`, `key_loads`,
 `per_device_key_loads`, `key_stats_ready`): the JAX operator's surface over
 the pipeline's compile tracker, K1's phase counters and the rings' per-key
 loads.
-
-Not ported (each raises, naming its ROADMAP.md item): the mesh with tiering
-or shared partials (item 13).
 """
 
 from __future__ import annotations
@@ -75,8 +75,6 @@ from flink_tpu_torch.runtime.fused_window_pipeline import (
 from flink_tpu_torch.scheduler.latency_controller import LatencySpec, SuperbatchController
 from flink_tpu_torch.state.columnar import KeyDictionary
 from flink_tpu_torch.state.tier_manager import TieredStateManager
-from flink_tpu_torch.utils import deferred
-from flink_tpu_torch.utils.device import HostCopy
 
 
 @dataclasses.dataclass
@@ -438,11 +436,6 @@ class FusedWindowOperator:
         latency: Optional[LatencySpec] = None,
         device=None,
     ):
-        if mesh is not None and tier is not None:
-            raise deferred.not_ported("FusedWindowOperator(mesh=..., tier=...)", deferred.MESH)
-        if mesh is not None and assigners is not None:
-            raise deferred.not_ported("FusedWindowOperator(mesh=..., assigners=...)",
-                                      deferred.MESH)
         self.mesh = mesh
         self._construction_key_capacity = key_capacity
         self.agg = resolve(aggregate)
@@ -479,20 +472,22 @@ class FusedWindowOperator:
             if tier is not None:
                 raise ValueError("state.tier does not apply to the shared-partial path")
             self.spec_outputs = [[] for _ in assigners]
-            self.pipe = SharedWindowPipeline(assigners, self.agg, **geometry)
-            self.norm = SharedStepNormalizer(self.pipe, raw_payload=True)
-        elif mesh is not None:
+        if mesh is not None:
             # the mesh (parallel.mesh.*): the same operator surface over the
-            # sharded pipeline (the parallel layer is imported where used)
+            # sharded pipeline, shared partials included (the parallel
+            # layer is imported where used)
             from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
 
             del geometry["device"]
             self.pipe = ShardedFusedPipeline(
-                mesh, assigner, self.agg, **geometry, local_combine=mesh_local_combine)
-            self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
+                mesh, assigner, self.agg, **geometry, assigners=assigners,
+                local_combine=mesh_local_combine)
+        elif assigners is not None:
+            self.pipe = SharedWindowPipeline(assigners, self.agg, **geometry)
         else:
             self.pipe = FusedWindowPipeline(assigner, self.agg, **geometry)
-            self.norm = StepNormalizer(self.pipe, raw_payload=prologue is not None)
+        self.norm = (SharedStepNormalizer(self.pipe, raw_payload=True) if assigners is not None
+                     else StepNormalizer(self.pipe, raw_payload=prologue is not None))
         self.T = superbatch_steps
         self.keydict = KeyDictionary(dense_int_keys or prologue is not None)
         self.tier: Optional[TieredStateManager] = None
@@ -834,8 +829,6 @@ class FusedWindowOperator:
                 "queryable state is unavailable on the fused chain path: "
                 "buffered steps hold raw pre-transform columns, so a "
                 "consistent per-key view would need the traced UDFs on host")
-        if self.mesh is not None:
-            raise deferred.not_ported("queryable state on the mesh", deferred.MESH)
         if self.tier is not None:
             raise RuntimeError(
                 "queryable state is unavailable on the tiered path: a key's "
@@ -845,11 +838,12 @@ class FusedWindowOperator:
         if kid is None:
             return {}
         pipe = self.pipe
-        # the key's column of the [S, K] rings
-        count, *accs = HostCopy([pipe._count[:, kid]]
-                                + [a[:, kid] for a in pipe._state.values()]).wait()
-        count = count.numpy()
-        acc = {name: a.numpy() for name, a in zip(pipe._state, accs)}
+        # the key's row of the canonical [K, S] view: the one-device rings'
+        # column, or on the mesh its owner shard's local row (the JAX
+        # package's contiguous-range reshape)
+        counts, accs = pipe.gather_key_rows(np.asarray([kid]))
+        count = counts[0]
+        acc = {name: a[0] for name, a in accs.items()}
         slices: Dict[int, Dict[str, Any]] = {}
         lo = pipe.purged_to if pipe.purged_to is not None else pipe.min_used_slice
         hi = pipe.max_seen_slice
@@ -926,9 +920,14 @@ class FusedWindowOperator:
     def state_bytes(self) -> int:
         """Device bytes of the slice rings (0 until the pipeline's first
         dispatch materializes them)."""
+        def nbytes(a) -> int:
+            # a ring, or on the mesh one ring a shard
+            if isinstance(a, list):
+                return sum(nbytes(x) for x in a)
+            return int(getattr(a, "nbytes", 0) or 0)
+
         state = getattr(self.pipe, "_state", None) or {}
-        n = sum(int(getattr(a, "nbytes", 0)) for a in state.values())
-        return n + int(getattr(getattr(self.pipe, "_count", None), "nbytes", 0) or 0)
+        return sum(nbytes(a) for a in state.values()) + nbytes(getattr(self.pipe, "_count", None))
 
     def state_key_count(self) -> int:
         """Distinct keys the operator holds state for: the vocabulary's

@@ -41,6 +41,7 @@ from flink_tpu_torch.runtime.tpu_global_window_operator import (  # noqa: E402
 )
 from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator  # noqa: E402
 from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 C1_VALUES = ([16777216.0, 1.0], [0.1, 0.2])
 #: ROADMAP C3's inputs: a per-record cast would round neither away

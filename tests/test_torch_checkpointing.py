@@ -55,6 +55,7 @@ import flink_tpu_torch.metrics.checkpoint_stats as tstats
 import flink_tpu_torch.runtime.executor as tex
 import flink_tpu_torch.utils.arrays as tarr
 from flink_tpu_torch.runtime.minicluster import JobStatus, MiniCluster
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 PK = {
     "jax": types.SimpleNamespace(

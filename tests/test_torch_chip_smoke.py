@@ -32,6 +32,13 @@ sizes, and the references it carries held against the JAX package.
   smoke holds the port to against the JAX package's device_snapshot().
 
 Tolerance: exact.
+- api_mesh_features (phase 27): every leg's check on four CPU shards but
+  K1's launches (leg A's four results window by window and the wide
+  group array for array; leg B's sharded parity with checkpoints, the
+  zipf job's parity, residency and cold routing, the sharded row surface
+  against one device; leg C's point lookups and the savepoint restored on
+  one device and on 2 shards), and shard 0's exchanged K1 inputs of the
+  wide group's shared dispatch.
 """
 
 import numpy as np
@@ -237,3 +244,43 @@ def test_device_payload_keys_are_the_jax_packages():
     sig = snap["compile"]["events"][0]["signature"] if snap["compile"]["events"] else None
     if sig is not None:
         assert cm.SIGNATURE_KEYS <= cm._signature_keys(sig)
+
+
+def test_api_mesh_features_phase_holds_every_check_but_the_launches():
+    r = cm.api_mesh_features_phase(dev="cpu", sizes=dict(
+        keys=256, batch=4096, parity_events=1 << 16, timed_events=1 << 15, runs=2,
+        warmup_events=1 << 12, wide_keys=1 << 12, wide_events=1 << 16, tier_batch=2048,
+        tier_parity_events=1 << 14, tier_parity_keys=1 << 13, tier_hot=256,
+        tier_events=1 << 14, tier_keys=1 << 20, row_keys=1 << 12, row_moves=1 << 10,
+        query_events=1 << 16, query_batch=2048))
+    a, b, c = r["leg_a"], r["leg_b"], r["leg_c"]
+    assert a["parity"] and a["shared_selected"]
+    assert [m["windows_checked"] for m in a["members"]] == [121, 25, 3]
+    assert a["wide"]["equal"] and a["wide"]["totals_ok"] and a["wide"]["selected"]
+    p = b["sharded_parity"]
+    assert p["parity_vs_untiered"] and p["parity_vs_oracle"] and p["mesh_selected"]
+    assert p["evictions"] > 0 and p["checkpoints"]["tiered"] > 0
+    z = b["zipf"]
+    assert z["parity"] and z["resident_bounded"] and z["cold_records"] > 0
+    assert z["evictions"] > 0 and z["mesh_devices"] == 4
+    assert b["row_surface"]["ok"]
+    q = c["query"]
+    assert q["equal"] and q["slices_seen"] > 0 and len(q["points"]) == 3
+    assert c["savepoint"]["first_job"] == "CANCELED"
+    for name in ("restored_card", "restored_mesh2"):
+        assert c["savepoint"][name]["equal_to_uninterrupted"]
+    assert (c["savepoint"]["restored_card"]["mesh_devices"],
+            c["savepoint"]["restored_mesh2"]["mesh_devices"]) == (1, 2)
+    # CPU runs launch no K1
+    assert not r["ok"] and a["k1_launches"]["mesh_shared"] == 0
+    assert "k1_mesh_shared" not in r
+
+
+def test_mesh_shared_k1_inputs_are_shard_zeros():
+    sz = dict(cm.API_MESH_FEATURES, batch=4096, wide_keys=1 << 12, wide_events=1 << 20)
+    shim, _agg, idx, vals, plan = cm.mesh_shared_k1_inputs(sz, dev="cpu")
+    assert shim.K == (1 << 12) // 4 and shim.F == 20 and vals is None
+    assert shim.slot_spws() == (1,) * 4 + (5,) * 4 + (15,) * 4 + (60,) * 4 + (10,) * 4
+    # the positional exchange keeps every lane: shard 0 sees all 4 x B_s
+    assert idx.numel() == 32 * 4096 and len(plan[5]) > 0
+    assert 0 < int((idx >= 0).sum()) < idx.numel()

@@ -15,7 +15,11 @@ ShardedFusedPipeline of four shards on the one card (raw exchange and the
 map-side combiner, its step groups, a routing table, the traced chain)
 against FusedWindowPipeline on the card and on the CPU; a mesh job
 through env.execute with four virtual shards; the sharded join's rings
-on the card.
+on the card. The main path's features on four shards of the card: a
+shared five-member group (K1's shared entry once a shard a dispatch)
+against SharedWindowPipeline on the card and the CPU, the sharded row
+surface bit for bit against the CPU mesh, a tiered operator and queryable
+state on the mesh against their CPU runs.
 
 Tolerance: exact (integer- or quarter-valued payloads; counts and order
 statistics).
@@ -305,3 +309,130 @@ def test_sharded_join_rings_on_the_card(cuda):
             pipe.ingest(side, kids, ts, list(range(500)))
         got.append([a.tolist() for a in pipe.fire_window(0, 2000)])
     assert len(got[0][0]) > 0 and got[0] == got[1]
+
+
+# ---------------------------------------------------------------------------
+# the main path's features on four shards of the card
+# ---------------------------------------------------------------------------
+
+def _group():
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+
+    return [TumblingEventTimeWindows.of(100), TumblingEventTimeWindows.of(500),
+            TumblingEventTimeWindows.of(1500), TumblingEventTimeWindows.of(6000),
+            SlidingEventTimeWindows.of(1000, 100)]
+
+
+def _shared_stream(seed=2, steps=16, batch=8192, keys=8192):
+    rng = np.random.default_rng(seed)
+    batches, wms = [], []
+    for t in range(steps):
+        ts = (3000 + t * 250 + np.sort(rng.integers(0, 250, batch))).astype(np.int64)
+        batches.append((rng.integers(0, keys, batch).astype(np.int32),
+                        rng.integers(0, 9, batch).astype(np.float32), ts))
+        wms.append(3000 + t * 250 + 190)
+    return batches, wms
+
+
+def _shared_rows(out):
+    rows = []
+    for (spec, w), c, f in out:
+        live = np.flatnonzero(c > 0)
+        rows.append((spec, w.start, live.tolist(), c[live].tolist(),
+                     {k: v[live].tolist() for k, v in sorted(f.items())}))
+    return rows
+
+
+@pytest.mark.parametrize("combine", [False, True], ids=["raw", "combine"])
+@pytest.mark.parametrize("agg", ["count", "sum"])
+def test_shared_group_on_four_shards_of_one_card(cuda, agg, combine):
+    from flink_tpu_torch.runtime.fused_window_pipeline import SharedWindowPipeline
+
+    batches, wms = _shared_stream()
+    geo = dict(key_capacity=8192, nsb=4, fires_per_step=4, out_rows=256, chunk=4096)
+    mesh = ShardedFusedPipeline(Mesh(["cuda:0"] * 4), None, agg, assigners=_group(),
+                                local_combine=combine, **geo)
+    assert mesh.F == 20
+    rows = {}
+    for name, pipe in (("mesh", mesh),
+                       ("card", SharedWindowPipeline(_group(), agg, device=cuda, **geo)),
+                       ("cpu", SharedWindowPipeline(_group(), agg, device="cpu", **geo))):
+        cs.reset_launch_counts()
+        out = []
+        for lo in range(0, len(batches), 8):
+            out.extend(pipe.process_superbatch(batches[lo:lo + 8], wms[lo:lo + 8]))
+        rows[name] = (_shared_rows(out), dict(cs.LAUNCHES))
+    assert len(rows["mesh"][0]) > 0 and {r[0] for r in rows["mesh"][0]} == set(range(5))
+    assert rows["mesh"][0] == rows["card"][0] == rows["cpu"][0]
+    entry = "k1_partials" if combine else "k1_superscan"
+    assert rows["mesh"][1][entry] == 4 * rows["card"][1]["k1_superscan"] == 8
+    one = SharedWindowPipeline(_group(), agg, device=cuda, **geo)
+    one.restore(mesh.snapshot())
+    assert one.fire_cursors == mesh.fire_cursors
+
+
+def test_sharded_row_surface_on_the_card_matches_the_cpu_mesh(cuda):
+    batches, wms = _stream(7)
+    geo = dict(key_capacity=8192, num_slices=32, nsb=4, fires_per_step=4, out_rows=64,
+               chunk=4096)
+    window = SlidingEventTimeWindows.of(2000, 500)
+    pipes = [ShardedFusedPipeline(Mesh([d] * 4), window, "mean", **geo)
+             for d in ("cuda:0", "cpu")]
+    rng = np.random.default_rng(3)
+    kids = rng.choice(8192, 4096, replace=False)
+    spos = rng.integers(0, 32, 4096)
+    story = []
+    for pipe in pipes:
+        for lo in range(0, len(batches), 4):
+            pipe.process_superbatch(batches[lo:lo + 4], wms[lo:lo + 4])
+        c, f = pipe.gather_key_rows(kids)
+        pipe.clear_key_rows(kids[:2048])
+        pipe.write_cells(kids[:2048], spos[:2048], np.arange(2048) % 7 + 1,
+                         {n: (np.arange(2048) % 9) * 0.25 for n in f})
+        c2, f2 = pipe.gather_cells(kids, spos)
+        snap = pipe.snapshot()
+        story.append([c.tobytes(), {k: v.tobytes() for k, v in f.items()}, c2.tobytes(),
+                      {k: v.tobytes() for k, v in f2.items()}, snap["count"].tobytes(),
+                      {k: v.tobytes() for k, v in snap["state"].items()}])
+    assert story[0] == story[1]
+
+
+def test_tiered_operator_and_queries_on_four_shards_of_one_card(cuda):
+    from flink_tpu_torch.core.time import MAX_WATERMARK
+    from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
+    from flink_tpu_torch.state.tier_manager import TierConfig
+
+    rng = np.random.default_rng(6)
+    feed = []
+    for s in range(24):
+        keys = rng.zipf(1.3, 4096) % 100_000
+        feed.append((keys, (keys % 5 + 1).astype(np.float32),
+                     (s * 500 + rng.integers(0, 500, 4096)).astype(np.int64), s * 500 + 250))
+    window = SlidingEventTimeWindows.of(4000, 1000)
+
+    def run(dev, n, tiered):
+        mesh = None if n is None else Mesh([dev] * n)
+        kw = (dict(tier=TierConfig(hot_key_capacity=1024)) if tiered
+              else dict(key_capacity=1 << 17))
+        op = FusedWindowOperator(window, "sum", superbatch_steps=8, mesh=mesh,
+                                 device=None if mesh is not None else dev, **kw)
+        out, views = [], []
+        for i, (k, v, ts, wm) in enumerate(feed):
+            op.process_batch(k, v, ts)
+            op.process_watermark(wm)
+            out.extend(op.drain_output())
+            if not tiered and i % 8 == 5:
+                views.append([op.query_state_for(int(key)) for key in feed[i][0][:16]])
+        op.process_watermark(MAX_WATERMARK - 1)
+        out.extend(op.drain_output())
+        gauges = op.tier_gauges()
+        return sorted((k, w.start, float(r)) for k, w, r, _t in out), views, gauges
+
+    card = run("cuda:0", 4, True)
+    cpu = run("cpu", 4, True)
+    assert card[0] == cpu[0] == run("cpu", None, True)[0] and len(card[0]) > 0
+    assert card[2] == cpu[2] and card[2]["evictions"] > 0
+    assert card[2]["residentKeys"] <= 1024
+    plain_card, plain_cpu = run("cuda:0", 4, False), run("cpu", None, False)
+    assert plain_card[1] == plain_cpu[1] and any(v for vs in plain_card[1] for v in vs)
+    assert plain_card[0] == plain_cpu[0] == card[0]

@@ -34,6 +34,7 @@ from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
 from flink_tpu_torch.core.watermarks import WatermarkStrategy
 from flink_tpu_torch.graph.transformation import plan
 from flink_tpu_torch.runtime.executor import JobRuntime, build_runners
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 NUM_KEYS = 256
 EVENTS = 1 << 14

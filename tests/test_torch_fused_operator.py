@@ -306,18 +306,24 @@ def test_operator_snapshot_crosses_packages(direction):
 
 
 def test_operator_unported_options_raise_naming_the_roadmap():
-    # the mesh is ported (tests/test_torch_multichip_runtime.py); on the
-    # mesh, tiering and shared partials are still queued
+    # the mesh is ported (tests/test_torch_multichip_runtime.py), and so
+    # are tiering and shared partials on it (tests/test_torch_mesh_features
+    # .py): both build over the sharded pipeline
     from flink_tpu_torch.parallel.mesh import Mesh
     from flink_tpu_torch.state.tier_manager import TierConfig
 
     mesh = Mesh(["cpu"] * 2)
     assert tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",
                                    mesh=mesh).mesh_devices() == 2
-    for kw in (dict(tier=TierConfig(hot_key_capacity=16)),
-               dict(assigners=[_window(tasg)], prologue=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
-            tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", mesh=mesh, **kw)
+    tiered = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu", mesh=mesh,
+                                     tier=TierConfig(hot_key_capacity=16))
+    assert tiered.mesh_devices() == 2 and tiered.tier is not None and tiered.pipe.K == 16
+    shared = tfo.FusedWindowOperator(None, "count", device="cpu", mesh=mesh,
+                                     assigners=[_window(tasg),
+                                                tasg.TumblingEventTimeWindows.of(4000)],
+                                     prologue=tfp.TracedPrologue(transforms=(),
+                                                                 key_fn=lambda c: c))
+    assert shared.mesh_devices() == 2 and len(shared.spec_outputs) == 2
     # the state tier is ported (tests/test_torch_state_tiering.py runs
     # it): the option builds a tiered operator at the hot capacity
     op = tfo.FusedWindowOperator(_window(tasg), "count", device="cpu",

@@ -61,6 +61,7 @@ import flink_tpu_torch.runtime.stream_join_operator as tsjo
 import flink_tpu_torch.table.changelog as tcl
 import flink_tpu_torch.table.table_env as tte
 import flink_tpu_torch.utils.arrays as tarr
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 PK = {
     "jax": types.SimpleNamespace(

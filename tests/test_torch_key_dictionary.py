@@ -31,6 +31,7 @@ from flink_tpu_torch.api.windowing import assigners as tasg  # noqa: E402
 from flink_tpu_torch.core.watermarks import WatermarkStrategy  # noqa: E402
 from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator  # noqa: E402
 from flink_tpu_torch.state.columnar import KeyDictionary  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 
 def obj(*items):

@@ -49,6 +49,7 @@ from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource  # noqa
 from flink_tpu_torch.core.watermarks import WatermarkStrategy  # noqa: E402
 from flink_tpu_torch.graph.transformation import plan  # noqa: E402
 from flink_tpu_torch.runtime import executor as tex  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(env=JaxEnv, cfg=JaxConfiguration, fn=jfn, asg=jasg, ev=jev,
                             trg=jtrg, wm=JaxWatermarkStrategy, batch=JaxBatch,

@@ -41,6 +41,7 @@ from flink_tpu_torch.core import keygroups as tkg
 from flink_tpu_torch.core.time import TimeWindow
 from flink_tpu_torch.ops import aggregators as tagg
 from flink_tpu_torch.runtime import oracle_window_operator as tor
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(fn=jfn, asg=jasg, ev=jev, trg=jtrg, agg=jagg, op=jor)
 PORT = types.SimpleNamespace(fn=tfn, asg=tasg, ev=tev, trg=ttrg, agg=tagg, op=tor)

@@ -51,6 +51,7 @@ from flink_tpu_torch.runtime.executor import build_runners  # noqa: E402
 from flink_tpu_torch.table.changelog import ROW_KIND_FIELD  # noqa: E402
 from flink_tpu_torch.testing import stream as st  # noqa: E402
 from tests.test_retract_sql import _mixed_stream  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 KEYS = 256
 BATCH = 1024

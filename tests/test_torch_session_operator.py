@@ -28,6 +28,7 @@ from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows  # n
 from flink_tpu_torch.ops import aggregators as tagg  # noqa: E402
 from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator  # noqa: E402
 from flink_tpu_torch.testing.stream import numpy_sessionize  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 AGGS = {"count": (jagg.count_agg, tagg.count_agg), "sum": (jagg.sum_agg, tagg.sum_agg),
         "max": (jagg.max_agg, tagg.max_agg), "mean": (jagg.mean_agg, tagg.mean_agg)}

@@ -367,14 +367,29 @@ def test_partials_cross_in_step_groups_under_the_budget(streams, single_rows, ag
 
 
 def test_mesh_surfaces_left_for_13b_raise():
+    # shared partials and the tiered row surface on the mesh are ported
+    # (tests/test_torch_mesh_features.py holds them against the JAX mesh):
+    # both surfaces now run, and the row surface reads the rows the
+    # one-device pipeline holds
+    shared = tsp.ShardedFusedPipeline(Mesh(["cpu"] * 2), None, "count", chunk=512,
+                                      assigners=[tasg.SlidingEventTimeWindows.of(2000, 500),
+                                                 tasg.TumblingEventTimeWindows.of(1000)],
+                                      **GEOM)
+    assert shared.F == 2 * GEOM["fires_per_step"] and shared.slot_spws()[-1] == 2
+    batches, wms = _stream(vals=False)
+    pipe, one = _port("count", 2), _port("count")
+    for p in (pipe, one):
+        _drain(p, batches, wms)
+    kids = np.arange(0, NUM_KEYS, 7)
+    assert np.array_equal(pipe.gather_key_rows(kids)[0], one.gather_key_rows(kids)[0])
+    pipe.clear_key_rows(kids)
+    assert not pipe.gather_key_rows(kids)[0].any()
+    assert np.array_equal(pipe.gather_cells(kids, kids % 16)[0], np.zeros(len(kids), np.int32))
+    # the skew rebalancer's options are still queued (item 13b)
+    from flink_tpu_torch.config import Configuration
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
-        tsp.ShardedFusedPipeline(Mesh(["cpu"] * 2), None, "count", chunk=512,
-                                 assigners=[tasg.SlidingEventTimeWindows.of(2000, 500)], **GEOM)
-    pipe = _port("count", 2)
-    for call in (lambda: pipe.gather_key_rows([0]), lambda: pipe.clear_key_rows([0]),
-                 lambda: pipe.gather_cells([0], [0])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
-            call()
+        Configuration({"parallel.mesh.skew-rebalance": True})
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ import flink_tpu.table as j_tb  # noqa: E402
 import flink_tpu_torch.api.datastream as t_ds  # noqa: E402
 import flink_tpu_torch.config as t_cfg  # noqa: E402
 import flink_tpu_torch.table as t_tb  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 PKGS = {"jax": (j_ds, j_cfg, j_tb, {}), "port": (t_ds, t_cfg, t_tb, {"device": "cpu"})}
 

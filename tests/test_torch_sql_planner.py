@@ -54,6 +54,7 @@ import flink_tpu_torch.table as t_tb  # noqa: E402
 import flink_tpu_torch.table.gateway as t_gw  # noqa: E402
 import flink_tpu_torch.table.sql as t_sql  # noqa: E402
 from flink_tpu_torch.planner import lowering as t_lowering  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(ds=j_ds, asg=j_asg, cfg=j_cfg, src=j_src, wm=j_wm, tr=j_tr, pl=j_pl,
                             ex=j_ex, tb=j_tb, gw=j_gw, sql=j_sql, kw={})

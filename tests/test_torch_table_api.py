@@ -27,6 +27,7 @@ import flink_tpu.table.api as j_api  # noqa: E402
 import flink_tpu_torch.api.datastream as t_ds  # noqa: E402
 import flink_tpu_torch.table as t_tb  # noqa: E402
 import flink_tpu_torch.table.api as t_api  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 PKGS = {"jax": (j_ds, j_tb, j_api, {}), "port": (t_ds, t_tb, t_api, {"device": "cpu"})}
 

@@ -43,6 +43,7 @@ from flink_tpu_torch.graph import fusion as tfusion  # noqa: E402
 from flink_tpu_torch.graph import transformation as ttrans  # noqa: E402
 from flink_tpu_torch.graph import window_sharing as tws  # noqa: E402
 from flink_tpu_torch.runtime import executor as texec  # noqa: E402
+from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 JAX = dict(env=lambda cfg: JaxEnv.get_execution_environment(cfg), cfg=JaxConfiguration,
            opts=JaxExecutionOptions, batch=JaxBatch, source=JaxGeneratorSource,
