@@ -275,6 +275,30 @@ exits non-zero on the first failure. Phases, one JSON line each:
    version at shard 0's first full shared dispatch of leg A's wide group
    (`k1_mesh_shared`).
 
+28. api_mesh_control: the mesh's control loops on four shards of the card
+   (visible_devices replaced, as in phases 24 and 27). Leg A, the skew
+   rebalancer: `bench.py::skew_matrix_microbench`'s adaptive program
+   (2^19 records, 8192 keys, batch 2048, 8 steps a dispatch, the bench's
+   traceable filter, which keeps every record, a traceable key, 10 s windows
+   sliding by 1 s, count, 64 s of event time; zipf(1.0) keys with the hot
+   ranks one per key group of shard 0; local-combine, skew-rebalance at
+   threshold 1.2 and interval 0, device stats on): in row mode at 2^16
+   the rebalanced mesh job, the one-card job and the numpy model equal;
+   the static table's meshLoadSkew; the uniform and zipf adaptive jobs'
+   tuples/s, rebalances, table version, recoveries (kind "rebalance"),
+   routing block and post-rebalance skew (below the static one). Leg B,
+   the autoscaler: the uniform program with autoscaler.enabled and
+   parallel.mesh.autoscale, its source held at 2^17 records while the
+   coordinator's executor rejects a same-size target and takes 4 -> 2;
+   the job ends on 2 shards with the one-card job's rows; no local
+   combine, so K1's keyed (lane) entry runs on every shard. Leg C, the
+   device-loss degrade: leg B's job with checkpoints every 5 ms and a
+   device-scoped chaos marker raised at the sixth sharded dispatch: one
+   restart, 4 -> 2 shards from a restored checkpoint, the one-card rows.
+   Then K1's partials entry against its plain version at shard 0's first
+   full dispatch under leg A's rebalanced table (`k1_mesh_routed`), and
+   the table swap (`set_mesh_routing`) against its bytes bound.
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -548,6 +572,10 @@ def host_profile(name: str, run, top: int = 12) -> dict:
 
 def _t_filter(col):
     return col[:, 1] < 0.5                 # event_type 0: one record in three
+
+
+def _t_filter_all(col):
+    return col[:, 1] < 2.5                 # skew_matrix_microbench's: every record
 
 
 def _t_key(col):
@@ -3042,19 +3070,24 @@ def ckpt_job(n: int, sink, sz, *, interval: int = 0, chk_dir=None, keys=None, ag
     return env
 
 
-def ckpt_run(env, dev=DEV, timeout=900) -> dict:
-    """One execute_async() with K1's launch count at 0 just before it: the
-    client, seconds and K1 launches."""
+def ckpt_run(env, dev=DEV, timeout=900, name=None, hold=None) -> dict:
+    """One execute_async() with K1's launch counts at 0 just before it: the
+    client, seconds and K1 launches (the lane entry; the partials entry's
+    as `k1_partials`). hold(client) runs while the job runs (a drill at a
+    source gate), if given."""
     from flink_tpu_torch.ops import cuda_superscan as cs
 
     _sync(dev)
     cs.reset_launch_counts()
     t0 = time.perf_counter()
-    client = env.execute_async()
+    client = env.execute_async(name)
+    if hold is not None:
+        hold(client)
     client.wait(timeout)
     _sync(dev)
     return {"client": client, "seconds": time.perf_counter() - t0,
-            "k1_launches": cs.LAUNCHES["k1_superscan"]}
+            "k1_launches": cs.LAUNCHES["k1_superscan"],
+            "k1_partials": cs.LAUNCHES["k1_partials"]}
 
 
 def ckpt_stats(client) -> dict:
@@ -3068,16 +3101,18 @@ def ckpt_stats(client) -> dict:
             "restore_ms": None if restored is None else restored["restore_duration_ms"]}
 
 
-def timed_fired(results, keys: int) -> dict:
-    """(row, ts) results in row mode as {window index: row over the keys}."""
-    fired = {}
+def timed_fired(results, keys: int, twice: bool = False):
+    """(row, ts) results in row mode as {window index: row over the keys};
+    with `twice`, also whether any key of a window came twice."""
+    fired, seen_twice = {}, False
     for (k, v), t in results:
-        j = (t + 1 - API["window"]) // API["slide"]
+        j = (int(t) + 1 - API["window"]) // API["slide"]
         row = fired.get(j)
         if row is None:
             row = fired[j] = np.zeros(keys)
-        row[k] = v
-    return fired
+        seen_twice = seen_twice or row[int(k)] != 0
+        row[int(k)] = v
+    return (fired, seen_twice) if twice else fired
 
 
 def columnar_fired(results, keys: int):
@@ -4008,44 +4043,54 @@ def mesh_shards(n: int, dev) -> None:
     mesh_lib.visible_devices = lambda device: [d] * n
 
 
-def mesh_columns(idx: np.ndarray, n: int, sz, skewed: bool):
+def mesh_columns(idx: np.ndarray, n: int, sz, skewed: bool, perm=None):
     """`bench.py::multichip_microbench`'s columns: (campaign, event_type)
     with campaigns uniform (idx * 2654435761) % K or zipf(s) through
-    zipf_keys with the hot ranks spread by a default_rng(11) permutation;
-    64 s of event time over the n records."""
+    zipf_keys with the hot ranks placed by `perm` (a default_rng(11)
+    permutation unless given); 64 s of event time over the n records."""
     from flink_tpu_torch.testing import stream as st
 
     K = sz["keys"]
     if skewed:
-        camp = np.random.default_rng(11).permutation(K)[st.zipf_keys(idx, K, sz["zipf_s"])]
+        perm = np.random.default_rng(11).permutation(K) if perm is None else perm
+        camp = perm[st.zipf_keys(idx, K, sz["zipf_s"])]
     else:
         camp = (idx * 2654435761) % K
     col = np.stack([camp, idx % 3], axis=1).astype(np.float32)
     return col, (10_000 + idx * 64_000 // n).astype(np.int64)
 
 
-def mesh_job(n: int, sz, *, skewed=False, shards=0, combine=False, columnar=False, dev=DEV):
+def mesh_job(n: int, sz, *, skewed=False, shards=0, combine=False, columnar=False, dev=DEV,
+             perm=None, filt=_t_filter, conf=None, hook=None, sink=None):
     """(env, sink) of multichip_microbench's program: a traceable filter
-    keeping one record in three, a traceable key, 10 s windows sliding by
-    1 s, count; `shards` > 0 runs it with parallel.mesh.enabled over that
-    many shards (local-combine with `combine`)."""
+    (`filt`, one record in three by default), a traceable key, 10 s windows
+    sliding by 1 s, count; `shards` > 0 runs it with parallel.mesh.enabled
+    over that many shards (local-combine with `combine`). `perm`: the zipf
+    placement (mesh_columns'); `conf`: further options; hook(idx) runs
+    before each source batch (gates); `sink`: rows_sink() unless given."""
     from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
     from flink_tpu_torch.config import Configuration
     from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
     from flink_tpu_torch.core.watermarks import WatermarkStrategy
 
-    conf = {"execution.step.batch-size": sz["batch"],
+    opts = {"execution.step.batch-size": sz["batch"],
             "execution.state.key-capacity": sz["keys"],
             "execution.window.columnar-output": columnar,
             "parallel.mesh.enabled": shards > 0}
     if shards:
-        conf.update({"parallel.mesh.devices": shards, "parallel.mesh.local-combine": combine})
-    env = StreamExecutionEnvironment(Configuration(conf), device=dev)
-    sink = rows_sink()
-    (env.from_source(DataGeneratorSource(lambda idx: Batch(*mesh_columns(idx, n, sz, skewed)),
-                                         n), WatermarkStrategy.for_bounded_out_of_orderness(0))
-        .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+        opts.update({"parallel.mesh.devices": shards, "parallel.mesh.local-combine": combine})
+    opts.update(conf or {})
+    env = StreamExecutionEnvironment(Configuration(opts), device=dev)
+    sink = rows_sink() if sink is None else sink
+
+    def gen(idx):
+        if hook is not None:
+            hook(idx)
+        return Batch(*mesh_columns(idx, n, sz, skewed, perm))
+
+    (env.from_source(DataGeneratorSource(gen, n), WatermarkStrategy.for_bounded_out_of_orderness(0))
+        .filter(filt, traceable=True).key_by(_t_key, traceable=True)
         .window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
         .aggregate("count").sink_to(sink))
     return env, sink
@@ -4065,10 +4110,11 @@ def mesh_run(env, dev=DEV) -> dict:
             "k1_partials": cs.LAUNCHES["k1_partials"]}
 
 
-def mesh_model(n: int, sz, skewed: bool) -> dict:
-    """numpy: {window index: counts over the keys} of the filtered stream."""
-    col, ts = mesh_columns(np.arange(n, dtype=np.int64), n, sz, skewed)
-    keep = col[:, 1] < 0.5
+def mesh_model(n: int, sz, skewed: bool, perm=None, filt=_t_filter) -> dict:
+    """numpy: {window index: counts over the keys} of mesh_columns' stream
+    (zipf placement `perm`) through the job's filter `filt`."""
+    col, ts = mesh_columns(np.arange(n, dtype=np.int64), n, sz, skewed, perm)
+    keep = np.asarray(filt(col))
     keys, ts = col[keep, 0].astype(np.int64), ts[keep]
     spw = API["window"] // API["slide"]
     newest = ts // API["slide"]
@@ -5759,6 +5805,436 @@ def api_mesh_features_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: api_mesh_control, the mesh's control loops (the skew rebalancer,
+# the autoscaler's mesh rescale and the device-loss degrade) over four
+# shards of the card, with K1 once per shard under a rebalanced table
+# ---------------------------------------------------------------------------
+
+API_MESH_CONTROL = dict(events=1 << 19, keys=8192, batch=2048, superbatch_steps=8, shards=4,
+                        zipf_s=1.0, parity_events=1 << 16, threshold=1.2,
+                        gate_at=1 << 17, checkpoint_ms=5, fail_at=6, swap_reps=5)
+
+
+def control_perm(sz) -> np.ndarray:
+    """`skew_matrix_microbench`'s hot placement: the top G/n zipf ranks land
+    one per key group of shard 0's contiguous range (ids 0, Kg, 2 Kg, ...),
+    maximally imbalanced under the static owner function and fully
+    splittable by a key-group rebalance; the tail fills the rest of the id
+    space in a default_rng(7) permutation."""
+    from flink_tpu_torch.parallel.routing import choose_key_groups
+
+    K, n = sz["keys"], sz["shards"]
+    G = choose_key_groups(K, n)
+    hot = np.arange(G // n, dtype=np.int64) * (K // G)
+    rest = np.setdiff1d(np.arange(K, dtype=np.int64), hot)
+    return np.concatenate([hot, np.random.default_rng(7).permutation(rest)])
+
+
+def control_job(n: int, sz, *, skewed=False, shards=0, combine=True, rebalance=False,
+                columnar=True, stats=False, conf=None, hook=None, dev=DEV):
+    """(env, sink) of skew_matrix_microbench's program: mesh_job's with the
+    bench's filter (every record), its zipf placement (`control_perm`) and
+    `superbatch_steps` steps a dispatch; with `shards` > 0 the skew
+    rebalancer at threshold `threshold` and interval 0 if `rebalance`;
+    `stats` turns the device plane's key statistics on with a fold every
+    step. The sink keeps each row (or packed fire) with its timestamp, in
+    checkpoints too."""
+    opts = {"execution.window.superbatch-steps": sz["superbatch_steps"],
+            "observability.device.enabled": stats,
+            "restart-strategy.type": "fixed-delay", "restart-strategy.initial-backoff": 1}
+    if stats:
+        opts["observability.device.key-stats.interval-ms"] = 0
+    if shards:
+        opts.update({"parallel.mesh.skew-rebalance": rebalance,
+                     "parallel.mesh.rebalance.skew-threshold": sz["threshold"],
+                     "parallel.mesh.rebalance.interval-ms": 0})
+    opts.update(conf or {})
+    return mesh_job(n, sz, skewed=skewed, shards=shards, combine=combine, columnar=columnar,
+                    dev=dev, perm=control_perm(sz) if skewed else None, filt=_t_filter_all,
+                    conf=opts, hook=hook, sink=timed_collect_sink())
+
+
+def mesh_load_skew(runtime):
+    """meshLoadSkew of the key statistics' last fold (the device snapshot)."""
+    for entry in runtime.device_snapshot()["operators"].values():
+        skew = (entry.get("keys") or {}).get("meshLoadSkew")
+        if skew is not None:
+            return float(skew)
+    return None
+
+
+class ShardScanTap:
+    """Installed around ShardedFusedPipeline._scan_shards for one run: counts
+    the sharded dispatches (`calls`); raises a RuntimeError carrying the
+    device-scoped chaos marker at the `fail_at`-th; with `take_T`, keeps
+    (pipeline, source lanes, plan) of the first full dispatch of take_T
+    steps under a rebalanced routing table, cloned, for K1's check against
+    its plain version. It launches nothing itself."""
+
+    def __init__(self, take_T=None, fail_at=None):
+        self.take_T, self.fail_at = take_T, fail_at
+        self.calls, self.taken, self._real = 0, None, None
+
+    def __enter__(self):
+        from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+
+        real = self._real = ShardedFusedPipeline._scan_shards
+
+        def scan(pipe, src_idx, src_vals, plan, fires, *a, **kw):
+            self.calls += 1
+            if self.calls == self.fail_at:
+                raise RuntimeError("[chaos-injected:device] shard 1 of the mesh lost")
+            r = pipe.routing
+            if (self.take_T is not None and self.taken is None and r is not None
+                    and r.version >= 1 and not r.is_identity
+                    and int(plan[0].shape[0]) == self.take_T):
+                self.taken = (pipe, [i.clone() for i in src_idx],
+                              [None if v is None else v.clone() for v in src_vals],
+                              tuple(p.clone() for p in plan), list(fires))
+            return real(pipe, src_idx, src_vals, plan, fires, *a, **kw)
+
+        ShardedFusedPipeline._scan_shards = scan
+        return self
+
+    def __exit__(self, *exc):
+        from flink_tpu_torch.parallel.sharded_superscan import ShardedFusedPipeline
+
+        ShardedFusedPipeline._scan_shards = self._real
+        return False
+
+    def k1_inputs(self):
+        """Shard 0's K1 partials-entry inputs of the kept dispatch, made by the
+        pipeline's own exchange under its table: (shim, agg, plan, cpart,
+        parts)."""
+        import types
+
+        pipe, src_idx, src_vals, plan, fires = self.taken
+        T = int(plan[0].shape[0])
+        cpart, parts = pipe.route_partials(src_idx, src_vals, 0, T)[0]
+        shim = types.SimpleNamespace(S=pipe.S, K=pipe.K_local, R=pipe.R, NSB=pipe.NSB, F=pipe.F,
+                                     slot_spws=pipe.slot_spws)
+        return (shim, pipe.agg, pipe._plan_on(plan, {}, pipe.devices[0]) + (fires,), cpart,
+                parts)
+
+
+def routing_swap(runtime, assign, reps: int, dev=DEV) -> dict:
+    """`JobRuntime.set_mesh_routing` on a finished job's runtime, alternating
+    the identity table and `assign`, median of `reps` swaps (host clock,
+    device synchronised): the canonical state comes back to the host and is
+    re-laid under the other table. Bound: the rings read once and written
+    once over the card's memory rate."""
+    op = next(runtime._routed_ops())
+    G, n = op.pipe.routing.G, op.mesh_devices()
+    ident = (np.arange(G, dtype=np.int64) * n) // G
+    times = []
+    for i in range(2 * reps):
+        target = assign if i % 2 == 0 else ident
+        _sync(dev)
+        t0 = time.perf_counter()
+        runtime.set_mesh_routing(target)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1000.0)
+    ring_bytes = op.state_bytes()
+    b_ms, b_by = bound(2 * ring_bytes, 0)
+    return {"shape": f"{op.pipe.K} keys over {n} shards, {G} key groups, rings "
+                     f"{ring_bytes} bytes", "ms": float(np.median(times)),
+            "ms_all": times, "bound_ms": b_ms, "bound_by": b_by,
+            "table_version": op.routing_version()}
+
+
+def control_leg_a(sz, dev) -> dict:
+    """The rebalance leg, skew_matrix_microbench's adaptive program at its
+    sizes: the runner selection; row-mode parity at parity_events of the
+    rebalanced mesh job, the one-card job and the numpy model (zipf); the
+    static table's meshLoadSkew (a JobRuntime run of the zipf job at a
+    quarter of the records, rebalance off, as the bench takes it); the
+    adaptive uniform and zipf jobs (columnar, device stats on, rebalance
+    on) with their tuples/s, rebalances, table version, recoveries, routing
+    block and post-rebalance skew. Keeps the first full dispatch under the
+    rebalanced table of the zipf run (`routed`)."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.metrics.registry import metrics_snapshot
+    from flink_tpu_torch.runtime.executor import JobRuntime, build_runners
+    from flink_tpu_torch.testing import stream as st
+
+    n_sh, n = sz["shards"], sz["events"]
+    env, _sink = control_job(sz["batch"], sz, skewed=True, shards=n_sh, rebalance=True, dev=dev)
+    runners, _feeds = build_runners(plan(env._sinks), env.config, dev)
+    chain = [r for r in runners if type(r).__name__ == "DeviceChainRunner"]
+    op = chain[0].op if chain else None
+    out = {"fused_selected": bool(chain),
+           "sharded_selected": op is not None and op.mesh_devices() == n_sh,
+           "local_combine_active": op is not None and bool(op.pipe.local_combine),
+           "routing_table": op is not None and op.routing_version() == 0}
+    del env, runners, chain, op
+    ok = all(out[k] for k in ("fused_selected", "sharded_selected", "local_combine_active",
+                              "routing_table"))
+    # parity, row mode
+    npar = sz["parity_events"]
+    model = mesh_model(npar, sz, True, control_perm(sz), _t_filter_all)
+    env, sink = control_job(npar, sz, skewed=True, columnar=False, dev=dev)
+    card = ckpt_run(env, dev, name="skew-card")
+    card_fired, card_twice = timed_fired(sink.results, sz["keys"], twice=True)
+    env, sink = control_job(npar, sz, skewed=True, shards=n_sh, rebalance=True, columnar=False,
+                            dev=dev)
+    mesh = ckpt_run(env, dev, name="skew-adaptive-parity")
+    mesh_fired, mesh_twice = timed_fired(sink.results, sz["keys"], twice=True)
+    par_model, checked = st.parity(model, mesh_fired)
+    out["parity"] = {
+        "events": npar, "windows_checked": checked,
+        "mesh_equals_card": _fired_equal(mesh_fired, card_fired),
+        "mesh_equals_model": par_model, "card_equals_model": st.parity(model, card_fired)[0],
+        "no_window_twice": not (card_twice or mesh_twice),
+        "rebalances": mesh["client"].mesh_rebalances, "k1_card": card["k1_launches"],
+        "k1_partials_mesh": mesh["k1_partials"], "status": mesh["client"].status().value}
+    p = out["parity"]
+    ok = ok and (p["mesh_equals_card"] and p["mesh_equals_model"] and p["card_equals_model"]
+                 and p["no_window_twice"] and p["status"] == "FINISHED" and p["k1_card"] > 0
+                 and p["k1_partials_mesh"] > 0)
+    del env, sink, card, mesh, mesh_fired, card_fired
+    # the static table's skew
+    env, _sink = control_job(max(n // 4, sz["batch"] * 8), sz, skewed=True, shards=n_sh,
+                             combine=False, stats=True, dev=dev)
+    rt = JobRuntime(plan(env._sinks), env.config, dev)
+    rt.run()
+    out["static_mesh_load_skew"] = mesh_load_skew(rt)
+    del env, rt
+    # the adaptive legs: uniform, then zipf with K1's routed dispatch kept
+    adaptive, routed = {}, ShardScanTap(take_T=sz["superbatch_steps"])
+    for label, skewed in (("uniform", False), ("zipf", True)):
+        env, _sink = control_job(n, sz, skewed=skewed, shards=n_sh, rebalance=True, stats=True,
+                                 dev=dev)
+        if skewed:
+            with routed:
+                r = ckpt_run(env, dev, name="skew-adaptive")
+        else:
+            r = ckpt_run(env, dev, name="uniform-adaptive")
+        client = r["client"]
+        snap = metrics_snapshot(client.metrics.all_metrics())
+        blocks = [e["routing"] for e in client._runtime.device_snapshot()["operators"].values()
+                  if e.get("routing")]
+        adaptive[label] = {
+            "seconds": r["seconds"], "tuples_per_s": n / r["seconds"],
+            "status": client.status().value, "rebalances": client.mesh_rebalances,
+            "gauge_mesh_rebalances": snap.get("job.meshRebalances"),
+            "gauge_routing_table_version": snap.get("job.routingTableVersion"),
+            "last_rebalance_ms": snap.get("job.lastRebalanceDurationMs"),
+            "num_restarts": client.num_restarts,
+            "recovery_kinds": [x["kind"] for x in client.exceptions.payload()["recoveries"]],
+            "routing": ({k: blocks[0][k] for k in ("version", "numKeyGroups", "movedGroups")}
+                        if blocks else None),
+            "mesh_load_skew": mesh_load_skew(client._runtime),
+            "k1": r["k1_launches"], "k1_partials": r["k1_partials"],
+            "decisions": [{k: d[k] for k in ("action", "skew_before", "skew_after",
+                                             "moved_groups")}
+                          for d in client.rebalancer.payload()["decisions"][-4:]]}
+        if skewed:
+            out["assignment"] = blocks[0]["assignment"] if blocks else None
+            out["_runtime"] = client._runtime
+        del env, r, client
+    # the rebalancer's per-step poll at interval 0 reads the per-key loads
+    # back from the device on every step boundary: the uniform adaptive job
+    # with the rebalancer on against off (never rebalancing under uniform
+    # keys), interleaved off, on, on, off
+    poll = {"on": [], "off": []}
+    for side in ("off", "on", "on", "off"):
+        env, _sink = control_job(n, sz, shards=n_sh, rebalance=side == "on", stats=True,
+                                 dev=dev)
+        r = ckpt_run(env, dev, name=f"uniform-rebalance-{side}")
+        poll[side].append(r["seconds"])
+        del env, r
+    steps = n // sz["batch"]
+    out["rebalance_poll"] = {
+        "seconds": poll, "steps": steps,
+        "on_over_off": min(poll["on"]) / min(poll["off"]),
+        "ms_per_step": (min(poll["on"]) - min(poll["off"])) * 1000.0 / steps}
+    z = adaptive["zipf"]
+    out["adaptive"] = adaptive
+    out["post_rebalance_mesh_load_skew"] = z["mesh_load_skew"]
+    out["zipf_over_uniform"] = z["tuples_per_s"] / adaptive["uniform"]["tuples_per_s"]
+    out["note"] = ("four shards time-share one card: the rebalance can show parity and "
+                   "placement, not a balance gain in tuples/s")
+    ok = ok and (z["status"] == "FINISHED" and z["gauge_mesh_rebalances"] >= 1
+                 and z["gauge_routing_table_version"] >= 1 and z["num_restarts"] == 0
+                 and "rebalance" in z["recovery_kinds"] and z["routing"] is not None
+                 and z["routing"]["movedGroups"] > 0 and z["k1_partials"] > 0
+                 and out["static_mesh_load_skew"] is not None
+                 and z["mesh_load_skew"] is not None
+                 and z["mesh_load_skew"] < out["static_mesh_load_skew"]
+                 and adaptive["uniform"]["status"] == "FINISHED"
+                 and adaptive["uniform"]["k1_partials"] > 0 and routed.taken is not None)
+    out["routed"] = routed
+    out["ok"] = bool(ok)
+    return out
+
+
+def _gate(at: int):
+    """A source hook that blocks the source at record `at` until `go`."""
+    import threading
+
+    reached, go, fired = threading.Event(), threading.Event(), []
+
+    def hook(idx):
+        if not fired and idx[0] >= at:
+            fired.append(True)
+            reached.set()
+            go.wait(600)
+    return hook, reached, go
+
+
+def control_reference(sz, dev) -> dict:
+    """The uniform program on one card, columnar, at `events` records, and
+    the numpy model: legs B and C compare their rows with it."""
+    from flink_tpu_torch.testing import stream as st
+
+    env, sink = control_job(sz["events"], sz, dev=dev)
+    r = ckpt_run(env, dev, name="uniform-card")
+    fired, twice = columnar_fired(sink.results, sz["keys"])
+    par, checked = st.parity(mesh_model(sz["events"], sz, False, filt=_t_filter_all), fired)
+    return {"fired": fired, "seconds": r["seconds"], "k1": r["k1_launches"],
+            "equals_model": par and not twice, "windows_checked": checked}
+
+
+def control_leg_b(sz, dev, ref) -> dict:
+    """The autoscaler leg: the uniform program on 4 shards with
+    autoscaler.enabled and parallel.mesh.autoscale, the source held at
+    gate_at records while the drill runs on the coordinator's executor: a
+    same-size target rejected, 4 -> 2 accepted; the job ends on 2 shards
+    with the one-card job's rows. No local combine: K1's keyed (lane) entry
+    runs on every shard before and after the rescale."""
+    from flink_tpu_torch.metrics.registry import metrics_snapshot
+
+    hook, reached, go = _gate(sz["gate_at"])
+    env, sink = control_job(sz["events"], sz, shards=sz["shards"], combine=False, hook=hook,
+                            dev=dev, conf={"autoscaler.enabled": True, "parallel.mesh.autoscale": True,
+                                           "autoscaler.interval-ms": 1})
+    drill = {}
+
+    def hold(client):
+        try:
+            reached.wait(600)
+            auto = client.autoscaler
+            drill["real_executor"] = auto is not None and auto.rescale_executor is not None
+            drill["same_size"] = auto.rescale_executor(client.job_id, sz["shards"], "drill")
+            drill["down"] = auto.rescale_executor(client.job_id, sz["shards"] // 2, "drill")
+        finally:
+            go.set()
+
+    r = ckpt_run(env, dev, name="mesh-autoscale", hold=hold)
+    client = r["client"]
+    fired, twice = columnar_fired(sink.results, sz["keys"])
+    snap = metrics_snapshot(client.metrics.all_metrics())
+    auto = client.autoscaler
+    payload = auto.payload(client.job_id, num_rescales=client.mesh_rescales,
+                           last_rescale_duration_ms=client.last_mesh_rescale_duration_ms)
+    out = {"seconds": r["seconds"], "status": client.status().value, **drill,
+           "mesh_rescales": client.mesh_rescales, "num_restarts": client.num_restarts,
+           "mesh_devices_after": client._runtime.mesh_devices(),
+           "last_rescale_ms": snap.get("job.lastRescaleDurationMs"),
+           "num_rescales_gauge": snap.get("job.numRescales"),
+           "samples_observed": auto._signals.estimate(client.job_id).samples,
+           "payload": {k: payload[k] for k in ("enabled", "policy", "num_rescales",
+                                                "last_rescale_duration_ms")},
+           "recovery_kinds": [x["kind"] for x in client.exceptions.payload()["recoveries"]],
+           "rows_equal_card": _fired_equal(fired, ref["fired"]) and not twice,
+           "k1": r["k1_launches"], "k1_partials": r["k1_partials"]}
+    out["ok"] = bool(
+        out["status"] == "FINISHED" and out["real_executor"]
+        and not out["same_size"][0] and f"already at {sz['shards']}" in out["same_size"][1]
+        and out["down"][0] and out["mesh_rescales"] == 1 and out["num_restarts"] == 0
+        and out["mesh_devices_after"] == sz["shards"] // 2 and out["last_rescale_ms"] > 0
+        and out["num_rescales_gauge"] == 1 and out["payload"]["enabled"]
+        and out["samples_observed"] >= 1 and out["recovery_kinds"] == ["rescale"]
+        and out["rows_equal_card"] and out["k1"] > 0 and out["k1_partials"] == 0)
+    return out
+
+
+def control_leg_c(sz, dev, ref) -> dict:
+    """The device-loss degrade: leg B's job without the autoscaler, with
+    checkpoints every checkpoint_ms and parallel.mesh.degrade-on-device-loss;
+    a RuntimeError carrying the device-scoped chaos marker is raised at the
+    fail_at-th sharded dispatch by a ShardScanTap installed for this run.
+    One restart, 4 -> 2 shards, from a restored checkpoint, the one-card
+    rows; K1's keyed (lane) entry on every shard, as in leg B."""
+    env, sink = control_job(sz["events"], sz, shards=sz["shards"], combine=False, dev=dev,
+                            conf={"execution.checkpointing.interval": sz["checkpoint_ms"],
+                                  "parallel.mesh.degrade-on-device-loss": True})
+    with ShardScanTap(fail_at=sz["fail_at"]) as tap:
+        r = ckpt_run(env, dev, name="mesh-device-loss")
+    client = r["client"]
+    fired, twice = columnar_fired(sink.results, sz["keys"])
+    history = client.exceptions.payload()
+    out = {"seconds": r["seconds"], "status": client.status().value,
+           "dispatches": tap.calls, "num_restarts": client.num_restarts,
+           "num_checkpoints": client.num_checkpoints,
+           "mesh_devices_after": client._runtime.mesh_devices(),
+           "injected": [e["injected"] for e in history["entries"]],
+           "restored_checkpoint_ids": [x["restored_checkpoint_id"]
+                                       for x in history["recoveries"]],
+           "rows_equal_card": _fired_equal(fired, ref["fired"]) and not twice,
+           "k1": r["k1_launches"], "k1_partials": r["k1_partials"]}
+    out["ok"] = bool(
+        out["status"] == "FINISHED" and out["num_restarts"] == 1
+        and out["mesh_devices_after"] == sz["shards"] // 2 and out["injected"] == [True]
+        and len(out["restored_checkpoint_ids"]) == 1
+        and out["restored_checkpoint_ids"][0] is not None and out["rows_equal_card"]
+        and out["k1"] > 0 and out["k1_partials"] == 0 and out["dispatches"] > sz["fail_at"])
+    return out
+
+
+def api_mesh_control_phase(dev=DEV, sizes=None) -> dict:
+    """Legs A, B and C over four shards of `dev` (visible_devices replaced
+    for the phase, restored after); on the card, K1 against its plain
+    version at shard 0's first full dispatch under leg A's rebalanced table
+    (`k1_mesh_routed`, the partials entry) and the table swap against its
+    bytes bound (`routing_swap`)."""
+    from flink_tpu_torch.parallel import mesh as mesh_lib
+
+    sz = dict(API_MESH_CONTROL, **(sizes or {}))
+    card = card_line() if torch.device(dev).type == "cuda" else "cpu"
+    real = mesh_lib.visible_devices
+    mesh_shards(sz["shards"], dev)
+    out = {"phase": "api_mesh_control", "card": card, "shards": sz["shards"],
+           "shard_devices": [str(d) for d in mesh_lib.visible_devices(dev)]}
+    try:
+        t0 = time.perf_counter()
+        leg_a = control_leg_a(sz, dev)
+        routed, runtime = leg_a.pop("routed"), leg_a.pop("_runtime", None)
+        out["leg_a"] = dict(leg_a, phase_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = control_reference(sz, dev)
+        out["reference"] = {k: v for k, v in ref.items() if k != "fired"}
+        out["leg_b"] = dict(control_leg_b(sz, dev, ref), phase_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out["leg_c"] = dict(control_leg_c(sz, dev, ref), phase_s=time.perf_counter() - t0)
+        del ref
+        shim, agg, plan, cpart, parts = routed.k1_inputs()
+        out["routed_dispatch"] = {
+            "K_local": shim.K, "T": int(plan[0].shape[0]), "fires": len(plan[5]),
+            "partials_shape": list(cpart.shape), "partial_records": int(cpart.sum()),
+            "table_version": routed.taken[0].routing_version()}
+        if torch.device(dev).type == "cuda":
+            t0 = time.perf_counter()
+            out["k1_mesh_routed"] = k1_partials_at(
+                f"api_mesh_control leg A zipf: shard 0 of {sz['shards']}, its folded partials "
+                "of the first full dispatch under the rebalanced table", shim, agg, plan, cpart,
+                parts)
+            out["k1_mesh_routed"]["seconds"] = time.perf_counter() - t0
+            if runtime is not None and leg_a.get("assignment") is not None:
+                out["routing_swap"] = routing_swap(runtime, np.asarray(leg_a["assignment"]),
+                                                   sz["swap_reps"], dev)
+            del shim, plan, cpart, parts
+        del routed, runtime
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        mesh_lib.visible_devices = real
+    out["ok"] = bool(out["leg_a"]["ok"] and out["reference"]["equals_model"]
+                     and out["leg_b"]["ok"] and out["leg_c"]["ok"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -6341,6 +6817,38 @@ def main() -> int:
     k1_ms_shared = feat["k1_mesh_shared"]
     torch.cuda.empty_cache()
 
+    # ---- 28. the mesh's control loops: the skew rebalancer, the
+    # autoscaler's mesh rescale and the device-loss degrade over four
+    # virtual shards of the card, every run with its launch counts at 0
+    # just before it; then K1's partials entry at shard 0's first full
+    # dispatch under the rebalanced table, and the table swap ----
+    t_ctl = time.perf_counter()
+    ctl = api_mesh_control_phase()
+    ctl["phase_s"] = time.perf_counter() - t_ctl
+    emit(ctl)
+    if not ctl["ok"]:
+        raise AssertionError("api_mesh_control: a leg failed a gate (leg A: the runner and "
+                             "table selection, the rebalanced mesh job's rows against the "
+                             "one-card job and the numpy model, rebalances, the table version, "
+                             "no restart, a rebalance recovery, moved groups, the skew below "
+                             "the static table's, K1's partials launches; leg B: the executor's "
+                             "rejection and 4 -> 2, one rescale onto 2 shards, the gauges, the "
+                             "one-card rows; leg C: one restart, 4 -> 2 shards, an injected "
+                             "entry, a restored checkpoint, the one-card rows; legs B and C: "
+                             "K1's keyed launches)")
+    ca = ctl["leg_a"]
+    partials_by_path = {
+        "api_mesh_control_a_parity": ca["parity"]["k1_partials_mesh"],
+        "api_mesh_control_a_uniform": ca["adaptive"]["uniform"]["k1_partials"],
+        "api_mesh_control_a_zipf": ca["adaptive"]["zipf"]["k1_partials"]}
+    path_launches["k1_superscan"].update({
+        "api_mesh_control_a_parity_card": ca["parity"]["k1_card"],
+        "api_mesh_control_reference_card": ctl["reference"]["k1"],
+        "api_mesh_control_b_autoscale": ctl["leg_b"]["k1"],
+        "api_mesh_control_c_degrade": ctl["leg_c"]["k1"]})
+    k1_routed = ctl["k1_mesh_routed"]
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -6433,6 +6941,18 @@ def main() -> int:
          **{k: k1_ms_shared[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms", "device_us",
                                          "fires")}},
+        {"name": "k1_mesh_routed", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_routed["shape"],
+         "launches": ca["adaptive"]["zipf"]["k1_partials"],
+         "launches_by_path": partials_by_path,
+         "library": "one index_add_ of the count partial into its ring cells",
+         "phase_counts": k1_routed["phase_counts"],
+         "routing_swap": ctl.get("routing_swap"),
+         **{k: k1_routed[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms", "device_us",
+                                      "fires")}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",

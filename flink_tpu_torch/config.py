@@ -86,8 +86,6 @@ _OPTIONS: Dict[str, ConfigOption] = {}
 
 #: key prefixes of the JAX package's options the port does not carry yet
 _UNPORTED_PREFIXES = (
-    ("parallel.", deferred.MESH),
-    ("autoscaler.", deferred.MESH),
     ("observability.shipping.", deferred.CLUSTER),
     ("exchange.", deferred.CLUSTER),
     ("execution.watchdog.", deferred.CLUSTER),
@@ -349,10 +347,10 @@ class ParallelOptions:
     of the process, not a cluster of tasks. The descriptions follow the
     JAX package's; on the port a device is a GPU (or the CPU), the
     exchange is block copies between the shards' devices, and the mesh's
-    devices come from parallel/mesh.py::visible_devices. The skew
-    rebalancer (parallel.mesh.skew-rebalance, .key-groups, .rebalance.*),
-    device-loss degrade and mesh autoscale options are not ported yet
-    (ROADMAP.md Queue A, item 13b)."""
+    devices come from parallel/mesh.py::visible_devices. The mesh's
+    control loops run in the MiniCluster's attempt loop: the skew
+    rebalancer (scheduler/rebalancer.py), the autoscaler's mesh rescale
+    (scheduler/autoscaler.py) and the device-loss degrade."""
 
     MESH_ENABLED = (
         ConfigOptions.key("parallel.mesh.enabled").bool_type().default_value(False)
@@ -376,6 +374,27 @@ class ParallelOptions:
         "largest divisor of the key capacity so contiguous key ranges "
         "divide evenly across shards."
     )
+    MESH_DEGRADE_ON_DEVICE_LOSS = (
+        ConfigOptions.key("parallel.mesh.degrade-on-device-loss")
+        .bool_type().default_value(True)
+    ).with_description(
+        "When a mesh job fails with a device-plane error (a CUDA error "
+        "raised by torch or by a kernel launch; chaos drills inject the "
+        "same shape with a device-scoped marker), the restart rebuilds the "
+        "job at a REDUCED mesh size instead of retrying the dead geometry "
+        "forever: the latest checkpoint's canonical [K, S] snapshot "
+        "re-shards over the surviving devices (halving per restart, floor "
+        "1 = one device). Off restarts at the configured size every time."
+    )
+    MESH_AUTOSCALE = (
+        ConfigOptions.key("parallel.mesh.autoscale").bool_type().default_value(True)
+    ).with_description(
+        "Let the autoscaler (autoscaler.enabled) treat MESH SIZE as the "
+        "parallelism axis it rescales on the in-process path: scaling "
+        "decisions execute as a live checkpoint-rewind + key-group re-shard "
+        "onto a different device count at a step boundary, exactly-once. "
+        "Off keeps the autoscaler observe-only for mesh jobs."
+    )
     MESH_LOCAL_COMBINE = (
         ConfigOptions.key("parallel.mesh.local-combine")
         .bool_type().default_value(False)
@@ -395,6 +414,47 @@ class ParallelOptions:
         "(partials per source shard, then a cross-shard fold), which like "
         "any parallel pre-aggregation is bit-exact for integer-valued "
         "payloads and may differ in final ulps otherwise."
+    )
+    MESH_SKEW_REBALANCE = (
+        ConfigOptions.key("parallel.mesh.skew-rebalance")
+        .bool_type().default_value(False)
+    ).with_description(
+        "Skew-aware key-group routing on the in-process mesh path: the "
+        "static owner function (key-group -> contiguous device range) "
+        "becomes a routing table on each shard's device, and a rebalancer "
+        "in the scheduler watches the per-key-group loads and remaps the "
+        "hottest key-groups across devices at a step-aligned boundary "
+        "through the mesh-rescale capture/restore machinery — exactly-once, "
+        "with checkpoints staying canonical [K, S] (routing is placement, "
+        "never semantics). Off keeps the static contiguous owner function."
+    )
+    MESH_KEY_GROUPS = (
+        ConfigOptions.key("parallel.mesh.key-groups").int_type()
+        .default_value(0)
+    ).with_description(
+        "Key-group count of the skew-rebalance routing table (0 = auto: "
+        "up to 128, rounded to a multiple of the mesh size that divides "
+        "the key capacity). More groups = finer-grained rebalancing at "
+        "a slightly larger replicated routing table."
+    )
+    MESH_REBALANCE_SKEW_THRESHOLD = (
+        ConfigOptions.key("parallel.mesh.rebalance.skew-threshold")
+        .float_type().default_value(1.25)
+    ).with_description(
+        "meshLoadSkew (max/mean per-device resident records) above which "
+        "the skew rebalancer considers remapping key-groups. A rebalance "
+        "only triggers when the replanned assignment also improves the "
+        "predicted skew by at least ~10% — a single unsplittable hot "
+        "group never causes rebuild churn."
+    )
+    MESH_REBALANCE_INTERVAL_MS = (
+        ConfigOptions.key("parallel.mesh.rebalance.interval-ms")
+        .int_type().default_value(1000)
+    ).with_description(
+        "Minimum milliseconds between skew-rebalancer decisions (and "
+        "between a completed rebalance and the next check). 0 decides on "
+        "every step boundary — test/bench cadence, not production: each "
+        "decision reads the per-key loads back from the device."
     )
 
 
@@ -769,6 +829,109 @@ class ObservabilityOptions:
         "Emission-latency p99 threshold for the health.P99Breach watchdog "
         "span (0 disables the check — there is no universal latency SLO; "
         "jobs with one declare it here)."
+    )
+
+
+class AutoscalerOptions:
+    """The elastic autoscaler (flink_tpu_torch/scheduler/): a reactive
+    controller that watches the observability-plane gauges (busy and
+    backpressure ratios, pool usage, watermark skew, checkpoint
+    durations), decides scale-up/down per the configured policy, and on a
+    MiniCluster mesh job (parallel.mesh.autoscale) rescales the mesh live
+    by a step-aligned capture and a key-group re-shard. Off by default —
+    rescaling costs a checkpoint rewind. The JobManager's autoscaler loop
+    and its REST route are ROADMAP.md item 14 (the cluster)."""
+
+    ENABLED = (
+        ConfigOptions.key("autoscaler.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Enable reactive autoscaling. On a MiniCluster mesh job "
+        "(parallel.mesh.enabled and parallel.mesh.autoscale) decisions "
+        "execute as live mesh rescales; without a mesh the controller runs "
+        "observe-only: decisions appear in its decision log but are never "
+        "executed."
+    )
+    MIN_PARALLELISM = (
+        ConfigOptions.key("autoscaler.min-parallelism").int_type().default_value(1)
+    ).with_description(
+        "Lower bound the autoscaler may scale a job down to."
+    )
+    MAX_PARALLELISM = (
+        ConfigOptions.key("autoscaler.max-parallelism").int_type().default_value(0)
+    ).with_description(
+        "Upper bound the autoscaler may scale a job up to; 0 (default) "
+        "bounds only by available slots and the job's own max-parallelism "
+        "(key-group count)."
+    )
+    STABILIZATION_INTERVAL_MS = (
+        ConfigOptions.key("autoscaler.stabilization-interval-ms")
+        .duration_ms_type().default_value(30_000)
+    ).with_description(
+        "Quiet period after a job starts or a rescale completes before the "
+        "next decision may execute: signals from a warming attempt (replay, "
+        "cold caches, fresh counters) must not immediately trigger another "
+        "rescale."
+    )
+    POLICY = (
+        ConfigOptions.key("autoscaler.policy").string_type().default_value("threshold")
+    ).with_description(
+        "Decision engine: 'threshold' doubles/halves parallelism on the "
+        "utilization thresholds; 'learning' wraps the threshold rule with a "
+        "bounded history of past rescale outcomes and damps decisions that "
+        "previously failed to improve throughput (the Adaptive Parallelism "
+        "Tuning blueprint, PAPERS.md)."
+    )
+    INTERVAL_MS = (
+        ConfigOptions.key("autoscaler.interval-ms")
+        .duration_ms_type().default_value(1000)
+    ).with_description(
+        "How often the controller samples the job's aggregated gauges into "
+        "the signal window and evaluates the policy."
+    )
+    SIGNAL_WINDOW = (
+        ConfigOptions.key("autoscaler.signal-window").int_type().default_value(6)
+    ).with_description(
+        "Samples per vertex the signal aggregator averages over before the "
+        "policy sees them — one noisy tick must not rescale a job. The "
+        "3-sample decision warm-up and outcome-settling bars clamp to this "
+        "window when it is smaller."
+    )
+    SCALE_UP_THRESHOLD = (
+        ConfigOptions.key("autoscaler.utilization.scale-up-threshold")
+        .float_type().default_value(0.85)
+    ).with_description(
+        "Windowed utilization (busy + backpressured fraction) at or above "
+        "which the threshold policy scales up."
+    )
+    SCALE_DOWN_THRESHOLD = (
+        ConfigOptions.key("autoscaler.utilization.scale-down-threshold")
+        .float_type().default_value(0.3)
+    ).with_description(
+        "Windowed utilization at or below which the threshold policy "
+        "scales down."
+    )
+    DECISION_HISTORY_SIZE = (
+        ConfigOptions.key("autoscaler.decision-history.size")
+        .int_type().default_value(32)
+    ).with_description(
+        "Decision-log entries retained per job (signals seen, action, "
+        "target, outcome, rescale duration)."
+    )
+    LEARNING_MIN_GAIN = (
+        ConfigOptions.key("autoscaler.learning.min-gain")
+        .float_type().default_value(1.1)
+    ).with_description(
+        "Throughput gain a past scale-up must have achieved (scale-down: "
+        "1/min-gain retention) for the learning policy to repeat the same "
+        "transition without damping."
+    )
+    LEARNING_PATIENCE = (
+        ConfigOptions.key("autoscaler.learning.patience")
+        .int_type().default_value(4)
+    ).with_description(
+        "Number of triggers the learning policy suppresses a previously "
+        "unhelpful transition for before retrying it (load may have "
+        "changed shape since the bad outcome)."
     )
 
 

@@ -28,8 +28,8 @@ device-major layout with one host permutation, so checkpoints restore
 across any mesh size AND any routing table.
 
 Layering: numpy over plain arrays (the parallel layer — no runtime, no
-scheduler; the rebalance POLICY that decides new assignments,
-scheduler/rebalancer.py in the JAX package, is not ported yet).
+scheduler; the rebalance POLICY that decides new assignments is
+scheduler/rebalancer.py, which imports this module).
 """
 
 from __future__ import annotations

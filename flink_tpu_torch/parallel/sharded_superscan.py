@@ -312,6 +312,14 @@ class ShardedFusedPipeline:
     # key-group routing (parallel/routing.py): a remap pulls the canonical
     # state under the old table and re-lays it under the new one
     # ------------------------------------------------------------------
+    def routing_version(self) -> Optional[int]:
+        return None if self.routing is None else self.routing.version
+
+    def routing_payload(self) -> Optional[dict]:
+        """The /jobs/:id/device routing block (version, numKeyGroups,
+        movedGroups, the assignment); None without a table."""
+        return None if self.routing is None else self.routing.payload()
+
     def set_routing_assignment(self, assign) -> int:
         """Swap in a new group->device map; exact by construction (the
         canonical state never changes, only its placement). Returns the
@@ -334,7 +342,9 @@ class ShardedFusedPipeline:
         return loads
 
     def mesh_group_loads(self) -> Optional[np.ndarray]:
-        """Per-key-group resident loads [G]; None without a table."""
+        """Per-key-group resident loads [G], the skew rebalancer's decision
+        input; None without a table. A host sync: the [K] loads come back
+        from the first shard's device."""
         if self.routing is None:
             return None
         return self.routing.group_loads(self.key_loads().cpu().numpy())

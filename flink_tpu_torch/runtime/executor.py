@@ -53,9 +53,14 @@ The mesh (`parallel.mesh.*`, `_mesh_for_config`): a fused window step
 and a device join run over a mesh of shards placed on
 `parallel/mesh.py::visible_devices`, clamped as the JAX package clamps
 it; under 2 usable devices the job stays on one device. At a step
-boundary `run` takes the client's live mesh-rescale request: it raises
-`MeshRescaleRequested` with a step-aligned capture, and the MiniCluster
-rebuilds the runtime over the new size and restores it, exactly-once.
+boundary `run` takes the client's live mesh-rescale request and the skew
+rebalancer's new key-group assignment (parallel.mesh.skew-rebalance, the
+routing table of `ShardedFusedPipeline`): either raises
+`MeshRescaleRequested` with a step-aligned capture (and, for a rebalance,
+the assignment), and the MiniCluster rebuilds the runtime over the new
+size or table and restores it, exactly-once. `set_mesh_routing` applies
+an assignment to every routed operator; `mesh_group_loads` reads the
+rebalancer's input back from the device.
 `pipeline.parallelism` is read by no runner, as in the JAX package.
 
 Observability (`observability.*`, the JAX package's defaults): every
@@ -82,8 +87,7 @@ the JAX package's `/jobs/:id/device` payload from `device_snapshot()`
 captures a torch.profiler trace of each attempt.
 
 Left out, raising where a job asks for them (ROADMAP.md Queue A): the
-mesh with tiering or shared partials and its skew rebalancer (item 13b),
-the chaos hook (item 14), operator coordinators (item 19's process
+chaos hook (item 14), operator coordinators (item 19's process
 functions: `coordinators` stays empty) and the rest of the DataStream
 API's runners (item 19).
 """
@@ -476,10 +480,12 @@ def _mesh_for_config(config: Configuration, key_capacity: int, device):
 
 def _mesh_exchange_kwargs(config: Configuration) -> dict:
     """The exchange options threaded to FusedWindowOperator (ignored off
-    the mesh): the map-side combiner. Single-sourced so both fused
-    construction sites take the same. The skew rebalancer's routing table
-    (parallel.mesh.skew-rebalance, parallel.mesh.key-groups) is item 13b."""
-    return {"mesh_local_combine": config.get(ParallelOptions.MESH_LOCAL_COMBINE)}
+    the mesh): the map-side combiner and the key-group routing table
+    (parallel.mesh.skew-rebalance, parallel.mesh.key-groups). Single-sourced
+    so both fused construction sites take the same."""
+    return {"mesh_local_combine": config.get(ParallelOptions.MESH_LOCAL_COMBINE),
+            "mesh_skew_routing": config.get(ParallelOptions.MESH_SKEW_REBALANCE),
+            "mesh_key_groups": config.get(ParallelOptions.MESH_KEY_GROUPS)}
 
 
 class MeshRescaleRequested(BaseException):
@@ -487,13 +493,18 @@ class MeshRescaleRequested(BaseException):
     boundary with a pending mesh-rescale request. Carries the target
     shard count and the step-aligned state capture the rebuilt runtime
     restores from (the snapshot is canonical [K, S], so any mesh size
-    re-shards it). BaseException so ordinary `except Exception` operator
-    guards can never swallow it."""
+    re-shards it). With `routing` set this is a skew REBALANCE, not a
+    resize: the target is the current size and `routing` the new [G]
+    key-group assignment the rebuilt runtime applies after its restore.
+    BaseException so ordinary `except Exception` operator guards can
+    never swallow it."""
 
-    def __init__(self, target: int, snapshot: dict):
-        super().__init__(f"mesh rescale to {target} devices")
+    def __init__(self, target: int, snapshot: dict, routing=None):
+        super().__init__(f"mesh rescale to {target} devices" if routing is None
+                         else f"mesh key-group rebalance over {target} devices")
         self.target = int(target)
         self.snapshot = snapshot
+        self.routing = routing
 
 
 def _tier_for_config(config: Configuration) -> Optional[TierConfig]:
@@ -1566,25 +1577,68 @@ class JobRuntime:
                 if op is not None and hasattr(op, "mesh_capacity")]
         return min(caps) if caps else None
 
+    # -- the key-group routing table (parallel.mesh.skew-rebalance) -------
+    def _routed_ops(self):
+        for r in self.runners:
+            op = getattr(r, "op", None)
+            fn = getattr(op, "routing_version", None)
+            if callable(fn) and fn() is not None:
+                yield op
+
+    def mesh_routing_version(self) -> Optional[int]:
+        """Highest routing-table version across the mesh operators (None
+        when no operator carries a table)."""
+        versions = [op.routing_version() for op in self._routed_ops()]
+        return max(versions) if versions else None
+
+    def mesh_group_loads(self):
+        """(group_loads [G], current assignment [G], mesh size) of the first
+        routed operator that holds data: the skew rebalancer's decision
+        input (a device readback); None when no operator carries a table
+        or no record has landed in its rings yet."""
+        for op in self._routed_ops():
+            loads = op.mesh_group_loads()
+            if loads is not None and loads.sum() > 0:
+                return loads, op.pipe.routing.assign, op.mesh_devices()
+        return None
+
+    def set_mesh_routing(self, assign) -> None:
+        """Apply a key-group assignment to every routed operator (the
+        rebuilt attempt of a rebalance, AFTER its restore: the restore may
+        adopt a grown snapshot K and rebuild the table for the new
+        capacity). An assignment sized for a DIFFERENT group count is
+        skipped, not an error: the geometry changed between decision and
+        application, and the rebalancer re-decides from live skew under the
+        new table."""
+        assign = np.asarray(assign)
+        for op in self._routed_ops():
+            if assign.shape[0] != op.pipe.routing.G:
+                continue
+            op.set_routing_assignment(assign)
+
     def run(
         self,
         coordinator=None,
         cancel_check: Optional[Callable[[], bool]] = None,
         savepoint_request: Optional[Callable[[], Optional[str]]] = None,
         rescale_request: Optional[Callable[[], Optional[int]]] = None,
+        rebalance_request: Optional[Callable[[], Optional[Any]]] = None,
     ) -> None:
         """Run to the end of input. At every step boundary: `cancel_check`
         (True raises JobCancelledException), the coordinator's due
         checkpoint, `savepoint_request` (a path writes a savepoint there),
-        and `rescale_request` (a shard count other than this attempt's
-        raises MeshRescaleRequested with a step-aligned capture). The
-        coordinator commits this attempt's sinks on each completed
-        checkpoint while the attempt runs."""
+        `rescale_request` (a shard count other than this attempt's raises
+        MeshRescaleRequested with a step-aligned capture) and
+        `rebalance_request` (a new [G] key-group assignment raises it at
+        this attempt's size, carrying the assignment). The coordinator
+        commits this attempt's sinks on each completed checkpoint while the
+        attempt runs."""
         if coordinator is not None:
             coordinator.register_on_complete(self.commit_sinks)
         profiler = self._start_profiler()
         try:
-            self._run_loop(coordinator, cancel_check, savepoint_request, rescale_request)
+            self._run_loop(coordinator, cancel_check, savepoint_request, rescale_request,
+                           rebalance_request)
         finally:
             if coordinator is not None:
                 coordinator.unregister_on_complete(self.commit_sinks)
@@ -1688,7 +1742,7 @@ class JobRuntime:
         return payload
 
     def _run_loop(self, coordinator, cancel_check, savepoint_request,
-                  rescale_request=None) -> None:
+                  rescale_request=None, rebalance_request=None) -> None:
         batch_size = self.config.get(ExecutionOptions.BATCH_SIZE)
         for d in self.sources:
             if d.current_split is None and not d.done:
@@ -1768,6 +1822,15 @@ class JobRuntime:
                         # runtime over the new shard count and restores this
                         # capture (the checkpoint path's), exactly-once
                         raise MeshRescaleRequested(target, self.capture())
+                if rebalance_request is not None:
+                    assign = rebalance_request()
+                    if assign is not None:
+                        # a skew rebalance: the rescale's capture and
+                        # restore at this attempt's size, with the new
+                        # key-group table applied to the rebuilt runtime
+                        # (placement never changes a result)
+                        raise MeshRescaleRequested(self.mesh_devices(), self.capture(),
+                                                   routing=assign)
                 now_ms = time.time() * 1000.0
                 if now_ms - last_tick >= 50.0:
                     # the processing-time service's tick (the JAX run loop's

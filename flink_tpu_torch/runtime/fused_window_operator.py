@@ -431,6 +431,8 @@ class FusedWindowOperator:
         prologue=None,
         mesh=None,
         mesh_local_combine: bool = False,
+        mesh_skew_routing: bool = False,
+        mesh_key_groups: int = 0,
         tier=None,
         assigners=None,
         latency: Optional[LatencySpec] = None,
@@ -481,7 +483,8 @@ class FusedWindowOperator:
             del geometry["device"]
             self.pipe = ShardedFusedPipeline(
                 mesh, assigner, self.agg, **geometry, assigners=assigners,
-                local_combine=mesh_local_combine)
+                local_combine=mesh_local_combine, skew_routing=mesh_skew_routing,
+                num_key_groups=mesh_key_groups)
         elif assigners is not None:
             self.pipe = SharedWindowPipeline(assigners, self.agg, **geometry)
         else:
@@ -910,6 +913,34 @@ class FusedWindowOperator:
     def mesh_devices(self) -> int:
         """Shards this operator's state is spread over (1 = one device)."""
         return int(getattr(self.pipe, "n", 1))
+
+    # -- the key-group routing table (parallel.mesh.skew-rebalance) -------
+    def routing_version(self) -> Optional[int]:
+        """Version of the mesh routing table (None off the mesh or with
+        static routing)."""
+        fn = getattr(self.pipe, "routing_version", None)
+        return fn() if callable(fn) else None
+
+    def routing_payload(self) -> Optional[dict]:
+        """The /jobs/:id/device routing block (None without a table)."""
+        fn = getattr(self.pipe, "routing_payload", None)
+        return fn() if callable(fn) else None
+
+    def mesh_group_loads(self):
+        """Per-key-group resident loads [G], the rebalancer's decision
+        input; None without a routing table."""
+        fn = getattr(self.pipe, "mesh_group_loads", None)
+        return fn() if callable(fn) else None
+
+    def set_routing_assignment(self, assign) -> int:
+        """Apply a new key-group -> shard map at an operator-quiescent
+        point: every in-flight dispatch resolves FIRST (its fire rows were
+        produced under the old table and must come back to key order under
+        it; on the card that waits on its pending host copies), then the
+        table swaps and the rows re-lay. Exactly-once by construction:
+        canonical state and cursors never change."""
+        self._resolve_inflight()
+        return self.pipe.set_routing_assignment(assign)
 
     def mesh_capacity(self) -> int:
         """The key capacity the mesh clamp used at construction: a rescale

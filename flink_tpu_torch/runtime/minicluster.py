@@ -19,7 +19,31 @@ A live mesh rescale (`JobClient.rescale_mesh`) rides the same attempt
 loop: at the next step boundary the running attempt hands over a
 step-aligned capture (`MeshRescaleRequested`), and the job master
 rebuilds the runtime over the new shard count and restores the capture —
-exactly-once, with no restart counted.
+exactly-once, with no restart counted. The mesh's control loops ride it
+too:
+
+- the skew rebalancer (parallel.mesh.skew-rebalance,
+  scheduler/rebalancer.py, `client.rebalancer`): polled at every step
+  boundary, its interval gate first and only then the per-key-group load
+  readback; a new assignment comes back as a capture at the same size,
+  and the rebuilt attempt applies the table AFTER its restore (a restore
+  that adopts a grown K rebuilds the table at identity; applying first
+  would discard the move, and the rebalancer would re-decide it forever).
+  The recovery is recorded with kind "rebalance";
+- the autoscaler (autoscaler.enabled, scheduler/autoscaler.py,
+  `client.autoscaler`): with parallel.mesh.autoscale its executor parks a
+  mesh rescale the run loop takes at the next step boundary, clamped as
+  the rebuilt operators will clamp; without a mesh it observes only;
+- the device-loss degrade (parallel.mesh.degrade-on-device-loss): an
+  attempt that fails with a device error (`_is_device_loss`) restarts
+  over half its shards, re-sharding the latest checkpoint. A real CUDA
+  error is sticky: it poisons the whole CUDA context, so on one card the
+  degraded attempt fails too and the restart strategy ends the job; the
+  degrade keeps a job alive where the lost shards were other devices, or
+  where the failure was injected.
+
+A rescale or rebalance that fails midway stamps no completion: the job
+takes the plain restart path instead, at the identity table.
 
 Observability, as the JAX MiniCluster wires it: each job has a metric
 registry (`client.metrics`, shared by its attempts), a trace registry with
@@ -32,8 +56,7 @@ restarts report spans, and the client serves `latency_report`,
 `history_report` and `doctor_report` in the JAX package's shapes.
 
 Left out until their items (ROADMAP.md Queue A), each raising where it is
-asked for: the skew rebalance, the device-loss degrade and the autoscaler
-of a mesh job (item 13b); the `chaos.*` plan and `security=` (item 14).
+asked for: the `chaos.*` plan and `security=` (item 14).
 """
 
 from __future__ import annotations
@@ -49,6 +72,7 @@ from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
 from flink_tpu_torch.checkpoint.restart import restart_strategy_from_config
 from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage, MemoryCheckpointStorage
 from flink_tpu_torch.config import (
+    AutoscalerOptions,
     CheckpointingOptions,
     Configuration,
     ObservabilityOptions,
@@ -77,8 +101,45 @@ from flink_tpu_torch.runtime.executor import (
     JobRuntime,
     MeshRescaleRequested,
 )
+from flink_tpu_torch.scheduler.autoscaler import AutoscalerCoordinator
+from flink_tpu_torch.scheduler.rebalancer import SkewRebalancer
 from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import resolve_device
+
+
+def _effective_mesh_target(runtime: JobRuntime, target: int, device) -> Optional[int]:
+    """Clamp a mesh-rescale target exactly as the rebuilt operators will:
+    to the devices `parallel/mesh.py::visible_devices` gives, then down to
+    the largest divisor of the operators' construction-time key capacity
+    (not a grown K: a rebuilt operator starts from its construction
+    capacity again). None: the job has no operator that can run on a
+    mesh."""
+    cap = runtime.mesh_capacity()
+    if cap is None:
+        return None
+    return mesh_lib.usable_mesh_size(max(1, int(target)),
+                                     len(mesh_lib.visible_devices(device)), cap)
+
+
+def _is_device_loss(e: BaseException) -> bool:
+    """Does this failure look like the device plane died under the job?
+    torch's own device error (a type named AcceleratorError, or a
+    RuntimeError whose message carries "CUDA error", as torch's and the
+    kernel wrappers' launch errors do), or a chaos drill's device-scoped
+    marker. Walks the cause chain, cycle-safe, so wrapping never hides
+    the origin."""
+    seen = set()
+    cur: Optional[BaseException] = e
+    while cur is not None and id(cur) not in seen:
+        seen.add(id(cur))
+        if type(cur).__name__ == "AcceleratorError":
+            return True
+        if isinstance(cur, RuntimeError) and "CUDA error" in str(cur):
+            return True
+        if "[chaos-injected:device" in str(cur):
+            return True
+        cur = cur.__cause__ or cur.__context__
+    return False
 
 
 class JobStatus(enum.Enum):
@@ -134,6 +195,12 @@ class JobClient:
         self.mesh_rescales = 0
         self.last_mesh_rescale_duration_ms = 0.0
         self._mesh_rescale_target: Optional[int] = None
+        # the skew rebalancer's completed routing-table swaps and the policy
+        # object that decides them; the autoscaler, when the job enables it
+        self.mesh_rebalances = 0
+        self.last_mesh_rebalance_duration_ms = 0.0
+        self.rebalancer: Optional[SkewRebalancer] = None
+        self.autoscaler: Optional[AutoscalerCoordinator] = None
         # observability planes, wired when the job thread starts
         self.metrics: Optional[MetricRegistry] = None
         self.traces: Optional[TraceRegistry] = None
@@ -306,6 +373,7 @@ class MiniCluster:
         failure of any attempt is caught here and counted against the
         strategy: this is the job's failover boundary."""
         self._wire_observability(client, config)
+        self._wire_mesh_control(client, config, device)
         interval = config.get(CheckpointingOptions.INTERVAL_MS)
         chk_dir = config.get(CheckpointingOptions.DIRECTORY)
         storage = FsCheckpointStorage(chk_dir) if chk_dir else MemoryCheckpointStorage()
@@ -337,10 +405,14 @@ class MiniCluster:
                     "restoredCheckpoint", restored).end())
                 restart_span = None
 
-        # the next attempt's mesh size after a live rescale (None: the
-        # configured size), and the rescale in progress
+        # the next attempt's mesh size after a live rescale or a device-loss
+        # degrade (None: the configured size); what the next attempt
+        # completes: "rescale" (its start) and "rebalance" (its start and
+        # assignment), each popped by the attempt once it has stamped it
         mesh_override: Optional[int] = None
-        pending_rescale: Optional[float] = None
+        pending: dict = {}
+        mesh_enabled = config.get(ParallelOptions.MESH_ENABLED)
+        degrade = mesh_enabled and config.get(ParallelOptions.MESH_DEGRADE_ON_DEVICE_LOSS)
         if savepoint_restore_path is not None:
             try:
                 sp_storage = FsCheckpointStorage(savepoint_restore_path)
@@ -361,30 +433,50 @@ class MiniCluster:
                 cfg = config.clone().set(ParallelOptions.MESH_DEVICES, mesh_override)
             try:
                 self._attempt(client, graph, cfg, device, coordinator, restore_snap,
-                              restore_ms, pending_rescale, running)
+                              restore_ms, pending, running)
                 client._set_status(JobStatus.FINISHED)
                 return
             except JobCancelledException:
                 client._set_status(JobStatus.CANCELED)
                 return
             except MeshRescaleRequested as mr:
-                # a deliberate live rescale, not a failure: rebuild over the
-                # new size and restore the step-aligned capture (no restart
-                # counted, no backoff)
+                # a deliberate live rescale or skew rebalance, not a
+                # failure: rebuild over the new size (the same size for a
+                # rebalance) and restore the step-aligned capture (no
+                # restart counted, no backoff)
+                if client._runtime is not None:
+                    client.records_in = client._runtime.records_in
                 client._runtime = None
                 client._drop_attempt_gauges()
                 mesh_override = mr.target
                 restore_snap, restore_ms = mr.snapshot, 0.0
-                pending_rescale = time.perf_counter()
+                if mr.routing is not None:
+                    pending["rebalance"] = {"t0": time.perf_counter(), "assign": mr.routing}
+                    cause = f"mesh key-group rebalance over {mr.target} device(s)"
+                    kind = "rebalance"
+                else:
+                    pending["rescale"] = time.perf_counter()
+                    cause = f"mesh rescale to {mr.target} device(s)"
+                    kind = "rescale"
                 client._set_status(JobStatus.RESTARTING)
                 client.exceptions.begin_recovery(
-                    client.num_restarts, cause=f"mesh rescale to {mr.target} device(s)",
-                    events_at_failure=client.records_in, kind="rescale")
+                    client.num_restarts, cause=cause, events_at_failure=client.records_in,
+                    kind=kind)
                 del mr
                 continue
             except BaseException as e:  # noqa: BLE001 — failover boundary
-                pending_rescale = None
+                # a rescale or rebalance that failed midway stamps no
+                # completion: the restarted attempt restores the canonical
+                # checkpoint at the identity table, and the rebalancer
+                # re-decides from live skew
+                pending.clear()
                 attempt += 1
+                failed_mesh = (client._runtime.mesh_devices()
+                               if client._runtime is not None else 1)
+                if degrade and failed_mesh > 1 and _is_device_loss(e):
+                    # a lost device: restart over half the shards, the
+                    # canonical [K, S] checkpoint re-sharded over them
+                    mesh_override = max(1, failed_mesh // 2)
                 client._runtime = None
                 client._drop_attempt_gauges()
                 client.exceptions.record_failure(
@@ -397,8 +489,13 @@ class MiniCluster:
                     import torch
 
                     # the failed attempt's in-flight dispatches finish
-                    # before its buffers go
-                    torch.cuda.synchronize(device)
+                    # before its buffers go; after a sticky CUDA error the
+                    # wait raises it again, and the next attempt fails the
+                    # same way until the strategy ends the job
+                    try:
+                        torch.cuda.synchronize(device)
+                    except RuntimeError:
+                        pass
                 gc.collect()     # and whatever of it sits in reference cycles
                 delay = strategy.next_delay_ms(attempt)
                 if delay is None:
@@ -460,13 +557,73 @@ class MiniCluster:
             size=config.get(ObservabilityOptions.EXCEPTION_HISTORY_SIZE))
         client.exceptions.register_metrics(job_group)
 
+    @staticmethod
+    def _wire_mesh_control(client: JobClient, config: Configuration, device) -> None:
+        """The mesh's control loops (the JAX `_run_job_inner`'s): the
+        rebalance gauges whenever the mesh is on (0 and the table version
+        until a rebalance: one gauge surface for every mesh job), the skew
+        rebalancer with parallel.mesh.skew-rebalance, and the autoscaler
+        with autoscaler.enabled, holding a real executor when the mesh size
+        is its axis (parallel.mesh.autoscale)."""
+        mesh_enabled = config.get(ParallelOptions.MESH_ENABLED)
+        job_group = client.metrics.group("job")
+        if mesh_enabled:
+            # per-mesh facts every shard would report alike: folded by max
+            job_group.gauge("meshRebalances", lambda: client.mesh_rebalances,
+                            fold="max", kind="counter")
+            job_group.gauge("lastRebalanceDurationMs",
+                            lambda: client.last_mesh_rebalance_duration_ms, fold="max")
+            job_group.gauge("routingTableVersion",
+                            lambda: (client._runtime is not None
+                                     and client._runtime.mesh_routing_version()) or 0,
+                            fold="max")
+        if mesh_enabled and config.get(ParallelOptions.MESH_SKEW_REBALANCE):
+            client.rebalancer = SkewRebalancer(
+                skew_threshold=config.get(ParallelOptions.MESH_REBALANCE_SKEW_THRESHOLD),
+                interval_ms=config.get(ParallelOptions.MESH_REBALANCE_INTERVAL_MS))
+        if not config.get(AutoscalerOptions.ENABLED):
+            return
+        mesh_executor = None
+        if mesh_enabled and config.get(ParallelOptions.MESH_AUTOSCALE):
+            def mesh_executor(job_id, target, reason):
+                rt = client._runtime
+                if rt is None:
+                    return False, "no running attempt"
+                # the clamp the rebuild will apply, first: an unreachable
+                # target reads as rejected instead of costing a rebuild
+                # that changes nothing
+                eff = _effective_mesh_target(rt, int(target), device)
+                if eff is None:
+                    return False, "job has no mesh-capable operator"
+                cur = rt.mesh_devices()
+                if eff == cur:
+                    return False, f"mesh already at {cur} device(s)"
+                client._mesh_rescale_target = eff
+                return True, f"mesh rescale {cur} -> {eff} requested"
+
+        client.autoscaler = AutoscalerCoordinator.from_config(
+            config, rescale_executor=mesh_executor)
+        # registered without a mesh executor too (a constant 0), so every
+        # autoscaled job has one gauge surface
+        job_group.gauge("numRescales", lambda: client.mesh_rescales, fold="max",
+                        kind="counter")
+        job_group.gauge("lastRescaleDurationMs",
+                        lambda: client.last_mesh_rescale_duration_ms, fold="max")
+        client._autoscaler_metrics = lambda: metrics_snapshot(client.metrics.all_metrics())
+
     def _attempt(self, client: JobClient, graph: StepGraph, config: Configuration, device,
                  coordinator, restore_snap: Optional[dict], restore_ms: float,
-                 rescale_t0: Optional[float] = None, running=None) -> None:
+                 pending: Optional[dict] = None, running=None) -> None:
         """One attempt: build the runtime, restore, run to the end. Its
-        locals (the runtime above all) die with its frame. `rescale_t0`:
-        this attempt completes a live mesh rescale started then;
-        `running(restored)`: called once the attempt runs."""
+        locals (the runtime above all) die with its frame. `pending`: what
+        this attempt completes, each entry popped once stamped, so a later
+        attempt never applies it again: "rescale" (the start of a live
+        mesh rescale), "rebalance" ({"t0", "assign"}: a skew rebalance,
+        whose table goes on after the restore); `running(restored)`:
+        called once the attempt runs."""
+        pending = {} if pending is None else pending
+        rescale_t0 = pending.get("rescale")
+        rebalance = pending.get("rebalance")
         runtime = JobRuntime(graph, config, device, registry=client.metrics,
                              traces=client.traces)
         client._attempt_gauges = runtime.gauge_keys
@@ -477,13 +634,33 @@ class MiniCluster:
             coordinator.state_bytes_fn = runtime.operator_state_bytes
         if restore_snap is not None:
             runtime.restore(restore_snap)
-            if rescale_t0 is None:
-                # a rescale restores its own capture, not a stored checkpoint
+            if rescale_t0 is None and rebalance is None:
+                # a rescale or rebalance restores its own capture, not a
+                # stored checkpoint
                 client.checkpoint_stats.report_restore(restore_snap.get("checkpoint_id"),
                                                        restore_ms)
         if rescale_t0 is not None:
+            # the rebuilt attempt serves at the new size: stamp the rescale
+            # and close the autoscaler's loop, tagged with the size reached
+            duration_ms = (time.perf_counter() - rescale_t0) * 1000.0
             client.mesh_rescales += 1
-            client.last_mesh_rescale_duration_ms = (time.perf_counter() - rescale_t0) * 1000.0
+            client.last_mesh_rescale_duration_ms = duration_ms
+            if client.autoscaler is not None:
+                client.autoscaler.rescale_completed(client.job_id, duration_ms,
+                                                    target=runtime.mesh_devices())
+            del pending["rescale"]
+        if rebalance is not None:
+            # the table goes on AFTER the restore (which may have adopted a
+            # grown K and rebuilt the table at identity); the capture is
+            # canonical [K, S], so re-laying its rows is pure placement
+            runtime.set_mesh_routing(rebalance["assign"])
+            client.mesh_rebalances += 1
+            client.last_mesh_rebalance_duration_ms = (
+                (time.perf_counter() - rebalance["t0"]) * 1000.0)
+            if client.rebalancer is not None:
+                # the new placement gets fresh traffic before it is judged
+                client.rebalancer.rebalance_completed()
+            del pending["rebalance"]
         client._set_status(JobStatus.RUNNING)
         client.exceptions.complete_recovery(
             restored_checkpoint_id=(restore_snap or {}).get("checkpoint_id"),
@@ -493,8 +670,18 @@ class MiniCluster:
         if running is not None:
             running(restore_snap is not None)
 
+        mesh_enabled = config.get(ParallelOptions.MESH_ENABLED)
+        mesh_autoscale = mesh_enabled and config.get(ParallelOptions.MESH_AUTOSCALE)
+
         def cancel_check():
             client.records_in = runtime.records_in  # progress gauge
+            if client.autoscaler is not None:
+                # throttled: a registry snapshot only when an interval tick
+                # is due; on a mesh job the parallelism the policy sees is
+                # the mesh size, the axis its executor rescales
+                client.autoscaler.maybe_observe(
+                    client.job_id, runtime.mesh_devices() if mesh_autoscale else 1,
+                    client._autoscaler_metrics)
             # the history's tick: the cheap due() gate every step, the
             # registry snapshot only when an interval is due
             if client.history.due():
@@ -515,17 +702,29 @@ class MiniCluster:
             # operators will, so an unreachable target (or one landing on
             # the current size) never costs a rebuild that changes nothing
             t = client._poll_mesh_rescale()
-            cap = runtime.mesh_capacity()
-            if t is None or cap is None:
+            if t is None:
                 return None
-            eff = mesh_lib.usable_mesh_size(t, len(mesh_lib.visible_devices(device)), cap)
-            return None if eff == runtime.mesh_devices() else eff
+            eff = _effective_mesh_target(runtime, t, device)
+            return None if eff is None or eff == runtime.mesh_devices() else eff
 
-        mesh_enabled = config.get(ParallelOptions.MESH_ENABLED)
+        def rebalance_request():
+            # the interval gate first (a clock read a step); only a due
+            # tick pays the per-group load readback and the replan
+            reb = client.rebalancer
+            if not reb.due():
+                return None
+            info = runtime.mesh_group_loads()
+            if info is None:
+                return None
+            loads, assign, n = info
+            return reb.maybe_decide(loads, assign, n)
+
         try:
             runtime.run(coordinator=coordinator, cancel_check=cancel_check,
                         savepoint_request=savepoint_request,
-                        rescale_request=rescale_request if mesh_enabled else None)
+                        rescale_request=rescale_request if mesh_enabled else None,
+                        rebalance_request=(rebalance_request
+                                           if client.rebalancer is not None else None))
             client.records_in = runtime.records_in
         finally:
             if coordinator is not None:

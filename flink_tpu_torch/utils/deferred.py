@@ -7,8 +7,6 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-MESH = ("item 13b (the rest of the multi-GPU mesh: the skew rebalancer, the "
-        "autoscaler, the device-loss degrade)")
 CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
 CLUSTER = "item 14 (remaining planes: the cluster's TaskManager heartbeat and REST)"
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"

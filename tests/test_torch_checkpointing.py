@@ -874,10 +874,24 @@ def test_state_checkpoint_keys_raise_as_unknown(key):
 
 @pytest.mark.parametrize("key,item", [
     ("chaos.enabled", "item 14"), ("security.ssl.internal.enabled", "item 14"),
-    # the autoscaler moved to item 13b with the rest of the mesh (the case
-    # keeps its original id)
-    pytest.param("autoscaler.enabled", "item 13b", id="autoscaler.enabled-item 15")])
+    # the autoscaler is ported (tests/test_torch_mesh_control.py runs it on
+    # the MiniCluster): accepted, and a MiniCluster job that enables it
+    # wires a coordinator (the case keeps its original id)
+    pytest.param("autoscaler.enabled", None, id="autoscaler.enabled-item 15")])
 def test_minicluster_planes_still_deferred_raise_naming_their_item(key, item):
+    if item is None:
+        import torch
+
+        from flink_tpu_torch.runtime.minicluster import JobClient
+
+        conf = tcfg.Configuration({key: True})
+        client = JobClient("j", "n")
+        MiniCluster._wire_observability(client, conf)
+        MiniCluster._wire_mesh_control(client, conf, torch.device("cpu"))
+        # off the mesh the coordinator observes only
+        assert client.autoscaler is not None and client.autoscaler.rescale_executor is None
+        assert client.autoscaler.payload(client.job_id)["enabled"]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
         tcfg.Configuration({key: True})
 
@@ -889,23 +903,32 @@ def test_minicluster_planes_still_deferred_raise_naming_their_item(key, item):
     pytest.param("latency_report", None, id="latency_report-item 15"),
     pytest.param("history_report", None, id="history_report-item 15"),
     pytest.param("doctor_report", None, id="doctor_report-item 15"),
-    ("rescale_mesh", "item 13"), ("security", "item 14")])
+    # rescale_mesh (test_torch_multichip_runtime.py) and its sibling, the
+    # device-loss degrade of a mesh job (test_torch_mesh_control.py), are
+    # ported: the request parks as the JAX client's does, and the degrade's
+    # option reads the JAX default (the case keeps its original id)
+    pytest.param("rescale_mesh", None, id="rescale_mesh-item 13"),
+    ("security", "item 14")])
 def test_minicluster_surfaces_still_deferred_raise(call, item):
     from flink_tpu.runtime.minicluster import JobClient as JaxJobClient
     from flink_tpu_torch.runtime.minicluster import JobClient
 
+    if call == "rescale_mesh":
+        port, jax_client = JobClient("j", "n"), JaxJobClient("j", "n")
+        port.rescale_mesh(2)
+        jax_client.rescale_mesh(2)
+        assert port._poll_mesh_rescale() == jax_client._poll_mesh_rescale() == 2
+        opt = tcfg.ParallelOptions.MESH_DEGRADE_ON_DEVICE_LOSS
+        assert (tcfg.Configuration({opt.key: False}).get(opt) is False
+                and tcfg.Configuration().get(opt)
+                == jcfg.Configuration().get(jcfg.ParallelOptions.MESH_DEGRADE_ON_DEVICE_LOSS))
+        return
     if item is None:
         assert getattr(JobClient("j", "n"), call)() == getattr(JaxJobClient("j", "n"), call)()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
         if call == "security":
             MiniCluster(security=object())
-        elif call == "rescale_mesh":
-            # rescale_mesh itself is ported (test_torch_multichip_runtime.py
-            # runs it); its sibling, the device-loss degrade of a mesh job,
-            # is still queued
-            JobClient("j", "n").rescale_mesh(2)
-            tcfg.Configuration({"parallel.mesh.degrade-on-device-loss": True})
         else:
             getattr(JobClient("j", "n"), call)()
 

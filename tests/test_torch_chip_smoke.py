@@ -39,6 +39,13 @@ Tolerance: exact.
   against one device; leg C's point lookups and the savepoint restored on
   one device and on 2 shards), and shard 0's exchanged K1 inputs of the
   wide group's shared dispatch.
+- api_mesh_control (phase 28): every leg's check on four CPU shards but
+  K1's launches (leg A's rebalanced mesh job against the one-card job and
+  the numpy model, the rebalance's gauges, recovery and routing block, the
+  skew below the static table's; leg B's autoscaler drill 4 -> 2 with the
+  one-device rows; leg C's degrade 4 -> 2 from a restored checkpoint), and
+  the routed dispatch K1's check takes: shard 0's partials under the
+  rebalanced table.
 """
 
 import numpy as np
@@ -284,3 +291,33 @@ def test_mesh_shared_k1_inputs_are_shard_zeros():
     # the positional exchange keeps every lane: shard 0 sees all 4 x B_s
     assert idx.numel() == 32 * 4096 and len(plan[5]) > 0
     assert 0 < int((idx >= 0).sum()) < idx.numel()
+
+
+def test_api_mesh_control_phase_holds_every_check_but_the_launches():
+    r = cm.api_mesh_control_phase(dev="cpu", sizes=dict(
+        events=1 << 16, keys=1024, batch=1024, parity_events=1 << 14, gate_at=1 << 14))
+    a, b, c = r["leg_a"], r["leg_b"], r["leg_c"]
+    assert a["fused_selected"] and a["sharded_selected"] and a["local_combine_active"]
+    assert a["routing_table"]
+    p = a["parity"]
+    assert p["mesh_equals_card"] and p["mesh_equals_model"] and p["card_equals_model"]
+    assert p["no_window_twice"] and p["rebalances"] >= 1
+    z = a["adaptive"]["zipf"]
+    assert z["gauge_mesh_rebalances"] >= 1 and z["gauge_routing_table_version"] >= 1
+    assert z["num_restarts"] == 0 and "rebalance" in z["recovery_kinds"]
+    assert z["routing"]["movedGroups"] > 0
+    assert z["mesh_load_skew"] < a["static_mesh_load_skew"]
+    assert a["adaptive"]["uniform"]["rebalances"] == 0
+    assert r["reference"]["equals_model"]
+    assert b["real_executor"] and not b["same_size"][0] and b["down"][0]
+    assert b["mesh_rescales"] == 1 and b["mesh_devices_after"] == 2 and b["rows_equal_card"]
+    assert b["last_rescale_ms"] > 0 and b["samples_observed"] >= 1
+    assert c["num_restarts"] == 1 and c["mesh_devices_after"] == 2 and c["injected"] == [True]
+    assert c["restored_checkpoint_ids"][0] is not None and c["rows_equal_card"]
+    assert c["dispatches"] > cm.API_MESH_CONTROL["fail_at"]
+    d = r["routed_dispatch"]
+    assert d["table_version"] >= 1 and d["T"] == cm.API_MESH_CONTROL["superbatch_steps"]
+    assert d["K_local"] == 1024 // 4 and d["partials_shape"] == [d["T"], 256, 4]
+    assert d["partial_records"] > 0 and d["fires"] > 0
+    # CPU runs launch no K1
+    assert not r["ok"] and z["k1_partials"] == 0 and "k1_mesh_routed" not in r

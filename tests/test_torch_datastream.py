@@ -255,16 +255,16 @@ def _deferred_calls():
         # parallelism and key groups (test_torch_key_groups.py runs them)
         "idleness": (lambda: WatermarkStrategy.for_monotonous_timestamps().with_idleness(5),
                      None),
-        # the mesh (test_torch_multichip_runtime.py); its skew rebalancer
-        # and autoscale are still queued (item 13b)
+        # the mesh (test_torch_multichip_runtime.py) and its control loops
+        # (test_torch_mesh_control.py runs them): the options are accepted
         "mesh_option": (lambda: Configuration().set_string("parallel.mesh.enabled", True),
                         None),
         "mesh_rebalance_option": (
-            lambda: Configuration().set_string("parallel.mesh.skew-rebalance", True), "item 13"),
+            lambda: Configuration().set_string("parallel.mesh.skew-rebalance", True), None),
         "mesh_key_groups_option": (
-            lambda: Configuration().set_string("parallel.mesh.key-groups", 64), "item 13"),
+            lambda: Configuration().set_string("parallel.mesh.key-groups", 64), None),
         "mesh_autoscale_option": (
-            lambda: Configuration().set_string("parallel.mesh.autoscale", True), "item 13b"),
+            lambda: Configuration().set_string("parallel.mesh.autoscale", True), None),
         # latency mode (test_torch_latency_mode.py)
         "latency_option": (lambda: Configuration({"execution.latency.target-ms": 5}), None),
         # shared partials (test_torch_window_sharing.py)

@@ -133,6 +133,10 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         assert sum(v for _k, v in sink.results) == 4 * 1000
         from flink_tpu_torch.scheduler.latency_controller import SuperbatchController
         assert SuperbatchController(full_steps=32, target_ms=50).steps() == 32
+        # the mesh's control loops: the rebalancer and the autoscaler
+        from flink_tpu_torch.scheduler import AutoscalerCoordinator, SkewRebalancer
+        assert SkewRebalancer(interval_ms=0).due()
+        assert AutoscalerCoordinator.from_config(Configuration()).payload("j")["enabled"]
 
         # the per-record oracle operator: a continuous trigger, an evictor,
         # reduce and process, and a multi-aggregate SELECT on it
@@ -356,7 +360,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "runtime/sharded_window_operator.py", "ops/matmul_hist.py",
                  "ops/exchange.py", "joins/sharded.py", "metrics/registry.py",
                  "metrics/task_io.py", "metrics/traces.py", "metrics/otel.py",
-                 "metrics/emission_latency.py", "metrics/history.py", "metrics/doctor.py"):
+                 "metrics/emission_latency.py", "metrics/history.py", "metrics/doctor.py",
+                 "scheduler/rebalancer.py", "scheduler/signals.py", "scheduler/policy.py",
+                 "scheduler/autoscaler.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):

@@ -385,11 +385,20 @@ def test_mesh_surfaces_left_for_13b_raise():
     pipe.clear_key_rows(kids)
     assert not pipe.gather_key_rows(kids)[0].any()
     assert np.array_equal(pipe.gather_cells(kids, kids % 16)[0], np.zeros(len(kids), np.int32))
-    # the skew rebalancer's options are still queued (item 13b)
-    from flink_tpu_torch.config import Configuration
+    # the skew rebalancer's options are ported (tests/test_torch_mesh_control.py
+    # runs the rebalancer): accepted, and the operator they configure
+    # carries a routing table over the pipeline's key groups
+    from flink_tpu_torch.config import Configuration, ParallelOptions
+    from flink_tpu_torch.runtime.executor import _mesh_exchange_kwargs
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 13"):
-        Configuration({"parallel.mesh.skew-rebalance": True})
+    conf = Configuration({"parallel.mesh.skew-rebalance": True,
+                          "parallel.mesh.key-groups": 8})
+    assert conf.get(ParallelOptions.MESH_SKEW_REBALANCE)
+    kw = _mesh_exchange_kwargs(conf)
+    assert kw["mesh_skew_routing"] and kw["mesh_key_groups"] == 8
+    routed = tsp.ShardedFusedPipeline(Mesh(["cpu"] * 2), tasg.SlidingEventTimeWindows.of(
+        2000, 500), "count", skew_routing=True, num_key_groups=8, **GEOM)
+    assert routed.routing_version() == 0 and routed.routing_payload()["numKeyGroups"] == 8
 
 
 # ---------------------------------------------------------------------------
