@@ -299,6 +299,36 @@ exits non-zero on the first failure. Phases, one JSON line each:
    full dispatch under leg A's rebalanced table (`k1_mesh_routed`), and
    the table swap (`set_mesh_routing`) against its bytes bound.
 
+29. api_topologies: the rest of the DataStream API (union and connect,
+   keyed reduce and process with side outputs, iterations, async I/O, CEP,
+   API V2, operator coordinators) and SQL UNION ALL. Leg A:
+   `bench.py::api_path_microbench`'s program over `a.union(b)`, two
+   sources holding the api stream's even and odd records, each with the
+   program's watermark strategy: the fused runner downstream of the
+   UnionRunner; in row mode at 2^21 records the union job, the
+   single-source job (phase 8's) and the numpy oracle window by window;
+   columnar at 2^22, union and single interleaved, best of 2, with each
+   run's K1 launches. Leg B at 2^18 records over 8192 campaigns of 10 ads:
+   a map_batch joins each batch's ads to their campaigns with one lookup
+   and feeds a 1 s tumbling payload sum; a keyed process() routes the
+   clicks to a side output that feeds a 10 s / 1 s sliding count; both on
+   host-keyed fused operators (K1), both sinks against numpy. Leg C at
+   2^16 records over 1024 keys, each against a model: keyed reduce with
+   query_state while the source is held; connect(...).key_by(...)
+   .process(...) of impressions and clicks sharing per-key state with an
+   event-time timer; the broadcast state pattern; an iteration's decrement
+   loop and its max_rounds guard; async_map ordered and unordered at
+   capacity 16 over a local function that sleeps; CEP begin().next()
+   within 10 s; an API V2 keyed process; a keyed process with an operator
+   coordinator, run with a checkpoint every step and one host failure at
+   60% of the records: one restart, the uninterrupted run's rows and the
+   coordinator's count restored. Leg D: SQL_YSB and its purchases twin
+   joined by UNION ALL over sql_path_microbench's table at 2^19 records:
+   the JAX package's plan report, the rows equal to each statement alone,
+   united, and to numpy, K1 launched. Then K1 against its plain version
+   at leg A's first full union dispatch (`k1_union`), and leg A's union
+   job under torch.profiler and cProfile.
+
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 """
@@ -6235,6 +6265,729 @@ def api_mesh_control_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: api_topologies, the rest of the DataStream API on the card: a
+# union of two YSB feeds into the fused chain (K1), a map_batch chain and a
+# process() side output into host-keyed windows (K1), the host operators
+# against numpy models, and SQL UNION ALL
+# ---------------------------------------------------------------------------
+
+# leg A: api_path_microbench's program over two feeds (the api stream's even
+# and odd records), row mode at 2^21 and columnar at 2^22, best of 2; leg B:
+# 2^18 records over 8192 campaigns of 10 ads, batch 16384 (4 s of event
+# time a batch); leg C: 2^16 records over 1024 keys, batch 4096; leg D:
+# two HOP statements over sql_path_microbench's table at 2^19 records
+API_TOPOLOGIES = dict(parity_events=1 << 21, timed_events=1 << 22, warmup_events=1 << 19,
+                      runs=2, b_events=1 << 18, b_batch=16_384, ads_per_campaign=10,
+                      b_tumble=1_000, c_events=1 << 16, c_keys=1024, c_batch=4096,
+                      async_capacity=16, async_delay_s=1e-4, cep_within=10_000,
+                      max_rounds=16, d_events=1 << 19)
+CLICKS = "clicks"
+SQL_YSB_PURCHASES = SQL_YSB.replace("event_type < 0.5", "event_type > 1.5")
+
+
+def union_job(n: int, *, columnar: bool, dev=DEV):
+    """(env, sink) of the api_ysb program (fused) over `a.union(b)`, where a
+    and b are two sources with the program's watermark strategy that hold
+    the n-record api stream's even- and odd-numbered records."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, API["batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, API["keys"])
+    cfg.set(ExecutionOptions.COLUMNAR_OUTPUT, columnar)
+    env = StreamExecutionEnvironment(cfg, device=dev)
+
+    def feed(parity: int):
+        def gen(idx):
+            return Batch(*st.api_columns(2 * idx + parity, n, API["keys"]))
+        return env.from_source(DataGeneratorSource(gen, n // 2),
+                               WatermarkStrategy.for_bounded_out_of_orderness(0),
+                               name=f"feed{parity}")
+
+    sink = rows_sink()
+    (feed(0).union(feed(1))
+     .filter(_t_filter, traceable=True).key_by(_t_key, traceable=True)
+     .window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
+     .aggregate("count").sink_to(sink))
+    return env, sink
+
+
+def union_run(n: int, *, columnar: bool, dev=DEV):
+    """One execute() of the union job with the launch counts at 0 just
+    before it: (sink, seconds, K1 dispatches)."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    env, sink = union_job(n, columnar=columnar, dev=dev)
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.execute()
+    _sync(dev)
+    return sink, time.perf_counter() - t0, cs.LAUNCHES["k1_superscan"]
+
+
+def union_selection(dev=DEV) -> dict:
+    """The runners the union job builds: the fused runner (the traceable
+    filter and key, absorbed) downstream of the UnionRunner."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.executor import build_runners
+
+    env, _sink = union_job(API_TOPOLOGIES["warmup_events"], columnar=True, dev=dev)
+    runners, _feeds = build_runners(plan(env._sinks), env.config, dev)
+    union = [r for r in runners if type(r).__name__ == "UnionRunner"]
+    fed = [type(r).__name__ for r, _o in union[0].downstream.edges] if union else []
+    return {"runners": [type(r).__name__ for r in runners], "union_feeds": fed,
+            "ok": len(union) == 1 and fed == ["DeviceChainRunner"]}
+
+
+def union_k1_inputs(n: int, dev=DEV):
+    """K1's inputs at the union job's first full fused dispatch (T = 32),
+    taken from the call the pipeline makes in a columnar run of n records:
+    (pipe, agg, idx, vals, plan with one entry a planned fire)."""
+    from flink_tpu_torch.graph.transformation import plan as plan_graph
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.executor import JobRuntime
+
+    env, _sink = union_job(n, columnar=True, dev=dev)
+    rt = JobRuntime(plan_graph(env._sinks), env.config, dev)
+    real, taken = cs.keyed_superscan, []
+
+    def record(agg, count, states, idx, vals, plan, **kw):
+        if not taken and int(plan[0].shape[0]) == 32:
+            taken.append((agg, idx.clone(), None if vals is None else vals.clone(),
+                          tuple(p.clone() for p in plan)))
+        return real(agg, count, states, idx, vals, plan, **kw)
+
+    cs.keyed_superscan = record
+    try:
+        rt.run()
+    finally:
+        cs.keyed_superscan = real
+    if not taken:
+        raise AssertionError("api_topologies: the union job made no full fused dispatch")
+    pipe = next(r for r in rt.runners if type(r).__name__ == "DeviceChainRunner").op.pipe
+    agg, idx, vals, plan5 = taken[0]
+    # fire_valid marks each planned fire's slot
+    return pipe, agg, idx, vals, plan5 + ([None] * int(plan5[2].sum()),)
+
+
+def topo_leg_a(sz, dev) -> dict:
+    """The union job against the single-source job and the numpy oracle in
+    row mode, then both timed columnar, interleaved, best of sz["runs"]."""
+    from flink_tpu_torch.testing import stream as st
+
+    out = {"selection": union_selection(dev)}
+    n = sz["parity_events"]
+    ref = st.api_replay(n, API["batch"], num_keys=API["keys"])
+    union_sink, union_s, union_k1 = union_run(n, columnar=False, dev=dev)
+    single_sink, single_s, single_k1 = api_run(n, True, columnar=False, dev=dev)
+    union_fired = api_fired(union_sink, API["window"], API["slide"])
+    single_fired = api_fired(single_sink, API["window"], API["slide"])
+    oracle_ok, checked = st.parity(ref.fired, union_fired)
+    same = (set(union_fired) == set(single_fired)
+            and all(np.array_equal(union_fired[j], single_fired[j]) for j in union_fired))
+    out["parity"] = {"events": n, "union_equals_single": same, "union_equals_oracle": oracle_ok,
+                     "windows_checked": checked, "union_k1": union_k1, "single_k1": single_k1,
+                     "union_s": union_s, "single_s": single_s}
+    del union_sink, single_sink, union_fired, single_fired
+    n = sz["timed_events"]
+    union_run(sz["warmup_events"], columnar=True, dev=dev)
+    api_run(sz["warmup_events"], True, columnar=True, dev=dev)
+    runs = {"union": [], "single": []}
+    for _ in range(sz["runs"]):
+        for name in ("union", "single"):
+            run = (union_run(n, columnar=True, dev=dev) if name == "union"
+                   else api_run(n, True, columnar=True, dev=dev))
+            runs[name].append({"seconds": run[1], "k1_launches": run[2]})
+    timed = {name: {"events": n, "tuples_per_s": n / min(r["seconds"] for r in rs),
+                    "all_seconds": [r["seconds"] for r in rs],
+                    "k1_launches": [r["k1_launches"] for r in rs]}
+             for name, rs in runs.items()}
+    timed["union_over_single"] = (timed["union"]["tuples_per_s"]
+                                  / timed["single"]["tuples_per_s"])
+    out["timed"] = timed
+    launched = (out["parity"]["union_k1"] > 0 and out["parity"]["single_k1"] > 0
+                and all(k > 0 for r in runs.values() for k in (x["k1_launches"] for x in r)))
+    out["ok"] = bool(out["selection"]["ok"] and same and oracle_ok and launched)
+    return out
+
+
+def _window_model(keys, ts, vals, window_ms: int, slide_ms: int, num_keys: int) -> dict:
+    """{window index: row over the keys} of a sum (vals) or count (vals
+    None) over every window that holds a record: the rows in-order records
+    give once the final watermark has fired every window."""
+    spw = window_ms // slide_ms
+    s = ts // slide_ms
+    j = (s[:, None] - np.arange(spw)[None, :]).reshape(-1)
+    k = np.repeat(keys, spw)
+    v = np.ones(len(j)) if vals is None else np.repeat(vals.astype(np.float64), spw)
+    j0 = int(j.min())
+    grid = np.zeros((int(j.max()) - j0 + 1, num_keys))
+    np.add.at(grid, (j - j0, k), v)
+    seen = np.zeros_like(grid, dtype=bool)
+    seen[j - j0, k] = True
+    return {j0 + i: grid[i] for i in range(len(grid)) if seen[i].any()}
+
+
+def _fired_rows(batches, window_ms: int, slide_ms: int, num_keys: int) -> dict:
+    """Row-mode (key, value) sink batches as {window index: row}."""
+    fired = {}
+    for values, ts in batches:
+        for (k, v), t in zip(values, ts):
+            row = fired.setdefault((int(t) + 1 - window_ms) // slide_ms, np.zeros(num_keys))
+            row[int(k)] = v
+    return fired
+
+
+def _fired_equal(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(np.array_equal(a[j], b[j]) for j in a)
+
+
+def topo_b_job(sz, dev=DEV):
+    """(env, sums sink, clicks sink, ad -> campaign table): a map_batch that
+    joins each batch's ad ids to their campaigns with one lookup feeds a 1 s
+    tumbling sum of the payload per campaign (host key dictionary, K1's add
+    field); a keyed process() routes the clicks (event type 1) to a side
+    output, which feeds a 10 s / 1 s sliding count per campaign."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.functions import OutputTag, ProcessFunction
+    from flink_tpu_torch.api.windowing.assigners import (
+        SlidingEventTimeWindows,
+        TumblingEventTimeWindows,
+    )
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["b_events"], API["keys"]
+    ads = keys * sz["ads_per_campaign"]
+    table = np.random.default_rng(18).permutation(ads) % keys
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.step.batch-size": sz["b_batch"], "execution.state.key-capacity": keys}),
+        device=dev)
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, ads, payload=True))
+
+    def enrich(records):
+        # one lookup over the whole batch: (campaign, event type, payload)
+        cols = np.stack(records)
+        camp = table[cols[:, 0].astype(np.int64)]
+        return list(zip(camp.tolist(), cols[:, 1].astype(np.int64).tolist(),
+                        cols[:, 2].astype(np.int64).tolist()))
+
+    class RouteClicks(ProcessFunction):
+        def process_element(self, value, ctx):
+            if value[1] == 1:
+                ctx.output(OutputTag(CLICKS), value)
+            return ()
+
+    events = (env.from_source(DataGeneratorSource(gen, n),
+                              WatermarkStrategy.for_bounded_out_of_orderness(0))
+              .map_batch(enrich, name="campaign_lookup"))
+    sums, clicks = rows_sink(), rows_sink()
+    (events.key_by(lambda r: r[0])
+     .window(TumblingEventTimeWindows.of(sz["b_tumble"])).sum(lambda r: r[2]).sink_to(sums))
+    (events.key_by(lambda r: r[0]).process(RouteClicks(), name="route_clicks")
+     .get_side_output(OutputTag(CLICKS)).key_by(lambda r: r[0])
+     .window(SlidingEventTimeWindows.of(API["window"], API["slide"])).count().sink_to(clicks))
+    return env, sums, clicks, table
+
+
+def topo_leg_b(sz, dev) -> dict:
+    """Leg B's job against numpy: both sinks window by window, and the
+    runners it selects (host-keyed window runners on K1)."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.executor import build_runners
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["b_events"], API["keys"]
+    env, sums, clicks, table = topo_b_job(sz, dev)
+    runners, _f = build_runners(plan(env._sinks), env.config, dev)
+    kinds = sorted(type(r).__name__ for r in runners)
+    ops = sorted(type(r.op).__name__ for r in runners if type(r).__name__ == "WindowStepRunner")
+    env, sums, clicks, table = topo_b_job(sz, dev)
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.execute()
+    _sync(dev)
+    secs, k1 = time.perf_counter() - t0, cs.LAUNCHES["k1_superscan"]
+    col, ts = st.api_columns(np.arange(n, dtype=np.int64), n, keys * sz["ads_per_campaign"],
+                             payload=True)
+    camp = table[col[:, 0].astype(np.int64)]
+    click = col[:, 1] == 1
+    sums_ok = _fired_equal(_fired_rows(sums.batches, sz["b_tumble"], sz["b_tumble"], keys),
+                           _window_model(camp, ts, col[:, 2], sz["b_tumble"], sz["b_tumble"],
+                                         keys))
+    clicks_ok = _fired_equal(_fired_rows(clicks.batches, API["window"], API["slide"], keys),
+                             _window_model(camp[click], ts[click], None, API["window"],
+                                           API["slide"], keys))
+    out = {"events": n, "runners": kinds, "window_operators": ops, "seconds": secs,
+           "tuples_per_s": n / secs, "k1_launches": k1, "sums_equal_numpy": sums_ok,
+           "clicks_equal_numpy": clicks_ok,
+           "side_rows": sum(len(v) for v, _t in clicks.batches)}
+    out["ok"] = bool(sums_ok and clicks_ok and k1 > 0
+                     and ops == ["FusedWindowOperator", "FusedWindowOperator"]
+                     and "KeyedProcessRunner" in kinds)
+    return out
+
+
+def topo_c_env(sz, dev=DEV, *, batch=None, hook=None, conf=None):
+    """(env, stream, columns) of leg C: the api stream's records at
+    sz["c_events"] over sz["c_keys"] keys as (key, event type, payload,
+    ts) tuples, in order, with the program's watermark strategy."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.utils.arrays import obj_array
+
+    n, keys = sz["c_events"], sz["c_keys"]
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.step.batch-size": batch or sz["c_batch"], **(conf or {})}), device=dev)
+
+    def gen(idx):
+        if hook is not None:
+            hook(idx)
+        col, ts = st.api_columns(idx, n, keys, payload=True)
+        c = col.astype(np.int64)
+        return Batch(obj_array(list(zip(c[:, 0].tolist(), c[:, 1].tolist(), c[:, 2].tolist(),
+                                        ts.tolist()))), ts)
+
+    stream = env.from_source(DataGeneratorSource(gen, n),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+    col, ts = st.api_columns(np.arange(n, dtype=np.int64), n, keys, payload=True)
+    c = col.astype(np.int64)
+    return env, stream, (c[:, 0], c[:, 1], c[:, 2], ts)
+
+
+def topo_timed(name: str, env, sink, dev=DEV) -> dict:
+    """One execute(): its seconds and rows."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    env.execute(name)
+    _sync(dev)
+    return {"seconds": time.perf_counter() - t0, "rows": list(sink.results)}
+
+
+def topo_reduce(sz, dev) -> dict:
+    """Keyed reduce (a running payload sum) through execute_async, its
+    source held at half the records while query_state reads 16 keys' running
+    values; then the rows against the running sums in record order."""
+    n = sz["c_events"]
+    hook, reached, go = _gate(n // 2)
+    env, stream, (k, _e, p, ts) = topo_c_env(sz, dev, hook=hook)
+    sink = stream.map(lambda r: (r[0], r[2])).key_by(lambda r: r[0]).reduce(
+        lambda a, b: (a[0], a[1] + b[1]), name="running_sum").collect()
+    client = env.execute_async("topologies-reduce")
+    try:
+        if not reached.wait(120):
+            raise AssertionError("api_topologies: the reduce job's source never reached its gate")
+        probe = [int(x) for x in k[:16]]
+        uid = next(r.uid for r in client._runtime.runners
+                   if type(r).__name__ == "KeyedReduceRunner")
+        views = {key: client.query_state(uid, key)["value"] for key in probe}
+    finally:
+        go.set()
+    client.wait(300)
+    run = np.zeros(sz["c_keys"], dtype=np.int64)
+    want, at_gate = [], {}
+    for i, (key, pay) in enumerate(zip(k.tolist(), p.tolist())):
+        if i == n // 2:
+            at_gate = {q: (q, int(run[q])) for q in probe}
+        run[key] += pay
+        want.append((key, int(run[key])))
+    got = [(int(a), int(b)) for a, b in sink.results]
+    return {"rows": len(got), "rows_equal_model": got == want,
+            "query_state_equal_model": views == at_gate,
+            "ok": got == want and views == at_gate and client.status().value == "FINISHED"}
+
+
+def topo_connect(sz, dev) -> dict:
+    """Impressions (event type 0) and clicks (1) of the stream, connected
+    and keyed by campaign: both inputs share the key's impression count, a
+    click reads it, and an event-time timer at the end of each second with
+    an impression emits the key's counts there."""
+    from flink_tpu_torch.api.functions import ProcessFunction
+
+    class Attribute(ProcessFunction):
+        def process_element1(self, v, ctx):
+            st_ = ctx.timer_service.state()
+            st_.put("imps", (st_.get("imps") or 0) + 1)
+            ctx.timer_service.register_event_time_timer(v[3] - v[3] % 1000 + 999)
+            return ()
+
+        def process_element2(self, v, ctx):
+            st_ = ctx.timer_service.state()
+            st_.put("clicks", (st_.get("clicks") or 0) + 1)
+            return [("click", v[0], v[3], st_.get("imps") or 0)]
+
+        def on_timer(self, t, ctx):
+            st_ = ctx.timer_service.state()
+            return [("second", t, st_.get("imps") or 0, st_.get("clicks") or 0)]
+
+    env, stream, (k, e, _p, ts) = topo_c_env(sz, dev)
+    imps = stream.filter(lambda r: r[1] == 0)
+    clicks = stream.filter(lambda r: r[1] == 1)
+    sink = (imps.connect(clicks).key_by(lambda r: r[0], lambda r: r[0])
+            .process(Attribute()).collect())
+    run = topo_timed("topologies-connect", env, sink, dev)
+    # the model: a batch's impressions reach the operator before its clicks
+    # (the two chains in plan order); the timers fire at the batch's
+    # watermark, each reading its key's counts then
+    b, keys = sz["c_batch"], sz["c_keys"]
+    imp_n, clk_n = np.zeros(keys, np.int64), np.zeros(keys, np.int64)
+    timers, want = set(), []
+    for lo in range(0, len(k), b):
+        sl = slice(lo, lo + b)
+        for key, t in zip(k[sl][e[sl] == 0].tolist(), ts[sl][e[sl] == 0].tolist()):
+            imp_n[key] += 1
+            timers.add((t - t % 1000 + 999, key))
+        for key, t in zip(k[sl][e[sl] == 1].tolist(), ts[sl][e[sl] == 1].tolist()):
+            clk_n[key] += 1
+            want.append(("click", key, t, int(imp_n[key])))
+        wm = int(ts[sl].max()) - 1
+        for t, key in sorted(x for x in timers if x[0] <= wm):
+            want.append(("second", t, int(imp_n[key]), int(clk_n[key])))
+        timers = {x for x in timers if x[0] > wm}
+    for t, key in sorted(timers):
+        want.append(("second", t, int(imp_n[key]), int(clk_n[key])))
+    got = sorted(tuple(int(x) if not isinstance(x, str) else x for x in r) for r in run["rows"])
+    ok = got == sorted(want)
+    return {"rows": len(got), "rows_equal_model": ok, "seconds": run["seconds"], "ok": ok}
+
+
+def topo_broadcast(sz, dev) -> dict:
+    """The broadcast state pattern: 8 rules (a key modulus and a least
+    payload) broadcast to every event; an event emits the rules it meets.
+    The rules' source takes its first turn after the events' first batch,
+    so that batch meets no rule."""
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+
+    rules = [(i, m, lo) for i, (m, lo) in enumerate(
+        [(2, 9), (3, 8), (5, 5), (7, 3), (11, 0), (13, 10), (17, 6), (19, 2)])]
+
+    class Rules:
+        def process_element(self, v, state):
+            hit = [rid for rid, (m, lo) in sorted(state.items()) if v[0] % m == 0 and v[2] >= lo]
+            return [(v[0], v[3], tuple(hit))] if hit else []
+
+        def process_broadcast_element(self, rule, state):
+            state[rule[0]] = (rule[1], rule[2])
+
+    env, stream, (k, _e, p, ts) = topo_c_env(sz, dev)
+    rule_stream = env.from_collection(rules, timestamp_fn=lambda r: 0,
+                                      watermark_strategy=WatermarkStrategy
+                                      .for_bounded_out_of_orderness(0)).broadcast()
+    sink = stream.connect(rule_stream).process(Rules()).collect()
+    run = topo_timed("topologies-broadcast", env, sink, dev)
+    want = []
+    for i, (key, pay, t) in enumerate(zip(k.tolist(), p.tolist(), ts.tolist())):
+        if i < sz["c_batch"]:
+            continue
+        hit = tuple(rid for rid, m, lo in rules if key % m == 0 and pay >= lo)
+        if hit:
+            want.append((key, t, hit))
+    got = [(int(a), int(b), tuple(c)) for a, b, c in run["rows"]]
+    ok = got == want
+    return {"rows": len(got), "rows_equal_model": ok, "seconds": run["seconds"], "ok": ok}
+
+
+def topo_iterate(sz, dev) -> dict:
+    """A decrement loop: each record (key, payload) goes round until its
+    count reaches 0, then leaves by the loop exit with its rounds; and a
+    loop with max_rounds below the deepest record raises."""
+    def job(max_rounds):
+        env, stream, cols = topo_c_env(sz, dev)
+        it = stream.map(lambda r: (r[0], r[2], 0)).iterate(max_rounds=max_rounds)
+        body = it.map(lambda r: (r[0], r[1] - 1, r[2] + 1))
+        it.close_with(body.filter(lambda r: r[1] > 0))
+        return env, body.filter(lambda r: r[1] <= 0).collect(), cols
+
+    env, sink, (k, _e, p, _ts) = job(sz["max_rounds"])
+    run = topo_timed("topologies-iterate", env, sink, dev)
+    want = sorted((key, min(pay, 1) - 1, max(pay, 1)) for key, pay in zip(k.tolist(), p.tolist()))
+    got = sorted((int(a), int(b), int(c)) for a, b, c in run["rows"])
+    # the deepest record needs p.max() - 1 feedback rounds
+    env, _sink, _cols = job(int(p.max()) - 2)
+    try:
+        env.execute("topologies-iterate-bounded")
+        guard = False
+    except RuntimeError as e:
+        guard = "max_rounds" in str(e)
+    ok = got == want and guard
+    return {"rows": len(got), "rows_equal_model": got == want, "max_rounds_guard": guard,
+            "seconds": run["seconds"], "ok": ok}
+
+
+def topo_async(sz, dev) -> dict:
+    """async_map over a local function that sleeps sz["async_delay_s"] a
+    record, capacity sz["async_capacity"], ordered (the rows in input order)
+    and unordered (the same rows as a multiset)."""
+    def lookup(r):
+        time.sleep(sz["async_delay_s"])
+        return (r[0], r[2] * 2, r[3])
+
+    out = {}
+    for mode, ordered in (("ordered", True), ("unordered", False)):
+        env, stream, (k, _e, p, ts) = topo_c_env(sz, dev)
+        sink = stream.async_map(lookup, capacity=sz["async_capacity"], ordered=ordered).collect()
+        run = topo_timed(f"topologies-async-{mode}", env, sink, dev)
+        want = list(zip(k.tolist(), (2 * p).tolist(), ts.tolist()))
+        got = [tuple(int(x) for x in r) for r in run["rows"]]
+        same = got == want if ordered else sorted(got) == sorted(want)
+        out[mode] = {"rows": len(got), "rows_equal_model": same, "seconds": run["seconds"],
+                     "tuples_per_s": len(got) / run["seconds"]}
+    out["ok"] = all(out[m]["rows_equal_model"] for m in ("ordered", "unordered"))
+    return out
+
+
+def topo_cep(sz, dev) -> dict:
+    """CEP per key: an impression strictly followed by a click within
+    sz["cep_within"] ms; a match per such adjacent pair of the key's
+    events."""
+    from flink_tpu_torch.cep import Pattern, pattern_stream
+
+    pattern = (Pattern.begin("imp").where(lambda r: r[1] == 0)
+               .next("click").where(lambda r: r[1] == 1).within(sz["cep_within"]))
+    env, stream, (k, e, _p, ts) = topo_c_env(sz, dev)
+    sink = pattern_stream(stream.key_by(lambda r: r[0]), pattern, select_fn=lambda m: (
+        m["imp"][0][0], m["imp"][0][3], m["click"][0][3])).collect()
+    run = topo_timed("topologies-cep", env, sink, dev)
+    last = {}
+    want = []
+    for key, ev, t in zip(k.tolist(), e.tolist(), ts.tolist()):
+        prev = last.get(key)
+        if prev is not None and prev[0] == 0 and ev == 1 and t - prev[1] <= sz["cep_within"]:
+            want.append((key, prev[1], t))
+        last[key] = (ev, t)
+    got = sorted(tuple(int(x) for x in r) for r in run["rows"])
+    ok = got == sorted(want) and len(got) > 0
+    return {"rows": len(got), "rows_equal_model": ok, "seconds": run["seconds"], "ok": ok}
+
+
+def topo_v2(sz, dev) -> dict:
+    """An API V2 job: a keyed process that emits (key, 3 x payload) for
+    each purchase (event type 2), in record order."""
+    from flink_tpu_torch.api.v2 import (
+        ExecutionEnvironment,
+        NonKeyedPartitionStream,
+        OneInputStreamProcessFunction,
+    )
+
+    class Purchases(OneInputStreamProcessFunction):
+        def process_record(self, record, output, ctx):
+            if record[1] == 2:
+                output.collect((ctx.key, 3 * record[2]))
+
+    env, stream, (k, e, p, _ts) = topo_c_env(sz, dev)
+    v2 = ExecutionEnvironment(env)
+    sink = (NonKeyedPartitionStream(stream).key_by(lambda r: r[0]).process(Purchases())
+            .collect_to_list())
+    t0 = time.perf_counter()
+    v2.execute("topologies-v2")
+    want = [(key, 3 * pay) for key, ev, pay in zip(k.tolist(), e.tolist(), p.tolist()) if ev == 2]
+    got = [(int(a), int(b)) for a, b in sink.results]
+    return {"rows": len(got), "rows_equal_model": got == want,
+            "seconds": time.perf_counter() - t0, "ok": got == want}
+
+
+def topo_coordinator(sz, dev, tmp: str) -> dict:
+    """A keyed process whose function declares create_coordinator(): each
+    record sends its key up, the coordinator counts and answers with its
+    count, which the record carries out. Checkpoints every step and one
+    host failure in the source at 60% of the records: one restart, the rows
+    equal the uninterrupted run's, and the coordinator's count ends at the
+    number of records (restored with the checkpoint, not recounted)."""
+    from flink_tpu_torch.runtime.coordination import OperatorCoordinator
+
+    class Counter(OperatorCoordinator):
+        def __init__(self):
+            self.seen = 0
+
+        def start(self, context):
+            self.ctx = context
+
+        def handle_event(self, event):
+            self.seen += 1
+            self.ctx.send_to_operator(self.seen)
+
+        def checkpoint(self):
+            return {"seen": self.seen}
+
+        def restore(self, snap):
+            self.seen = snap["seen"]
+
+    class Stamped:
+        last = None
+
+        def create_coordinator(self):
+            return Counter()
+
+        def handle_coordinator_event(self, event):
+            self.last = event
+
+        def process_element(self, v, ctx):
+            self.coordinator_gateway.send_event(v[0])
+            return [(v[0], v[3], self.last)]
+
+    n = sz["c_events"]
+    out = {}
+    for name, fail in (("uninterrupted", False), ("failure", True)):
+        failed = []
+
+        def hook(idx, failed=failed, fail=fail):
+            if fail and not failed and idx[0] >= int(0.6 * n):
+                failed.append(True)
+                raise RuntimeError("injected host failure in the source")
+
+        fn = Stamped()
+        env, stream, _cols = topo_c_env(sz, dev, hook=hook, conf={
+            "execution.checkpointing.interval": 1,
+            "execution.checkpointing.dir": f"{tmp}/coordinator-{name}",
+            "restart-strategy.type": "fixed-delay", "restart-strategy.initial-backoff": 1})
+        sink = stream.key_by(lambda r: r[0]).process(fn, name="stamped").collect()
+        rec = ckpt_run(env, dev, timeout=300, name=f"topologies-coordinator-{name}")
+        client = rec["client"]
+        out[name] = {"status": client.status().value, "seconds": rec["seconds"],
+                     **ckpt_stats(client), "rows": list(sink.results),
+                     "coordinator_seen": fn._operator_coordinator.seen}
+    a, b = out["uninterrupted"], out["failure"]
+    rows_equal = a.pop("rows") == b.pop("rows")
+    out["rows_equal"] = rows_equal
+    out["ok"] = bool(rows_equal and a["status"] == b["status"] == "FINISHED"
+                     and a["num_restarts"] == 0 and b["num_restarts"] == 1
+                     and b["restored_checkpoint_id"] is not None
+                     and a["coordinator_seen"] == b["coordinator_seen"] == n)
+    return out
+
+
+def topo_leg_c(sz, dev, tmp: str) -> dict:
+    out = {}
+    for name, run in (("reduce", topo_reduce), ("connect", topo_connect),
+                      ("broadcast", topo_broadcast), ("iterate", topo_iterate),
+                      ("async", topo_async), ("cep", topo_cep), ("v2", topo_v2)):
+        t0 = time.perf_counter()
+        out[name] = dict(run(sz, dev), phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["coordinator"] = dict(topo_coordinator(sz, dev, tmp), phase_s=time.perf_counter() - t0)
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def union_all_job(n: int, statements, dev=DEV):
+    """(env, tenv, sink) of `statements` joined by UNION ALL over the
+    columnar `ysb` table of n records (sql_ysb_job's table)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration, ExecutionOptions
+    from flink_tpu_torch.connectors.source import Batch, DataGeneratorSource
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+    from flink_tpu_torch.testing import stream as st
+
+    def gen(idx):
+        return Batch(*st.api_columns(idx, n, API_SQL["keys"]))
+
+    cfg = Configuration()
+    cfg.set(ExecutionOptions.BATCH_SIZE, API_SQL["batch"])
+    cfg.set(ExecutionOptions.KEY_CAPACITY, API_SQL["keys"])
+    env = StreamExecutionEnvironment(cfg, device=dev)
+    tenv = TableEnvironment(env)
+    stream = env.from_source(DataGeneratorSource(gen, n),
+                             WatermarkStrategy.for_bounded_out_of_orderness(0))
+    tenv.register_table("ysb", stream,
+                        TableSchema(["campaign", "event_type", "rowtime"], rowtime="rowtime",
+                                    field_types=["int", "float", "int"]), columnar=True)
+    sink = tenv.sql_query(" UNION ALL ".join(statements)).collect()
+    return env, tenv, sink
+
+
+# the JAX package's plan report of the UNION ALL statement
+UNION_ALL_REPORT = ("interpreted", "union", "UNION ALL branches plan independently on the host")
+
+
+def topo_leg_d(sz, dev) -> dict:
+    """SQL UNION ALL of the YSB views statement and its purchases twin:
+    rows equal each statement run alone, united, and the numpy model; each
+    branch a window runner on K1; the plan report the JAX package's."""
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.executor import build_runners
+    from flink_tpu_torch.testing import stream as st
+
+    n, keys = sz["d_events"], API_SQL["keys"]
+    both = (SQL_YSB, SQL_YSB_PURCHASES)
+    env, tenv, sink = union_all_job(n, both, dev)
+    rep = tenv.last_plan_report
+    report = (rep.path, rep.reason, rep.detail)
+    runners, _f = build_runners(plan(env._sinks), env.config, dev)
+    kinds = [type(r).__name__ for r in runners]
+    window_ops = [type(r.op).__name__ for r in runners if hasattr(r, "op")]
+    env, tenv, sink = union_all_job(n, both, dev)
+    secs, k1 = sql_counted(env, dev)
+    alone = []
+    for q in both:
+        e1, _t1, s1 = union_all_job(n, (q,), dev)
+        sql_counted(e1, dev)
+        alone += s1.results
+    key = lambda r: (r["wend"], r["campaign"], r["views"])  # noqa: E731
+    got = sorted(map(key, sink.results))
+    col, ts = st.api_columns(np.arange(n, dtype=np.int64), n, keys)
+    model = []
+    for keep in (col[:, 1] < 0.5, col[:, 1] > 1.5):
+        fired = _window_model(col[keep, 0].astype(np.int64), ts[keep], None,
+                              API_SQL["window"], API_SQL["slide"], keys)
+        for j, row in fired.items():
+            wend = j * API_SQL["slide"] + API_SQL["window"]
+            model += [(wend, int(c), int(row[c])) for c in np.flatnonzero(row)]
+    out = {"events": n, "report": list(report), "report_equals_jax": report == UNION_ALL_REPORT,
+           "runners": kinds, "window_operators": window_ops, "seconds": secs,
+           "tuples_per_s": n / secs, "k1_launches": k1, "rows": len(got),
+           "equals_branches_alone": got == sorted(map(key, alone)),
+           "equals_model": got == sorted(model)}
+    out["ok"] = bool(out["report_equals_jax"] and out["equals_branches_alone"]
+                     and out["equals_model"] and k1 > 0 and kinds.count("UnionRunner") == 1
+                     and window_ops.count("FusedWindowOperator") == 2)
+    return out
+
+
+def api_topologies_phase(dev=DEV, sizes=None) -> dict:
+    """Legs A-D (see API_TOPOLOGIES); on the card, K1 against its plain
+    version at leg A's first full union dispatch (`k1_union`)."""
+    import tempfile
+
+    sz = dict(API_TOPOLOGIES, **(sizes or {}))
+    out = {"phase": "api_topologies",
+           "card": card_line() if torch.device(dev).type == "cuda" else "cpu"}
+    for name, leg in (("leg_a", topo_leg_a), ("leg_b", topo_leg_b)):
+        t0 = time.perf_counter()
+        out[name] = dict(leg(sz, dev), phase_s=time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["leg_c"] = dict(topo_leg_c(sz, dev, tmp), phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["leg_d"] = dict(topo_leg_d(sz, dev), phase_s=time.perf_counter() - t0)
+    if torch.device(dev).type == "cuda":
+        t0 = time.perf_counter()
+        pipe, agg, idx, vals, plan = union_k1_inputs(sz["timed_events"], dev)
+        out["k1_union"] = dict(k1_at_dispatch(
+            "api_topologies leg A: a.union(b) of the api stream's even and odd records, "
+            "count, first full dispatch", pipe, agg, idx, vals, plan),
+            seconds=time.perf_counter() - t0)
+    out["ok"] = all(out[leg]["ok"] for leg in ("leg_a", "leg_b", "leg_c", "leg_d"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -6849,6 +7602,42 @@ def main() -> int:
     k1_routed = ctl["k1_mesh_routed"]
     torch.cuda.empty_cache()
 
+    # ---- 29. the rest of the DataStream API: a union of two YSB feeds into
+    # the fused chain, a map_batch chain and a process() side output into
+    # host-keyed windows, the host operators against numpy models and SQL
+    # UNION ALL, every run with its launch counts at 0 just before it; then
+    # K1 at the union job's first full dispatch, and leg A's union job under
+    # torch.profiler and cProfile ----
+    t_topo = time.perf_counter()
+    topo = api_topologies_phase()
+    topo["phase_s"] = time.perf_counter() - t_topo
+    emit(topo)
+    if not topo["ok"]:
+        raise AssertionError("api_topologies: a leg failed a gate (leg A: the fused runner "
+                             "after the UnionRunner, the union job's rows against the "
+                             "single-source job's and the oracle, K1 launched in every run; "
+                             "leg B: both sinks against numpy, the host-keyed fused operators, "
+                             "K1 launched; leg C: reduce with query_state, connect, broadcast, "
+                             "iterate with its max_rounds guard, async ordered and unordered, "
+                             "CEP and API V2 against their models, the coordinator job's one "
+                             "restart with its rows and count; leg D: the plan report, the "
+                             "rows against the branches alone and numpy, K1 launched)")
+    ta = topo["leg_a"]
+    topo_launches = {
+        "api_topologies_a_union_parity": ta["parity"]["union_k1"],
+        "api_topologies_a_single_parity": ta["parity"]["single_k1"],
+        **{f"api_topologies_a_{name}_timed_{i}": k
+           for name in ("union", "single") for i, k in enumerate(ta["timed"][name]["k1_launches"])},
+        "api_topologies_b": topo["leg_b"]["k1_launches"],
+        "api_topologies_d": topo["leg_d"]["k1_launches"]}
+    path_launches["k1_superscan"].update(topo_launches)
+    k1_union = topo["k1_union"]
+    emit(profile_run("api_topologies_union", lambda: union_run(
+        API_TOPOLOGIES["timed_events"], columnar=True)[1]))
+    emit(host_profile("api_topologies_union", lambda: union_run(
+        API_TOPOLOGIES["timed_events"], columnar=True)[1]))
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -6953,6 +7742,15 @@ def main() -> int:
          **{k: k1_routed[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms", "device_us",
                                       "fires")}},
+        {"name": "k1_union", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_union["shape"],
+         "launches": ta["timed"]["union"]["k1_launches"][0],
+         "launches_by_path": topo_launches,
+         **{k: k1_union[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms", "device_us",
+                                     "fires")}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",

@@ -23,6 +23,16 @@ eligible event-time joins on the device join ring, coGroup and the rest on
 the host join runner. `env.execute_async()` runs the job on the
 MiniCluster with checkpoints, restarts and savepoints (fault tolerance).
 
+The rest of the JAX API runs on the host, as in the JAX package, and
+feeds the window runners like any chain: `map_batch`, `async_map`
+(runtime/async_io.py), `union` (a window after a union still fuses its
+traceable chain onto the device), `connect` with `map`/`flat_map`, a keyed
+`process` sharing per-key state, and the broadcast state pattern, the
+partitioner hints, `slot_sharing_group` (a no-op locally), `iterate` with
+`close_with`, keyed `reduce` and `process` (timers, side outputs through
+`ctx.output(tag, v)` and `get_side_output(tag)`), CEP
+(`cep.pattern_stream`) and API V2 (`api/v2.py`).
+
 `StreamExecutionEnvironment(device=None)` runs on CUDA and raises at
 execute() without a GPU; pass device="cpu" for the plain PyTorch path. The
 device is threaded into every operator the job builds. Surfaces the port
@@ -45,15 +55,6 @@ from flink_tpu_torch.connectors.sink import CollectSink, Sink
 from flink_tpu_torch.connectors.source import CollectionSource, Source
 from flink_tpu_torch.core.watermarks import WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Transformation, plan
-from flink_tpu_torch.utils import deferred
-
-
-def _not_ported(owner: str, name: str, item: str):
-    """A method of the JAX API that the port does not carry yet."""
-    def method(self, *args, **kwargs):
-        raise deferred.not_ported(f"{owner}.{name}", item)
-    method.__name__ = name
-    return method
 
 
 class StreamExecutionEnvironment:
@@ -64,6 +65,9 @@ class StreamExecutionEnvironment:
         self.config = config or Configuration()
         self.device = device
         self._sinks: List[Transformation] = []
+        # non-sink plan roots (iteration tails): reachable only through
+        # close_with, so they are planned explicitly
+        self._roots: List[Transformation] = []
 
     @staticmethod
     def get_execution_environment(config: Optional[Configuration] = None,
@@ -107,7 +111,7 @@ class StreamExecutionEnvironment:
         if not self._sinks:
             raise RuntimeError("No sinks defined; nothing to execute")
         executor = LocalPipelineExecutor(self.config, self.device)
-        return executor.execute(plan(self._sinks),
+        return executor.execute(plan(self._sinks + self._roots),
                                 job_name or self.config.get(PipelineOptions.NAME))
 
     def execute_async(self, job_name: Optional[str] = None):
@@ -121,7 +125,7 @@ class StreamExecutionEnvironment:
         if len(self._sinks) != 1:
             raise RuntimeError("exactly one sink required")
         return MiniCluster.get_shared().submit(
-            plan(self._sinks), self.config, job_name, device=self.device)
+            plan([self._sinks[0]] + self._roots), self.config, job_name, device=self.device)
 
 
 class DataStream:
@@ -141,6 +145,12 @@ class DataStream:
         fn = fn.map if hasattr(fn, "map") else fn
         return self._derive("map", name, {"fn": fn, "vectorized": vectorized or traceable,
                                           "traceable": traceable})
+
+    def map_batch(self, fn: Callable, name: str = "map_batch") -> "DataStream":
+        """1:1 transform over the whole step batch at once (a list of the
+        batch's records in, a list of equal length out), on the host: the
+        point to amortize a lookup or a model over a batch."""
+        return self._derive("map_batch", name, {"fn": fn})
 
     def map_with_timestamp(self, fn: Callable, name: str = "map_ts",
                            vectorized: bool = False, traceable: bool = False) -> "DataStream":
@@ -168,6 +178,20 @@ class DataStream:
         return self._derive("filter", name, {"fn": fn, "vectorized": vectorized or traceable,
                                              "traceable": traceable})
 
+    def async_map(self, fn: Callable, *, capacity: int = 100,
+                  timeout_ms: Optional[float] = None, ordered: bool = True,
+                  retry=None, name: str = "async_map") -> "DataStream":
+        """Async I/O with bounded concurrency (AsyncDataStream.orderedWait /
+        unorderedWait): `fn` (or an AsyncFunction) runs on a pool of
+        `capacity` threads; results come in input order when `ordered`,
+        else in completion order; `timeout_ms` takes the function's
+        timeout_value, `retry` a RetryStrategy (runtime/async_io.py)."""
+        from flink_tpu_torch.runtime.async_io import NO_RETRY
+
+        return self._derive("async_map", name, {
+            "fn": fn, "capacity": capacity, "timeout_ms": timeout_ms,
+            "ordered": ordered, "retry": retry or NO_RETRY})
+
     def key_by(self, key_selector: Callable, name: str = "key_by",
                vectorized: bool = False, traceable: bool = False) -> "KeyedStream":
         """Partition by key. Column form: key_selector(values_column)
@@ -182,11 +206,63 @@ class DataStream:
                             "traceable": traceable})
         return KeyedStream(self.env, t)
 
+    # -- partitioning ------------------------------------------------------
+    def _partition_hint(self, kind: str) -> "DataStream":
+        """An explicit repartitioning: locally a pass-through view (one
+        parallel instance), kept in the plan; key_by stays the only
+        partitioner that moves records (by key group)."""
+        return self._derive(kind, kind, {})
+
+    def rebalance(self) -> "DataStream":
+        """Round-robin redistribution (RebalancePartitioner)."""
+        return self._partition_hint("rebalance")
+
+    def rescale(self) -> "DataStream":
+        """Local-group round-robin (RescalePartitioner)."""
+        return self._partition_hint("rescale")
+
+    def shuffle(self) -> "DataStream":
+        """Uniform-random redistribution (ShufflePartitioner)."""
+        return self._partition_hint("shuffle")
+
+    def broadcast(self) -> "DataStream":
+        """Every downstream instance sees every record (BroadcastPartitioner);
+        the second stream of the broadcast state pattern."""
+        return self._partition_hint("broadcast")
+
+    def forward(self) -> "DataStream":
+        """Pin to the local downstream instance (ForwardPartitioner); the
+        chain fuses through it."""
+        return self._partition_hint("forward")
+
     def global_(self) -> "DataStream":
-        """Route everything to instance 0 (GlobalPartitioner): at the port's
-        parallelism of 1 a pass-through hint, kept so a plan states where a
-        global step (SQL's per-window top-N) must run."""
-        return self._derive("global", "global", {})
+        """Route everything to instance 0 (GlobalPartitioner), kept so a plan
+        states where a global step (SQL's per-window top-N) must run."""
+        return self._partition_hint("global")
+
+    def slot_sharing_group(self, name: str) -> "DataStream":
+        """Put the operator that produced this stream into slot-sharing
+        group `name` (downstream operators inherit it unless they declare
+        their own). A change of group breaks the chain; locally groups run
+        in one process, as the JAX package's local environment runs them."""
+        self.transform.config["slot_sharing_group"] = name
+        return self
+
+    def iterate(self, max_rounds: int = 10000) -> "IterativeStream":
+        """Open an iteration (IterativeStream.java): the returned stream
+        carries this stream's records plus every record fed back through
+        close_with(). Watermarks do not cross the feedback edge; with
+        bounded inputs the job ends when the loop body stops feeding records
+        back, and `max_rounds` bounds a loop that does not.
+
+            it = stream.iterate()
+            body = it.map(step_fn)
+            it.close_with(body.filter(still_going))   # feedback edge
+            body.filter(done).sink_to(...)            # loop exit
+        """
+        t = Transformation("iteration_head", "iterate", [self.transform],
+                           {"max_rounds": max_rounds})
+        return IterativeStream(self.env, t)
 
     # -- sinks -------------------------------------------------------------
     def sink_to(self, sink: Sink, name: str = "sink") -> "DataStreamSink":
@@ -194,13 +270,32 @@ class DataStream:
         self.env._sinks.append(t)
         return DataStreamSink(self.env, t)
 
+    def print(self) -> "DataStreamSink":
+        """Print each record to standard output (PrintSink)."""
+        from flink_tpu_torch.connectors.sink import PrintSink
+
+        return self.sink_to(PrintSink(), name="print")
+
     def collect(self) -> CollectSink:
         """Attach a CollectSink and return it (results after execute())."""
         sink = CollectSink()
         self.sink_to(sink, name="collect")
         return sink
 
-    # -- two-input topologies ----------------------------------------------
+    # -- multi-input topologies --------------------------------------------
+    def union(self, *others: "DataStream") -> "DataStream":
+        """Merge streams of the same type; watermarks min-combine across the
+        inputs (DataStream.union / UnionTransformation)."""
+        if not others:
+            return self
+        return DataStream(self.env, Transformation(
+            "union", "union", [self.transform] + [o.transform for o in others], {}))
+
+    def connect(self, other: "DataStream") -> "ConnectedStreams":
+        """Pair two streams for co-processing (DataStream.connect): a keyed
+        process shares per-key state across the two inputs."""
+        return ConnectedStreams(self.env, self, other)
+
     def join(self, other: "DataStream") -> "JoinBuilder":
         """Keyed windowed join (JoinedStreams.java:101):
         a.join(b).where(ks_a).equal_to(ks_b).window(assigner).apply(fn).
@@ -215,28 +310,70 @@ class DataStream:
 
     def get_side_output(self, tag) -> "DataStream":
         """The stream of this operator's side output for `tag`
-        (SingleOutputStreamOperator.getSideOutput): a window aggregate's
-        late data with side_output_late_data() and LATE_DATA_TAG. Side
-        outputs of process() operators are not ported (ROADMAP item 19)."""
-        if self.transform.kind != "window_aggregate":
-            raise deferred.not_ported(
-                f"DataStream.get_side_output of a {self.transform.kind!r} stream", deferred.API)
+        (SingleOutputStreamOperator.getSideOutput): what a process()
+        operator emits with ctx.output(tag, v), or a window aggregate's late
+        data with side_output_late_data() and LATE_DATA_TAG."""
         if not isinstance(tag, OutputTag):
             tag = OutputTag(str(tag))
         return self._derive("side_output", f"side:{tag.tag_id}", {"tag": tag})
 
-    # -- not ported yet ----------------------------------------------------
-    map_batch = _not_ported("DataStream", "map_batch", deferred.API)
-    async_map = _not_ported("DataStream", "async_map", deferred.API)
-    union = _not_ported("DataStream", "union", deferred.API)
-    connect = _not_ported("DataStream", "connect", deferred.API)
-    rebalance = _not_ported("DataStream", "rebalance", deferred.API)
-    rescale = _not_ported("DataStream", "rescale", deferred.API)
-    shuffle = _not_ported("DataStream", "shuffle", deferred.API)
-    broadcast = _not_ported("DataStream", "broadcast", deferred.API)
-    forward = _not_ported("DataStream", "forward", deferred.API)
-    slot_sharing_group = _not_ported("DataStream", "slot_sharing_group", deferred.API)
-    iterate = _not_ported("DataStream", "iterate", deferred.API)
+
+class IterativeStream(DataStream):
+    """The head of an iteration; close_with wires the feedback edge back to
+    it."""
+
+    def close_with(self, feedback: DataStream) -> DataStream:
+        """Feed `feedback`'s records back into this head
+        (IterativeStream.closeWith). Returns the feedback stream."""
+        tail = Transformation("iteration_tail", "iteration_tail", [feedback.transform],
+                              {"head": self.transform})
+        self.env._roots.append(tail)
+        return feedback
+
+
+class ConnectedStreams:
+    """Two paired streams (ConnectedStreams.java): co-transforms see both
+    inputs; the keyed process shares per-key state across them."""
+
+    def __init__(self, env: StreamExecutionEnvironment, first: DataStream, second: DataStream):
+        self.env = env
+        self.first = first
+        self.second = second
+
+    def _two_input(self, kind: str, name: str, config: dict) -> DataStream:
+        return DataStream(self.env, Transformation(
+            kind, name, [self.first.transform, self.second.transform], config))
+
+    def map(self, fn1: Callable, fn2: Callable, name: str = "co_map") -> DataStream:
+        return self._two_input("co_map", name, {"fn1": fn1, "fn2": fn2})
+
+    def flat_map(self, fn1: Callable, fn2: Callable, name: str = "co_flat_map") -> DataStream:
+        return self._two_input("co_flat_map", name, {"fn1": fn1, "fn2": fn2})
+
+    def key_by(self, key_selector1: Callable, key_selector2: Callable) -> "ConnectedStreams":
+        """Key both inputs; a later process() shares keyed state and timers
+        across them (the point of connect over union)."""
+        cs = ConnectedStreams(self.env, self.first, self.second)
+        cs._ks = (as_key_selector(key_selector1), as_key_selector(key_selector2))
+        return cs
+
+    def process(self, co_process_fn, name: str = "co_process") -> DataStream:
+        """Keyed (after key_by(ks1, ks2)): a KeyedCoProcessFunction
+        (process_element1/process_element2, optional on_timer) with shared
+        per-key state. Broadcast (the second stream .broadcast()): a
+        BroadcastProcessFunction (process_element(value, read-only state) /
+        process_broadcast_element(value, state)) over operator-wide
+        broadcast state. Anything else is refused."""
+        ks = getattr(self, "_ks", None)
+        if ks is not None:
+            return self._two_input("co_process", name, {
+                "process_fn": co_process_fn, "key_selector1": ks[0], "key_selector2": ks[1]})
+        if self.second.transform.kind == "broadcast":
+            return self._two_input("broadcast_process", name, {"process_fn": co_process_fn})
+        raise ValueError(
+            "connect(...).process requires key_by(ks1, ks2), or a "
+            ".broadcast() second stream for the broadcast state pattern"
+        )
 
 
 class JoinBuilder:
@@ -286,6 +423,10 @@ class DataStreamSink:
         self.env = env
         self.transform = transform
 
+    def uid(self, uid: str) -> "DataStreamSink":
+        self.transform.uid = uid
+        return self
+
 
 class KeyedStream(DataStream):
     """Keyed partitioned stream."""
@@ -333,8 +474,18 @@ class KeyedStream(DataStream):
         })
         return DataStream(self.env, t)
 
-    reduce = _not_ported("KeyedStream", "reduce", deferred.API)
-    process = _not_ported("KeyedStream", "process", deferred.API)
+    def reduce(self, fn: Callable, name: str = "keyed_reduce") -> DataStream:
+        """Rolling keyed reduce: emits each key's running reduce per input
+        record (StreamGroupedReduceOperator), on the host."""
+        return self._derive("reduce", name, {
+            "reduce_fn": fn, "key_selector": self._scalar_key_selector()})
+
+    def process(self, process_fn, name: str = "keyed_process") -> DataStream:
+        """A KeyedProcessFunction with per-key state, event-time and
+        processing-time timers and side outputs (ctx.output(tag, v)), on
+        the host."""
+        return self._derive("process_keyed", name, {
+            "process_fn": process_fn, "key_selector": self._scalar_key_selector()})
 
 
 class WindowedStream:

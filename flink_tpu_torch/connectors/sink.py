@@ -1,10 +1,9 @@
 """Sinks: Sink -> SinkWriter (+ Committer).
 
-Counterpart of `Sink`, `CollectSink` and `FileSink` of
-`flink_tpu/connectors/sink.py`. An exactly-once sink stages its output per
+Counterpart of `flink_tpu/connectors/sink.py`: `CollectSink`,
+`PrintSink` and `FileSink`. An exactly-once sink stages its output per
 checkpoint epoch and commits it when the checkpoint completes: a two-phase
-commit whose barrier is a step boundary. `PrintSink` waits for ROADMAP
-item 19.
+commit whose barrier is a step boundary.
 """
 
 from __future__ import annotations
@@ -74,6 +73,18 @@ class CollectSink(Sink):
 # FileSink with two-phase commit: one part file per epoch, moved into place
 # on commit
 # ---------------------------------------------------------------------------
+
+class _PrintWriter(SinkWriter):
+    def write(self, value, timestamp=None) -> None:
+        print(value)
+
+
+class PrintSink(Sink):
+    """Print each record to standard output (DataStream.print)."""
+
+    def create_writer(self) -> SinkWriter:
+        return _PrintWriter()
+
 
 @dataclasses.dataclass
 class _PendingFile:

@@ -1,12 +1,11 @@
 """Split-based sources, read in columnar batches.
 
-Counterpart of `Batch`, `Source`, `CollectionSource` and
-`DataGeneratorSource` of `flink_tpu/connectors/source.py`: an enumerator
+Counterpart of `flink_tpu/connectors/source.py`: `Batch`, `Source`,
+`CollectionSource`, `DataGeneratorSource` and `FileSource`. An enumerator
 hands out splits, a reader polls (values, timestamps) columns sized for one
 step. A checkpoint snapshots the enumerator's pending splits and the
 reader's position in its split, so a restored job replays exactly the
-records after the cut (the exactly-once source half). `FileSource` waits
-for ROADMAP item 19.
+records after the cut (the exactly-once source half).
 """
 
 from __future__ import annotations
@@ -178,3 +177,63 @@ class DataGeneratorSource(Source):
 
     def create_reader(self) -> SourceReader:
         return _GeneratorReader(self.generator_fn)
+
+
+# ---------------------------------------------------------------------------
+# FileSource (flink-connector-files FileSource.java:98, text lines)
+# ---------------------------------------------------------------------------
+
+class _FileReader(SourceReader):
+    def __init__(self, parse_fn, timestamp_fn):
+        self._parse = parse_fn
+        self._ts_fn = timestamp_fn
+        self._path: Optional[str] = None
+        self._offset = 0  # line offset within file
+        self._lines: Optional[List[str]] = None
+
+    def add_split(self, split: SourceSplit) -> None:
+        self._path = split.payload["path"]
+        self._offset = split.payload.get("offset", 0)
+        self._lines = None
+
+    def poll_batch(self, max_records: int) -> Optional[Batch]:
+        if self._path is None:
+            return None
+        if self._lines is None:
+            with open(self._path) as f:
+                self._lines = f.read().splitlines()
+        if self._offset >= len(self._lines):
+            self._path = None
+            return None
+        chunk = self._lines[self._offset : self._offset + max_records]
+        self._offset += len(chunk)
+        values = [self._parse(line) for line in chunk] if self._parse else chunk
+        if self._ts_fn is not None:
+            ts = np.asarray([self._ts_fn(v) for v in values], dtype=np.int64)
+        else:
+            ts = np.full(len(values), MIN_TIMESTAMP, dtype=np.int64)
+        return Batch(obj_array(values), ts)
+
+    def snapshot_position(self) -> Dict[str, Any]:
+        return {"path": self._path, "offset": self._offset}
+
+    def restore_position(self, state: Dict[str, Any]) -> None:
+        self._path = state["path"]
+        self._offset = state["offset"]
+        self._lines = None
+
+
+class FileSource(Source):
+    def __init__(self, paths: Sequence[str], parse_fn: Optional[Callable] = None,
+                 timestamp_fn: Optional[Callable] = None):
+        self.paths = [str(p) for p in paths]
+        self.parse_fn = parse_fn
+        self.timestamp_fn = timestamp_fn
+
+    def create_enumerator(self) -> SplitEnumerator:
+        return SplitEnumerator(
+            [SourceSplit(f"file-{i}", {"path": p}) for i, p in enumerate(self.paths)]
+        )
+
+    def create_reader(self) -> SourceReader:
+        return _FileReader(self.parse_fn, self.timestamp_fn)

@@ -119,8 +119,7 @@ class PassThroughWindowFunction(ProcessWindowFunction):
 
 class ProcessFunction(Generic[IN, OUT]):
     """Low-level per-record function with timers and side outputs
-    (KeyedProcessFunction.java). `KeyedStream.process` is not ported yet
-    (ROADMAP item 19)."""
+    (KeyedProcessFunction.java), run by `KeyedStream.process`."""
 
     class Context:
         def __init__(self, timestamp, timer_service, side_collector):

@@ -3,13 +3,12 @@
 Counterpart of `flink_tpu/graph/transformation.py`: API calls record
 `Transformation` nodes; `plan` groups chainable record-local
 transformations into steps (the analogue of operator chains) and cuts
-chains at keyBy. The port plans the kinds its API records — source,
-map/map_ts/filter/flat_map, key_by, global (a pass-through partition
-hint), window_aggregate, group_agg, sink, side_output (a tagged view of
-the producing step's side channel) and the two-input terminals
-window_join, co_group and regular_join (one input gate per edge, by
-ordinal) — with the JAX planner's rules; any other kind raises (union,
-co_map, co_process and broadcast_process: ROADMAP item 19).
+chains at keyBy, at every multi-input or multi-consumer boundary, and
+where the slot-sharing group changes. The partitioners are pass-through
+views locally; `forward`, the one that keeps chaining, is seen through by
+fusion. An iteration's tail names its head in its config, so the DAG stays
+acyclic and the feedback cycle exists only at run time; the tail joins its
+head's slot-sharing group.
 """
 
 from __future__ import annotations
@@ -18,19 +17,24 @@ import dataclasses
 import itertools
 from typing import Any, Callable, Dict, List, Optional
 
-from flink_tpu_torch.utils import deferred
-
 _ids = itertools.count(1)
 
+# chain-breaking kinds: a keyBy repartition and the partitioner hints
+REDISTRIBUTING = {"key_by", "rebalance", "broadcast", "rescale", "global", "shuffle", "forward"}
+
 # record-local kinds fusable into one chain step
-CHAINABLE = {"map", "map_ts", "filter", "flat_map"}
+CHAINABLE = {"map", "map_ts", "map_batch", "flat_map", "filter", "process"}
 
-# single-input stateful/boundary terminals
-TERMINALS = {"window_aggregate", "group_agg", "sink"}
+# single-input stateful/boundary terminals; the iteration's head and tail
+# are its feedback edge's two ends
+TERMINALS = {
+    "window_aggregate", "reduce", "sink", "process_keyed", "async_map", "cep",
+    "group_agg", "iteration_head", "iteration_tail",
+}
 
-# two-input terminals (the join surface of DataStream.java:111); the JAX
-# package's MULTI_TERMINALS also hold union and the co-operators
-MULTI_TERMINALS = {"window_join", "co_group", "regular_join"}
+# multi-input terminals (DataStream.java:111 union/connect/join surface)
+MULTI_TERMINALS = {"union", "co_map", "co_flat_map", "co_process", "window_join", "co_group",
+                   "broadcast_process", "regular_join"}
 
 
 @dataclasses.dataclass
@@ -148,6 +152,9 @@ def plan(sink_transforms) -> StepGraph:
     producer: Dict[int, Any] = {}
     keyed: Dict[int, Dict[str, Any]] = {}
     side_tag: Dict[int, str] = {}
+    alias_of: Dict[int, int] = {}   # forward views -> the node they show
+    # slot-sharing group per node: declared, else the first input's
+    group_of: Dict[int, str] = {}
 
     def new_step(**kw) -> Step:
         s = Step(**kw)
@@ -162,6 +169,10 @@ def plan(sink_transforms) -> StepGraph:
         return producer[inp.id], tag, "forward", None
 
     for t in order:
+        g = t.config.get("slot_sharing_group")
+        if g is None and t.inputs:
+            g = group_of[t.inputs[0].id]
+        group_of[t.id] = g or "default"
         if t.kind == "source":
             sources.append(t)
             producer[t.id] = t
@@ -170,12 +181,6 @@ def plan(sink_transforms) -> StepGraph:
             if t.inputs[0].id in side_tag:
                 side_tag[t.id] = side_tag[t.inputs[0].id]
             keyed[t.id] = t.config  # re-keying: the newest selector wins
-        elif t.kind == "global":
-            # a partition hint: locally a pass-through view that keeps the
-            # upstream's channel; it ends the open chain, as in the JAX planner
-            producer[t.id] = producer[t.inputs[0].id]
-            if t.inputs[0].id in side_tag:
-                side_tag[t.id] = side_tag[t.inputs[0].id]
         elif t.kind == "side_output":
             # a tagged view of the producing step's side channel
             producer[t.id] = producer[t.inputs[0].id]
@@ -183,25 +188,32 @@ def plan(sink_transforms) -> StepGraph:
         elif t.kind in CHAINABLE:
             inp = t.inputs[0]
             ent = producer[inp.id]
+            eff_id = alias_of.get(inp.id, inp.id)
             if (
                 isinstance(ent, Step)
                 and ent.terminal is None
                 and consumers.get(inp.id, 0) == 1
+                # seeing through a forward view must not hide the viewed
+                # node's other consumers
+                and (eff_id == inp.id or consumers.get(eff_id, 0) == 1)
                 and inp.id not in keyed
                 and inp.id not in side_tag
                 and ent.chain
-                and ent.chain[-1].id == inp.id
+                and ent.chain[-1].id == eff_id
+                and group_of[t.id] == ent.slot_group
             ):
                 ent.chain.append(t)          # fuse into the open chain
                 producer[t.id] = ent
             else:
                 ent2, tag, part, ks = input_of(inp)
                 producer[t.id] = new_step(chain=[t], terminal=None, partitioning=part,
-                                          key_selector=ks, inputs=[(ent2, 0, tag)])
+                                          key_selector=ks, inputs=[(ent2, 0, tag)],
+                                          slot_group=group_of[t.id])
         elif t.kind in TERMINALS:
             ent, tag, part, ks = input_of(t.inputs[0])
             producer[t.id] = new_step(chain=[], terminal=t, partitioning=part,
-                                      key_selector=ks, inputs=[(ent, 0, tag)])
+                                      key_selector=ks, inputs=[(ent, 0, tag)],
+                                      slot_group=group_of[t.id])
         elif t.kind in MULTI_TERMINALS:
             ins = []
             part, ks = "forward", None
@@ -211,10 +223,32 @@ def plan(sink_transforms) -> StepGraph:
                 if p == "key_group":
                     part, ks = p, (ks or k)
             producer[t.id] = new_step(chain=[], terminal=t, partitioning=part,
-                                      key_selector=ks, inputs=ins)
+                                      key_selector=ks, inputs=ins, slot_group=group_of[t.id])
+        elif t.kind in REDISTRIBUTING:
+            # a partitioner hint: locally a pass-through view that keeps the
+            # upstream's channel; `forward`, the one partitioner that keeps
+            # chaining, also keeps the keyed view and is seen through by
+            # fusion
+            inp = t.inputs[0]
+            producer[t.id] = producer[inp.id]
+            if inp.id in side_tag:
+                side_tag[t.id] = side_tag[inp.id]
+            if t.kind == "forward":
+                if inp.id in keyed:
+                    keyed[t.id] = keyed[inp.id]
+                alias_of[t.id] = alias_of.get(inp.id, inp.id)
         else:
-            raise deferred.not_ported(f"transformation kind {t.kind!r}", deferred.API)
+            raise NotImplementedError(f"transformation kind {t.kind}")
 
     if not sources:
         raise ValueError("pipeline must start at a source")
+    # an iteration's tail joins its head's slot-sharing group: the feedback
+    # cycle is local
+    head_group = {s.terminal.id: s.slot_group for s in steps
+                  if s.terminal is not None and s.terminal.kind == "iteration_head"}
+    for s in steps:
+        if s.terminal is not None and s.terminal.kind == "iteration_tail":
+            hid = s.terminal.config["head"].id
+            if hid in head_group:
+                s.slot_group = head_group[hid]
     return StepGraph(sources=sources, steps=steps)

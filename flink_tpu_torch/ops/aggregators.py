@@ -89,13 +89,17 @@ _SCATTER_NP = {
 
 class _ColumnarAsPython(AggregateFunction):
     """Scalar-dict interpretation of a DeviceAggregator (oracle parity):
-    count, sum, min, max and mean as `AggregateFunction`s."""
+    count, sum, min, max and mean as `AggregateFunction`s. A float field
+    starts from a float identity, so a float sum of integer values emits a
+    float, as every device route does; the JAX package's starts from the
+    int 0 and emits an int there (ROADMAP.md Queue C, not reproduced)."""
 
     def __init__(self, spec: DeviceAggregator):
         self.spec = spec
 
     def create_accumulator(self):
-        return {f.name: f.identity for f in self.spec.fields}
+        return {f.name: float(f.identity) if np.dtype(f.dtype).kind == "f" else f.identity
+                for f in self.spec.fields}
 
     def add(self, value, acc):
         out = dict(acc)

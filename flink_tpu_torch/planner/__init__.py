@@ -12,9 +12,9 @@ runs them on kernel K1.
 
 Statements outside the fused core take the interpreted TableEnvironment
 path with a catalogued reason (`FALLBACK_CATALOG`). The reasons are the
-JAX package's, statement for statement, including those of statements the
-port cannot execute yet (UNION ALL, ML_PREDICT: planning reports them,
-execution raises naming their ROADMAP item).
+JAX package's, statement for statement, including that of ML_PREDICT,
+which the port cannot execute yet (planning reports it, execution raises
+naming its ROADMAP item).
 `TableEnvironment.sql_query` routes through here behind
 `table.device-fusion` (default on); `explain_sql` returns the report this
 module produces.

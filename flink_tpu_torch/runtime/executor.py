@@ -1,10 +1,10 @@
 """Local pipeline executor: the host-driven stepped dataflow loop.
 
-Counterpart of the subset of `flink_tpu/runtime/executor.py` that a keyed
-event-time window job or a continuous aggregate runs. The source reader
-yields a columnar batch; the batch flows through push-based StepRunners (a
-stateless chain, a keyed window step or a continuous aggregate, then
-sinks), and the source's watermark advances between steps.
+Counterpart of `flink_tpu/runtime/executor.py` but for its chaos hook and
+its cluster stages. The sources' readers yield columnar batches in turn;
+each batch flows through push-based StepRunners (a stateless chain, a
+keyed window step or another stateful operator, then sinks), and the
+sources' watermarks advance between steps.
 
 Runner selection follows the JAX package. A window step whose chain is
 traceable (graph/fusion.py) gets a `DeviceChainRunner`: the chain runs as
@@ -86,10 +86,22 @@ the JAX package's `/jobs/:id/device` payload from `device_snapshot()`
 (its REST route is ROADMAP item 14) and, with `observability.profiler.*`,
 captures a torch.profiler trace of each attempt.
 
-Left out, raising where a job asks for them (ROADMAP.md Queue A): the
-chaos hook (item 14), operator coordinators (item 19's process
-functions: `coordinators` stays empty) and the rest of the DataStream
-API's runners (item 19).
+The rest of the DataStream API's runners are the JAX package's, on the
+host: `map_batch` in the chain, `KeyedReduceRunner`, `KeyedProcessRunner`
+(event-time and processing-time timers; a processing-time timer's output
+is stamped MIN_TIMESTAMP; side outputs by tag), `CepRunner`,
+`UnionRunner` (the valve min-combines its inputs' watermarks; a window
+after it still gets the fused runner), `CoMapRunner`,
+`KeyedCoProcessRunner`, `BroadcastProcessRunner`, the async I/O runner
+(runtime/async_io.py) and the iteration's `IterationHeadRunner` and
+`IterationTailRunner`: the run loop drains the feedback to quiescence at
+every step boundary and at the end, each head bounded by its max_rounds.
+An operator function that declares create_coordinator() gets a job-scope
+coordinator (runtime/coordination.py) whose state rides `capture` and
+`restore`.
+
+Left out, raising where a job asks for it (ROADMAP.md Queue A): the chaos
+hook (item 14).
 """
 
 from __future__ import annotations
@@ -97,13 +109,15 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import types
 import warnings
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from flink_tpu_torch.api.functions import AggregateFunction
+from flink_tpu_torch.api.functions import AggregateFunction, ProcessFunction
 from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows, GlobalWindows
 from flink_tpu_torch.config import (
     Configuration,
@@ -114,7 +128,8 @@ from flink_tpu_torch.config import (
     PipelineOptions,
     StateTierOptions,
 )
-from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
+from flink_tpu_torch.core.keygroups import KeyGroupRange
+from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_TIMESTAMP, MIN_WATERMARK
 from flink_tpu_torch.core.watermarks import BoundedOutOfOrdernessWatermarks, WatermarkStrategy
 from flink_tpu_torch.graph.transformation import Step, StepGraph, Transformation
 from flink_tpu_torch.metrics.emission_latency import (
@@ -129,6 +144,7 @@ from flink_tpu_torch.parallel import mesh as mesh_lib
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
 from flink_tpu_torch.runtime.fused_window_pipeline import TracedPrologue
 from flink_tpu_torch.runtime.oracle_window_operator import OracleWindowOperator
+from flink_tpu_torch.runtime.timers import InternalTimerService
 from flink_tpu_torch.runtime.tpu_global_window_operator import (
     TpuGlobalWindowOperator,
     supported_trigger,
@@ -136,8 +152,8 @@ from flink_tpu_torch.runtime.tpu_global_window_operator import (
 from flink_tpu_torch.runtime.tpu_session_operator import TpuSessionWindowOperator
 from flink_tpu_torch.runtime.tpu_window_operator import TpuWindowOperator
 from flink_tpu_torch.scheduler.latency_controller import LatencySpec
+from flink_tpu_torch.state.heap import HeapKeyedStateBackend, value_state
 from flink_tpu_torch.state.tier_manager import TierConfig
-from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.arrays import as_device_column, canonical_column, obj_array
 from flink_tpu_torch.utils.device import resolve_device
 
@@ -344,13 +360,15 @@ class ChainRunner(StepRunner):
         self.transforms = transforms
 
     @staticmethod
-    def _to_column(vals) -> np.ndarray:
-        """Normalize a vectorized transform's output (a whole column by
-        contract, of any rank)."""
+    def _to_column(vals, columnar: bool = True) -> np.ndarray:
+        """Normalize a transform's output. A vectorized transform's is a
+        whole column by contract, of any rank (`columnar`); a map_batch's
+        list becomes a numeric column only when it is one-dimensional,
+        else a column of its records."""
         if isinstance(vals, np.ndarray):
             return vals
         arr = np.asarray(vals)
-        if arr.dtype.kind in "OUSifub":
+        if arr.dtype.kind in "OUSifub" and (arr.ndim == 1 or columnar):
             return arr
         return obj_array(list(vals))
 
@@ -395,6 +413,14 @@ class ChainRunner(StepRunner):
                                        count=len(vals))
                 vals = vals[mask]
                 ts = ts[mask]
+            elif t.kind == "map_batch":
+                # one call over the whole batch's records
+                vals = self._to_column(fn(vals if vec else list(vals)), columnar=vec)
+                if len(vals) != len(ts):
+                    raise ValueError(
+                        f"map_batch '{t.name}' returned {len(vals)} values "
+                        f"for {len(ts)} input records; map_batch must be "
+                        "1:1 (use flat_map for 1:N transforms)")
             elif t.kind == "flat_map":
                 if vec:
                     out, src_idx = fn(vals)
@@ -409,7 +435,7 @@ class ChainRunner(StepRunner):
                     vals = obj_array(new_vals)
                     ts = np.asarray(new_ts, dtype=np.int64)
             else:
-                raise deferred.not_ported(f"chain transform {t.kind!r}", deferred.API)
+                raise NotImplementedError(t.kind)
         if len(ts) and self.downstream:
             self.downstream.on_batch(vals, ts)
 
@@ -1092,6 +1118,286 @@ class SharedWindowRunner(DeviceChainRunner):
             StepRunner.on_end(r)
 
 
+class KeyedReduceRunner(StepRunner):
+    """Rolling keyed reduce (KeyedStream.reduce): emits each key's running
+    reduce per input record (StreamGroupedReduceOperator), on the host."""
+
+    def __init__(self, step: Step, config: Configuration):
+        t = step.terminal
+        self.key_selector = t.config["key_selector"]
+        self.reduce_fn = t.config["reduce_fn"]
+        max_par = config.get(PipelineOptions.MAX_PARALLELISM)
+        self.state = HeapKeyedStateBackend(KeyGroupRange(0, max_par - 1), max_par)
+        self.state.register(value_state("rolling"))
+        self.uid = t.uid
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        out = []
+        for v in values:
+            self.state.set_current_key(self.key_selector(v))
+            cur = self.state.get("rolling")
+            nxt = v if cur is None else self.reduce_fn(cur, v)
+            self.state.put("rolling", nxt)
+            out.append(nxt)
+        if out and self.downstream:
+            self.downstream.on_batch(obj_array(out), timestamps)
+
+    def snapshot(self) -> dict:
+        return {"state": self.state.snapshot()}
+
+    def restore(self, snap: dict) -> None:
+        self.state.restore(snap["state"])
+
+
+class KeyedProcessRunner(StepRunner):
+    """A KeyedProcessFunction on the host: per-key state (registered as the
+    function asks for it), event-time and processing-time timers, and side
+    outputs (`ctx.output(tag, v)`) buffered per tag and emitted with the
+    main output after each batch, watermark or processing-time tick."""
+
+    def __init__(self, step: Step, config: Configuration):
+        t = step.terminal
+        self.key_selector = t.config["key_selector"]
+        self._init_keyed(t, config)
+
+    def _init_keyed(self, t: Transformation, config: Configuration) -> None:
+        self.fn: ProcessFunction = t.config["process_fn"]
+        max_par = config.get(PipelineOptions.MAX_PARALLELISM)
+        self.state = HeapKeyedStateBackend(KeyGroupRange(0, max_par - 1), max_par,
+                                           auto_register=True)
+        self.timers = InternalTimerService(self._on_event_timer, self._on_proc_timer)
+        self._out: List = []
+        self._out_ts: List[int] = []
+        self._side_buf: Dict[str, tuple] = {}
+        self.uid = t.uid
+
+    class _TimerService:
+        def __init__(self, runner, key):
+            self._r = runner
+            self._key = key
+
+        def register_event_time_timer(self, time: int) -> None:
+            self._r.timers.register_event_time_timer(self._key, None, time)
+
+        def register_processing_time_timer(self, time: int) -> None:
+            self._r.timers.register_processing_time_timer(self._key, None, time)
+
+        def current_watermark(self) -> int:
+            return self._r.timers.current_watermark
+
+        def state(self):
+            return self._r.state
+
+    def _ctx(self, key, timestamp):
+        def side(tag, value):
+            buf = self._side_buf.setdefault(getattr(tag, "tag_id", tag), ([], []))
+            buf[0].append(value)
+            buf[1].append(timestamp)
+
+        return ProcessFunction.Context(timestamp, self._TimerService(self, key), side)
+
+    def _fire_timer(self, time, key, out_ts) -> None:
+        self.state.set_current_key(key)
+        on_timer = getattr(self.fn, "on_timer", None)
+        if on_timer is None:
+            return
+        for out in on_timer(time, self._ctx(key, time)):
+            self._out.append(out)
+            self._out_ts.append(out_ts)
+
+    def _on_event_timer(self, time, key, _ns) -> None:
+        self._fire_timer(time, key, time)
+
+    def _on_proc_timer(self, time, key, _ns) -> None:
+        # a processing-time timer's output carries no event timestamp
+        # (MIN_TIMESTAMP), so no wall-clock epoch enters event time
+        self._fire_timer(time, key, MIN_TIMESTAMP)
+
+    def on_processing_time(self, now_ms: int) -> None:
+        self.timers.advance_processing_time(now_ms)
+        self._flush()
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        for v, ts in zip(values, timestamps):
+            key = self.key_selector(v)
+            self.state.set_current_key(key)
+            for out in self.fn.process_element(v, self._ctx(key, int(ts))):
+                self._out.append(out)
+                self._out_ts.append(int(ts))
+        self._flush()
+
+    def on_watermark(self, watermark: int) -> None:
+        self.timers.advance_watermark(watermark)
+        self._flush()
+        super().on_watermark(watermark)
+
+    def _flush(self) -> None:
+        if self._out:
+            if self.downstream:
+                self.downstream.on_batch(obj_array(self._out),
+                                         np.asarray(self._out_ts, dtype=np.int64))
+            # cleared without a consumer too: a step read only through its
+            # side output must not pile its main output up
+            self._out, self._out_ts = [], []
+        if self._side_buf:
+            for tag_id, (vals, tss) in self._side_buf.items():
+                if vals:
+                    self.emit_side(tag_id, obj_array(vals), np.asarray(tss, dtype=np.int64))
+            self._side_buf = {}
+
+    def snapshot(self) -> dict:
+        return {"state": self.state.snapshot(), "timers": self.timers.snapshot()}
+
+    def restore(self, snap: dict) -> None:
+        self.state.restore(snap["state"])
+        self.timers.restore(snap["timers"])
+
+
+class CepRunner(StepRunner):
+    """Keyed CEP pattern matching (CepOperator.java:83): records buffer per
+    key, matches come out at the watermark."""
+
+    def __init__(self, step: Step, config: Configuration):
+        from flink_tpu_torch.cep.operator import CepOperator
+
+        t = step.terminal
+        self.key_selector = t.config["key_selector"]
+        self.op = CepOperator(t.config["pattern"], t.config.get("select_fn"))
+        self.uid = t.uid
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        for v, ts in zip(values, timestamps):
+            self.op.process_record(self.key_selector(v), v, int(ts))
+
+    def on_watermark(self, watermark: int) -> None:
+        self.op.process_watermark(watermark)
+        out = self.op.drain_output()
+        if out and self.downstream:
+            self.downstream.on_batch(obj_array([r for (_k, _w, r, _t) in out]),
+                                     np.asarray([t for (_k, _w, _r, t) in out], dtype=np.int64))
+        super().on_watermark(watermark)
+
+    def snapshot(self) -> dict:
+        return {"operator": self.op.snapshot()}
+
+    def restore(self, snap: dict) -> None:
+        self.op.restore(snap["operator"])
+
+
+class UnionRunner(StepRunner):
+    """N-way stream union: batches pass through, and the base class's valve
+    min-combines the inputs' watermarks (DataStream.union)."""
+
+    def __init__(self, step: Step):
+        self.num_inputs = len(step.inputs)
+        self.uid = step.terminal.uid
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        if self.downstream:
+            self.downstream.on_batch(values, timestamps)
+
+
+class CoMapRunner(StepRunner):
+    """Non-keyed connected streams: fn1 on input 0, fn2 on input 1
+    (ConnectedStreams.map/flatMap)."""
+
+    num_inputs = 2
+
+    def __init__(self, step: Step):
+        t = step.terminal
+        self.fns = (t.config["fn1"], t.config["fn2"])
+        self.flat = t.kind == "co_flat_map"
+        self.uid = t.uid
+
+    def on_batch_n(self, ordinal: int, values, timestamps) -> None:
+        fn = self.fns[ordinal]
+        ts = np.asarray(timestamps, dtype=np.int64)
+        if self.flat:
+            out, out_ts = [], []
+            for v, tt in zip(values, ts):
+                for o in fn(v):
+                    out.append(o)
+                    out_ts.append(int(tt))
+            if out and self.downstream:
+                self.downstream.on_batch(obj_array(out), np.asarray(out_ts, dtype=np.int64))
+        elif len(ts) and self.downstream:
+            self.downstream.on_batch(obj_array([fn(v) for v in values]), ts)
+
+    def on_batch(self, values, timestamps) -> None:  # pragma: no cover
+        raise AssertionError("CoMapRunner consumes via input gates")
+
+
+class KeyedCoProcessRunner(KeyedProcessRunner):
+    """A keyed two-input process function: both inputs key into the same
+    state backend and timers (KeyedCoProcessFunction), which is the point
+    of connect() over union(). Only the two-gate dispatch differs from the
+    one-input runner."""
+
+    num_inputs = 2
+
+    def __init__(self, step: Step, config: Configuration):
+        t = step.terminal
+        self.key_selectors = (t.config["key_selector1"], t.config["key_selector2"])
+        self._init_keyed(t, config)
+
+    def on_batch_n(self, ordinal: int, values, timestamps) -> None:
+        ks = self.key_selectors[ordinal]
+        process = self.fn.process_element1 if ordinal == 0 else self.fn.process_element2
+        for v, ts in zip(values, np.asarray(timestamps, dtype=np.int64)):
+            key = ks(v)
+            self.state.set_current_key(key)
+            for out in process(v, self._ctx(key, int(ts))):
+                self._out.append(out)
+                self._out_ts.append(int(ts))
+        self._flush()
+
+    def on_batch(self, values, timestamps) -> None:  # pragma: no cover
+        raise AssertionError("KeyedCoProcessRunner consumes via input gates")
+
+
+class BroadcastProcessRunner(StepRunner):
+    """The broadcast state pattern (BroadcastConnectedStream.process): gate 1
+    carries the broadcast stream, whose elements update operator-wide
+    state; gate 0's elements read it through a read-only view."""
+
+    num_inputs = 2
+
+    def __init__(self, step: Step, config: Configuration):
+        t = step.terminal
+        self.fn = t.config["process_fn"]
+        self.state: Dict[Any, Any] = {}
+        self._view = types.MappingProxyType(self.state)  # a live read-only view
+        self._out: List = []
+        self._out_ts: List[int] = []
+        self.uid = t.uid
+
+    def on_batch_n(self, ordinal: int, values, timestamps) -> None:
+        ts = np.asarray(timestamps, dtype=np.int64)
+        if ordinal == 1:
+            for v in values:
+                self.fn.process_broadcast_element(v, self.state)
+            return
+        for v, tt in zip(values, ts):
+            for out in self.fn.process_element(v, self._view):
+                self._out.append(out)
+                self._out_ts.append(int(tt))
+        if self._out:
+            if self.downstream:
+                self.downstream.on_batch(obj_array(self._out),
+                                         np.asarray(self._out_ts, dtype=np.int64))
+            self._out, self._out_ts = [], []
+
+    def on_batch(self, values, timestamps) -> None:  # pragma: no cover
+        raise AssertionError("BroadcastProcessRunner consumes via input gates")
+
+    def snapshot(self) -> dict:
+        return {"broadcast": dict(self.state)}
+
+    def restore(self, snap: dict) -> None:
+        self.state = dict(snap["broadcast"])
+        self._view = types.MappingProxyType(self.state)
+
+
 class WindowJoinRunner(StepRunner):
     """Keyed event-time window join / coGroup, on the host: the oracle of
     the device join (`runtime/device_join_operator.py`).
@@ -1216,14 +1522,123 @@ class SinkRunner(StepRunner):
             store[:] = snap["collected"]
 
 
+class IterationHeadRunner(StepRunner):
+    """An iteration's head (StreamIterationHead): forwards the initial
+    stream and re-injects the feedback batches its tail queues. Watermarks
+    cross only the initial edge, and the sources' final watermark and end
+    are held until the run loop has drained the feedback to quiescence:
+    bounded inputs end exactly when the loop body stops feeding records
+    back."""
+
+    def __init__(self, step: Step):
+        t = step.terminal
+        self.uid = t.uid
+        self.max_rounds = int(t.config.get("max_rounds", 10000))
+        self._feedback: deque = deque()     # (values, timestamps) batches
+        self._end_held = False
+        self._held_wm: Optional[int] = None
+        self._closed = False
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        if self.downstream:
+            self.downstream.on_batch(values, timestamps)
+
+    def on_watermark(self, watermark: int) -> None:
+        if watermark >= MAX_WATERMARK - 1 and not self._closed:
+            # the final flush must not fire downstream windows while
+            # feedback can still inject records into them
+            self._held_wm = max(self._held_wm or MIN_WATERMARK, watermark)
+            return
+        super().on_watermark(watermark)
+
+    def on_end(self) -> None:
+        self._end_held = True   # released by finish_iteration()
+
+    # -- the feedback edge (the tail and the run loop call these) ----------
+    def enqueue_feedback(self, values, timestamps) -> None:
+        if len(timestamps):
+            self._feedback.append((values, np.asarray(timestamps, dtype=np.int64)))
+
+    def has_feedback(self) -> bool:
+        return bool(self._feedback)
+
+    def drain_round(self) -> int:
+        """Re-inject the batches queued at the round's start (the batches
+        their processing queues belong to the next round); returns the
+        records sent."""
+        sent = 0
+        for _ in range(len(self._feedback)):
+            values, ts = self._feedback.popleft()
+            sent += len(ts)
+            if self.downstream:
+                self.downstream.on_batch(values, ts)
+        return sent
+
+    def finish_iteration(self) -> None:
+        """Quiescence: release the held final watermark and end."""
+        self._closed = True
+        if self._held_wm is not None:
+            StepRunner.on_watermark(self, self._held_wm)
+            self._held_wm = None
+        if self._end_held:
+            StepRunner.on_end(self)
+
+    def snapshot(self) -> dict:
+        if not self._feedback:
+            return {}
+        return {"feedback": [(obj_array(list(v)), ts.copy()) for v, ts in self._feedback]}
+
+    def restore(self, snap: dict) -> None:
+        self._feedback = deque((v, np.asarray(ts, dtype=np.int64))
+                               for v, ts in snap.get("feedback", ()))
+
+
+class IterationTailRunner(StepRunner):
+    """An iteration's tail (StreamIterationTail): every batch it receives is
+    queued on its head's feedback edge; watermarks and the end stop here."""
+
+    def __init__(self, step: Step):
+        t = step.terminal
+        self.uid = t.uid
+        self.head_transform_id = t.config["head"].id
+        self.head: Optional[IterationHeadRunner] = None  # wired in build_runners
+
+    def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        self.head.enqueue_feedback(values, timestamps)
+
+    def on_watermark(self, watermark: int) -> None:
+        pass
+
+    def on_end(self) -> None:
+        pass
+
+
 def _make_runner(step: Step, config: Configuration, device: torch.device) -> StepRunner:
     if step.terminal is None:
         return ChainRunner(step.chain)
     kind = step.terminal.kind
     if kind == "window_aggregate":
         return WindowStepRunner(step, config, device)
+    if kind == "reduce":
+        return KeyedReduceRunner(step, config)
+    if kind == "process_keyed":
+        return KeyedProcessRunner(step, config)
+    if kind == "async_map":
+        from flink_tpu_torch.runtime.async_io import AsyncMapRunner
+
+        return AsyncMapRunner(step.terminal, config)
+    if kind == "cep":
+        return CepRunner(step, config)
     if kind == "sink":
         return SinkRunner(step)
+    if kind == "union":
+        return UnionRunner(step)
+    if kind in ("co_map", "co_flat_map"):
+        return CoMapRunner(step)
+    if kind == "co_process":
+        return KeyedCoProcessRunner(step, config)
+    if kind == "broadcast_process":
+        return BroadcastProcessRunner(step, config)
     if kind == "group_agg":
         from flink_tpu_torch.runtime.group_agg_operator import GroupAggRunner
 
@@ -1245,7 +1660,11 @@ def _make_runner(step: Step, config: Configuration, device: torch.device) -> Ste
         from flink_tpu_torch.runtime.stream_join_operator import StreamingJoinRunner
 
         return StreamingJoinRunner(step, config)
-    raise deferred.not_ported(f"runner for {kind!r}", deferred.API)
+    if kind == "iteration_head":
+        return IterationHeadRunner(step)
+    if kind == "iteration_tail":
+        return IterationTailRunner(step)
+    raise NotImplementedError(kind)
 
 
 def build_runners(graph: StepGraph, config: Configuration, device=None):
@@ -1293,6 +1712,8 @@ def build_runners(graph: StepGraph, config: Configuration, device=None):
             r = DeviceChainRunner(step, plans[id(step)], config, device)
         else:
             r = _make_runner(step, config, device)
+        if len(step.inputs) > 1:
+            r.num_inputs = len(step.inputs)
         runner_of[id(step)] = r
         runners.append(r)
     # leaders learn their members' runners (spec order) for the fan-out
@@ -1327,6 +1748,16 @@ def build_runners(graph: StepGraph, config: Configuration, device=None):
     for r in runners:
         if r.downstream is None:
             r.downstream = _FanOut()
+    # feedback edges, tail -> head, matched by the head transformation the
+    # tail's close_with recorded (the cycle exists only at run time)
+    heads = {step.terminal.id: runner_of[id(step)] for step in graph.steps
+             if step.terminal is not None and step.terminal.kind == "iteration_head"}
+    for r in runners:
+        if isinstance(r, IterationTailRunner):
+            if r.head_transform_id not in heads:
+                raise ValueError("iteration tail closed with a head that is not part of "
+                                 "this pipeline")
+            r.head = heads[r.head_transform_id]
     return runners, feeds
 
 
@@ -1416,6 +1847,31 @@ class JobRuntime:
         self.runners, feeds = build_runners(graph, config, self.device)
         self.sources = [JobRuntime._SourceDriver(t, feeds.get(t.id, []))
                         for t in graph.sources]
+        # operator coordinators (runtime/coordination.py): an operator
+        # function declaring create_coordinator() gets a job-scope
+        # coordinator and its event bus. Candidates are the terminal
+        # runners' fn, both sides of a co-transform and the chain
+        # transforms' fns, under keys that stay the same across rebuilds,
+        # so a coordinator's state survives a restore
+        from flink_tpu_torch.runtime.coordination import wire as _wire_coordinator
+
+        self.coordinators = {}
+        for idx, r in enumerate(self.runners):
+            uid = getattr(r, "uid", f"coordinator@{idx}")
+            candidates = []
+            if getattr(r, "fn", None) is not None:
+                candidates.append((uid, r.fn))
+            for j, f in enumerate(getattr(r, "fns", ()) or ()):
+                candidates.append((f"{uid}#{j}", f))
+            for t in getattr(r, "transforms", ()) or ():
+                f = t.config.get("fn")
+                if f is not None:
+                    candidates.append((t.uid, f))
+            for key, f in candidates:
+                coord = _wire_coordinator(f)
+                if coord is not None:
+                    self.coordinators[key] = coord
+        self.iteration_heads = [r for r in self.runners if isinstance(r, IterationHeadRunner)]
         self.records_in = 0
         # observability: job-scope throughput, busy/idle/backpressure
         # ratios, step latency and device time
@@ -1518,7 +1974,7 @@ class JobRuntime:
         return {
             "sources": {d.uid: d.snapshot() for d in self.sources},
             "runners": runner_snaps,
-            "coordinators": {},
+            "coordinators": {uid: c.checkpoint() for uid, c in self.coordinators.items()},
             "records_in": self.records_in,
         }
 
@@ -1536,9 +1992,9 @@ class JobRuntime:
             uid = getattr(r, "uid", None)
             if uid is not None and uid in snap["runners"]:
                 r.restore(snap["runners"][uid])
-        if snap.get("coordinators"):
-            raise deferred.not_ported("operator coordinator state in a checkpoint",
-                                      deferred.API)
+        for uid, c in self.coordinators.items():
+            if uid in snap.get("coordinators", {}):
+                c.restore(snap["coordinators"][uid])
         self.records_in = snap["records_in"]
 
     def commit_sinks(self, checkpoint_id: int) -> None:
@@ -1755,7 +2211,7 @@ class JobRuntime:
                 # zero-split or restored-as-done sources still flush their
                 # watermark and end contribution
                 d.finish()
-        last_tick = time.time() * 1000.0
+        last_tick = 0.0     # the first step boundary ticks, as the JAX loop's does
         # round-robin over sources, one batch per turn; checkpoints align at
         # batch boundaries whichever source produced the batch
         while any(not d.done for d in self.sources):
@@ -1806,6 +2262,10 @@ class JobRuntime:
                         wm = d.generator.on_periodic_emit()
                     if wm is not None and wm > MIN_WATERMARK:
                         d.emit_watermark(wm)
+                if self.iteration_heads:
+                    # feedback runs to quiescence at the step boundary, so a
+                    # checkpoint captures (almost) no feedback in flight
+                    self._drain_iterations()
                 step_dt = time.perf_counter() - busy_t0
                 self.step_latency.update(step_dt * 1000)
                 # step boundary: checkpoints and savepoints align here
@@ -1845,6 +2305,31 @@ class JobRuntime:
         # all remaining windows downstream
         for d in self.sources:
             d.finish()
+        if self.iteration_heads:
+            # the heads held the final watermark and end: drain the feedback
+            # left to quiescence, then release them
+            self._drain_iterations()
+            for h in self.iteration_heads:
+                h.finish_iteration()
+
+    def _drain_iterations(self) -> None:
+        """Feedback rounds, round-robin over the iteration heads, until every
+        feedback queue is empty (the loop bodies stopped feeding records
+        back). Each head's max_rounds bounds the rounds in which it still
+        had feedback, so a loop that does not converge trips its own bound."""
+        rounds = {id(h): 0 for h in self.iteration_heads}
+        while any(h.has_feedback() for h in self.iteration_heads):
+            for h in self.iteration_heads:
+                if not h.has_feedback():
+                    continue
+                rounds[id(h)] += 1
+                if rounds[id(h)] > h.max_rounds:
+                    raise RuntimeError(
+                        f"iteration '{h.uid}' did not reach quiescence "
+                        f"within max_rounds={h.max_rounds}; the loop body "
+                        "must eventually stop emitting feedback records "
+                        "(or raise iterate(max_rounds=...))")
+                h.drain_round()
 
     def _write_savepoint(self, path: str) -> None:
         from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage

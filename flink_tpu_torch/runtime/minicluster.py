@@ -307,10 +307,15 @@ class JobClient:
 
     # -- queryable state ----------------------------------------------------
     def query_state(self, uid: str, key) -> dict:
-        """Point lookup into the RUNNING job's keyed state, for the
-        operators that carry `query_state_for` (the fused window operator
-        folds its rings and buffered steps): {"slices": {abs_slice: {field:
-        value, "count": n}}, "watermark": wm}."""
+        """Point lookup into the RUNNING job's keyed state (the JAX
+        client's shapes), per operator:
+          fused window operator (`query_state_for`, which folds its rings
+          and buffered steps): {"slices": {abs_slice: {field: value,
+          "count": n}}, "watermark": wm};
+          per-batch window operator (its key dictionary's row): the same;
+          oracle window operator and heap-state operators: {"states":
+          {name: {repr(namespace): value}}, "watermark": wm};
+          rolling keyed reduce: {"value": current}."""
         runtime = self._runtime
         if runtime is None:
             raise RuntimeError("job has no running attempt")
@@ -321,10 +326,43 @@ class JobClient:
             if op is not None and hasattr(op, "query_state_for"):
                 return {"slices": op.query_state_for(key),
                         "watermark": op.current_watermark}
-            raise deferred.not_ported(
-                f"query_state on {type(op if op is not None else r).__name__}",
-                deferred.API)
+            if op is not None and hasattr(op, "state") and hasattr(op.state, "keydict"):
+                return {"slices": _keydict_slices(op.state, key),
+                        "watermark": op.current_watermark}
+            if op is not None and hasattr(op, "state"):  # oracle and heap operators
+                backend = op.state
+                backend.set_current_key(key)
+                states = {}
+                for name in backend.descriptors:
+                    for ns in backend.namespaces_for_key(name, key):
+                        states.setdefault(name, {})[repr(ns)] = backend.get(name, ns)
+                wm = getattr(op, "timer_service", None)
+                return {"states": states, "watermark": wm.current_watermark if wm else None}
+            if hasattr(r, "state"):  # the rolling reduce
+                r.state.set_current_key(key)
+                return {"value": r.state.get("rolling")}
         raise KeyError(f"no queryable operator {uid!r}")
+
+
+def _keydict_slices(state, key) -> dict:
+    """One key's live slices of a per-batch window operator's [S, K] ring
+    ({abs_slice: {field: value, "count": n}}), read back from the device."""
+    kid = state.keydict.lookup(key)
+    if kid is None:
+        return {}
+    count = state.count[:, kid].cpu().numpy()
+    acc = {k: v[:, kid].cpu().numpy() for k, v in state.acc.items()}
+    f = state.frontiers
+    slices = {}
+    if f.min_used is not None:
+        lo = f.min_used if f.purged_to is None else max(f.purged_to, f.min_used)
+        for s in range(lo, f.max_used + 1):
+            pos = s % state.S
+            if count[pos] > 0:
+                entry = {name: arr[pos].item() for name, arr in acc.items()}
+                entry["count"] = int(count[pos])
+                slices[s] = entry
+    return slices
 
 
 class MiniCluster:

@@ -1,6 +1,8 @@
 """Heap keyed-state backend: the CPU/oracle state store.
 
-Counterpart of `flink_tpu/state/heap.py`, copied.
+Counterpart of `flink_tpu/state/heap.py`, copied, but for one repair: an
+auto-registering backend takes a restored state at its first use, where
+the JAX backend raises KeyError (ROADMAP.md Queue C, not reproduced).
 
 Capability parity with HeapKeyedStateBackend
 (flink-runtime .../state/heap/HeapKeyedStateBackend.java:85): named states of
@@ -125,7 +127,7 @@ class HeapKeyedStateBackend:
     # -- access (key from context, namespace explicit) --------------------
     def _slot(self, name: str) -> Dict[Tuple, Any]:
         table = self._tables.get(name)
-        if table is None:
+        if table is None or (self.auto_register and name not in self._descriptors):
             if not self.auto_register:
                 raise KeyError(
                     f"state {name!r} not registered (register a descriptor "
@@ -133,7 +135,10 @@ class HeapKeyedStateBackend:
                 )
             # dynamic registration: ProcessFunctions may declare state at
             # first use (getState(descriptor) mid-stream in the reference);
-            # mark it auto so an explicit register() can supersede it
+            # mark it auto so an explicit register() can supersede it. A
+            # table restored from a snapshot (which holds no descriptors)
+            # registers the same way at its first use, its entries kept:
+            # the JAX backend raises KeyError there (ROADMAP.md Queue C)
             self.register(value_state(name))
             self._auto_names.add(name)
             table = self._tables[name]

@@ -19,10 +19,15 @@ Rows are dicts keyed by schema field names. `sql_query` parses, plans
   operator, a non-windowed GROUP BY on the continuous aggregate
   (`GroupAggRunner`), a projection on a map.
 
+UNION ALL plans each branch on its own, as the JAX package does (the
+planner reports the statement interpreted, reason "union"), and unites the
+branches' streams with `DataStream.union`: a fused-eligible branch still
+runs on kernel K1.
+
 What the port does not carry yet raises, naming its ROADMAP.md item, and
-never falls back to another route: UNION ALL (item 19) and ML_PREDICT
-(item 14). The planner still reports those statements' paths and reasons
-exactly as the JAX package does; only execution raises.
+never falls back to another route: ML_PREDICT (item 14). The planner still
+reports its path and reason exactly as the JAX package does; only
+execution raises.
 
 Joins: a windowed INNER equi-join plans fused and runs on
 `DataStream.join` (the device join ring, `sql_origin` stamped); with
@@ -258,8 +263,10 @@ class TableEnvironment:
 
     def _translate(self, q: Query) -> DataStream:
         if q.union_all is not None:
-            # branch schemas must agree, as in standard SQL (the JAX
-            # package's check, before anything runs)
+            # UNION ALL: each branch plans on its own and the result streams
+            # concatenate (DataStream.union; the watermarks min-combine
+            # across the branches). Branch schemas must agree, as in
+            # standard SQL
             left_cols = [i.output_name for i in q.select]
             right_cols = [i.output_name for i in q.union_all.select]
             if left_cols != right_cols:
@@ -267,7 +274,8 @@ class TableEnvironment:
                     f"UNION ALL branches must produce the same columns: "
                     f"{left_cols} vs {right_cols} (use AS aliases)"
                 )
-            raise deferred.not_ported("SQL UNION ALL (DataStream.union)", deferred.API)
+            left = dataclasses.replace(q, union_all=None)
+            return self._translate(left).union(self._translate(q.union_all))
         if q.table not in self._tables:
             raise KeyError(f"unknown table {q.table!r}; registered: {list(self._tables)}")
         table = self._tables[q.table]

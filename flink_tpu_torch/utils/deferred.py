@@ -10,7 +10,6 @@ from __future__ import annotations
 CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
 CLUSTER = "item 14 (remaining planes: the cluster's TaskManager heartbeat and REST)"
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
-API = "item 19 (the rest of the DataStream API)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

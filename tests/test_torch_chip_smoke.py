@@ -321,3 +321,23 @@ def test_api_mesh_control_phase_holds_every_check_but_the_launches():
     assert d["partial_records"] > 0 and d["fires"] > 0
     # CPU runs launch no K1
     assert not r["ok"] and z["k1_partials"] == 0 and "k1_mesh_routed" not in r
+
+
+def test_api_topologies_phase_holds_every_check_but_the_launches(monkeypatch):
+    """Phase 29 rehearsed small on the CPU: every leg's rows against its
+    model or reference job; only K1's launches stay 0 (the plain version
+    counts none), so leg A, B and D's `ok` and the phase's read false."""
+    monkeypatch.setitem(cm.API, "batch", 4096)
+    r = cm.api_topologies_phase(dev="cpu", sizes=dict(
+        parity_events=1 << 16, timed_events=1 << 15, warmup_events=1 << 13, runs=1,
+        b_events=1 << 15, b_batch=2048, c_events=1 << 12, c_keys=64, c_batch=512,
+        d_events=1 << 15))
+    a, b, c, d = r["leg_a"], r["leg_b"], r["leg_c"], r["leg_d"]
+    assert a["selection"]["ok"] and a["parity"]["union_equals_single"]
+    assert a["parity"]["union_equals_oracle"] and a["parity"]["windows_checked"] > 60
+    assert b["sums_equal_numpy"] and b["clicks_equal_numpy"] and b["side_rows"] > 0
+    assert b["window_operators"] == ["FusedWindowOperator", "FusedWindowOperator"]
+    assert c["ok"] and c["coordinator"]["failure"]["num_restarts"] == 1
+    assert c["reduce"]["query_state_equal_model"] and c["iterate"]["max_rounds_guard"]
+    assert d["report_equals_jax"] and d["equals_branches_alone"] and d["equals_model"]
+    assert not r["ok"] and a["parity"]["union_k1"] == 0 and "k1_union" not in r

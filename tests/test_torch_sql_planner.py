@@ -14,7 +14,8 @@ statement, the three-way parity of the SQL YSB job (SQL fused, SQL
 interpreted, the hand-built DataStream program), `bench.py::
 sql_path_microbench`'s statement and source at a small size three ways,
 the statements the port cannot run yet (their `not_ported` item, and the
-planner's report equal to the JAX package's), and the SQL gateway.
+planner's report equal to the JAX package's; those ported since run to the
+JAX package's rows), and the SQL gateway.
 
 Tolerance: exact. Values are integer-valued floats with sums far below
 2**24, so float32 accumulation is exact in any order.
@@ -547,6 +548,21 @@ def test_unported_statements_raise_naming_their_item(sql, item, fused):
                 rows.append(sorted(map(repr, sink.results)))
         assert kinds[0] == kinds[1]
         assert rows == [] or (rows[0] == rows[1] and rows[1])
+        return
+    if item == "item 19":
+        # ported since: UNION ALL plans each branch on its own and unites
+        # them with DataStream.union, to the JAX package's runners and rows
+        # (test_torch_multi_input.py holds more statements)
+        kinds, rows = [], []
+        for P in PKGS:
+            env, tenv = _typed_rows_env(P, fused=fused)
+            sink = tenv.sql_query(sql).collect()
+            kinds.append([type(r).__name__ for r in P.ex.build_runners(
+                P.tr.plan(env._sinks), env.config, *(("cpu",) if P is PORT else ()))[0]])
+            env.execute()
+            rows.append(repr(sink.results))
+        assert kinds[0] == kinds[1] and "UnionRunner" in kinds[1]
+        assert rows[0] == rows[1] and rows[1] != "[]"
         return
     with pytest.raises(NotImplementedError, match=f"not ported yet: ROADMAP.md Queue A, {item}"):
         tenv.sql_query(sql)
