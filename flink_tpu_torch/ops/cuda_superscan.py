@@ -258,13 +258,16 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                            f"the wrapper sizes its scratch for {STEP_DESC_BYTES}")
     if name == "session_superscan":
         rings = [_PTR, _PTR, _PTR, _PTRS, _INTS]         # cnt, mn, mx, fields, kinds
-        # idents nf, pos, p0 n r0 g, wm_rel, M, packed, bounds K S, stream
+        # idents nf, pos, p0 n r0 g, wm_rel, M, packed, flags bpos brel K S CH,
+        # scratch, stream
         lib.k4_session_merge.argtypes = rings + [_INTS, _INT, _PTR] + [_INT] * 4 + [
-            ctypes.c_longlong, _INT, _PTR] + [_INT] * 3 + [_PTR]
-        # nf, kid spos rel vals, n, K S, stream
+            ctypes.c_longlong, _INT, _PTR] + [_INT] * 6 + [_PTR, _PTR]
+        # nf, kid spos rel vals, n, K S p0 W NT Q KT, part, sms, stream
         lib.k3_session_ingest.argtypes = rings + [_INT] + [_PTR] * 4 + [
-            ctypes.c_longlong, _INT, _INT, _PTR]
+            ctypes.c_longlong] + [_INT] * 7 + [_PTR, _INT, _PTR]
+        lib.session_prepare.argtypes = []
         lib.k3_session_ingest.restype = lib.k4_session_merge.restype = ctypes.c_int
+        lib.session_prepare.restype = ctypes.c_int
         return lib
     common = [_PTR, _PTRS, _INTS, _INTS, _INT,            # count, fields, kinds, idents, nf
               _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # idx, vals, smin, fpos, fvalid, frow, purge

@@ -269,11 +269,11 @@ class TpuSessionWindowOperator:
         v = np.zeros(padded, dtype=np.float32)
         v[:n] = vals
 
+        smin, smax = int(s_abs.min()), int(s_abs.max())
         r = self._upload(recs)
         cuda_session.session_ingest(*self._rings(), r[0], r[1], r[2], self._upload(v),
-                                    self._vfields)
+                                    self._vfields, window=(smin, smax))
 
-        smin, smax = int(s_abs.min()), int(s_abs.max())
         self.ring_lo = smin if self.ring_lo is None else min(self.ring_lo, smin)
         self.max_used = smax if self.max_used is None else max(self.max_used, smax)
         self._track_ingest(smin, smax)
@@ -316,7 +316,8 @@ class TpuSessionWindowOperator:
                 "keydict-backed process_batch path on one operator"
             )
         self._dense = True
-        cuda_session.session_ingest(*self._rings(), kid, spos, rel, vals, self._vfields)
+        cuda_session.session_ingest(*self._rings(), kid, spos, rel, vals, self._vfields,
+                                    window=(smin, smax))
         self.ring_lo = lo
         self.max_used = smax if self.max_used is None else max(self.max_used, smax)
         self._track_ingest(smin, smax)
@@ -394,7 +395,8 @@ class TpuSessionWindowOperator:
             self.ring_lo, self.max_used, self.current_watermark)
         packed = cuda_session.session_superscan(
             *self._rings(), kid, spos, rel, vals, merge_flag, lo_pos, lo_rel,
-            wm_rel, g=g, M=M, vfields=self._vfields, idents=self._idents)
+            wm_rel, g=g, M=M, vfields=self._vfields, idents=self._idents,
+            step_bounds=step_bounds)
         self.ring_lo = lo0          # stale-low; refreshed at resolve
         self.max_used = hi
         self.current_watermark = max(self.current_watermark, wm_last)

@@ -17,6 +17,8 @@ NaN in both packages; NaN payload bits are not compared.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as hs
 
 jnp = pytest.importorskip("jax.numpy")
 
@@ -338,4 +340,142 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     pa = cuda_session.session_merge(*a, pos, 10 ** 6, g=G, M=5, vfields=vf, idents=idents)
     pb = ps.session_merge_plain(*b, pos, None, 10 ** 6, g=G, M=5, vfields=vf, idents=idents)
     assert torch.equal(pa, pb) and int(ps.unpack_sessions(pa, K, 5, 1)[2].sum()) > 0
-    assert cuda_session.LAUNCHES == {"k3_session_ingest": 0, "k4_session_merge": 0}
+    assert cuda_session.LAUNCHES == {"k3_session_ingest": 0, "k3_session_ingest_atomic": 0,
+                                     "k3_merge_parts": 0, "k4_session_merge": 0}
+
+
+@pytest.mark.parametrize("fields", ["sum", "mixed"])
+def test_window_arguments_change_nothing_on_the_cpu(fields):
+    """K3's slice window (`session_ingest(window=)`, `session_superscan(
+    step_bounds=)`) is for the card's tiles: the CPU route gives the JAX
+    package's rings and sessions whatever window it is handed, even one that
+    misses the records."""
+    vf = FIELDS[fields]
+    idents = _idents(vf)
+    rng = np.random.default_rng(21)
+    kid, spos, rel, vals = _records(rng, "zipf", (700,), 3, 6)
+    jr = session_ingest_scatter(K, S, vf)(*_jax_rings(vf), *map(jnp.asarray, (kid, spos, rel, vals)))
+    for window in (None, (3, 6), (S + 3, S + 6), (40, 41)):
+        pr = _port_rings(vf)
+        cuda_session.session_ingest(*pr, *_t(kid, spos, rel, vals), vf, window=window)
+        _same_rings(jr, pr)
+    T, B, M = 8, 128, 16
+    kid, spos, rel, vals = _records(rng, "uniform", (T, B), 2, 5)
+    flag = np.array([0, 0, 0, 1, 0, 0, 0, 1], np.int32)
+    z = np.zeros(T, np.int32)
+    wm_rel = np.where(flag > 0, 5 * G, 0).astype(np.int32)
+    *jr, jpacked = make_session_superscan(K, S, M, G, vf, idents, T, B)(
+        *_jax_rings(vf), *map(jnp.asarray, (kid, spos, rel, vals, flag, z, z, wm_rel)))
+    for bounds in (None, [(2, 5)] * T, [(60, 61)] * T):
+        pr = _port_rings(vf)
+        pp = cuda_session.session_superscan(*pr, *_t(kid, spos, rel, vals), flag, z, z, wm_rel,
+                                            g=G, M=M, vfields=vf, idents=idents,
+                                            step_bounds=bounds)
+        _same_rings(jr, pr)
+        assert _decode_jax(jpacked, M, vf) == _decode_port(pp, M, vf)
+
+
+@pytest.mark.parametrize("flag", [[0, 0, 1, 0, 0, 0], [0] * 6], ids=["last_no_merge", "none"])
+@pytest.mark.parametrize("fields", ["count", "sum", "int32"])
+def test_superspan_unused_slots_zero_and_live_bounds_after_a_last_ingest(fields, flag):
+    """A superspan whose last step is not a merge (or that has none): the
+    packed result's unused slots are zero and its live bounds are
+    `session_live_bounds` of the final ring, relative to the last step's
+    base, against `make_session_superscan`."""
+    vf = FIELDS[fields]
+    idents = _idents(vf)
+    rng = np.random.default_rng(22)
+    T, B, M = 6, 200, 8
+    kid, spos, rel, vals = _records(rng, "uniform", (T, B), 4, 9)
+    flag = np.array(flag, np.int32)
+    lo_pos = np.full(T, 4, np.int32)
+    lo_rel = np.full(T, 4, np.int32)
+    wm_rel = np.where(flag > 0, 7 * G, 0).astype(np.int32)
+    *jr, jpacked = make_session_superscan(K, S, M, G, vf, idents, T, B)(
+        *_jax_rings(vf), *map(jnp.asarray, (kid, spos, rel, vals, flag, lo_pos, lo_rel, wm_rel)))
+    pr = _port_rings(vf)
+    pp = cuda_session.session_superscan(*pr, *_t(kid, spos, rel, vals), flag, lo_pos, lo_rel,
+                                        wm_rel, g=G, M=M, vfields=vf, idents=idents,
+                                        step_bounds=[(4, 9)] * T)
+    _same_rings(jr, pr)
+    assert _decode_jax(jpacked, M, vf) == _decode_port(pp, M, vf)
+    times, blocks, slots, scal = ps.unpack_sessions(pp, K, M, len(vf))
+    unused = torch.arange(M)[:, None] >= slots[None, :]
+    assert not bool(times[:, unused].any()) and not bool(blocks[:, unused].any())
+    lo, hi = ps.session_live_bounds(pr[0], 4, 4)
+    assert (int(scal[0]), int(scal[1])) == (int(lo), int(hi)) and int(hi) >= 4
+    assert int(pp[-1]) == 0 and (int(slots.sum()) > 0) == bool(flag.any())
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(S_=hs.integers(1, 200), steps=hs.lists(
+    hs.tuples(hs.integers(-10_000, 10_000), hs.integers(0, 300)), min_size=1, max_size=12))
+def test_k3_window_covers_exactly_the_slices_of_its_steps(S_, steps):
+    """`k3_window` against a brute-force set of ring positions: every
+    position a record of the steps can take lies in the W positions from
+    p0, and W is the slices' span where that is below S."""
+    bounds = [(lo, lo + d) for lo, d in steps]
+    p0, W = cuda_session.k3_window(bounds, S_)
+    assert 0 <= p0 < S_ and 1 <= W <= S_
+    covered = {(p0 + d) % S_ for d in range(W)}
+    slices = set(range(min(b[0] for b in bounds), max(b[1] for b in bounds) + 1))
+    assert {s % S_ for s in slices} <= covered
+    assert W == min(len(slices), S_)
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(K_=hs.integers(1, 1 << 15), W=hs.integers(1, 64), nf=hs.integers(0, 4),
+       clusters=hs.sampled_from([1, 7, 15, 30, 132]))
+def test_k3_plan_tiles_every_key_once_within_shared_memory(K_, W, nf, clusters):
+    """`k3_plan` against a brute-force deal of the keys: each key has one
+    (tile, local key) place, local keys below KT, distinct within a tile;
+    a tile's cells fit K3_SMEM, with the fewest power-of-two tiles that
+    fit; each tile's records split over as many clusters as the card holds
+    at once (at least one, at most K3_MAX_PARTS); its scratch holds every
+    tile's partials; the atomic route only where no tile count up to
+    K3_MAX_TILES fits."""
+    nt, q, kt = cuda_session.k3_plan(K_, W, nf, clusters)
+    run = cuda_session.K3_RUN
+    runs = -(-K_ // run)
+    fits = [t for t in (1 << e for e in range(16)) if t <= cuda_session.K3_MAX_TILES
+            and run * -(-runs // t) * (3 + nf) * W * 4 <= cuda_session.K3_SMEM]
+    if nt == 0:
+        assert not fits and q == kt == 0
+        return
+    assert nt & (nt - 1) == 0 and nt >= min(fits) and kt % run == 0
+    assert (3 + nf) * W * kt * 4 <= cuda_session.K3_SMEM
+    k = np.arange(K_)
+    tile, local = (k // run) & (nt - 1), (k // run) // nt * run + k % run
+    assert local.max() < kt
+    assert len(set(zip(tile.tolist(), local.tolist()))) == K_
+    assert nt == min(fits)
+    assert q == max(1, min(cuda_session.K3_MAX_PARTS, clusters // nt))
+    assert q == 1 or nt * q <= clusters
+    words = cuda_session.k3_scratch_words(K_, W, nf, (nt, q, kt))
+    assert words - cuda_session.K3_PARTS == (nt * q * (3 + nf) * W * kt if q > 1 else 0)
+    assert cuda_session.K3_PARTS % 4 == 0          # the partials 16-byte aligned
+
+
+@pytest.mark.parametrize("n", [0, 1, 6, 64, 2048])
+@pytest.mark.parametrize("nf", [0, 1, 4])
+def test_k4_chunk_fits_its_stage(n, nf):
+    ch = cuda_session.k4_chunk(n, nf)
+    assert 1 <= ch <= min(max(n, 1), 64)
+    assert ch * (3 + nf) * cuda_session.K4_KEYS * 4 <= cuda_session.K4_STAGE_SMEM
+
+
+def test_k3_launches_count_wrapper_calls_over_both_routes():
+    """`k3_launches` adds K3's two routes, one a wrapper's ingest; the
+    tiled route's partials merge, a second kernel of such a launch, has a
+    count of its own outside it; `reset_launch_counts` zeroes every count."""
+    d = {"k3_session_ingest": 3, "k3_session_ingest_atomic": 5, "k3_merge_parts": 2,
+         "k4_session_merge": 7}
+    assert cuda_session.k3_launches(d) == 8
+    saved = dict(cuda_session.LAUNCHES)
+    try:
+        cuda_session.LAUNCHES.update(d)
+        assert cuda_session.k3_launches() == 8
+        cuda_session.reset_launch_counts()
+        assert set(cuda_session.LAUNCHES) == set(d) and not any(cuda_session.LAUNCHES.values())
+    finally:
+        cuda_session.LAUNCHES.update(saved)
