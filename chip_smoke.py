@@ -116,16 +116,16 @@ exits non-zero on the first failure. Phases, one JSON line each:
    (hot capacity 4096): the tiered rows equal the untiered fused job's and
    the numpy oracle's, uniform and zipf, with evictions. Leg B at 2^18
    records over 10^7 keys: oracle parity, resident keys <= 4096, records
-   routed cold, evictions under zipf, the cold tier native, tuples/s best of
-   2 and the tier's gauges. Leg C: the row surface (gather_key_rows,
+   routed cold, evictions under zipf, the cold tier native, tuples/s of one
+   run and the tier's gauges. Leg C: the row surface (gather_key_rows,
    clear_key_rows, write_cells, gather_cells) on [S, K] = [32, 2^20] rings,
    2^16 rows, equal to the CPU result, each against its bytes bound. Then
    K1 at leg B's first full dispatch (K = 4096, B = 8192, T = 32), a
    device profile of each leg B variant and a host profile of zipf's, at
-   2^17 records.
+   2^15 records.
 22. api_checkpoint: job checkpoints, restart strategies and savepoints,
    every job through env.execute_async on the port's MiniCluster (a
-   job thread each). Leg A: api_ysb's program at 2^22 records in row mode,
+   job thread each). Leg A: api_ysb's program at 2^21 records in row mode,
    with checkpoints off and at 25 ms into a directory, restart-strategy
    fixed-delay at 1 ms: tuples/s on and off and K1's launches each way;
    then at 1 ms (every step) and at 25 ms, each with one host failure
@@ -159,7 +159,7 @@ exits non-zero on the first failure. Phases, one JSON line each:
    capacity with no degrade. Leg B: q8 uniform at 2^16 keys (the key
    capacity's default) and 2^20 records a side: K doubles 1024 -> 65536,
    ~1.09 GB of rings on the card (NB = 65, C = 16), parity, device and
-   host tuples/s best of 2. Leg C: the bench's q8 statement fused
+   host tuples/s of one run each. Leg C: the bench's q8 statement fused
    (sql_origin), with device joins off and with table.device-fusion off,
    at parity with a model; FULL OUTER refused (join-full-outer); regular
    INNER and LEFT OUTER joins on the StreamingJoinRunner against a model.
@@ -265,7 +265,7 @@ exits non-zero on the first failure. Phases, one JSON line each:
    against the one-card run. Leg B: `millikey_microbench`'s program: its
    sharded_parity (2^15 records over 2^15 keys, hot capacity 4096,
    admission 1, checkpoints every 1 ms) against the untiered mesh job and
-   the numpy oracle; 2^18 records over 10^7 zipf keys, hot capacity 4096
+   the numpy oracle; 2^17 records over 10^7 zipf keys, hot capacity 4096
    over the shards (oracle parity, residency, cold routing, the gauges);
    the sharded row surface on [32, 2^20] rings with 2^16 rows against
    the CPU, each call against its bytes bound. Leg C: 64 keys'
@@ -328,6 +328,37 @@ exits non-zero on the first failure. Phases, one JSON line each:
    united, and to numpy, K1 launched. Then K1 against its plain version
    at leg A's first full union dispatch (`k1_union`), and leg A's union
    job under torch.profiler and cProfile.
+30. api_chaos: the chaos plane's drills (chaos/scenarios.py, chaos/plan.py)
+   on the card. Leg 0: the eight in-process scenarios at the JAX package's
+   sizes (2600 records, batch 200, key capacity 768, 1 ms checkpoints, the
+   JAX rules), the mesh ones on four shards of the card: each passed, none
+   skipped, each fired, attributed where the JAX gate asks, the mesh 4 -> 2
+   in both chip-loss scenarios. Legs A and B: api_ysb's program (columnar)
+   at 2^22 records with checkpoints every 25 ms, uninterrupted, then under
+   an injected device error at its 40th of 64 batches (leg A: one restart
+   from a checkpoint, the injected attribution, downtime, tuples/s against
+   the uninterrupted run, the restarted attempt's device memory within 512
+   KiB of the first's), then with every checkpoint from the 3rd torn and a
+   real failure at 60% of event time (leg B: the restore behind the torn
+   checkpoints, at checkpoint 2); each with the uninterrupted run's rows.
+   Leg C: api_mesh leg A's program at 2^20 records on four shards with
+   parallel.mesh.degrade-on-device-loss and an injected device error at
+   its 77th of 128 batches: one restart on 2 shards, the one-card rows.
+   Then K1 against its plain version at leg A's restarted attempt's widest
+   dispatch (the most steps; checkpoints flush shorter ones), from the ring
+   it found (`k1_recovered`).
+31. api_state_tools: the State Processor API and the formats on the card.
+   Leg A: api_ysb's tumbling sum job (K1's add field) at 2^22 records, a
+   savepoint at half its batches: SavepointReader's keyed state of the
+   fused operator equal to the numpy model of the records before
+   records_in() (count and sum per key and window), SavepointWriter's sum x
+   10, the job resumed on the card: its rows and total equal to the model
+   with the in-flight cells patched; then K1 against its plain version at
+   the resumed job's widest dispatch over the patched ring (`k1_patched`).
+   Leg B: 2^18 of api_ysb's records written by FormattedFileSink as CSV,
+   JSON lines and Avro (each codec's host MB/s), each read back by
+   FormattedFileSource into api_ysb's count program on the card, rows equal
+   to the columnar job's.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -461,13 +492,21 @@ def on_off_ms(call, reps: int = 10) -> dict:
             "on_over_off": float(np.mean(t["on"]) / max(np.mean(t["off"]), 1e-12))}
 
 
-def compare_kernel(kernel, plain, agg, spans, shape, global_scope, **kw):
+def _ring_copies(agg, shape, global_scope, rings):
+    """Fresh rings, or copies of `rings` (count, states) when given."""
+    if rings is None:
+        return _fresh_rings(agg, shape, DEV, global_scope)
+    return rings[0].clone(), [x.clone() for x in rings[1]]
+
+
+def compare_kernel(kernel, plain, agg, spans, shape, global_scope, rings=None, **kw):
     """Run kernel and plain version over the same chained dispatches from
-    the same initial rings, each dispatch with its own phase-counter
-    buffer; return the largest absolute difference of any ring, fire row
-    or phase count (requires bit equality)."""
-    kc, ks = _fresh_rings(agg, shape, DEV, global_scope)
-    pc, pst = _fresh_rings(agg, shape, DEV, global_scope)
+    the same initial rings (fresh ones, or copies of `rings`), each
+    dispatch with its own phase-counter buffer; return the largest absolute
+    difference of any ring, fire row or phase count (requires bit
+    equality)."""
+    kc, ks = _ring_copies(agg, shape, global_scope, rings)
+    pc, pst = _ring_copies(agg, shape, global_scope, rings)
     err = 0.0
     for idx, vals, plan in spans:
         kph, pph = _phase(), _phase()
@@ -638,12 +677,14 @@ def rows_sink():
     return RowsSink()
 
 
-def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=DEV):
+def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=DEV,
+            hook=None):
     """(env, sink) of the YSB DataStream program over n records: a
     traceable filter and key (one UDF object for both routes), a 10 s
     window sliding by 1 s and `count` — or, with sum_job, a tumbling sum
     whose traceable value_fn feeds K1's add field. The sink keeps each
-    batch's records with their timestamps (a window's max timestamp)."""
+    batch's records with their timestamps (a window's max timestamp).
+    hook(idx) runs before each source batch (gates), if given."""
     from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.api.windowing.assigners import (
         SlidingEventTimeWindows,
@@ -655,6 +696,8 @@ def api_job(n: int, fused: bool, *, columnar: bool, sum_job: bool = False, dev=D
     from flink_tpu_torch.testing import stream as st
 
     def gen(idx):
+        if hook is not None:
+            hook(idx)
         return Batch(*st.api_columns(idx, n, API["keys"], payload=sum_job))
 
     cfg = Configuration()
@@ -814,13 +857,15 @@ def api_ysb_phase(dev=DEV, sizes=API) -> dict:
             "sliding_count": count_parity, "tumbling_sum": sum_parity}
 
 
-def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2, 3)) -> dict:
+def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2, 3),
+                   rings=None) -> dict:
     """K1 against its plain version on one dispatch's inputs (bit-equal),
     with its time (CUDA events), the plain version's, one index_add_ of the
     dispatch's ingest as the library yardstick, its bound and its device
     time by kernel. R: the fire rows to allocate (a readback group's;
     default the pipeline's); plain_reps: cuda_ms's (reps, rounds) for the
-    plain version."""
+    plain version; rings: the (count, states) the dispatch found (a
+    restored or patched ring; default fresh rings)."""
     from flink_tpu_torch.ops import cuda_superscan as cs
     from flink_tpu_torch.ops.superscan import keyed_superscan_plain
     from flink_tpu_torch.testing.timing import cuda_ms, device_split_us
@@ -829,8 +874,8 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2
     R = pipe.R if R is None else R
     kw = dict(NSB=pipe.NSB, R=R, spws=pipe.slot_spws(), exact=True)
     err = compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
-                         [(idx, vals, plan)], (S_, K_), False, **kw)
-    count, states = _fresh_rings(agg, (S_, K_), DEV, False)
+                         [(idx, vals, plan)], (S_, K_), False, rings=rings, **kw)
+    count, states = _ring_copies(agg, (S_, K_), False, rings)
     # K1 as the main path launches it (phase counters on), and off
     timed = on_off_ms(lambda ph: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5],
                                                     phase=ph, **kw))
@@ -860,6 +905,80 @@ def k1_at_dispatch(label: str, pipe, agg, idx, vals, plan, R=None, plain_reps=(2
             "fires": len(plan[5]), "device_us": device_split_us(
                 lambda: cs.keyed_superscan(agg, count, states, idx, vals, plan[:5],
                                            phase=_phase(), **kw))}
+
+
+class K1Tap:
+    """Installed around cuda_superscan.keyed_superscan for one run: keeps the
+    inputs of the first dispatch for which `when()` is true (`first`) and of
+    the first of the widest such dispatches (`taken`, the most steps), each
+    with copies of the rings it found (a restored or patched ring), for K1's
+    check against its plain version. It launches nothing itself."""
+
+    def __init__(self, when=lambda: True):
+        self.when, self.first, self.taken, self._real = when, None, None, None
+
+    def __enter__(self):
+        from flink_tpu_torch.ops import cuda_superscan as cs
+
+        real = self._real = cs.keyed_superscan
+
+        def tapped(agg, count, states, idx, vals, plan, **kw):
+            if self.when():
+                wide = self.taken is None or plan[0].shape[0] > self.taken[4][0].shape[0]
+                if self.first is None or wide:
+                    kept = (agg, (count.clone(), [x.clone() for x in states]), idx.clone(),
+                            None if vals is None else vals.clone(),
+                            tuple(p.clone() for p in plan))
+                    self.first = self.first or kept
+                    self.taken = kept if wide else self.taken
+            return real(agg, count, states, idx, vals, plan, **kw)
+
+        cs.keyed_superscan = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from flink_tpu_torch.ops import cuda_superscan as cs
+
+        cs.keyed_superscan = self._real
+        return False
+
+    @staticmethod
+    def plan(plan5) -> tuple:
+        """A kept dispatch's plan with its planned fires' slots (fire_valid
+        marks each)."""
+        return plan5 + ([None] * int(plan5[2].sum()),)
+
+    @staticmethod
+    def _err(kept, pipe) -> float:
+        from flink_tpu_torch.ops import cuda_superscan as cs
+        from flink_tpu_torch.ops.superscan import keyed_superscan_plain
+
+        agg, rings, idx, vals, plan5 = kept
+        return compare_kernel(cs.keyed_superscan, keyed_superscan_plain, agg,
+                              [(idx, vals, plan5)], (pipe.S, pipe.K), False, rings=rings,
+                              NSB=pipe.NSB, R=pipe.R, spws=pipe.slot_spws(), exact=True)
+
+    def _first(self, label: str, pipe) -> dict:
+        if self.taken is None:
+            raise AssertionError(f"{label}: the run made no dispatch to hold K1 against")
+        return {"steps": int(self.first[4][0].shape[0]),
+                "max_abs_err": self._err(self.first, pipe)}
+
+    def exact(self, label: str, pipe) -> dict:
+        """K1 against its plain version, bit for bit, at the widest and at
+        the first dispatch (`first_dispatch`), each from the rings it found
+        (the first's a restored or patched ring as loaded); no timing, no
+        profiler."""
+        return {"first_dispatch": self._first(label, pipe),
+                "max_abs_err": self._err(self.taken, pipe)}
+
+    def check(self, label: str, pipe) -> dict:
+        """`exact`'s check, with the widest dispatch reported as
+        k1_at_dispatch reports it (times, bound, device split)."""
+        first = self._first(label, pipe)
+        agg, rings, idx, vals, plan5 = self.taken
+        out = k1_at_dispatch(label, pipe, agg, idx, vals, self.plan(plan5), rings=rings)
+        return dict(out, first_dispatch=first)
 
 
 # ---------------------------------------------------------------------------
@@ -2763,7 +2882,7 @@ def api_correlated_phase(dev=DEV, sizes=None) -> dict:
 # ---------------------------------------------------------------------------
 
 API_TIERED = dict(batch=8192, keys=10_000_000, hot=4096, admission=2, zipf_s=1.0,
-                  parity_keys=1 << 15, parity_events=1 << 16, events=1 << 18, runs=2,
+                  parity_keys=1 << 15, parity_events=1 << 16, events=1 << 18, runs=1,
                   row_keys=1 << 20, row_slices=32, row_moves=1 << 16)
 
 
@@ -3069,14 +3188,14 @@ def tiered_k1_inputs(skewed: bool, sz=API_TIERED, dev=DEV):
 # ---------------------------------------------------------------------------
 
 # leg A: api_ysb's program (filter one in three, key, 10 s / 1 s count, 8192
-# keys, batch 65536) over 2^22 records, one host failure in the sink at 60%
+# keys, batch 65536) over 2^21 records, one host failure in the sink at 60%
 # of the stream's event time, checkpoints at 1 ms (every step) and 25 ms
 # (checkpoint_microbench's interval); leg B: the same program at 2^20 keys
 # with a float32 sum (rings [32, 2^20] x 2 = 256 MiB), checkpoints every
 # 40 ms, then a savepoint at half the input, cancel, resume; leg C:
 # api_tiered's zipf job (2^18 records over 10^7 keys) with a checkpoint at
 # every step and one host failure in the source
-API_CHECKPOINT = dict(keys=8192, batch=65536, events=1 << 22, warmup_events=1 << 18,
+API_CHECKPOINT = dict(keys=8192, batch=65536, events=1 << 21, warmup_events=1 << 18,
                       intervals=(1, 25), fail_at=0.6, mem_slack=1 << 19,
                       big_keys=1 << 20, big_events=1 << 22, big_interval=40,
                       min_checkpoints=4, savepoint_at=0.5, tiered_events=1 << 18)
@@ -3210,14 +3329,68 @@ def ckpt_run(env, dev=DEV, timeout=900, name=None, hold=None) -> dict:
 
 
 def ckpt_stats(client) -> dict:
-    """What a run's client says of its checkpoints and restarts."""
+    """What a run's client says of its status, checkpoints and restarts, and
+    of its first recovery: downtime (failure caught to RUNNING), the part of
+    it spent releasing the failed attempt, and each failure's injected
+    attribution."""
     g = client.checkpoint_stats.gauge_values()
     restored = client.checkpoint_stats.payload()["latest"]["restored"]
-    return {"num_restarts": client.num_restarts, "checkpoints": g["numberOfCompletedCheckpoints"],
+    exc = client.exceptions.payload()
+    rec = exc["recoveries"][0] if exc["recoveries"] else {}
+    return {"status": client.status().value, "num_restarts": client.num_restarts,
+            "checkpoints": g["numberOfCompletedCheckpoints"],
             "lastCheckpointDuration_ms": g["lastCheckpointDuration"],
             "lastCheckpointSize_bytes": g["lastCheckpointSize"],
             "restored_checkpoint_id": None if restored is None else restored["checkpoint_id"],
-            "restore_ms": None if restored is None else restored["restore_duration_ms"]}
+            "restore_ms": None if restored is None else restored["restore_duration_ms"],
+            "downtime_ms": rec.get("downtime_ms"), "release_ms": rec.get("release_ms"),
+            "injected": [e["injected"] for e in exc["entries"]]}
+
+
+class SourceGate:
+    """A job's source hook that holds it at a gate: it blocks the source at
+    the first batch from record `at` until `go`, and with `hold_at` blocks
+    it again at the batch starting there until `taken`, so the job cannot
+    finish before the caller has cancelled it."""
+
+    def __init__(self, at: int, hold_at=None):
+        import threading
+
+        self.at, self.hold_at, self._fired = at, hold_at, False
+        self.reached, self.go, self.taken = (threading.Event() for _ in range(3))
+
+    def __call__(self, idx):
+        if not self._fired and idx[0] >= self.at:
+            self._fired = True
+            self.reached.set()
+            self.go.wait(600)
+        elif self.hold_at is not None and idx[0] == self.hold_at:
+            self.taken.wait(600)
+
+    def savepoint(self, client, path: str) -> dict:
+        """Once the source is at the gate, a savepoint of the job into
+        `path` (the request is in before the source moves on), then the
+        job cancelled: {"first_job": its final status, "trigger_ms": the
+        savepoint's wall time}."""
+        import threading
+
+        self.reached.wait(600)
+        took = {}
+
+        def take():
+            t0 = time.perf_counter()
+            client.trigger_savepoint(path, timeout=600)
+            took["ms"] = (time.perf_counter() - t0) * 1e3
+
+        writer = threading.Thread(target=take)
+        writer.start()
+        while client._savepoint_path is None and writer.is_alive():
+            time.sleep(0.001)
+        self.go.set()
+        writer.join(600)
+        client.cancel()
+        self.taken.set()
+        return {"first_job": client.wait(600).value, "trigger_ms": took.get("ms")}
 
 
 def timed_fired(results, keys: int, twice: bool = False):
@@ -3394,8 +3567,6 @@ def capture_parts(pipe, store_dir: str, dev=DEV) -> dict:
 def ckpt_leg_b(sz, dev, tmp: str) -> dict:
     """Keyed state at card size (see API_CHECKPOINT): a checkpointed run,
     the capture and restore by part, then savepoint, cancel and resume."""
-    import threading
-
     from flink_tpu_torch.graph.transformation import plan
     from flink_tpu_torch.runtime.minicluster import MiniCluster
     from flink_tpu_torch.testing import stream as st
@@ -3417,36 +3588,13 @@ def ckpt_leg_b(sz, dev, tmp: str) -> dict:
     del sink, fired, op, run
     # savepoint at savepoint_at of the input, cancel, resume as a new job
     half = (int(n * sz["savepoint_at"]) // B) * B
-    reached, go, taken = threading.Event(), threading.Event(), threading.Event()
-
-    def hook(idx):
-        if idx[0] == half:
-            reached.set()
-            go.wait(600)
-        elif idx[0] == half + 2 * B:
-            taken.wait(600)
-
+    gate = SourceGate(half, hold_at=half + 2 * B)
     sink1 = timed_collect_sink()
-    env1 = ckpt_job(n, sink1, sz, keys=keys, agg="sum", columnar=True, hook=hook, dev=dev)
-    client1 = env1.execute_async("leg-b-savepoint")
-    reached.wait(600)
+    env1 = ckpt_job(n, sink1, sz, keys=keys, agg="sum", columnar=True, hook=gate, dev=dev)
     sp_path = f"{tmp}/savepoint"
-    t_sp = {}
-
-    def take():
-        t0 = time.perf_counter()
-        client1.trigger_savepoint(sp_path, timeout=600)
-        t_sp["ms"] = (time.perf_counter() - t0) * 1e3
-
-    writer = threading.Thread(target=take)
-    writer.start()
-    go.set()
-    writer.join(600)
-    client1.cancel()
-    taken.set()
-    status1 = client1.wait(600)
+    first = gate.savepoint(env1.execute_async("leg-b-savepoint"), sp_path)
     sink2 = timed_collect_sink()
-    env2 = ckpt_job(n, sink2, sz, keys=keys, agg="sum", columnar=True, hook=hook, dev=dev)
+    env2 = ckpt_job(n, sink2, sz, keys=keys, agg="sum", columnar=True, hook=gate, dev=dev)
     from flink_tpu_torch.ops import cuda_superscan as cs
 
     cs.reset_launch_counts()
@@ -3458,8 +3606,8 @@ def ckpt_leg_b(sz, dev, tmp: str) -> dict:
     fired2, twice2 = columnar_fired(sink2.results, keys)
     par2, checked2 = st.parity(ref.fired, fired2)
     out["savepoint"] = {
-        "at_record": half, "trigger_ms": t_sp.get("ms"), "first_job": status1.value,
-        "resumed_job": status2.value, "resume_seconds": time.perf_counter() - t0,
+        "at_record": half, **first, "resumed_job": status2.value,
+        "resume_seconds": time.perf_counter() - t0,
         "records_in": client2.records_in, "records_in_complete": client2.records_in == n,
         "rows_before_savepoint": len(sink1.results), "parity_vs_oracle": par2,
         "windows_checked": checked2, "no_window_twice": not twice2,
@@ -3468,7 +3616,7 @@ def ckpt_leg_b(sz, dev, tmp: str) -> dict:
             "restore_duration_ms"]}
     s = out["savepoint"]
     out["ok"] = bool(par and not twice and out["checkpoints"] >= sz["min_checkpoints"]
-                     and out["k1_launches"] > 0 and status1.value == "CANCELED"
+                     and out["k1_launches"] > 0 and first["first_job"] == "CANCELED"
                      and status2.value == "FINISHED" and s["records_in_complete"]
                      and par2 and not twice2 and s["k1_launches"] > 0)
     return out
@@ -3577,7 +3725,7 @@ def api_checkpoint_phase(dev=DEV, sizes=None) -> dict:
 # ---------------------------------------------------------------------------
 
 API_JOIN = dict(keys=2048, batch=1024, events=1 << 14, zipf_s=1.0,
-                big_keys=1 << 16, big_events=1 << 20, runs=2,
+                big_keys=1 << 16, big_events=1 << 20, runs=1,
                 degrade_slots=16, degrade_keys=1024, sql_rows=4096, regular_rows=512,
                 ckpt_events=1 << 16, interval=25, fail_at=0.6, mem_slack=1 << 19)
 # scenario -> (window size ms, slide ms, the auctions' category filter)
@@ -3698,7 +3846,8 @@ def join_leg_a(sz, dev) -> dict:
 def join_leg_b(sz, dev) -> dict:
     """q8 uniform at the key capacity's default, 2^16 keys, 2^20 records a
     side: parity with the host route and the model with ~1.09 GB of rings
-    on the card, tuples/s of both routes (best of `runs`)."""
+    on the card, tuples/s of both routes (best of `runs`, one in the
+    smoke)."""
     from flink_tpu_torch.testing import stream as st
 
     n, keys = sz["big_events"], sz["big_keys"]
@@ -4316,8 +4465,6 @@ def mesh_leg_b(sz, dev, tmp: str) -> dict:
     in step groups), against the oracle with their device memory; a live
     rescale_mesh(2) mid-stream through execute_async; a savepoint at half
     of a 4-shard run restored on one card and on a 2-shard mesh."""
-    import threading
-
     from flink_tpu_torch.graph.transformation import plan
     from flink_tpu_torch.runtime.minicluster import MiniCluster
     from flink_tpu_torch.testing import stream as st
@@ -4333,22 +4480,6 @@ def mesh_leg_b(sz, dev, tmp: str) -> dict:
         sink = timed_collect_sink()
         return ckpt_job(n, sink, szc, keys=keys, agg="sum", columnar=True, hook=hook,
                         conf=conf, dev=dev), sink
-
-    def gate(at, hold_at=None):
-        """Blocks the source at `at` until `go`; with `hold_at`, blocks it
-        again there until `taken`, so the job cannot finish before the
-        caller has cancelled it."""
-        reached, go, taken = threading.Event(), threading.Event(), threading.Event()
-        fired = []
-
-        def hook(idx):
-            if not fired and idx[0] >= at:
-                fired.append(True)
-                reached.set()
-                go.wait(600)
-            elif hold_at is not None and idx[0] == hold_at:
-                taken.wait(600)
-        return hook, reached, go, taken
 
     from flink_tpu_torch.ops import cuda_superscan as cs
 
@@ -4377,15 +4508,15 @@ def mesh_leg_b(sz, dev, tmp: str) -> dict:
         out[name]["mesh_devices"] == sz["shards"] for name in ("mesh", "mesh_combine"))
     # a live rescale 4 -> 2 at half of the input
     half = (n // 2 // B) * B
-    hook, reached, go, _ = gate(half)
-    env, sink = job(mesh4, hook)
+    gate = SourceGate(half)
+    env, sink = job(mesh4, gate)
     _sync(dev)
     cs.reset_launch_counts()
     t0 = time.perf_counter()
     client = env.execute_async("mesh-rescale")
-    reached.wait(600)
+    gate.reached.wait(600)
     client.rescale_mesh(2)
-    go.set()
+    gate.go.set()
     client.wait(900)
     _sync(dev)
     fired, twice = columnar_fired(sink.results, keys)
@@ -4403,21 +4534,12 @@ def mesh_leg_b(sz, dev, tmp: str) -> dict:
                  and not twice and r["k1_launches"] > 0)
     del env, sink, client
     # a savepoint at half of a 4-shard run, restored on one card and on 2 shards
-    hook, reached, go, taken = gate(half, hold_at=half + 2 * B)
-    env1, sink1 = job(mesh4, hook)
-    client1 = env1.execute_async("mesh-savepoint")
-    reached.wait(600)
+    gate = SourceGate(half, hold_at=half + 2 * B)
+    env1, sink1 = job(mesh4, gate)
     sp_path = f"{tmp}/mesh_savepoint"
-    writer = threading.Thread(target=lambda: client1.trigger_savepoint(sp_path, timeout=600))
-    writer.start()
-    while client1._savepoint_path is None and writer.is_alive():
-        time.sleep(0.001)  # the request is in before the source moves on
-    go.set()
-    writer.join(600)
-    client1.cancel()
-    taken.set()
-    out["savepoint_first_job"] = client1.wait(600).value
-    del env1, sink1, client1
+    out["savepoint_first_job"] = gate.savepoint(env1.execute_async("mesh-savepoint"),
+                                                sp_path)["first_job"]
+    del env1, sink1
     for name, conf in (("restored_card", {}),
                        ("restored_mesh2", {"parallel.mesh.enabled": True,
                                            "parallel.mesh.devices": 2})):
@@ -5443,7 +5565,7 @@ API_MESH_FEATURES = dict(
     shards=4, keys=8192, batch=65536, parity_events=1 << 19, timed_events=1 << 22, runs=2,
     warmup_events=1 << 17, wide_keys=1 << 20, wide_events=1 << 22,
     tier_batch=8192, tier_parity_events=1 << 15, tier_parity_keys=1 << 15, tier_hot=4096,
-    tier_parity_admission=1, tier_events=1 << 18, tier_keys=10_000_000, tier_admission=2,
+    tier_parity_admission=1, tier_events=1 << 17, tier_keys=10_000_000, tier_admission=2,
     zipf_s=1.0, row_keys=1 << 20, row_slices=32, row_moves=1 << 16,
     query_keys=64, query_events=1 << 18, query_batch=8192, savepoint_at=0.5)
 
@@ -5743,7 +5865,6 @@ def features_leg_c(sz, dev) -> dict:
     member's fires equal the uninterrupted mesh run's."""
     import shutil
     import tempfile
-    import threading
 
     from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
     from flink_tpu_torch.graph.transformation import plan
@@ -5802,31 +5923,11 @@ def features_leg_c(sz, dev) -> dict:
                                     make_sink=timed_collect_sink, sz=sz, dev=dev)
         client = submit(env, "shared-mesh-whole")
         whole = fires_of(sinks) if client.wait(900).value == "FINISHED" else None
-        reached, go, taken = threading.Event(), threading.Event(), threading.Event()
-        fired = []
-
-        def hook(idx):
-            if not fired and idx[0] >= half:
-                fired.append(True)
-                reached.set()
-                go.wait(600)
-            elif idx[0] == half + 2 * B:
-                taken.wait(600)
-
-        env1, _s1 = correlated_env(n, True, columnar=True, mesh=n_sh, hook=hook,
+        gate = SourceGate(half, hold_at=half + 2 * B)
+        env1, _s1 = correlated_env(n, True, columnar=True, mesh=n_sh, hook=gate,
                                    make_sink=timed_collect_sink, sz=sz, dev=dev)
-        client1 = submit(env1, "shared-mesh-savepoint")
-        reached.wait(600)
         sp = f"{tmp}/savepoint"
-        writer = threading.Thread(target=lambda: client1.trigger_savepoint(sp, timeout=600))
-        writer.start()
-        while client1._savepoint_path is None and writer.is_alive():
-            time.sleep(0.001)  # the request is in before the source moves on
-        go.set()
-        writer.join(600)
-        client1.cancel()
-        taken.set()
-        first = client1.wait(600).value
+        first = gate.savepoint(submit(env1, "shared-mesh-savepoint"), sp)["first_job"]
         save = {"first_job": first, "at": half}
         ok = first == "CANCELED" and whole is not None
         for name, mesh in (("restored_card", 0), ("restored_mesh2", 2)):
@@ -6441,30 +6542,17 @@ def union_k1_inputs(n: int, dev=DEV):
     taken from the call the pipeline makes in a columnar run of n records:
     (pipe, agg, idx, vals, plan with one entry a planned fire)."""
     from flink_tpu_torch.graph.transformation import plan as plan_graph
-    from flink_tpu_torch.ops import cuda_superscan as cs
     from flink_tpu_torch.runtime.executor import JobRuntime
 
     env, _sink = union_job(n, columnar=True, dev=dev)
     rt = JobRuntime(plan_graph(env._sinks), env.config, dev)
-    real, taken = cs.keyed_superscan, []
-
-    def record(agg, count, states, idx, vals, plan, **kw):
-        if not taken and int(plan[0].shape[0]) == 32:
-            taken.append((agg, idx.clone(), None if vals is None else vals.clone(),
-                          tuple(p.clone() for p in plan)))
-        return real(agg, count, states, idx, vals, plan, **kw)
-
-    cs.keyed_superscan = record
-    try:
+    with K1Tap() as tap:
         rt.run()
-    finally:
-        cs.keyed_superscan = real
-    if not taken:
+    if tap.taken is None or int(tap.taken[4][0].shape[0]) != 32:
         raise AssertionError("api_topologies: the union job made no full fused dispatch")
     pipe = next(r for r in rt.runners if type(r).__name__ == "DeviceChainRunner").op.pipe
-    agg, idx, vals, plan5 = taken[0]
-    # fire_valid marks each planned fire's slot
-    return pipe, agg, idx, vals, plan5 + ([None] * int(plan5[2].sum()),)
+    agg, _rings, idx, vals, plan5 = tap.taken
+    return pipe, agg, idx, vals, K1Tap.plan(plan5)
 
 
 def topo_leg_a(sz, dev) -> dict:
@@ -7075,6 +7163,475 @@ def api_topologies_phase(dev=DEV, sizes=None) -> dict:
             "count, first full dispatch", pipe, agg, idx, vals, plan),
             seconds=time.perf_counter() - t0)
     out["ok"] = all(out[leg]["ok"] for leg in ("leg_a", "leg_b", "leg_c", "leg_d"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 30: api_chaos, the chaos plane's drills on the card: the eight
+# in-process scenarios of chaos/scenarios.py, then api_ysb's job under an
+# injected device error and under torn checkpoints, and api_mesh leg A's job
+# losing a shard, each against its uninterrupted run
+# ---------------------------------------------------------------------------
+
+# leg A/B: api_ysb's program (columnar) at 2^22 records, checkpoints every
+# 25 ms, the device error at the 40th of its 64 batches, the real failure of
+# leg B at 60% of event time; leg C: api_mesh leg A's program at 2^20 on four
+# shards of the card (128 batches of 8192), the device error at the 77th
+CHAOS = dict(events=1 << 22, batch=65536, warmup_events=1 << 18, interval=25, device_nth=40,
+             fail_at=0.6, mem_slack=1 << 19, mesh_events=1 << 20, mesh_batch=8192, shards=4,
+             mesh_nth=77)
+# the JAX gate's scenarios whose injected failure must be attributed
+# (tests/test_bench_chaos.py::ATTRIBUTED_SCENARIOS)
+ATTRIBUTED_SCENARIOS = ("device-dispatch-error", "storage-brownout", "latency-mode-restore")
+
+
+def _fused_pipe(client):
+    return next(r.op.pipe for r in client._runtime.runners
+                if type(r).__name__ == "DeviceChainRunner")
+
+
+def chaos_leg_0(sz, dev) -> dict:
+    """The eight in-process scenarios at the JAX package's sizes, the mesh
+    ones on four shards of the card."""
+    from flink_tpu_torch.chaos.scenarios import MESH_SCENARIOS, run_matrix
+
+    m = run_matrix(device=dev, shards=sz["shards"])
+    rows = {}
+    for r in m["scenarios"]:
+        ok = (r["passed"] and not r["skipped"] and r["injected_fired"] >= 1
+              and (r["name"] not in ATTRIBUTED_SCENARIOS or r["attributed"] is True)
+              and (r["name"] not in MESH_SCENARIOS
+                   or r.get("mesh") == [sz["shards"], sz["shards"] // 2]))
+        rows[r["name"]] = dict(r, ok=bool(ok))
+    return {"scenarios": rows, "scenarios_total": m["scenarios_total"],
+            "scenarios_passed": m["scenarios_passed"], "parity": m["parity"],
+            "recovery_time_ms_p50": m["recovery_time_ms_p50"],
+            "ok": bool(m["scenarios_total"] == 8 and all(r["ok"] for r in rows.values()))}
+
+
+def chaos_legs_ab(cz, dev, tmp: str) -> dict:
+    """Leg A: api_ysb's job with checkpoints every 25 ms, uninterrupted and
+    under an injected device error at its 40th batch, K1 held against its
+    plain version at the restarted attempt's first dispatch, over the
+    restored ring as loaded, and at its widest (`k1_recovered`). Leg B:
+    the same job with every checkpoint from the 3rd torn and one real
+    failure at 60% of event time."""
+    from flink_tpu_torch.testing import stream as st
+    from flink_tpu_torch.testing.harness import fault_injection
+
+    sz = dict(API_CHECKPOINT, events=cz["events"], batch=cz["batch"])
+    n, keys = cz["events"], sz["keys"]
+    interval = cz["interval"]
+
+    def job(sink, chk):
+        # every checkpoint retained, as the JAX scenarios retain 50: torn
+        # ones count against the retention, and the restore must find the
+        # last complete one behind them
+        return ckpt_job(n, sink, sz, interval=interval, chk_dir=f"{tmp}/{chk}",
+                        columnar=True, dev=dev,
+                        conf={"execution.checkpointing.max-retained": 1 << 20})
+
+    ckpt_run(ckpt_job(cz["warmup_events"], timed_collect_sink(), sz, columnar=True,
+                      dev=dev), dev)
+    base_sink = timed_collect_sink()
+    base = ckpt_run(job(base_sink, "undisturbed"), dev)
+    base_fired, base_twice = columnar_fired(base_sink.results, keys)
+    par, checked = st.parity(st.api_replay(n, sz["batch"], agg="count", num_keys=keys).fired,
+                             base_fired)
+    undisturbed = {"seconds": base["seconds"], "tuples_per_s": n / base["seconds"],
+                   "k1_launches": base["k1_launches"], **ckpt_stats(base["client"]),
+                   "parity_vs_oracle": par and not base_twice, "windows_checked": checked}
+    del base_sink, base
+
+    # A: the device error, the restarted attempt's memory and widest dispatch
+    sink = FailOnceSink(timed_collect_sink())
+    with fault_injection(rules=[{"scope": "device", "fault": "error",
+                                 "nth": cz["device_nth"]}]) as plan, \
+            K1Tap(lambda: plan.total_fired > 0) as tap:
+        run = ckpt_run(job(sink, "device"), dev)
+    client = run["client"]
+    fired, twice = columnar_fired(sink.inner.results, keys)
+    mem = sink.first_write_bytes
+    a = {"seconds": run["seconds"], "tuples_per_s": n / run["seconds"],
+         "tuples_per_s_over_undisturbed": undisturbed["seconds"] / run["seconds"],
+         "k1_launches": run["k1_launches"], "injected_fired": plan.total_fired,
+         **ckpt_stats(client), "rows_equal_undisturbed": _fired_equal(fired, base_fired)
+         and not twice, "first_write_allocated_bytes": mem,
+         "memory_bounded": len(mem) == 2 and mem[1] <= mem[0] + cz["mem_slack"]}
+    a["restarted_dispatch_taken"] = tap.taken is not None
+    if torch.device(dev).type == "cuda":
+        a["k1_recovered"] = tap.check(
+            "api_chaos leg A: api_ysb's count job, the restarted attempt's widest dispatch "
+            "(first_dispatch: its first, over the restored ring as loaded)", _fused_pipe(client))
+    k1 = a.get("k1_recovered", {})
+    a["ok"] = bool(a["status"] == "FINISHED" and a["num_restarts"] == 1
+                   and a["restored_checkpoint_id"] is not None and a["injected"] == [True]
+                   and a["injected_fired"] == 1 and a["rows_equal_undisturbed"]
+                   and a["memory_bounded"] and a["restarted_dispatch_taken"]
+                   and a["k1_launches"] > 0 and k1.get("max_abs_err") == 0
+                   and k1["first_dispatch"]["max_abs_err"] == 0)
+    del sink, fired, client, run, tap
+
+    # B: torn checkpoints from the 3rd, a real failure at fail_at
+    fail_ts = st.API_T0_MS + int(st.API_SPAN_EVENT_MS * cz["fail_at"])
+    sink = FailOnceSink(timed_collect_sink(), fail_ts)
+    with fault_injection(rules=[{"scope": "storage", "fault": "torn", "match": "save",
+                                 "nth": 3, "max_fires": None}]) as plan:
+        run = ckpt_run(job(sink, "torn"), dev)
+    fired, twice = columnar_fired(sink.inner.results, keys)
+    b = {"seconds": run["seconds"], "tuples_per_s": n / run["seconds"],
+         "k1_launches": run["k1_launches"], "torn_saves": plan.total_fired,
+         **ckpt_stats(run["client"]),
+         "rows_equal_undisturbed": _fired_equal(fired, base_fired) and not twice}
+    b["ok"] = bool(b["status"] == "FINISHED" and b["num_restarts"] == 1
+                   and b["restored_checkpoint_id"] == 2 and b["torn_saves"] >= 1
+                   and b["rows_equal_undisturbed"] and b["k1_launches"] > 0)
+    undisturbed["ok"] = bool(undisturbed["parity_vs_oracle"] and undisturbed["num_restarts"] == 0
+                             and undisturbed["k1_launches"] > 0)
+    return {"events": n, "interval_ms": interval, "undisturbed": undisturbed,
+            "leg_a": a, "leg_b": b}
+
+
+def chaos_leg_c(cz, dev) -> dict:
+    """api_mesh leg A's job on four shards of the card with checkpoints and
+    parallel.mesh.degrade-on-device-loss, an injected device error at its
+    77th batch: one restart on 2 shards, the one-card run's rows."""
+    from flink_tpu_torch.testing.harness import fault_injection
+
+    sz, n = dict(API_MESH, batch=cz["mesh_batch"]), cz["mesh_events"]
+    card_env, card_sink = mesh_job(n, sz, columnar=True, dev=dev, sink=timed_collect_sink())
+    card = ckpt_run(card_env, dev)
+    card_fired, card_twice = columnar_fired(card_sink.results, sz["keys"])
+    env, sink = mesh_job(n, sz, shards=cz["shards"], columnar=True, dev=dev,
+                         sink=timed_collect_sink(),
+                         conf={"execution.checkpointing.interval": cz["interval"],
+                               "parallel.mesh.degrade-on-device-loss": True,
+                               "restart-strategy.type": "fixed-delay",
+                               "restart-strategy.initial-backoff": 1})
+    with fault_injection(rules=[{"scope": "device", "fault": "error",
+                                 "nth": cz["mesh_nth"]}]) as plan:
+        run = ckpt_run(env, dev)
+    client = run["client"]
+    fired, twice = columnar_fired(sink.results, sz["keys"])
+    out = {"events": n, "shards": cz["shards"], "seconds": run["seconds"],
+           "card_seconds": card["seconds"], "tuples_per_s": n / run["seconds"],
+           "card_tuples_per_s": n / card["seconds"], "k1_launches": run["k1_launches"],
+           "card_k1_launches": card["k1_launches"], "injected_fired": plan.total_fired,
+           **ckpt_stats(client), "mesh_devices_after": client._runtime.mesh_devices(),
+           "rows_equal_card": _fired_equal(fired, card_fired) and not twice and not card_twice}
+    out["ok"] = bool(out["status"] == "FINISHED" and out["num_restarts"] == 1
+                     and out["mesh_devices_after"] == cz["shards"] // 2
+                     and out["restored_checkpoint_id"] is not None
+                     and out["injected"] == [True] and out["rows_equal_card"]
+                     and out["k1_launches"] > 0 and out["card_k1_launches"] > 0)
+    return out
+
+
+def api_chaos_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 30: leg 0 (the scenario matrix), legs A and B (api_ysb's job
+    under a device error and torn checkpoints) and leg C (a lost shard),
+    each faulted run against its uninterrupted run (see CHAOS)."""
+    import tempfile
+
+    from flink_tpu_torch.chaos.scenarios import mesh_of
+
+    sz = dict(CHAOS, **(sizes or {}))
+    out = {"phase": "api_chaos",
+           "card": card_line() if torch.device(dev).type == "cuda" else "cpu"}
+    t0 = time.perf_counter()
+    out["leg_0"] = dict(chaos_leg_0(sz, dev), phase_s=time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ab = chaos_legs_ab(sz, dev, tmp)
+        out.update(undisturbed=ab["undisturbed"], leg_a=ab["leg_a"], leg_b=ab["leg_b"],
+                   events=ab["events"], interval_ms=ab["interval_ms"],
+                   legs_ab_s=time.perf_counter() - t0)
+    with mesh_of(_shard_device(dev), sz["shards"]):
+        t0 = time.perf_counter()
+        out["leg_c"] = dict(chaos_leg_c(sz, dev), phase_s=time.perf_counter() - t0)
+    out["ok"] = bool(all(out[k]["ok"] for k in ("leg_0", "undisturbed", "leg_a", "leg_b",
+                                                 "leg_c")))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 31: api_state_tools, savepoints and formats on the card: a savepoint
+# of api_ysb's tumbling sum job read against numpy, patched (sum x 10) and
+# resumed on K1; api_ysb's records through FormattedFileSink and
+# FormattedFileSource in CSV, JSON lines and Avro into the fused count job
+# ---------------------------------------------------------------------------
+
+# leg A: the tumbling sum job at 2^22 records, the savepoint at half of its
+# batches; leg B: 2^18 records a format
+STATE_TOOLS = dict(events=1 << 22, savepoint_at=0.5, format_events=1 << 18,
+                   formats=("csv", "json", "avro"))
+
+
+def _sum_cells(n: int, lo: int, hi: int):
+    """numpy: {(key, window start ms): (count, sum)} of api_ysb's tumbling
+    sum job over records [lo, hi) of an n-record stream, and the watermark
+    after them (the largest timestamp less 1: out-of-orderness 0)."""
+    from flink_tpu_torch.testing import stream as st
+
+    col, ts = st.api_columns(np.arange(lo, hi, dtype=np.int64), n, API["keys"], payload=True)
+    keep = col[:, 1] == 0
+    keys, vals = col[keep, 0].astype(np.int64), col[keep, 2].astype(np.float64)
+    starts = ts[keep] // API["sum_window"] * API["sum_window"]
+    cells = {}
+    for k, w, v in zip(keys.tolist(), starts.tolist(), vals.tolist()):
+        c = cells.get((k, w), (0, 0.0))
+        cells[(k, w)] = (c[0] + 1, c[1] + v)
+    return cells, int(ts.max()) - 1
+
+
+def tools_leg_a(sz, dev, tmp: str) -> dict:
+    """The savepoint: taken at half the batches (the source held at a gate,
+    as api_checkpoint leg B takes it), read by SavepointReader against the
+    numpy model of the records before records_in() (its windows that had
+    not fired at the model's watermark), patched sum x 10 by
+    SavepointWriter, resumed on the card: rows and total against the model
+    with the in-flight cells patched; K1 held against its plain version at
+    the resumed job's first dispatch, over the patched ring as loaded, and
+    at its widest (`k1_patched`)."""
+    from flink_tpu_torch.graph.transformation import plan as plan_graph
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.minicluster import MiniCluster
+    from flink_tpu_torch.state_processor import SavepointReader, SavepointWriter
+
+    n, B = sz["events"], API["batch"]
+    half = (int(n * sz["savepoint_at"]) // B) * B
+    gate = SourceGate(half, hold_at=half + 2 * B)
+    env1, _sink1 = api_job(n, True, columnar=False, sum_job=True, dev=dev, hook=gate)
+    sp = f"{tmp}/savepoint"
+    first = gate.savepoint(env1.execute_async("state-tools-savepoint"), sp)
+
+    t0 = time.perf_counter()
+    reader = SavepointReader.load(sp)
+    uid = next(u for u in reader.operator_uids() if u.startswith("window_aggregate"))
+    records = reader.records_in()
+    cells = {}
+    geom = reader.data["runners"][uid]["operator"]["geometry"]
+    for k, s, f in reader.keyed_state(uid):
+        cells[(int(k), geom["offset"] + s * geom["g"])] = (int(f["count"]), float(f["sum"]))
+    pending = reader.pending_output(uid)
+    read_s = time.perf_counter() - t0
+    model, wm = _sum_cells(n, 0, records)
+    # the model's windows that had not fired at its watermark
+    model_live = {c: v for c, v in model.items() if c[1] + API["sum_window"] - 1 > wm}
+    in_flight = sum(v for _c, v in cells.values())
+    pending_sum = sum(float(v) for _k, _w, v, _t in pending)
+    patched = f"{tmp}/patched"
+    (SavepointWriter.from_reader(reader)
+     .transform_columnar_state(uid, lambda name, arr: arr * 10 if name == "sum" else arr)
+     .write(patched))
+
+    env2, sink2 = api_job(n, True, columnar=False, sum_job=True, dev=dev)
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    with K1Tap(lambda: True) as tap:
+        client2 = MiniCluster.get_shared().submit(plan_graph(env2._sinks), env2.config,
+                                                  "state-tools-resumed",
+                                                  savepoint_restore_path=patched, device=dev)
+        status2 = client2.wait(900)
+    _sync(dev)
+    resume_s = time.perf_counter() - t0
+    launches = cs.LAUNCHES["k1_superscan"]
+    rows = {}
+    for values, tss in sink2.batches:
+        for (k, v), t in zip(values, tss):
+            rows[(int(k), int(t) + 1 - API["sum_window"])] = float(v)
+    after, _wm = _sum_cells(n, records, n)
+    pend = {(int(k), int(w.start)): float(v) for k, w, v, _t in pending}
+    want = {}
+    for c in set(model_live) | set(after):
+        want[c] = model_live.get(c, (0, 0.0))[1] + 9 * cells.get(c, (0, 0.0))[1] + \
+            after.get(c, (0, 0.0))[1]
+    want.update(pend)
+    total = sum(rows.values())
+    expected_total = sum(v for _c, (_n, v) in after.items()) + 10 * in_flight + pending_sum
+    out = {"events": n, "savepoint_at_record": half, **first, "records_in": records,
+           "model_watermark": wm, "in_flight_cells": len(cells),
+           "pending_rows": len(pending), "read_s": read_s,
+           "reader_equals_model": bool(cells) and cells == model_live,
+           "resumed_job": status2.value, "resume_seconds": resume_s,
+           "tuples_per_s_resumed": (n - records) / resume_s, "k1_launches": launches,
+           "rows": len(rows), "rows_equal_patched_model": rows == want,
+           "total": total, "expected_total": expected_total,
+           "total_equal": total == expected_total}
+    out["resumed_dispatch_taken"] = tap.taken is not None
+    if torch.device(dev).type == "cuda":
+        out["k1_patched"] = tap.check(
+            "api_state_tools leg A: api_ysb's tumbling sum job resumed from the patched "
+            "savepoint, its widest dispatch (first_dispatch: its first, over the patched "
+            "ring as loaded)", _fused_pipe(client2))
+    k1 = out.get("k1_patched", {})
+    out["ok"] = bool(first["first_job"] == "CANCELED" and status2.value == "FINISHED"
+                     and out["reader_equals_model"] and out["rows_equal_patched_model"]
+                     and out["total_equal"] and out["resumed_dispatch_taken"]
+                     and launches > 0 and k1.get("max_abs_err") == 0
+                     and k1["first_dispatch"]["max_abs_err"] == 0)
+    return out
+
+
+def format_rows(n: int) -> list:
+    """api_ysb's first n records as row dicts (campaign, event type, time)."""
+    from flink_tpu_torch.testing import stream as st
+
+    col, ts = st.api_columns(np.arange(n, dtype=np.int64), n, API["keys"])
+    return [{"campaign": int(c), "event_type": int(e), "ts": int(t)}
+            for c, e, t in zip(col[:, 0].tolist(), col[:, 1].tolist(), ts.tolist())]
+
+
+def format_job(paths, fmt: str, n: int, dev=DEV):
+    """(env, sink) of api_ysb's count program over rows read from `paths`
+    in format `fmt` (host filter and key over the row dicts, the fused
+    operator on the card)."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.core.watermarks import WatermarkStrategy
+    from flink_tpu_torch.formats.file_io import FormattedFileSource
+
+    env = StreamExecutionEnvironment(Configuration({
+        "execution.step.batch-size": API["batch"],
+        "execution.state.key-capacity": API["keys"]}), device=dev)
+    sink = rows_sink()
+    (env.from_source(FormattedFileSource(paths, format=fmt, timestamp_fn=lambda r: r["ts"]),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .filter(lambda r: r["event_type"] == 0).key_by(lambda r: r["campaign"])
+     .window(SlidingEventTimeWindows.of(API["window"], API["slide"]))
+     .aggregate("count").sink_to(sink))
+    return env, sink
+
+
+def tools_leg_b(sz, dev, tmp: str) -> dict:
+    """Each format: the rows through a job into FormattedFileSink, the
+    codec's host MB/s each way, then the files through FormattedFileSource
+    into the fused count job on the card against the columnar job's rows."""
+    import io
+    import os
+
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.formats import get_format
+    from flink_tpu_torch.formats.file_io import FormattedFileSink
+
+    n = sz["format_events"]
+    rows = format_rows(n)
+    ref_sink, _s, ref_k1 = api_run(n, True, columnar=False, dev=dev)
+    ref = api_fired(ref_sink, API["window"], API["slide"])
+    out = {"events": n, "reference_k1": ref_k1}
+    ok = ref_k1 > 0
+    for fmt in sz["formats"]:
+        d = f"{tmp}/{fmt}"
+        env = StreamExecutionEnvironment(device=dev)
+        env.from_collection(rows).sink_to(FormattedFileSink(d, format=fmt))
+        t0 = time.perf_counter()
+        env.execute(f"write-{fmt}")
+        write_job_s = time.perf_counter() - t0
+        paths = sorted(os.path.join(d, p) for p in os.listdir(d) if not p.startswith("."))
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        codec = get_format(fmt)
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        codec.write(rows, buf)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = codec.read(io.BytesIO(buf.getvalue()))
+        dec_s = time.perf_counter() - t0
+        env2, sink = format_job(paths, fmt, n, dev)
+        _sync(dev)
+        from flink_tpu_torch.ops import cuda_superscan as cs
+
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        env2.execute(f"read-{fmt}")
+        _sync(dev)
+        read_job_s = time.perf_counter() - t0
+        k1 = cs.LAUNCHES["k1_superscan"]
+        got = api_fired(sink, API["window"], API["slide"])
+        leg = {"files": len(paths), "bytes": nbytes, "write_job_s": write_job_s,
+               "read_job_s": read_job_s, "read_job_tuples_per_s": n / read_job_s,
+               "encode_mb_per_s": len(buf.getvalue()) / enc_s / 1e6,
+               "decode_mb_per_s": len(buf.getvalue()) / dec_s / 1e6,
+               "codec_roundtrip": back == rows, "k1_launches": k1,
+               "rows_equal_columnar_job": _fired_equal(got, ref)}
+        leg["ok"] = bool(leg["rows_equal_columnar_job"] and leg["codec_roundtrip"]
+                         and leg["files"] == 1 and k1 > 0)
+        ok = ok and leg["ok"]
+        out[fmt] = leg
+        del back, buf, got, sink
+    out["ok"] = bool(ok)
+    return out
+
+
+def chaos_main_thread_run(dev=DEV) -> float:
+    """Leg A's faulted job (CHAOS sizes) through the MiniCluster's attempt
+    loop driven on the calling thread, so cProfile sees the failure, the
+    restore and the restarted attempt: seconds."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.graph.transformation import plan
+    from flink_tpu_torch.runtime.minicluster import JobClient, MiniCluster
+    from flink_tpu_torch.testing.harness import fault_injection
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_profile_")
+    try:
+        sz = dict(API_CHECKPOINT, events=CHAOS["events"], batch=CHAOS["batch"])
+        env = ckpt_job(CHAOS["events"], timed_collect_sink(), sz, interval=CHAOS["interval"],
+                       chk_dir=tmp, columnar=True, dev=dev)
+        client = JobClient("chaos-profile", "chaos-profile")
+        _sync(dev)
+        t0 = time.perf_counter()
+        with fault_injection(rules=[{"scope": "device", "fault": "error",
+                                     "nth": CHAOS["device_nth"]}]):
+            MiniCluster()._run_job(client, plan(env._sinks), env.config, None,
+                                   torch.device(dev))
+        _sync(dev)
+        if client.num_restarts != 1:
+            raise AssertionError("api_chaos profile run: expected one restart")
+        return time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def format_read_run(fmt: str, dev=DEV) -> float:
+    """Leg B's read job for one format over STATE_TOOLS' records, the file
+    written first: seconds of the job alone."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.formats import get_format
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_format_profile_")
+    try:
+        n = STATE_TOOLS["format_events"]
+        path = f"{tmp}/rows.{fmt}"
+        get_format(fmt).write_file(format_rows(n), path)
+        env, _sink = format_job([path], fmt, n, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        env.execute(f"read-{fmt}")
+        _sync(dev)
+        return time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def api_state_tools_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 31: leg A (a patched savepoint) and leg B (formats), see
+    STATE_TOOLS."""
+    import tempfile
+
+    sz = dict(STATE_TOOLS, **(sizes or {}))
+    out = {"phase": "api_state_tools",
+           "card": card_line() if torch.device(dev).type == "cuda" else "cpu"}
+    for leg, fn in (("leg_a", tools_leg_a), ("leg_b", tools_leg_b)):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            out[leg] = dict(fn(sz, dev, tmp), phase_s=time.perf_counter() - t0)
+    out["ok"] = bool(out["leg_a"]["ok"] and out["leg_b"]["ok"])
     return out
 
 
@@ -7730,6 +8287,54 @@ def main() -> int:
         API_TOPOLOGIES["timed_events"], columnar=True)[1]))
     torch.cuda.empty_cache()
 
+    # ---- 30. the chaos plane's drills: the eight in-process scenarios (the
+    # mesh ones on four shards of the card), api_ysb's job under an injected
+    # device error and under torn checkpoints, api_mesh leg A's job losing a
+    # shard, each faulted run against its uninterrupted run, every run with
+    # its launch counts at 0 just before it; K1 at the restarted attempt's
+    # widest dispatch ----
+    t_chaos = time.perf_counter()
+    chaos = api_chaos_phase()
+    chaos["phase_s"] = time.perf_counter() - t_chaos
+    emit(chaos)
+    if not chaos["ok"]:
+        raise AssertionError("api_chaos: a leg failed a gate (leg 0: every scenario passed, "
+                             "none skipped, fired, attributed where the JAX gate asks, the "
+                             "mesh 4 -> 2; legs A-C: one restart from a checkpoint with the "
+                             "uninterrupted run's rows, the injected attribution, leg B's "
+                             "restore behind the torn checkpoints, leg C on 2 shards; K1 "
+                             "launched and bit-equal at the restarted dispatch)")
+    chaos_launches = {"api_chaos_undisturbed": chaos["undisturbed"]["k1_launches"],
+                      "api_chaos_a_device_error": chaos["leg_a"]["k1_launches"],
+                      "api_chaos_b_torn": chaos["leg_b"]["k1_launches"],
+                      "api_chaos_c_card": chaos["leg_c"]["card_k1_launches"],
+                      "api_chaos_c_shard_loss": chaos["leg_c"]["k1_launches"]}
+    path_launches["k1_superscan"].update(chaos_launches)
+    k1_recovered = chaos["leg_a"]["k1_recovered"]
+    torch.cuda.empty_cache()
+
+    # ---- 31. the state tools: a savepoint of api_ysb's tumbling sum job
+    # read against numpy, patched sum x 10 and resumed on K1; api_ysb's
+    # records through the formatted file sink and source (CSV, JSON lines,
+    # Avro) into the fused count job; K1 at the resumed job's widest
+    # dispatch over the patched ring ----
+    t_tools = time.perf_counter()
+    tools = api_state_tools_phase()
+    tools["phase_s"] = time.perf_counter() - t_tools
+    emit(tools)
+    if not tools["ok"]:
+        raise AssertionError("api_state_tools: a leg failed a gate (leg A: the reader's cells "
+                             "against numpy, the resumed rows and total against the patched "
+                             "model, K1 launched and bit-equal over the patched ring; leg B: "
+                             "each format's rows against the columnar job's, K1 launched)")
+    tools_launches = {"api_state_tools_a_resumed": tools["leg_a"]["k1_launches"],
+                      "api_state_tools_b_reference": tools["leg_b"]["reference_k1"],
+                      **{f"api_state_tools_b_{f}": tools["leg_b"][f]["k1_launches"]
+                         for f in STATE_TOOLS["formats"]}}
+    path_launches["k1_superscan"].update(tools_launches)
+    k1_patched = tools["leg_a"]["k1_patched"]
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -7843,6 +8448,24 @@ def main() -> int:
          **{k: k1_union[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms", "device_us",
                                      "fires")}},
+        {"name": "k1_recovered", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_recovered["shape"],
+         "launches": chaos["leg_a"]["k1_launches"],
+         "launches_by_path": chaos_launches,
+         **{k: k1_recovered[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms", "device_us",
+                                         "fires")}},
+        {"name": "k1_patched", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_patched["shape"],
+         "launches": tools["leg_a"]["k1_launches"],
+         "launches_by_path": tools_launches,
+         **{k: k1_patched[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "device_us",
+                                       "fires")}},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",
@@ -7935,10 +8558,10 @@ def main() -> int:
         emit(host_profile(f"api_correlated_wide_{name}", wide_run))
         torch.cuda.empty_cache()
     # the million-key state plane (phase 21): leg B's run, each variant, at
-    # half its records (the profiles' share per record is the same)
+    # an eighth of its records (the profiles' share per record is the same)
     for label, skewed in (("uniform", False), ("zipf", True)):
         run_b = (lambda skewed=skewed: tiered_run(
-            API_TIERED["events"] // 2, API_TIERED["keys"], skewed, API_TIERED, tiered=True,
+            API_TIERED["events"] // 8, API_TIERED["keys"], skewed, API_TIERED, tiered=True,
             cap=API_TIERED["hot"])["seconds"])
         emit(profile_run(f"api_tiered_{label}", run_b))
         if skewed:
@@ -7946,6 +8569,12 @@ def main() -> int:
     # job checkpoints (phase 22): leg A's job with checkpoints at 25 ms,
     # driven on this thread so cProfile sees it
     emit(host_profile("api_checkpoint_25ms", ckpt_main_thread_run, top=16))
+    # the chaos drills (phase 30): leg A's faulted job on this thread; the
+    # formats (phase 31): leg B's Avro read job
+    emit(profile_run("api_chaos_a_device_error", chaos_main_thread_run))
+    emit(host_profile("api_chaos_a_device_error", chaos_main_thread_run, top=16))
+    emit(profile_run("api_state_tools_b_avro", lambda: format_read_run("avro")))
+    emit(host_profile("api_state_tools_b_avro", lambda: format_read_run("avro"), top=16))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,10 +16,6 @@ transactional sinks.
 With `traces` (a TraceRegistry) every checkpoint reports the JAX
 coordinator's lifecycle spans: `checkpointing.Checkpoint` with its status,
 and its `CheckpointCapture` and `CheckpointPersist` phases.
-
-Left out until ROADMAP.md Queue A item 14: the JAX coordinator's refusal to
-tolerate a chaos `InjectedCrash` (until then every non-`Exception`
-BaseException is the one never tolerated).
 """
 
 from __future__ import annotations
@@ -27,6 +23,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional
 
+from flink_tpu_torch.chaos.plan import InjectedCrash
 from flink_tpu_torch.checkpoint.storage import CheckpointStorage, CorruptCheckpointError
 
 
@@ -164,10 +161,11 @@ class CheckpointCoordinator:
         (within tolerable_failures: bump the failed id so the retry never
         reuses it, restart the interval clock, return None) or re-raise for
         the restart strategy. Non-Exception BaseExceptions
-        (KeyboardInterrupt, SystemExit) are never tolerated: tolerance is
-        for storage faults, not for interpreter shutdown."""
+        (KeyboardInterrupt, SystemExit) and InjectedCrash are never
+        tolerated: tolerance is for storage faults, not for interpreter
+        shutdown or chaos process-death models."""
         self._abort(cid, exc, span, phase_span)
-        if not isinstance(exc, Exception):
+        if not isinstance(exc, Exception) or isinstance(exc, InjectedCrash):
             raise exc
         self._consecutive_failures += 1
         if self._consecutive_failures <= self.tolerable_failures:

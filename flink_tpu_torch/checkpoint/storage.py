@@ -18,9 +18,10 @@ Files of either package load here. A JAX checkpoint pickles a few plain
 exactly those onto the port's counterparts (`_JAX_CLASSES`) without
 importing `flink_tpu`, and refuses any other `flink_tpu.` path.
 
-The JAX store's chaos seam (`_chaos_storage`, sites `save:<id>` and
-`load:<handle>`, where an `error` directive raises and `torn` truncates the
-saved artifact) waits for ROADMAP item 14's chaos plane.
+The chaos plane's storage seam (`_chaos_storage`, sites `save:<id>` and
+`load:<handle>`) is the JAX store's: an `error` rule raises there, and a
+`torn` rule truncates the artifact a save just completed, which `latest()`
+and the restore then skip as corrupt.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import shutil
 import tempfile
 import time
 from typing import Dict, List, Optional, Tuple
+
+from flink_tpu_torch.chaos import plan as _chaos
 
 #: the plain classes a JAX checkpoint pickles by path -> the port's own
 _JAX_CLASSES = {
@@ -125,19 +128,32 @@ class CheckpointStorage:
         pass
 
 
+def _chaos_storage(site: str) -> Optional[str]:
+    """The chaos plane's storage seam: one is-None check when chaos is
+    off; `error` raises here, `torn` returns the directive for save()."""
+    hook = _chaos.HOOK
+    if hook is not None:
+        return hook("storage", site)
+    return None
+
+
 class MemoryCheckpointStorage(CheckpointStorage):
     def __init__(self):
         self._store: Dict[int, bytes] = {}
 
     def save(self, checkpoint_id: int, data: dict) -> str:
+        directive = _chaos_storage(f"save:{checkpoint_id}")
         buf = io.BytesIO()
         dump(data, buf)
         blob = buf.getvalue()
+        if directive == "torn":
+            blob = blob[: max(len(blob) // 3, 1)]
         self._store[checkpoint_id] = blob
         self.last_save_bytes = len(blob)
         return f"mem:{checkpoint_id}"
 
     def load(self, handle: str) -> dict:
+        _chaos_storage(f"load:{handle}")
         try:
             return loads(self._store[int(handle.split(":", 1)[1])])
         except ForeignCheckpointClassError:
@@ -181,6 +197,7 @@ class FsCheckpointStorage(CheckpointStorage):
         return os.path.join(self.directory, f"chk-{checkpoint_id}")
 
     def save(self, checkpoint_id: int, data: dict) -> str:
+        directive = _chaos_storage(f"save:{checkpoint_id}")
         chk = self._chk_dir(checkpoint_id)
         os.makedirs(chk, exist_ok=True)
         final = os.path.join(chk, "_metadata")
@@ -199,6 +216,12 @@ class FsCheckpointStorage(CheckpointStorage):
             # fsync the parent so the rename itself is durable
             _fsync_dir(chk)
             t2 = time.perf_counter()
+            if directive == "torn":
+                # chaos: the torn-metadata outcome the fsync exists to
+                # prevent (disk corruption, a pre-hardening crash artifact)
+                size = os.path.getsize(final)
+                with open(final, "r+b") as f:
+                    f.truncate(max(size // 3, 1))
             self.last_save_bytes = os.path.getsize(final)
             self.last_save_parts = {"pickle_s": t1 - t0, "fsync_s": t2 - t1,
                                     "bytes": self.last_save_bytes}
@@ -208,6 +231,7 @@ class FsCheckpointStorage(CheckpointStorage):
         return final
 
     def load(self, handle: str) -> dict:
+        _chaos_storage(f"load:{handle}")
         try:
             with open(handle, "rb") as f:
                 return _PortUnpickler(f).load()

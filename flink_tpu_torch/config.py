@@ -89,8 +89,7 @@ _UNPORTED_PREFIXES = (
     ("observability.shipping.", deferred.CLUSTER),
     ("exchange.", deferred.CLUSTER),
     ("execution.watchdog.", deferred.CLUSTER),
-    ("chaos.", deferred.CHAOS),
-    ("security.", deferred.CHAOS),
+    ("security.", deferred.CLUSTER),
 )
 
 
@@ -932,6 +931,41 @@ class AutoscalerOptions:
         "Number of triggers the learning policy suppresses a previously "
         "unhelpful transition for before retrying it (load may have "
         "changed shape since the bad outcome)."
+    )
+
+
+class ChaosOptions:
+    """Deterministic fault injection (flink_tpu_torch/chaos). Default OFF;
+    when off the runtime pays one module-level `is None` check per seam
+    call and nothing else. A MiniCluster job whose config enables it
+    installs the plan for that job and uninstalls it when the job ends;
+    drills and tests install plans programmatically
+    (`testing.harness.fault_injection`)."""
+
+    ENABLED = (
+        ConfigOptions.key("chaos.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Install the configured FaultPlan process-wide for the job. Every "
+        "fault it injects is labeled and attributed `injected: true` in "
+        "the job's exception history. Never enable in production except "
+        "as a deliberate, supervised drill."
+    )
+    SEED = (
+        ConfigOptions.key("chaos.seed").int_type().default_value(0)
+    ).with_description(
+        "Seed for the FaultPlan's RNG (probability triggers): the same "
+        "seed over a deterministic workload replays the same fault "
+        "sequence."
+    )
+    RULES = (
+        ConfigOptions.key("chaos.rules").string_type().default_value("")
+    ).with_description(
+        "JSON list of FaultRule field dicts, e.g. "
+        '[{"scope": "device", "fault": "error", "nth": 6}]. '
+        "Scopes: transport|rpc|dataplane|storage|device|heartbeat (the "
+        "port's seams: storage and device); faults: error|crash|delay|"
+        "drop|torn|partition; triggers: nth-call, probability, window_s "
+        "since install, max_fires."
     )
 
 

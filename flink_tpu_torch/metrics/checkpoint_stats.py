@@ -21,10 +21,9 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
-# the chaos plane's marker in an injected failure's message (the JAX
-# package's `chaos/plan.py::INJECTED_MARKER`, copied): the exception
+# the chaos plane's marker in an injected failure's message: the exception
 # history tags such failures `injected: true`
-INJECTED_MARKER = "[chaos-injected"
+from flink_tpu_torch.chaos.plan import INJECTED_MARKER
 
 # checkpoint lifecycle states (CheckpointStatsStatus analogue)
 PENDING = "PENDING"
@@ -378,17 +377,23 @@ class ExceptionHistory:
     def begin_recovery(self, restart_number: int, *, cause: str,
                        steps_at_failure: Optional[int] = None,
                        events_at_failure: Optional[int] = None,
-                       kind: str = "restart") -> None:
+                       kind: str = "restart",
+                       failed_at_ms: Optional[float] = None,
+                       release_ms: Optional[float] = None) -> None:
         """`kind` distinguishes failure-driven restarts from deliberate
         autoscaler rescales — both rewind to a checkpoint and redeploy, so
         both ride this timeline (and both count toward numRestarts, as the
-        reference's reactive mode does)."""
+        reference's reactive mode does). `failed_at_ms` (default now) is
+        when the failure was caught; `release_ms` (recorded where
+        given) is the part of the downtime spent releasing the failed
+        attempt before the restart."""
         with self._lock:
             self._num_restarts += 1
             self._open_recovery = {
                 "kind": str(kind),
                 "restart_number": int(restart_number),
-                "failed_at_ms": self._clock() * 1000.0,
+                "failed_at_ms": (self._clock() * 1000.0 if failed_at_ms is None
+                                 else float(failed_at_ms)),
                 "cause": str(cause),
                 "injected": INJECTED_MARKER in str(cause),
                 "steps_at_failure": steps_at_failure,
@@ -400,6 +405,8 @@ class ExceptionHistory:
                 "running_at_ms": None,
                 "downtime_ms": None,
             }
+            if release_ms is not None:
+                self._open_recovery["release_ms"] = float(release_ms)
 
     def complete_recovery(self, *, restored_checkpoint_id: Optional[int] = None,
                           restore_duration_ms: Optional[float] = None,

@@ -32,7 +32,8 @@ joinMatchesEmitted, joinFallbackReason, stateBytes, stateKeyCount,
 numLateRecordsDropped, currentWatermark) and its emission tracker, which
 stamps each ripe window after its matches' rows reached the host.
 
-Left out (ROADMAP.md Queue A): the chaos hook (item 14).
+The chaos plane's device seam (`HOOK("device", uid)`) sits at the top of
+each device ingest, as in the JAX runner, before any key is staged.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from flink_tpu_torch.chaos import plan as _chaos
 from flink_tpu_torch.config import Configuration, ExecutionOptions
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK
 from flink_tpu_torch.joins.pipeline import FusedJoinPipeline
@@ -156,7 +158,9 @@ class DeviceJoinRunner(StepRunner):
             self._host.on_batch_n(ordinal, values, timestamps)
             self._sync_late()
             return
-        # the JAX package's chaos hook ("device", uid) sits here: item 14
+        hook = _chaos.HOOK
+        if hook is not None:
+            hook("device", self.uid)
         n = len(timestamps)
         if n == 0:
             return

@@ -1,7 +1,7 @@
 """Local pipeline executor: the host-driven stepped dataflow loop.
 
-Counterpart of `flink_tpu/runtime/executor.py` but for its chaos hook and
-its cluster stages. The sources' readers yield columnar batches in turn;
+Counterpart of `flink_tpu/runtime/executor.py` but for its cluster
+stages. The sources' readers yield columnar batches in turn;
 each batch flows through push-based StepRunners (a stateless chain, a
 keyed window step or another stateful operator, then sinks), and the
 sources' watermarks advance between steps.
@@ -100,8 +100,10 @@ An operator function that declares create_coordinator() gets a job-scope
 coordinator (runtime/coordination.py) whose state rides `capture` and
 `restore`.
 
-Left out, raising where a job asks for it (ROADMAP.md Queue A): the chaos
-hook (item 14).
+The chaos plane's device seam is the JAX package's: `WindowStepRunner` and
+`DeviceChainRunner` call `HOOK("device", uid)` at the top of each batch,
+before anything of it is staged or launched, so an injected error leaves
+the device untouched and rides the normal restart path.
 """
 
 from __future__ import annotations
@@ -119,6 +121,7 @@ import torch
 
 from flink_tpu_torch.api.functions import AggregateFunction, ProcessFunction
 from flink_tpu_torch.api.windowing.assigners import EventTimeSessionWindows, GlobalWindows
+from flink_tpu_torch.chaos import plan as _chaos
 from flink_tpu_torch.config import (
     Configuration,
     ExecutionOptions,
@@ -835,6 +838,11 @@ class WindowStepRunner(StepRunner):
         return np.asarray([self.value_fn(v) for v in values], dtype=np.float32)
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        # chaos seam (device dispatch boundary): one is-None check per
+        # batch when chaos is off
+        hook = _chaos.HOOK
+        if hook is not None:
+            hook("device", self.uid)
         if self.key_traceable and len(timestamps):
             # host route of a traceable program: columnarize record-mode
             # input and cast to the canonical dtype as the fused ingest does
@@ -1042,6 +1050,9 @@ class DeviceChainRunner(WindowStepRunner):
         self._init_planes(config, device)
 
     def on_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
+        hook = _chaos.HOOK   # chaos seam: fused-chain dispatch boundary
+        if hook is not None:
+            hook("device", self.uid)
         if len(timestamps) == 0:
             return   # nothing to stage
         if getattr(values, "dtype", None) == object or not isinstance(values, np.ndarray):

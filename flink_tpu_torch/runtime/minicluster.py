@@ -55,8 +55,11 @@ exception trackers register their gauges on the job group, checkpoints and
 restarts report spans, and the client serves `latency_report`,
 `history_report` and `doctor_report` in the JAX package's shapes.
 
-Left out until their items (ROADMAP.md Queue A), each raising where it is
-asked for: the `chaos.*` plan and `security=` (item 14).
+A job config with `chaos.enabled` installs its fault plan (`chaos.*`,
+chaos/plan.py) for that job and uninstalls it when the job ends; a plan
+already installed (a drill's `testing.harness.fault_injection`) is never
+stacked. `security=` raises: transport security comes with the cluster
+(ROADMAP.md Queue A, item 14).
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ import time
 import uuid
 from typing import Dict, Optional
 
+from flink_tpu_torch.chaos import plan as _chaos
 from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
 from flink_tpu_torch.checkpoint.restart import restart_strategy_from_config
 from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage, MemoryCheckpointStorage
@@ -136,7 +140,7 @@ def _is_device_loss(e: BaseException) -> bool:
             return True
         if isinstance(cur, RuntimeError) and "CUDA error" in str(cur):
             return True
-        if "[chaos-injected:device" in str(cur):
+        if f"{_chaos.INJECTED_MARKER}:device" in str(cur):
             return True
         cur = cur.__cause__ or cur.__context__
     return False
@@ -149,6 +153,24 @@ class JobStatus(enum.Enum):
     FINISHED = "FINISHED"
     FAILED = "FAILED"
     CANCELED = "CANCELED"
+
+
+def _release_attempt(device) -> float:
+    """Release a failed attempt, on every failure path: its in-flight
+    dispatches finish before its buffers go (after a sticky CUDA error the
+    wait raises it again, and the next attempt fails the same way until the
+    strategy ends the job), and whatever of it sits in reference cycles is
+    collected. Returns the milliseconds it took."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        import torch
+
+        try:
+            torch.cuda.synchronize(device)
+        except RuntimeError:
+            pass
+    gc.collect()
+    return (time.perf_counter() - t0) * 1000.0
 
 
 def _release_frames(exc: Optional[BaseException]) -> None:
@@ -370,7 +392,7 @@ class MiniCluster:
 
     def __init__(self, security=None):
         if security is not None:
-            raise deferred.not_ported("MiniCluster(security=...)", deferred.CHAOS)
+            raise deferred.not_ported("MiniCluster(security=...)", deferred.CLUSTER)
         self.jobs: Dict[str, JobClient] = {}
 
     @classmethod
@@ -406,6 +428,22 @@ class MiniCluster:
     # ------------------------------------------------------------------
     def _run_job(self, client: JobClient, graph: StepGraph, config: Configuration,
                  savepoint_restore_path: Optional[str], device) -> None:
+        """Run the job's attempts under its config's fault plan, if any. The
+        plan is uninstalled when THIS job ends: a process-wide hook leaking
+        past the drill would fault every later job."""
+        chaos_plan = _chaos.FaultPlan.from_config(config)
+        installed = False
+        if chaos_plan is not None and _chaos.active_plan() is None:
+            _chaos.install_plan(chaos_plan)
+            installed = True
+        try:
+            self._run_attempts(client, graph, config, savepoint_restore_path, device)
+        finally:
+            if installed and _chaos.active_plan() is chaos_plan:
+                _chaos.uninstall_plan()
+
+    def _run_attempts(self, client: JobClient, graph: StepGraph, config: Configuration,
+                      savepoint_restore_path: Optional[str], device) -> None:
         """The attempt loop (the JAX `_run_job_inner`'s): coordinator,
         restart strategy, restore, backoff and the savepoint hook. A
         failure of any attempt is caught here and counted against the
@@ -523,32 +561,28 @@ class MiniCluster:
                 _release_frames(e)
                 client.error = e
                 del e
-                if device.type == "cuda":
-                    import torch
-
-                    # the failed attempt's in-flight dispatches finish
-                    # before its buffers go; after a sticky CUDA error the
-                    # wait raises it again, and the next attempt fails the
-                    # same way until the strategy ends the job
-                    try:
-                        torch.cuda.synchronize(device)
-                    except RuntimeError:
-                        pass
-                gc.collect()     # and whatever of it sits in reference cycles
+                failed_ms = time.time() * 1000.0
+                release_ms = _release_attempt(device)
                 delay = strategy.next_delay_ms(attempt)
                 if delay is None:
                     client._set_status(JobStatus.FAILED)
                     return
                 client.num_restarts = attempt
                 client._set_status(JobStatus.RESTARTING)
+                # the port's downtime runs from the failure caught to
+                # RUNNING, the release of the failed attempt included (the
+                # JAX package has no such step); the recovery record also
+                # reports the release on its own
                 client.exceptions.begin_recovery(
-                    attempt, cause=repr(client.error), events_at_failure=client.records_in)
+                    attempt, cause=repr(client.error), events_at_failure=client.records_in,
+                    failed_at_ms=failed_ms, release_ms=release_ms)
                 if restart_span is not None:
                     # the previous recovery never reached RUNNING: close its
                     # span so the trace stays bounded
                     client.traces.report(restart_span.set_attribute(
                         "reachedRunning", False).end())
                 restart_span = (client.traces.span("recovery", "JobRestart")
+                                .set_start(failed_ms)
                                 .set_attribute("attempt", attempt)
                                 .set_attribute("delayMs", delay)
                                 .set_attribute("cause", repr(client.error)[:200]))

@@ -13,9 +13,8 @@ the count. All accesses are batched multi-get/multi-put — the ForSt
 batching pattern (ForStGeneralMultiGetOperation.java).
 
 A pure-Python dict store keeps the capability without a compiler, as in
-the JAX package. The JAX package's chaos seam on the cold tier's reads
-(`_chaos.HOOK`) is not here: it comes with the chaos plane (ROADMAP.md
-Queue A, item 14).
+the JAX package. The chaos plane's storage seam covers the cold tier's
+reads (site ``cold-tier:<what>``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from flink_tpu_torch.chaos import plan as _chaos
 from flink_tpu_torch.ops.aggregators import ONE, DeviceAggregator
 
 _COMBINE = {
@@ -200,8 +200,13 @@ class ColdKeyTier:
     # -- tier-manager surface (state/tier_manager.py) -------------------
     def _guarded_get(self, skeys: np.ndarray, site: str):
         """All promotion/fire reads go through here: a failed read surfaces
-        as :class:`ColdTierError`. `site` names the read for the chaos
-        plane's storage seam, which comes with ROADMAP.md item 14."""
+        as :class:`ColdTierError`. The chaos plane's storage seam covers the
+        cold tier (site ``cold-tier:<what>``), so a drill can model a lost
+        or corrupt cold artifact mid-promotion; one is-None check when chaos
+        is off."""
+        hook = _chaos.HOOK
+        if hook is not None:
+            hook("storage", f"cold-tier:{site}")
         try:
             return self.store.get_batch(skeys)
         except ColdTierError:

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -31,19 +33,32 @@ def device_split_us(fn, reps: int = 5) -> dict:
     return device_profile(fn, reps)[0]
 
 
-def device_profile(fn, reps: int = 5, tries: int = 3):
+def device_profile(fn, reps: int = 5, tries: int = 5):
     """(device us per call by kernel name, CUDA kernel launches per call)
     of fn(): `reps` calls under torch.profiler after a warm-up, kernel rows
-    only. A profiling session that comes back without device rows (seen on
-    the H100 now and then, for calls that launch kernels) is run again, up
-    to `tries` times."""
+    only. A session must hold a device record for each kernel launch call
+    it saw on the host: on the H100's machine the profiler drops device
+    records, more of them the longer the process has run since its first
+    session (none, or all, at times). A short session is run again, up to
+    `tries` times, and the fullest one is returned, with a warning when none
+    was complete."""
     fn()
     torch.cuda.synchronize()
+    best = None
     for _ in range(tries):
-        split, launches = _profile_once(fn, reps)
-        if split:
-            break
-    return split, launches
+        split, launches, calls = _profile_once(fn, reps)
+        if best is None or launches > best[1]:
+            best = (split, launches, calls)
+        if split and launches >= calls:
+            return split, launches
+    warnings.warn(f"torch.profiler kept {best[1]} of {best[2]} kernel launches a call in "
+                  f"each of {tries} sessions: device times are short", RuntimeWarning)
+    return best[0], best[1]
+
+
+#: host records of a kernel launch call (the `cudaLaunch*` and `cuLaunch*` entry points)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel", "cuLaunchKernelEx", "cuLaunchCooperativeKernel")
 
 
 def _profile_once(fn, reps: int):
@@ -55,9 +70,10 @@ def _profile_once(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split, launches = {}, 0
+    split, launches, calls = {}, 0, 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
+            calls += e.count if e.key in LAUNCH_CALLS else 0
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -66,4 +82,4 @@ def _profile_once(fn, reps: int):
             name = e.key.split("(")[0].split("<")[0].replace("void ", "")[:40]
             split[name] = split.get(name, 0.0) + us / reps
             launches += e.count
-    return split, launches / reps
+    return split, launches / reps, calls / reps

@@ -7,8 +7,8 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-CHAOS = "item 14 (remaining planes: chaos, the cluster and its security)"
-CLUSTER = "item 14 (remaining planes: the cluster's TaskManager heartbeat and REST)"
+CLUSTER = ("item 14 (remaining planes: the cluster, its TaskManager heartbeat, "
+           "REST and transport security)")
 ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
 
 

@@ -873,12 +873,24 @@ def test_state_checkpoint_keys_raise_as_unknown(key):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("chaos.enabled", "item 14"), ("security.ssl.internal.enabled", "item 14"),
+    # the chaos plane is ported (tests/test_torch_chaos.py): the key is
+    # accepted and reads back, and the config builds the job's plan (the
+    # case keeps its original id)
+    pytest.param("chaos.enabled", None, id="chaos.enabled-item 14"),
+    ("security.ssl.internal.enabled", "item 14"),
     # the autoscaler is ported (tests/test_torch_mesh_control.py runs it on
     # the MiniCluster): accepted, and a MiniCluster job that enables it
     # wires a coordinator (the case keeps its original id)
     pytest.param("autoscaler.enabled", None, id="autoscaler.enabled-item 15")])
 def test_minicluster_planes_still_deferred_raise_naming_their_item(key, item):
+    if key == "chaos.enabled":
+        from flink_tpu_torch.chaos.plan import FaultPlan
+
+        conf = tcfg.Configuration({key: True})
+        assert conf.get(tcfg.ChaosOptions.ENABLED) is True
+        assert FaultPlan.from_config(conf).rules == []
+        assert FaultPlan.from_config(tcfg.Configuration()) is None
+        return
     if item is None:
         import torch
 

@@ -46,6 +46,14 @@ Tolerance: exact.
   one-device rows; leg C's degrade 4 -> 2 from a restored checkpoint), and
   the routed dispatch K1's check takes: shard 0's partials under the
   rebalanced table.
+- api_chaos (phase 30): every scenario of the matrix on four CPU shards,
+  legs A-C's recoveries against their uninterrupted runs (checkpoints
+  every 1 ms here: a small CPU run is over before a 25 ms checkpoint),
+  and the dispatch `k1_recovered` takes; only K1's launches stay 0.
+- api_state_tools (phase 31): leg A's reader cells against numpy and the
+  resumed rows and total against the patched model, and the dispatch
+  `k1_patched` takes; leg B's rows of every format against the columnar
+  job's; only K1's launches stay 0.
 """
 
 import numpy as np
@@ -341,3 +349,40 @@ def test_api_topologies_phase_holds_every_check_but_the_launches(monkeypatch):
     assert c["reduce"]["query_state_equal_model"] and c["iterate"]["max_rounds_guard"]
     assert d["report_equals_jax"] and d["equals_branches_alone"] and d["equals_model"]
     assert not r["ok"] and a["parity"]["union_k1"] == 0 and "k1_union" not in r
+
+
+def test_api_chaos_phase_holds_every_check_but_the_launches():
+    """Phase 30 rehearsed small on the CPU (2^16 records, batch 2048, the
+    device error at batch 20 of 32; leg C at batch 1024, the error at batch
+    40 of 64)."""
+    r = cm.api_chaos_phase(dev="cpu", sizes=dict(
+        events=1 << 16, batch=2048, warmup_events=1 << 12, device_nth=20, interval=1,
+        mesh_events=1 << 16, mesh_batch=1024, mesh_nth=40))
+    z, u, a, b, c = r["leg_0"], r["undisturbed"], r["leg_a"], r["leg_b"], r["leg_c"]
+    assert z["ok"] and z["scenarios_passed"] == 8 and cm.CHAOS["events"] == 1 << 22
+    assert all(x["mesh"] == [4, 2] for n, x in z["scenarios"].items() if "chip-loss" in n)
+    assert u["parity_vs_oracle"] and u["num_restarts"] == 0
+    assert a["status"] == "FINISHED" and a["num_restarts"] == 1 and a["injected"] == [True]
+    assert a["restored_checkpoint_id"] is not None and a["rows_equal_undisturbed"]
+    assert a["memory_bounded"] and a["restarted_dispatch_taken"] and a["downtime_ms"] > 0
+    assert b["num_restarts"] == 1 and b["restored_checkpoint_id"] == 2 and b["torn_saves"] >= 1
+    assert b["rows_equal_undisturbed"] and b["injected"] == [False]
+    assert c["num_restarts"] == 1 and c["mesh_devices_after"] == 2 and c["rows_equal_card"]
+    assert c["injected"] == [True] and c["restored_checkpoint_id"] is not None
+    # CPU runs launch no K1
+    assert not r["ok"] and a["k1_launches"] == 0 and "k1_recovered" not in a
+
+
+def test_api_state_tools_phase_holds_every_check_but_the_launches(monkeypatch):
+    """Phase 31 rehearsed small on the CPU (batch 4096, 2^17 records for the
+    savepoint, 2^15 a format)."""
+    monkeypatch.setitem(cm.API, "batch", 4096)
+    r = cm.api_state_tools_phase(dev="cpu", sizes=dict(events=1 << 17, format_events=1 << 15))
+    a, b = r["leg_a"], r["leg_b"]
+    assert a["first_job"] == "CANCELED" and a["resumed_job"] == "FINISHED"
+    assert a["in_flight_cells"] > 0 and a["reader_equals_model"]
+    assert a["rows_equal_patched_model"] and a["total_equal"] and a["resumed_dispatch_taken"]
+    for fmt in ("csv", "json", "avro"):
+        assert b[fmt]["rows_equal_columnar_job"] and b[fmt]["codec_roundtrip"]
+        assert b[fmt]["files"] == 1 and b[fmt]["bytes"] > 0
+    assert not r["ok"] and a["k1_launches"] == 0 and "k1_patched" not in a

@@ -316,6 +316,22 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         assert sorted(client.latency_report())[0] == "attribution"
         assert client.history_report()["enabled"] and client.doctor_report()["samples"] >= 1
         assert otel.spans_to_otlp([], "x")["resourceSpans"]
+        # the chaos plane, the State Processor API, the formats and types
+        from flink_tpu_torch.chaos import scenarios
+        from flink_tpu_torch.core.types import Types
+        from flink_tpu_torch.formats import get_format
+        from flink_tpu_torch.formats.file_io import FormattedFileSource  # noqa: F401
+        from flink_tpu_torch.state_processor import SavepointReader
+        from flink_tpu_torch.testing.harness import fault_injection  # noqa: F401
+        drill = scenarios.run_scenario("device-dispatch-error", device="cpu")
+        assert drill["passed"] and drill["attributed"], drill
+        assert SavepointReader.load(tmp + "/chk").records_in() > 0
+        assert Types.ROW(["a"], [Types.LONG]).serializer().serialize((1,)) == bytes(
+            [0, 1, 0, 0, 0, 0, 0, 0, 0])
+        import io
+        buf = io.BytesIO()
+        get_format("avro").write([{"n": -3}], buf)
+        assert get_format("avro").read(io.BytesIO(buf.getvalue())) == [{"n": -3}]
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -342,7 +358,7 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     # the SQL front door, the latency controller and the oracle's state are
     # scanned too
     for sub in ("table", "planner", "security", "scheduler", "state", "core", "checkpoint",
-                "metrics", "joins", "parallel"):
+                "metrics", "joins", "parallel", "chaos", "formats", "testing"):
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
@@ -362,7 +378,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "metrics/task_io.py", "metrics/traces.py", "metrics/otel.py",
                  "metrics/emission_latency.py", "metrics/history.py", "metrics/doctor.py",
                  "scheduler/rebalancer.py", "scheduler/signals.py", "scheduler/policy.py",
-                 "scheduler/autoscaler.py"):
+                 "scheduler/autoscaler.py", "core/serializers.py", "core/types.py",
+                 "formats/registry.py", "formats/file_io.py", "state_processor.py",
+                 "chaos/plan.py", "chaos/scenarios.py", "testing/harness.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
