@@ -359,6 +359,28 @@ exits non-zero on the first failure. Phases, one JSON line each:
    JSON lines and Avro (each codec's host MB/s), each read back by
    FormattedFileSource into api_ysb's count program on the card, rows equal
    to the columnar job's.
+32. api_cluster: the distributed cluster (runtime/cluster.py) on the card,
+   transport security on (an ephemeral secret; a secret file for leg E).
+   Leg A: api_ysb's fused program (columnar) at 2^22 records as a
+   GraphJobSpec on one in-process JobManager and two TaskExecutors: rows
+   equal to the local run and the numpy oracle, K1's launches in the
+   TaskExecutor, cluster and local tuples/s. Leg B: the same program split
+   before the window (two stages on two TaskExecutors over the binary
+   wire) at 2^21 records, paced 0.1 s a batch, checkpoints every 0.2 s; a
+   TaskExecutor stopped after the first completed checkpoint and another
+   connected: FINISHED with the uninterrupted rows, the restored
+   checkpoint, the window stage's runner, the exchange's byte counters and
+   the device memory at the restarted attempt's first sink batch within
+   512 KiB of the first attempt's.
+   Leg C: a DistributedJobSpec on two shards, operator "device": a 10 s /
+   1 s sliding count (TpuWindowOperator) and a session sum, gap 2000 ms
+   (TpuSessionWindowOperator, K3/K4), over 2^20 records each, equal to
+   numpy. Leg D: SQL ML_PREDICT over a two-layer MLP on 2^16 rows, equal to
+   the CPU's scores within 1e-5. Leg E: a jobmanager and a taskmanager
+   process, leg A's job at 2^20 records equal to the local run. Then K1
+   against its plain version at leg A's TaskExecutor's first full and
+   widest dispatches (`k1_cluster`), and the planes' host rates (binary
+   wire encode/decode MB/s, handshake ms).
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -7635,6 +7657,589 @@ def api_state_tools_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 32, api_cluster: the distributed cluster (runtime/cluster.py) over
+# the authenticated RPC and columnar data planes, with its TaskExecutors on
+# the card; ML_PREDICT over a torch model
+# ---------------------------------------------------------------------------
+
+# leg A: api_ysb's fused program at 2^22 records (batch 65536, 8192 keys)
+# on one JobManager and two TaskExecutors; leg B: the same program split
+# before the window at 2^21 records, paced 0.1 s a batch, checkpoints every
+# 0.2 s, a TaskExecutor lost after the first checkpoint (a 5 s heartbeat
+# timeout: the in-process TaskExecutors' beats share the job's GIL, and a
+# 1.5 s timeout lost live ones on the card); leg C: two shards
+# of a sliding count and a session sum over 2^20 records each; leg D:
+# ML_PREDICT over 2^16 rows; leg E: leg A's job at 2^20 records on a
+# jobmanager and a taskmanager process
+API_CLUSTER = dict(events_a=1 << 22, events_b=1 << 21, events_e=1 << 20, keys=8192,
+                   batch=65536, window=10_000, slide=1_000, delay_b=0.1,
+                   superbatch_b=4, interval_b=0.2, heartbeat_timeout_b=5.0,
+                   c_steps=16, c_batch=1 << 16,
+                   c_keys=1024, gap=2000, ml_rows=1 << 16, hidden=64, wire_rows=65536,
+                   wire_reps=20, handshakes=50, mem_slack=512 << 10)
+
+
+class _PipeTap:
+    """Keeps every FusedWindowPipeline built while it is installed (the
+    geometry K1's check needs of a pipeline inside a TaskExecutor)."""
+
+    def __enter__(self):
+        from flink_tpu_torch.runtime import fused_window_pipeline as fwp
+
+        self.pipes, self._cls = [], fwp.FusedWindowPipeline
+        real, pipes = self._cls.__init__, self.pipes
+
+        def init(pipe, *a, **kw):
+            real(pipe, *a, **kw)
+            pipes.append(pipe)
+
+        self._real = real
+        self._cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__ = self._real
+        return False
+
+
+class _RunnerTap:
+    """Records the runner classes of every JobRuntime built while it is
+    installed (a stage's selected runner)."""
+
+    def __enter__(self):
+        from flink_tpu_torch.runtime import executor as ex
+
+        self.built, self._ex, self._real = [], ex, ex.build_runners
+        built, real = self.built, self._real
+
+        def build(graph, config, device=None):
+            runners, feeds = real(graph, config, device)
+            built.append([type(r).__name__ for r in runners])
+            return runners, feeds
+
+        ex.build_runners = build
+        return self
+
+    def __exit__(self, *exc):
+        self._ex.build_runners = self._real
+        return False
+
+
+class _Cluster:
+    """A JobManager and TaskExecutors in this process, all on one ephemeral
+    secret; stopped on exit."""
+
+    def __init__(self, sec, dev, tms=2, tm_kw=None, **jm_kw):
+        from flink_tpu_torch.runtime.cluster import JobManagerEndpoint
+        from flink_tpu_torch.runtime.rpc import RpcService
+
+        self.sec, self.dev, self.tm_kw = sec, dev, tm_kw or {}
+        self.svcs = [RpcService(security=sec)]
+        jm_kw.setdefault("heartbeat_interval", 0.2)
+        jm_kw.setdefault("heartbeat_timeout", 10.0)
+        self.jm = JobManagerEndpoint(self.svcs[0], **jm_kw)
+        self.tes = []
+        for _ in range(tms):
+            self.add_tm()
+        self.client = self.svcs[0].gateway(self.svcs[0].address, "jobmanager",
+                                           reply_timeout=300.0)
+
+    def add_tm(self):
+        from flink_tpu_torch.runtime.cluster import TaskExecutorEndpoint
+        from flink_tpu_torch.runtime.rpc import RpcService
+
+        svc = RpcService(security=self.sec)
+        te = TaskExecutorEndpoint(svc, slots=1, device=self.dev, **self.tm_kw)
+        te.connect(self.svcs[0].address)
+        self.svcs.append(svc)
+        self.tes.append(te)
+        return te
+
+    def kill_tm(self, i):
+        """Stop TaskExecutor i as its process would die: its endpoints stop,
+        its task threads end (they leave at their next cancellation check)
+        and their device memory is collected."""
+        import gc
+
+        te = self.tes[i]
+        te.stop()
+        self.svcs[i + 1].stop()
+        for task in list(te._tasks.values()):
+            task.thread.join(60)
+        gc.collect()
+
+    def wait(self, job, done=("FINISHED", "FAILED", "CANCELED"), timeout=600.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            st = self.client.job_status(job)
+            if st["status"] in done:
+                return st
+            time.sleep(0.02)
+        raise AssertionError(f"api_cluster: job {job} not in {done} within {timeout} s: {st}")
+
+    def until(self, pred, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            got = pred()
+            if got:
+                return got
+            time.sleep(0.02)
+        raise AssertionError(f"api_cluster: timed out waiting for {what}")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for te in self.tes:
+            te.stop()
+        self.jm.heartbeats.stop()
+        for s in self.svcs:
+            s.stop()
+        return False
+
+
+def _api_fired_rows(rows, keys: int, window_ms: int, slide_ms: int) -> dict:
+    """fired_rows' (max timestamp, key, count) as {window index: row over
+    the keys}, as api_fired reads a sink."""
+    fired = {}
+    for t, k, v in rows:
+        row = fired.setdefault((t + 1 - window_ms) // slide_ms, np.zeros(keys))
+        row[k] = v
+    return fired
+
+
+def cluster_leg_a(sz, dev, sec) -> dict:
+    """Leg A's job (columnar output) locally (env.execute) and on the
+    cluster, after a warm-up run at a sixteenth of its records, against
+    each other and the numpy oracle; K1 counted in the TaskExecutor and
+    held against its plain version at its first full dispatch there
+    (`k1_cluster`)."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.testing import cluster_jobs as cj
+    from flink_tpu_torch.testing import stream as st
+
+    n = sz["events_a"]
+    kw = dict(keys=sz["keys"], batch=sz["batch"], window_ms=sz["window"],
+              slide_ms=sz["slide"], device=dev)
+    warm, _sink = cj.api_graph(n // 16, **kw)   # the kernels built, the process warm
+    warm.execute()
+    env, sink = cj.api_graph(n, **kw)
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.execute()
+    _sync(dev)
+    local_s = time.perf_counter() - t0
+    local_k1 = cs.LAUNCHES["k1_superscan"]
+    local = cj.fired_rows(sink.results)
+    del env, sink
+    t0 = time.perf_counter()
+    ref = st.api_replay(n, sz["batch"], window_ms=sz["window"], slide_ms=sz["slide"],
+                        agg="count", num_keys=sz["keys"])
+    oracle_s = time.perf_counter() - t0
+    oracle_ok, checked = st.parity(ref.fired, _api_fired_rows(local, sz["keys"], sz["window"],
+                                                              sz["slide"]), require_all=True)
+    spec = cj.api_graph_spec("api-cluster-a", n, **kw)
+    with _Cluster(sec, dev) as c, _PipeTap() as pt, K1Tap() as tap:
+        _sync(dev)
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        job = c.client.submit_job(spec.to_bytes(), 1)
+        status = c.wait(job)
+        cluster_s = time.perf_counter() - t0
+        launches = cs.LAUNCHES["k1_superscan"]
+        t0 = time.perf_counter()
+        got = cj.fired_rows(c.client.job_result(job) or [])
+        result_s = time.perf_counter() - t0
+        k1 = (tap.check("api_cluster leg A: api_ysb's fused program in a TaskExecutor, its "
+                        "widest dispatch (first_dispatch: its first full one)", pt.pipes[-1])
+              if torch.device(dev).type == "cuda" and pt.pipes else {})
+    out = {"events": n, "status": status["status"], "rows": len(got),
+           "rows_equal_local": got == local, "local_equal_oracle": oracle_ok,
+           "windows_checked": checked, "k1_launches_task_executor": launches,
+           "k1_launches_local": local_k1, "cluster_seconds": cluster_s,
+           "local_seconds": local_s, "result_fetch_s": result_s, "oracle_s": oracle_s,
+           "tuples_per_s_cluster": n / cluster_s, "tuples_per_s_local": n / local_s,
+           "pipelines_in_task_executor": len(pt.pipes)}
+    if k1:
+        out["k1_cluster"] = k1
+    out["ok"] = bool(status["status"] == "FINISHED" and got == local and oracle_ok
+                     and launches > 0 and (not k1 or (k1["max_abs_err"] == 0 and
+                                                      k1["first_dispatch"]["max_abs_err"] == 0)))
+    return out
+
+
+def cluster_leg_b(sz, dev, sec, tmp: str) -> dict:
+    """Leg B: the program split before the window (two stages, two tasks
+    on two TaskExecutors, the binary wire), paced, checkpoints every
+    interval_b; after the first completed checkpoint (and K1's first
+    launch and first rows) one TaskExecutor is stopped and another
+    connects. The job finishes with the uninterrupted run's rows; the
+    device memory at the restarted attempt's first sink batch against the
+    first attempt's."""
+    from flink_tpu_torch.config import ExecutionOptions
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.testing import cluster_jobs as cj
+
+    n = sz["events_b"]
+    kw = dict(keys=sz["keys"], batch=sz["batch"], window_ms=sz["window"],
+              slide_ms=sz["slide"], device=dev)
+    env, sink = cj.api_graph(n, **kw)
+    env.execute()
+    want = cj.fired_rows(sink.results)
+    del env, sink
+    label = f"api-cluster-b-{time.monotonic_ns()}"
+    spec = cj.api_graph_spec("api-cluster-b", n, stages=True, **kw, label=label,
+                             gen=cj.ApiGen(n, sz["keys"], delay_s=sz["delay_b"]))
+    firsts = cj.FIRST_WRITE_BYTES.setdefault(label, [])
+    spec.config.set(ExecutionOptions.SUPERBATCH_STEPS, sz["superbatch_b"])
+    out = {"events": n}
+    with _Cluster(sec, dev, tm_kw={"shipping_interval_ms": 100},
+                  checkpoint_dir=f"{tmp}/chk-b", checkpoint_interval=sz["interval_b"],
+                  restart_attempts=3, restart_delay=0.2,
+                  heartbeat_timeout=sz["heartbeat_timeout_b"],
+                  adaptive=False) as c, _RunnerTap() as rt:
+        _sync(dev)
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        job = c.client.submit_job(spec.to_bytes(), 1)
+        cuda = torch.device(dev).type == "cuda"
+
+        def k1_seen():
+            return not cuda or cs.LAUNCHES["k1_superscan"] > 0
+
+        c.until(lambda: c.client.job_status(job)["checkpoints"] and k1_seen() and firsts,
+                120, "leg B's first checkpoint and first rows")
+        out["first_attempt_k1"] = cs.LAUNCHES["k1_superscan"]
+        out["checkpoint_before_loss"] = c.client.job_status(job)["checkpoints"][-1]
+        t_loss = time.perf_counter()
+        c.kill_tm(1)
+        c.add_tm()
+        cs.reset_launch_counts()
+        status = c.wait(job)
+        secs = time.perf_counter() - t0
+        out["restart_to_k1_s"] = time.perf_counter() - t_loss
+        got = cj.fired_rows(c.client.job_result(job) or [])
+        exc = c.client.job_exceptions(job)
+        metrics = c.client.job_metrics(job).get("job", {})
+    exch = {k: v for k, v in metrics.items() if isinstance(v, (int, float)) and (
+        "exchange" in k or k.endswith(".backPressuredTimeMsTotal"))}
+
+    def total(leaf):
+        # per-channel keys (job.exchange.numBytesOut.<edge>) and per-runner
+        # ones (job.operator.<uid>.backPressuredTimeMsTotal)
+        return sum(v for k, v in exch.items()
+                   if leaf in k.split(".") and not k.endswith("PerSecond"))
+
+    recov = exc["recoveries"][-1] if exc.get("recoveries") else {}
+    window_runners = sorted({r for rs in rt.built for r in rs
+                             if "Window" in r or "DeviceChain" in r})
+    out.update({
+        "status": status["status"], "restarts": status["restarts"], "seconds": secs,
+        "stages": status.get("stages"), "rows": len(got), "rows_equal_uninterrupted": got == want,
+        "restored_checkpoint_id": recov.get("restored_checkpoint_id"),
+        "window_stage_runners": window_runners, "runner_sets": rt.built,
+        "k1_launches_restarted": cs.LAUNCHES["k1_superscan"],
+        "exchange": {"numBytesOut": total("numBytesOut"), "numBytesIn": total("numBytesIn"),
+                     "inPoolUsage": max([v for k, v in exch.items() if "inPoolUsage" in k],
+                                        default=None),
+                     "backPressuredTimeMsTotal": total("backPressuredTimeMsTotal"),
+                     "keys": sorted(exch)[:24]},
+        # at each attempt's first sink batch (api_checkpoint's measure)
+        "device_memory_first": firsts[0], "device_memory_restarted": firsts[-1],
+        "device_memory_delta": firsts[-1] - firsts[0], "first_writes": len(firsts)})
+    out["ok"] = bool(status["status"] == "FINISHED" and got == want and status["restarts"] >= 1
+                     and out["restored_checkpoint_id"] is not None and len(firsts) >= 2
+                     and out["device_memory_delta"] <= sz["mem_slack"])
+    return out
+
+
+def _sliding_oracle(keys, ts, window_ms: int, slide_ms: int) -> dict:
+    """{(key, window start): count} of a sliding count over every record
+    (one bincount over key x window-start cells)."""
+    per = window_ms // slide_ms
+    starts = (ts // slide_ms)[:, None] - np.arange(per)[None, :]   # in slides
+    lo = int(starts.min())
+    span = int(starts.max()) - lo + 1
+    counts = np.bincount((np.repeat(keys, per) * span + (starts.reshape(-1) - lo)))
+    return {(int(c) // span, (int(c) % span + lo) * slide_ms): int(counts[c])
+            for c in np.flatnonzero(counts)}
+
+
+def cluster_leg_c(sz, dev, sec) -> dict:
+    """Leg C: DistributedJobSpec(operator="device") on two shards of two
+    TaskExecutors: a sliding count on TpuWindowOperator and a session sum
+    on TpuSessionWindowOperator (K3/K4), each against numpy."""
+    from flink_tpu_torch.api.windowing.assigners import (
+        EventTimeSessionWindows,
+        SlidingEventTimeWindows,
+    )
+    from flink_tpu_torch.ops import cuda_session
+    from flink_tpu_torch.runtime.cluster import DistributedJobSpec
+    from flink_tpu_torch.testing import cluster_jobs as cj
+    from flink_tpu_torch.testing import stream as st
+
+    T, B = sz["c_steps"], sz["c_batch"]
+    out = {"events": T * B}
+    sliding = cj.ApiShardSource(T, B, sz["c_keys"])
+    keys, ts = sliding.records(np.arange(T * B, dtype=np.int64))
+    want_sliding = _sliding_oracle(keys, ts, sz["window"], sz["slide"])
+    recs = st.session_records(np.arange(T * B, dtype=np.int64), B)
+    want_sessions = st.numpy_sessionize(recs[0], recs[1], recs[2].astype(np.float64), sz["gap"])
+    specs = {
+        "sliding_count": DistributedJobSpec(
+            name="api-cluster-c-sliding", source_factory=sliding,
+            assigner=SlidingEventTimeWindows.of(sz["window"], sz["slide"]), aggregate="count",
+            operator="device", operator_options=None),
+        "session_sum": DistributedJobSpec(
+            name="api-cluster-c-sessions", source_factory=cj.SessionShardSource(T, B),
+            assigner=EventTimeSessionWindows.with_gap(sz["gap"]), aggregate="sum",
+            operator="device", operator_options={"key_capacity": 4 * st.SESSION_BLOCK_KEYS}),
+    }
+    with _Cluster(sec, dev) as c:
+        for name, spec in specs.items():
+            _sync(dev)
+            cuda_session.reset_launch_counts()
+            t0 = time.perf_counter()
+            job = c.client.submit_job(spec.to_bytes(), 2)
+            status = c.wait(job)
+            secs = time.perf_counter() - t0
+            rows = c.client.job_result(job) or []
+            if name == "sliding_count":
+                got = {(int(k), int(w[0])): int(r) for k, w, r, _t in rows}
+                equal = got == want_sliding
+            else:
+                got = {(int(k), int(w[0]), int(w[1])): float(r) for k, w, r, _t in rows}
+                equal = got == want_sessions
+            out[name] = {"status": status["status"], "rows": len(got), "equal_numpy": equal,
+                         "seconds": secs, "tuples_per_s": T * B / secs,
+                         "k3_launches": cuda_session.k3_launches(),
+                         "k4_launches": cuda_session.LAUNCHES["k4_session_merge"]}
+    sess = out["session_sum"]
+    out["ok"] = bool(all(out[n]["status"] == "FINISHED" and out[n]["equal_numpy"]
+                         for n in specs)
+                     and (torch.device(dev).type != "cuda"
+                          or (sess["k3_launches"] > 0 and sess["k4_launches"] > 0)))
+    return out
+
+
+def _mlp(p, x):
+    return torch.relu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def cluster_leg_d(sz, dev) -> dict:
+    """Leg D: SQL ML_PREDICT over a two-layer MLP (weights from a numpy
+    seed, carried with params_from_numpy) on 2^16 rows, on `dev` and on
+    the CPU: the scores in row order within 1e-5 relative."""
+    from flink_tpu_torch.api.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.table import TableEnvironment, TableSchema
+    from flink_tpu_torch.table.ml import TorchModelProvider, params_from_numpy
+
+    rng = np.random.default_rng(2026)
+    h = sz["hidden"]
+    params = {"w1": (rng.standard_normal((2, h)) / np.sqrt(2)).astype(np.float32),
+              "b1": (rng.standard_normal(h) * 0.1).astype(np.float32),
+              "w2": (rng.standard_normal((h, 1)) / np.sqrt(h)).astype(np.float32),
+              "b2": np.zeros(1, np.float32)}
+    x = rng.standard_normal((sz["ml_rows"], 2)).astype(np.float32)
+    rows = [{"user": i, "x1": float(a), "x2": float(b)} for i, (a, b) in enumerate(x)]
+    res = {}
+    for where in (dev, "cpu"):
+        tenv = TableEnvironment(StreamExecutionEnvironment(device=where))
+        tenv.from_rows("clicks", rows, TableSchema(["user", "x1", "x2"]))
+        tenv.register_model("scorer", TorchModelProvider(
+            _mlp, params_from_numpy(params, where), ["x1", "x2"], ["score"], device=where))
+        _sync(where)
+        t0 = time.perf_counter()
+        out = tenv.execute_sql_to_list(
+            "SELECT user, ML_PREDICT(scorer, x1, x2) AS score FROM clicks")
+        _sync(where)
+        res[where] = (time.perf_counter() - t0, out)
+    secs, got = res[dev]
+    _s, ref = res["cpu"]
+    order = [r["user"] for r in got] == [r["user"] for r in ref] == list(range(len(rows)))
+    a = np.array([r["score"] for r in got])
+    b = np.array([r["score"] for r in ref])
+    err = np.abs(a - b)
+    # within 1e-5 relative: |a - b| <= 1e-5 |b| + 1e-6 for every row (the
+    # 1e-6 floor for scores near 0, where fp32 rounding of the sums is
+    # ~1e-7 absolute); the norm-wise relative error beside it
+    close = bool(np.all(err <= 1e-5 * np.abs(b) + 1e-6))
+    return {"rows": len(got), "row_order_equal": order, "within_tolerance": close,
+            "max_abs_err": float(err.max()),
+            "normwise_rel_err": float(err.max() / np.abs(b).max()),
+            "max_elementwise_rel_err": float(np.max(err / np.maximum(np.abs(b), 1e-30))),
+            "seconds": secs, "rows_per_s": len(got) / secs, "cpu_seconds": res["cpu"][0],
+            "ok": bool(order and close and len(got) == sz["ml_rows"])}
+
+
+def cluster_leg_e(sz, dev, tmp: str) -> dict:
+    """Leg E: `python -m flink_tpu_torch.runtime.cluster jobmanager` and
+    one `taskmanager` process on the card, the secret given by file; leg
+    A's job at events_e records, its rows against the local run. Both
+    processes are killed in `finally`."""
+    import os
+    import secrets as _secrets
+    import socket
+
+    from flink_tpu_torch.runtime.rpc import RpcService
+    from flink_tpu_torch.security.transport import SecurityConfig
+    from flink_tpu_torch.testing import cluster_jobs as cj
+
+    n = sz["events_e"]
+    kw = dict(keys=sz["keys"], batch=sz["batch"], window_ms=sz["window"],
+              slide_ms=sz["slide"], device=dev)
+    env, sink = cj.api_graph(n, **kw)
+    env.execute()
+    want = cj.fired_rows(sink.results)
+    del env, sink
+    secret = f"{tmp}/cluster.secret"
+    with open(secret, "w") as f:
+        f.write(_secrets.token_hex(16))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = str(Path(__file__).resolve().parent)
+    env_vars = dict(os.environ, PYTHONPATH=root)
+    procs = []
+
+    def spawn(*args):
+        p = subprocess.Popen([sys.executable, "-m", "flink_tpu_torch.runtime.cluster", *args,
+                              "--secret-file", secret], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, env=env_vars, cwd=root)
+        procs.append(p)
+        return p
+
+    def line(p, needle, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        seen = []
+        while time.monotonic() < deadline:
+            got = p.stdout.readline().decode(errors="replace")
+            seen.append(got)
+            if needle in got:
+                return got
+            if p.poll() is not None and not got:
+                break
+        raise AssertionError(f"api_cluster leg E: no {needle!r}: {''.join(seen)[-2000:]}")
+
+    out = {"events": n}
+    svc = None
+    try:
+        t0 = time.perf_counter()
+        jm = spawn("jobmanager", "--port", str(port))
+        line(jm, "jobmanager listening")
+        out["jobmanager_start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # on the card the taskmanager takes its default device (cuda); a
+        # CPU rehearsal must ask for the CPU
+        tm = spawn("taskmanager", "--jobmanager", f"127.0.0.1:{port}",
+                   *(() if torch.device(dev).type == "cuda" else ("--device", "cpu")))
+        line(tm, "registered with")
+        out["taskmanager_start_to_registration_s"] = time.perf_counter() - t0
+        with open(secret, "rb") as f:
+            svc = RpcService(security=SecurityConfig.with_secret(f.read().strip()))
+        client = svc.gateway(f"127.0.0.1:{port}", "jobmanager", reply_timeout=300.0)
+        t0 = time.perf_counter()
+        job = client.submit_job(cj.api_graph_spec("api-cluster-e", n, **kw).to_bytes(), 1)
+        deadline = time.monotonic() + 300
+        st_ = client.job_status(job)
+        while st_["status"] not in ("FINISHED", "FAILED") and time.monotonic() < deadline:
+            time.sleep(0.05)
+            st_ = client.job_status(job)
+        out["seconds"] = time.perf_counter() - t0
+        got = cj.fired_rows(client.job_result(job) or [])
+        out.update({"status": st_["status"], "failure": st_.get("failure"), "rows": len(got),
+                    "rows_equal_local": got == want, "tuples_per_s": n / out["seconds"]})
+    finally:
+        if svc is not None:
+            svc.stop()
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+            p.stdout.close()
+    out["processes_stopped"] = all(p.returncode is not None for p in procs)
+    out["ok"] = bool(out.get("status") == "FINISHED" and out.get("rows_equal_local")
+                     and out["processes_stopped"])
+    return out
+
+
+def transport_host_rates(sz) -> dict:
+    """Host numbers of the new planes on this machine's CPU: the binary
+    wire's encode and decode MB/s of a wire_rows x 3 float32 batch with its
+    timestamps, and the handshake's ms over a socket pair."""
+    import socket
+    import threading
+
+    from flink_tpu_torch.security import transport, wire
+    from flink_tpu_torch.testing.harness import ephemeral_transport_security
+
+    rng = np.random.default_rng(1)
+    payload = ("b", rng.random((sz["wire_rows"], 3)).astype(np.float32),
+               np.arange(sz["wire_rows"], dtype=np.int64))
+    nbytes = payload[1].nbytes + payload[2].nbytes
+    reps = sz["wire_reps"]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        cols, side = wire.extract_columns(payload)
+        parts, _n = wire.encode_frame("c", 1, cols, side)
+        body = bytearray(b"".join(bytes(p) for p in parts))
+    enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _ch, _seq, got = wire.decode_frame(body)
+    dec = time.perf_counter() - t0
+    same = bool(np.array_equal(got[1], payload[1]) and np.array_equal(got[2], payload[2]))
+    sec = ephemeral_transport_security()
+    hs = []
+    for _ in range(sz["handshakes"]):
+        a, b = socket.socketpair()
+        t = threading.Thread(target=transport.server_handshake, args=(a, sec))
+        t0 = time.perf_counter()
+        t.start()
+        transport.client_handshake(b, sec)
+        t.join()
+        hs.append((time.perf_counter() - t0) * 1e3)
+        a.close()
+        b.close()
+    return {"where": "host CPU of the card's machine", "batch_rows": sz["wire_rows"],
+            "batch_bytes": nbytes, "encode_MB_per_s": nbytes * reps / enc / 1e6,
+            "decode_MB_per_s": nbytes * reps / dec / 1e6, "decode_equal": same,
+            "handshake_ms_median": float(np.median(hs)), "handshake_ms_min": float(min(hs))}
+
+
+def api_cluster_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 32: legs A-E with transport security on (one ephemeral secret
+    for the in-process legs, a secret file for leg E), the k1_cluster
+    check and the planes' host rates."""
+    import tempfile
+
+    from flink_tpu_torch.testing.harness import ephemeral_transport_security
+
+    sz = dict(API_CLUSTER, **(sizes or {}))
+    sec = ephemeral_transport_security("api-cluster")
+    out = {"phase": "api_cluster"}
+    with tempfile.TemporaryDirectory(prefix="api-cluster-") as tmp:
+        for name, leg in (("leg_a", lambda: cluster_leg_a(sz, dev, sec)),
+                          ("leg_b", lambda: cluster_leg_b(sz, dev, sec, tmp)),
+                          ("leg_c", lambda: cluster_leg_c(sz, dev, sec)),
+                          ("leg_d", lambda: cluster_leg_d(sz, dev)),
+                          ("leg_e", lambda: cluster_leg_e(sz, dev, tmp))):
+            t0 = time.perf_counter()
+            out[name] = leg()
+            out[name]["leg_s"] = time.perf_counter() - t0
+            print(f"api_cluster {name}: ok={out[name]['ok']} {out[name]['leg_s']:.1f} s",
+                  file=sys.stderr, flush=True)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+    out["host_rates"] = transport_host_rates(sz)
+    out["failed"] = [leg for leg in ("leg_a", "leg_b", "leg_c", "leg_d", "leg_e")
+                     if not out[leg]["ok"]]
+    out["ok"] = not out["failed"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -8335,6 +8940,29 @@ def main() -> int:
     k1_patched = tools["leg_a"]["k1_patched"]
     torch.cuda.empty_cache()
 
+    # ---- 32. the cluster: a JobManager and TaskExecutors over the
+    # authenticated RPC and columnar data planes, K1 in the TaskExecutor
+    # (legs A, B, E), K3/K4 and the per-batch programs in the shards of a
+    # sharded job (leg C), ML_PREDICT over a torch model (leg D) ----
+    t_cluster = time.perf_counter()
+    cluster = api_cluster_phase()
+    cluster["phase_s"] = time.perf_counter() - t_cluster
+    emit(cluster)
+    if not cluster["ok"]:
+        raise AssertionError(f"api_cluster: legs {cluster['failed']} failed a gate (leg A: "
+                             "rows equal to the local run and the oracle, K1 launched in the "
+                             "TaskExecutor and bit-equal; leg B: FINISHED after the "
+                             "TaskExecutor loss with the uninterrupted rows, device memory "
+                             "within 512 KiB; leg C: equal to numpy with K3/K4 launched; leg "
+                             "D: within 1e-5; leg E: the process cluster's rows equal)")
+    cluster_launches = {"api_cluster_a_task_executor": cluster["leg_a"]["k1_launches_task_executor"],
+                        "api_cluster_a_local": cluster["leg_a"]["k1_launches_local"],
+                        "api_cluster_b_first_attempt": cluster["leg_b"]["first_attempt_k1"],
+                        "api_cluster_b_restarted": cluster["leg_b"]["k1_launches_restarted"]}
+    path_launches["k1_superscan"].update(cluster_launches)
+    k1_cluster = cluster["leg_a"]["k1_cluster"]
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -8466,6 +9094,16 @@ def main() -> int:
          **{k: k1_patched[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms", "device_us",
                                        "fires")}},
+        {"name": "k1_cluster", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_cluster["shape"],
+         "launches": cluster["leg_a"]["k1_launches_task_executor"],
+         "launches_by_path": cluster_launches,
+         **{k: k1_cluster[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "device_us",
+                                       "fires")},
+         "first_dispatch": k1_cluster["first_dispatch"]},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",

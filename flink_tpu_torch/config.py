@@ -7,12 +7,18 @@ the JAX package's options that no module of either package reads
 (`pipeline.object-reuse`, `execution.runtime-mode`, `DeviceOptions`,
 `MetricOptions`): a job may set them and nothing changes. Setting any
 other key raises, naming the ROADMAP.md item that will carry it.
+
+The layered surface is the JAX package's: options with fallback keys, and
+a `Configuration` built from defaults < file (`load`) < dynamic
+properties (`from_env`) < per-job overrides (`add_all`, `set`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Generic, Optional, TypeVar
+import json
+import os
+from typing import Any, Dict, Generic, Iterable, Optional, TypeVar
 
 from flink_tpu_torch.utils import deferred
 
@@ -27,9 +33,16 @@ class ConfigOption(Generic[T]):
     default: T = None  # type: ignore[assignment]
     type: type = object
     description: str = ""
+    fallback_keys: tuple = ()
 
     def with_description(self, description: str) -> "ConfigOption[T]":
         return dataclasses.replace(self, description=description)
+
+    def with_fallback_keys(self, *keys: str) -> "ConfigOption[T]":
+        option = dataclasses.replace(self, fallback_keys=tuple(keys))
+        for k in keys:
+            _OPTIONS[k] = option
+        return option
 
     def __hash__(self) -> int:
         return hash(self.key)
@@ -84,15 +97,6 @@ class _TypedBuilder(Generic[T]):
 #: every option the port implements, by key
 _OPTIONS: Dict[str, ConfigOption] = {}
 
-#: key prefixes of the JAX package's options the port does not carry yet
-_UNPORTED_PREFIXES = (
-    ("observability.shipping.", deferred.CLUSTER),
-    ("exchange.", deferred.CLUSTER),
-    ("execution.watchdog.", deferred.CLUSTER),
-    ("security.", deferred.CLUSTER),
-)
-
-
 def _coerce(value: Any, typ: type) -> Any:
     if typ is object or value is None or isinstance(value, typ):
         return value
@@ -106,40 +110,100 @@ def _coerce(value: Any, typ: type) -> Any:
 
 
 def _check_key(key: str) -> None:
-    if key in _OPTIONS:
-        return
-    item = next((it for prefix, it in _UNPORTED_PREFIXES if key.startswith(prefix)),
-                "the module that reads it")
-    raise deferred.not_ported(f"configuration option {key!r}", item)
+    if key not in _OPTIONS:
+        raise deferred.not_ported(f"configuration option {key!r}", "the module that reads it")
 
 
 class Configuration:
-    """Key/value store resolved against typed ConfigOptions. Only keys of
-    the port's options may be set."""
+    """Layered key/value store resolved against typed ConfigOptions: get and
+    set by option, fallback-key resolution, cloning and merge (`add_all`).
+    Only keys (or fallback keys) of the port's options may be set."""
 
     def __init__(self, data: Optional[Dict[str, Any]] = None):
         self._data: Dict[str, Any] = {}
         for k, v in (data or {}).items():
             self.set_string(k, v)
 
-    def get(self, option: ConfigOption[T]) -> T:
+    # -- typed access -----------------------------------------------------
+    def get(self, option: ConfigOption[T], override_default: Optional[T] = None) -> T:
         if option.key in self._data:
             return _coerce(self._data[option.key], option.type)
-        return option.default
-
-    def clone(self) -> "Configuration":
-        return Configuration(dict(self._data))
+        for fk in option.fallback_keys:
+            if fk in self._data:
+                return _coerce(self._data[fk], option.type)
+        return override_default if override_default is not None else option.default
 
     def set(self, option: ConfigOption[T], value: T) -> "Configuration":
         return self.set_string(option.key, value)
 
+    def contains(self, option: ConfigOption) -> bool:
+        return option.key in self._data or any(fk in self._data for fk in option.fallback_keys)
+
+    def remove(self, option: ConfigOption) -> bool:
+        return self._data.pop(option.key, _SENTINEL) is not _SENTINEL
+
+    # -- raw access -------------------------------------------------------
     def set_string(self, key: str, value: Any) -> "Configuration":
         _check_key(key)
         self._data[key] = value
         return self
 
+    def get_string(self, key: str, default: Any = None) -> Any:
+        return self._data.get(key, default)
+
+    def key_set(self) -> Iterable[str]:
+        return self._data.keys()
+
+    # -- layering ---------------------------------------------------------
+    def add_all(self, other: "Configuration") -> "Configuration":
+        self._data.update(other._data)
+        return self
+
+    def clone(self) -> "Configuration":
+        return Configuration(dict(self._data))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dict(self._data)
+
+    @staticmethod
+    def from_dict(data: Dict[str, Any]) -> "Configuration":
+        return Configuration(dict(data))
+
+    @staticmethod
+    def from_env(prefix: str = "FLINK_TPU_") -> "Configuration":
+        """Dynamic-property layer from environment variables:
+        FLINK_TPU_FOO_BAR=1 -> key "foo.bar" (reference: dynamic -D props)."""
+        data = {}
+        for k, v in os.environ.items():
+            if k.startswith(prefix):
+                data[k[len(prefix):].lower().replace("_", ".")] = v
+        return Configuration(data)
+
+    @staticmethod
+    def load(path: str) -> "Configuration":
+        """File layer. JSON or simple `key: value` YAML subset (no deps)."""
+        with open(path) as f:
+            text = f.read()
+        try:
+            return Configuration(json.loads(text))
+        except json.JSONDecodeError:
+            data: Dict[str, Any] = {}
+            for line in text.splitlines():
+                line = line.strip()
+                if not line or line.startswith("#") or ":" not in line:
+                    continue
+                key, _, val = line.partition(":")
+                data[key.strip()] = val.strip()
+            return Configuration(data)
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, Configuration) and self._data == other._data
+
     def __repr__(self) -> str:
         return f"Configuration({self._data!r})"
+
+
+_SENTINEL = object()
 
 
 class PipelineOptions:
@@ -532,6 +596,66 @@ class StateTierOptions:
         "retention window (a restorable handle must find its base).")
 
 
+class ExchangeOptions:
+    """The cross-host dataplane exchange (runtime/dataplane.py — the DCN
+    counterpart of the reference's Netty shuffle and its
+    taskmanager.network.* options). Wire format and credit cadence are
+    negotiated per connection, so mixed-version clusters interoperate:
+    a peer that does not speak the binary wire downgrades that channel to
+    the legacy pickled frames transparently."""
+
+    WIRE_FORMAT = (
+        ConfigOptions.key("exchange.wire-format").string_type().default_value("binary")
+    ).with_description(
+        "Encoding for record batches on cross-host exchange channels. "
+        "'binary' (default) is the zero-copy columnar wire "
+        "(flink_tpu_torch/security/wire.py): little-endian header + raw array "
+        "buffers sent with scatter-gather I/O and incrementally MACed — no "
+        "serialization copy for contiguous numeric columns. 'pickle' forces "
+        "the legacy restricted-pickle frames everywhere (debugging / "
+        "downgrade). Control frames always stay on the pickle codec."
+    )
+    CREDIT_BATCH = (
+        ConfigOptions.key("exchange.credit-batch").int_type().default_value(0)
+    ).with_description(
+        "Coalescing grain for credit grants: the receiver banks freed ring "
+        "slots and sends one credit frame per this many slots instead of "
+        "one per consumed batch. 0 (default) derives capacity/4 from the "
+        "ring capacity; 1 restores per-batch grants. Backpressure blocking "
+        "semantics are unchanged — only the control-frame rate drops."
+    )
+    DEBLOAT_ENABLED = (
+        ConfigOptions.key("exchange.debloat.enabled").bool_type().default_value(True)
+    ).with_description(
+        "Adaptive batch sizing on stage-boundary senders (BufferDebloater "
+        "analogue): each sender EMAs its observed send throughput and "
+        "splits outgoing batches larger than throughput x target latency, "
+        "so a backpressured channel carries smaller batches (lower queueing "
+        "latency) while a fast channel passes batches through whole."
+    )
+    DEBLOAT_TARGET_LATENCY_MS = (
+        ConfigOptions.key("exchange.debloat.target-latency-ms")
+        .duration_ms_type().default_value(200)
+    ).with_description(
+        "Target per-batch transit latency the debloater sizes toward "
+        "(taskmanager.network.memory.buffer-debloat.target analogue)."
+    )
+    RECONNECT_WINDOW_MS = (
+        ConfigOptions.key("exchange.reconnect.window-ms")
+        .duration_ms_type().default_value(5000)
+    ).with_description(
+        "Bounded window a keyed-exchange sender spends re-dialing a peer "
+        "after a transient dataplane failure (connection reset, injected "
+        "blip) before escalating to the normal task-failure/restart path. "
+        "The reconnect re-runs the open/credit negotiation and resumes "
+        "only when the receiver's next expected sequence number matches "
+        "the sender's (no frame was lost); a real loss, or a peer whose "
+        "TaskManager stopped heartbeating, fails over immediately. 0 "
+        "disables reconnection (every dataplane error restarts the job, "
+        "the pre-chaos behavior)."
+    )
+
+
 class CheckpointingOptions:
     """Job checkpoints (checkpoint/coordinator.py), for jobs started with
     `env.execute_async` on the MiniCluster (runtime/minicluster.py)."""
@@ -631,6 +755,15 @@ class ObservabilityOptions:
     ).with_description(
         "Output directory for observability.profiler.enabled trace dumps "
         "(Chrome trace JSON, one file per captured attempt)."
+    )
+    SHIPPING_INTERVAL_MS = (
+        ConfigOptions.key("observability.shipping.interval-ms")
+        .duration_ms_type().default_value(500)
+    ).with_description(
+        "How often a TaskExecutor ships metric snapshots and trace spans to "
+        "the JobManager over the authenticated RPC plane (piggybacked on "
+        "the heartbeat; the JM aggregates and serves them via REST and "
+        "Prometheus)."
     )
     DEVICE_STATS_ENABLED = (
         ConfigOptions.key("observability.device.enabled")
@@ -931,6 +1064,94 @@ class AutoscalerOptions:
         "Number of triggers the learning policy suppresses a previously "
         "unhelpful transition for before retrying it (load may have "
         "changed shape since the bad outcome)."
+    )
+
+
+class WatchdogOptions:
+    """Stuck-task detection (distributed JobManager). A task wedged inside
+    a live TaskManager — blocked UDF, dead device dispatch, a lost RPC
+    reply — is invisible to heartbeat failure detection: the TM keeps
+    beating while the task makes no progress forever."""
+
+    STUCK_TASK_TIMEOUT_MS = (
+        ConfigOptions.key("execution.watchdog.stuck-task-timeout-ms")
+        .duration_ms_type().default_value(0)
+    ).with_description(
+        "Fail a RUNNING job's task through the normal attributed "
+        "restart path when its heartbeat-reported step counter has not "
+        "advanced for this long while its TaskManager stays alive (and "
+        "the task has not finished). 0 (default) disables the watchdog. "
+        "Tune WELL above the longest legitimate pause a step can take — "
+        "device compiles, cold restores and backpressure stalls all "
+        "freeze the step counter; start at 10x the heartbeat timeout."
+    )
+
+
+class SecurityOptions:
+    """Transport security (reference: SecurityOptions + security.ssl.internal.*).
+
+    One per-cluster shared secret authenticates every internal plane (RPC,
+    dataplane exchange, blob) via a connection handshake + per-frame HMACs,
+    and derives the REST bearer token. Resolution order for the secret:
+    `security.transport.secret` > `security.transport.secret-file` (e.g. a
+    mounted K8s Secret) > `FLINK_TPU_SECURITY_TRANSPORT_SECRET[_FILE]` env
+    > an auto-generated per-user secret file (0600) shared by all local
+    processes. See flink_tpu_torch/security/transport.py."""
+
+    TRANSPORT_ENABLED = (
+        ConfigOptions.key("security.transport.enabled").bool_type().default_value(True)
+    ).with_description(
+        "Authenticate and MAC-sign every internal network frame (RPC, "
+        "dataplane, blob) and deserialize through the restricted allowlist. "
+        "Set to false to restore the legacy plaintext protocol for local "
+        "debugging — never on a network you do not fully trust."
+    )
+    TRANSPORT_SECRET = (
+        ConfigOptions.key("security.transport.secret").string_type().no_default_value()
+    ).with_description(
+        "Per-cluster shared secret. Prefer security.transport.secret-file "
+        "(or the env vars) so the secret stays out of config files."
+    )
+    TRANSPORT_SECRET_FILE = (
+        ConfigOptions.key("security.transport.secret-file").string_type().no_default_value()
+    ).with_fallback_keys(
+        # Configuration.from_env maps FLINK_TPU_SECURITY_TRANSPORT_SECRET_FILE
+        # to the all-dots form; accept both spellings
+        "security.transport.secret.file",
+    ).with_description(
+        "Path to a file holding the cluster secret (e.g. a mounted "
+        "Kubernetes Secret)."
+    )
+    TRANSPORT_CLUSTER_ID = (
+        ConfigOptions.key("security.transport.cluster-id").string_type().default_value("flink-tpu")
+    ).with_fallback_keys("security.transport.cluster.id").with_description(
+        "Cluster identity exchanged in the connection handshake; peers from "
+        "a different cluster are rejected even when they share a secret."
+    )
+    SSL_INTERNAL_ENABLED = (
+        ConfigOptions.key("security.ssl.internal.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Layer TLS (stdlib ssl) under the HMAC framing on internal "
+        "connections, mirroring the reference's security.ssl.internal.*."
+    )
+    SSL_INTERNAL_CERT = (
+        ConfigOptions.key("security.ssl.internal.cert").string_type().no_default_value()
+    ).with_description("PEM certificate chain presented by this process.")
+    SSL_INTERNAL_KEY = (
+        ConfigOptions.key("security.ssl.internal.key").string_type().no_default_value()
+    ).with_description("PEM private key for security.ssl.internal.cert.")
+    SSL_INTERNAL_CA = (
+        ConfigOptions.key("security.ssl.internal.ca").string_type().no_default_value()
+    ).with_description(
+        "PEM CA bundle peers must chain to; when set on the server side, "
+        "client certificates are required (mutual TLS)."
+    )
+    REST_AUTH_ENABLED = (
+        ConfigOptions.key("security.rest.auth.enabled").bool_type().default_value(False)
+    ).with_description(
+        "Require `Authorization: Bearer <token>` on the REST API, with the "
+        "token derived from the cluster secret "
+        "(flink_tpu_torch.security.rest_bearer_token)."
     )
 
 

@@ -9,6 +9,8 @@ marks a channel idle after a timeout on an injected clock.
 
 from __future__ import annotations
 
+import functools
+
 import dataclasses
 import time as _time
 from typing import Callable, List, Optional
@@ -92,7 +94,10 @@ class WatermarkStrategy:
 
     @staticmethod
     def for_bounded_out_of_orderness(max_out_of_orderness_ms: int) -> "WatermarkStrategy":
-        return WatermarkStrategy(lambda: BoundedOutOfOrdernessWatermarks(max_out_of_orderness_ms))
+        # a partial, not a lambda: a strategy pickles by reference into a
+        # cluster job spec (a TaskManager process rebuilds it by name)
+        return WatermarkStrategy(functools.partial(BoundedOutOfOrdernessWatermarks,
+                                                   max_out_of_orderness_ms))
 
     @staticmethod
     def no_watermarks() -> "WatermarkStrategy":

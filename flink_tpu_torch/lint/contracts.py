@@ -12,6 +12,10 @@ they stay dependency-free.
 
 ``@drains("_inflight", ...)``
     Method decorator: the method drains the named attributes too.
+
+``@absorbs_faults("reason")``
+    Function decorator: the function's broad exception handlers absorb
+    faults on purpose, for the reason given (refused when empty).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 #: metadata attribute names
 RING_ATTR = "__lint_inflight_rings__"
 DRAINS_ATTR = "__lint_drains__"
+ABSORBS_ATTR = "__lint_absorbs_faults__"
 
 
 def inflight_ring(attr: str, *, drained_by: str):
@@ -43,6 +48,19 @@ def drains(*attrs: str):
 
     def deco(fn):
         setattr(fn, DRAINS_ATTR, tuple(getattr(fn, DRAINS_ATTR, ()) + tuple(attrs)))
+        return fn
+
+    return deco
+
+
+def absorbs_faults(reason: str):
+    """Allowlist the decorated function's handlers for EXON003, with an
+    attributed reason (refused when empty)."""
+    if not reason or not reason.strip():
+        raise ValueError("absorbs_faults requires a non-empty reason")
+
+    def deco(fn):
+        setattr(fn, ABSORBS_ATTR, reason)
         return fn
 
     return deco

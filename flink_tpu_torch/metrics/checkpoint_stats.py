@@ -7,15 +7,17 @@ exception and recovery entries in an `ExceptionHistory` around each
 attempt; `JobClient` carries both, and `register_metrics` puts each
 tracker's standard gauges on the job's metric group. Plain data and plain
 callables, no import of the runtime: stats flow outward through these
-trackers.
+trackers. The distributed JobManager (runtime/cluster.py) feeds one
+tracker per job from the trigger/ack/decline RPCs, with per-task state
+sizes from `snapshot_bytes_estimate` and per-operator bytes from
+`operator_bytes_from_snapshot`.
 
-Left out until ROADMAP item 14 (the cluster): the distributed path's
-helpers (`snapshot_bytes_estimate`, `operator_bytes_from_snapshot`, the
-empty REST payloads).
+Left out until ROADMAP item 14e (the HTTP planes): the empty REST payloads.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from collections import deque
@@ -29,6 +31,50 @@ from flink_tpu_torch.chaos.plan import INJECTED_MARKER
 PENDING = "PENDING"
 COMPLETED = "COMPLETED"
 FAILED = "FAILED"
+
+_OPERATOR_PREFIX = "job.operator."
+_STATE_BYTES_LEAF = ".stateBytes"
+
+
+def snapshot_bytes_estimate(obj: Any) -> int:
+    """Recursive size estimate of a snapshot payload: arrays and tensors
+    count their buffer (`nbytes`), bytes-likes their length, containers
+    recurse. Used for per-task state sizes in the distributed path, where
+    the snapshot is in hand but the persisted artifact lives on the JM."""
+    if hasattr(obj, "nbytes"):
+        return int(obj.nbytes)
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return len(obj)
+    if isinstance(obj, str):
+        return len(obj)
+    if isinstance(obj, dict):
+        return sum(
+            snapshot_bytes_estimate(k) + snapshot_bytes_estimate(v)
+            for k, v in obj.items()
+        )
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return sum(snapshot_bytes_estimate(v) for v in obj)
+    if obj is None or isinstance(obj, (int, float, bool)):
+        return 8
+    try:
+        return sys.getsizeof(obj)
+    except TypeError:
+        return 8
+
+
+def operator_bytes_from_snapshot(metric_snapshot: Dict[str, Any],
+                                 into: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+    """Fold one task's plain-data metric snapshot into a per-operator state
+    byte map: `job.operator.<uid>.stateBytes` keys sum per uid (shards of
+    the same operator add up). This is how the JM builds the per-operator
+    breakdown of a completed checkpoint from gauges the TMs already ship."""
+    out: Dict[str, int] = into if into is not None else {}
+    for key, val in metric_snapshot.items():
+        if (key.startswith(_OPERATOR_PREFIX) and key.endswith(_STATE_BYTES_LEAF)
+                and isinstance(val, (int, float))):
+            uid = key[len(_OPERATOR_PREFIX):-len(_STATE_BYTES_LEAF)]
+            out[uid] = out.get(uid, 0) + int(val)
+    return out
 
 
 def root_cause_chain(exc: Optional[BaseException], limit: int = 8) -> List[str]:

@@ -86,6 +86,21 @@ class Gauge:
     def value(self):
         return self._fn()
 
+    def freeze(self) -> None:
+        """Hold the gauge at its current value and drop its closure (and
+        whatever the closure keeps alive: an ended task's operator and its
+        device rings). A gauge unreadable now stays unreadable, which
+        `metrics_snapshot` skips."""
+        try:
+            value = self._fn()
+        except Exception:  # noqa: BLE001 - read as absent, as a snapshot does
+            def value_gone():
+                raise LookupError("the gauge's source ended unreadable")
+
+            self._fn = value_gone
+            return
+        self._fn = lambda: value
+
 
 class Meter:
     """Rate over a sliding 60s window + lifetime count (MeterView analogue).

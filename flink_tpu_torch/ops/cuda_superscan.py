@@ -31,11 +31,11 @@ CUDA kernels that dispatch launched to its entry in `CUDA_LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
@@ -206,11 +206,24 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+#: serialises builds and loads of one process: two threads (two
+#: TaskExecutors of an in-process cluster) making their first dispatch at
+#: once in a cold build directory must not run nvcc into one file
+_build_lock = threading.RLock()
+
+
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     """Build every named library whose source hash has no library yet: one
     nvcc per source, all started together. The ptxas report (registers,
     shared memory, spills) of each build lands beside it as a .log file.
-    Returns name -> library path; raises with nvcc's output on failure."""
+    Returns name -> library path; raises with nvcc's output on failure.
+    Safe to call from several threads: one builds, the others wait and
+    find the library built."""
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _library_path(n) for n in names}
     procs = {}
@@ -218,8 +231,9 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
         if path.exists():
             continue
         # build beside the target and rename, so a reader never sees a
-        # half-written library
-        tmp = BUILD_DIR / f"tmp-{os.getpid()}" / path.name
+        # half-written library; the directory is this process's and this
+        # thread's, so no other build writes the same file
+        tmp = BUILD_DIR / f"tmp-{os.getpid()}-{threading.get_ident()}" / path.name
         tmp.parent.mkdir(exist_ok=True)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -231,8 +245,14 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
         path.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"{SOURCES[n]}:\n{out}")
+            tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, path)
+    for _proc, tmp, _path in procs.values():
+        try:
+            tmp.parent.rmdir()
+        except OSError:
+            pass
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
@@ -244,9 +264,24 @@ _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _INTS = ctypes.POINTER(ctypes.c_int)
 
 
-@functools.lru_cache(maxsize=None)
+_libraries: Dict[str, ctypes.CDLL] = {}
+
+
 def _library(name: str) -> ctypes.CDLL:
-    return bind(ctypes.CDLL(str(build([name])[name])), name)
+    """Library `name`, built and bound once per process (under the build
+    lock, so concurrent first calls load it once)."""
+    lib = _libraries.get(name)
+    if lib is None:
+        with _build_lock:
+            lib = _libraries.get(name)
+            if lib is None:
+                lib = bind(ctypes.CDLL(str(build([name])[name])), name)
+                _libraries[name] = lib
+    return lib
+
+
+# forget the loaded libraries (a cold-build check builds them anew)
+_library.cache_clear = _libraries.clear
 
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:

@@ -1675,6 +1675,10 @@ def _make_runner(step: Step, config: Configuration, device: torch.device) -> Ste
         return IterationHeadRunner(step)
     if kind == "iteration_tail":
         return IterationTailRunner(step)
+    if kind == "stage_output":
+        from flink_tpu_torch.runtime.stages import StageOutputRunner
+
+        return StageOutputRunner(step)
     raise NotImplementedError(kind)
 
 

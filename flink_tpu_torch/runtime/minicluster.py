@@ -107,7 +107,6 @@ from flink_tpu_torch.runtime.executor import (
 )
 from flink_tpu_torch.scheduler.autoscaler import AutoscalerCoordinator
 from flink_tpu_torch.scheduler.rebalancer import SkewRebalancer
-from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import resolve_device
 
 
@@ -391,9 +390,14 @@ class MiniCluster:
     _shared: Optional["MiniCluster"] = None
 
     def __init__(self, security=None):
-        if security is not None:
-            raise deferred.not_ported("MiniCluster(security=...)", deferred.CLUSTER)
         self.jobs: Dict[str, JobClient] = {}
+        # the cluster's transport-security identity (auth ON by default):
+        # in-process jobs never cross a socket, but everything layered on a
+        # MiniCluster that DOES (distributed hand-off) shares this one
+        # resolved secret/cluster-id
+        from flink_tpu_torch.security.transport import SecurityConfig
+
+        self.security = SecurityConfig.resolve() if security is None else security
 
     @classmethod
     def get_shared(cls) -> "MiniCluster":

@@ -24,10 +24,10 @@ planner reports the statement interpreted, reason "union"), and unites the
 branches' streams with `DataStream.union`: a fused-eligible branch still
 runs on kernel K1.
 
-What the port does not carry yet raises, naming its ROADMAP.md item, and
-never falls back to another route: ML_PREDICT (item 14). The planner still
-reports its path and reason exactly as the JAX package does; only
-execution raises.
+ML_PREDICT runs in a projection over a registered model
+(`register_model`, a `table/ml.py` provider): one `predict_batch` per
+provider per step batch. It is refused inside windowed aggregates and
+over a join, as in the JAX package.
 
 Joins: a windowed INNER equi-join plans fused and runs on
 `DataStream.join` (the device join ring, `sql_origin` stamped); with
@@ -56,7 +56,6 @@ from flink_tpu_torch.core.watermarks import WatermarkStrategy
 # the aggregate map is single-sourced with planner/rules
 from flink_tpu_torch.table.sql import DEVICE_AGG_OF as _DEVICE_AGG
 from flink_tpu_torch.table.sql import Query, SelectItem, parse_query
-from flink_tpu_torch.utils import deferred
 
 
 @dataclasses.dataclass
@@ -153,14 +152,15 @@ class TableEnvironment:
     def __init__(self, env: Optional[StreamExecutionEnvironment] = None):
         self.env = env or StreamExecutionEnvironment.get_execution_environment()
         self._tables: Dict[str, _Table] = {}
+        self._models: Dict[str, object] = {}
         # planning outcome of the last sql_query()/execute_sql* call — the
         # gateway reports it per statement (executionPath + fallbackReason)
         self.last_plan_report = None
 
     # -- registration -----------------------------------------------------
     def register_model(self, name: str, provider) -> None:
-        """Register a model for SQL ML_PREDICT: not ported yet."""
-        raise deferred.not_ported("TableEnvironment.register_model (ML_PREDICT)", deferred.ML)
+        """Register a PredictRuntimeProvider (table/ml.py) for SQL ML_PREDICT."""
+        self._models[name] = provider
 
     def register_table(self, name: str, stream: DataStream,
                        schema: TableSchema, columnar: bool = False) -> None:
@@ -301,12 +301,12 @@ class TableEnvironment:
                 "TUMBLE/HOP/SESSION window"
             )
         if not aggs:
-            if preds:
-                raise deferred.not_ported("SQL ML_PREDICT", deferred.ML)
-            # projection query
+            # projection (+ optional model inference) query
             from flink_tpu_torch.table.changelog import carry_kind
 
             cols = [i for i in q.select if i.kind == "column"]
+            if preds:
+                return stream.map_batch(self._infer_batch(cols, preds), name="ml_predict")
 
             def project(row, _cols=cols):
                 return carry_kind(
@@ -545,6 +545,59 @@ class TableEnvironment:
             out = out.global_().flat_map(rank_vec, name="sql_topn",
                                          vectorized=True)
         return out
+
+    def _infer_batch(self, cols, preds):
+        """The map_batch function of an ML_PREDICT projection: whole-batch
+        inference, ONE predict_batch per provider per step batch
+        (MLPredictRunner batching, on-device)."""
+        import numpy as _np
+
+        from flink_tpu_torch.table.changelog import carry_kind
+
+        providers = []
+        for item in preds:
+            if item.name not in self._models:
+                raise KeyError(
+                    f"unknown model {item.name!r}; registered: {list(self._models)}"
+                )
+            providers.append((item, self._models[item.name]))
+
+        for item, provider in providers:
+            # SQL args map POSITIONALLY onto the provider's features
+            args = item.args or provider.feature_cols
+            if len(args) != len(provider.feature_cols):
+                raise ValueError(
+                    f"ML_PREDICT({item.name}, ...) got {len(args)} "
+                    f"features, model wants {len(provider.feature_cols)}"
+                )
+
+        def infer_batch(rows, _cols=cols, _providers=providers):
+            # a changelog input's row kinds ride through inference. A -D row
+            # is re-scored independently of the +I it retracts, and
+            # downstream multiset state matches the pair BY VALUE, so the
+            # provider must be deterministic over its features (the
+            # PredictRuntimeProvider contract in table/ml.py)
+            outs = [
+                carry_kind({c.output_name: r[c.name] for c in _cols}, r)
+                for r in rows
+            ]
+            for item, provider in _providers:
+                args = item.args or provider.feature_cols
+                feats = _np.asarray(
+                    [[float(r[a]) for a in args] for r in rows],
+                    dtype=_np.float32,
+                )
+                out = _np.asarray(provider.predict_batch(feats))
+                single = len(provider.output_names) == 1
+                for i, o in enumerate(outs):
+                    if single:
+                        o[item.alias or item.output_name] = out[i, 0].item()
+                    else:
+                        for j, nm in enumerate(provider.output_names):
+                            o[nm] = out[i, j].item()
+            return outs
+
+        return infer_batch
 
     def _join_query(self, q: Query, sql_fused: bool = False) -> DataStream:
         """Windowed equi-join: translated onto DataStream.join (the fused

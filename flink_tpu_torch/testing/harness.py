@@ -1,10 +1,9 @@
 """Operator test harness: drive an operator without any cluster.
 
 Counterpart of `flink_tpu/testing/harness.py`, copied: `fault_injection`,
-`KeyedWindowOperatorHarness` and `keyed_window_stream`. The transport
-security helpers (`ephemeral_transport_security`, `transport_security`)
-need the cluster's SecurityConfig and raise until it is ported
-(ROADMAP.md Queue A, item 14).
+the transport security helpers (`ephemeral_transport_security`,
+`transport_security`), `KeyedWindowOperatorHarness` and
+`keyed_window_stream`.
 
 Mirrors the reference's workhorse testing pattern
 (AbstractStreamOperatorTestHarness.java /
@@ -16,16 +15,17 @@ drain_output / snapshot / restore)."""
 from __future__ import annotations
 
 import contextlib
+import secrets as _secrets
 from typing import Any, Callable, List, Tuple
-
-from flink_tpu_torch.utils import deferred
 
 
 def ephemeral_transport_security(cluster_id: str = "flink-tpu-test"):
-    """A fresh random-secret SecurityConfig for one test cluster: the
-    cluster's transport security, not ported yet."""
-    raise deferred.not_ported("testing.harness.ephemeral_transport_security",
-                              deferred.CLUSTER)
+    """A fresh random-secret SecurityConfig for one test cluster, isolated
+    from the per-user default secret (two clusters built from separate
+    calls cannot authenticate to each other)."""
+    from flink_tpu_torch.security.transport import SecurityConfig
+
+    return SecurityConfig.with_secret(_secrets.token_hex(16), cluster_id)
 
 
 @contextlib.contextmanager
@@ -47,10 +47,21 @@ def fault_injection(plan=None, *, rules=None, seed: int = 0):
         uninstall_plan()
 
 
+@contextlib.contextmanager
 def transport_security(sec=None):
-    """Pin the process-default SecurityConfig for a block: the cluster's
-    transport security, not ported yet."""
-    raise deferred.not_ported("testing.harness.transport_security", deferred.CLUSTER)
+    """Context manager pinning the PROCESS-DEFAULT SecurityConfig — every
+    RpcService/ExchangeServer/OutputChannel/RpcGateway constructed inside
+    (without an explicit `security=`) uses `sec`. Tests run with auth on by
+    default; this is how a test opts into a known secret or into
+    SecurityConfig.disabled() for the legacy wire."""
+    from flink_tpu_torch.security.transport import _set_process_default
+
+    sec = ephemeral_transport_security() if sec is None else sec
+    prev = _set_process_default(sec)
+    try:
+        yield sec
+    finally:
+        _set_process_default(prev)
 
 
 class KeyedWindowOperatorHarness:

@@ -7,9 +7,8 @@ instead of falling back to something else quietly."""
 from __future__ import annotations
 
 # the items the errors name (ROADMAP.md, Queue A)
-CLUSTER = ("item 14 (remaining planes: the cluster, its TaskManager heartbeat, "
-           "REST and transport security)")
-ML = "item 14 (remaining touch points: ML_PREDICT, table/ml.py)"
+CLUSTER = ("item 14d (the chaos plane's cluster scenarios over the cluster's "
+           "seams; then 14e the HTTP planes and 14f the tools)")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -164,9 +164,18 @@ def test_rules_validate_and_faults_are_labeled_connection_errors(pkg):
 
 
 def test_the_harness_transport_helpers_wait_for_the_cluster():
-    for fn in (tharness.ephemeral_transport_security, tharness.transport_security):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn()
+    """Ported since (the cluster, ROADMAP item 14b): as in the JAX harness,
+    an ephemeral security is a fresh random secret, and transport_security
+    pins the process default for a block and restores it (the test keeps
+    its original name)."""
+    from flink_tpu_torch.security import transport as ttransport
+
+    a, b = tharness.ephemeral_transport_security("c"), tharness.ephemeral_transport_security("c")
+    assert a.enabled and a.cluster_id == "c" and a.secret != b.secret and len(a.secret) == 32
+    before = ttransport.SecurityConfig.resolve()
+    with tharness.transport_security(a) as pinned:
+        assert pinned is a and ttransport.SecurityConfig.resolve() is a
+    assert ttransport.SecurityConfig.resolve() == before
 
 
 # ---------------------------------------------------------------------------

@@ -877,7 +877,10 @@ def test_state_checkpoint_keys_raise_as_unknown(key):
     # accepted and reads back, and the config builds the job's plan (the
     # case keeps its original id)
     pytest.param("chaos.enabled", None, id="chaos.enabled-item 14"),
-    ("security.ssl.internal.enabled", "item 14"),
+    # transport security is ported (tests/test_torch_security.py): the
+    # key is accepted and reads back (the case keeps its original id)
+    pytest.param("security.ssl.internal.enabled", None,
+                 id="security.ssl.internal.enabled-item 14"),
     # the autoscaler is ported (tests/test_torch_mesh_control.py runs it on
     # the MiniCluster): accepted, and a MiniCluster job that enables it
     # wires a coordinator (the case keeps its original id)
@@ -890,6 +893,11 @@ def test_minicluster_planes_still_deferred_raise_naming_their_item(key, item):
         assert conf.get(tcfg.ChaosOptions.ENABLED) is True
         assert FaultPlan.from_config(conf).rules == []
         assert FaultPlan.from_config(tcfg.Configuration()) is None
+        return
+    if key == "security.ssl.internal.enabled":
+        conf = tcfg.Configuration({key: True})
+        assert conf.get(tcfg.SecurityOptions.SSL_INTERNAL_ENABLED) is True
+        assert tcfg.Configuration().get(tcfg.SecurityOptions.SSL_INTERNAL_ENABLED) is False
         return
     if item is None:
         import torch
@@ -920,7 +928,10 @@ def test_minicluster_planes_still_deferred_raise_naming_their_item(key, item):
     # ported: the request parks as the JAX client's does, and the degrade's
     # option reads the JAX default (the case keeps its original id)
     pytest.param("rescale_mesh", None, id="rescale_mesh-item 13"),
-    ("security", "item 14")])
+    # MiniCluster(security=) is ported with the transport layer: the
+    # cluster keeps the SecurityConfig it is given, as the JAX one does
+    # (the case keeps its original id)
+    pytest.param("security", None, id="security-item 14")])
 def test_minicluster_surfaces_still_deferred_raise(call, item):
     from flink_tpu.runtime.minicluster import JobClient as JaxJobClient
     from flink_tpu_torch.runtime.minicluster import JobClient
@@ -934,6 +945,13 @@ def test_minicluster_surfaces_still_deferred_raise(call, item):
         assert (tcfg.Configuration({opt.key: False}).get(opt) is False
                 and tcfg.Configuration().get(opt)
                 == jcfg.Configuration().get(jcfg.ParallelOptions.MESH_DEGRADE_ON_DEVICE_LOSS))
+        return
+    if call == "security":
+        from flink_tpu_torch.testing.harness import ephemeral_transport_security
+
+        sec = ephemeral_transport_security()
+        assert MiniCluster(security=sec).security is sec
+        assert MiniCluster().security.enabled
         return
     if item is None:
         assert getattr(JobClient("j", "n"), call)() == getattr(JaxJobClient("j", "n"), call)()

@@ -386,3 +386,28 @@ def test_api_state_tools_phase_holds_every_check_but_the_launches(monkeypatch):
         assert b[fmt]["rows_equal_columnar_job"] and b[fmt]["codec_roundtrip"]
         assert b[fmt]["files"] == 1 and b[fmt]["bytes"] > 0
     assert not r["ok"] and a["k1_launches"] == 0 and "k1_patched" not in a
+
+
+def test_api_cluster_phase_holds_every_check_but_the_launches():
+    """Phase 32 rehearsed small on the CPU (2^15 records at batch 4096 over
+    64 keys for legs A and B, 4 x 4096 records a leg C job, 1024 ML rows,
+    2^14 records on the process cluster): every row check holds, leg B
+    restarts from a checkpoint with the window stage fused, and only K1's
+    launches (none on the CPU) keep leg A's gate shut."""
+    r = cm.api_cluster_phase("cpu", dict(
+        events_a=1 << 15, events_b=1 << 15, events_e=1 << 14, keys=64, batch=4096,
+        c_steps=4, c_batch=4096, c_keys=64, ml_rows=1024, wire_rows=4096, wire_reps=3,
+        handshakes=3))
+    a, b, c, d, e = (r[k] for k in ("leg_a", "leg_b", "leg_c", "leg_d", "leg_e"))
+    assert a["status"] == "FINISHED" and a["rows_equal_local"] and a["local_equal_oracle"]
+    assert a["rows"] > 0 and a["pipelines_in_task_executor"] == 1
+    assert b["status"] == "FINISHED" and b["rows_equal_uninterrupted"] and b["restarts"] >= 1
+    assert b["restored_checkpoint_id"] is not None and b["stages"] == 2
+    assert b["window_stage_runners"] == ["DeviceChainRunner"]
+    assert b["exchange"]["numBytesOut"] > 0 and b["ok"]
+    assert c["ok"] and c["sliding_count"]["rows"] > 0 and c["session_sum"]["rows"] > 0
+    assert d["ok"] and d["within_tolerance"]
+    assert e["ok"] and e["processes_stopped"]
+    assert r["host_rates"]["decode_equal"]
+    assert r["failed"] == ["leg_a"] and a["k1_launches_task_executor"] == 0
+    assert "k1_cluster" not in a

@@ -6,6 +6,8 @@ configured for the JAX package must configure the port the same way. For
 every key of every JAX option class the port either accepts it and reads
 back the JAX default, or raises `NotImplementedError` naming a ROADMAP.md
 Queue A item (never the catch-all label of a key that no item carries).
+The cluster's option groups and the layered surface (load, from_env,
+add_all, fallback keys) read as the JAX package's.
 The nine options that no module of either package reads are accepted
 with the JAX defaults, on the option classes JAX keeps them on, and
 bench.py::api_path_microbench's program run with two of them set gives
@@ -75,12 +77,66 @@ def test_options_no_module_reads_are_defined_with_the_jax_defaults(key):
     assert tcfg.Configuration({key: default}).get(_port_option(key)[1]) == default
 
 
-@pytest.mark.parametrize("key", ["exchange.wire-format", "exchange.credit-batch",
-                                 "exchange.debloat.enabled",
-                                 "execution.watchdog.stuck-task-timeout-ms"])
+CLUSTER_KEYS = {"exchange.wire-format": "pickle", "exchange.credit-batch": 4,
+                "exchange.debloat.enabled": False,
+                "execution.watchdog.stuck-task-timeout-ms": 3000,
+                "observability.shipping.interval-ms": 50,
+                "security.transport.cluster-id": "c1",
+                "security.ssl.internal.enabled": True}
+
+
+@pytest.mark.parametrize("key", sorted(CLUSTER_KEYS))
 def test_cluster_options_name_the_cluster_item(key):
-    with pytest.raises(NotImplementedError, match="item 14 \\(remaining planes: the cluster"):
-        tcfg.Configuration({key: 1})
+    """The cluster's option groups (security.*, exchange.*,
+    execution.watchdog.*, observability.shipping.*) are the port's now: a
+    set value reads back as the JAX package reads it, on the class the JAX
+    package keeps the option on."""
+    cls, opt = _port_option(key)
+    jax_opt = next(o for _n, _a, o in _jax_options() if o.key == key)
+    assert cls is not None and opt.default == jax_opt.default
+    value = CLUSTER_KEYS[key]
+    assert (tcfg.Configuration({key: value}).get(opt)
+            == jcfg.Configuration({key: value}).get(jax_opt) == value)
+
+
+@pytest.mark.parametrize("key,fallback,value", [
+    ("security.transport.secret-file", "security.transport.secret.file", "/x/s"),
+    ("security.transport.cluster-id", "security.transport.cluster.id", "c2")])
+def test_fallback_keys_resolve_as_in_jax(key, fallback, value):
+    _cls, opt = _port_option(key)
+    jax_opt = next(o for _n, _a, o in _jax_options() if o.key == key)
+    assert opt.fallback_keys == jax_opt.fallback_keys == (fallback,)
+    port, jax = tcfg.Configuration({fallback: value}), jcfg.Configuration({fallback: value})
+    assert port.get(opt) == jax.get(jax_opt) == value
+    assert port.contains(opt) and jax.contains(jax_opt)
+
+
+def test_layered_surface_matches_jax(tmp_path, monkeypatch):
+    """load < from_env < add_all, with get_string, key_set, to_dict,
+    contains, remove and clone, in both packages."""
+    yaml = tmp_path / "conf.yaml"
+    yaml.write_text("# c\nexchange.credit-batch: 8\nsecurity.transport.cluster-id: a\n")
+    js = tmp_path / "conf.json"
+    js.write_text('{"exchange.debloat.enabled": false, "pipeline.name": "j"}')
+    monkeypatch.setenv("FLINK_TPU_SECURITY_TRANSPORT_CLUSTER_ID", "from-env")
+    out = {}
+    for name, mod in (("port", tcfg), ("jax", jcfg)):
+        conf = mod.Configuration.load(str(yaml)).add_all(mod.Configuration.from_env())
+        conf.add_all(mod.Configuration.load(str(js)))
+        other = conf.clone()
+        removed = other.remove(mod.ExchangeOptions.CREDIT_BATCH)
+        out[name] = (conf.to_dict(), sorted(conf.key_set()),
+                     conf.get_string("exchange.credit-batch"),
+                     conf.get(mod.ExchangeOptions.CREDIT_BATCH),
+                     conf.get(mod.SecurityOptions.TRANSPORT_CLUSTER_ID),
+                     conf.get(mod.ExchangeOptions.DEBLOAT_ENABLED),
+                     conf.contains(mod.ExchangeOptions.CREDIT_BATCH),
+                     removed, other.contains(mod.ExchangeOptions.CREDIT_BATCH),
+                     conf == mod.Configuration(conf.to_dict()),
+                     conf.get(mod.WatchdogOptions.STUCK_TASK_TIMEOUT_MS, 7))
+    assert out["port"] == out["jax"]
+    # the file's primary key outranks the env's fallback spelling, in both
+    assert out["port"][4] == "a" and out["port"][3] == 8
 
 
 def test_list_option_reads_a_semicolon_string_as_jax_does():

@@ -332,6 +332,37 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         buf = io.BytesIO()
         get_format("avro").write([{"n": -3}], buf)
         assert get_format("avro").read(io.BytesIO(buf.getvalue())) == [{"n": -3}]
+        # ML_PREDICT over a torch model, and the cluster: a graph job (the
+        # fused window, so K1's plain version) on an in-process JobManager
+        # and TaskExecutor over the authenticated RPC and data planes
+        from flink_tpu_torch.table.ml import TorchModelProvider, params_from_numpy
+        tenv.register_model("m", TorchModelProvider(
+            lambda p, x: x @ p["w"], params_from_numpy({"w": np.ones((1, 1), np.float32)},
+                                                      "cpu"), ["amount"], ["y"], device="cpu"))
+        rows = tenv.execute_sql_to_list("SELECT user, ML_PREDICT(m, amount) AS y FROM pay")
+        assert sum(r["y"] for r in rows) == sum(float(i % 4) for i in range(60))
+        from flink_tpu_torch.runtime.cluster import JobManagerEndpoint, TaskExecutorEndpoint
+        from flink_tpu_torch.runtime.rpc import RpcService
+        from flink_tpu_torch.security import wire  # noqa: F401
+        from flink_tpu_torch.testing import cluster_jobs
+        from flink_tpu_torch.testing.harness import ephemeral_transport_security
+        sec = ephemeral_transport_security()
+        jm_svc, tm_svc = RpcService(security=sec), RpcService(security=sec)
+        jm = JobManagerEndpoint(jm_svc, heartbeat_interval=0.2, heartbeat_timeout=10.0)
+        te = TaskExecutorEndpoint(tm_svc, slots=2, device="cpu")
+        te.connect(jm_svc.address)
+        spec = cluster_jobs.api_graph_spec("c", 4096, keys=16, batch=512, window_ms=2000,
+                                           slide_ms=1000, device="cpu", stages=True)
+        gw = jm_svc.gateway(jm_svc.address, "jobmanager")
+        job = gw.submit_job(spec.to_bytes(), 1)
+        import time as _time
+        deadline = _time.time() + 60
+        while gw.job_status(job)["status"] not in ("FINISHED", "FAILED") and _time.time() < deadline:
+            _time.sleep(0.05)
+        assert gw.job_status(job)["status"] == "FINISHED", gw.job_status(job)
+        rows = cluster_jobs.fired_rows(gw.job_result(job))
+        assert sum(v for _t, _k, v in rows) == 2 * 4096 // 3 + 2
+        te.stop(); jm.heartbeats.stop(); jm_svc.stop(); tm_svc.stop()
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -380,7 +411,11 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "scheduler/rebalancer.py", "scheduler/signals.py", "scheduler/policy.py",
                  "scheduler/autoscaler.py", "core/serializers.py", "core/types.py",
                  "formats/registry.py", "formats/file_io.py", "state_processor.py",
-                 "chaos/plan.py", "chaos/scenarios.py", "testing/harness.py"):
+                 "chaos/plan.py", "chaos/scenarios.py", "testing/harness.py",
+                 "table/ml.py", "security/framing.py", "security/wire.py",
+                 "security/transport.py", "runtime/rpc.py", "runtime/heartbeat.py",
+                 "runtime/blob.py", "runtime/dataplane.py", "metrics/exchange.py",
+                 "runtime/stages.py", "runtime/cluster.py", "testing/cluster_jobs.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):

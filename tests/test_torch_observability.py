@@ -417,8 +417,9 @@ def test_every_ported_observability_key_is_the_jax_option():
               if isinstance(o, tcfg.ConfigOption)}
     jax = {o.key: o for o in vars(jcfg.ObservabilityOptions).values()
            if isinstance(o, jcfg.ConfigOption)}
-    unported = {k for k in jax if k.startswith("observability.shipping.")}
-    assert set(ported) == set(jax) - unported
+    # observability.shipping.* came with the cluster: every key is
+    # the port's now
+    assert set(ported) == set(jax)
     for key, opt in ported.items():
         assert (opt.default, opt.type) == (jax[key].default, jax[key].type), key
         tcfg.Configuration({key: opt.default})
@@ -440,7 +441,11 @@ def test_device_plane_keys_are_accepted_and_read(key, value):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("observability.shipping.interval-ms", "item 14"),
+    # the cluster ships metrics at this interval (ported with the cluster,
+    # tests/test_torch_cluster.py): accepted and read back as set (the
+    # case keeps its original id)
+    pytest.param("observability.shipping.interval-ms", None,
+                 id="observability.shipping.interval-ms-item 14"),
     # the autoscaler and the mesh's autoscale are ported
     # (tests/test_torch_mesh_control.py runs them): accepted and read back
     # as set (the cases keep their original ids)
@@ -450,11 +455,13 @@ def test_device_plane_keys_are_accepted_and_read(key, value):
 ])
 def test_unported_planes_still_raise_naming_their_item(key, item):
     if item is None:
-        opt = next(o for cls in (tcfg.AutoscalerOptions, tcfg.ParallelOptions)
+        opt = next(o for cls in (tcfg.AutoscalerOptions, tcfg.ParallelOptions,
+                                 tcfg.ObservabilityOptions)
                    for o in vars(cls).values()
                    if isinstance(o, tcfg.ConfigOption) and o.key == key)
         # a value other than the default, read back as set
-        value = "learning" if key == "autoscaler.policy" else not opt.default
+        value = ("learning" if key == "autoscaler.policy" else
+                 opt.default + 250 if opt.type is int else not opt.default)
         conf = tcfg.Configuration({key: value})
         assert conf.get(opt) == value and tcfg.Configuration().get(opt) != value
         return

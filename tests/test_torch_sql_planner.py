@@ -564,6 +564,22 @@ def test_unported_statements_raise_naming_their_item(sql, item, fused):
         assert kinds[0] == kinds[1] and "UnionRunner" in kinds[1]
         assert rows[0] == rows[1] and rows[1] != "[]"
         return
+    if item == "item 14":
+        # ported since: ML_PREDICT over a registered model (table/ml.py)
+        # runs in the projection, to the JAX package's rows
+        # (test_torch_ml.py holds more statements)
+        import importlib
+
+        rows = []
+        for P in PKGS:
+            env, tenv = _typed_rows_env(P, fused=fused)
+            ml = importlib.import_module(P.ds.__name__.split(".")[0] + ".table.ml")
+            tenv.register_model("m", ml.FnModelProvider(lambda f: f * 2, ["amount"], ["y"]))
+            sink = tenv.sql_query(sql).collect()
+            env.execute()
+            rows.append(repr(sink.results))
+        assert rows[0] == rows[1] and rows[1] != "[]"
+        return
     with pytest.raises(NotImplementedError, match=f"not ported yet: ROADMAP.md Queue A, {item}"):
         tenv.sql_query(sql)
 
