@@ -94,7 +94,7 @@ exits non-zero on the first failure. Phases, one JSON line each:
    with CountEvictor.of(16) and process, each against a numpy model of its
    semantics; SQL_MULTI (COUNT(*), SUM(x), MAX(x) over the YSB HOP) at
    2^17 records against numpy, its plan report the JAX package's; tuples/s
-   and a cProfile of each.
+   of each, and a cProfile of the two DataStream jobs.
 20. api_correlated: shared correlated windows (graph/window_sharing.py).
    `bench.py::correlated_windows_microbench`'s program (a traceable filter
    and key, 1 min / 5 min / 1 h tumbling counts, 8192 keys, batch 65536):
@@ -142,7 +142,7 @@ exits non-zero on the first failure. Phases, one JSON line each:
    savepoint at half the input (the source held on an Event), cancel, and
    a new job resumed from it with MiniCluster.submit(savepoint_restore_path
    =): records_in complete, every window of the oracle once. Leg C:
-   api_tiered's zipf job (2^18 records over 10^7 keys) with a checkpoint
+   api_tiered's zipf job (2^17 records over 10^7 keys) with a checkpoint
    at every step, each an incremental (base, log offset) changelog handle,
    and one host failure in the source: the oracle's rows after the restore
    from the handle, incremental_ratio (millikey_microbench's) below 0.25.
@@ -381,6 +381,31 @@ exits non-zero on the first failure. Phases, one JSON line each:
    against its plain version at leg A's TaskExecutor's first full and
    widest dispatches (`k1_cluster`), and the planes' host rates (binary
    wire encode/decode MB/s, handshake ms).
+33. api_cluster_ops: the chaos plane's cluster drills, and the HTTP planes
+   and the CLI, over the cluster and the MiniCluster on the card. Leg A:
+   the four cluster scenarios (rpc-flap, dataplane-blip,
+   tm-crash-during-rescale, heartbeat-partition) through run_matrix with
+   their TaskExecutors on the card, at the JAX package's sizes, rules and
+   gates. Leg B: api_cluster leg B's two-stage program (2^21 records, three
+   TaskExecutors, checkpoints every 0.2 s, a 5 s heartbeat timeout) under
+   two of those drills' fault plans: an injected error on the stage edge's
+   5th send after the first checkpoint (the stage fails over, as in the JAX
+   package: a restart from a checkpoint), then, paced 0.3
+   s a batch, a partition of the heartbeats of the TaskExecutor that holds
+   the window stage for 80 beats (8 s at its 0.1 s beat; the JAX drill
+   drops 35 against a 1.2 s timeout): a restart from a checkpoint, the loss
+   attributed to that TaskExecutor; each with the uninterrupted rows and
+   K1 launched in a TaskExecutor in every attempt; then K1 against its
+   plain version at the restarted attempt's widest dispatch
+   (`k1_cluster_faulted`). Leg C: a RestServer on port 0 over a MiniCluster,
+   with leg B's JobManager as its jm_gateway. api_ysb's fused program at
+   2^22 records submitted by `cli.frontend.main(["run", ..., "--address",
+   url])` (POST /jars/run): `list`, `info`, Prometheus /metrics with the
+   job's gauges, /jobs/<id>/device with its phase counters equal to what the
+   planner gave K1 and its dispatches equal to K1's launches; a paced
+   checkpointed job: checkpoints, exceptions, a savepoint through the CLI,
+   cancel, the dashboard with its device table and a flame graph taken
+   while it runs; leg B's cluster job through the bridge.
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -2613,12 +2638,10 @@ def api_oracle_phase(dev=DEV, sizes=None) -> dict:
             want.append((j * API["slide"] + API["window"], int(key), int(counts[key]),
                          float(model["sum"][j][key]), float(model["max"][j][key])))
     parity = got == sorted(want) and len(got) > 0
-    prof = host_profile("api_oracle_sql_multi", lambda: timed_execute(
-        sql_multi_job(n // 4, sz, dev)[0], dev), top=8)
     out["sql_multi"] = {"events": n, "tuples_per_s": n / secs, "seconds": secs,
                         "rows": len(sink.results), "parity": parity, "report": report,
                         "report_equals_jax": report == SQL_MULTI_REPORT,
-                        "no_kernel_launched": untouched, "host_profile": prof["top"]}
+                        "no_kernel_launched": untouched}
     out["ok"] = ok and parity and report == SQL_MULTI_REPORT and untouched
     return out
 
@@ -3215,12 +3238,13 @@ def tiered_k1_inputs(skewed: bool, sz=API_TIERED, dev=DEV):
 # (checkpoint_microbench's interval); leg B: the same program at 2^20 keys
 # with a float32 sum (rings [32, 2^20] x 2 = 256 MiB), checkpoints every
 # 40 ms, then a savepoint at half the input, cancel, resume; leg C:
-# api_tiered's zipf job (2^18 records over 10^7 keys) with a checkpoint at
-# every step and one host failure in the source
+# api_tiered's zipf job (2^17 records over 10^7 keys) with a checkpoint at
+# every step and one host failure in the source (at 2^16 its incremental
+# ratio, 0.255, misses the 0.25 gate; 2^17 gave 0.197, 2^18 0.170)
 API_CHECKPOINT = dict(keys=8192, batch=65536, events=1 << 21, warmup_events=1 << 18,
                       intervals=(1, 25), fail_at=0.6, mem_slack=1 << 19,
                       big_keys=1 << 20, big_events=1 << 22, big_interval=40,
-                      min_checkpoints=4, savepoint_at=0.5, tiered_events=1 << 18)
+                      min_checkpoints=4, savepoint_at=0.5, tiered_events=1 << 17)
 
 
 class FailOnceSink:
@@ -7215,9 +7239,15 @@ def _fused_pipe(client):
 def chaos_leg_0(sz, dev) -> dict:
     """The eight in-process scenarios at the JAX package's sizes, the mesh
     ones on four shards of the card."""
-    from flink_tpu_torch.chaos.scenarios import MESH_SCENARIOS, run_matrix
+    from flink_tpu_torch.chaos.scenarios import (
+        CLUSTER_SCENARIOS,
+        MESH_SCENARIOS,
+        SCENARIOS,
+        run_matrix,
+    )
 
-    m = run_matrix(device=dev, shards=sz["shards"])
+    m = run_matrix([n for n in SCENARIOS if n not in CLUSTER_SCENARIOS], device=dev,
+                   shards=sz["shards"])
     rows = {}
     for r in m["scenarios"]:
         ok = (r["passed"] and not r["skipped"] and r["injected_fired"] >= 1
@@ -8240,6 +8270,395 @@ def api_cluster_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 33: api_cluster_ops, the chaos plane's cluster drills, two of their
+# fault plans over api_cluster leg B's K1 job, and the HTTP planes and the
+# CLI over K1 jobs
+# ---------------------------------------------------------------------------
+
+# leg B: api_cluster leg B's job (2^21 records, batch 65536 over 8192 keys,
+# 10 s / 1 s), the blip paced 0.1 s a batch (its 5th stage-edge send after
+# the first checkpoint fails), the partition 0.3 s (so the job outlives the
+# 5 s heartbeat timeout); leg C: api_ysb's fused job at 2^22,
+# a checkpointed job at 2^20 paced 0.25 s a batch (it runs ~4 s, past its
+# savepoint, flame graph and cancel)
+API_CLUSTER_OPS = dict(events_b=1 << 21, keys=8192, batch=65536, window=10_000, slide=1_000,
+                       superbatch_b=4, interval_b=0.2, heartbeat_timeout_b=5.0,
+                       delay_blip=0.1, blip_nth=5, delay_partition=0.3, partition_fires=80,
+                       events_c=1 << 22, events_paced=1 << 20, delay_paced=0.25,
+                       paced_interval_ms=50, flame_s=0.2)
+
+
+def _task_attempt(name=None) -> tuple:
+    """(attempt, shard) of the TaskExecutor task whose thread has `name`
+    (default: this thread's; `task-<job>-a<attempt>-s<shard>`), else (0, -1)."""
+    import re
+    import threading
+
+    m = re.match(r"task-\w+-a(\d+)-s(\d+)$", name or threading.current_thread().name)
+    return (int(m.group(1)), int(m.group(2))) if m else (0, -1)
+
+
+def k1_by_attempt(shard=None) -> dict:
+    """K1's launches since the last `reset_launch_counts()` by the attempt
+    of the TaskExecutor task that launched them (of `shard`'s tasks only,
+    when given), from the wrapper's own count by thread; launches from other
+    threads (a check against the plain version) are no attempt's."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+
+    out = {}
+    for name, n in list(cs.LAUNCHES_BY_THREAD["k1_superscan"].items()):
+        attempt, s = _task_attempt(name)
+        if attempt and shard in (None, s):
+            out[attempt] = out.get(attempt, 0) + n
+    return out
+
+
+def ops_leg_a(dev) -> dict:
+    """The four cluster scenarios through run_matrix, their TaskExecutors on
+    `dev`: each passed (the JAX gate), with parity, not skipped, fired;
+    heartbeat-partition restarted, rpc-flap and dataplane-blip did not."""
+    from flink_tpu_torch.chaos.scenarios import CLUSTER_SCENARIOS, run_matrix
+
+    m = run_matrix(list(CLUSTER_SCENARIOS), device=dev)
+    rows = {}
+    for r in m["scenarios"]:
+        ok = (r["passed"] and r["parity"] and not r["skipped"] and r["path"] == "distributed"
+              and r["injected_fired"] >= 1)
+        if r["name"] == "heartbeat-partition":
+            ok = ok and r["restarts"] >= 1
+        if r["name"] in ("rpc-flap", "dataplane-blip"):
+            ok = ok and r["restarts"] == 0
+        rows[r["name"]] = dict(r, ok=bool(ok))
+    return {"scenarios": rows, "scenarios_total": m["scenarios_total"],
+            "scenarios_passed": m["scenarios_passed"], "parity": m["parity"],
+            "recovery_time_ms_p50": m["recovery_time_ms_p50"],
+            "ok": bool(m["scenarios_total"] == 4 and all(r["ok"] for r in rows.values()))}
+
+
+def ops_leg_b(sz, dev, c) -> dict:
+    """Leg B on cluster `c` (three TaskExecutors): the blip on the stage
+    edge, then the partition of the window stage's TaskExecutor, each
+    against the uninterrupted rows; K1 at the restarted attempt's widest
+    dispatch (`k1_cluster_faulted`)."""
+    from flink_tpu_torch.config import ExecutionOptions
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.stages import cross_edges
+    from flink_tpu_torch.testing import cluster_jobs as cj
+    from flink_tpu_torch.testing.harness import fault_injection
+
+    n, keys = sz["events_b"], sz["keys"]
+    kw = dict(keys=keys, batch=sz["batch"], window_ms=sz["window"], slide_ms=sz["slide"],
+              device=dev)
+    env, sink = cj.api_graph(n, **kw)
+    env.execute()
+    want = cj.fired_rows(sink.results)
+    del env, sink
+    cuda = torch.device(dev).type == "cuda"
+
+    def spec(name, delay):
+        sp = cj.api_graph_spec(name, n, stages=True, **kw, gen=cj.ApiGen(n, keys, delay_s=delay))
+        sp.config.set(ExecutionOptions.SUPERBATCH_STEPS, sz["superbatch_b"])
+        return sp
+
+    def every_attempt(window_shard, attempts):
+        by = k1_by_attempt(window_shard)
+        return all(by.get(a, 0) > 0 for a in range(1, attempts + 1))
+
+    def first_checkpoint(job, window_shard):
+        # and on the card the window stage's first K1 launch
+        c.until(lambda: c.client.job_status(job)["checkpoints"]
+                and (not cuda or k1_by_attempt(window_shard)), 120,
+                "leg B's first checkpoint and the window stage's first K1 launch")
+
+    out = {"events": n}
+    # B1: dataplane-blip's error on the stage edge (channel .../x0) once the
+    # first checkpoint is complete: the stage fails over, as in the JAX
+    # package (its stage edge takes no reconnect window)
+    blip_spec = spec("api-cluster-ops-blip", sz["delay_blip"])
+    (edge,) = cross_edges(blip_spec.graph)
+    window_shard = edge.dst_stage
+    _sync(dev)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    job = c.client.submit_job(blip_spec.to_bytes(), 1)
+    first_checkpoint(job, window_shard)
+    with fault_injection(rules=[{"scope": "dataplane", "fault": "error",
+                                 "match": f"/{edge.edge_id}", "nth": sz["blip_nth"],
+                                 "max_fires": 1}]) as plan:
+        st_ = c.wait(job)
+    secs = time.perf_counter() - t0
+    launches = cs.LAUNCHES["k1_superscan"]
+    got = cj.fired_rows(c.client.job_result(job) or [])
+    recov = c.client.job_exceptions(job).get("recoveries") or [{}]
+    blip = {"job": job, "status": st_["status"], "restarts": st_["restarts"],
+            "injected_fired": plan.total_fired,
+            "restored_checkpoint_id": recov[-1].get("restored_checkpoint_id"),
+            "rows": len(got), "rows_equal_uninterrupted": got == want, "seconds": secs,
+            "k1_launches": launches, "k1_by_attempt": k1_by_attempt(window_shard)}
+    blip["ok"] = bool(st_["status"] == "FINISHED" and st_["restarts"] >= 1
+                      and plan.total_fired == 1 and blip["restored_checkpoint_id"] is not None
+                      and got == want and launches > 0
+                      and every_attempt(window_shard, 1 + st_["restarts"]))
+    out["blip"] = blip
+    # B2: heartbeat-partition's rule on the window stage's TaskExecutor
+    part_spec = spec("api-cluster-ops-partition", sz["delay_partition"])
+    with _PipeTap() as pt, K1Tap(lambda: _task_attempt()[0] >= 2) as tap:
+        _sync(dev)
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        job = c.client.submit_job(part_spec.to_bytes(), 1)
+        first_checkpoint(job, window_shard)
+        tm = c.jm._jobs[job].assignment[window_shard]
+        first_k1 = k1_by_attempt(window_shard)
+        with fault_injection(rules=[{"scope": "heartbeat", "fault": "partition", "match": tm,
+                                     "nth": 1, "max_fires": sz["partition_fires"]}]) as plan:
+            st_ = c.wait(job)
+        secs = time.perf_counter() - t0
+        launches = cs.LAUNCHES["k1_superscan"]
+        got = cj.fired_rows(c.client.job_result(job) or [])
+        exc = c.client.job_exceptions(job)
+        k1 = (tap.check("api_cluster_ops leg B: api_ysb's program, the window stage's task of "
+                        "the attempt restarted after its TaskExecutor's heartbeat partition, its "
+                        "widest dispatch (first_dispatch: its first, over the restored ring as "
+                        "loaded)", pt.pipes[-1])
+              if cuda and tap.taken is not None else {})
+    attributed = [e["exception"] for e in exc["entries"]
+                  if e.get("task_manager") == tm and "heartbeat" in e["exception"]]
+    recov = exc["recoveries"][-1] if exc.get("recoveries") else {}
+    part = {"job": job, "status": st_["status"], "restarts": st_["restarts"],
+            "partitioned_task_executor": tm, "window_shard": window_shard,
+            "beats_dropped": plan.total_fired, "attributed": attributed,
+            "restored_checkpoint_id": recov.get("restored_checkpoint_id"),
+            "downtime_ms": recov.get("downtime_ms"), "rows": len(got),
+            "rows_equal_uninterrupted": got == want, "seconds": secs,
+            "k1_launches": launches, "k1_by_attempt": k1_by_attempt(window_shard),
+            "k1_first_attempt_before_partition": first_k1,
+            "restarted_dispatch_taken": tap.taken is not None}
+    if k1:
+        part["k1_cluster_faulted"] = k1
+    part["ok"] = bool(st_["status"] == "FINISHED" and st_["restarts"] >= 1
+                      and part["restored_checkpoint_id"] is not None and bool(attributed)
+                      and got == want and every_attempt(window_shard, 1 + st_["restarts"])
+                      and part["restarted_dispatch_taken"] and launches > 0
+                      and k1.get("max_abs_err") == 0 and k1["first_dispatch"]["max_abs_err"] == 0)
+    out["partition"] = part
+    out["ok"] = bool(blip["ok"] and part["ok"])
+    return out
+
+
+def _http(method: str, url: str, body=None):
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _cli(*args) -> tuple:
+    """cli.frontend.main(args): (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from flink_tpu_torch.cli import frontend
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = frontend.main(list(args))
+    return rc, buf.getvalue()
+
+
+APP_SCRIPT = """
+from flink_tpu_torch.config import CheckpointingOptions
+from flink_tpu_torch.testing import cluster_jobs as cj
+
+
+def main():
+    kw = dict(keys={keys}, batch={batch}, window_ms={window}, slide_ms={slide}, device={dev!r})
+    gen = cj.ApiGen({n}, {keys}, delay_s={delay}) if {delay} else None
+    env = cj.api_graph({n}, gen=gen, **kw)[0]
+    if {interval}:
+        env.config.set(CheckpointingOptions.INTERVAL_MS, {interval})
+    return env
+"""
+
+
+def ops_leg_c(sz, dev, c, tmp: str, bridged_jobs: dict) -> dict:
+    """Leg C: a RestServer over a MiniCluster with cluster `c`'s JobManager
+    as its jm_gateway; api_ysb's fused job and a paced checkpointed one
+    submitted and operated through the CLI against it; leg B's jobs
+    (`bridged_jobs`, name -> id) through the bridge."""
+    from flink_tpu_torch.ops import cuda_superscan as cs
+    from flink_tpu_torch.runtime.minicluster import MiniCluster
+    from flink_tpu_torch.runtime.rest import RestServer
+
+    cluster = MiniCluster()
+    server = RestServer(cluster, port=0, jm_gateway=c.client).start()
+    url = server.url
+    out = {"url_port_nonzero": server.port != 0}
+
+    def script(name, n, delay=0.0, interval=0):
+        path = Path(tmp) / f"{name}.py"
+        path.write_text(APP_SCRIPT.format(keys=sz["keys"], batch=sz["batch"],
+                                          window=sz["window"], slide=sz["slide"], dev=str(dev),
+                                          n=n, delay=delay, interval=interval))
+        return str(path)
+
+    def get(route):
+        status, body = _http("GET", url + route)
+        return status, (json.loads(body) if body[:1] in (b"{", b"[") else body)
+
+    try:
+        # C1: api_ysb's fused job through POST /jars/run
+        n = sz["events_c"]
+        with _PlannedPhases() as planned:
+            _sync(dev)
+            cs.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, text = _cli("run", script("ysb", n), "--address", url)
+            job = json.loads(text)["jobid"]
+            status = cluster.jobs[job].wait(600).value
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            launches = cs.LAUNCHES["k1_superscan"]
+        rc_list, listed = _cli("list", "--address", url)
+        rc_info, info = _cli("info", job, "--address", url)
+        info = json.loads(info)
+        _s, prom = get("/metrics")
+        dev_status, device = get(f"/jobs/{job}/device")
+        ops = list(device.get("operators", {}).values()) if isinstance(device, dict) else []
+        phases = ops[0]["phases"] if ops else {}
+        programs = (ops[0]["compile"]["programs"] if ops else {})
+        dispatches = sum(p["dispatches"] for p in programs.values())
+        c1 = {"job": job, "status": status, "cli_rc": [rc, rc_list, rc_info],
+              "listed": job in listed, "info_status": info["status"],
+              "records_in": info["records_in"], "seconds": secs, "tuples_per_s": n / secs,
+              "k1_launches": launches, "device_route": dev_status, "phases": phases,
+              "planned": {"fires": planned.fires, "purges": planned.purges},
+              "device_dispatches": dispatches,
+              "prometheus_has_the_jobs_gauges": (
+                  f'job_numRecordsIn{{job="{job}"}} {n}'.encode() in prom
+                  and b"# TYPE job_numRecordsIn gauge" in prom
+                  and f'job_device_numCompiles{{job="{job}"}}'.encode() in prom)}
+        c1["ok"] = bool(status == "FINISHED" and c1["cli_rc"] == [0, 0, 0] and c1["listed"]
+                        and c1["info_status"] == "FINISHED" and c1["records_in"] == n
+                        and c1["prometheus_has_the_jobs_gauges"] and dev_status == 200
+                        and phases.get("ingestRecords") == -(-n // 3)
+                        and phases.get("fireSteps") == planned.fires > 0
+                        and phases.get("purgeSteps") == planned.purges > 0
+                        and dispatches == launches > 0)
+        out["ysb"] = c1
+        # C2: a paced checkpointed job: checkpoints, exceptions, savepoint,
+        # the dashboard and a flame graph while it runs, then cancel
+        cs.reset_launch_counts()
+        rc, text = _cli("run", script("paced", sz["events_paced"], sz["delay_paced"],
+                                      sz["paced_interval_ms"]), "--address", url)
+        job2 = json.loads(text)["jobid"]
+        client = cluster.jobs[job2]
+        deadline = time.monotonic() + 120
+        while (client.num_checkpoints < 1 or client.records_in == 0) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        sp_dir = Path(tmp) / "savepoint"
+        rc_sp, sp = _cli("savepoint", job2, str(sp_dir), "--address", url)
+        sp = json.loads(sp)
+        fl_status, flame = get(f"/flamegraph?duration={sz['flame_s']}")
+        dash_status, dash = get("/")
+        _s, ckpts = get(f"/jobs/{job2}/checkpoints")
+        latest = (ckpts.get("latest") or {}).get("completed") or {}
+        cid_status, _one = get(f"/jobs/{job2}/checkpoints/{latest.get('id', 0)}")
+        exc_status, exc = get(f"/jobs/{job2}/exceptions")
+        rc_cancel, cancel = _cli("cancel", job2, "--address", url)
+        try:
+            final = client.wait(120).value
+        except RuntimeError as e:   # a failed job re-raises its error
+            final = repr(e)
+        c2 = {"job": job2, "cli_rc": [rc, rc_sp, rc_cancel], "savepoint": sp,
+              "savepoint_written": sp_dir.exists(), "checkpoints_completed":
+              ckpts.get("counts", {}).get("completed"), "checkpoint_route": cid_status,
+              "exceptions": exc, "cancel": json.loads(cancel), "final_status": final,
+              "k1_launches": cs.LAUNCHES["k1_superscan"],
+              "flame_samples": flame.get("samples") if fl_status == 200 else None,
+              "dashboard_has_device_table": dash_status == 200 and b"device plane" in dash
+              and b"/device" in dash}
+        c2["ok"] = bool(c2["cli_rc"] == [0, 0, 0] and bool(sp.get("location"))
+                        and c2["savepoint_written"] and (c2["checkpoints_completed"] or 0) >= 1
+                        and cid_status == 200 and exc_status == 200
+                        and exc.get("root_exception") is None
+                        and c2["cancel"] == {"status": "cancelling"} and final == "CANCELED"
+                        and (c2["flame_samples"] or 0) > 0
+                        and c2["dashboard_has_device_table"] and c2["k1_launches"] > 0)
+        out["paced"] = c2
+        # C3: leg B's cluster jobs through the bridge
+        _s, jobs = get("/jobs")
+        ids = {j["id"]: j["status"] for j in jobs["jobs"]}
+        bridged = {}
+        for name, jb in bridged_jobs.items():
+            d_status, detail = get(f"/jobs/{jb}")
+            _s, bexc = get(f"/jobs/{jb}/exceptions")
+            _s, bck = get(f"/jobs/{jb}/checkpoints")
+            d2, bdev = get(f"/jobs/{jb}/device")
+            bridged[name] = {"listed": ids.get(jb) == "FINISHED", "detail_status": d_status,
+                             "status": detail.get("status"),
+                             "num_restarts": detail.get("num_restarts"),
+                             "exception_entries": len(bexc.get("entries", [])),
+                             "checkpoints_completed": bck.get("counts", {}).get("completed"),
+                             "device_route": d2, "device_keys": sorted(bdev)[:8]}
+        _s, prom = get("/metrics")
+        c3 = {"jobs": bridged, "shard_labels": b'shard="0"' in prom and b'shard="1"' in prom}
+        c3["ok"] = bool(c3["shard_labels"] and all(
+            b["listed"] and b["detail_status"] == 200 and b["status"] == "FINISHED"
+            and (b["checkpoints_completed"] or 0) >= 1 and b["device_route"] == 200
+            for b in bridged.values())
+            and bridged["partition"]["num_restarts"] >= 1
+            and bridged["partition"]["exception_entries"] >= 1)
+        out["bridge"] = c3
+    finally:
+        server.stop()
+    out["ok"] = bool(out["ysb"]["ok"] and out["paced"]["ok"] and out["bridge"]["ok"])
+    return out
+
+
+def api_cluster_ops_phase(dev=DEV, sizes=None) -> dict:
+    """Phase 33: leg A (the four cluster drills), legs B and C on one
+    cluster of three TaskExecutors (leg C's REST server bridges it)."""
+    import tempfile
+
+    from flink_tpu_torch.testing.harness import ephemeral_transport_security
+
+    sz = dict(API_CLUSTER_OPS, **(sizes or {}))
+    out = {"phase": "api_cluster_ops"}
+    t0 = time.perf_counter()
+    out["leg_a"] = dict(ops_leg_a(dev), leg_s=time.perf_counter() - t0)
+    print(f"api_cluster_ops leg_a: ok={out['leg_a']['ok']} {out['leg_a']['leg_s']:.1f} s",
+          file=sys.stderr, flush=True)
+    sec = ephemeral_transport_security("api-cluster-ops")
+    with tempfile.TemporaryDirectory(prefix="api-cluster-ops-") as tmp, \
+            _Cluster(sec, dev, tms=3, tm_kw={"shipping_interval_ms": 100},
+                     checkpoint_dir=f"{tmp}/chk", checkpoint_interval=sz["interval_b"],
+                     restart_attempts=3, restart_delay=0.2,
+                     heartbeat_timeout=sz["heartbeat_timeout_b"], adaptive=False) as c:
+        t0 = time.perf_counter()
+        out["leg_b"] = dict(ops_leg_b(sz, dev, c), leg_s=time.perf_counter() - t0)
+        print(f"api_cluster_ops leg_b: ok={out['leg_b']['ok']} {out['leg_b']['leg_s']:.1f} s",
+              file=sys.stderr, flush=True)
+        jobs = {name: out["leg_b"][name]["job"] for name in ("blip", "partition")}
+        t0 = time.perf_counter()
+        out["leg_c"] = dict(ops_leg_c(sz, dev, c, tmp, jobs), leg_s=time.perf_counter() - t0)
+        print(f"api_cluster_ops leg_c: ok={out['leg_c']['ok']} {out['leg_c']['leg_s']:.1f} s",
+              file=sys.stderr, flush=True)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    out["failed"] = [leg for leg in ("leg_a", "leg_b", "leg_c") if not out[leg]["ok"]]
+    out["ok"] = not out["failed"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -8963,6 +9382,36 @@ def main() -> int:
     k1_cluster = cluster["leg_a"]["k1_cluster"]
     torch.cuda.empty_cache()
 
+    # ---- 33. the chaos plane's cluster drills on the card (leg A), two of
+    # their fault plans over api_cluster leg B's K1 job (leg B), the REST
+    # server, dashboard, flame graph and CLI over K1 jobs and, through its
+    # jm_gateway, over leg B's cluster (leg C); K1 at the restarted attempt's
+    # widest dispatch after the heartbeat partition ----
+    t_ops = time.perf_counter()
+    ops = api_cluster_ops_phase()
+    ops["phase_s"] = time.perf_counter() - t_ops
+    emit(ops)
+    if not ops["ok"]:
+        raise AssertionError(f"api_cluster_ops: legs {ops['failed']} failed a gate (leg A: the "
+                             "four cluster drills passed their JAX gates; leg B: the stage "
+                             "edge's blip restarted from a checkpoint, the partitioned window "
+                             "stage's TaskExecutor restarted from a checkpoint and attributed, "
+                             "the uninterrupted rows, K1 launched in every attempt and "
+                             "bit-equal; leg C: the CLI over REST, Prometheus, the device "
+                             "route's phase counters and dispatches against K1's, "
+                             "checkpoints, savepoint, cancel, dashboard, flame graph, bridge)")
+    ob, oc = ops["leg_b"], ops["leg_c"]
+    ops_launches = {}
+    for run in ("blip", "partition"):
+        ops_launches[f"api_cluster_ops_b_{run}"] = ob[run]["k1_launches"]
+        for a, v in sorted(ob[run]["k1_by_attempt"].items()):
+            ops_launches[f"api_cluster_ops_b_{run}_attempt_{a}"] = v
+    ops_launches["api_cluster_ops_c_rest"] = oc["ysb"]["k1_launches"]
+    ops_launches["api_cluster_ops_c_paced"] = oc["paced"]["k1_launches"]
+    path_launches["k1_superscan"].update(ops_launches)
+    k1_faulted = ob["partition"]["k1_cluster_faulted"]
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "k1_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/superscan.cu",
@@ -9104,6 +9553,16 @@ def main() -> int:
                                        "bound_ms", "bound_by", "library_ms", "device_us",
                                        "fires")},
          "first_dispatch": k1_cluster["first_dispatch"]},
+        {"name": "k1_cluster_faulted", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/superscan.cu",
+         "replaces": "flink_tpu/ops/pallas_superscan.py:103",
+         "shape": k1_faulted["shape"],
+         "launches": ob["partition"]["k1_launches"],
+         "launches_by_path": ops_launches,
+         **{k: k1_faulted[k] for k in ("max_abs_err", "ms", "ms_phases_off", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "device_us",
+                                       "fires")},
+         "first_dispatch": k1_faulted["first_dispatch"]},
         {"name": "k2_global_superscan", "route": "cuda",
          "source": "flink_tpu_torch/csrc/global_superscan.cu",
          "replaces": "flink_tpu/ops/pallas_superscan.py:403",

@@ -22,8 +22,10 @@ scope          where the hook fires
 =============  =========================================================
 
 The ``transport``, ``rpc``, ``dataplane`` and ``heartbeat`` scopes are
-accepted in rules, as the JAX package's; their seams are the cluster's
-(ROADMAP.md Queue A, item 14) and nothing of the port calls them yet.
+the cluster's seams, as the JAX package's: security/transport.py's
+handshakes, runtime/rpc.py's calls, runtime/dataplane.py's sends and the
+JobManager's heartbeat intake (runtime/cluster.py); the cluster scenarios
+of chaos/scenarios.py drive them.
 
 Faults: ``error`` raises :class:`InjectedFault` (a ``ConnectionError``,
 so every transient-fault path treats it like a real peer failure);

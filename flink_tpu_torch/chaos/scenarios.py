@@ -1,22 +1,30 @@
 """Chaos scenario drills: real jobs under injected faults.
 
-Counterpart of the in-process half of `flink_tpu/chaos/scenarios.py`. Each
-named scenario runs a deterministic keyed-window job twice on the
-MiniCluster, once undisturbed (the oracle) and once with a seeded FaultPlan
-installed, and checks (1) exactly-once result parity between the two runs,
-(2) the expected recovery shape (restarts, tolerated checkpoint failures, a
-degraded mesh), and (3) that injected faults which caused failures are
-attributed ``injected: true`` in the job's ExceptionHistory. The workloads,
-rules and checks are the JAX package's; every scenario takes `device=`
-(the card unless the caller asks for the CPU) and the mesh scenarios
-`shards=`: the mesh is that many shards of the job's device
-(`parallel/mesh.py::visible_devices` replaced for the run), never the
-number of cards.
+Counterpart of `flink_tpu/chaos/scenarios.py`. Each named scenario runs a
+deterministic keyed-window job under a seeded FaultPlan and checks (1)
+exactly-once result parity against an undisturbed oracle, (2) the expected
+recovery shape (restarts, rescales, reconnects, tolerated checkpoint
+failures, a degraded mesh), and (3) that injected faults which caused
+failures are attributed in the job's exception history. The workloads,
+rules, sizes, timeouts and checks are the JAX package's.
 
-The JAX package's four cluster scenarios (rpc-flap, dataplane-blip,
-tm-crash-during-rescale, heartbeat-partition) need the distributed
-JobManager and TaskManagers, which the port does not carry yet: asking for
-one raises, naming its ROADMAP.md item.
+The eight in-process scenarios run on the MiniCluster, the undisturbed run
+beside the faulted one; every scenario takes `device=` (the card unless the
+caller asks for the CPU) and the mesh scenarios `shards=`: the mesh is that
+many shards of the job's device (`parallel/mesh.py::visible_devices`
+replaced for the run), never the number of cards.
+
+The four cluster scenarios (rpc-flap, dataplane-blip,
+tm-crash-during-rescale, heartbeat-partition) run a JobManager and two
+TaskExecutors in this process over the authenticated RPC and data planes,
+each TaskExecutor on `device=`, and fire the seams of runtime/rpc.py,
+runtime/dataplane.py and runtime/cluster.py's heartbeat. Their job is the
+JAX drills': a sharded `DistributedJobSpec` on the host oracle operator
+over `PacedKeyedSource`, held against one OracleWindowOperator fed the
+global stream. The cluster's planes share one ephemeral secret
+(`testing/harness.py::ephemeral_transport_security`), where the JAX drills
+take the per-user default secret: a drill writes nothing outside its
+temporary checkpoint directory.
 
 This module imports the runtime: import it explicitly, never from
 `flink_tpu_torch.chaos`'s package ``__init__``.
@@ -30,17 +38,16 @@ import shutil
 import statistics
 import tempfile
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from flink_tpu_torch.chaos.plan import FaultPlan, active_plan, uninstall_plan
 from flink_tpu_torch.testing.harness import fault_injection
-from flink_tpu_torch.utils import deferred
 from flink_tpu_torch.utils.device import resolve_device
 
-#: the JAX package's scenarios that need the distributed cluster
+#: the scenarios that run on the distributed cluster
 CLUSTER_SCENARIOS = ("rpc-flap", "dataplane-blip", "tm-crash-during-rescale",
                      "heartbeat-partition")
 
@@ -88,6 +95,155 @@ def _execute(env, name: str, timeout_s: float):
     client = env.execute_async(name)
     client.wait(timeout_s)
     return client
+
+
+# ---------------------------------------------------------------------------
+# shared workload: partition-consistent paced keyed source + oracle fold
+# ---------------------------------------------------------------------------
+
+class PacedKeyedSource:
+    """Partition-consistent arrival-paced source for the distributed path:
+    step s of shard i is the i-th slice of a seeded GLOBAL batch, so every
+    parallelism (and every rescale) sees the same record set per step —
+    replay after a checkpoint rewind stays exactly-once. `interval_s`
+    paces steps in wall time so control-plane events (checkpoints,
+    rescales, partitions) have room to land mid-job."""
+
+    def __init__(self, steps: int, batch: int, n_keys: int,
+                 interval_s: float, seed: int = 7):
+        self.steps = steps
+        self.batch = batch
+        self.n_keys = n_keys
+        self.interval_s = interval_s
+        self.seed = seed
+
+    def global_step(self, s: int):
+        rng = np.random.default_rng(self.seed * 100_003 + s)
+        keys = rng.integers(0, self.n_keys, self.batch).astype(np.int64)
+        vals = np.ones(self.batch, dtype=np.float64)
+        ts = (s * 500 + rng.integers(0, 500, self.batch)).astype(np.int64)
+        return keys, vals, ts, s * 500 + 250
+
+    def __call__(self, shard: int, num_shards: int):
+        outer = self
+
+        class _Paced(list):
+            def __init__(self):
+                super().__init__(range(outer.steps))
+                self._anchor = None
+
+            def __getitem__(self, s):
+                if outer.interval_s > 0:
+                    now = time.monotonic()
+                    if self._anchor is None:
+                        self._anchor = (now, s)
+                    due = self._anchor[0] + (s - self._anchor[1]) * outer.interval_s
+                    if due > now:
+                        time.sleep(due - now)
+                k, v, t, wm = outer.global_step(s)
+                sl = slice(shard, None, num_shards)
+                return k[sl], v[sl], t[sl], wm
+
+        return _Paced()
+
+
+def _dist_spec(source: PacedKeyedSource, name: str):
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+    from flink_tpu_torch.runtime.cluster import DistributedJobSpec
+
+    return DistributedJobSpec(
+        name=name, source_factory=source,
+        assigner=TumblingEventTimeWindows.of(1000), aggregate="sum",
+        max_parallelism=16,
+    )
+
+
+def _dist_expected(source: PacedKeyedSource) -> Dict[Tuple[int, int], float]:
+    """Oracle: the global stream through one OracleWindowOperator."""
+    from flink_tpu_torch.api.windowing.assigners import TumblingEventTimeWindows
+    from flink_tpu_torch.core.time import MAX_WATERMARK
+    from flink_tpu_torch.ops.aggregators import resolve
+    from flink_tpu_torch.runtime.oracle_window_operator import OracleWindowOperator
+
+    op = OracleWindowOperator(
+        TumblingEventTimeWindows.of(1000),
+        resolve("sum").python_equivalent(), max_parallelism=16)
+    for s in range(source.steps):
+        keys, vals, ts, wm = source.global_step(s)
+        for i in range(len(keys)):
+            op.process_record(keys[i], float(vals[i]), int(ts[i]))
+        op.process_watermark(wm)
+    op.process_watermark(MAX_WATERMARK)
+    return {(int(k), int(w.start)): float(r)
+            for k, w, r, _ in op.drain_output()}
+
+
+def _collect_dist(result: Optional[list]) -> Dict[Tuple[int, int], float]:
+    return {(int(k), int(w[0])): float(r) for k, w, r, _ in (result or [])}
+
+
+@contextlib.contextmanager
+def _cluster(num_tms: int = 2, slots: int = 1,
+             tm_ids: Optional[List[str]] = None, *, device, **jm_kwargs):
+    """A JobManager and `num_tms` TaskExecutors on `device`, stopped on
+    exit, and a client gateway to the JobManager."""
+    from flink_tpu_torch.runtime.cluster import (
+        JobManagerEndpoint,
+        TaskExecutorEndpoint,
+    )
+    from flink_tpu_torch.runtime.rpc import RpcService
+    from flink_tpu_torch.testing.harness import ephemeral_transport_security
+
+    sec = ephemeral_transport_security("flink-tpu-chaos")
+    chk = tempfile.mkdtemp(prefix="flink-tpu-chaos-")
+    jm_defaults = dict(checkpoint_dir=chk, checkpoint_interval=0.2,
+                       heartbeat_interval=0.2, heartbeat_timeout=10.0,
+                       restart_delay=0.1)
+    jm_defaults.update(jm_kwargs)
+    svc_jm = RpcService(security=sec)
+    svcs = [svc_jm]
+    tes = []
+    jm = None
+    try:
+        jm = JobManagerEndpoint(svc_jm, **jm_defaults)
+        for i in range(num_tms):
+            svc = RpcService(security=sec)
+            svcs.append(svc)
+            te = TaskExecutorEndpoint(
+                svc, slots=slots, shipping_interval_ms=50,
+                tm_id=tm_ids[i] if tm_ids else None, device=device)
+            tes.append(te)
+            te.connect(svc_jm.address)
+        client = svc_jm.gateway(svc_jm.address, "jobmanager")
+        yield client, jm, tes
+    finally:
+        for te in tes:
+            te.stop()
+        if jm is not None:
+            jm.stop()
+        for svc in svcs:
+            svc.stop()
+        shutil.rmtree(chk, ignore_errors=True)
+
+
+def _await_job(client, job_id: str, timeout_s: float = 90.0) -> dict:
+    deadline = time.monotonic() + timeout_s
+    st: dict = {}
+    while time.monotonic() < deadline:
+        st = client.job_status(job_id)
+        if st["status"] in ("FINISHED", "FAILED", "CANCELED"):
+            return st
+        time.sleep(0.05)
+    return st
+
+
+def _await(predicate: Callable[[], bool], timeout_s: float) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(0.05)
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -675,7 +831,176 @@ def scenario_chip_loss_during_rebalance(device=None, shards: int = 4) -> Dict[st
     return out
 
 
-#: the in-process scenarios, in the JAX package's order
+def scenario_rpc_flap(device=None) -> Dict[str, Any]:
+    """Transient rpc-plane flap on idempotent control calls: the first two
+    checkpoint-ack attempts and two heartbeat shipments fail with
+    connection errors. The gateway retry (backoff + jitter + deadline)
+    absorbs all of it: zero restarts, checkpoints complete, exact results.
+    Pre-chaos runtime: the first failed ack kills the task and restarts
+    the whole job."""
+    problems: List[str] = []
+    source = PacedKeyedSource(steps=40, batch=40, n_keys=9, interval_s=0.08)
+    expected = _dist_expected(source)
+    with _cluster(num_tms=2, device=device) as (client, _jm, _tes):
+        with fault_injection(rules=[
+            {"scope": "rpc", "fault": "error",
+             "match": "jobmanager.ack_checkpoint", "nth": 1, "max_fires": 2},
+            {"scope": "rpc", "fault": "error",
+             "match": "jobmanager.heartbeat_tm", "nth": 6, "max_fires": 2},
+        ]) as plan:
+            job_id = client.submit_job(
+                _dist_spec(source, "rpc-flap").to_bytes(), 2)
+            st = _await_job(client, job_id)
+            parity = _collect_dist(
+                client.job_result(job_id) if st["status"] == "FINISHED"
+                else None) == expected
+            _check(problems, st["status"] == "FINISHED",
+                   f"job ended {st['status']}: {st.get('failure')}")
+            _check(problems, parity, "result parity broken")
+            _check(problems, st["restarts"] == 0,
+                   f"flap was not absorbed: {st['restarts']} restart(s)")
+            _check(problems, bool(st["checkpoints"]),
+                   "no checkpoint completed under the flap")
+            _check(problems, plan.total_fired >= 3,
+                   f"expected >=3 injected rpc faults, fired "
+                   f"{plan.total_fired}")
+            restarts = st["restarts"]
+    return _result("rpc-flap", "distributed", plan, problems, parity=parity,
+                   restarts=restarts)
+
+
+def scenario_dataplane_blip(device=None) -> Dict[str, Any]:
+    """One injected connection error on a keyed-exchange sender (shard 0 →
+    shard 1). The sender must reconnect inside the bounded window, verify
+    sequence continuity on the re-run open/credit negotiation, resend, and
+    the job completes with zero restarts. Pre-chaos runtime: the error
+    fails the task and restarts the job."""
+    problems: List[str] = []
+    source = PacedKeyedSource(steps=60, batch=40, n_keys=9, interval_s=0.02)
+    expected = _dist_expected(source)
+    with _cluster(num_tms=2, device=device) as (client, jm, _tes):
+        with fault_injection(rules=[
+            {"scope": "dataplane", "fault": "error", "match": "0->1",
+             "nth": 5, "max_fires": 1},
+        ]) as plan:
+            job_id = client.submit_job(
+                _dist_spec(source, "dataplane-blip").to_bytes(), 2)
+            st = _await_job(client, job_id)
+            parity = _collect_dist(
+                client.job_result(job_id) if st["status"] == "FINISHED"
+                else None) == expected
+            _check(problems, st["status"] == "FINISHED",
+                   f"job ended {st['status']}: {st.get('failure')}")
+            _check(problems, parity, "result parity broken")
+            _check(problems, st["restarts"] == 0,
+                   f"blip was not absorbed: {st['restarts']} restart(s)")
+            _check(problems, plan.total_fired == 1,
+                   f"expected 1 injected send error, fired "
+                   f"{plan.total_fired}")
+            metrics = client.job_metrics(job_id)["job"]
+            _check(problems,
+                   metrics.get("job.numDataplaneReconnects", 0) >= 1,
+                   "no dataplane reconnect was recorded")
+            restarts = st["restarts"]
+    return _result("dataplane-blip", "distributed", plan, problems,
+                   parity=parity, restarts=restarts)
+
+
+def scenario_tm_crash_during_rescale(device=None) -> Dict[str, Any]:
+    """A deliberate live rescale 1→2 whose deploy onto the second TM fails
+    as if the TM crashed mid-rescale. The rescale must degrade into a
+    plain restart that lands the job back at a healthy parallelism, with
+    exact results — and the degraded rescale must NOT stamp a completed
+    rescale duration (the PR-6 outcome hygiene the chaos plane verifies)."""
+    problems: List[str] = []
+    source = PacedKeyedSource(steps=140, batch=40, n_keys=9, interval_s=0.05)
+    expected = _dist_expected(source)
+    with _cluster(num_tms=2, device=device) as (client, jm, _tes):
+        with fault_injection(rules=[
+            {"scope": "rpc", "fault": "error",
+             "match": "taskexecutor.deploy_task", "nth": 3, "max_fires": 1},
+        ]) as plan:
+            job_id = client.submit_job(
+                _dist_spec(source, "tm-crash-rescale").to_bytes(), 1)
+            _check(problems,
+                   _await(lambda: bool(
+                       client.job_status(job_id)["checkpoints"]), 30.0),
+                   "no checkpoint completed before the rescale")
+            res = client.rescale_job(job_id, 2, "chaos-drill")
+            _check(problems, res["accepted"],
+                   f"rescale rejected: {res['detail']}")
+            st = _await_job(client, job_id)
+            parity = _collect_dist(
+                client.job_result(job_id) if st["status"] == "FINISHED"
+                else None) == expected
+            _check(problems, st["status"] == "FINISHED",
+                   f"job ended {st['status']}: {st.get('failure')}")
+            _check(problems, parity, "result parity broken")
+            _check(problems, st["rescales"] == 1,
+                   f"expected 1 rescale, saw {st['rescales']}")
+            _check(problems, plan.total_fired == 1,
+                   f"expected 1 injected deploy failure, fired "
+                   f"{plan.total_fired}")
+            auto = client.job_autoscaler(job_id)
+            _check(problems, float(auto["last_rescale_duration_ms"]) == 0.0,
+                   "degraded rescale stamped a completed-rescale duration "
+                   "(outcome hygiene broken)")
+            exc = client.job_exceptions(job_id)
+            kinds = [r["kind"] for r in exc["recoveries"]]
+            _check(problems, "rescale" in kinds,
+                   f"no rescale record in the recovery timeline: {kinds}")
+            recs = [r for r in exc["recoveries"] if r["kind"] == "rescale"]
+            recovery_ms = recs[0]["downtime_ms"] if recs else None
+            restarts = st["restarts"]
+    return _result("tm-crash-during-rescale", "distributed", plan, problems,
+                   parity=parity, restarts=restarts, recovery_ms=recovery_ms)
+
+
+def scenario_heartbeat_partition(device=None) -> Dict[str, Any]:
+    """A one-way partition between one TM and the JM (its heartbeats are
+    dropped for ~25 beats). The JM must declare the TM dead, fail over,
+    adaptively rescale the job down onto the surviving TM from the latest
+    checkpoint, and finish with exact results — with the TM loss
+    attributed to the partitioned TM in the exception history."""
+    problems: List[str] = []
+    source = PacedKeyedSource(steps=160, batch=40, n_keys=9, interval_s=0.05)
+    expected = _dist_expected(source)
+    with _cluster(num_tms=2, tm_ids=["tm-chaos-a", "tm-chaos-b"],
+                  heartbeat_timeout=1.2, device=device) as (client, jm, _tes):
+        with fault_injection(rules=[
+            {"scope": "heartbeat", "fault": "partition",
+             "match": "tm-chaos-b", "nth": 30, "max_fires": 35},
+        ]) as plan:
+            job_id = client.submit_job(
+                _dist_spec(source, "hb-partition").to_bytes(), 2)
+            st = _await_job(client, job_id, timeout_s=120.0)
+            parity = _collect_dist(
+                client.job_result(job_id) if st["status"] == "FINISHED"
+                else None) == expected
+            _check(problems, st["status"] == "FINISHED",
+                   f"job ended {st['status']}: {st.get('failure')}")
+            _check(problems, parity, "result parity broken")
+            _check(problems, st["restarts"] >= 1,
+                   "partition did not trigger failover")
+            _check(problems, plan.total_fired >= 5,
+                   f"too few heartbeats dropped ({plan.total_fired})")
+            exc = client.job_exceptions(job_id)
+            attributed_entries = [
+                e for e in exc["entries"]
+                if e.get("task_manager") == "tm-chaos-b"
+                and "heartbeat" in e["exception"]]
+            _check(problems, bool(attributed_entries),
+                   "TM loss not attributed to the partitioned TM")
+            recs = exc["recoveries"]
+            recovery_ms = (recs[0].get("downtime_ms") if recs else None)
+            _check(problems, bool(recs) and recs[-1]["downtime_ms"] is not None,
+                   "recovery timeline not closed after failover")
+            restarts = st["restarts"]
+    return _result("heartbeat-partition", "distributed", plan, problems,
+                   parity=parity, restarts=restarts, recovery_ms=recovery_ms)
+
+
+#: every scenario, in the JAX package's order
 SCENARIOS: Dict[str, Callable[..., Dict[str, Any]]] = {
     "torn-checkpoint": scenario_torn_checkpoint,
     "storage-brownout": scenario_storage_brownout,
@@ -685,6 +1010,10 @@ SCENARIOS: Dict[str, Callable[..., Dict[str, Any]]] = {
     "chip-loss-sharded": scenario_chip_loss_sharded,
     "cold-tier-read-error": scenario_cold_tier_read_error,
     "chip-loss-during-rebalance": scenario_chip_loss_during_rebalance,
+    "rpc-flap": scenario_rpc_flap,
+    "dataplane-blip": scenario_dataplane_blip,
+    "tm-crash-during-rescale": scenario_tm_crash_during_rescale,
+    "heartbeat-partition": scenario_heartbeat_partition,
 }
 
 #: the scenarios that run on a mesh and take `shards=`
@@ -692,10 +1021,9 @@ MESH_SCENARIOS = ("chip-loss-sharded", "chip-loss-during-rebalance")
 
 
 def run_scenario(name: str, device=None, shards: int = 4) -> Dict[str, Any]:
-    """Run one scenario. A crashed scenario is a failed result, not a
-    crashed matrix; a cluster scenario raises (not ported yet)."""
-    if name in CLUSTER_SCENARIOS:
-        raise deferred.not_ported(f"chaos scenario {name!r}", deferred.CLUSTER)
+    """Run one scenario on `device` (the cluster scenarios' TaskExecutors
+    run there). A crashed scenario is a failed result, not a crashed
+    matrix."""
     fn = SCENARIOS[name]
     try:
         if name in MESH_SCENARIOS:
@@ -709,15 +1037,12 @@ def run_scenario(name: str, device=None, shards: int = 4) -> Dict[str, Any]:
 
 def run_matrix(names: Optional[List[str]] = None, device=None,
                shards: int = 4) -> Dict[str, Any]:
-    """Run the (selected) scenarios, by default the eight in-process ones,
-    and fold the summary: scenarios_passed/total, overall parity, and the
-    p50 of the observed recovery times (fail -> RUNNING downtime) across
-    scenarios that recovered."""
+    """Run the (selected) scenarios, by default all twelve, and fold the
+    summary: scenarios_passed/total, overall parity, and the p50 of the
+    observed recovery times (fail -> RUNNING downtime) across scenarios
+    that recovered."""
     device = resolve_device(device)
     picked = names or list(SCENARIOS)
-    for name in picked:
-        if name in CLUSTER_SCENARIOS:
-            raise deferred.not_ported(f"chaos scenario {name!r}", deferred.CLUSTER)
     results = [run_scenario(n, device=device, shards=shards) for n in picked]
     recoveries = [r["recovery_ms"] for r in results if r["recovery_ms"] is not None]
     return {

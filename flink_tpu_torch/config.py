@@ -688,9 +688,8 @@ class ObservabilityOptions:
     TaskIOMetricGroup busy/idle/backPressured sampling, profiler capture).
     Keys and defaults are the JAX package's, and so are the descriptions
     but where the port differs (the device plane's compiles and costs, the
-    torch profiler). Not ported yet, raising where a job sets it:
-    observability.shipping.interval-ms (item 14: the TaskManager heartbeat
-    of the cluster)."""
+    torch profiler). observability.shipping.interval-ms is read by the
+    cluster's TaskExecutor (`main --conf`)."""
 
     MARKER_INTERVAL_MS = (
         ConfigOptions.key("observability.latency-markers.interval-ms")
@@ -971,8 +970,9 @@ class AutoscalerOptions:
     durations), decides scale-up/down per the configured policy, and on a
     MiniCluster mesh job (parallel.mesh.autoscale) rescales the mesh live
     by a step-aligned capture and a key-group re-shard. Off by default —
-    rescaling costs a checkpoint rewind. The JobManager's autoscaler loop
-    and its REST route are ROADMAP.md item 14 (the cluster)."""
+    rescaling costs a checkpoint rewind. On the distributed JobManager the
+    controller runs its loop over the TM-shipped snapshots and executes
+    rescales (runtime/cluster.py); runtime/rest.py serves its log."""
 
     ENABLED = (
         ConfigOptions.key("autoscaler.enabled").bool_type().default_value(False)
@@ -1183,8 +1183,8 @@ class ChaosOptions:
     ).with_description(
         "JSON list of FaultRule field dicts, e.g. "
         '[{"scope": "device", "fault": "error", "nth": 6}]. '
-        "Scopes: transport|rpc|dataplane|storage|device|heartbeat (the "
-        "port's seams: storage and device); faults: error|crash|delay|"
+        "Scopes: transport|rpc|dataplane|storage|device|heartbeat; "
+        "faults: error|crash|delay|"
         "drop|torn|partition; triggers: nth-call, probability, window_s "
         "since install, max_fires."
     )

@@ -10,9 +10,8 @@ callables, no import of the runtime: stats flow outward through these
 trackers. The distributed JobManager (runtime/cluster.py) feeds one
 tracker per job from the trigger/ack/decline RPCs, with per-task state
 sizes from `snapshot_bytes_estimate` and per-operator bytes from
-`operator_bytes_from_snapshot`.
-
-Left out until ROADMAP item 14e (the HTTP planes): the empty REST payloads.
+`operator_bytes_from_snapshot`. The REST routes serve `payload()`, or the
+empty payloads below for a job without a tracker.
 """
 
 from __future__ import annotations
@@ -367,6 +366,17 @@ class CheckpointStatsTracker:
             }
 
 
+def empty_checkpoints_payload() -> Dict[str, Any]:
+    """What /jobs/:id/checkpoints returns for a job with no tracker (e.g.
+    checkpointing disabled) — same shape, all zeros."""
+    return {
+        "counts": {"total": 0, "in_progress": 0, "completed": 0, "failed": 0},
+        "summary": {},
+        "latest": {"completed": None, "failed": None, "restored": None},
+        "history": [],
+    }
+
+
 class ExceptionHistory:
     """Bounded per-job failure + recovery history (ExceptionHistoryEntry /
     JobExceptionsHandler analogue, with the RestartTimeGauge/DownTimeGauge
@@ -515,3 +525,8 @@ class ExceptionHistory:
                 "entries": entries,
                 "recoveries": recoveries,
             }
+
+
+def empty_exceptions_payload() -> Dict[str, Any]:
+    return {"root_exception": None, "timestamp_ms": None,
+            "entries": [], "recoveries": []}

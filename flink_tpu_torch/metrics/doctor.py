@@ -26,8 +26,8 @@ stall, emission stall, the recompile burst) are attenuated and marked
 
 This module imports neither torch nor the runtime: it consumes a
 `MetricHistory` and a list of span dicts handed to it. On the port the
-doctor is served by `JobClient.doctor_report`; its REST route is ROADMAP
-item 14. The `device.XlaCompile` spans it reads come from the device
+doctor is served by `JobClient.doctor_report` and the JobManager's
+`job_doctor`, and over REST at /jobs/:id/doctor. The `device.XlaCompile` spans it reads come from the device
 plane's compile tracker (metrics/device_stats.py).
 """
 

@@ -25,8 +25,8 @@ shard-folded snapshots it already assembles from heartbeats. Both serve
 the same payload at ``GET /jobs/:id/history?metric=&since=``.
 
 This module imports neither torch nor the runtime: it consumes snapshots
-handed to it. On the port the MiniCluster path samples it; the REST
-endpoint and the distributed JobManager are ROADMAP item 14.
+handed to it. On the port the MiniCluster path and the distributed
+JobManager sample it; runtime/rest.py serves it.
 """
 
 from __future__ import annotations

@@ -24,8 +24,9 @@ plane's roofline and for `chip_smoke.py`'s bounds.
 The wrappers take the plain PyTorch version (`ops/superscan.py`) only for
 tensors that lie on the CPU. For CUDA tensors they launch the kernel or
 raise; nothing falls back. Each wrapper adds one to its entry in
-`LAUNCHES` for every dispatch it launches on the card, and the number of
-CUDA kernels that dispatch launched to its entry in `CUDA_LAUNCHES`.
+`LAUNCHES` for every dispatch it launches on the card (and to the
+launching thread's entry in `LAUNCHES_BY_THREAD`), and the number of CUDA
+kernels that dispatch launched to its entry in `CUDA_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -69,6 +70,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: dispatches launched on the card, per wrapper (plain-version calls and
 #: CPU calls do not count)
 LAUNCHES: Dict[str, int] = {"k1_superscan": 0, "k1_partials": 0, "k2_global_superscan": 0}
+#: the same dispatches by the name of the thread that launched them
+LAUNCHES_BY_THREAD: Dict[str, Dict[str, int]] = {name: {} for name in LAUNCHES}
 #: CUDA kernel launches of those dispatches
 CUDA_LAUNCHES: Dict[str, int] = dict(LAUNCHES)
 
@@ -107,6 +110,14 @@ def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         CUDA_LAUNCHES[name] = 0
+        LAUNCHES_BY_THREAD[name].clear()
+
+
+def _count_launch(entry: str) -> None:
+    LAUNCHES[entry] += 1
+    by_thread = LAUNCHES_BY_THREAD[entry]
+    name = threading.current_thread().name
+    by_thread[name] = by_thread.get(name, 0) + 1
 
 
 def partial_bytes(steps: int, K: int, NSB: int, nf: int) -> int:
@@ -443,7 +454,7 @@ def _launch(entry: str, agg, count, states, idx, vals, plan, *, kinds,
                 frow.data_ptr(), purge.data_ptr(),
                 (ctypes.c_int * max(F, 1))(*spws), F, count_out.data_ptr(),
                 (ctypes.c_void_p * max(n, 1))(*[o.data_ptr() for o in outs]))
-        LAUNCHES[entry] += 1
+        _count_launch(entry)
         pp = None if phase is None else phase.data_ptr()
         for tail in calls(part.data_ptr()):
             rc = getattr(lib, entry)(*head, *tail, pp, stream)
@@ -587,7 +598,7 @@ def keyed_superscan_partials(agg, count: torch.Tensor, states: Sequence[torch.Te
     lib = _library("superscan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES["k1_partials"] += 1
+        _count_launch("k1_partials")
         for t0 in range(0, T, MAX_GROUP_STEPS):
             tg = min(MAX_GROUP_STEPS, T - t0)
             part = stacked if tg == T else stacked[:, t0:t0 + tg].contiguous()

@@ -83,7 +83,7 @@ per-key loads (keySkew, hot keys, the key-group histogram; per shard on
 the mesh); `JobRuntime` registers the `job.device.*` group and
 `job.keySkew`, reports each compile as a `device.XlaCompile` span, serves
 the JAX package's `/jobs/:id/device` payload from `device_snapshot()`
-(its REST route is ROADMAP item 14) and, with `observability.profiler.*`,
+(served over REST by runtime/rest.py) and, with `observability.profiler.*`,
 captures a torch.profiler trace of each attempt.
 
 The rest of the DataStream API's runners are the JAX package's, on the
@@ -2159,7 +2159,7 @@ class JobRuntime:
 
     def device_snapshot(self) -> Dict[str, Any]:
         """The device-plane payload (the JAX package's /jobs/:id/device
-        body; its REST route is ROADMAP item 14): the merged compile block,
+        body, served by runtime/rest.py): the merged compile block,
         per-operator cost/roofline/phase/key telemetry, and the profiler
         capture surface. Plain data, JSON-safe."""
         from flink_tpu_torch.metrics.device_stats import (

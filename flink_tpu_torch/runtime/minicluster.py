@@ -58,8 +58,9 @@ restarts report spans, and the client serves `latency_report`,
 A job config with `chaos.enabled` installs its fault plan (`chaos.*`,
 chaos/plan.py) for that job and uninstalls it when the job ends; a plan
 already installed (a drill's `testing.harness.fault_injection`) is never
-stacked. `security=` raises: transport security comes with the cluster
-(ROADMAP.md Queue A, item 14).
+stacked. `security=` is the cluster's transport identity
+(security/transport.py), which runtime/rest.py derives its bearer token
+from.
 """
 
 from __future__ import annotations

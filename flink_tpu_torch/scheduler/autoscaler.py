@@ -8,8 +8,8 @@ re-sharded over another shard count; injected as a callable so this layer
 never imports the runtime), and keeps the bounded per-job decision log:
 signals seen, action taken, outcome, rescale duration, and the observed
 before/after throughput that feeds the learning policy. The clock is
-injected. The JobManager's autoscaler tick and the /jobs/:id/autoscaler
-route are ROADMAP.md item 14 (the cluster).
+injected. The JobManager's autoscaler loop (runtime/cluster.py) drives
+it for distributed jobs, and runtime/rest.py serves /jobs/:id/autoscaler.
 
 Thread model: one lock guards all mutable coordinator state. `observe` is
 driven by a MiniCluster run loop; the executor callback runs inside

@@ -1,14 +1,11 @@
-"""Where the port's unported surfaces are queued.
+"""The error an unported surface raises.
 
-Every option or method of a ported module that the port does not carry
-yet raises the error made here, naming its item in ROADMAP.md's Queue A,
-instead of falling back to something else quietly."""
+The port carries every surface of the JAX package's modules it mirrors;
+what is left raises the error made here, naming where it belongs, instead
+of falling back to something else quietly (`config.py`: a configuration
+key no option of the port declares)."""
 
 from __future__ import annotations
-
-# the items the errors name (ROADMAP.md, Queue A)
-CLUSTER = ("item 14d (the chaos plane's cluster scenarios over the cluster's "
-           "seams; then 14e the HTTP planes and 14f the tools)")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -16,7 +16,14 @@ checkpoint taken just after it (checkpoints at the first two boundaries
 only, before the injected failure at the third). On the wall clock that
 scenario fails in either package when the restart is quicker than the
 checkpoint after it (ROADMAP.md Queue C). The undisturbed jobs' rows equal the JAX oracle
-jobs', and the four cluster scenarios raise naming the cluster's item.
+jobs'.
+
+The four cluster scenarios run once in each package too (the port's
+TaskExecutors on the CPU; the JAX ones in a module fixture). Their gate
+fields are equal (passed, parity, attributed, skipped, path); the counts
+that follow the wall clock (a partition's dropped beats, restarts) are held
+to each package's own gate, which `passed` carries. Their cases keep the
+ids of the cases that held them raising before the cluster was ported.
 """
 
 import pytest
@@ -30,6 +37,8 @@ import flink_tpu_torch.checkpoint.coordinator as tco  # noqa: E402
 from jax_native_twins import jax_native_library  # noqa: E402,F401
 
 FIELDS = ("passed", "parity", "restarts", "injected_fired", "attributed", "skipped", "doctor")
+CLUSTER_FIELDS = ("passed", "parity", "attributed", "skipped", "path")
+IN_PROCESS = [n for n in tscen.SCENARIOS if n not in tscen.CLUSTER_SCENARIOS]
 
 
 def _first_two(self) -> bool:
@@ -52,10 +61,15 @@ def _run(name, run):
 
 @pytest.fixture(scope="module")
 def jax_results():
-    return {name: _run(name, lambda n=name: jscen.run_scenario(n)) for name in tscen.SCENARIOS}
+    return {name: _run(name, lambda n=name: jscen.run_scenario(n)) for name in IN_PROCESS}
 
 
-@pytest.mark.parametrize("name", list(tscen.SCENARIOS))
+@pytest.fixture(scope="module")
+def jax_cluster_results():
+    return {name: jscen.run_scenario(name) for name in tscen.CLUSTER_SCENARIOS}
+
+
+@pytest.mark.parametrize("name", IN_PROCESS)
 def test_each_scenario_gives_the_jax_scenarios_result(name, jax_results):
     port = _run(name, lambda: tscen.run_scenario(name, device="cpu", shards=8))
     jax = jax_results[name]
@@ -66,7 +80,12 @@ def test_each_scenario_gives_the_jax_scenarios_result(name, jax_results):
 
 
 def test_the_scenario_list_is_the_jax_packages_in_process_half():
-    assert list(tscen.SCENARIOS) + list(tscen.CLUSTER_SCENARIOS) == list(jscen.SCENARIOS)
+    assert IN_PROCESS == list(jscen.SCENARIOS)[:8]
+    assert IN_PROCESS + list(tscen.CLUSTER_SCENARIOS) == list(tscen.SCENARIOS)
+
+
+def test_the_scenario_list_is_the_jax_packages():
+    assert list(tscen.SCENARIOS) == list(jscen.SCENARIOS)
 
 
 def test_the_undisturbed_jobs_give_the_jax_oracle_jobs_rows():
@@ -79,11 +98,19 @@ def test_the_undisturbed_jobs_give_the_jax_oracle_jobs_rows():
 
 
 @pytest.mark.parametrize("name", tscen.CLUSTER_SCENARIOS)
-def test_cluster_scenarios_raise_naming_the_cluster(name):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tscen.run_scenario(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="cluster"):
-        tscen.run_matrix([name], device="cpu")
+def test_cluster_scenarios_raise_naming_the_cluster(name, jax_cluster_results):
+    """Each cluster drill runs on the port (the id is the one of the case
+    that held it raising) and gives the JAX drill's gate fields."""
+    port = tscen.run_scenario(name, device="cpu")
+    jax = jax_cluster_results[name]
+    assert {f: port[f] for f in CLUSTER_FIELDS} == {f: jax[f] for f in CLUSTER_FIELDS}, (port, jax)
+    assert port["passed"] and port["parity"] and port["path"] == "distributed", port["detail"]
+    assert jax["passed"], jax["detail"]
+    assert port["injected_fired"] >= 1 and jax["injected_fired"] >= 1
+    if name == "heartbeat-partition":
+        assert port["restarts"] >= 1 and jax["restarts"] >= 1
+    if name in ("rpc-flap", "dataplane-blip"):
+        assert port["restarts"] == jax["restarts"] == 0
 
 
 def test_one_shard_reports_a_skip_not_a_pass():
@@ -108,10 +135,10 @@ def test_run_matrix_folds_the_results(monkeypatch):
     stubs = {n: fake(n, None if i == 2 else float(i)) for i, n in enumerate(tscen.SCENARIOS)}
     monkeypatch.setattr(tscen, "SCENARIOS", stubs)
     out = tscen.run_matrix(device="cpu", shards=8)
-    assert out["scenarios_total"] == 8 and out["scenarios_passed"] == 7
+    assert out["scenarios_total"] == 12 and out["scenarios_passed"] == 11
     assert not out["parity"]
     crashed = out["scenarios"][2]
     assert crashed["detail"].startswith("scenario crashed: RuntimeError('boom')")
-    assert out["recovery_time_ms_p50"] == 4.0   # median of 0, 1, 3, 4, 5, 6, 7
+    assert out["recovery_time_ms_p50"] == 6.0   # median of 0, 1, 3, 4, ..., 11
     assert [c[0] for c in calls] == list(stubs)
     assert {c[2] for c in calls if c[0] in tscen.MESH_SCENARIOS} == {8}

@@ -411,3 +411,38 @@ def test_api_cluster_phase_holds_every_check_but_the_launches():
     assert r["host_rates"]["decode_equal"]
     assert r["failed"] == ["leg_a"] and a["k1_launches_task_executor"] == 0
     assert "k1_cluster" not in a
+
+
+def test_api_cluster_ops_phase_holds_every_check_but_the_launches():
+    """Phase 33 rehearsed small on the CPU: leg A's four cluster drills at
+    the JAX package's sizes; leg B at 2^15 records, batch 4096 over 64 keys,
+    a 1.5 s heartbeat timeout under a 40-beat partition (4 s at the 0.1 s
+    beat), paced 0.5 s a batch (the blip 0.2 s); leg C at 2^15 records.
+    Every row, route and CLI check holds; only K1's launches (none on the
+    CPU) keep legs B and C's gates shut."""
+    r = cm.api_cluster_ops_phase("cpu", dict(
+        events_b=1 << 15, keys=64, batch=4096, heartbeat_timeout_b=1.5, partition_fires=40,
+        delay_partition=0.5, delay_blip=0.2, events_c=1 << 15, events_paced=1 << 15))
+    a, b, c = r["leg_a"], r["leg_b"], r["leg_c"]
+    assert a["ok"] and a["scenarios_passed"] == a["scenarios_total"] == 4 and a["parity"]
+    assert cm.API_CLUSTER_OPS["events_b"] == 1 << 21
+    blip, part = b["blip"], b["partition"]
+    assert blip["status"] == "FINISHED" and blip["restarts"] >= 1
+    assert blip["restored_checkpoint_id"] is not None
+    assert blip["injected_fired"] == 1 and blip["rows_equal_uninterrupted"] and blip["rows"] > 0
+    assert part["status"] == "FINISHED" and part["restarts"] >= 1 and part["attributed"]
+    assert part["restored_checkpoint_id"] is not None and part["rows_equal_uninterrupted"]
+    assert part["window_shard"] == 1 and part["restarted_dispatch_taken"]
+    ysb, paced, bridge = c["ysb"], c["paced"], c["bridge"]
+    assert ysb["status"] == ysb["info_status"] == "FINISHED" and ysb["cli_rc"] == [0, 0, 0]
+    assert ysb["listed"] and ysb["records_in"] == 1 << 15 and ysb["prometheus_has_the_jobs_gauges"]
+    assert ysb["phases"] == {"ingestRecords": -(-(1 << 15) // 3), "fireSteps": ysb["planned"][
+        "fires"], "purgeSteps": ysb["planned"]["purges"]} and ysb["device_dispatches"] >= 1
+    assert paced["final_status"] == "CANCELED" and paced["savepoint_written"]
+    assert paced["checkpoints_completed"] >= 1 and paced["checkpoint_route"] == 200
+    assert paced["flame_samples"] > 0 and paced["dashboard_has_device_table"]
+    assert bridge["ok"] and bridge["jobs"]["partition"]["num_restarts"] >= 1
+    # CPU runs launch no K1
+    assert r["failed"] == ["leg_b", "leg_c"]
+    assert blip["k1_launches"] == part["k1_launches"] == ysb["k1_launches"] == 0
+    assert "k1_cluster_faulted" not in part

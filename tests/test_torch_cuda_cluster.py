@@ -4,7 +4,10 @@ its rows against the local run and the oracle, K1 launched in the
 TaskExecutor and held against its plain version at its first full
 dispatch; a cold-build race (two TaskExecutors' first K1 dispatches at once
 in an emptied build directory); the sharded device operators (K3/K4) and
-ML_PREDICT on the card. These need an NVIDIA GPU and nvcc, so they carry
+ML_PREDICT on the card; and phase 33's leg B small: the two-stage job under
+a blip on its stage edge and a heartbeat partition of the window stage's
+TaskExecutor, K1 launched in every attempt and bit-equal at the restarted
+attempt's widest dispatch. These need an NVIDIA GPU and nvcc, so they carry
 the `cuda` marker and skip elsewhere. Run them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_cluster.py
@@ -115,3 +118,23 @@ def test_sharded_device_operators_match_numpy_on_the_card(cuda, sec):
 def test_ml_predict_on_the_card_matches_the_cpu(cuda):
     d = smoke.cluster_leg_d(SMALL, cuda)
     assert d["row_order_equal"] and d["within_tolerance"] and d["ok"]
+
+
+def test_fault_plans_over_the_two_stage_k1_job(cuda, sec, tmp_path):
+    """Phase 33 leg B at 2^19 records (batch 16384 over 8192 keys): the
+    stage edge's blip and the partitioned window stage's TaskExecutor each
+    restarted from a checkpoint, rows equal to the uninterrupted run's, K1
+    in every attempt."""
+    sz = dict(smoke.API_CLUSTER_OPS, events_b=1 << 19, batch=16384, delay_partition=0.3)
+    with smoke._Cluster(sec, cuda, tms=3, tm_kw={"shipping_interval_ms": 100},
+                        checkpoint_dir=str(tmp_path / "chk"), checkpoint_interval=0.2,
+                        restart_attempts=3, restart_delay=0.2, heartbeat_timeout=5.0,
+                        adaptive=False) as c:
+        b = smoke.ops_leg_b(sz, cuda, c)
+    blip, part = b["blip"], b["partition"]
+    assert blip["ok"] and blip["restarts"] >= 1 and blip["restored_checkpoint_id"] is not None
+    assert all(blip["k1_by_attempt"].get(a, 0) > 0 for a in range(1, blip["restarts"] + 2))
+    assert part["ok"] and part["restarts"] >= 1 and part["attributed"]
+    assert all(part["k1_by_attempt"].get(a, 0) > 0 for a in range(1, part["restarts"] + 2))
+    assert part["k1_cluster_faulted"]["max_abs_err"] == 0.0
+    assert part["k1_cluster_faulted"]["first_dispatch"]["max_abs_err"] == 0.0

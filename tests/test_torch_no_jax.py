@@ -362,7 +362,36 @@ def test_one_cpu_dispatch_imports_no_jax_and_no_flink_tpu():
         assert gw.job_status(job)["status"] == "FINISHED", gw.job_status(job)
         rows = cluster_jobs.fired_rows(gw.job_result(job))
         assert sum(v for _t, _k, v in rows) == 2 * 4096 // 3 + 2
+        # the HTTP planes over that cluster job (the jm_gateway bridge), the
+        # dashboard and a flame graph; then a chaos cluster drill and the tools
+        import json as _json
+        import urllib.request as _rq
+        from flink_tpu_torch.runtime.minicluster import MiniCluster
+        from flink_tpu_torch.runtime.rest import RestServer
+        server = RestServer(MiniCluster(), jm_gateway=gw).start()
+        with _rq.urlopen(f"{server.url}/jobs/{job}", timeout=30) as r:
+            assert _json.loads(r.read())["status"] == "FINISHED"
+        with _rq.urlopen(f"{server.url}/flamegraph?duration=0.05", timeout=30) as r:
+            assert "tree" in _json.loads(r.read())
+        with _rq.urlopen(server.url + "/", timeout=30) as r:
+            assert b"device plane" in r.read()
+        server.stop()
         te.stop(); jm.heartbeats.stop(); jm_svc.stop(); tm_svc.stop()
+        from flink_tpu_torch.chaos.scenarios import run_scenario
+        drill = run_scenario("dataplane-blip", device="cpu")
+        assert drill["passed"] and drill["parity"], drill
+        from flink_tpu_torch.cli import frontend  # noqa: F401
+        from flink_tpu_torch.core.fs import MemoryFileSystem
+        from flink_tpu_torch.deploy.kubernetes import KubernetesClusterDescriptor
+        from flink_tpu_torch.docs.generate import render_markdown
+        from flink_tpu_torch.fs.object_store import S3FileSystem  # noqa: F401
+        from flink_tpu_torch.runtime.ha import JobResultStore  # noqa: F401
+        from flink_tpu_torch.runtime.ha_kubernetes import KubernetesLeaderElection  # noqa: F401
+        mem = MemoryFileSystem()
+        mem.write("mem://b/k", b"v")
+        assert mem.read("mem://b/k") == b"v"
+        assert "nvidia.com/gpu" in KubernetesClusterDescriptor("c", gpus_per_tm=1).render()
+        assert "| Key |" in render_markdown()
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "flink_tpu.")) or m == "flink_tpu")
         print("BAD", bad)
@@ -389,7 +418,8 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     # the SQL front door, the latency controller and the oracle's state are
     # scanned too
     for sub in ("table", "planner", "security", "scheduler", "state", "core", "checkpoint",
-                "metrics", "joins", "parallel", "chaos", "formats", "testing"):
+                "metrics", "joins", "parallel", "chaos", "formats", "testing", "cli", "fs",
+                "deploy", "docs"):
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
@@ -415,7 +445,12 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "table/ml.py", "security/framing.py", "security/wire.py",
                  "security/transport.py", "runtime/rpc.py", "runtime/heartbeat.py",
                  "runtime/blob.py", "runtime/dataplane.py", "metrics/exchange.py",
-                 "runtime/stages.py", "runtime/cluster.py", "testing/cluster_jobs.py"):
+                 "runtime/stages.py", "runtime/cluster.py", "testing/cluster_jobs.py",
+                 "runtime/rest.py", "runtime/web_dashboard.py", "metrics/flamegraph.py",
+                 "runtime/ha.py", "runtime/ha_kubernetes.py", "cli/__init__.py",
+                 "cli/__main__.py", "cli/frontend.py", "core/fs.py", "fs/__init__.py",
+                 "fs/object_store.py", "deploy/__init__.py", "deploy/kubernetes.py",
+                 "docs/__init__.py", "docs/generate.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
