@@ -406,6 +406,12 @@ exits non-zero on the first failure. Phases, one JSON line each:
    checkpointed job: checkpoints, exceptions, a savepoint through the CLI,
    cancel, the dashboard with its device table and a flame graph taken
    while it runs; leg B's cluster job through the bridge.
+34. lint: `python -m flink_tpu_torch.lint --format json` once, in a
+   process of its own, over the port as installed here with its baseline
+   (lint_baseline_torch.json): modules, rules (16), active violations (0),
+   baselined (9), the analysis time and the exit code (0), beside the
+   card's line, and whether that process loaded torch (it must not: the
+   analyzer reads ASTs and imports nothing it checks).
 
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -8659,6 +8665,59 @@ def api_cluster_ops_phase(dev=DEV, sizes=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 34: lint, the port's static analysis over the port as it is installed
+# here, in a process of its own
+# ---------------------------------------------------------------------------
+
+# `python -m flink_tpu_torch.lint ARGS`, then the device modules the process
+# loaded and the analysis time as one JSON line on stderr
+_LINT_PROBE = """
+import json, runpy, sys, time
+sys.argv = ["flink_tpu_torch.lint", *sys.argv[1:]]
+t0 = time.perf_counter()
+try:
+    runpy.run_module("flink_tpu_torch.lint", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+ms = (time.perf_counter() - t0) * 1e3
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "triton", "jax"))
+print(json.dumps({"rc": rc, "analysis_ms": ms, "device_modules": loaded[:8],
+                  "torch_loaded": "torch" in sys.modules}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def lint_phase(dev=DEV) -> dict:
+    """Phase 34: `python -m flink_tpu_torch.lint --format json` once, in a
+    subprocess, over the installed port with its baseline
+    (lint_baseline_torch.json): 16 rules, no active violation, the
+    baselined findings, exit code 0, and neither torch nor jax loaded."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _LINT_PROBE, "--format", "json"], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    probe = json.loads(res.stderr.strip().splitlines()[-1])
+    report = json.loads(res.stdout)
+    out = {"phase": "lint",
+           "card": card_line() if torch.device(dev).type == "cuda" else "cpu",
+           "modules": report["modules_scanned"], "rules": len(report["rules"]),
+           "active_violations": len(report["violations"]),
+           "baselined": len(report["suppressed"]),
+           "baseline_errors": len(report["baseline_errors"]),
+           "analysis_ms": probe["analysis_ms"], "process_s": wall_s,
+           "exit_code": res.returncode, "torch_loaded": probe["torch_loaded"],
+           "device_modules": probe["device_modules"],
+           "violations": [f"{v['path']}:{v['line']} {v['rule']}"
+                          for v in report["violations"]][:10]}
+    out["ok"] = bool(out["rules"] == 16 and out["active_violations"] == 0
+                     and out["baseline_errors"] == 0 and out["exit_code"] == 0
+                     and not out["torch_loaded"] and not out["device_modules"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -9411,6 +9470,19 @@ def main() -> int:
     path_launches["k1_superscan"].update(ops_launches)
     k1_faulted = ob["partition"]["k1_cluster_faulted"]
     torch.cuda.empty_cache()
+
+    # ---- 34. the port's static analysis over the installed port, in a
+    # process of its own: 16 rules, no active violation, no torch ----
+    t_lint = time.perf_counter()
+    lint = lint_phase()
+    lint["phase_s"] = time.perf_counter() - t_lint
+    emit(lint)
+    if not lint["ok"]:
+        raise AssertionError(f"lint: {lint['active_violations']} active violations "
+                             f"{lint['violations']}, {lint['baseline_errors']} baseline errors, "
+                             f"exit code {lint['exit_code']}, {lint['rules']} rules, device "
+                             f"modules loaded {lint['device_modules']} (want 16 rules, none "
+                             "active, exit 0, no torch)")
 
     kernels = [
         {"name": "k1_superscan", "route": "cuda",

@@ -210,6 +210,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """The library of source `name`, named by a hash of everything that
+    fixes its machine code: the source, `common.cuh` and `NVCC_FLAGS` (the
+    target architecture included). That name is the library cache's key: a
+    change of any of them builds a new library instead of loading a stale
+    one, in this process and in every later one."""
     h = hashlib.sha256()
     for src in (SOURCES[name], "common.cuh"):
         h.update((CSRC / src).read_bytes())

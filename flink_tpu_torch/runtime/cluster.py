@@ -53,7 +53,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from flink_tpu_torch.chaos import plan as _chaos
 from flink_tpu_torch.lint.contracts import absorbs_faults
@@ -112,7 +111,6 @@ from flink_tpu_torch.runtime.rpc import (
 )
 from flink_tpu_torch.security.framing import trusted_loads
 from flink_tpu_torch.state import key_groups
-from flink_tpu_torch.utils.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -2137,6 +2135,8 @@ class _ShardTask:
         if old and self.te.device.type == "cuda":
             # the rings are device memory: collect the dead runtime's
             # cycles now (on the CPU they are host memory, left to gc)
+            import torch
+
             del old, t
             gc.collect()
             torch.cuda.synchronize(self.te.device)
@@ -2556,7 +2556,11 @@ class TaskExecutorEndpoint(RpcEndpoint):
                  slots: int = 1, shipping_interval_ms: int = 500,
                  config=None, device=None):
         # the device every task of this TM runs on: CUDA unless the caller
-        # asks for the CPU (raises without a GPU, before anything starts)
+        # asks for the CPU (raises without a GPU, before anything starts);
+        # torch is imported here, not with the module, so importing the
+        # control plane (REST readers, the CLI, tools) loads no torch
+        from flink_tpu_torch.utils.device import resolve_device
+
         self.device = resolve_device(device)
         super().__init__(name="taskexecutor")
         self.tm_id = tm_id or f"tm-{uuid.uuid4().hex[:8]}"
@@ -2812,6 +2816,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"seed {plan.seed}", flush=True)
 
     if args.role == "jobmanager":
+        # a submitted job spec names classes whose modules import torch:
+        # import it before serving, or unpickling the first spec (seconds,
+        # much of it in one native load) holds up the heartbeats its 3 s
+        # timeout watches, and the TaskExecutors are declared lost
+        import torch  # noqa: F401
+
         svc = RpcService(args.host, args.port, security=security)
         hist_kw = {}
         if args.conf:

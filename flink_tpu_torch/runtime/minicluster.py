@@ -84,6 +84,7 @@ from flink_tpu_torch.config import (
     ParallelOptions,
 )
 from flink_tpu_torch.graph.transformation import StepGraph
+from flink_tpu_torch.lint.contracts import absorbs_faults
 from flink_tpu_torch.metrics.checkpoint_stats import (
     CheckpointStatsTracker,
     ExceptionHistory,
@@ -447,6 +448,7 @@ class MiniCluster:
             if installed and _chaos.active_plan() is chaos_plan:
                 _chaos.uninstall_plan()
 
+    @absorbs_faults('driver failover boundary: the caught failure increments the attempt counter and re-runs the job per the restart strategy; injected faults ride this path by design')
     def _run_attempts(self, client: JobClient, graph: StepGraph, config: Configuration,
                       savepoint_restore_path: Optional[str], device) -> None:
         """The attempt loop (the JAX `_run_job_inner`'s): coordinator,

@@ -54,6 +54,8 @@ Tolerance: exact.
   resumed rows and total against the patched model, and the dispatch
   `k1_patched` takes; leg B's rows of every format against the columnar
   job's; only K1's launches stay 0.
+- lint (phase 34): the port's analyzer in a process of its own over the
+  port: 16 rules, nothing active, every baseline entry in use, no torch.
 """
 
 import numpy as np
@@ -446,3 +448,20 @@ def test_api_cluster_ops_phase_holds_every_check_but_the_launches():
     assert r["failed"] == ["leg_b", "leg_c"]
     assert blip["k1_launches"] == part["k1_launches"] == ysb["k1_launches"] == 0
     assert "k1_cluster_faulted" not in part
+
+
+def test_lint_phase_passes_over_the_port():
+    """Phase 34 on the CPU: the lint runs in a process of its own over the
+    port with its baseline, and the line the smoke gates on reads 16 rules,
+    no active violation, every entry of its baseline in use, exit 0 and no
+    torch."""
+    r = cm.lint_phase(dev="cpu")
+    assert r["ok"] and r["rules"] == 16 and r["active_violations"] == 0
+    entries = cm.json.loads((cm.Path(cm.__file__).parent / "lint_baseline_torch.json")
+                            .read_text())["entries"]
+    assert r["baselined"] == len(entries) == 9
+    assert r["exit_code"] == 0 and r["baseline_errors"] == 0
+    assert not r["torch_loaded"] and r["device_modules"] == []
+    assert r["modules"] == len(list((cm.Path(cm.__file__).parent / "flink_tpu_torch")
+                                    .rglob("*.py")))
+    assert r["analysis_ms"] > 0 and r["process_s"] * 1e3 >= r["analysis_ms"]

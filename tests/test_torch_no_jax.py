@@ -419,7 +419,7 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     # scanned too
     for sub in ("table", "planner", "security", "scheduler", "state", "core", "checkpoint",
                 "metrics", "joins", "parallel", "chaos", "formats", "testing", "cli", "fs",
-                "deploy", "docs"):
+                "deploy", "docs", "lint"):
         assert any(f.parent == PKG / sub for f in files), sub
     for name in ("runtime/oracle_window_operator.py", "runtime/timers.py", "state/heap.py",
                  "core/keygroups.py", "core/functions.py", "api/windowing/evictors.py",
@@ -450,7 +450,12 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                  "runtime/ha.py", "runtime/ha_kubernetes.py", "cli/__init__.py",
                  "cli/__main__.py", "cli/frontend.py", "core/fs.py", "fs/__init__.py",
                  "fs/object_store.py", "deploy/__init__.py", "deploy/kubernetes.py",
-                 "docs/__init__.py", "docs/generate.py"):
+                 "docs/__init__.py", "docs/generate.py", "lint/__init__.py",
+                 "lint/__main__.py", "lint/index.py", "lint/rule.py", "lint/contracts.py",
+                 "lint/locks.py", "lint/dataflow.py", "lint/rules_concurrency.py",
+                 "lint/rules_architecture.py", "lint/rules_wire.py",
+                 "lint/rules_exactly_once.py", "lint/rules_device.py", "lint/baseline.py",
+                 "lint/engine.py", "lint/cli.py"):
         assert PKG / name in files, name
     for path in files:
         for mod in _imports(path):
