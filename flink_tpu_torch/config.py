@@ -745,8 +745,11 @@ class ObservabilityOptions:
     ).with_description(
         "Capture a torch.profiler trace (CUDA activity on the card, CPU "
         "activity otherwise) for the duration of each job attempt, exported "
-        "as a Chrome trace under observability.profiler.dir. Heavyweight: "
-        "for offline analysis only, never in production."
+        "as a Chrome trace under observability.profiler.dir. The trace "
+        "carries the fused route's flink.* host ranges (metrics/traces.py "
+        "section; the counted ones keep their time and exits with the "
+        "profiler off too). Heavyweight: for offline analysis only, never in "
+        "production."
     )
     PROFILER_DIR = (
         ConfigOptions.key("observability.profiler.dir")

@@ -142,6 +142,7 @@ from flink_tpu_torch.metrics.emission_latency import (
 )
 from flink_tpu_torch.metrics.registry import Gauge, MetricRegistry
 from flink_tpu_torch.metrics.task_io import DeviceTimer, TaskIOMetrics
+from flink_tpu_torch.metrics.traces import section
 from flink_tpu_torch.ops.aggregators import ONE, resolve
 from flink_tpu_torch.parallel import mesh as mesh_lib
 from flink_tpu_torch.runtime.fused_window_operator import FusedWindowOperator
@@ -2236,7 +2237,8 @@ class JobRuntime:
                 loop_t0 = time.perf_counter()
                 if cancel_check is not None and cancel_check():
                     raise JobCancelledException()
-                batch = d.reader.poll_batch(batch_size)
+                with section("flink.source.poll", count=False):
+                    batch = d.reader.poll_batch(batch_size)
                 if batch is None:
                     d.current_split = d.enumerator.next_split()
                     busy_dt = 0.0
@@ -2269,8 +2271,10 @@ class JobRuntime:
                 if t_mark is not None:
                     d.emit_marker(t_mark)
                 if d.generator is not None:
-                    wm = (d.generator.on_batch_np(ts)
-                          if hasattr(d.generator, "on_batch_np") else None)
+                    wm = None
+                    if hasattr(d.generator, "on_batch_np"):
+                        with section("flink.source.watermark", count=False):
+                            wm = d.generator.on_batch_np(ts)
                     if wm is None:
                         for v, x in zip(values, ts):
                             d.generator.on_event(v, int(x))

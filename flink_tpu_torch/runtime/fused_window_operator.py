@@ -59,6 +59,7 @@ loads.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -67,6 +68,7 @@ import numpy as np
 from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.core.time import MAX_WATERMARK, MIN_WATERMARK, TimeWindow
 from flink_tpu_torch.lint.contracts import inflight_ring
+from flink_tpu_torch.metrics.traces import add, section
 from flink_tpu_torch.ops.aggregators import ONE, VALUE, resolve
 from flink_tpu_torch.runtime.fused_window_pipeline import (
     FusedWindowPipeline,
@@ -89,6 +91,8 @@ class _Step:
     n_fires: int
     # slice ids of ts, when the normalizer already computed them
     s_abs: Optional[np.ndarray] = None
+    # perf_counter_ns when the operator queued the step
+    t_push: int = 0
 
 
 class StepNormalizer:
@@ -499,7 +503,8 @@ class FusedWindowOperator:
             self.tier.attach_device(self.pipe.gather_key_rows, self.pipe.clear_key_rows,
                                     self.pipe.write_cells)
         self._steps: List[_Step] = []
-        # in-flight dispatch ring: (DeferredEmissions, wm, purged_to)
+        # in-flight dispatch ring: (DeferredEmissions, wm, purged_to,
+        # records, perf_counter_ns at launch)
         # entries resolved FIFO. Depth 1 (the default): dispatch N+1
         # enqueues, THEN N resolves; latency mode deepens it so N+1 stages
         # and launches while N's copies land
@@ -546,8 +551,9 @@ class FusedWindowOperator:
         ids, required = self.keydict.lookup_or_insert(np.asarray(keys))
         self.pipe.ensure_key_capacity(required)
         vals = np.asarray(values, np.float32) if self._needs_value else None
-        self._push_steps(self.norm.push(ids.astype(np.int32), vals,
-                                        np.asarray(timestamps, np.int64)))
+        with section("flink.fused.normalize"):
+            steps = self.norm.push(ids.astype(np.int32), vals, np.asarray(timestamps, np.int64))
+        self._push_steps(steps)
         self._maybe_dispatch()
 
     # ------------------------------------------------------------------
@@ -603,7 +609,9 @@ class FusedWindowOperator:
         live_hot = (ids >= 0) & ~np.asarray(late, bool)
         if live_hot.any():
             tier.note_hot_cells(ids[live_hot].astype(np.int64), s_abs[live_hot])
-        self._push_steps(self.norm.push(ids.astype(np.int32), vals, ts))
+        with section("flink.fused.normalize"):
+            steps = self.norm.push(ids.astype(np.int32), vals, ts)
+        self._push_steps(steps)
         self._maybe_dispatch()
 
     def process_raw_batch(self, values: np.ndarray, timestamps: np.ndarray) -> None:
@@ -611,14 +619,17 @@ class FusedWindowOperator:
         host transform — the prologue runs on the device in the dispatch."""
         if len(timestamps) == 0:
             return
-        self._push_steps(self.norm.push(values, None, np.asarray(timestamps, np.int64)))
+        with section("flink.fused.normalize"):
+            steps = self.norm.push(values, None, np.asarray(timestamps, np.int64))
+        self._push_steps(steps)
         self._maybe_dispatch()
 
     def process_watermark(self, watermark: int) -> None:
         if watermark <= self.current_watermark:
             return
         self.current_watermark = watermark
-        steps = self.norm.advance(watermark)
+        with section("flink.fused.normalize"):
+            steps = self.norm.advance(watermark)
         # a single-step advance rides the preceding data step (the pipeline
         # fires after ingesting step t's batch: the executor's
         # batch-then-watermark order)
@@ -636,7 +647,10 @@ class FusedWindowOperator:
     def _push_steps(self, steps: List[_Step]) -> None:
         """Append planner-safe steps and feed the latency controller's
         arrival estimate (watermark-only steps count: they take dispatch
-        slots too)."""
+        slots too). Each step is stamped for its queue wait."""
+        now = time.perf_counter_ns()
+        for s in steps:
+            s.t_push = now
         self._steps.extend(steps)
         if self._controller is not None and steps:
             self._controller.observe(len(steps))
@@ -684,6 +698,12 @@ class FusedWindowOperator:
 
     def _dispatch(self, group: List[_Step]) -> None:
         wms = [s.wm for s in group]
+        records = sum(len(s.ts) for s in group)
+        if records:
+            now = time.perf_counter_ns()
+            add("flink.fused.queue_wait_ns",
+                sum(len(s.ts) * (now - s.t_push) for s in group))
+            add("flink.fused.queued_records", records)
         if self.prologue is not None:
             d = self.pipe.process_superbatch_raw(
                 [(s.kid, s.ts, s.s_abs) for s in group], wms, defer=True)
@@ -694,8 +714,10 @@ class FusedWindowOperator:
             self._ladder_geoms.add(len(group))
         # the purge frontier as of THIS dispatch's staging: cold-tier rows
         # below it may go only after this dispatch's emissions have resolved
-        # (they read the cold rows of the windows that just fired)
-        self._inflight.append((d, group[-1].wm, self.pipe.purged_to))
+        # (they read the cold rows of the windows that just fired); the
+        # records and launch time time the dispatch's stay in flight
+        self._inflight.append((d, group[-1].wm, self.pipe.purged_to, records,
+                               time.perf_counter_ns()))
         while len(self._inflight) > self._max_inflight:
             self._resolve_oldest()
 
@@ -710,14 +732,18 @@ class FusedWindowOperator:
     emission_tracker = None
 
     def _resolve_oldest(self) -> None:
-        d, wm, purged_to = self._inflight.popleft()
+        d, wm, purged_to, records, t_launched = self._inflight.popleft()
         tracker = self.emission_tracker
         for fires in d.resolve_groups():
-            for window, counts, fields in fires:
-                if tracker is not None:
-                    w = window[1] if type(window) is tuple else window
-                    tracker.record_fire(w.end)
-                self._emit(window, counts, fields)
+            with section("flink.fused.emit", count=False):
+                for window, counts, fields in fires:
+                    if tracker is not None:
+                        w = window[1] if type(window) is tuple else window
+                        tracker.record_fire(w.end)
+                    self._emit(window, counts, fields)
+        if records:
+            add("flink.fused.inflight_ns", records * (time.perf_counter_ns() - t_launched))
+            add("flink.fused.inflight_records", records)
         if wm > self.emitted_watermark:
             self.emitted_watermark = wm
         if self.tier is not None:

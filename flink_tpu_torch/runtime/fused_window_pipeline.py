@@ -47,6 +47,7 @@ import torch
 
 from flink_tpu_torch.api.windowing.assigners import WindowAssigner
 from flink_tpu_torch.core.time import MIN_WATERMARK, TimeWindow
+from flink_tpu_torch.metrics.traces import add, section
 from flink_tpu_torch.ops import cuda_superscan as cs
 from flink_tpu_torch.ops.aggregators import VALUE, resolve, scan_identity, torch_dtype
 from flink_tpu_torch.utils.arrays import canonical_column, canonical_dtype
@@ -167,7 +168,8 @@ class DeferredEmissions:
                               stream=copy_stream)
 
     def resolve(self):
-        count_out, key_bounds, *rest = self._copy.wait()
+        with section("flink.fused.readback_wait"):
+            count_out, key_bounds, *rest = self._copy.wait()
         outs = rest[self._n_phase:]
         if not self._phases_folded:
             self._phases_folded = True
@@ -622,6 +624,7 @@ class FusedWindowPipeline:
         """One host->device copy for the whole plan, split into views."""
         flat_h, flat_t = staging_buffer((sum(a.size for a in arrays),), np.int32, self.device)
         np.concatenate([a.reshape(-1) for a in arrays], out=flat_h)
+        add("flink.fused.plan_bytes", flat_h.nbytes)
         flat = upload(flat_t, self.device)
         out, off = [], 0
         for a in arrays:
@@ -791,6 +794,16 @@ class FusedWindowPipeline:
     def stage_superbatch(self, batches, watermarks):
         """Host planning + device staging for one dispatch (separable so
         callers can overlap staging of superbatch i+1 with running i)."""
+        with section("flink.fused.stage"):
+            idx_t, vals_t, arrays, fires = self._stage_host(batches, watermarks)
+        add("flink.fused.staged_bytes", idx_t.nbytes + (0 if vals_t is None else vals_t.nbytes))
+        idx_d = upload(idx_t.view(-1), self.device)
+        vals_d = upload(vals_t.view(-1), self.device) if vals_t is not None else None
+        return idx_d, vals_d, self._to_device_plan(arrays, fires)
+
+    def _stage_host(self, batches, watermarks):
+        """The host half of stage_superbatch: plan, and fill the staging
+        buffers. Returns (idx_t, vals_t | None, plan arrays, fires)."""
         T = len(batches)
         B = max(max((len(b[2]) for b in batches), default=0), 1)
         B = -(-B // self.chunk) * self.chunk
@@ -830,10 +843,7 @@ class FusedWindowPipeline:
             cur.advance(t, watermarks[t], fire_pos, fire_valid, fire_row,
                         purge_mask, fires)
         cur.commit()
-
-        idx_d = upload(idx_t.view(-1), self.device)
-        vals_d = upload(vals_t.view(-1), self.device) if self._needs_vals else None
-        return idx_d, vals_d, self._to_device_plan(arrays, fires)
+        return idx_t, vals_t, arrays, fires
 
     def plan_superbatch(self, slice_bounds, watermarks):
         """Host planning from per-step slice BOUNDS only — for callers that
@@ -891,7 +901,10 @@ class FusedWindowPipeline:
 
         Returns (raw [T*B, ...], srel [T*B] int32, ts [T*B] int32 | None,
         plan) on the pipeline's device."""
-        raw_h, srel_h, ts_h, arrays, fires = self._stage_raw_host(steps, watermarks)
+        with section("flink.fused.stage"):
+            raw_h, srel_h, ts_h, arrays, fires = self._stage_raw_host(steps, watermarks)
+        add("flink.fused.staged_bytes",
+            raw_h.nbytes + srel_h.nbytes + (0 if ts_h is None else ts_h.nbytes))
         raw_d, srel_d = upload(raw_h, self.device), upload(srel_h, self.device)
         ts_d = upload(ts_h, self.device) if ts_h is not None else None
         return raw_d, srel_d, ts_d, self._to_device_plan(arrays, fires)
